@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels.
+
+Each kernel is one CUDA C++ source under ``csrc/`` with a plain C entry
+point. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
+shared library under ``_build/`` (listed in ``.gitignore``), named by a
+hash of its source and the compiler flags, and loaded with ``ctypes``.
+A build or load failure raises; nothing falls back.
+
+``build()`` starts one ``nvcc`` per source, all at once, and waits for
+them all — the form ``chip_smoke.py`` uses to build everything up front.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Optional, Sequence
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# name -> argtypes of its C entry point (every entry returns a cudaError_t)
+SIGNATURES: Dict[str, tuple] = {
+    # q, k, v, qpos, kvpos, qseg, kvseg, out, lse,
+    # B, S, T, H, K, dh, dtype, causal, use_window, window,
+    # scale, softcap, stream
+    "flash_fwd": (_P,) * 9 + (_I,) * 10 + (_F, _F, _P),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC, f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    h = hashlib.sha256()
+    with open(source_path(name), "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH); the CUDA kernels build only where the CUDA "
+            "toolkit is installed")
+    return found
+
+
+def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
+    """Compile every named kernel whose library is missing, all in
+    parallel. Returns per kernel ``{"seconds", "cached", "ptxas"}``
+    (``ptxas``: the compiler's register / shared-memory / spill lines)."""
+    names = list(SIGNATURES if names is None else names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    report: Dict[str, dict] = {}
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        path = library_path(name)
+        if os.path.exists(path):
+            report[name] = {"seconds": 0.0, "cached": True, "ptxas": []}
+            continue
+        tmp = f"{path}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, path)
+    failures = []
+    for name, (proc, tmp, path) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, path)
+        report[name] = {
+            "seconds": time.perf_counter() - t0, "cached": False,
+            "ptxas": [ln.strip() for ln in log.splitlines()
+                      if "registers" in ln or "spill" in ln]}
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built first if missing."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    path = library_path(name)
+    if not os.path.exists(path):
+        build([name])
+    lib = ctypes.CDLL(path)
+    fn = getattr(lib, name)
+    fn.argtypes = list(SIGNATURES[name])
+    fn.restype = ctypes.c_int
+    _loaded[name] = lib
+    return lib

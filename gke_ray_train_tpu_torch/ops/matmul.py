@@ -1,0 +1,28 @@
+"""Matrix products whose result is float32 whatever the input dtype.
+
+The JAX package asks XLA for ``preferred_element_type=float32`` where a
+product feeds a softmax or an argmax (attention logits, the unembedding).
+A bf16 ``torch.matmul`` would round those results to bf16 and can move
+an argmax. On CUDA, half-precision inputs go through the ``out_dtype``
+overload of ``torch.mm`` / ``torch.bmm`` (fp32 accumulate, fp32 result,
+no fp32 copy of the operands); elsewhere the operands are upcast, which
+is exact for the products of bf16 values.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as float32, for 2-D ``[M, K] @ [K, N]`` or batched
+    3-D ``[B, M, K] @ [B, K, N]`` operands."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return a @ b
+    if a.is_cuda and a.dtype in _HALF and b.dtype == a.dtype:
+        if a.dim() == 2:
+            return torch.mm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()

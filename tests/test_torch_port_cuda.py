@@ -1,0 +1,140 @@
+"""The port's CUDA kernel and its serving path on the card.
+
+Every test here carries the ``cuda`` marker and skips without a CUDA
+device: the kernel has no CPU mode. The file imports neither JAX nor the
+JAX package, so on the GPU machine it runs without them:
+
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda
+
+Tolerances (absolute, kernel against ``flash_attention_reference`` on
+the same inputs): float32 2e-5 for out and lse (fp32 accumulation in
+another order); bfloat16 2e-2 for out (probabilities rounded to bf16
+against the running row max instead of the final one, output rounded to
+bf16) and 1e-4 for lse (fp32 from unrounded probabilities).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from gke_ray_train_tpu_torch.models import (
+    greedy_generate_cached, init_params, tiny)
+from gke_ray_train_tpu_torch.ops.flash_attention import (
+    flash_attention, flash_attention_reference)
+from gke_ray_train_tpu_torch.plan import ExecutionPlan
+from gke_ray_train_tpu_torch.serve import (
+    BatchEngine, Request, form_prompt_buffer)
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 1e-4)}
+
+CASES = {
+    # dh 64: packed documents, trailing padding, a ragged length
+    "packed_dh64": dict(B=2, S=200, T=200, H=4, K=4, dh=64, packed=True),
+    # dh 128: GQA 32/8, causal, a ragged kv tail, rows that attend nothing
+    "gqa_dh128": dict(B=1, S=130, T=200, H=32, K=8, dh=128, dead_rows=True),
+    # dh 256 (Gemma-2): sliding window and logit softcap
+    "window_softcap_dh256": dict(B=1, S=192, T=192, H=4, K=2, dh=256,
+                                 window=48, softcap=50.0),
+}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(case, dtype, dev):
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    B, S, T, H, K, dh = (case[x] for x in ("B", "S", "T", "H", "K", "dh"))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    qp = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    kp = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    qs = torch.ones((B, S), dtype=torch.int32, device=dev)
+    ks = torch.ones((B, T), dtype=torch.int32, device=dev)
+    if case.get("packed"):
+        seg = torch.ones((T,), dtype=torch.int32, device=dev)
+        seg[T // 3:2 * T // 3] = 2
+        seg[2 * T // 3:] = 0
+        qs = ks = seg.expand(B, T)
+    if case.get("dead_rows"):
+        qs = qs.clone()
+        qs[:, 3:7] = 9                       # no key carries segment 9
+    kw = dict(q_positions=qp.contiguous(), kv_positions=kp.contiguous(),
+              q_segment_ids=qs.contiguous(), kv_segment_ids=ks.contiguous(),
+              causal=True, sliding_window=case.get("window"),
+              scale=dh ** -0.5, logit_softcap=case.get("softcap"))
+    return randn(B, S, H, dh), randn(B, T, K, dh), randn(B, T, K, dh), kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_flash_kernel_matches_plain_version(dev, case, dtype):
+    q, k, v, kw = _inputs(CASES[case], dtype, dev)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref, ref_lse = flash_attention_reference(
+        q, k, v, kw["q_positions"], kw["kv_positions"],
+        kw["q_segment_ids"], kw["kv_segment_ids"], causal=kw["causal"],
+        sliding_window=kw["sliding_window"], scale=kw["scale"],
+        logit_softcap=kw["logit_softcap"])
+    tol_out, tol_lse = TOL[dtype]
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert float((out.float() - ref.float()).abs().max()) <= tol_out
+    assert float((lse - ref_lse).abs().max()) <= tol_lse
+    if CASES[case].get("dead_rows"):
+        assert float(out[:, 3:7].float().abs().max()) == 0.0
+        assert bool((lse[:, :, 3:7] == -2.0e38).all())
+
+
+def test_flash_kernel_refuses_what_it_cannot_take(dev):
+    q = torch.zeros((1, 128, 4, 32), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(q, q, q)
+    h = torch.zeros((1, 128, 4, 64), dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_attention(h, h, h)
+    flat = torch.zeros(128 * 4 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    odd = flat[1:].view(1, 128, 4, 64)           # 2 bytes off alignment
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(odd, odd, odd)
+
+
+def test_engine_on_card_matches_sequential_greedy(dev):
+    """fp32 tiny model on the card through the flash prefill: the engine's
+    completions equal batch-1 greedy, token for token, and the kernel ran
+    once per layer per prefill."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(
+        tiny(vocab_size=512, d_model=128, n_heads=2, n_kv_heads=1,
+             n_layers=2, d_ff=256), max_seq_len=256)
+    assert cfg.resolved_attn_impl(dev) == "flash"
+    model = init_params(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    reqs = [Request(f"r{i}", rng.integers(1, 512, n).astype(np.int32), m)
+            for i, (n, m) in enumerate([(10, 20), (90, 30), (150, 40),
+                                        (40, 12), (5, 8)])]
+    eng = BatchEngine(model, cfg, plan=ExecutionPlan(
+        max_batch=2, decode_buckets="128,256"), device=dev)
+    before = flash_attention.launches
+    comps = eng.run_until_drained(reqs)
+    assert flash_attention.launches - before == \
+        cfg.n_layers * eng.stats()["prefills"] == cfg.n_layers * len(reqs)
+    assert eng.refills >= 1 and {c.bucket for c in comps} == {128, 256}
+    for r, c in zip(reqs, comps):
+        buf, plen = form_prompt_buffer(r.token_ids, c.bucket)
+        want = greedy_generate_cached(model, buf, [plen], cfg,
+                                      max_new_tokens=r.max_new_tokens,
+                                      device=dev)
+        np.testing.assert_array_equal(c.tokens, want[0].cpu().numpy())
