@@ -8,11 +8,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  — nvidia-smi name and power limit, torch / CUDA versions.
 2. build   — compile every CUDA kernel of the port from ``csrc/`` with
              nvcc for sm_90a (all sources at once).
-3. kernels — hold each kernel against its plain PyTorch version on the
-             card over the listed cases, and time kernel, plain version
-             and the PyTorch library call at the serving shapes (device
-             time from torch.profiler; per-call time between CUDA events
-             beside it).
+3. kernels — hold each kernel (flash forward, dQ, dK/dV) against its
+             plain PyTorch version on the card over the listed cases, and
+             time kernel, plain version and the PyTorch library call at
+             the serving shapes (forward) and the training shape (all
+             three): device time from torch.profiler, per-call time
+             between CUDA events beside it at the serving shapes.
 4. serve   — Llama-3.1-8B at full width and depth (bf16, random weights
              from a seed) through ``BatchEngine``: 24 requests over the
              256 and 512 buckets; the flash kernel must have run once per
@@ -20,6 +21,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. parity  — the same widths in float32 at 4 layers: flash-path prefill
              logits against the dense path, and every engine completion
              token-identical to the sequential ``greedy_generate_cached``.
+6. train   — QLoRA fine-tune steps of Llama-3.1-8B at full width and
+             depth with ray-jobs/fine_tune_config.json's settings (NF4
+             base, r 64, microbatch 2 x grad-accum 4 at 1024 tokens):
+             one warm-up and 5 timed steps; finite loss and grad_norm,
+             the adapters change, and per step the forward kernel runs
+             2 x 32 x 4 times (forward and remat recomputation), dQ and
+             dK/dV 32 x 4 times.
+7. train_parity — float32, 4 layers at full width: QLoRA and full
+             fine-tuning through the kernels against the dense attention
+             path, 3 steps each: loss / grad_norm streams and the trained
+             tensors agree.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -50,8 +62,22 @@ H100_F32_FLOPS = 67e12              # fp32 outside the tensor cores
 # up to 2^-9 relative each, and out is rounded to bf16 (2^-8 relative).
 TOL = {"float32": {"out": 2e-5, "lse": 2e-5},
        "bfloat16": {"out": 2e-2, "lse": 1e-4}}
+# backward kernels against flash_attention_bwd_reference: max |error| of
+# dq, dk and dv relative to max(1, max |reference|). float32: fp32 sums
+# in other orders (dK/dV sums up to G * S products). bfloat16: the
+# recomputed P and dS round to bf16 at the same points on both sides, but
+# a last-bit difference in fp32 can round either way (2^-8 relative on
+# that term), and the outputs round to bf16 (2^-8).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # fp32 logits of the flash prefill path against the dense path, 4 layers
 PARITY_LOGITS_TOL = 1e-3
+# train-parity phase: flash against dense attention at fp32, 4 layers.
+# loss and grad_norm streams: relative; trained tensors: the change each
+# run made, ||d_flash - d_dense|| / ||d_dense|| (an element whose
+# gradient sits at rounding level may take Adam's step of +-lr on one
+# side and the opposite on the other, so elementwise limits do not fit)
+TRAIN_PARITY_RTOL = 1e-4
+TRAIN_PARITY_DELTA_RTOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -172,6 +198,8 @@ KERNEL_CASES = {
 SERVE_SHAPES = {f"llama3_8b_prefill_{n}": dict(B=1, S=n, T=n, H=32, K=8,
                                                dh=128, dtype="bfloat16")
                 for n in (256, 512)}
+# the train phase's attention shape: Llama-3.1-8B, microbatch 2 x 1024
+TRAIN_SHAPE = dict(B=2, S=1024, T=1024, H=32, K=8, dh=128, dtype="bfloat16")
 
 
 def _check_case(name, case, dev):
@@ -203,29 +231,181 @@ def _check_case(name, case, dev):
     return row, (q, k, v, kw)
 
 
-def _bound_ms(q, k, v, kw):
-    """Least time for the function on these inputs: bytes each input read
-    once and each output written once over the memory rate, against the
-    FLOPs of the (q, kv) pairs these inputs' mask keeps over the peak
-    rate of the input type."""
+def _mask_kw(kw):
+    return {k: kw[k] for k in ("causal", "sliding_window", "scale",
+                               "logit_softcap")}
+
+
+def _mask_args(kw):
+    return (kw["q_positions"], kw["kv_positions"], kw["q_segment_ids"],
+            kw["kv_segment_ids"])
+
+
+def _bwd_inputs(q, k, v, kw, seed):
+    """(out, lse) from the forward kernel, an output gradient dO and
+    D = rowsum(dO * O) [B, H, S] fp32, as FlashAttention.backward forms
+    them."""
     import torch
+    from gke_ray_train_tpu_torch.ops.flash_attention import flash_attention
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    g = torch.Generator(device=q.device)
+    g.manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device=q.device).to(q.dtype)
+    dvec = torch.sum(do.float() * out.float(), dim=-1).transpose(
+        1, 2).contiguous()
+    return out, lse, do, dvec
+
+
+def _check_bwd_case(name, case, dev):
+    """Both backward kernels against flash_attention_bwd_reference on the
+    same (q, k, v, out, lse, dO)."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd_reference, flash_bwd_dkv, flash_bwd_dq)
+    q, k, v, kw = _attn_inputs(case, dev)
+    out, lse, do, dvec = _bwd_inputs(q, k, v, kw, case.get("seed", 0))
+    args = (q, k, v, do, lse, dvec) + _mask_args(kw)
+    dq = flash_bwd_dq(*args, **_mask_kw(kw))
+    dk, dv = flash_bwd_dkv(*args, **_mask_kw(kw))
+    torch.cuda.synchronize()
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                        *_mask_args(kw), **_mask_kw(kw))
+    row = {"case": name, "dtype": case["dtype"],
+           "tol_rel": BWD_TOL[case["dtype"]], "ok": True}
+    for nm, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        err = float((got.float() - want.float()).abs().max())
+        scale = max(1.0, float(want.float().abs().max()))
+        row[f"max_abs_err_{nm}"] = err
+        row[f"max_abs_ref_{nm}"] = scale
+        row["ok"] = (row["ok"] and err <= BWD_TOL[case["dtype"]] * scale
+                     and bool(torch.isfinite(got.float()).all()))
+    if case.get("masked_rows"):
+        row["masked_rows_ok"] = float(dq[:, 5:10].float().abs().max()) == 0.0
+        row["ok"] = row["ok"] and row["masked_rows_ok"]
+    return row
+
+
+def _bound(nbytes, flops, dtype):
+    """(bound ms, what bounds it): bytes over the memory rate against
+    FLOPs over the peak rate of the input type."""
+    import torch
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _live_pairs(kw):
+    """Unmasked (q, kv) pairs of these inputs, summed over batch rows."""
     from gke_ray_train_tpu_torch.ops.attention import make_attention_mask
+    return int(make_attention_mask(*_mask_args(kw), causal=kw["causal"],
+                                   sliding_window=kw["sliding_window"]).sum())
+
+
+def _bound_ms(q, k, v, kw):
+    """Least time for the forward on these inputs: bytes each input read
+    once and each output written once, against the FLOPs of the (q, kv)
+    pairs these inputs' mask keeps (QK^T and PV, 2 FLOPs a MAC)."""
     B, S, H, dh = q.shape
     T = k.shape[1]
     es = q.element_size()
     nbytes = (q.numel() + k.numel() + v.numel() + q.numel()) * es \
         + B * H * S * 4 + 4 * 2 * B * (S + T)
-    mask = make_attention_mask(kw["q_positions"], kw["kv_positions"],
-                               kw["q_segment_ids"], kw["kv_segment_ids"],
-                               causal=kw["causal"],
-                               sliding_window=kw["sliding_window"])
-    pairs = int(mask.sum())                 # per batch row, summed
-    flops = 4.0 * dh * H * pairs            # QK^T and PV, 2 FLOPs a MAC
-    peak = H100_BF16_FLOPS if q.dtype == torch.bfloat16 else H100_F32_FLOPS
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / peak * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), nbytes, flops
+    flops = 4.0 * dh * H * _live_pairs(kw)
+    return _bound(nbytes, flops, q.dtype) + (nbytes, flops)
+
+
+def _bwd_bounds(q, k, v, kw):
+    """{kernel: (bound ms, by, bytes, flops)} of the two backward kernels:
+    dQ reads q, k, v, dO, lse, D and writes dQ, with 3 products (S, dP,
+    dS K) over the live pairs; dK/dV reads the same and writes dK, dV,
+    with 4 (S, dP, P^T dO, dS^T Q)."""
+    B, S, H, dh = q.shape
+    T = k.shape[1]
+    es = q.element_size()
+    ins = (2 * q.numel() + k.numel() + v.numel()) * es + 2 * 4 * B * H * S \
+        + 4 * 2 * B * (S + T)
+    pairs = _live_pairs(kw)
+    out = {}
+    for name, n_out, n_mm in (("flash_bwd_dq", q.numel(), 3),
+                              ("flash_bwd_dkv", k.numel() + v.numel(), 4)):
+        nbytes = ins + n_out * es
+        flops = 2.0 * dh * H * pairs * n_mm
+        out[name] = _bound(nbytes, flops, q.dtype) + (nbytes, flops)
+    return out
+
+
+def _turns(plain, kernel, library):
+    """Device ms in turns plain, kernel, kernel, plain, library."""
+    plain_a, kern_a, kern_b, plain_b, lib = (
+        device_ms(f) for f in (plain, kernel, kernel, plain, library))
+    return {"kernel_ms": min(kern_a, kern_b), "kernel_ms_runs": [kern_a,
+                                                                  kern_b],
+            "plain_ms": min(plain_a, plain_b),
+            "plain_ms_runs": [plain_a, plain_b], "library_ms": lib}
+
+
+def _time_train_shape(dev):
+    """The three kernels at the training shape (TRAIN_SHAPE), each
+    against its plain version and a PyTorch library call: SDPA forward
+    for flash_fwd, and for both backward kernels the device time of the
+    kernels SDPA's backward launches (dQ, dK and dV together)."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_attention_bwd_reference,
+        flash_attention_reference, flash_bwd_dkv, flash_bwd_dq)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    case = TRAIN_SHAPE
+    q, k, v, kw = _attn_inputs(case, dev)
+    mkw, margs = _mask_kw(kw), _mask_args(kw)
+    out, lse, do, dvec = _bwd_inputs(q, k, v, kw, 0)
+    args = (q, k, v, do, lse, dvec) + margs
+    ref_out, _ = flash_attention_reference(q, k, v, *margs, **mkw)
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, do, *margs, **mkw)
+    dq = flash_bwd_dq(*args, **mkw)
+    dk, dv = flash_bwd_dkv(*args, **mkw)
+    torch.cuda.synchronize()
+
+    def err(a, b):
+        return float((a.float() - b.float()).abs().max())
+    errs = {"flash_fwd": err(out, ref_out), "flash_bwd_dq": err(dq, ref[0]),
+            "flash_bwd_dkv": max(err(dk, ref[1]), err(dv, ref[2]))}
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_out = sdpa(qt, kt, vt, is_causal=True, scale=mkw["scale"],
+                   enable_gqa=True)
+    do_t = do.transpose(1, 2).contiguous()
+
+    def lib_fwd():
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, is_causal=True, scale=mkw["scale"],
+                        enable_gqa=True)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), do_t,
+                                   retain_graph=True)
+
+    def plain_bwd():
+        return flash_attention_bwd_reference(q, k, v, out, lse, do, *margs,
+                                             **mkw)
+    runs = {
+        "flash_fwd": _turns(
+            lambda: flash_attention_reference(q, k, v, *margs, **mkw),
+            lambda: flash_attention(q, k, v, **kw), lib_fwd),
+        "flash_bwd_dq": _turns(plain_bwd,
+                               lambda: flash_bwd_dq(*args, **mkw), lib_bwd),
+        "flash_bwd_dkv": _turns(plain_bwd,
+                                lambda: flash_bwd_dkv(*args, **mkw),
+                                lib_bwd),
+    }
+    bounds = _bwd_bounds(q, k, v, kw)
+    bounds["flash_fwd"] = _bound_ms(q, k, v, kw)
+    for name, r in runs.items():
+        bound, by, nbytes, flops = bounds[name]
+        r.update({"shape": "llama3_8b_train_1024", "bound_ms": bound,
+                  "bound_by": by, "bytes": nbytes, "flops": flops,
+                  "max_abs_err": errs[name]})
+    return runs
 
 
 def phase_kernels(dev):
@@ -233,6 +413,8 @@ def phase_kernels(dev):
     from gke_ray_train_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference)
     rows = [_check_case(n, c, dev)[0] for n, c in KERNEL_CASES.items()]
+    bwd_rows = [_check_bwd_case(n, c, dev) for n, c in KERNEL_CASES.items()]
+    bwd_rows.append(_check_bwd_case("llama3_8b_train_1024", TRAIN_SHAPE, dev))
     timings = []
     for name, case in SERVE_SHAPES.items():
         row, (q, k, v, kw) = _check_case(name, case, dev)
@@ -262,27 +444,24 @@ def phase_kernels(dev):
             return sdpa(qt, kt, vt, attn_mask=mask, scale=kw["scale"],
                         enable_gqa=True)
         # device time, in turns: plain, kernel, kernel, plain, library
-        plain_a, kern_a, kern_b, plain_b, lib = (
-            device_ms(f) for f in (plain, kernel, kernel, plain, library))
+        t = _turns(plain, kernel, library)
         bound, bound_by, nbytes, flops = _bound_ms(q, k, v, kw)
-        timings.append({"shape": name, "kernel_ms": min(kern_a, kern_b),
-                        "kernel_ms_runs": [kern_a, kern_b],
-                        "plain_ms": min(plain_a, plain_b),
-                        "plain_ms_runs": [plain_a, plain_b],
-                        "library_ms": lib, "bound_ms": bound,
-                        "bound_by": bound_by, "bytes": nbytes,
-                        "flops": flops,
-                        # per call between CUDA events, host overhead in
-                        "call_ms": {"kernel": cuda_ms(kernel),
-                                    "plain": cuda_ms(plain),
-                                    "library": cuda_ms(library)},
-                        "max_abs_err_out": row["max_abs_err_out"]})
-    ok = all(r["ok"] for r in rows)
-    emit({"phase": "kernels", "ok": ok, "cases": rows, "timings": timings})
+        t.update({"shape": name, "bound_ms": bound, "bound_by": bound_by,
+                  "bytes": nbytes, "flops": flops,
+                  # per call between CUDA events, host overhead in
+                  "call_ms": {"kernel": cuda_ms(kernel),
+                              "plain": cuda_ms(plain),
+                              "library": cuda_ms(library)},
+                  "max_abs_err_out": row["max_abs_err_out"]})
+        timings.append(t)
+    train = _time_train_shape(dev)
+    ok = all(r["ok"] for r in rows + bwd_rows)
+    emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
+          "timings": timings, "train_shape": train})
     if not ok:
         raise SystemExit("kernel phase: a case disagrees with the plain "
                          "version beyond its tolerance")
-    return timings
+    return train
 
 
 # ---------------------------------------------------------------------------
@@ -325,7 +504,7 @@ def phase_serve(dev):
     engine = BatchEngine(model, cfg, plan=plan, eos_ids=eos, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
     comps = engine.run_until_drained(reqs)
     torch.cuda.synchronize()
@@ -446,6 +625,307 @@ def phase_parity(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: train
+# ---------------------------------------------------------------------------
+
+FINE_TUNE_CONFIG = os.path.join(HERE, "ray-jobs", "fine_tune_config.json")
+
+
+def _sft_batch(n_rows, seq, vocab, rng):
+    """Random SFT rows, not packed: each row a real length in
+    [seq / 4, seq] of random token ids, then a padding tail of weight 0;
+    targets are the inputs shifted by one."""
+    toks = rng.integers(0, vocab, (n_rows, seq + 1)).astype(np.int32)
+    weights = np.zeros((n_rows, seq), np.float32)
+    for i, n in enumerate(rng.integers(seq // 4, seq + 1, n_rows)):
+        weights[i, :n] = 1.0
+        toks[i, n + 1:] = 0
+    return {"inputs": toks[:, :-1], "targets": toks[:, 1:],
+            "weights": weights}
+
+
+def _launch_counts():
+    from gke_ray_train_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_bwd_dkv, flash_bwd_dq)
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dq": flash_bwd_dq.launches,
+            "flash_bwd_dkv": flash_bwd_dkv.launches}
+
+
+def _reset_launch_counts():
+    from gke_ray_train_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_bwd_dkv, flash_bwd_dq)
+    flash_attention.launches = 0
+    flash_bwd_dq.launches = 0
+    flash_bwd_dkv.launches = 0
+
+
+def _fine_tune_setup(dev, cfg, n_batches):
+    """The QLoRA job of ray-jobs/fine_tune_config.json at ``cfg`` (default
+    Llama-3.1-8B, bf16, remat): NF4 base from seed 0, adapters, optimizer
+    and schedule, the step function, and ``n_batches`` SFT batches from
+    numpy seed 1234."""
+    import torch
+    from gke_ray_train_tpu_torch.models import (
+        init_quantized_params, llama3_8b)
+    from gke_ray_train_tpu_torch.plan import ExecutionPlan
+    from gke_ray_train_tpu_torch.train import (
+        LoraConfig, make_optimizer, make_train_state, make_train_step,
+        warmup_cosine_schedule)
+    with open(FINE_TUNE_CONFIG) as f:
+        ft = json.load(f)
+    seq = int(ft["MAX_SEQ_LENGTH"])
+    if cfg is None:
+        cfg = dataclasses.replace(
+            llama3_8b(dtype="bfloat16", param_dtype="bfloat16", remat=True),
+            max_seq_len=seq)
+    plan = ExecutionPlan.resolve(config=ft, env={})
+    micro = int(ft["PER_DEVICE_TRAIN_BATCH_SIZE"])
+    batch_rows = micro * plan.grad_accum
+    # the job's length: NUM_TRAIN_SAMPLES over the global batch
+    total = -(-int(ft["NUM_TRAIN_SAMPLES"]) // batch_rows)
+    schedule = warmup_cosine_schedule(
+        float(ft["LEARNING_RATE"]), total,
+        warmup_frac=float(ft["WARMUP_RATIO"]))
+    spec = make_optimizer(schedule, weight_decay=float(ft["WEIGHT_DECAY"]),
+                          clip_norm=float(ft["MAX_GRAD_NORM"]))
+    lcfg = LoraConfig.from_dict(ft)
+    t0 = time.perf_counter()
+    params = init_quantized_params(cfg, seed=0, kind=ft["QUANT_KIND"],
+                                   device=dev)
+    state = make_train_state(cfg, spec, seed=0, lora_cfg=lcfg, params=params,
+                             device=dev)
+    step_fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=schedule,
+                              plan=plan, device=dev)
+    torch.cuda.synchronize()
+    rng = np.random.default_rng(1234)
+    batches = [_sft_batch(batch_rows, seq, cfg.vocab_size, rng)
+               for _ in range(n_batches)]
+    return dict(cfg=cfg, ft=ft, plan=plan, lcfg=lcfg, micro=micro,
+                batch_rows=batch_rows, seq=seq, state=state, step_fn=step_fn,
+                batches=batches, init_s=time.perf_counter() - t0)
+
+
+def phase_train(dev, cfg=None, steps: int = 5):
+    """QLoRA fine-tune steps of Llama-3.1-8B at full width and depth, with
+    the settings of ray-jobs/fine_tune_config.json: NF4 base, LoRA r 64 /
+    alpha 16 / dropout 0.1 on all projections, microbatch 2 x grad-accum
+    4 at 1024 tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and
+    clip 0.3. One warm-up step, then ``steps`` timed ones; the launch
+    counts of the three kernels are read over the timed steps."""
+    import torch
+    from gke_ray_train_tpu_torch.train import (
+        peak_flops_per_device, train_flops_per_token)
+    job = _fine_tune_setup(dev, cfg, steps + 1)
+    cfg, ft, plan, lcfg = job["cfg"], job["ft"], job["plan"], job["lcfg"]
+    micro, batch_rows, seq = job["micro"], job["batch_rows"], job["seq"]
+    state, step_fn, batches = job["state"], job["step_fn"], job["batches"]
+    init_s = job["init_s"]
+    del job
+    watch = state.lora[0]["wq"]["b"]
+    before = watch.detach().clone()
+
+    def one(batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, m = step_fn(state, batch)
+        m = {k: float(v) for k, v in m.items()}      # waits for the card
+        return st, m, time.perf_counter() - t
+
+    state, m, warm_s = one(batches[0])
+    emit({"phase": "train_step", "step": 0, "warmup": True, "seconds": warm_s,
+          **m})
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    times, rows = [], [m]
+    for i in range(1, steps + 1):
+        state, m, dt = one(batches[i])
+        times.append(dt)
+        rows.append(m)
+        emit({"phase": "train_step", "step": i, "seconds": dt, **m})
+    launches = _launch_counts()
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = {"flash_fwd": 2 * cfg.n_layers * plan.grad_accum,
+            "flash_bwd_dq": cfg.n_layers * plan.grad_accum,
+            "flash_bwd_dkv": cfg.n_layers * plan.grad_accum}
+    p50 = sorted(times)[len(times) // 2]
+    tokens = batch_rows * seq
+    name = torch.cuda.get_device_name(dev)
+    flops_tok = train_flops_per_token(cfg, seq, trainable="lora")
+    problems = []
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in rows):
+        problems.append("non-finite loss or grad_norm")
+    if per_step != want:
+        problems.append(f"launches per step {per_step} != {want}")
+    if torch.equal(before, watch.detach()):
+        problems.append("the adapters did not change")
+    row = {"phase": "train", "ok": not problems, "problems": problems,
+           "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "params": cfg.param_count(), "dtype": cfg.dtype,
+           "quant": ft["QUANT_KIND"], "lora_r": lcfg.r,
+           "lora_alpha": lcfg.alpha, "lora_dropout": lcfg.dropout,
+           "trainable_params": sum(
+               t.numel() for layer in state.lora for ab in layer.values()
+               for t in ab.values()),
+           "microbatch": micro, "grad_accum": plan.grad_accum, "seq": seq,
+           "init_s": init_s, "warmup_step_s": warm_s, "steps": steps,
+           "step_s": times, "step_s_p50": p50,
+           "tokens_per_s": tokens / p50,
+           "real_tokens_per_s": float(np.median(
+               [r["tokens"] for r in rows[1:]])) / p50,
+           "mfu": tokens / p50 * flops_tok / peak_flops_per_device(name),
+           "train_flops_per_token": flops_tok,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "launches_per_step": per_step,
+           "losses": [r["loss"] for r in rows],
+           "grad_norms": [r["grad_norm"] for r in rows]}
+    emit(row)
+    if problems:
+        raise SystemExit("train phase failed: " + "; ".join(problems))
+    del state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_profile(dev, cfg=None):
+    """Where a QLoRA step's time goes: torch.profiler over one step of the
+    train phase's job after one warm-up step. Device busy share = summed
+    kernel time over the step's wall time (one stream)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    job = _fine_tune_setup(dev, cfg, 2)
+    state, step_fn = job["state"], job["step_fn"]
+    state, m = step_fn(state, job["batches"][0])
+    float(m["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, job["batches"][1])
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    # kernels only: a user annotation (Optimizer.step) spans kernels that
+    # are counted on their own
+    kern = [e for e in prof.key_averages() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and "#" not in e.key]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    groups = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+              "flash_kernels": ("flash_fwd", "flash_bwd"),
+              "nf4_lookup": ("index_elementwise",)}
+    by_group = {g: 0.0 for g in list(groups) + ["other"]}
+    for e in kern:
+        g = next((g for g, keys in groups.items()
+                  if any(k in e.key for k in keys)), "other")
+        by_group[g] += e.self_device_time_total / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:25]
+    emit({"phase": "train_profile", "ok": busy_us > 0, "wall_s": wall,
+          "device_busy_s": busy_us / 1e6,
+          "device_busy_share": busy_us / 1e6 / wall,
+          "kernel_launches": sum(e.count for e in kern),
+          "device_ms_by_group": by_group,
+          "top_kernels": [{"name": e.key[:90],
+                           "ms": e.self_device_time_total / 1e3,
+                           "calls": e.count} for e in top]})
+    if busy_us <= 0:
+        raise SystemExit("train_profile phase: the trace shows no device "
+                         "time")
+    del state, job
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: train-parity
+# ---------------------------------------------------------------------------
+
+def _train_run(cfg, mode, impl, dev, steps, batches):
+    """``steps`` steps of full fine-tuning or QLoRA with attention
+    through ``impl``; returns the metric streams and the change each
+    trained tensor underwent."""
+    import torch
+    from gke_ray_train_tpu_torch.models import init_params
+    from gke_ray_train_tpu_torch.models import init_quantized_params
+    from gke_ray_train_tpu_torch.train import (
+        LoraConfig, make_optimizer, make_train_state, make_train_step,
+        warmup_cosine_schedule)
+    from gke_ray_train_tpu_torch.train.step import trainable_tensors
+    cfg = dataclasses.replace(cfg, attn_impl=impl)
+    lcfg = LoraConfig(r=64, alpha=16) if mode == "qlora" else None
+    params = (init_quantized_params(cfg, seed=3, device=dev)
+              if mode == "qlora" else init_params(cfg, seed=3, device=dev))
+    sched = warmup_cosine_schedule(2e-4, 10, warmup_frac=0.1)
+    spec = make_optimizer(sched, weight_decay=0.001, clip_norm=0.3)
+    state = make_train_state(cfg, spec, seed=3, lora_cfg=lcfg,
+                             params=params, device=dev)
+    start = [t.detach().clone() for _, t in
+             trainable_tensors(state.params, state.lora)]
+    fn = make_train_step(cfg, spec, lora_cfg=lcfg, grad_accum=2,
+                         schedule=sched, device=dev)
+    streams = {"loss": [], "grad_norm": []}
+    for b in batches[:steps]:
+        state, m = fn(state, b)
+        for k in streams:
+            streams[k].append(float(m[k]))
+    deltas = [t.detach() - s0 for (_, t), s0 in
+              zip(trainable_tensors(state.params, state.lora), start)]
+    del state, params, start
+    torch.cuda.empty_cache()
+    return streams, deltas
+
+
+def phase_train_parity(dev, cfg=None, steps: int = 3):
+    """fp32 (TF32 off), 4 layers at full width, dropout 0: QLoRA and full
+    fine-tuning, each with attention through the kernels (flash) and
+    through the dense path (xla), hold each other's loss and grad_norm
+    streams and trained tensors."""
+    import torch
+    from gke_ray_train_tpu_torch.models import llama3_8b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg is None:
+        cfg = dataclasses.replace(
+            llama3_8b(dtype="float32", param_dtype="float32", remat=True),
+            max_seq_len=1024, n_layers=4)
+    rng = np.random.default_rng(77)
+    batches = [_sft_batch(2, cfg.max_seq_len, cfg.vocab_size, rng)
+               for _ in range(steps)]
+    rows, ok = [], True
+    for mode in ("qlora", "full"):
+        before = _launch_counts()
+        flash, d_flash = _train_run(cfg, mode, "flash", dev, steps, batches)
+        used = {k: v - before[k] for k, v in _launch_counts().items()}
+        dense, d_dense = _train_run(cfg, mode, "xla", dev, steps, batches)
+        num = sum(float(torch.sum((a - b) ** 2))
+                  for a, b in zip(d_flash, d_dense))
+        den = sum(float(torch.sum(b ** 2)) for b in d_dense)
+        delta_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+        rel = {k: max(abs(a - b) / abs(b) for a, b in
+                      zip(flash[k], dense[k])) for k in flash}
+        want = {"flash_fwd": 4 * cfg.n_layers * steps,
+                "flash_bwd_dq": 2 * cfg.n_layers * steps,
+                "flash_bwd_dkv": 2 * cfg.n_layers * steps}
+        row_ok = (all(v <= TRAIN_PARITY_RTOL for v in rel.values())
+                  and delta_rel <= TRAIN_PARITY_DELTA_RTOL
+                  and used == want
+                  and all(np.isfinite(flash["loss"] + dense["loss"])))
+        ok = ok and row_ok
+        rows.append({"mode": mode, "ok": row_ok, "flash": flash,
+                     "dense": dense, "max_rel_err": rel,
+                     "delta_rel_err": delta_rel, "flash_launches": used})
+        del d_flash, d_dense
+    emit({"phase": "train_parity", "ok": ok, "dtype": "float32",
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model, "steps": steps,
+          "tol_streams_rel": TRAIN_PARITY_RTOL,
+          "tol_delta_rel": TRAIN_PARITY_DELTA_RTOL, "runs": rows})
+    if not ok:
+        raise SystemExit("train-parity phase failed")
+
+
+# ---------------------------------------------------------------------------
 # optional phase: profile (not run by default)
 # ---------------------------------------------------------------------------
 
@@ -500,15 +980,25 @@ def phase_profile(dev, steps: int = 10):
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("device", "build", "kernels", "serve", "parity", "profile")
-DEFAULT_PHASES = PHASES[:-1]
+PHASES = ("device", "build", "kernels", "serve", "parity", "train",
+          "train_parity", "profile", "train_profile")
+DEFAULT_PHASES = PHASES[:-2]
+
+KERNEL_SOURCES = {
+    "flash_fwd": ("gke_ray_train_tpu_torch/csrc/flash_fwd.cu",
+                  "gke_ray_train_tpu/ops/flash_attention.py:175"),
+    "flash_bwd_dq": ("gke_ray_train_tpu_torch/csrc/flash_bwd.cu",
+                     "gke_ray_train_tpu/ops/flash_attention.py:303"),
+    "flash_bwd_dkv": ("gke_ray_train_tpu_torch/csrc/flash_bwd.cu",
+                      "gke_ray_train_tpu/ops/flash_attention.py:339"),
+}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but profile)")
+                    + " (default: all but the two profiles)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -536,27 +1026,44 @@ def main(argv=None) -> int:
     emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
           "kernels": report})
 
-    timings = phase_kernels(dev) if "kernels" in phases else []
-    launches = phase_serve(dev) if "serve" in phases else None
-    if "parity" in phases:
-        phase_parity(dev)
-    if "profile" in phases:
-        phase_profile(dev)
+    # launches on the main paths: each path driven with the counts at 0
+    launches = {name: None for name in KERNEL_SOURCES}
+    seconds = {}
 
-    main_shape = next((t for t in timings
-                       if t["shape"] == "llama3_8b_prefill_512"), None)
-    entry = {"name": "flash_fwd", "route": "cuda",
-             "source": "gke_ray_train_tpu_torch/csrc/flash_fwd.cu",
-             "replaces": "gke_ray_train_tpu/ops/flash_attention.py:175",
-             "launches": launches,
-             "max_abs_err": main_shape and main_shape["max_abs_err_out"],
-             "ms": main_shape and main_shape["kernel_ms"],
-             "plain_ms": main_shape and main_shape["plain_ms"],
-             "bound_ms": main_shape and main_shape["bound_ms"],
-             "bound_by": main_shape and main_shape["bound_by"],
-             "library_ms": main_shape and main_shape["library_ms"]}
+    def run(phase, fn):
+        if phase not in phases:
+            return None
+        t = time.perf_counter()
+        out = fn(dev)
+        seconds[phase] = time.perf_counter() - t
+        return out
+
+    def add(counts):
+        for name, n in (counts or {}).items():
+            launches[name] = (launches[name] or 0) + n
+    timings = run("kernels", phase_kernels) or {}
+    serve = run("serve", phase_serve)
+    add({"flash_fwd": serve} if serve is not None else None)
+    run("parity", phase_parity)
+    add(run("train", phase_train))
+    run("train_parity", phase_train_parity)
+    run("profile", phase_profile)
+    run("train_profile", phase_train_profile)
+    emit({"phase": "seconds", "ok": True, "seconds": seconds})
+
+    entries = []
+    for name, (source, replaces) in KERNEL_SOURCES.items():
+        t = timings.get(name, {})
+        entries.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": t.get("max_abs_err"),
+                        "ms": t.get("kernel_ms"),
+                        "plain_ms": t.get("plain_ms"),
+                        "bound_ms": t.get("bound_ms"),
+                        "bound_by": t.get("bound_by"),
+                        "library_ms": t.get("library_ms")})
     print(smi, flush=True)
-    emit({"kernels": [entry]})
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

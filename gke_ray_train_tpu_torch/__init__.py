@@ -1,11 +1,18 @@
 """gke_ray_train_tpu_torch — the PyTorch/CUDA port of ``gke_ray_train_tpu``.
 
-The serving path of the JAX package, rewritten in PyTorch for one
-NVIDIA H100: the continuous-batching engine (``serve/engine.py``), the
-KV-cache step (``models/kvcache.py``), the decoder core
-(``models/transformer.py``) and the ops under it. The one Pallas kernel
-on that path, the flash-attention forward, is a CUDA C++ kernel written
-for Hopper (``csrc/flash_fwd.cu``), built with ``nvcc`` at first use.
+Two paths of the JAX package, rewritten in PyTorch for one NVIDIA H100:
+
+- serving: the continuous-batching engine (``serve/engine.py``) over the
+  KV-cache step (``models/kvcache.py``);
+- fine-tuning: the (Q)LoRA and full fine-tune step (``train/step.py``)
+  with its optimizer (``train/optim.py``), adapters (``train/lora.py``)
+  and the NF4 / int8 base (``ops/quant.py``, ``models/qinit.py``).
+
+Both run the decoder core (``models/transformer.py``) and the ops under
+it. The Pallas kernels on those paths — the flash-attention forward and
+its dQ and dK/dV backward — are CUDA C++ kernels written for Hopper
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), built with ``nvcc`` at
+first use.
 
 Module paths and public names mirror the JAX package so a reader finds
 each counterpart; the JAX package stays the reference the port's tests

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one CUDA C++ source under ``csrc/`` with a plain C entry
-point. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
+Each CUDA C++ source under ``csrc/`` holds one or more kernels behind
+plain C entry points. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``_build/`` (listed in ``.gitignore``), named by a
 hash of its source and the compiler flags, and loaded with ``ctypes``.
 A build or load failure raises; nothing falls back.
@@ -29,12 +29,20 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
-# name -> argtypes of its C entry point (every entry returns a cudaError_t)
-SIGNATURES: Dict[str, tuple] = {
-    # q, k, v, qpos, kvpos, qseg, kvseg, out, lse,
-    # B, S, T, H, K, dh, dtype, causal, use_window, window,
-    # scale, softcap, stream
-    "flash_fwd": (_P,) * 9 + (_I,) * 10 + (_F, _F, _P),
+# the shape, mask and stream arguments every flash entry ends with:
+# B, S, T, H, K, dh, dtype, causal, use_window, window, scale, softcap,
+# stream
+_FLASH_TAIL = (_I,) * 10 + (_F, _F, _P)
+
+# source name (csrc/<name>.cu) -> {C entry point: its argtypes}; every
+# entry returns a cudaError_t
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    # q, k, v, qpos, kvpos, qseg, kvseg, out, lse
+    "flash_fwd": {"flash_fwd": (_P,) * 9 + _FLASH_TAIL},
+    # q, k, v, do, lse, dvec, qpos, kvpos, qseg, kvseg, then dq (dq
+    # entry) or dk, dv (dkv entry)
+    "flash_bwd": {"flash_bwd_dq": (_P,) * 11 + _FLASH_TAIL,
+                  "flash_bwd_dkv": (_P,) * 12 + _FLASH_TAIL},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -110,8 +118,9 @@ def load(name: str) -> ctypes.CDLL:
     if not os.path.exists(path):
         build([name])
     lib = ctypes.CDLL(path)
-    fn = getattr(lib, name)
-    fn.argtypes = list(SIGNATURES[name])
-    fn.restype = ctypes.c_int
+    for entry, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     _loaded[name] = lib
     return lib

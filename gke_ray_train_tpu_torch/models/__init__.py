@@ -5,5 +5,7 @@ from gke_ray_train_tpu_torch.models.config import (  # noqa: F401
 from gke_ray_train_tpu_torch.models.transformer import (  # noqa: F401
     Block, Transformer, forward, init_params)
 from gke_ray_train_tpu_torch.models.decode import greedy_generate  # noqa: F401
+from gke_ray_train_tpu_torch.models.qinit import (  # noqa: F401
+    init_quantized_params)
 from gke_ray_train_tpu_torch.models.kvcache import (  # noqa: F401
     forward_step, greedy_generate_cached, init_cache)

@@ -10,18 +10,26 @@ transposes (``interop.py``). Layer ``i`` is the JAX stack's repeat
 
 Dense families only: llama2/3, mistral (window), qwen2 (q/k/v bias) and
 gemma2 (softcaps, post-norms, ``(1 + w)`` norms, gelu_tanh, tied and
-scaled embeddings). The pipeline, mesh and dropout paths of the JAX
-``forward`` belong to later slices.
+scaled embeddings). A projection weight may be a ``QTensor`` (a QLoRA
+base, ``ops/quant.py``), dequantized at use. ``forward`` is
+differentiable: with ``cfg.remat`` each repeat of the block pattern runs
+under ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of
+``repeat_body``), and LoRA dropout draws its masks from explicit
+generators so a recomputed block redraws the same masks. The pipeline
+and mesh paths of the JAX ``forward`` belong to later slices.
 """
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import math
-from typing import Dict, List, Optional
+import struct
+from typing import Collection, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from gke_ray_train_tpu_torch.device import DeviceLike, check_on, resolve_device
@@ -30,6 +38,7 @@ from gke_ray_train_tpu_torch.ops.attention import (
     dot_product_attention, make_attention_mask)
 from gke_ray_train_tpu_torch.ops.matmul import matmul_f32
 from gke_ray_train_tpu_torch.ops.norms import rms_norm
+from gke_ray_train_tpu_torch.ops.quant import maybe_dequantize
 from gke_ray_train_tpu_torch.ops.rope import (
     apply_rope, rope_frequencies, sinusoidal_positions)
 
@@ -56,43 +65,58 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _param(*shape, device, dtype) -> nn.Parameter:
-    # serving slice: weights are frozen; autograd never records them
+    # frozen unless a full fine-tune marks the params trainable
+    # (train/step.py::make_train_state)
     return nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                         requires_grad=False)
 
 
+def proj_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """``[d_in, d_out]`` of the seven projections of a block."""
+    hd = cfg.resolved_head_dim
+    D, Fd, H, K = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads
+    return {"wq": (D, H * hd), "wk": (D, K * hd), "wv": (D, K * hd),
+            "wo": (H * hd, D), "w_gate": (D, Fd), "w_up": (D, Fd),
+            "w_down": (Fd, D)}
+
+
 class Block(nn.Module):
-    """One decoder layer's weights; ``kind`` is "global" or "sliding"."""
+    """One decoder layer's weights; ``kind`` is "global" or "sliding".
+
+    The projections named in ``quantized`` are left unset (None) for the
+    caller to fill with ``QTensor``s, so no full-precision copy of them
+    is ever allocated."""
 
     def __init__(self, cfg: ModelConfig, kind: str, *,
-                 device: torch.device, dtype: torch.dtype):
+                 device: torch.device, dtype: torch.dtype,
+                 quantized: Collection[str] = ()):
         super().__init__()
-        D, Fd, H, K = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads
+        D = cfg.d_model
         hd = cfg.resolved_head_dim
         kw = dict(device=device, dtype=dtype)
         self.kind = kind
         self.attn_norm = _param(D, **kw)
-        self.wq = _param(D, H * hd, **kw)
-        self.wk = _param(D, K * hd, **kw)
-        self.wv = _param(D, K * hd, **kw)
-        self.wo = _param(H * hd, D, **kw)
         self.mlp_norm = _param(D, **kw)
-        for name, n in (("bq", H * hd), ("bk", K * hd), ("bv", K * hd)):
+        for name, shape in proj_shapes(cfg).items():
+            if name in quantized:
+                setattr(self, name, None)
+            else:
+                self.register_parameter(name, _param(*shape, **kw))
+        for name, n in (("bq", cfg.n_heads * hd), ("bk", cfg.n_kv_heads * hd),
+                        ("bv", cfg.n_kv_heads * hd)):
             self.register_parameter(
                 name, _param(n, **kw) if cfg.attn_qkv_bias else None)
-        self.w_gate = _param(D, Fd, **kw)
-        self.w_up = _param(D, Fd, **kw)
-        self.w_down = _param(Fd, D, **kw)
         for name in ("attn_post_norm", "mlp_post_norm"):
             self.register_parameter(
                 name, _param(D, **kw) if cfg.post_block_norm else None)
 
 
 class Transformer(nn.Module):
-    """Embedding, ``n_layers`` Blocks, final norm and (untied) head."""
+    """Embedding, ``n_layers`` Blocks, final norm and (untied) head;
+    ``quantized`` as for ``Block``."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, quantized: Collection[str] = ()):
         super().__init__()
         if cfg.n_experts:
             raise NotImplementedError(
@@ -103,7 +127,7 @@ class Transformer(nn.Module):
         self.embed = _param(cfg.vocab_size, cfg.d_model, **kw)
         pattern = cfg.block_pattern
         self.blocks = nn.ModuleList(
-            Block(cfg, pattern[i % len(pattern)], **kw)
+            Block(cfg, pattern[i % len(pattern)], quantized=quantized, **kw)
             for i in range(cfg.n_layers))
         self.final_norm = _param(cfg.d_model, **kw)
         self.register_parameter(
@@ -172,21 +196,55 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 # forward
 # ---------------------------------------------------------------------------
 
-def _proj(x: torch.Tensor, w: torch.Tensor, lora_p, lora_scale: float,
-          dtype: torch.dtype, bias: Optional[torch.Tensor] = None
+# LoRA dropout tags of the seven projections (the JAX package's fold-in
+# tags: q k v o under the attention key, gate up down under the MLP's)
+_DROP_TAGS = {"wq": 0, "wk": 1, "wv": 2, "wo": 3, "w_gate": 4, "w_up": 5,
+              "w_down": 6}
+
+
+def dropout_seed(*parts: int) -> int:
+    """A 63-bit generator seed mixed from integers (step, microbatch,
+    layer, projection, ...): the same parts give the same seed."""
+    h = hashlib.blake2b(struct.pack(f"<{len(parts)}q", *parts),
+                        digest_size=8)
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def _lora_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout of the adapter-branch input, its keep mask drawn
+    from a generator seeded with ``seed``: recomputing a checkpointed
+    block redraws exactly the mask of its first forward."""
+    keep = 1.0 - rate
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(seed)
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
+def _proj(x: torch.Tensor, w, lora_p, lora_scale: float,
+          dtype: torch.dtype, bias: Optional[torch.Tensor] = None, *,
+          drop_rate: float = 0.0, drop_seed: Optional[int] = None
           ) -> torch.Tensor:
     """x @ w (+ bias), plus the low-rank LoRA bypass (two small products,
     never a materialized delta-W) when an adapter is given. The weight
-    is cast to the compute dtype per call — a no-op when the params are
-    stored in it."""
-    y = x @ w.to(dtype)
+    (a tensor or a ``QTensor``) is cast or dequantized to the compute
+    dtype per call — a no-op cast when the params are stored in it.
+
+    ``drop_rate`` / ``drop_seed``: LoRA dropout with peft semantics —
+    on the adapter-branch input only; the frozen-base path never drops."""
+    y = x @ maybe_dequantize(w, dtype)
     if lora_p is not None:
         if lora_p["a"].dim() != 2:
             raise NotImplementedError(
                 "per-row adapters (batched multi-LoRA) are not ported yet")
-        xa = x @ lora_p["a"].to(dtype)
-        y = y + (xa @ lora_p["b"].to(dtype)) * torch.tensor(
-            lora_scale, dtype=dtype, device=x.device)
+        xl = x
+        if drop_seed is not None and drop_rate > 0.0:
+            xl = _lora_dropout(x, drop_rate, drop_seed)
+        xa = xl @ lora_p["a"].to(dtype)
+        # a fill, not a host-to-card copy (which would wait for the card)
+        y = y + (xa @ lora_p["b"].to(dtype)) * torch.full(
+            (), lora_scale, dtype=dtype, device=x.device)
     if bias is not None:
         y = y + bias.to(dtype)
     return y
@@ -196,36 +254,47 @@ def _lora_entry(lora_p, name):
     return None if lora_p is None or name not in lora_p else lora_p[name]
 
 
+def _drop_kw(name: str, drop_rate: float, drop_seed: Optional[int]) -> dict:
+    """The dropout arguments of projection ``name`` in one layer, whose
+    own seed is ``drop_seed`` (None: no dropout)."""
+    if drop_seed is None:
+        return {}
+    return dict(drop_rate=drop_rate,
+                drop_seed=dropout_seed(drop_seed, _DROP_TAGS[name]))
+
+
 def _mlp(x, lp: Block, cfg: ModelConfig, dtype, lora_p=None,
-         lora_scale: float = 1.0):
-    def lr(name):
-        return _lora_entry(lora_p, name)
-    gate = _proj(x, lp.w_gate, lr("w_gate"), lora_scale, dtype)
-    up = _proj(x, lp.w_up, lr("w_up"), lora_scale, dtype)
+         lora_scale: float = 1.0, drop_rate: float = 0.0,
+         drop_seed: Optional[int] = None):
+    def proj(h, name):
+        return _proj(h, getattr(lp, name), _lora_entry(lora_p, name),
+                     lora_scale, dtype, **_drop_kw(name, drop_rate, drop_seed))
+    gate = proj(x, "w_gate")
+    up = proj(x, "w_up")
     if cfg.activation == "silu":
         act = F.silu(gate)
     elif cfg.activation == "gelu_tanh":
         act = F.gelu(gate, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {cfg.activation}")
-    return _proj(act * up, lp.w_down, lr("w_down"), lora_scale, dtype)
+    return proj(act * up, "w_down")
 
 
 def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
           positions, mask, window, segment_ids, lora_p=None,
-          lora_scale: float = 1.0):
+          lora_scale: float = 1.0, drop_rate: float = 0.0,
+          drop_seed: Optional[int] = None):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
 
-    def lr(name):
-        return _lora_entry(lora_p, name)
-    q = _proj(x, lp.wq, lr("wq"), lora_scale, dtype, bias=lp.bq)
-    k = _proj(x, lp.wk, lr("wk"), lora_scale, dtype, bias=lp.bk)
-    v = _proj(x, lp.wv, lr("wv"), lora_scale, dtype, bias=lp.bv)
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, K, hd)
-    v = v.reshape(B, S, K, hd)
+    def proj(h, name, bias=None):
+        return _proj(h, getattr(lp, name), _lora_entry(lora_p, name),
+                     lora_scale, dtype, bias=bias,
+                     **_drop_kw(name, drop_rate, drop_seed))
+    q = proj(x, "wq", lp.bq).reshape(B, S, H, hd)
+    k = proj(x, "wk", lp.bk).reshape(B, S, K, hd)
+    v = proj(x, "wv", lp.bv).reshape(B, S, K, hd)
     if rope is not None:
         q = apply_rope(q, positions, rope)
         k = apply_rope(k, positions, rope)
@@ -236,36 +305,73 @@ def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
         # kernel paths take the mask inputs, never a materialized mask
         from gke_ray_train_tpu_torch.ops.dispatch import attention_dispatch
         out = attention_dispatch(
-            impl, q, k.contiguous(), v.contiguous(),
+            impl, q.contiguous(), k.contiguous(), v.contiguous(),
             q_positions=positions, kv_positions=positions,
             q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
             causal=True, sliding_window=window, scale=cfg.attn_scale,
             logit_softcap=cfg.attn_softcap)
-    out = out.reshape(B, S, H * hd)
-    return _proj(out, lp.wo, lr("wo"), lora_scale, dtype)
+    return proj(out.reshape(B, S, H * hd), "wo")
+
+
+def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
+           positions, masks, segment_ids, lo, lora_scale: float,
+           drop_rate: float, drop_seed: Optional[int]):
+    eps, sp1 = cfg.norm_eps, cfg.norm_scale_plus_one
+    h = rms_norm(x, lp.attn_norm, eps=eps, scale_plus_one=sp1)
+    h = _attn(h, lp, cfg, impl, dtype, rope, positions, masks[lp.kind],
+              cfg.sliding_window if lp.kind == "sliding" else None,
+              segment_ids, lora_p=lo, lora_scale=lora_scale,
+              drop_rate=drop_rate, drop_seed=drop_seed)
+    if cfg.post_block_norm:
+        h = rms_norm(h, lp.attn_post_norm, eps=eps, scale_plus_one=sp1)
+    x = x + h
+    h = rms_norm(x, lp.mlp_norm, eps=eps, scale_plus_one=sp1)
+    h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale,
+             drop_rate=drop_rate, drop_seed=drop_seed)
+    if cfg.post_block_norm:
+        h = rms_norm(h, lp.mlp_post_norm, eps=eps, scale_plus_one=sp1)
+    return x + h
 
 
 def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
                     positions, masks, segment_ids, *,
-                    lora: Optional[Lora] = None, lora_scale: float = 1.0):
+                    lora: Optional[Lora] = None, lora_scale: float = 1.0,
+                    lora_dropout: float = 0.0,
+                    lora_seed: Optional[int] = None):
     """Run ``blocks`` (a sequence of ``Block``) over the residual stream
-    ``x``; ``lora``, when given, holds one adapter dict per block."""
-    eps, sp1 = cfg.norm_eps, cfg.norm_scale_plus_one
-    for i, lp in enumerate(blocks):
-        lo = lora[i] if lora is not None else None
-        h = rms_norm(x, lp.attn_norm, eps=eps, scale_plus_one=sp1)
-        h = _attn(h, lp, cfg, impl, dtype, rope, positions,
-                  masks[lp.kind],
-                  cfg.sliding_window if lp.kind == "sliding" else None,
-                  segment_ids, lora_p=lo, lora_scale=lora_scale)
-        if cfg.post_block_norm:
-            h = rms_norm(h, lp.attn_post_norm, eps=eps, scale_plus_one=sp1)
-        x = x + h
-        h = rms_norm(x, lp.mlp_norm, eps=eps, scale_plus_one=sp1)
-        h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale)
-        if cfg.post_block_norm:
-            h = rms_norm(h, lp.mlp_post_norm, eps=eps, scale_plus_one=sp1)
-        x = x + h
+    ``x``; ``lora``, when given, holds one adapter dict per block.
+
+    With ``cfg.remat`` and autograd recording, each repeat of the block
+    pattern is one ``torch.utils.checkpoint`` region (non-reentrant): its
+    activations are recomputed in the backward instead of kept. LoRA
+    dropout is active when ``lora``, ``lora_dropout`` > 0 and
+    ``lora_seed`` are all given; layer ``i`` seeds its masks from
+    ``(lora_seed, i)``."""
+    drop = (lora is not None and lora_dropout > 0.0
+            and lora_seed is not None)
+    remat = cfg.remat and torch.is_grad_enabled()
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
+            "queue 1); the port recomputes whole blocks "
+            "(remat_policy='full')")
+    P = len(cfg.block_pattern)
+
+    def repeat(x, first):
+        for i in range(first, min(first + P, len(blocks))):
+            x = _layer(x, blocks[i], cfg, impl, dtype, rope, positions,
+                       masks, segment_ids,
+                       lora[i] if lora is not None else None, lora_scale,
+                       lora_dropout,
+                       dropout_seed(lora_seed, i) if drop else None)
+        return x
+
+    for first in range(0, len(blocks), P):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(repeat, x, first,
+                                                  use_reentrant=False)
+        else:
+            x = repeat(x, first)
     return x
 
 
@@ -309,9 +415,17 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions: Optional[torch.Tensor] = None,
             segment_ids: Optional[torch.Tensor] = None,
             lora: Optional[Lora] = None,
-            lora_scale: float = 1.0) -> torch.Tensor:
+            lora_scale: float = 1.0,
+            lora_dropout: float = 0.0,
+            lora_seed: Optional[int] = None,
+            return_pre_unembed: bool = False) -> torch.Tensor:
     """tokens [B, S] integer → logits [B, S, vocab] float32. Runs on the
-    device the params and tokens lie on."""
+    device the params and tokens lie on.
+
+    ``lora_dropout`` / ``lora_seed``: adapter-input dropout, active only
+    when both are given (and ``lora``); inference passes neither.
+    ``return_pre_unembed``: return the final-normed hidden state
+    [B, S, D] instead of the logits."""
     B, S = tokens.shape
     dev = params.embed.device
     check_on(tokens, dev, "tokens")
@@ -332,7 +446,10 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
                 sliding_window=(cfg.sliding_window if kind == "sliding"
                                 else None))
     x = run_block_stack(x, params.blocks, cfg, impl, dtype, rope, positions,
-                        masks, segment_ids, lora=lora, lora_scale=lora_scale)
+                        masks, segment_ids, lora=lora, lora_scale=lora_scale,
+                        lora_dropout=lora_dropout, lora_seed=lora_seed)
+    if return_pre_unembed:
+        return pre_unembed(x, params, cfg)
     return _unembed(x, params, cfg, dtype)
 
 

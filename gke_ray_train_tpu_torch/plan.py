@@ -1,10 +1,11 @@
-"""The serving fields of the execution plan (counterpart of the serving
-part of ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
+"""The ported fields of the execution plan (counterpart of the serving
+part and of ``grad_accum`` in ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Three knobs, read from the same environment / config keys as the JAX
+Four knobs, read from the same environment / config keys as the JAX
 package: ``MAX_BATCH`` (slots of the continuous-batching engine),
-``DECODE_BUCKETS`` (request length buckets) and ``PREFIX_CACHE``
-(whole-prompt prefill reuse).
+``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
+(whole-prompt prefill reuse) and ``GRADIENT_ACCUMULATION_STEPS``
+(microbatches per optimizer step).
 """
 
 from __future__ import annotations
@@ -24,16 +25,17 @@ CONFIG_KEYS: Dict[str, str] = {
     "max_batch": "MAX_BATCH",
     "decode_buckets": "DECODE_BUCKETS",
     "prefix_cache": "PREFIX_CACHE",
+    "grad_accum": "GRADIENT_ACCUMULATION_STEPS",
 }
 
 
 def _coerce(field: str, value: Any) -> Any:
     """One coercion for env strings, JSON values and python kwargs."""
-    if field == "max_batch":
+    if field in ("max_batch", "grad_accum"):
         try:
             return int(value)
         except (TypeError, ValueError):
-            raise PlanError(f"max_batch={value!r} is not an int") from None
+            raise PlanError(f"{field}={value!r} is not an int") from None
     if field == "prefix_cache":
         if isinstance(value, (bool, int, float)):
             return bool(value)
@@ -70,10 +72,14 @@ class ExecutionPlan:
     # re-submission reuses the first request's prefilled cache row and
     # first token instead of prefilling again
     prefix_cache: bool = False
+    # microbatches accumulated per optimizer step (train/step.py)
+    grad_accum: int = 1
 
     def __post_init__(self):
         if self.max_batch < 1:
             raise PlanError(f"max_batch={self.max_batch} must be >= 1")
+        if self.grad_accum < 1:
+            raise PlanError(f"grad_accum={self.grad_accum} must be >= 1")
         self.bucket_list()
 
     @classmethod

@@ -1,7 +1,7 @@
-"""The port's CUDA kernel and its serving path on the card.
+"""The port's CUDA kernels and its serving and training paths on the card.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
-device: the kernel has no CPU mode. The file imports neither JAX nor the
+device: the kernels have no CPU mode. The file imports neither JAX nor the
 JAX package, so on the GPU machine it runs without them:
 
     python -m pytest --noconftest tests/test_torch_port_cuda.py -m cuda
@@ -10,7 +10,11 @@ Tolerances (absolute, kernel against ``flash_attention_reference`` on
 the same inputs): float32 2e-5 for out and lse (fp32 accumulation in
 another order); bfloat16 2e-2 for out (probabilities rounded to bf16
 against the running row max instead of the final one, output rounded to
-bf16) and 1e-4 for lse (fp32 from unrounded probabilities).
+bf16) and 1e-4 for lse (fp32 from unrounded probabilities). The
+backward kernels against ``flash_attention_bwd_reference``: max |error|
+of dq, dk, dv relative to max(1, max |reference|), 1e-4 in float32 and
+2e-2 in bfloat16 (P and dS round to bf16 at the same points on both
+sides; a last-bit fp32 difference may round either way).
 """
 
 import dataclasses
@@ -20,9 +24,11 @@ import pytest
 import torch
 
 from gke_ray_train_tpu_torch.models import (
-    greedy_generate_cached, init_params, tiny)
+    greedy_generate_cached, init_params, init_quantized_params, llama3_8b,
+    tiny)
 from gke_ray_train_tpu_torch.ops.flash_attention import (
-    flash_attention, flash_attention_reference)
+    flash_attention, flash_attention_bwd_reference, flash_attention_reference,
+    flash_bwd_dkv, flash_bwd_dq)
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.serve import (
     BatchEngine, Request, form_prompt_buffer)
@@ -30,6 +36,7 @@ from gke_ray_train_tpu_torch.serve import (
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 1e-4)}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 CASES = {
     # dh 64: packed documents, trailing padding, a ragged length
@@ -138,3 +145,75 @@ def test_engine_on_card_matches_sequential_greedy(dev):
                                       max_new_tokens=r.max_new_tokens,
                                       device=dev)
         np.testing.assert_array_equal(c.tokens, want[0].cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", CASES)
+def test_backward_kernels_match_plain_version(dev, case, dtype):
+    q, k, v, kw = _inputs(CASES[case], dtype, dev)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(1), device=dev).to(dtype)
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    mask = (kw["q_positions"], kw["kv_positions"], kw["q_segment_ids"],
+            kw["kv_segment_ids"])
+    mkw = {n: kw[n] for n in ("causal", "sliding_window", "scale",
+                              "logit_softcap")}
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq = flash_bwd_dq(q, k, v, do, lse, dvec, *mask, **mkw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, dvec, *mask, **mkw)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, do, *mask, **mkw)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == want.shape
+        scale = max(1.0, float(want.float().abs().max()))
+        assert float((got.float() - want.float()).abs().max()) <= \
+            BWD_TOL[dtype] * scale
+    if CASES[case].get("dead_rows"):
+        assert float(dq[:, 3:7].float().abs().max()) == 0.0
+
+
+def test_autograd_reaches_the_backward_kernels(dev):
+    q, k, v, kw = _inputs(CASES["gqa_dh128"], torch.float32, dev)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    flash_attention(q, k, v, **kw).square().sum().backward()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert all(bool(torch.isfinite(x.grad).all()) for x in (q, k, v))
+
+
+def test_qlora_step_at_full_width_on_card(dev):
+    """Two layers of Llama-3.1-8B at full width, NF4 base, bf16: one
+    QLoRA step with grad-accum 2 through the kernels."""
+    from gke_ray_train_tpu_torch.train import (
+        LoraConfig, make_optimizer, make_train_state, make_train_step)
+    cfg = dataclasses.replace(
+        llama3_8b(dtype="bfloat16", param_dtype="bfloat16"),
+        n_layers=2, max_seq_len=512)
+    lcfg = LoraConfig(r=64, alpha=16, dropout=0.1)
+    spec = make_optimizer(2e-4, weight_decay=0.001, clip_norm=0.3)
+    state = make_train_state(cfg, spec, lora_cfg=lcfg,
+                             params=init_quantized_params(cfg, device=dev),
+                             device=dev)
+    step = make_train_step(cfg, spec, lora_cfg=lcfg, grad_accum=2,
+                           device=dev)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (4, 513)).astype(np.int32)
+    batch = {"inputs": toks[:, :-1], "targets": toks[:, 1:],
+             "weights": np.ones((4, 512), np.float32)}
+    before = (flash_attention.launches, flash_bwd_dq.launches,
+              flash_bwd_dkv.launches)
+    b0 = state.lora[1]["w_down"]["b"].detach().clone()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+    assert float(m["loss"]) == pytest.approx(np.log(cfg.vocab_size), rel=0.1)
+    # remat: forward and recomputation per layer and microbatch
+    assert (flash_attention.launches - before[0],
+            flash_bwd_dq.launches - before[1],
+            flash_bwd_dkv.launches - before[2]) == (8, 4, 4)
+    assert not torch.equal(b0, state.lora[1]["w_down"]["b"].detach())

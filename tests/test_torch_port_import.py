@@ -47,7 +47,9 @@ def test_every_module_imports_with_jax_blocked():
     """A fresh interpreter where importing jax (or the JAX package)
     fails imports every module of the port."""
     mods = _modules()
-    assert "gke_ray_train_tpu_torch.serve.engine" in mods
+    for m in ("serve.engine", "ops.quant", "models.qinit", "train.lora",
+              "train.optim", "train.metrics", "train.step", "interop"):
+        assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
         class Block:
@@ -121,8 +123,12 @@ def test_model_config_equals_the_jax_package():
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     from gke_ray_train_tpu_torch.models import (
         greedy_generate, greedy_generate_cached, init_params)
+    from gke_ray_train_tpu_torch.models import init_quantized_params
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
     from gke_ray_train_tpu_torch.serve import BatchEngine
+    from gke_ray_train_tpu_torch.train import (
+        LoraConfig, init_lora, make_eval_step, make_optimizer,
+        make_train_state, make_train_step)
     cfg = tcfg.tiny(vocab_size=97, max_seq_len=128)
     plan = ExecutionPlan(decode_buckets="128")
     model = init_params(cfg, seed=0, device="cpu")
@@ -135,6 +141,21 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     for fn in (greedy_generate, greedy_generate_cached):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn(model, buf, [3], cfg, max_new_tokens=2)
+    spec = make_optimizer(1e-3)
+    lcfg = LoraConfig(r=4)
+    for call in (lambda: init_quantized_params(cfg, seed=0),
+                 lambda: init_lora(cfg, lcfg),
+                 lambda: make_train_state(cfg, spec, params=model),
+                 lambda: make_train_step(cfg, spec),
+                 lambda: make_eval_step(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    state = make_train_state(cfg, spec, lora_cfg=lcfg,
+                             params=init_quantized_params(cfg, device="cpu"),
+                             device="cpu")
+    assert state.lora[0]["wq"]["a"].device.type == "cpu"
+    make_train_step(cfg, spec, lora_cfg=lcfg, device="cpu")
+    make_eval_step(cfg, lora_cfg=lcfg, device="cpu")
     # asked for the CPU, they run there; a model on another device than
     # the one named is refused rather than moved
     BatchEngine(model, cfg, plan=plan, device="cpu")

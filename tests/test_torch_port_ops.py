@@ -199,8 +199,13 @@ def test_flash_wrapper_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention(q.transpose(1, 2).contiguous().transpose(
             1, 2), k, k)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tflash.flash_attention(q.clone().requires_grad_(True), k, k)
+    # tensors that need a gradient go through the autograd.Function (on
+    # CPU its backward is the plain version): no raise, and a gradient
+    qg = q.clone().requires_grad_(True)
+    tflash.flash_attention(qg, k, k).sum().backward()
+    assert qg.grad is not None and qg.grad.shape == q.shape
+    with pytest.raises(ValueError, match="head_dim"):
+        tflash._check_kernel_inputs(q, k, k)
     with pytest.raises(ValueError, match="128"):
         # the JAX kernel's length rule: no 128-multiple block, too long
         n = tflash.FULL_BLOCK_LIMIT + 1
