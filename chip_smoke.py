@@ -8,12 +8,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  — nvidia-smi name and power limit, torch / CUDA versions.
 2. build   — compile every CUDA kernel of the port from ``csrc/`` with
              nvcc for sm_90a (all sources at once).
-3. kernels — hold each kernel (flash forward, dQ, dK/dV) against its
-             plain PyTorch version on the card over the listed cases, and
-             time kernel, plain version and the PyTorch library call at
-             the serving shapes (forward) and the training shape (all
-             three): device time from torch.profiler, per-call time
-             between CUDA events beside it at the serving shapes.
+3. kernels — hold each kernel (flash forward, dQ, dK/dV, fused rms_norm,
+             fused q/k RoPE) against its plain PyTorch version on the card
+             over the listed cases, and time kernel, plain version and the
+             PyTorch library call at the serving shapes (forward), the
+             Llama training shape (the flash kernels) and the Gemma-2
+             training shape (the fused kernels): device time from
+             torch.profiler, per-call time between CUDA events beside it
+             at the serving shapes.
 4. serve   — Llama-3.1-8B at full width and depth (bf16, random weights
              from a seed) through ``BatchEngine``: 24 requests over the
              256 and 512 buckets; the flash kernel must have run once per
@@ -32,6 +34,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              fine-tuning through the kernels against the dense attention
              path, 3 steps each: loss / grad_norm streams and the trained
              tensors agree.
+8. train_fused — QLoRA fine-tune steps of Gemma-2-9B at full width and
+             depth with ray-jobs/fine_tune_config_gemma2_4k.json's
+             settings plus FUSED_OPS=1 (NF4 base, r 32, microbatch 1 x
+             grad-accum 4 at 4,096 tokens, packed rows): one warm-up and 2
+             timed steps; finite loss and grad_norm, the adapters change,
+             and per step the fused rms_norm runs 4 x 42 x 4 x 2 times, the
+             fused RoPE 42 x 4 x 3 times (forward, recomputation,
+             backward), the flash forward 2 x 42 x 4 and dQ, dK/dV 42 x 4.
+9. train_fused_parity — float32, Gemma-2 at full width and 4 layers:
+             FUSED_OPS=1 against FUSED_OPS=0, both through the flash
+             kernels, for QLoRA and full fine-tuning, 3 steps each on
+             packed rows: loss / grad_norm streams and the trained tensors
+             agree.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -78,6 +93,11 @@ PARITY_LOGITS_TOL = 1e-3
 # side and the opposite on the other, so elementwise limits do not fit)
 TRAIN_PARITY_RTOL = 1e-4
 TRAIN_PARITY_DELTA_RTOL = 1e-3
+# fused rms_norm / RoPE kernels against their plain versions: max |error|
+# relative to max(1, max |reference|). Both sides compute in fp32 and
+# round once; the fp32 sum order and rsqrtf may move the last fp32 bit,
+# which can round a bf16 output to its neighbour (2^-8 relative)
+FUSED_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 
 
 def emit(obj) -> None:
@@ -336,9 +356,11 @@ def _bwd_bounds(q, k, v, kw):
 
 
 def _turns(plain, kernel, library):
-    """Device ms in turns plain, kernel, kernel, plain, library."""
-    plain_a, kern_a, kern_b, plain_b, lib = (
-        device_ms(f) for f in (plain, kernel, kernel, plain, library))
+    """Device ms in turns plain, kernel, kernel, plain, library (None
+    where there is no library call)."""
+    plain_a, kern_a, kern_b, plain_b = (
+        device_ms(f) for f in (plain, kernel, kernel, plain))
+    lib = device_ms(library) if library is not None else None
     return {"kernel_ms": min(kern_a, kern_b), "kernel_ms_runs": [kern_a,
                                                                   kern_b],
             "plain_ms": min(plain_a, plain_b),
@@ -408,6 +430,146 @@ def _time_train_shape(dev):
     return runs
 
 
+# fused rms_norm cases: rows (3 x 37) that no block divides, D of the
+# small tests, Gemma-2 (3,584, not a power of two) and Llama (4,096)
+NORM_CASES = [dict(D=D, dtype=dt, scale_plus_one=sp1)
+              for dt in ("float32", "bfloat16") for D in (64, 3584, 4096)
+              for sp1 in (False, True)]
+# fused RoPE cases (B, S, H, K, dh): tiny, Gemma-2's training shape, Llama's
+ROPE_CASES = [dict(shape=shp, dtype=dt) for dt in ("float32", "bfloat16")
+              for shp in ((1, 128, 4, 2, 32), (1, 4096, 16, 8, 256),
+                          (2, 1024, 32, 8, 128))]
+# the train_fused phase's shapes: Gemma-2-9B, one packed row of 4,096
+GEMMA_NORM_SHAPE = (1, 4096, 3584)
+GEMMA_ROPE_SHAPE = (1, 4096, 16, 8, 256)
+
+
+def _rel_err(got, want):
+    """(max |got - want|, max(1, max |want|))."""
+    err = float((got.float() - want.float()).abs().max())
+    return err, max(1.0, float(want.float().abs().max()))
+
+
+def _packed_rope_positions(B, S, dev, g):
+    """Positions that restart at S // 3 (a second document), and over the
+    last third of the last row random positions up to 8,191."""
+    import torch
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    pos[:, S // 3:] -= S // 3
+    tail = S - 2 * S // 3
+    pos[-1, -tail:] = torch.randint(0, 8192, (tail,), generator=g,
+                                    device=dev, dtype=torch.int32)
+    return pos
+
+
+def _rope_freqs(dh, dev):
+    import torch
+    from gke_ray_train_tpu_torch.ops.rope import rope_frequencies
+    return torch.from_numpy(rope_frequencies(dh)).to(dev)
+
+
+def _check_fused_cases(dev):
+    """Both fused kernels against their plain versions over NORM_CASES and
+    ROPE_CASES; RoPE forward and its negated-frequency backward launch."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+        fused_rmsnorm, fused_rmsnorm_reference, fused_rope_qk,
+        fused_rope_qk_reference)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = []
+    for c in NORM_CASES:
+        dt = getattr(torch, c["dtype"])
+        sp1 = c["scale_plus_one"]
+        x = torch.randn((3, 37, c["D"]), generator=g, device=dev).to(dt)
+        s = (torch.randn((c["D"],), generator=g, device=dev) * 0.1
+             + (0.0 if sp1 else 1.0)).to(dt)
+        y = fused_rmsnorm(x, s, eps=1e-6, scale_plus_one=sp1)
+        torch.cuda.synchronize()
+        err, scale = _rel_err(y, fused_rmsnorm_reference(
+            x, s, eps=1e-6, scale_plus_one=sp1))
+        tol = FUSED_TOL[c["dtype"]]
+        rows.append({"kernel": "fused_rmsnorm", **c, "max_abs_err": err,
+                     "max_abs_ref": scale, "tol_rel": tol,
+                     "ok": err <= tol * scale
+                     and bool(torch.isfinite(y.float()).all())})
+    for c in ROPE_CASES:
+        dt = getattr(torch, c["dtype"])
+        B, S, H, K, dh = c["shape"]
+        q = torch.randn((B, S, H, dh), generator=g, device=dev).to(dt)
+        k = torch.randn((B, S, K, dh), generator=g, device=dev).to(dt)
+        pos = _packed_rope_positions(B, S, dev, g)
+        f = _rope_freqs(dh, dev)
+        oq, ok = fused_rope_qk(q, k, pos, f)
+        bq, bk = fused_rope_qk(oq, ok, pos, -f)      # the backward launch
+        torch.cuda.synchronize()
+        tol = FUSED_TOL[c["dtype"]]
+        row = {"kernel": "fused_rope_qk", **c, "tol_rel": tol, "ok": True}
+        outs = zip(("q", "k", "dq", "dk"), (oq, ok, bq, bk),
+                   fused_rope_qk_reference(q, k, pos, f)
+                   + fused_rope_qk_reference(oq, ok, pos, -f))
+        for name, got, want in outs:
+            err, scale = _rel_err(got, want)
+            row[f"max_abs_err_{name}"] = err
+            row["ok"] = (row["ok"] and err <= tol * scale
+                         and bool(torch.isfinite(got.float()).all()))
+        rows.append(row)
+    return rows
+
+
+def _time_fused_gemma_shape(dev):
+    """Both fused kernels at the train_fused phase's Gemma-2-9B shapes
+    (bf16), against their plain versions and, for rms_norm,
+    ``torch.nn.functional.rms_norm`` with the weight 1 + scale formed
+    beforehand (RoPE has no single PyTorch call). Bounds: bytes of each
+    input read once and each output written once over the memory rate,
+    against fp32 FLOPs (the arithmetic runs in fp32 outside the tensor
+    cores) over the fp32 rate."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+        fused_rmsnorm, fused_rmsnorm_reference, fused_rope_qk,
+        fused_rope_qk_reference)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bf = torch.bfloat16
+    x = torch.randn(GEMMA_NORM_SHAPE, generator=g, device=dev).to(bf)
+    D = x.shape[-1]
+    s = (torch.randn((D,), generator=g, device=dev) * 0.1).to(bf)
+    w = (1.0 + s.float()).to(bf)
+    nkw = dict(eps=1e-6, scale_plus_one=True)
+    norm_err, _ = _rel_err(fused_rmsnorm(x, s, **nkw),
+                           fused_rmsnorm_reference(x, s, **nkw))
+    norm = _turns(lambda: fused_rmsnorm_reference(x, s, **nkw),
+                  lambda: fused_rmsnorm(x, s, **nkw),
+                  lambda: torch.nn.functional.rms_norm(x, (D,), w, 1e-6))
+    nbytes = 2 * x.numel() * x.element_size() + D * s.element_size()
+    flops = 4.0 * x.numel()          # square-add, x * r, times s
+    norm.update({"shape": "gemma2_9b_train_4096", "max_abs_err": norm_err,
+                 "bytes": nbytes, "flops": flops,
+                 "library": "torch.nn.functional.rms_norm"})
+    norm["bound_ms"], norm["bound_by"] = _bound(nbytes, flops, torch.float32)
+
+    B, S, H, K, dh = GEMMA_ROPE_SHAPE
+    q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf)
+    k = torch.randn((B, S, K, dh), generator=g, device=dev).to(bf)
+    pos = _packed_rope_positions(B, S, dev, g)
+    f = _rope_freqs(dh, dev)
+    got = fused_rope_qk(q, k, pos, f)
+    want = fused_rope_qk_reference(q, k, pos, f)
+    rope_err = max(_rel_err(a, b)[0] for a, b in zip(got, want))
+    rope = _turns(lambda: fused_rope_qk_reference(q, k, pos, f),
+                  lambda: fused_rope_qk(q, k, pos, f), None)
+    nbytes = (2 * (q.numel() + k.numel()) * q.element_size()
+              + pos.numel() * 4 + f.numel() * 4)
+    # 6 FLOPs a rotated pair, and one sincosf per (row, frequency) counted
+    # as 2
+    flops = 3.0 * (q.numel() + k.numel()) + 2.0 * B * S * dh // 2
+    rope.update({"shape": "gemma2_9b_train_4096", "max_abs_err": rope_err,
+                 "bytes": nbytes, "flops": flops, "library": None})
+    rope["bound_ms"], rope["bound_by"] = _bound(nbytes, flops, torch.float32)
+    return {"fused_rmsnorm": norm, "fused_rope_qk": rope}
+
+
 def phase_kernels(dev):
     import torch
     from gke_ray_train_tpu_torch.ops.flash_attention import (
@@ -455,13 +617,16 @@ def phase_kernels(dev):
                   "max_abs_err_out": row["max_abs_err_out"]})
         timings.append(t)
     train = _time_train_shape(dev)
-    ok = all(r["ok"] for r in rows + bwd_rows)
+    fused_rows = _check_fused_cases(dev)
+    fused = _time_fused_gemma_shape(dev)
+    ok = all(r["ok"] for r in rows + bwd_rows + fused_rows)
     emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
-          "timings": timings, "train_shape": train})
+          "fused_cases": fused_rows, "timings": timings, "train_shape": train,
+          "gemma_train_shape": fused})
     if not ok:
         raise SystemExit("kernel phase: a case disagrees with the plain "
                          "version beyond its tolerance")
-    return train
+    return {**train, **fused}
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +794,8 @@ def phase_parity(dev):
 # ---------------------------------------------------------------------------
 
 FINE_TUNE_CONFIG = os.path.join(HERE, "ray-jobs", "fine_tune_config.json")
+GEMMA2_CONFIG = os.path.join(HERE, "ray-jobs",
+                             "fine_tune_config_gemma2_4k.json")
 
 
 def _sft_batch(n_rows, seq, vocab, rng):
@@ -644,42 +811,70 @@ def _sft_batch(n_rows, seq, vocab, rng):
             "weights": weights}
 
 
+def _packed_batch(n_rows, seq, vocab, rng):
+    """``n_rows`` packed rows (``data/packing.py``) of random documents:
+    lengths 64-1,024 tokens, random ids, the first quarter of each a
+    prompt of loss weight 0."""
+    from gke_ray_train_tpu_torch.data import pack_examples
+
+    def docs():
+        while True:
+            n = int(rng.integers(64, 1025))
+            w = np.ones(n, np.float32)
+            w[:n // 4] = 0.0
+            yield {"input_ids": rng.integers(0, vocab, n).astype(np.int32),
+                   "loss_weights": w}
+    rows = []
+    for row in pack_examples(docs(), seq):
+        rows.append(row)
+        if len(rows) == n_rows:
+            return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
 def _launch_counts():
     from gke_ray_train_tpu_torch.ops.flash_attention import (
         flash_attention, flash_bwd_dkv, flash_bwd_dq)
+    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+        fused_rmsnorm, fused_rope_qk)
     return {"flash_fwd": flash_attention.launches,
             "flash_bwd_dq": flash_bwd_dq.launches,
-            "flash_bwd_dkv": flash_bwd_dkv.launches}
+            "flash_bwd_dkv": flash_bwd_dkv.launches,
+            "fused_rmsnorm": fused_rmsnorm.launches,
+            "fused_rope_qk": fused_rope_qk.launches}
 
 
 def _reset_launch_counts():
     from gke_ray_train_tpu_torch.ops.flash_attention import (
         flash_attention, flash_bwd_dkv, flash_bwd_dq)
-    flash_attention.launches = 0
-    flash_bwd_dq.launches = 0
-    flash_bwd_dkv.launches = 0
+    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+        fused_rmsnorm, fused_rope_qk)
+    for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv, fused_rmsnorm,
+               fused_rope_qk):
+        fn.launches = 0
 
 
-def _fine_tune_setup(dev, cfg, n_batches):
-    """The QLoRA job of ray-jobs/fine_tune_config.json at ``cfg`` (default
-    Llama-3.1-8B, bf16, remat): NF4 base from seed 0, adapters, optimizer
-    and schedule, the step function, and ``n_batches`` SFT batches from
-    numpy seed 1234."""
+def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
+    """The QLoRA job of ``config`` (default ray-jobs/fine_tune_config.json)
+    at ``cfg`` (default the job's MODEL_ID preset, bf16, remat): NF4 base
+    from seed 0, adapters, optimizer and schedule, the step function with
+    the job's plan and ``plan_overrides``, and ``n_batches`` batches from
+    numpy seed 1234, packed where the job packs."""
     import torch
     from gke_ray_train_tpu_torch.models import (
-        init_quantized_params, llama3_8b)
+        init_quantized_params, preset_for_model_id)
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
     from gke_ray_train_tpu_torch.train import (
         LoraConfig, make_optimizer, make_train_state, make_train_step,
         warmup_cosine_schedule)
-    with open(FINE_TUNE_CONFIG) as f:
+    with open(config or FINE_TUNE_CONFIG) as f:
         ft = json.load(f)
     seq = int(ft["MAX_SEQ_LENGTH"])
     if cfg is None:
         cfg = dataclasses.replace(
-            llama3_8b(dtype="bfloat16", param_dtype="bfloat16", remat=True),
+            preset_for_model_id(ft["MODEL_ID"], dtype="bfloat16",
+                                param_dtype="bfloat16", remat=True),
             max_seq_len=seq)
-    plan = ExecutionPlan.resolve(config=ft, env={})
+    plan = ExecutionPlan.resolve(config=ft, env={}, **plan_overrides)
     micro = int(ft["PER_DEVICE_TRAIN_BATCH_SIZE"])
     batch_rows = micro * plan.grad_accum
     # the job's length: NUM_TRAIN_SAMPLES over the global batch
@@ -699,24 +894,42 @@ def _fine_tune_setup(dev, cfg, n_batches):
                               plan=plan, device=dev)
     torch.cuda.synchronize()
     rng = np.random.default_rng(1234)
-    batches = [_sft_batch(batch_rows, seq, cfg.vocab_size, rng)
+    make = _packed_batch if ft.get("PACKING") else _sft_batch
+    batches = [make(batch_rows, seq, cfg.vocab_size, rng)
                for _ in range(n_batches)]
     return dict(cfg=cfg, ft=ft, plan=plan, lcfg=lcfg, micro=micro,
                 batch_rows=batch_rows, seq=seq, state=state, step_fn=step_fn,
                 batches=batches, init_s=time.perf_counter() - t0)
 
 
-def phase_train(dev, cfg=None, steps: int = 5):
-    """QLoRA fine-tune steps of Llama-3.1-8B at full width and depth, with
-    the settings of ray-jobs/fine_tune_config.json: NF4 base, LoRA r 64 /
-    alpha 16 / dropout 0.1 on all projections, microbatch 2 x grad-accum
-    4 at 1024 tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and
-    clip 0.3. One warm-up step, then ``steps`` timed ones; the launch
-    counts of the three kernels are read over the timed steps."""
+def expected_launches(cfg, grad_accum: int, fused_ops: bool) -> dict:
+    """Kernel launches of one train step: under remat each block's
+    forward runs twice (forward and recomputation), its backward once.
+    Per layer and microbatch: flash forward once a forward, dQ and dK/dV
+    once; with ``fused_ops`` the 2 (4 with post-block norms) rms_norms
+    once a forward (their backward is plain torch) and the RoPE once a
+    forward and once in the backward."""
+    runs = 2 if cfg.remat else 1
+    lm = cfg.n_layers * grad_accum
+    norms = 4 if cfg.post_block_norm else 2
+    return {"flash_fwd": runs * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm,
+            "fused_rmsnorm": norms * runs * lm if fused_ops else 0,
+            "fused_rope_qk": (runs + 1) * lm if fused_ops else 0}
+
+
+def phase_train(dev, cfg=None, steps: int = 5, config=None,
+                phase: str = "train", **plan_overrides):
+    """QLoRA fine-tune steps at full width and depth with the settings of
+    a job config; by default Llama-3.1-8B with
+    ray-jobs/fine_tune_config.json: NF4 base, LoRA r 64 / alpha 16 /
+    dropout 0.1 on all projections, microbatch 2 x grad-accum 4 at 1024
+    tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and clip 0.3.
+    One warm-up step, then ``steps`` timed ones; the launch counts of the
+    kernels are read over the timed steps."""
     import torch
     from gke_ray_train_tpu_torch.train import (
         peak_flops_per_device, train_flops_per_token)
-    job = _fine_tune_setup(dev, cfg, steps + 1)
+    job = _fine_tune_setup(dev, cfg, steps + 1, config, **plan_overrides)
     cfg, ft, plan, lcfg = job["cfg"], job["ft"], job["plan"], job["lcfg"]
     micro, batch_rows, seq = job["micro"], job["batch_rows"], job["seq"]
     state, step_fn, batches = job["state"], job["step_fn"], job["batches"]
@@ -733,8 +946,8 @@ def phase_train(dev, cfg=None, steps: int = 5):
         return st, m, time.perf_counter() - t
 
     state, m, warm_s = one(batches[0])
-    emit({"phase": "train_step", "step": 0, "warmup": True, "seconds": warm_s,
-          **m})
+    emit({"phase": f"{phase}_step", "step": 0, "warmup": True,
+          "seconds": warm_s, **m})
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
     times, rows = [], [m]
@@ -742,12 +955,10 @@ def phase_train(dev, cfg=None, steps: int = 5):
         state, m, dt = one(batches[i])
         times.append(dt)
         rows.append(m)
-        emit({"phase": "train_step", "step": i, "seconds": dt, **m})
+        emit({"phase": f"{phase}_step", "step": i, "seconds": dt, **m})
     launches = _launch_counts()
     per_step = {k: v / steps for k, v in launches.items()}
-    want = {"flash_fwd": 2 * cfg.n_layers * plan.grad_accum,
-            "flash_bwd_dq": cfg.n_layers * plan.grad_accum,
-            "flash_bwd_dkv": cfg.n_layers * plan.grad_accum}
+    want = expected_launches(cfg, plan.grad_accum, plan.fused_ops)
     p50 = sorted(times)[len(times) // 2]
     tokens = batch_rows * seq
     name = torch.cuda.get_device_name(dev)
@@ -760,10 +971,12 @@ def phase_train(dev, cfg=None, steps: int = 5):
         problems.append(f"launches per step {per_step} != {want}")
     if torch.equal(before, watch.detach()):
         problems.append("the adapters did not change")
-    row = {"phase": "train", "ok": not problems, "problems": problems,
+    row = {"phase": phase, "ok": not problems, "problems": problems,
+           "nvidia_smi": nvidia_smi_line(),
            "model": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": cfg.param_count(), "dtype": cfg.dtype,
+           "fused_ops": plan.fused_ops, "packed": bool(ft.get("PACKING")),
            "quant": ft["QUANT_KIND"], "lora_r": lcfg.r,
            "lora_alpha": lcfg.alpha, "lora_dropout": lcfg.dropout,
            "trainable_params": sum(
@@ -783,19 +996,34 @@ def phase_train(dev, cfg=None, steps: int = 5):
            "grad_norms": [r["grad_norm"] for r in rows]}
     emit(row)
     if problems:
-        raise SystemExit("train phase failed: " + "; ".join(problems))
+        raise SystemExit(f"{phase} phase failed: " + "; ".join(problems))
     del state
     torch.cuda.empty_cache()
-    return launches
+    # the launches of the kernels this path runs
+    return {k: n for k, n in launches.items() if want[k]}
 
 
-def phase_train_profile(dev, cfg=None):
+def phase_train_fused(dev, cfg=None, steps: int = 2):
+    """QLoRA steps of Gemma-2-9B at full width and depth (42 layers, d_model
+    3,584, vocab 256,128, head dim 256) with the settings of
+    ray-jobs/fine_tune_config_gemma2_4k.json plus FUSED_OPS=1: NF4 base,
+    LoRA r 32 / alpha 16 / dropout 0.05, microbatch 1 x grad-accum 4 at
+    4,096 tokens of packed documents, AdamW (lr 2e-4, wd 0.001),
+    warmup-cosine, clip 0.3. The job's v5e-16 mesh becomes one card and
+    its ATTN_IMPL a2a the flash kernels (``auto``)."""
+    return phase_train(dev, cfg, steps, config=GEMMA2_CONFIG,
+                       phase="train_fused", fused_ops=True)
+
+
+def phase_train_profile(dev, cfg=None, config=None,
+                        phase: str = "train_profile", **plan_overrides):
     """Where a QLoRA step's time goes: torch.profiler over one step of the
-    train phase's job after one warm-up step. Device busy share = summed
-    kernel time over the step's wall time (one stream)."""
+    train phase's job (or ``config``'s) after one warm-up step. Device
+    busy share = summed kernel time over the step's wall time (one
+    stream)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    job = _fine_tune_setup(dev, cfg, 2)
+    job = _fine_tune_setup(dev, cfg, 2, config, **plan_overrides)
     state, step_fn = job["state"], job["step_fn"]
     state, m = step_fn(state, job["batches"][0])
     float(m["loss"])
@@ -816,6 +1044,7 @@ def phase_train_profile(dev, cfg=None):
     busy_us = sum(e.self_device_time_total for e in kern)
     groups = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
               "flash_kernels": ("flash_fwd", "flash_bwd"),
+              "fused_norm_rope": ("rmsnorm_kernel", "rope_qk_kernel"),
               "nf4_lookup": ("index_elementwise",)}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for e in kern:
@@ -823,7 +1052,7 @@ def phase_train_profile(dev, cfg=None):
                   if any(k in e.key for k in keys)), "other")
         by_group[g] += e.self_device_time_total / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:25]
-    emit({"phase": "train_profile", "ok": busy_us > 0, "wall_s": wall,
+    emit({"phase": phase, "ok": busy_us > 0, "wall_s": wall,
           "device_busy_s": busy_us / 1e6,
           "device_busy_share": busy_us / 1e6 / wall,
           "kernel_launches": sum(e.count for e in kern),
@@ -832,19 +1061,26 @@ def phase_train_profile(dev, cfg=None):
                            "ms": e.self_device_time_total / 1e3,
                            "calls": e.count} for e in top]})
     if busy_us <= 0:
-        raise SystemExit("train_profile phase: the trace shows no device "
-                         "time")
+        raise SystemExit(f"{phase} phase: the trace shows no device time")
     del state, job
     torch.cuda.empty_cache()
+
+
+def phase_train_fused_profile(dev, cfg=None):
+    """The profile of ``phase_train_profile`` over one step of the
+    train_fused phase's job."""
+    phase_train_profile(dev, cfg, GEMMA2_CONFIG, phase="train_fused_profile",
+                        fused_ops=True)
 
 
 # ---------------------------------------------------------------------------
 # phase 7: train-parity
 # ---------------------------------------------------------------------------
 
-def _train_run(cfg, mode, impl, dev, steps, batches):
+def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False):
     """``steps`` steps of full fine-tuning or QLoRA with attention
-    through ``impl``; returns the metric streams and the change each
+    through ``impl`` (and the fused rms_norm / RoPE kernels with
+    ``fused_ops``); returns the metric streams and the change each
     trained tensor underwent."""
     import torch
     from gke_ray_train_tpu_torch.models import init_params
@@ -864,7 +1100,7 @@ def _train_run(cfg, mode, impl, dev, steps, batches):
     start = [t.detach().clone() for _, t in
              trainable_tensors(state.params, state.lora)]
     fn = make_train_step(cfg, spec, lora_cfg=lcfg, grad_accum=2,
-                         schedule=sched, device=dev)
+                         schedule=sched, fused_ops=fused_ops, device=dev)
     streams = {"loss": [], "grad_norm": []}
     for b in batches[:steps]:
         state, m = fn(state, b)
@@ -875,6 +1111,40 @@ def _train_run(cfg, mode, impl, dev, steps, batches):
     del state, params, start
     torch.cuda.empty_cache()
     return streams, deltas
+
+
+def _parity_runs(cfg, dev, steps, batches, kernel, plain):
+    """For QLoRA and full fine-tuning: the ``kernel`` run (keyword
+    arguments of ``_train_run``) against the ``plain`` one — relative
+    errors of the loss / grad_norm streams, the relative error of the
+    trained tensors' change, and the kernel run's launches against
+    ``expected_launches`` (2 microbatches a step)."""
+    import torch
+    rows, ok = [], True
+    for mode in ("qlora", "full"):
+        before = _launch_counts()
+        got, d_got = _train_run(cfg, mode, dev=dev, steps=steps,
+                                batches=batches, **kernel)
+        used = {k: v - before[k] for k, v in _launch_counts().items()}
+        ref, d_ref = _train_run(cfg, mode, dev=dev, steps=steps,
+                                batches=batches, **plain)
+        num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(d_got, d_ref))
+        den = sum(float(torch.sum(b ** 2)) for b in d_ref)
+        delta_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+        rel = {k: max(abs(a - b) / abs(b) for a, b in zip(got[k], ref[k]))
+               for k in got}
+        want = {k: v * steps for k, v in expected_launches(
+            cfg, 2, kernel.get("fused_ops", False)).items()}
+        row_ok = (all(v <= TRAIN_PARITY_RTOL for v in rel.values())
+                  and delta_rel <= TRAIN_PARITY_DELTA_RTOL
+                  and used == want
+                  and all(np.isfinite(got["loss"] + ref["loss"])))
+        ok = ok and row_ok
+        rows.append({"mode": mode, "ok": row_ok, "kernel_run": got,
+                     "plain_run": ref, "max_rel_err": rel,
+                     "delta_rel_err": delta_rel, "launches": used})
+        del d_got, d_ref
+    return rows, ok
 
 
 def phase_train_parity(dev, cfg=None, steps: int = 3):
@@ -893,36 +1163,46 @@ def phase_train_parity(dev, cfg=None, steps: int = 3):
     rng = np.random.default_rng(77)
     batches = [_sft_batch(2, cfg.max_seq_len, cfg.vocab_size, rng)
                for _ in range(steps)]
-    rows, ok = [], True
-    for mode in ("qlora", "full"):
-        before = _launch_counts()
-        flash, d_flash = _train_run(cfg, mode, "flash", dev, steps, batches)
-        used = {k: v - before[k] for k, v in _launch_counts().items()}
-        dense, d_dense = _train_run(cfg, mode, "xla", dev, steps, batches)
-        num = sum(float(torch.sum((a - b) ** 2))
-                  for a, b in zip(d_flash, d_dense))
-        den = sum(float(torch.sum(b ** 2)) for b in d_dense)
-        delta_rel = (num / den) ** 0.5 if den > 0 else float("inf")
-        rel = {k: max(abs(a - b) / abs(b) for a, b in
-                      zip(flash[k], dense[k])) for k in flash}
-        want = {"flash_fwd": 4 * cfg.n_layers * steps,
-                "flash_bwd_dq": 2 * cfg.n_layers * steps,
-                "flash_bwd_dkv": 2 * cfg.n_layers * steps}
-        row_ok = (all(v <= TRAIN_PARITY_RTOL for v in rel.values())
-                  and delta_rel <= TRAIN_PARITY_DELTA_RTOL
-                  and used == want
-                  and all(np.isfinite(flash["loss"] + dense["loss"])))
-        ok = ok and row_ok
-        rows.append({"mode": mode, "ok": row_ok, "flash": flash,
-                     "dense": dense, "max_rel_err": rel,
-                     "delta_rel_err": delta_rel, "flash_launches": used})
-        del d_flash, d_dense
+    rows, ok = _parity_runs(cfg, dev, steps, batches, dict(impl="flash"),
+                            dict(impl="xla"))
     emit({"phase": "train_parity", "ok": ok, "dtype": "float32",
           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "steps": steps,
+          "kernel_run": "flash", "plain_run": "xla",
           "tol_streams_rel": TRAIN_PARITY_RTOL,
           "tol_delta_rel": TRAIN_PARITY_DELTA_RTOL, "runs": rows})
     if not ok:
         raise SystemExit("train-parity phase failed")
+
+
+def phase_train_fused_parity(dev, cfg=None, steps: int = 3):
+    """fp32 (TF32 off), Gemma-2 at full width and 4 layers, dropout 0,
+    packed rows of 1,024 tokens: QLoRA and full fine-tuning with
+    FUSED_OPS=1 against FUSED_OPS=0, attention through the flash kernels
+    on both sides, hold each other's loss and grad_norm streams (the
+    1e-4 relative bound of the JAX package's tests/test_overlap.py) and
+    trained tensors."""
+    import torch
+    from gke_ray_train_tpu_torch.models import gemma2_9b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg is None:
+        cfg = dataclasses.replace(
+            gemma2_9b(dtype="float32", param_dtype="float32", remat=True),
+            max_seq_len=1024, n_layers=4)
+    rng = np.random.default_rng(78)
+    batches = [_packed_batch(2, cfg.max_seq_len, cfg.vocab_size, rng)
+               for _ in range(steps)]
+    rows, ok = _parity_runs(cfg, dev, steps, batches,
+                            dict(impl="flash", fused_ops=True),
+                            dict(impl="flash", fused_ops=False))
+    emit({"phase": "train_fused_parity", "ok": ok, "dtype": "float32",
+          "model": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "steps": steps,
+          "kernel_run": "FUSED_OPS=1", "plain_run": "FUSED_OPS=0",
+          "tol_streams_rel": TRAIN_PARITY_RTOL,
+          "tol_delta_rel": TRAIN_PARITY_DELTA_RTOL, "runs": rows})
+    if not ok:
+        raise SystemExit("train-fused-parity phase failed")
 
 
 # ---------------------------------------------------------------------------
@@ -981,8 +1261,9 @@ def phase_profile(dev, steps: int = 10):
 # ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "serve", "parity", "train",
-          "train_parity", "profile", "train_profile")
-DEFAULT_PHASES = PHASES[:-2]
+          "train_parity", "train_fused", "train_fused_parity", "profile",
+          "train_profile", "train_fused_profile")
+DEFAULT_PHASES = PHASES[:-3]
 
 KERNEL_SOURCES = {
     "flash_fwd": ("gke_ray_train_tpu_torch/csrc/flash_fwd.cu",
@@ -991,6 +1272,10 @@ KERNEL_SOURCES = {
                      "gke_ray_train_tpu/ops/flash_attention.py:303"),
     "flash_bwd_dkv": ("gke_ray_train_tpu_torch/csrc/flash_bwd.cu",
                       "gke_ray_train_tpu/ops/flash_attention.py:339"),
+    "fused_rmsnorm": ("gke_ray_train_tpu_torch/csrc/fused_norm_rope.cu",
+                      "gke_ray_train_tpu/ops/fused_norm_rope.py:96"),
+    "fused_rope_qk": ("gke_ray_train_tpu_torch/csrc/fused_norm_rope.cu",
+                      "gke_ray_train_tpu/ops/fused_norm_rope.py:103"),
 }
 
 
@@ -998,7 +1283,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but the two profiles)")
+                    + " (default: all but the three profiles)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1047,9 +1332,15 @@ def main(argv=None) -> int:
     run("parity", phase_parity)
     add(run("train", phase_train))
     run("train_parity", phase_train_parity)
+    add(run("train_fused", phase_train_fused))
+    run("train_fused_parity", phase_train_fused_parity)
     run("profile", phase_profile)
     run("train_profile", phase_train_profile)
+    run("train_fused_profile", phase_train_fused_profile)
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
+    idle = sorted(name for name, n in launches.items() if n == 0)
+    if idle:
+        raise SystemExit(f"kernels of a driven path never launched: {idle}")
 
     entries = []
     for name, (source, replaces) in KERNEL_SOURCES.items():

@@ -43,6 +43,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     # entry) or dk, dv (dkv entry)
     "flash_bwd": {"flash_bwd_dq": (_P,) * 11 + _FLASH_TAIL,
                   "flash_bwd_dkv": (_P,) * 12 + _FLASH_TAIL},
+    # fused_rmsnorm: x, scale, y, rows, D, dtype, scale dtype, eps,
+    # scale_plus_one, stream; fused_rope_qk: q, k, positions, inv_freqs,
+    # out q, out k, B, S, H, K, dh, dtype, stream
+    "fused_norm_rope": {"fused_rmsnorm": (_P,) * 3 + (_I,) * 4
+                        + (_F, _I, _P),
+                        "fused_rope_qk": (_P,) * 6 + (_I,) * 6 + (_P,)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -15,8 +15,10 @@ base, ``ops/quant.py``), dequantized at use. ``forward`` is
 differentiable: with ``cfg.remat`` each repeat of the block pattern runs
 under ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of
 ``repeat_body``), and LoRA dropout draws its masks from explicit
-generators so a recomputed block redraws the same masks. The pipeline
-and mesh paths of the JAX ``forward`` belong to later slices.
+generators so a recomputed block redraws the same masks. With
+``fused_ops`` the blocks' rms_norms and q/k RoPE run through the fused
+kernels (``ops/fused_norm_rope.py``). The pipeline and mesh paths of the
+JAX ``forward`` belong to later slices.
 """
 
 from __future__ import annotations
@@ -263,6 +265,27 @@ def _drop_kw(name: str, drop_rate: float, drop_seed: Optional[int]) -> dict:
                 drop_seed=dropout_seed(drop_seed, _DROP_TAGS[name]))
 
 
+def _rms_norm(x, scale, *, eps: float, scale_plus_one: bool,
+              fused_ops: bool = False) -> torch.Tensor:
+    """rms_norm, through the fused kernel when the plan asks for it
+    (``FUSED_OPS``, ``ops/fused_norm_rope.py``)."""
+    if fused_ops:
+        from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+            fused_rmsnorm)
+        return fused_rmsnorm(x, scale, eps=eps, scale_plus_one=scale_plus_one)
+    return rms_norm(x, scale, eps=eps, scale_plus_one=scale_plus_one)
+
+
+def _apply_rope_qk(q, k, positions, rope, fused_ops: bool = False):
+    """RoPE on the projected q and k: one fused kernel launch when the
+    plan asks for it, else two ``ops/rope.py`` passes."""
+    if fused_ops:
+        from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+            fused_rope_qk)
+        return fused_rope_qk(q, k, positions, rope)
+    return apply_rope(q, positions, rope), apply_rope(k, positions, rope)
+
+
 def _mlp(x, lp: Block, cfg: ModelConfig, dtype, lora_p=None,
          lora_scale: float = 1.0, drop_rate: float = 0.0,
          drop_seed: Optional[int] = None):
@@ -283,7 +306,7 @@ def _mlp(x, lp: Block, cfg: ModelConfig, dtype, lora_p=None,
 def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
           positions, mask, window, segment_ids, lora_p=None,
           lora_scale: float = 1.0, drop_rate: float = 0.0,
-          drop_seed: Optional[int] = None):
+          drop_seed: Optional[int] = None, fused_ops: bool = False):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, K = cfg.n_heads, cfg.n_kv_heads
@@ -296,8 +319,7 @@ def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
     k = proj(x, "wk", lp.bk).reshape(B, S, K, hd)
     v = proj(x, "wv", lp.bv).reshape(B, S, K, hd)
     if rope is not None:
-        q = apply_rope(q, positions, rope)
-        k = apply_rope(k, positions, rope)
+        q, k = _apply_rope_qk(q, k, positions, rope, fused_ops=fused_ops)
     if impl == "xla":
         out = dot_product_attention(q, k, v, mask, scale=cfg.attn_scale,
                                     logit_softcap=cfg.attn_softcap)
@@ -315,21 +337,24 @@ def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
 
 def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
            positions, masks, segment_ids, lo, lora_scale: float,
-           drop_rate: float, drop_seed: Optional[int]):
-    eps, sp1 = cfg.norm_eps, cfg.norm_scale_plus_one
-    h = rms_norm(x, lp.attn_norm, eps=eps, scale_plus_one=sp1)
+           drop_rate: float, drop_seed: Optional[int], fused_ops: bool):
+    def norm(h, scale):
+        return _rms_norm(h, scale, eps=cfg.norm_eps,
+                         scale_plus_one=cfg.norm_scale_plus_one,
+                         fused_ops=fused_ops)
+    h = norm(x, lp.attn_norm)
     h = _attn(h, lp, cfg, impl, dtype, rope, positions, masks[lp.kind],
               cfg.sliding_window if lp.kind == "sliding" else None,
               segment_ids, lora_p=lo, lora_scale=lora_scale,
-              drop_rate=drop_rate, drop_seed=drop_seed)
+              drop_rate=drop_rate, drop_seed=drop_seed, fused_ops=fused_ops)
     if cfg.post_block_norm:
-        h = rms_norm(h, lp.attn_post_norm, eps=eps, scale_plus_one=sp1)
+        h = norm(h, lp.attn_post_norm)
     x = x + h
-    h = rms_norm(x, lp.mlp_norm, eps=eps, scale_plus_one=sp1)
+    h = norm(x, lp.mlp_norm)
     h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale,
              drop_rate=drop_rate, drop_seed=drop_seed)
     if cfg.post_block_norm:
-        h = rms_norm(h, lp.mlp_post_norm, eps=eps, scale_plus_one=sp1)
+        h = norm(h, lp.mlp_post_norm)
     return x + h
 
 
@@ -337,9 +362,12 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
                     positions, masks, segment_ids, *,
                     lora: Optional[Lora] = None, lora_scale: float = 1.0,
                     lora_dropout: float = 0.0,
-                    lora_seed: Optional[int] = None):
+                    lora_seed: Optional[int] = None,
+                    fused_ops: bool = False):
     """Run ``blocks`` (a sequence of ``Block``) over the residual stream
     ``x``; ``lora``, when given, holds one adapter dict per block.
+    ``fused_ops``: the norms and the q/k RoPE through the fused kernels;
+    under remat their Functions run again in the recomputation.
 
     With ``cfg.remat`` and autograd recording, each repeat of the block
     pattern is one ``torch.utils.checkpoint`` region (non-reentrant): its
@@ -363,7 +391,8 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
                        masks, segment_ids,
                        lora[i] if lora is not None else None, lora_scale,
                        lora_dropout,
-                       dropout_seed(lora_seed, i) if drop else None)
+                       dropout_seed(lora_seed, i) if drop else None,
+                       fused_ops)
         return x
 
     for first in range(0, len(blocks), P):
@@ -418,12 +447,16 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             lora_scale: float = 1.0,
             lora_dropout: float = 0.0,
             lora_seed: Optional[int] = None,
+            fused_ops: bool = False,
             return_pre_unembed: bool = False) -> torch.Tensor:
     """tokens [B, S] integer → logits [B, S, vocab] float32. Runs on the
     device the params and tokens lie on.
 
     ``lora_dropout`` / ``lora_seed``: adapter-input dropout, active only
     when both are given (and ``lora``); inference passes neither.
+    ``fused_ops``: the blocks' rms_norms and q/k RoPE through the fused
+    kernels (plan knob ``FUSED_OPS``); the final norm stays the plain op,
+    as in the JAX package.
     ``return_pre_unembed``: return the final-normed hidden state
     [B, S, D] instead of the logits."""
     B, S = tokens.shape
@@ -447,7 +480,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
                                 else None))
     x = run_block_stack(x, params.blocks, cfg, impl, dtype, rope, positions,
                         masks, segment_ids, lora=lora, lora_scale=lora_scale,
-                        lora_dropout=lora_dropout, lora_seed=lora_seed)
+                        lora_dropout=lora_dropout, lora_seed=lora_seed,
+                        fused_ops=fused_ops)
     if return_pre_unembed:
         return pre_unembed(x, params, cfg)
     return _unembed(x, params, cfg, dtype)

@@ -1,11 +1,12 @@
 """The ported fields of the execution plan (counterpart of the serving
 part and of ``grad_accum`` in ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Four knobs, read from the same environment / config keys as the JAX
+Five knobs, read from the same environment / config keys as the JAX
 package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
-(whole-prompt prefill reuse) and ``GRADIENT_ACCUMULATION_STEPS``
-(microbatches per optimizer step).
+(whole-prompt prefill reuse), ``GRADIENT_ACCUMULATION_STEPS``
+(microbatches per optimizer step) and ``FUSED_OPS`` (the train step's
+fused rms_norm / q-k RoPE kernels).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ CONFIG_KEYS: Dict[str, str] = {
     "decode_buckets": "DECODE_BUCKETS",
     "prefix_cache": "PREFIX_CACHE",
     "grad_accum": "GRADIENT_ACCUMULATION_STEPS",
+    "fused_ops": "FUSED_OPS",
 }
 
 
@@ -36,7 +38,7 @@ def _coerce(field: str, value: Any) -> Any:
             return int(value)
         except (TypeError, ValueError):
             raise PlanError(f"{field}={value!r} is not an int") from None
-    if field == "prefix_cache":
+    if field in ("prefix_cache", "fused_ops"):
         if isinstance(value, (bool, int, float)):
             return bool(value)
         s = str(value).strip().lower()
@@ -44,7 +46,7 @@ def _coerce(field: str, value: Any) -> Any:
             return True
         if s in ("0", "false", "no", "off", ""):
             return False
-        raise PlanError(f"prefix_cache={value!r} is not a boolean")
+        raise PlanError(f"{field}={value!r} is not a boolean")
     if field == "decode_buckets":
         toks = (value if isinstance(value, (list, tuple))
                 else str(value).split(","))
@@ -74,6 +76,10 @@ class ExecutionPlan:
     prefix_cache: bool = False
     # microbatches accumulated per optimizer step (train/step.py)
     grad_accum: int = 1
+    # the train step's rms_norms and q/k RoPE through the fused kernels
+    # (ops/fused_norm_rope.py); the JAX step would also fuse the
+    # cross-entropy where the config has no logit softcap
+    fused_ops: bool = False
 
     def __post_init__(self):
         if self.max_batch < 1:

@@ -5,8 +5,12 @@ run in sequence; each microbatch's summed token NLL is back-propagated,
 its gradients accumulating in ``.grad``; the sum is then divided by the
 total token weight (the exact mean: ``nll_sum / w_sum``, gradients times
 ``1 / w_sum``), and the optimizer clips and updates. This is the JAX
-step's single-device case with ``fused_ops=False`` and no manual
-overlap: logits are materialized in fp32 and reduced by ``token_nll``.
+step's single-device case without manual overlap: logits are
+materialized in fp32 and reduced by ``token_nll``. ``FUSED_OPS`` routes
+the blocks' rms_norms and q/k RoPE through the fused kernels
+(``ops/fused_norm_rope.py``); on a config without a logit softcap the
+JAX step would also fuse the cross-entropy, which is not ported yet, so
+that case raises.
 
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
@@ -126,20 +130,24 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
 
     LoRA dropout masks are seeded per (step, microbatch, layer,
     projection), so a resumed run and the recomputation under remat draw
-    the same masks. ``FUSED_OPS``, manual overlap, meshes and MoE raise
-    ``NotImplementedError``."""
+    the same masks. ``fused_ops`` (or ``plan.fused_ops``, what the JAX
+    step reads) runs the fused rms_norm / RoPE kernels; with it, a config
+    without a logit softcap (where the JAX step fuses the cross-entropy),
+    manual overlap, meshes and MoE raise ``NotImplementedError``."""
     if grad_accum is _UNSET:
         grad_accum = plan.grad_accum if plan is not None else 1
+    fused_ops = fused_ops or (plan is not None and plan.fused_ops)
     if mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP queue 1, multi-GPU)")
     if cfg.n_experts:
         raise NotImplementedError(
             "MoE training is not ported yet (ROADMAP queue 1)")
-    if fused_ops:
+    if fused_ops and cfg.logit_softcap is None:
         raise NotImplementedError(
-            "FUSED_OPS=1 (fused cross-entropy, fused rms_norm / RoPE) is "
-            "not ported yet: ROADMAP queue 2 rows 4-8")
+            "FUSED_OPS=1 on a config without a logit softcap runs fused "
+            "cross-entropy (ops/fused_ce.py) in the JAX step, which is not "
+            "ported yet: ROADMAP queue 2 rows 4-6")
     if overlap == "manual":
         raise NotImplementedError(
             "OVERLAP=manual (the shard_map microbatch pipeline) is not "
@@ -175,7 +183,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                 segment_ids=micro.get("segment_ids"),
                 lora=state.lora,
                 lora_scale=lora_cfg.scale if lora_mode else 1.0,
-                lora_dropout=drop, lora_seed=seed)
+                lora_dropout=drop, lora_seed=seed, fused_ops=fused_ops)
             nll, w = token_nll(logits, micro["targets"], micro["weights"])
             del logits
             nll.backward()

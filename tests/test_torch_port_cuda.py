@@ -14,7 +14,12 @@ bf16) and 1e-4 for lse (fp32 from unrounded probabilities). The
 backward kernels against ``flash_attention_bwd_reference``: max |error|
 of dq, dk, dv relative to max(1, max |reference|), 1e-4 in float32 and
 2e-2 in bfloat16 (P and dS round to bf16 at the same points on both
-sides; a last-bit fp32 difference may round either way).
+sides; a last-bit fp32 difference may round either way). The fused
+rms_norm and q/k RoPE kernels against their plain versions: max |error|
+relative to max(1, max |reference|), 1e-5 in float32 and 8e-3 in
+bfloat16 (both sides compute in fp32 and round once; the fp32 sum order
+and ``rsqrtf`` may move the last bit, which can round a bf16 output to
+its neighbour).
 """
 
 import dataclasses
@@ -29,6 +34,9 @@ from gke_ray_train_tpu_torch.models import (
 from gke_ray_train_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_reference, flash_attention_reference,
     flash_bwd_dkv, flash_bwd_dq)
+from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+    fused_rmsnorm, fused_rmsnorm_reference, fused_rope_qk,
+    fused_rope_qk_reference)
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.serve import (
     BatchEngine, Request, form_prompt_buffer)
@@ -217,3 +225,86 @@ def test_qlora_step_at_full_width_on_card(dev):
             flash_bwd_dq.launches - before[1],
             flash_bwd_dkv.launches - before[2]) == (8, 4, 4)
     assert not torch.equal(b0, state.lora[1]["w_down"]["b"].detach())
+
+
+FUSED_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _close(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= \
+        FUSED_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 3584, 4096, 100])
+def test_fused_rmsnorm_kernel_matches_plain_version(dev, D, dtype):
+    """Rows that no block size divides, D that is not a power of two (and
+    one that no 16-byte vector divides), both scale parameterizations;
+    the gradient reaches x and scale."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((3, 37, D), generator=g, device=dev).to(dtype)
+    for sp1 in (False, True):
+        s = (torch.randn((D,), generator=g, device=dev) * 0.1
+             + (0.0 if sp1 else 1.0)).to(dtype)
+        before = fused_rmsnorm.launches
+        y = fused_rmsnorm(x, s, eps=1e-6, scale_plus_one=sp1)
+        torch.cuda.synchronize()
+        assert fused_rmsnorm.launches == before + 1
+        _close(y, fused_rmsnorm_reference(x, s, eps=1e-6,
+                                          scale_plus_one=sp1), dtype)
+    xg = x.clone().requires_grad_(True)
+    sg = s.clone().requires_grad_(True)
+    fused_rmsnorm(xg, sg, eps=1e-6, scale_plus_one=True).float().square(
+        ).sum().backward()
+    assert bool(torch.isfinite(xg.grad.float()).all())
+    assert sg.grad is not None and sg.grad.dtype == dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 128, 4, 2, 32), (1, 4096, 16, 8, 256),
+                                   (2, 1024, 32, 8, 128), (1, 50, 2, 1, 6)])
+def test_fused_rope_qk_kernel_matches_plain_version(dev, shape, dtype):
+    """Packed positions that restart, and positions up to 8,191; the
+    negated-frequency launch (the backward) against the plain version
+    and as the inverse rotation."""
+    B, S, H, K, dh = shape
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((B, S, H, dh), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, K, dh), generator=g, device=dev).to(dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    pos[:, S // 3:] -= S // 3                    # a second document
+    tail = S - 2 * S // 3                        # then positions to 8,191
+    pos[-1, -tail:] = torch.randint(0, 8192, (tail,), generator=g,
+                                    device=dev, dtype=torch.int32)
+    freqs = (1.0 / 10000.0 ** (torch.arange(0, dh, 2, dtype=torch.float64)
+                               / dh)).float().to(dev)
+    before = fused_rope_qk.launches
+    oq, ok = fused_rope_qk(q, k, pos, freqs)
+    bq, bk = fused_rope_qk(oq, ok, pos, -freqs)
+    torch.cuda.synchronize()
+    assert fused_rope_qk.launches == before + 2
+    for got, want in zip((oq, ok), fused_rope_qk_reference(q, k, pos, freqs)):
+        _close(got, want, dtype)
+    for got, want in zip((bq, bk),
+                         fused_rope_qk_reference(oq, ok, pos, -freqs)):
+        _close(got, want, dtype)
+    if dtype == torch.float32:
+        _close(bq, q, dtype)
+        _close(bk, k, dtype)
+
+
+def test_fused_kernels_refuse_what_they_cannot_take(dev):
+    x = torch.zeros((4, 64, 8), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_rmsnorm(x.transpose(1, 2), torch.ones(4, device=dev))
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        fused_rmsnorm(x.half(), torch.ones(8, device=dev))
+    q = torch.zeros((1, 16, 4, 8), device=dev)
+    pos = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    f = torch.ones(4, device=dev)
+    with pytest.raises(ValueError, match="k:"):
+        fused_rope_qk(q, q.bfloat16(), pos, f)
+    with pytest.raises(ValueError, match="inv_freqs"):
+        fused_rope_qk(q, q, pos, f.double())

@@ -48,7 +48,8 @@ def test_every_module_imports_with_jax_blocked():
     fails imports every module of the port."""
     mods = _modules()
     for m in ("serve.engine", "ops.quant", "models.qinit", "train.lora",
-              "train.optim", "train.metrics", "train.step", "interop"):
+              "train.optim", "train.metrics", "train.step", "interop",
+              "ops.fused_norm_rope", "data.packing"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
