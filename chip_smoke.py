@@ -15,7 +15,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              Llama training shape (the flash kernels) and the Gemma-2
              training shape (the fused kernels): device time from
              torch.profiler, per-call time between CUDA events beside it
-             at the serving shapes.
+             at the serving shapes. The flash kernels are also held and
+             timed at the Gemma-2 training shape (one packed row of
+             4,096, head dim 256, softcap, with and without the window).
 4. serve   — Llama-3.1-8B at full width and depth (bf16, random weights
              from a seed) through ``BatchEngine``: 24 requests over the
              256 and 512 buckets; the flash kernel must have run once per
@@ -173,6 +175,14 @@ def _attn_inputs(case, dev):
         seg = torch.cat([torch.full((third,), 1), torch.full((third,), 2),
                          torch.zeros(T - 2 * third)]).to(torch.int32)
         qs = ks = seg.to(dev).expand(B, T)
+    if case.get("packed_rows"):
+        # segment ids and positions of the train_fused phase's first
+        # packed rows (S = T)
+        from gke_ray_train_tpu_torch.models import gemma2_9b
+        rows = _packed_batch(B, T, gemma2_9b().vocab_size,
+                             np.random.default_rng(1234))
+        qs = ks = torch.as_tensor(rows["segment_ids"], device=dev)
+        qp = kp = torch.as_tensor(rows["positions"], device=dev)
     if case.get("masked_rows"):
         # rows 5..9 carry a segment no key has: they attend nothing
         qs = qs.clone()
@@ -220,6 +230,15 @@ SERVE_SHAPES = {f"llama3_8b_prefill_{n}": dict(B=1, S=n, T=n, H=32, K=8,
                 for n in (256, 512)}
 # the train phase's attention shape: Llama-3.1-8B, microbatch 2 x 1024
 TRAIN_SHAPE = dict(B=2, S=1024, T=1024, H=32, K=8, dh=128, dtype="bfloat16")
+# the train_fused phase's attention: Gemma-2-9B, one packed row of 4,096
+# (its segments and positions), bf16, softcap 50, scale 256^-0.5; the
+# sliding layers' window of 4,096 and the global layers' none
+GEMMA_ATTN_SHAPE = dict(B=1, S=4096, T=4096, H=16, K=8, dh=256,
+                        dtype="bfloat16", softcap=50.0, packed_rows=True)
+GEMMA_ATTN_CASES = {
+    "gemma2_9b_train_4096_sliding": dict(GEMMA_ATTN_SHAPE, window=4096),
+    "gemma2_9b_train_4096_global": GEMMA_ATTN_SHAPE,
+}
 
 
 def _check_case(name, case, dev):
@@ -430,6 +449,37 @@ def _time_train_shape(dev):
     return runs
 
 
+def _time_gemma_attn(dev):
+    """Device ms of the three kernels (the scalar head-dim-256 bodies) at
+    the train_fused phase's attention (the global layers' case of
+    GEMMA_ATTN_CASES; the sliding layers' window of 4,096 masks no pair
+    more on rows of documents up to 1,024 tokens), with the live pairs of
+    that packed row and each kernel's bound on them."""
+    from gke_ray_train_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_bwd_dkv, flash_bwd_dq)
+    q, k, v, kw = _attn_inputs(GEMMA_ATTN_CASES[
+        "gemma2_9b_train_4096_global"], dev)
+    mkw = _mask_kw(kw)
+    out, lse, do, dvec = _bwd_inputs(q, k, v, kw, 0)
+    args = (q, k, v, do, lse, dvec) + _mask_args(kw)
+    bounds = _bwd_bounds(q, k, v, kw)
+    bounds["flash_fwd"] = _bound_ms(q, k, v, kw)
+    fns = {"flash_fwd": lambda: flash_attention(q, k, v, **kw),
+           "flash_bwd_dq": lambda: flash_bwd_dq(*args, **mkw),
+           "flash_bwd_dkv": lambda: flash_bwd_dkv(*args, **mkw)}
+    pairs = _live_pairs(kw)
+    rows = {}
+    for name, fn in fns.items():
+        bound, by, nbytes, flops = bounds[name]
+        ms = device_ms(fn)
+        rows[name] = {"shape": "gemma2_9b_train_4096", "kernel_ms": ms,
+                      "bound_ms": bound, "bound_by": by, "flops": flops,
+                      "tflops_per_s": flops / ms / 1e9}
+    return {"live_pairs_per_head": pairs,
+            "all_causal_pairs": q.shape[1] * (q.shape[1] + 1) // 2,
+            "kernels": rows}
+
+
 # fused rms_norm cases: rows (3 x 37) that no block divides, D of the
 # small tests, Gemma-2 (3,584, not a power of two) and Llama (4,096)
 NORM_CASES = [dict(D=D, dtype=dt, scale_plus_one=sp1)
@@ -537,14 +587,18 @@ def _time_fused_gemma_shape(dev):
     s = (torch.randn((D,), generator=g, device=dev) * 0.1).to(bf)
     w = (1.0 + s.float()).to(bf)
     nkw = dict(eps=1e-6, scale_plus_one=True)
-    norm_err, _ = _rel_err(fused_rmsnorm(x, s, **nkw),
-                           fused_rmsnorm_reference(x, s, **nkw))
+    tol = FUSED_TOL["bfloat16"]
+    y = fused_rmsnorm(x, s, **nkw)
+    norm_err, norm_ref = _rel_err(y, fused_rmsnorm_reference(x, s, **nkw))
+    norm_ok = (norm_err <= tol * norm_ref
+               and bool(torch.isfinite(y.float()).all()))
     norm = _turns(lambda: fused_rmsnorm_reference(x, s, **nkw),
                   lambda: fused_rmsnorm(x, s, **nkw),
                   lambda: torch.nn.functional.rms_norm(x, (D,), w, 1e-6))
     nbytes = 2 * x.numel() * x.element_size() + D * s.element_size()
     flops = 4.0 * x.numel()          # square-add, x * r, times s
     norm.update({"shape": "gemma2_9b_train_4096", "max_abs_err": norm_err,
+                 "max_abs_ref": norm_ref, "tol_rel": tol, "ok": norm_ok,
                  "bytes": nbytes, "flops": flops,
                  "library": "torch.nn.functional.rms_norm"})
     norm["bound_ms"], norm["bound_by"] = _bound(nbytes, flops, torch.float32)
@@ -556,7 +610,10 @@ def _time_fused_gemma_shape(dev):
     f = _rope_freqs(dh, dev)
     got = fused_rope_qk(q, k, pos, f)
     want = fused_rope_qk_reference(q, k, pos, f)
-    rope_err = max(_rel_err(a, b)[0] for a, b in zip(got, want))
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    rope_err = max(e for e, _ in errs)
+    rope_ok = (all(e <= tol * r for e, r in errs)
+               and all(bool(torch.isfinite(a.float()).all()) for a in got))
     rope = _turns(lambda: fused_rope_qk_reference(q, k, pos, f),
                   lambda: fused_rope_qk(q, k, pos, f), None)
     nbytes = (2 * (q.numel() + k.numel()) * q.element_size()
@@ -565,7 +622,9 @@ def _time_fused_gemma_shape(dev):
     # as 2
     flops = 3.0 * (q.numel() + k.numel()) + 2.0 * B * S * dh // 2
     rope.update({"shape": "gemma2_9b_train_4096", "max_abs_err": rope_err,
-                 "bytes": nbytes, "flops": flops, "library": None})
+                 "max_abs_ref": max(r for _, r in errs), "tol_rel": tol,
+                 "ok": rope_ok, "bytes": nbytes, "flops": flops,
+                 "library": None})
     rope["bound_ms"], rope["bound_by"] = _bound(nbytes, flops, torch.float32)
     return {"fused_rmsnorm": norm, "fused_rope_qk": rope}
 
@@ -577,6 +636,9 @@ def phase_kernels(dev):
     rows = [_check_case(n, c, dev)[0] for n, c in KERNEL_CASES.items()]
     bwd_rows = [_check_bwd_case(n, c, dev) for n, c in KERNEL_CASES.items()]
     bwd_rows.append(_check_bwd_case("llama3_8b_train_1024", TRAIN_SHAPE, dev))
+    for n, c in GEMMA_ATTN_CASES.items():
+        rows.append(_check_case(n, c, dev)[0])
+        bwd_rows.append(_check_bwd_case(n, c, dev))
     timings = []
     for name, case in SERVE_SHAPES.items():
         row, (q, k, v, kw) = _check_case(name, case, dev)
@@ -617,12 +679,14 @@ def phase_kernels(dev):
                   "max_abs_err_out": row["max_abs_err_out"]})
         timings.append(t)
     train = _time_train_shape(dev)
+    gemma_attn = _time_gemma_attn(dev)
     fused_rows = _check_fused_cases(dev)
     fused = _time_fused_gemma_shape(dev)
-    ok = all(r["ok"] for r in rows + bwd_rows + fused_rows)
+    ok = all(r["ok"] for r in rows + bwd_rows + fused_rows
+             + list(fused.values()))
     emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
           "fused_cases": fused_rows, "timings": timings, "train_shape": train,
-          "gemma_train_shape": fused})
+          "gemma_train_shape": fused, "gemma_attn_shape": gemma_attn})
     if not ok:
         raise SystemExit("kernel phase: a case disagrees with the plain "
                          "version beyond its tolerance")
@@ -813,8 +877,12 @@ def _sft_batch(n_rows, seq, vocab, rng):
 
 def _packed_batch(n_rows, seq, vocab, rng):
     """``n_rows`` packed rows (``data/packing.py``) of random documents:
-    lengths 64-1,024 tokens, random ids, the first quarter of each a
-    prompt of loss weight 0."""
+    lengths uniform over 64-1,024 tokens, random ids, the first quarter
+    of each a prompt of loss weight 0. A stand-in mix: no length or
+    prompt-share statistic of the Gemma-2 job's dataset (tatsu-lab/alpaca
+    under the Gemma tokenizer) is in the repository, and the mix sets
+    how many documents share a row, so the share of attention tiles that
+    are live."""
     from gke_ray_train_tpu_torch.data import pack_examples
 
     def docs():
@@ -1085,6 +1153,7 @@ def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False):
     import torch
     from gke_ray_train_tpu_torch.models import init_params
     from gke_ray_train_tpu_torch.models import init_quantized_params
+    from gke_ray_train_tpu_torch.plan import ExecutionPlan
     from gke_ray_train_tpu_torch.train import (
         LoraConfig, make_optimizer, make_train_state, make_train_step,
         warmup_cosine_schedule)
@@ -1099,8 +1168,10 @@ def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False):
                              params=params, device=dev)
     start = [t.detach().clone() for _, t in
              trainable_tensors(state.params, state.lora)]
-    fn = make_train_step(cfg, spec, lora_cfg=lcfg, grad_accum=2,
-                         schedule=sched, fused_ops=fused_ops, device=dev)
+    fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=sched,
+                         plan=ExecutionPlan(grad_accum=2,
+                                            fused_ops=fused_ops),
+                         device=dev)
     streams = {"loss": [], "grad_norm": []}
     for b in batches[:steps]:
         state, m = fn(state, b)

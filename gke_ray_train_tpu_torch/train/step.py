@@ -114,8 +114,8 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                     mesh=None, lora_cfg: Optional[LoraConfig] = None,
                     grad_accum: Any = _UNSET,
                     schedule: Optional[Callable[[int], float]] = None,
-                    plan=None, fused_ops: bool = False,
-                    overlap: str = "off", device: DeviceLike = None
+                    plan=None, overlap: str = "off",
+                    device: DeviceLike = None
                     ) -> Callable[[TrainState, Batch], tuple]:
     """``(state, batch) -> (state, metrics)``.
 
@@ -130,13 +130,14 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
 
     LoRA dropout masks are seeded per (step, microbatch, layer,
     projection), so a resumed run and the recomputation under remat draw
-    the same masks. ``fused_ops`` (or ``plan.fused_ops``, what the JAX
-    step reads) runs the fused rms_norm / RoPE kernels; with it, a config
-    without a logit softcap (where the JAX step fuses the cross-entropy),
-    manual overlap, meshes and MoE raise ``NotImplementedError``."""
+    the same masks. ``plan.fused_ops`` (``FUSED_OPS``, read from the plan
+    only, as in the JAX step) runs the fused rms_norm / RoPE kernels; with
+    it, a config without a logit softcap (where the JAX step fuses the
+    cross-entropy), manual overlap, meshes and MoE raise
+    ``NotImplementedError``."""
     if grad_accum is _UNSET:
         grad_accum = plan.grad_accum if plan is not None else 1
-    fused_ops = fused_ops or (plan is not None and plan.fused_ops)
+    fused_ops = plan is not None and plan.fused_ops
     if mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP queue 1, multi-GPU)")

@@ -278,12 +278,11 @@ def test_train_step_refuses_what_is_not_ported():
     _, tc = _cfgs()
     spec = make_optimizer(0.1)
     # FUSED_OPS on a config without a logit softcap is the JAX step's
-    # fused cross-entropy, which is not ported: refused, from the kwarg
-    # or the plan, never run as the materialized-logits loss
+    # fused cross-entropy, which is not ported: refused, never run as the
+    # materialized-logits loss
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
     assert tc.logit_softcap is None
-    for kw, match in ((dict(fused_ops=True), "fused cross-entropy"),
-                      (dict(plan=ExecutionPlan(fused_ops=True)),
+    for kw, match in ((dict(plan=ExecutionPlan(fused_ops=True)),
                        "fused cross-entropy"),
                       (dict(overlap="manual"), "OVERLAP"),
                       (dict(mesh=object()), "mesh")):
