@@ -9,11 +9,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build   — compile every CUDA kernel of the port from ``csrc/`` with
              nvcc for sm_90a (all sources at once).
 3. kernels — hold each kernel (flash forward, dQ, dK/dV, fused rms_norm,
-             fused q/k RoPE) against its plain PyTorch version on the card
-             over the listed cases, and time kernel, plain version and the
-             PyTorch library call at the serving shapes (forward), the
-             Llama training shape (the flash kernels) and the Gemma-2
-             training shape (the fused kernels): device time from
+             fused q/k RoPE, fused cross-entropy row statistics, dx and
+             dhead) against its plain PyTorch version on the card over the
+             listed cases, and time kernel, plain version and the PyTorch
+             library call at the serving shapes (forward), the Llama
+             training shape (the flash and the cross-entropy kernels; for
+             the latter the unfused route, matmul_f32 then
+             F.cross_entropy, forward and backward) and the Gemma-2
+             training shape (the fused rms_norm / RoPE): device time from
              torch.profiler, per-call time between CUDA events beside it
              at the serving shapes. The flash kernels are also held and
              timed at the Gemma-2 training shape (one packed row of
@@ -49,6 +52,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              kernels, for QLoRA and full fine-tuning, 3 steps each on
              packed rows: loss / grad_norm streams and the trained tensors
              agree.
+10. train_fused_ce — the train phase's Llama-3.1-8B QLoRA job at full
+             width and depth with FUSED_OPS=1: the loss through the fused
+             cross-entropy (no [2 x 1,024, 128,256] fp32 logits); per step
+             row statistics and dx 4 times (dhead 0: the head is frozen),
+             the fused rms_norm 2 x 32 x 4 x 2 and RoPE 32 x 4 x 3 times.
+11. train_fused_ce_parity — float32, Llama at full width and 4 layers:
+             FUSED_OPS=1 against FUSED_OPS=0, both through the flash
+             kernels, QLoRA and full fine-tuning (where dhead launches and
+             the lm_head trains, held alike on both sides by the
+             trained-tensor check).
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -100,6 +113,18 @@ TRAIN_PARITY_DELTA_RTOL = 1e-3
 # round once; the fp32 sum order and rsqrtf may move the last fp32 bit,
 # which can round a bf16 output to its neighbour (2^-8 relative)
 FUSED_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+# fused cross-entropy kernels against their plain versions. "stats": lse
+# and the target logit, max |error| relative to max(1, max |reference|):
+# fp32 sums over D and the vocab in other orders (bf16 products are
+# exact in fp32). "grads": dx and dhead, max |error| relative to
+# max |reference|: bf16 rounds dl to bf16 (2^-9 relative) before the
+# products where the plain version keeps fp32, and both sides round the
+# outputs (a neighbour is 2^-7 relative). The one-hot term sets that
+# scale when labels are in range, so each case runs a second time with
+# every label out of range: dl is then the softmax term alone, held on
+# its own scale
+CE_TOL = {"float32": {"stats": 2e-5, "grads": 1e-4},
+          "bfloat16": {"stats": 1e-4, "grads": 1e-2}}
 
 
 def emit(obj) -> None:
@@ -387,16 +412,16 @@ def _bwd_bounds(q, k, v, kw):
     return out
 
 
-def _turns(plain, kernel, library):
+def _turns(plain, kernel, library, iters: int = 20):
     """Device ms in turns plain, kernel, kernel, plain, library (None
     where there is no library call), all on one timer."""
     fns = (plain, kernel, kernel, plain) + (
         (library,) if library is not None else ())
     profiled = TIMER_CALLS["cuda_events"] == 0
-    ms = [device_ms(f) for f in fns]
+    ms = [device_ms(f, iters) for f in fns]
     if profiled and TIMER_CALLS["cuda_events"]:
         # the profiler gave out part-way: every turn again on CUDA events
-        ms = [device_ms(f) for f in fns]
+        ms = [device_ms(f, iters) for f in fns]
     plain_a, kern_a, kern_b, plain_b = ms[:4]
     lib = ms[4] if library is not None else None
     return {"kernel_ms": min(kern_a, kern_b), "kernel_ms_runs": [kern_a,
@@ -648,6 +673,185 @@ def _time_fused_gemma_shape(dev):
     return {"fused_rmsnorm": norm, "fused_rope_qk": rope}
 
 
+# fused cross-entropy cases (N rows, D, V): ragged row tiles (300), the
+# hidden widths of the small tests, Gemma-2 and Llama, the vocab sizes of
+# Llama-2 / Mistral (32,000) and Llama-3 (128,256) and one no tile
+# divides; then odd D and V (no 16-byte rows), and V = 1
+CE_CASES = ([dict(N=300, D=D, V=V, dtype=dt)
+             for dt in ("float32", "bfloat16") for D in (64, 3584, 4096)
+             for V in (1000, 32000, 128256)]
+            + [dict(N=130, D=100, V=1001, dtype=dt)
+               for dt in ("float32", "bfloat16")]
+            + [dict(N=5, D=64, V=1, dtype="bfloat16")])
+# the train_fused_ce phase's microbatch: Llama-3.1-8B, 2 x 1,024 rows
+CE_LLAMA_SHAPE = dict(N=2048, D=4096, V=128256, dtype="bfloat16")
+
+
+def _ce_inputs(case, dev, seed=0, in_range=False):
+    """Hidden rows of unit scale, a head of std 0.05 (logits of std
+    0.05 sqrt(D): 0.4 at D 64, 3.2 at D 4,096), random labels and weights
+    in [0.5, 1.5]; unless ``in_range``, one label V + 5, one -1 and five
+    weight-0 rows."""
+    import torch
+    N, D, V = case["N"], case["D"], case["V"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dt = getattr(torch, case["dtype"])
+    x = torch.randn((N, D), generator=g, device=dev).to(dt)
+    head = (torch.randn((D, V), generator=g, device=dev) * 0.05).to(dt)
+    t = torch.randint(0, V, (N,), generator=g, device=dev, dtype=torch.int32)
+    w = torch.rand((N,), generator=g, device=dev) + 0.5
+    if not in_range:
+        t[min(3, N - 1)] = V + 5
+        t[N // 2] = -1
+        w[N // 3:N // 3 + 5] = 0.0
+    return x, head, t, w
+
+
+def _ce_errors(case, x, head, t, w):
+    """Each cross-entropy kernel against its plain version on these
+    inputs (dx and dhead from the plain version's lse), and dx and dhead
+    again with every label out of range (``..._softmax``: dl is the
+    softmax term alone): ({check: (max |error|, its scale, tolerance)},
+    the kernel's target logits, its dx)."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.fused_ce import (
+        fused_ce_dhead, fused_ce_dx, fused_ce_grads_reference,
+        fused_ce_row_stats, fused_ce_row_stats_reference)
+    tol = CE_TOL[case["dtype"]]
+
+    def err(got, want, floor):
+        e = float((got.float() - want.float()).abs().max())
+        if not bool(torch.isfinite(got.float()).all()):
+            e = float("inf")
+        return e, max(floor, float(want.float().abs().max()))
+    lse, tgt = fused_ce_row_stats(x, head, t)
+    ref_lse, ref_tgt = fused_ce_row_stats_reference(x, head, t)
+    (e_l, s_l), (e_t, s_t) = err(lse, ref_lse, 1.0), err(tgt, ref_tgt, 1.0)
+    errs = {"fused_ce_row_stats": (max(e_l, e_t), max(s_l, s_t),
+                                   tol["stats"])}
+    V = head.shape[1]
+    off = torch.where(torch.arange(len(t), device=t.device) % 2 == 0,
+                      V + 5, -1).to(torch.int32)
+    for labels, suffix in ((t, ""), (off, "_softmax")):
+        dx = fused_ce_dx(x, head, labels, w, ref_lse)
+        dh = fused_ce_dhead(x, head, labels, w, ref_lse)
+        torch.cuda.synchronize()
+        ref_dx, ref_dh = fused_ce_grads_reference(x, head, labels, w,
+                                                  ref_lse)
+        errs["fused_ce_dx" + suffix] = err(dx, ref_dx, 0.0) + (tol["grads"],)
+        errs["fused_ce_dhead" + suffix] = (err(dh, ref_dh, 0.0)
+                                           + (tol["grads"],))
+        if not suffix:
+            dx_labelled = dx
+        del dh, ref_dx, ref_dh
+    return errs, tgt, dx_labelled
+
+
+def _check_ce_cases(dev):
+    """The three cross-entropy kernels against their plain versions over
+    CE_CASES (dx and dhead also with the softmax term alone, see
+    ``_ce_errors``); out-of-range labels give a target logit of 0 and
+    weight-0 rows a dx of 0."""
+    import torch
+    rows = []
+    for c in CE_CASES:
+        x, head, t, w = _ce_inputs(c, dev)
+        errs, tgt, dx = _ce_errors(c, x, head, t, w)
+        row = {"kernel": "fused_ce", **c, "ok": True}
+        for name, (e, scale, tol) in errs.items():
+            row[f"max_abs_err_{name}"] = e
+            row[f"scale_{name}"] = scale
+            row[f"tol_rel_{name}"] = tol
+            row["ok"] = row["ok"] and e <= tol * scale
+        N = c["N"]
+        row["label_rule_ok"] = (float(tgt[min(3, N - 1)]) == 0.0
+                                and float(tgt[N // 2]) == 0.0)
+        row["weight0_ok"] = float(
+            dx[N // 3:N // 3 + 5].float().abs().max()) == 0.0
+        row["ok"] = row["ok"] and row["label_rule_ok"] and row["weight0_ok"]
+        rows.append(row)
+        del x, head, t, w, tgt, dx
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _time_ce_llama_shape(dev):
+    """The three cross-entropy kernels at the train_fused_ce phase's
+    microbatch (CE_LLAMA_SHAPE, in-range labels), each held against its
+    plain version (the bf16 kernels' dl rounding against fp32 dl; dx and
+    dhead also with the softmax term alone, see ``_ce_errors``) and
+    timed against it and against the unfused route: ``matmul_f32`` to
+    fp32 logits, then ``F.cross_entropy`` — two calls — forward (row
+    statistics) and its backward to x (dx) or to the head (dhead). Bounds:
+    each input read once and each output written once, against 2 N D V
+    bf16 FLOPs for the row statistics and 4 N D V (the recompute and the
+    gradient product) for dx and dhead."""
+    import torch
+    import torch.nn.functional as F
+    from gke_ray_train_tpu_torch.ops.fused_ce import (
+        fused_ce_dhead, fused_ce_dx, fused_ce_grads_reference,
+        fused_ce_row_stats, fused_ce_row_stats_reference)
+    from gke_ray_train_tpu_torch.ops.matmul import matmul_f32
+    case = CE_LLAMA_SHAPE
+    x, head, t, w = _ce_inputs(case, dev, seed=4, in_range=True)
+    errs = _ce_errors(case, x, head, t, w)[0]
+    lse, _ = fused_ce_row_stats(x, head, t)
+    N, D, V = case["N"], case["D"], case["V"]
+    tl = t.long()
+
+    def unfused_nll(xx, hh):
+        return torch.sum(F.cross_entropy(matmul_f32(xx, hh), tl,
+                                         reduction="none") * w)
+    xg = x.clone().requires_grad_(True)
+    hg = head.clone().requires_grad_(True)
+    nll_x = unfused_nll(xg, head)
+    nll_h = unfused_nll(x, hg)
+
+    def lib_fwd():
+        with torch.no_grad():
+            return unfused_nll(x, head)
+    runs = {
+        "fused_ce_row_stats": _turns(
+            lambda: fused_ce_row_stats_reference(x, head, t),
+            lambda: fused_ce_row_stats(x, head, t), lib_fwd, iters=5),
+        "fused_ce_dx": _turns(
+            lambda: fused_ce_grads_reference(x, head, t, w, lse),
+            lambda: fused_ce_dx(x, head, t, w, lse),
+            lambda: torch.autograd.grad(nll_x, xg, retain_graph=True),
+            iters=5),
+        "fused_ce_dhead": _turns(
+            lambda: fused_ce_grads_reference(x, head, t, w, lse),
+            lambda: fused_ce_dhead(x, head, t, w, lse),
+            lambda: torch.autograd.grad(nll_h, hg, retain_graph=True),
+            iters=5),
+    }
+    es = x.element_size()
+    ins = (N * D + D * V) * es + 4 * N
+    work = {"fused_ce_row_stats": (ins + 8 * N, 2.0 * N * D * V),
+            "fused_ce_dx": (ins + 8 * N + N * D * es, 4.0 * N * D * V),
+            "fused_ce_dhead": (ins + 8 * N + D * V * es, 4.0 * N * D * V)}
+    for name, r in runs.items():
+        nbytes, flops = work[name]
+        bound, by = _bound(nbytes, flops, x.dtype)
+        e, scale, tol = errs[name]
+        if name + "_softmax" in errs:
+            es_, ss_, _ = errs[name + "_softmax"]
+            r.update({"max_abs_err_softmax": es_, "max_abs_ref_softmax": ss_,
+                      "ok_softmax": es_ <= tol * ss_})
+        r.update({"shape": "llama3_8b_train_2x1024", "bound_ms": bound,
+                  "bound_by": by, "bytes": nbytes, "flops": flops,
+                  "tflops_per_s": flops / r["kernel_ms"] / 1e9,
+                  "max_abs_err": e, "max_abs_ref": scale, "tol_rel": tol,
+                  "ok": e <= tol * scale and r.get("ok_softmax", True),
+                  "library": "matmul_f32 + F.cross_entropy (two calls"
+                  + (", forward)" if name == "fused_ce_row_stats"
+                     else ", their backward)")})
+    del nll_x, nll_h, xg, hg
+    torch.cuda.empty_cache()
+    return runs
+
+
 def phase_kernels(dev):
     import torch
     from gke_ray_train_tpu_torch.ops.flash_attention import (
@@ -701,16 +905,19 @@ def phase_kernels(dev):
     gemma_attn = _time_gemma_attn(dev)
     fused_rows = _check_fused_cases(dev)
     fused = _time_fused_gemma_shape(dev)
-    ok = all(r["ok"] for r in rows + bwd_rows + fused_rows
-             + list(fused.values()))
+    ce_rows = _check_ce_cases(dev)
+    ce = _time_ce_llama_shape(dev)
+    ok = all(r["ok"] for r in rows + bwd_rows + fused_rows + ce_rows
+             + list(fused.values()) + list(ce.values()))
     emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
-          "fused_cases": fused_rows, "timings": timings, "train_shape": train,
+          "fused_cases": fused_rows, "ce_cases": ce_rows,
+          "timings": timings, "train_shape": train,
           "gemma_train_shape": fused, "gemma_attn_shape": gemma_attn,
-          "device_ms_timer_calls": dict(TIMER_CALLS)})
+          "llama_ce_shape": ce, "device_ms_timer_calls": dict(TIMER_CALLS)})
     if not ok:
         raise SystemExit("kernel phase: a case disagrees with the plain "
                          "version beyond its tolerance")
-    return {**train, **fused}
+    return {**train, **fused, **ce}
 
 
 # ---------------------------------------------------------------------------
@@ -919,25 +1126,27 @@ def _packed_batch(n_rows, seq, vocab, rng):
             return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
 
 
-def _launch_counts():
+def _counted():
+    """{kernel name: its wrapper, which counts its launches}."""
     from gke_ray_train_tpu_torch.ops.flash_attention import (
         flash_attention, flash_bwd_dkv, flash_bwd_dq)
+    from gke_ray_train_tpu_torch.ops.fused_ce import (
+        fused_ce_dhead, fused_ce_dx, fused_ce_row_stats)
     from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
         fused_rmsnorm, fused_rope_qk)
-    return {"flash_fwd": flash_attention.launches,
-            "flash_bwd_dq": flash_bwd_dq.launches,
-            "flash_bwd_dkv": flash_bwd_dkv.launches,
-            "fused_rmsnorm": fused_rmsnorm.launches,
-            "fused_rope_qk": fused_rope_qk.launches}
+    return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
+            "flash_bwd_dkv": flash_bwd_dkv, "fused_rmsnorm": fused_rmsnorm,
+            "fused_rope_qk": fused_rope_qk,
+            "fused_ce_row_stats": fused_ce_row_stats,
+            "fused_ce_dx": fused_ce_dx, "fused_ce_dhead": fused_ce_dhead}
+
+
+def _launch_counts():
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def _reset_launch_counts():
-    from gke_ray_train_tpu_torch.ops.flash_attention import (
-        flash_attention, flash_bwd_dkv, flash_bwd_dq)
-    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
-        fused_rmsnorm, fused_rope_qk)
-    for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv, fused_rmsnorm,
-               fused_rope_qk):
+    for fn in _counted().values():
         fn.launches = 0
 
 
@@ -990,19 +1199,26 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
                 batches=batches, init_s=time.perf_counter() - t0)
 
 
-def expected_launches(cfg, grad_accum: int, fused_ops: bool) -> dict:
+def expected_launches(cfg, grad_accum: int, fused_ops: bool,
+                      full_ft: bool = False) -> dict:
     """Kernel launches of one train step: under remat each block's
     forward runs twice (forward and recomputation), its backward once.
     Per layer and microbatch: flash forward once a forward, dQ and dK/dV
     once; with ``fused_ops`` the 2 (4 with post-block norms) rms_norms
     once a forward (their backward is plain torch) and the RoPE once a
-    forward and once in the backward."""
+    forward and once in the backward. Per microbatch, with ``fused_ops``
+    on a config without a logit softcap: the cross-entropy's row
+    statistics and dx once (each entry walks every vocab chunk), dhead
+    once in full fine-tuning (the head is frozen under LoRA)."""
     runs = 2 if cfg.remat else 1
     lm = cfg.n_layers * grad_accum
     norms = 4 if cfg.post_block_norm else 2
+    ce = grad_accum if fused_ops and cfg.logit_softcap is None else 0
     return {"flash_fwd": runs * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm,
             "fused_rmsnorm": norms * runs * lm if fused_ops else 0,
-            "fused_rope_qk": (runs + 1) * lm if fused_ops else 0}
+            "fused_rope_qk": (runs + 1) * lm if fused_ops else 0,
+            "fused_ce_row_stats": ce, "fused_ce_dx": ce,
+            "fused_ce_dhead": ce if full_ft else 0}
 
 
 def phase_train(dev, cfg=None, steps: int = 5, config=None,
@@ -1133,6 +1349,8 @@ def phase_train_profile(dev, cfg=None, config=None,
     groups = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
               "flash_kernels": ("flash_fwd", "flash_bwd"),
               "fused_norm_rope": ("rmsnorm_kernel", "rope_qk_kernel"),
+              "fused_ce": ("row_stats_kernel", "merge_kernel",
+                           "dlogits_kernel", "dx_kernel", "dhead_kernel"),
               "nf4_lookup": ("index_elementwise",)}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for e in kern:
@@ -1167,9 +1385,10 @@ def phase_train_fused_profile(dev, cfg=None):
 
 def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False):
     """``steps`` steps of full fine-tuning or QLoRA with attention
-    through ``impl`` (and the fused rms_norm / RoPE kernels with
-    ``fused_ops``); returns the metric streams and the change each
-    trained tensor underwent."""
+    through ``impl`` (and with ``fused_ops`` the fused rms_norm / RoPE
+    kernels, and the fused cross-entropy where the config has no logit
+    softcap); returns the metric streams and {name: the change that
+    trained tensor underwent}."""
     import torch
     from gke_ray_train_tpu_torch.models import init_params
     from gke_ray_train_tpu_torch.models import init_quantized_params
@@ -1186,8 +1405,8 @@ def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False):
     spec = make_optimizer(sched, weight_decay=0.001, clip_norm=0.3)
     state = make_train_state(cfg, spec, seed=3, lora_cfg=lcfg,
                              params=params, device=dev)
-    start = [t.detach().clone() for _, t in
-             trainable_tensors(state.params, state.lora)]
+    start = {n: t.detach().clone() for n, t in
+             trainable_tensors(state.params, state.lora)}
     fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=sched,
                          plan=ExecutionPlan(grad_accum=2,
                                             fused_ops=fused_ops),
@@ -1197,8 +1416,8 @@ def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False):
         state, m = fn(state, b)
         for k in streams:
             streams[k].append(float(m[k]))
-    deltas = [t.detach() - s0 for (_, t), s0 in
-              zip(trainable_tensors(state.params, state.lora), start)]
+    deltas = {n: t.detach() - start[n] for n, t in
+              trainable_tensors(state.params, state.lora)}
     del state, params, start
     torch.cuda.empty_cache()
     return streams, deltas
@@ -1209,7 +1428,8 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
     arguments of ``_train_run``) against the ``plain`` one — relative
     errors of the loss / grad_norm streams, the relative error of the
     trained tensors' change, and the kernel run's launches against
-    ``expected_launches`` (2 microbatches a step)."""
+    ``expected_launches`` (2 microbatches a step). Full fine-tuning also
+    reports the lm_head's change on each side (``lm_head_delta_norm``)."""
     import torch
     rows, ok = [], True
     for mode in ("qlora", "full"):
@@ -1219,13 +1439,15 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
         used = {k: v - before[k] for k, v in _launch_counts().items()}
         ref, d_ref = _train_run(cfg, mode, dev=dev, steps=steps,
                                 batches=batches, **plain)
-        num = sum(float(torch.sum((a - b) ** 2)) for a, b in zip(d_got, d_ref))
-        den = sum(float(torch.sum(b ** 2)) for b in d_ref)
+        num = sum(float(torch.sum((d_got[n] - b) ** 2))
+                  for n, b in d_ref.items())
+        den = sum(float(torch.sum(b ** 2)) for b in d_ref.values())
         delta_rel = (num / den) ** 0.5 if den > 0 else float("inf")
         rel = {k: max(abs(a - b) / abs(b) for a, b in zip(got[k], ref[k]))
                for k in got}
         want = {k: v * steps for k, v in expected_launches(
-            cfg, 2, kernel.get("fused_ops", False)).items()}
+            cfg, 2, kernel.get("fused_ops", False),
+            full_ft=mode == "full").items()}
         row_ok = (all(v <= TRAIN_PARITY_RTOL for v in rel.values())
                   and delta_rel <= TRAIN_PARITY_DELTA_RTOL
                   and used == want
@@ -1234,6 +1456,10 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
         rows.append({"mode": mode, "ok": row_ok, "kernel_run": got,
                      "plain_run": ref, "max_rel_err": rel,
                      "delta_rel_err": delta_rel, "launches": used})
+        if "lm_head" in d_ref:
+            rows[-1]["lm_head_delta_norm"] = [
+                float(torch.linalg.vector_norm(d["lm_head"]))
+                for d in (d_got, d_ref)]
         del d_got, d_ref
     return rows, ok
 
@@ -1296,6 +1522,64 @@ def phase_train_fused_parity(dev, cfg=None, steps: int = 3):
         raise SystemExit("train-fused-parity phase failed")
 
 
+def phase_train_fused_ce(dev, cfg=None, steps: int = 5):
+    """The train phase's job (Llama-3.1-8B QLoRA with
+    ray-jobs/fine_tune_config.json's settings, full width and depth) with
+    FUSED_OPS=1: Llama has no logit softcap, so the loss runs through the
+    fused cross-entropy on the final-normed hidden state, and the blocks'
+    rms_norms and q/k RoPE through the fused kernels."""
+    return phase_train(dev, cfg, steps, phase="train_fused_ce",
+                       fused_ops=True)
+
+
+def phase_train_fused_ce_parity(dev, cfg=None, steps: int = 3):
+    """fp32 (TF32 off), Llama-3.1-8B at full width (vocab 128,256) and 4
+    layers, dropout 0: QLoRA and full fine-tuning with FUSED_OPS=1 (the
+    fused cross-entropy, rms_norm and RoPE) against FUSED_OPS=0, attention
+    through the flash kernels on both sides, hold each other's loss and
+    grad_norm streams and trained tensors (the lm_head among them in full
+    fine-tuning, where it must move). Returns the dhead
+    launches of the fused full fine-tuning run, the one path that forms
+    dhead."""
+    import torch
+    from gke_ray_train_tpu_torch.models import llama3_8b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg is None:
+        cfg = dataclasses.replace(
+            llama3_8b(dtype="float32", param_dtype="float32", remat=True),
+            max_seq_len=1024, n_layers=4)
+    rng = np.random.default_rng(79)
+    batches = [_sft_batch(2, cfg.max_seq_len, cfg.vocab_size, rng)
+               for _ in range(steps)]
+    rows, ok = _parity_runs(cfg, dev, steps, batches,
+                            dict(impl="flash", fused_ops=True),
+                            dict(impl="flash", fused_ops=False))
+    for row in rows:
+        if row["mode"] == "full":
+            # the delta check holds the lm_head's change alike on both
+            # sides; this holds that there is one
+            row["ok"] = row["ok"] and min(row["lm_head_delta_norm"]) > 0
+            ok = ok and row["ok"]
+    emit({"phase": "train_fused_ce_parity", "ok": ok, "dtype": "float32",
+          "model": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab_size, "steps": steps,
+          "kernel_run": "FUSED_OPS=1", "plain_run": "FUSED_OPS=0",
+          "tol_streams_rel": TRAIN_PARITY_RTOL,
+          "tol_delta_rel": TRAIN_PARITY_DELTA_RTOL, "runs": rows})
+    if not ok:
+        raise SystemExit("train-fused-ce-parity phase failed")
+    return {"fused_ce_dhead": next(r["launches"]["fused_ce_dhead"]
+                                   for r in rows if r["mode"] == "full")}
+
+
+def phase_train_fused_ce_profile(dev, cfg=None):
+    """The profile of ``phase_train_profile`` over one step of the
+    train_fused_ce phase's job."""
+    phase_train_profile(dev, cfg, phase="train_fused_ce_profile",
+                        fused_ops=True)
+
+
 # ---------------------------------------------------------------------------
 # optional phase: profile (not run by default)
 # ---------------------------------------------------------------------------
@@ -1352,9 +1636,10 @@ def phase_profile(dev, steps: int = 10):
 # ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "serve", "parity", "train",
-          "train_parity", "train_fused", "train_fused_parity", "profile",
-          "train_profile", "train_fused_profile")
-DEFAULT_PHASES = PHASES[:-3]
+          "train_parity", "train_fused", "train_fused_parity",
+          "train_fused_ce", "train_fused_ce_parity", "profile",
+          "train_profile", "train_fused_profile", "train_fused_ce_profile")
+DEFAULT_PHASES = PHASES[:-4]
 
 KERNEL_SOURCES = {
     "flash_fwd": ("gke_ray_train_tpu_torch/csrc/flash_fwd.cu",
@@ -1367,6 +1652,12 @@ KERNEL_SOURCES = {
                       "gke_ray_train_tpu/ops/fused_norm_rope.py:96"),
     "fused_rope_qk": ("gke_ray_train_tpu_torch/csrc/fused_norm_rope.cu",
                       "gke_ray_train_tpu/ops/fused_norm_rope.py:103"),
+    "fused_ce_row_stats": ("gke_ray_train_tpu_torch/csrc/fused_ce.cu",
+                           "gke_ray_train_tpu/ops/fused_ce.py:70"),
+    "fused_ce_dx": ("gke_ray_train_tpu_torch/csrc/fused_ce.cu",
+                    "gke_ray_train_tpu/ops/fused_ce.py:106"),
+    "fused_ce_dhead": ("gke_ray_train_tpu_torch/csrc/fused_ce.cu",
+                       "gke_ray_train_tpu/ops/fused_ce.py:133"),
 }
 
 
@@ -1374,7 +1665,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but the three profiles)")
+                    + " (default: all but the four profiles)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -1425,9 +1716,12 @@ def main(argv=None) -> int:
     run("train_parity", phase_train_parity)
     add(run("train_fused", phase_train_fused))
     run("train_fused_parity", phase_train_fused_parity)
+    add(run("train_fused_ce", phase_train_fused_ce))
+    add(run("train_fused_ce_parity", phase_train_fused_ce_parity))
     run("profile", phase_profile)
     run("train_profile", phase_train_profile)
     run("train_fused_profile", phase_train_fused_profile)
+    run("train_fused_ce_profile", phase_train_fused_ce_profile)
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -9,12 +9,15 @@ Two paths of the JAX package, rewritten in PyTorch for one NVIDIA H100:
   and the NF4 / int8 base (``ops/quant.py``, ``models/qinit.py``).
 
 Both run the decoder core (``models/transformer.py``) and the ops under
-it; the fine-tune step also runs with ``FUSED_OPS=1`` on packed rows
-(``data/packing.py``). The Pallas kernels on those paths — the
-flash-attention forward, its dQ and dK/dV backward, and the fused
-rms_norm and q/k RoPE — are CUDA C++ kernels written for Hopper
+it; the fine-tune step also runs with ``FUSED_OPS=1`` (on packed rows,
+``data/packing.py``; without a logit softcap the loss through the fused
+cross-entropy, ``ops/fused_ce.py``). The Pallas kernels on those paths —
+the flash-attention forward, its dQ and dK/dV backward, the fused
+rms_norm and q/k RoPE, and the fused cross-entropy's row statistics, dx
+and dhead — are CUDA C++ kernels written for Hopper
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
-``csrc/fused_norm_rope.cu``), built with ``nvcc`` at first use.
+``csrc/fused_norm_rope.cu``, ``csrc/fused_ce.cu``), built with ``nvcc``
+at first use.
 
 Module paths and public names mirror the JAX package so a reader finds
 each counterpart; the JAX package stays the reference the port's tests

@@ -49,6 +49,13 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "fused_norm_rope": {"fused_rmsnorm": (_P,) * 3 + (_I,) * 4
                         + (_F, _I, _P),
                         "fused_rope_qk": (_P,) * 6 + (_I,) * 6 + (_P,)},
+    # fused_ce_row_stats: x, head, targets, partials, lse, tgt, N, D, V,
+    # ctas, dtype, stream; fused_ce_dx: x, head, targets, wg, lse, dl,
+    # acc, dx, N, D, V, chunk, dtype, stream; fused_ce_dhead: the same
+    # with dhead in place of acc, dx
+    "fused_ce": {"fused_ce_row_stats": (_P,) * 6 + (_I,) * 5 + (_P,),
+                 "fused_ce_dx": (_P,) * 8 + (_I,) * 5 + (_P,),
+                 "fused_ce_dhead": (_P,) * 7 + (_I,) * 5 + (_P,)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -5,12 +5,13 @@ run in sequence; each microbatch's summed token NLL is back-propagated,
 its gradients accumulating in ``.grad``; the sum is then divided by the
 total token weight (the exact mean: ``nll_sum / w_sum``, gradients times
 ``1 / w_sum``), and the optimizer clips and updates. This is the JAX
-step's single-device case without manual overlap: logits are
-materialized in fp32 and reduced by ``token_nll``. ``FUSED_OPS`` routes
+step's single-device case without manual overlap. ``FUSED_OPS`` routes
 the blocks' rms_norms and q/k RoPE through the fused kernels
-(``ops/fused_norm_rope.py``); on a config without a logit softcap the
-JAX step would also fuse the cross-entropy, which is not ported yet, so
-that case raises.
+(``ops/fused_norm_rope.py``) and, on a config without a logit softcap
+(the cap applies to logits the kernel never forms), the loss through the
+fused cross-entropy (``ops/fused_ce.py``) on the final-normed hidden
+state, as the JAX step does (:234-240, :278-292). Otherwise logits are
+materialized in fp32 and reduced by ``token_nll``.
 
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
@@ -28,7 +29,9 @@ import torch
 from gke_ray_train_tpu_torch.device import DeviceLike, check_on, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
-    Lora, Transformer, dropout_seed, forward, init_params)
+    Lora, Transformer, dropout_seed, forward, init_params, torch_dtype,
+    unembed_head)
+from gke_ray_train_tpu_torch.ops.fused_ce import fused_cross_entropy
 from gke_ray_train_tpu_torch.ops.quant import is_qtensor
 from gke_ray_train_tpu_torch.train.lora import LoraConfig, init_lora
 from gke_ray_train_tpu_torch.train.optim import AdamW, OptimizerSpec
@@ -131,10 +134,9 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     LoRA dropout masks are seeded per (step, microbatch, layer,
     projection), so a resumed run and the recomputation under remat draw
     the same masks. ``plan.fused_ops`` (``FUSED_OPS``, read from the plan
-    only, as in the JAX step) runs the fused rms_norm / RoPE kernels; with
-    it, a config without a logit softcap (where the JAX step fuses the
-    cross-entropy), manual overlap, meshes and MoE raise
-    ``NotImplementedError``."""
+    only, as in the JAX step) runs the fused rms_norm / RoPE kernels and,
+    without a logit softcap, the fused cross-entropy. Manual overlap,
+    meshes and MoE raise ``NotImplementedError``."""
     if grad_accum is _UNSET:
         grad_accum = plan.grad_accum if plan is not None else 1
     fused_ops = plan is not None and plan.fused_ops
@@ -144,11 +146,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     if cfg.n_experts:
         raise NotImplementedError(
             "MoE training is not ported yet (ROADMAP queue 1)")
-    if fused_ops and cfg.logit_softcap is None:
-        raise NotImplementedError(
-            "FUSED_OPS=1 on a config without a logit softcap runs fused "
-            "cross-entropy (ops/fused_ce.py) in the JAX step, which is not "
-            "ported yet: ROADMAP queue 2 rows 4-6")
+    fused_ce = fused_ops and cfg.logit_softcap is None
     if overlap == "manual":
         raise NotImplementedError(
             "OVERLAP=manual (the shard_map microbatch pipeline) is not "
@@ -156,6 +154,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     dev = resolve_device(device)
     lora_mode = lora_cfg is not None
     drop = lora_cfg.dropout if lora_mode else 0.0
+    dtype = torch_dtype(cfg.dtype)
 
     def train_step(state: TrainState, batch: Batch):
         if state.opt_state.spec is not optimizer:
@@ -178,15 +177,24 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             micro = {k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
             seed = (dropout_seed(state.step, m)
                     if lora_mode and drop > 0.0 else None)
-            logits = forward(
+            out = forward(
                 params, micro["inputs"], cfg,
                 positions=micro.get("positions"),
                 segment_ids=micro.get("segment_ids"),
                 lora=state.lora,
                 lora_scale=lora_cfg.scale if lora_mode else 1.0,
-                lora_dropout=drop, lora_seed=seed, fused_ops=fused_ops)
-            nll, w = token_nll(logits, micro["targets"], micro["weights"])
-            del logits
+                lora_dropout=drop, lora_seed=seed, fused_ops=fused_ops,
+                return_pre_unembed=fused_ce)
+            if fused_ce:
+                # the head of the one param tree: frozen under LoRA, so
+                # the kernel forms no dhead; trained in full fine-tuning
+                # (a tied head through embed.T)
+                nll, w = fused_cross_entropy(
+                    out, unembed_head(params, cfg).to(dtype),
+                    micro["targets"], micro["weights"])
+            else:
+                nll, w = token_nll(out, micro["targets"], micro["weights"])
+            del out
             nll.backward()
             nll_sum += nll.detach()
             w_sum += w

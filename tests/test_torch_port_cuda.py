@@ -19,7 +19,12 @@ rms_norm and q/k RoPE kernels against their plain versions: max |error|
 relative to max(1, max |reference|), 1e-5 in float32 and 8e-3 in
 bfloat16 (both sides compute in fp32 and round once; the fp32 sum order
 and ``rsqrtf`` may move the last bit, which can round a bf16 output to
-its neighbour).
+its neighbour). The fused cross-entropy kernels against their plain
+versions: lse and the target logit within 2e-5 (float32) / 1e-4
+(bfloat16) of max(1, max |reference|) (fp32 sums over D and the vocab in
+other orders; bf16 products are exact in fp32); dx and dhead within 1e-4
+(float32) / 1e-2 (bfloat16) of max |reference| (bf16 rounds dl to bf16,
+2^-9 relative, before the products, and the outputs to bf16).
 """
 
 import dataclasses
@@ -34,6 +39,9 @@ from gke_ray_train_tpu_torch.models import (
 from gke_ray_train_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_reference, flash_attention_reference,
     flash_bwd_dkv, flash_bwd_dq)
+from gke_ray_train_tpu_torch.ops.fused_ce import (
+    fused_ce_dhead, fused_ce_dx, fused_ce_grads_reference, fused_ce_row_stats,
+    fused_ce_row_stats_reference, fused_cross_entropy)
 from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
     fused_rmsnorm, fused_rmsnorm_reference, fused_rope_qk,
     fused_rope_qk_reference)
@@ -308,3 +316,94 @@ def test_fused_kernels_refuse_what_they_cannot_take(dev):
         fused_rope_qk(q, q.bfloat16(), pos, f)
     with pytest.raises(ValueError, match="inv_freqs"):
         fused_rope_qk(q, q, pos, f.double())
+
+
+# chip_smoke.py's CE_TOL: (lse and target logit, dx and dhead)
+CE_TOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (1e-4, 1e-2)}
+
+
+def _ce_inputs(N, D, V, dtype, dev, seed=0):
+    """Hidden rows of unit scale, a head of std 0.05 (logits of std
+    0.05 sqrt(D)), labels with one of them V + 5 and one -1, weights with
+    zeros."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((N, D), generator=g, device=dev).to(dtype)
+    head = (torch.randn((D, V), generator=g, device=dev) * 0.05).to(dtype)
+    t = torch.randint(0, V, (N,), generator=g, device=dev,
+                      dtype=torch.int32)
+    t[min(3, N - 1)] = V + 5
+    t[N // 2] = -1
+    w = torch.rand((N,), generator=g, device=dev) + 0.5
+    w[N // 3:N // 3 + 5] = 0.0
+    return x, head, t, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(37, 64, 1000), (130, 100, 1001),
+                                   (200, 256, 9000), (5, 64, 1)])
+def test_fused_ce_kernels_match_plain_version(dev, shape, dtype):
+    """Ragged row tiles, a V no tile divides and an odd one, D that no
+    16-byte vector divides, two backward chunks, V = 1; out-of-range
+    labels and weight-0 rows. dx and dhead run twice: with the labels, and
+    with every label out of range, so that the softmax term, which the
+    one-hot term dwarfs, is held on its own scale."""
+    N, D, V = shape
+    x, head, t, w = _ce_inputs(N, D, V, dtype, dev)
+    before = (fused_ce_row_stats.launches, fused_ce_dx.launches,
+              fused_ce_dhead.launches)
+    lse, tgt = fused_ce_row_stats(x, head, t)
+    ref_lse, ref_tgt = fused_ce_row_stats_reference(x, head, t)
+    dx = fused_ce_dx(x, head, t, w, ref_lse)
+    dh = fused_ce_dhead(x, head, t, w, ref_lse)
+    torch.cuda.synchronize()
+    assert (fused_ce_row_stats.launches, fused_ce_dx.launches,
+            fused_ce_dhead.launches) == tuple(b + 1 for b in before)
+    ref_dx, ref_dh = fused_ce_grads_reference(x, head, t, w, ref_lse)
+    tol_stats, tol_grads = CE_TOL[dtype]
+    for got, want in ((lse, ref_lse), (tgt, ref_tgt)):
+        assert float((got - want).abs().max()) <= \
+            tol_stats * max(1.0, float(want.abs().max()))
+    assert float(tgt[min(3, N - 1)]) == 0.0 and float(tgt[N // 2]) == 0.0
+    off = torch.where(torch.arange(N, device=dev) % 2 == 0, V + 5,
+                      -1).to(torch.int32)
+    soft = (fused_ce_dx(x, head, off, w, ref_lse),
+            fused_ce_dhead(x, head, off, w, ref_lse))
+    ref_soft = fused_ce_grads_reference(x, head, off, w, ref_lse)
+    assert all(float(r.float().abs().max()) > 0.0 for r in ref_soft)
+    for got, want in zip((dx, dh) + soft, (ref_dx, ref_dh) + ref_soft):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert float((got.float() - want.float()).abs().max()) <= \
+            tol_grads * float(want.float().abs().max())
+    assert float(dx[N // 3:N // 3 + 5].float().abs().max()) == 0.0
+
+
+def test_fused_cross_entropy_autograd_reaches_the_kernels(dev):
+    """dhead launches only where the head takes a gradient."""
+    x, head, t, w = _ce_inputs(64, 128, 3000, torch.bfloat16, dev, seed=1)
+    for head_grad, n_dhead in ((True, 1), (False, 0)):
+        xg = x.clone().requires_grad_(True)
+        hg = head.clone().requires_grad_(head_grad)
+        before = (fused_ce_row_stats.launches, fused_ce_dx.launches,
+                  fused_ce_dhead.launches)
+        nll, ws = fused_cross_entropy(xg[None], hg, t[None], w[None])
+        nll.backward()
+        assert (fused_ce_row_stats.launches - before[0],
+                fused_ce_dx.launches - before[1],
+                fused_ce_dhead.launches - before[2]) == (1, 1, n_dhead)
+        assert bool(torch.isfinite(xg.grad.float()).all())
+        assert (hg.grad is not None) == head_grad
+        assert float(ws) == pytest.approx(float(w.sum()))
+
+
+def test_fused_ce_kernels_refuse_what_they_cannot_take(dev):
+    x = torch.zeros((8, 16), device=dev)
+    head = torch.zeros((16, 32), device=dev)
+    t = torch.zeros((8,), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_ce_row_stats(x.half(), head.half(), t)
+    with pytest.raises(TypeError, match="one dtype"):
+        fused_ce_row_stats(x, head.bfloat16(), t)
+    with pytest.raises(ValueError, match="targets"):
+        fused_ce_row_stats(x, head, t.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_ce_row_stats(x, head.T.contiguous().T, t)

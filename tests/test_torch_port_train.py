@@ -277,14 +277,7 @@ def test_trainable_names_drive_the_decay_mask():
 def test_train_step_refuses_what_is_not_ported():
     _, tc = _cfgs()
     spec = make_optimizer(0.1)
-    # FUSED_OPS on a config without a logit softcap is the JAX step's
-    # fused cross-entropy, which is not ported: refused, never run as the
-    # materialized-logits loss
-    from gke_ray_train_tpu_torch.plan import ExecutionPlan
-    assert tc.logit_softcap is None
-    for kw, match in ((dict(plan=ExecutionPlan(fused_ops=True)),
-                       "fused cross-entropy"),
-                      (dict(overlap="manual"), "OVERLAP"),
+    for kw, match in ((dict(overlap="manual"), "OVERLAP"),
                       (dict(mesh=object()), "mesh")):
         with pytest.raises(NotImplementedError, match=match):
             make_train_step(tc, spec, device="cpu", **kw)
