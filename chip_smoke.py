@@ -9,8 +9,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build   — compile every CUDA kernel of the port from ``csrc/`` with
              nvcc for sm_90a (all sources at once).
 3. kernels — hold each kernel (flash forward, dQ, dK/dV, fused rms_norm,
-             fused q/k RoPE, fused cross-entropy row statistics, dx and
-             dhead) against its plain PyTorch version on the card over the
+             fused q/k RoPE, per-head rms_norm + RoPE, fused
+             cross-entropy row statistics, dx and dhead) against its
+             plain PyTorch version on the card over the
              listed cases, and time kernel, plain version and the PyTorch
              library call at the serving shapes (forward), the Llama
              training shape (the flash and the cross-entropy kernels; for
@@ -21,6 +22,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at the serving shapes. The flash kernels are also held and
              timed at the Gemma-2 training shape (one packed row of
              4,096, head dim 256, softcap, with and without the window).
+             The per-head rms_norm + RoPE is timed at the Llama-3.1-8B q
+             of the training microbatch and the Gemma-2-9B q of one
+             packed row.
 4. serve   — Llama-3.1-8B at full width and depth (bf16, random weights
              from a seed) through ``BatchEngine``: 24 requests over the
              256 and 512 buckets; the flash kernel must have run once per
@@ -62,6 +66,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              kernels, QLoRA and full fine-tuning (where dhead launches and
              the lm_head trains, held alike on both sides by the
              trained-tensor check).
+12. kernelcheck — run right after the kernels phase: the port's kernel
+             sweep (``analysis/kernelcheck.py`` over
+             ``ops/registry.py``) on the card: every registered case
+             that runs there, values and gradients, held within its
+             committed CUDA pin (``analysis/tolerances/*.json``), the
+             full-width per-head rms_norm + RoPE cases among them; the
+             sweep's launches count as a driven path's.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -673,6 +684,141 @@ def _time_fused_gemma_shape(dev):
     return {"fused_rmsnorm": norm, "fused_rope_qk": rope}
 
 
+# per-head rms_norm + RoPE cases: every head dim of the shipped families
+# (32 for the small tests), both dtypes and scale parameterizations, 37
+# sequence rows (no 8-row tile divides them)
+NORM_ROPE_CASES = [dict(shape=(2, 37, 4, dh), dtype=dt, scale_plus_one=sp1)
+                   for dt in ("float32", "bfloat16")
+                   for dh in (32, 64, 128, 256) for sp1 in (False, True)]
+# the registry's full-width cases: the Llama-3.1-8B q of the training
+# microbatch, the Gemma-2-9B q of one packed row
+NORM_ROPE_SHAPES = {"llama3_8b_train_2x1024": ((2, 1024, 32, 128), False),
+                    "gemma2_9b_train_4096": ((1, 4096, 16, 256), True)}
+
+
+def _norm_rope_inputs(shape, dtype, sp1, dev, g, unaligned=False):
+    """x, scale, positions (restarting per document, and the last row's
+    last third from 4,095 down), frequencies. ``unaligned``: x is a
+    contiguous view 4 bytes past a 16-byte boundary."""
+    import torch
+    B, S, H, dh = shape
+    dt = getattr(torch, dtype)
+    n = B * S * H * dh
+    flat = torch.randn((n + 8,), generator=g, device=dev).to(dt)
+    off = 4 // flat.element_size() if unaligned else 0
+    x = flat[off:off + n].view(shape)
+    s = (torch.randn((dh,), generator=g, device=dev) * 0.1
+         + (0.0 if sp1 else 1.0)).to(dt)
+    pos = _packed_rope_positions(B, S, dev, g)
+    tail = S - 2 * S // 3
+    pos[-1, -tail:] = 4095 - torch.arange(tail, dtype=torch.int32,
+                                          device=dev)
+    return x, s, pos, _rope_freqs(dh, dev)
+
+
+def _norm_rope_errors(x, s, pos, f, kw):
+    """(max |error|, its scale) of the kernel against its plain version
+    on these inputs: the value and the gradients of x and scale under a
+    random probe, the plain version's by autograd."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+        fused_rmsnorm_rope, fused_rmsnorm_rope_reference)
+    g = torch.Generator(device=x.device)
+    g.manual_seed(5)
+    probe = torch.randn(x.shape, generator=g, device=x.device)
+    outs = []
+    for fn in (fused_rmsnorm_rope, fused_rmsnorm_rope_reference):
+        # the value from x itself (a clone would realign an unaligned
+        # view), the gradients from a leaf copy
+        y = fn(x, s, pos, f, **kw)
+        xg = x.detach().clone().requires_grad_(True)
+        sg = s.detach().clone().requires_grad_(True)
+        (fn(xg, sg, pos, f, **kw).float() * probe).sum().backward()
+        outs.append((y, xg.grad, sg.grad))
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, want in zip(("value", "dx", "dscale"), *outs):
+        e = float((got.float() - want.float()).abs().max())
+        if not bool(torch.isfinite(got.float()).all()):
+            e = float("inf")
+        scale = float(want.float().abs().max())
+        errs[name] = (e, scale if name != "value" else max(1.0, scale))
+    return errs
+
+
+def _check_norm_rope_cases(dev):
+    """The per-head rms_norm + RoPE kernel against its plain version over
+    NORM_ROPE_CASES (values, dx and dscale), and once on an unaligned
+    view of x per dtype (the scalar path)."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    cases = NORM_ROPE_CASES + [
+        dict(shape=(2, 37, 4, 64), dtype=dt, scale_plus_one=False,
+             unaligned=True) for dt in ("float32", "bfloat16")]
+    rows = []
+    for c in cases:
+        x, s, pos, f = _norm_rope_inputs(c["shape"], c["dtype"],
+                                         c["scale_plus_one"], dev, g,
+                                         c.get("unaligned", False))
+        if c.get("unaligned") and not (x.is_contiguous()
+                                       and x.data_ptr() % 16):
+            raise SystemExit("kernel phase: the unaligned norm + rope case "
+                             "got an aligned or strided view")
+        kw = dict(eps=1e-6, scale_plus_one=c["scale_plus_one"])
+        tol = FUSED_TOL[c["dtype"]]
+        row = {"kernel": "fused_rmsnorm_rope", **c, "tol_rel": tol,
+               "ok": True}
+        for name, (e, scale) in _norm_rope_errors(x, s, pos, f,
+                                                  kw).items():
+            row[f"max_abs_err_{name}"] = e
+            row["ok"] = row["ok"] and e <= tol * scale
+        rows.append(row)
+    return rows
+
+
+def _time_norm_rope(dev):
+    """The per-head rms_norm + RoPE at NORM_ROPE_SHAPES (bf16), held
+    against its plain version and timed against it (no single PyTorch
+    call computes it). Bound: x read once and y written once (plus the
+    positions, frequencies and scale) over the memory rate, against fp32
+    FLOPs (7 an element: square-add, two scalings, half a rotated pair's
+    6; and a sincosf per (row, frequency) counted as 2) over the fp32
+    rate."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+        fused_rmsnorm_rope, fused_rmsnorm_rope_reference)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    tol = FUSED_TOL["bfloat16"]
+    out = {}
+    for name, (shape, sp1) in NORM_ROPE_SHAPES.items():
+        x, s, pos, f = _norm_rope_inputs(shape, "bfloat16", sp1, dev, g)
+        kw = dict(eps=1e-6 if sp1 else 1e-5, scale_plus_one=sp1)
+        errs = _norm_rope_errors(x, s, pos, f, kw)
+        r = _turns(lambda: fused_rmsnorm_rope_reference(x, s, pos, f, **kw),
+                   lambda: fused_rmsnorm_rope(x, s, pos, f, **kw), None)
+        B, S, H, dh = shape
+        nbytes = (2 * x.numel() * x.element_size() + s.numel()
+                  * s.element_size() + pos.numel() * 4 + f.numel() * 4)
+        flops = 7.0 * x.numel() + 2.0 * B * S * dh // 2
+        bound, by = _bound(nbytes, flops, torch.float32)
+        r.update({"shape": name, "dims": list(shape),
+                  "max_abs_err": errs["value"][0],
+                  "max_abs_ref": errs["value"][1],
+                  "grad_errs": {k: list(v) for k, v in errs.items()
+                                if k != "value"},
+                  "tol_rel": tol,
+                  "ok": all(e <= tol * sc for e, sc in errs.values()),
+                  "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                  "flops": flops, "library": None,
+                  "bound_share": bound / r["kernel_ms"]})
+        out[name] = r
+        del x, s, pos
+        torch.cuda.empty_cache()
+    return out
+
+
 # fused cross-entropy cases (N rows, D, V): ragged row tiles (300), the
 # hidden widths of the small tests, Gemma-2 and Llama, the vocab sizes of
 # Llama-2 / Mistral (32,000) and Llama-3 (128,256) and one no tile
@@ -905,19 +1051,56 @@ def phase_kernels(dev):
     gemma_attn = _time_gemma_attn(dev)
     fused_rows = _check_fused_cases(dev)
     fused = _time_fused_gemma_shape(dev)
+    norm_rope_rows = _check_norm_rope_cases(dev)
+    norm_rope = _time_norm_rope(dev)
     ce_rows = _check_ce_cases(dev)
     ce = _time_ce_llama_shape(dev)
-    ok = all(r["ok"] for r in rows + bwd_rows + fused_rows + ce_rows
-             + list(fused.values()) + list(ce.values()))
+    ok = all(r["ok"] for r in rows + bwd_rows + fused_rows + norm_rope_rows
+             + ce_rows + list(fused.values()) + list(norm_rope.values())
+             + list(ce.values()))
     emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
-          "fused_cases": fused_rows, "ce_cases": ce_rows,
-          "timings": timings, "train_shape": train,
+          "fused_cases": fused_rows, "norm_rope_cases": norm_rope_rows,
+          "ce_cases": ce_rows, "timings": timings, "train_shape": train,
           "gemma_train_shape": fused, "gemma_attn_shape": gemma_attn,
-          "llama_ce_shape": ce, "device_ms_timer_calls": dict(TIMER_CALLS)})
+          "norm_rope_shapes": norm_rope, "llama_ce_shape": ce,
+          "device_ms_timer_calls": dict(TIMER_CALLS)})
     if not ok:
         raise SystemExit("kernel phase: a case disagrees with the plain "
                          "version beyond its tolerance")
-    return {**train, **fused, **ce}
+    # the summary line carries the Llama shape
+    return {**train, **fused, **ce,
+            "fused_rmsnorm_rope": norm_rope["llama3_8b_train_2x1024"]}
+
+
+# ---------------------------------------------------------------------------
+# kernelcheck
+# ---------------------------------------------------------------------------
+
+def phase_kernelcheck(dev):
+    """The port's kernel sweep on the card against the committed CUDA
+    pins, with the launch counts at 0 just before it; fails on any
+    finding. Returns the sweep's launches per kernel."""
+    from gke_ray_train_tpu_torch.analysis import kernelcheck
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    results = kernelcheck.sweep(device=dev)
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    findings = (kernelcheck.registration_findings()
+                + kernelcheck.ledger_findings(results, "cuda"))
+    cases = []
+    for r in results:
+        pins = kernelcheck.pinned(r, "cuda") or {}
+        cases.append({"kernel": r.kernel, "case": r.case,
+                      "value_err": r.value_err, "grad_err": r.grad_err,
+                      "pin_value": pins.get("value"),
+                      "pin_grad": pins.get("grad"), "seconds": r.seconds})
+    emit({"phase": "kernelcheck", "ok": not findings, "seconds": seconds,
+          "cases": cases, "findings": [str(f) for f in findings],
+          "launches": launches})
+    if findings:
+        raise SystemExit(f"kernelcheck phase: {len(findings)} finding(s)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1133,10 +1316,11 @@ def _counted():
     from gke_ray_train_tpu_torch.ops.fused_ce import (
         fused_ce_dhead, fused_ce_dx, fused_ce_row_stats)
     from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
-        fused_rmsnorm, fused_rope_qk)
+        fused_rmsnorm, fused_rmsnorm_rope, fused_rope_qk)
     return {"flash_fwd": flash_attention, "flash_bwd_dq": flash_bwd_dq,
             "flash_bwd_dkv": flash_bwd_dkv, "fused_rmsnorm": fused_rmsnorm,
             "fused_rope_qk": fused_rope_qk,
+            "fused_rmsnorm_rope": fused_rmsnorm_rope,
             "fused_ce_row_stats": fused_ce_row_stats,
             "fused_ce_dx": fused_ce_dx, "fused_ce_dhead": fused_ce_dhead}
 
@@ -1209,7 +1393,8 @@ def expected_launches(cfg, grad_accum: int, fused_ops: bool,
     forward and once in the backward. Per microbatch, with ``fused_ops``
     on a config without a logit softcap: the cross-entropy's row
     statistics and dx once (each entry walks every vocab chunk), dhead
-    once in full fine-tuning (the head is frozen under LoRA)."""
+    once in full fine-tuning (the head is frozen under LoRA). The
+    per-head rms_norm + RoPE never: no model family calls it."""
     runs = 2 if cfg.remat else 1
     lm = cfg.n_layers * grad_accum
     norms = 4 if cfg.post_block_norm else 2
@@ -1217,6 +1402,7 @@ def expected_launches(cfg, grad_accum: int, fused_ops: bool,
     return {"flash_fwd": runs * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm,
             "fused_rmsnorm": norms * runs * lm if fused_ops else 0,
             "fused_rope_qk": (runs + 1) * lm if fused_ops else 0,
+            "fused_rmsnorm_rope": 0,
             "fused_ce_row_stats": ce, "fused_ce_dx": ce,
             "fused_ce_dhead": ce if full_ft else 0}
 
@@ -1635,8 +1821,8 @@ def phase_profile(dev, steps: int = 10):
 
 # ---------------------------------------------------------------------------
 
-PHASES = ("device", "build", "kernels", "serve", "parity", "train",
-          "train_parity", "train_fused", "train_fused_parity",
+PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
+          "train", "train_parity", "train_fused", "train_fused_parity",
           "train_fused_ce", "train_fused_ce_parity", "profile",
           "train_profile", "train_fused_profile", "train_fused_ce_profile")
 DEFAULT_PHASES = PHASES[:-4]
@@ -1652,6 +1838,8 @@ KERNEL_SOURCES = {
                       "gke_ray_train_tpu/ops/fused_norm_rope.py:96"),
     "fused_rope_qk": ("gke_ray_train_tpu_torch/csrc/fused_norm_rope.cu",
                       "gke_ray_train_tpu/ops/fused_norm_rope.py:103"),
+    "fused_rmsnorm_rope": ("gke_ray_train_tpu_torch/csrc/fused_norm_rope.cu",
+                           "gke_ray_train_tpu/ops/fused_norm_rope.py:112"),
     "fused_ce_row_stats": ("gke_ray_train_tpu_torch/csrc/fused_ce.cu",
                            "gke_ray_train_tpu/ops/fused_ce.py:70"),
     "fused_ce_dx": ("gke_ray_train_tpu_torch/csrc/fused_ce.cu",
@@ -1709,6 +1897,7 @@ def main(argv=None) -> int:
         for name, n in (counts or {}).items():
             launches[name] = (launches[name] or 0) + n
     timings = run("kernels", phase_kernels) or {}
+    add(run("kernelcheck", phase_kernelcheck))
     serve = run("serve", phase_serve)
     add({"flash_fwd": serve} if serve is not None else None)
     run("parity", phase_parity)

@@ -1,6 +1,6 @@
 """gke_ray_train_tpu_torch — the PyTorch/CUDA port of ``gke_ray_train_tpu``.
 
-Two paths of the JAX package, rewritten in PyTorch for one NVIDIA H100:
+Paths of the JAX package, rewritten in PyTorch for one NVIDIA H100:
 
 - serving: the continuous-batching engine (``serve/engine.py``) over the
   KV-cache step (``models/kvcache.py``);
@@ -11,10 +11,14 @@ Two paths of the JAX package, rewritten in PyTorch for one NVIDIA H100:
 Both run the decoder core (``models/transformer.py``) and the ops under
 it; the fine-tune step also runs with ``FUSED_OPS=1`` (on packed rows,
 ``data/packing.py``; without a logit softcap the loss through the fused
-cross-entropy, ``ops/fused_ce.py``). The Pallas kernels on those paths —
-the flash-attention forward, its dQ and dK/dV backward, the fused
-rms_norm and q/k RoPE, and the fused cross-entropy's row statistics, dx
-and dhead — are CUDA C++ kernels written for Hopper
+cross-entropy, ``ops/fused_ce.py``). A third path, kernel verification
+(``python -m gke_ray_train_tpu_torch.analysis kernelcheck``), runs every
+op of the kernel registry (``ops/registry.py``) against its oracle and a
+tolerance ledger. The Pallas kernels on those paths — the
+flash-attention forward, its dQ and dK/dV backward, the fused rms_norm
+and q/k RoPE, the per-head rms_norm + RoPE, and the fused
+cross-entropy's row statistics, dx and dhead — are CUDA C++ kernels
+written for Hopper
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``,
 ``csrc/fused_norm_rope.cu``, ``csrc/fused_ce.cu``), built with ``nvcc``
 at first use.

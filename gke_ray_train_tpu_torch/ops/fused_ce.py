@@ -40,8 +40,11 @@ import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # vocab columns per backward chunk: the width of the dl scratch the dx /
-# dhead entries fill and consume chunk by chunk (a multiple of 128)
+# dhead entries fill and consume chunk by chunk (a multiple of
+# _CHUNK_QUANTUM, the kernels' column tile); ``fused_cross_entropy``'s
+# ``block_v`` sets another
 _CHUNK = 8192
+_CHUNK_QUANTUM = 128
 
 
 def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -163,28 +166,37 @@ def fused_ce_row_stats(x: torch.Tensor, head: torch.Tensor,
 fused_ce_row_stats.launches = 0
 
 
-def _grad_launch(entry: str, x, head, targets, wg, lse) -> torch.Tensor:
+def _grad_launch(entry: str, x, head, targets, wg, lse,
+                 chunk: int = _CHUNK) -> torch.Tensor:
+    """Launch ``entry`` (``fused_ce_dx`` or ``fused_ce_dhead``) with a
+    vocab chunk of ``chunk`` columns and count the launch on its wrapper."""
     from gke_ray_train_tpu_torch.kernels import load
     _check_operands(x, head, targets, wg, lse)
+    if chunk < _CHUNK_QUANTUM or chunk % _CHUNK_QUANTUM:
+        raise ValueError(f"block_v {chunk} is not a positive multiple of "
+                         f"{_CHUNK_QUANTUM}")
     N, D = x.shape
     V = head.shape[1]
-    dl = torch.empty((N, _CHUNK), dtype=x.dtype, device=x.device)
+    dl = torch.empty((N, chunk), dtype=x.dtype, device=x.device)
     lib = load("fused_ce")
     args = (x.data_ptr(), head.data_ptr(), targets.data_ptr(), wg.data_ptr(),
             lse.data_ptr(), dl.data_ptr())
-    tail = (N, D, V, _CHUNK, _DTYPE_CODES[x.dtype], _stream(x))
+    tail = (N, D, V, chunk, _DTYPE_CODES[x.dtype], _stream(x))
     with torch.cuda.device(x.device):
         if entry == "fused_ce_dx":
+            wrapper = fused_ce_dx
             out = torch.empty_like(x)
             # fp32 sums over the chunks: bf16 over more than one chunk
             # needs a buffer, float32 sums in dx itself
             acc = (torch.empty((N, D), dtype=torch.float32, device=x.device)
-                   if x.dtype != torch.float32 and V > _CHUNK else out)
+                   if x.dtype != torch.float32 and V > chunk else out)
             rc = lib.fused_ce_dx(*args, acc.data_ptr(), out.data_ptr(), *tail)
         else:
+            wrapper = fused_ce_dhead
             out = torch.empty_like(head)
             rc = lib.fused_ce_dhead(*args, out.data_ptr(), *tail)
     _raise_on(rc, entry)
+    wrapper.launches += 1
     return out
 
 
@@ -194,9 +206,7 @@ def fused_ce_dx(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
     the logits recomputed from x, head and lse [N] fp32. wg: [N] fp32,
     the row weight times the loss cotangent."""
     if _on(x, "fused_ce_dx") == "cuda":
-        dx = _grad_launch("fused_ce_dx", x, head, targets, wg, lse)
-        fused_ce_dx.launches += 1
-        return dx
+        return _grad_launch("fused_ce_dx", x, head, targets, wg, lse)
     return fused_ce_grads_reference(x, head, targets, wg, lse)[0]
 
 
@@ -209,9 +219,7 @@ def fused_ce_dhead(x: torch.Tensor, head: torch.Tensor,
     """dhead [D, V] in head.dtype: ``x^T @ ((softmax - onehot) * wg)``;
     the arguments as ``fused_ce_dx``."""
     if _on(x, "fused_ce_dhead") == "cuda":
-        dhead = _grad_launch("fused_ce_dhead", x, head, targets, wg, lse)
-        fused_ce_dhead.launches += 1
-        return dhead
+        return _grad_launch("fused_ce_dhead", x, head, targets, wg, lse)
     return fused_ce_grads_reference(x, head, targets, wg, lse)[1]
 
 
@@ -224,9 +232,10 @@ class FusedCrossEntropy(torch.autograd.Function):
     always and dhead only where the head takes a gradient."""
 
     @staticmethod
-    def forward(ctx, x, head, targets, weights):
+    def forward(ctx, x, head, targets, weights, block_v):
         lse, tgt = fused_ce_row_stats(x, head, targets)
         ctx.save_for_backward(x, head, targets, weights, lse)
+        ctx.block_v = block_v
         w_sum = torch.sum(weights)
         ctx.mark_non_differentiable(w_sum)
         return torch.sum((lse - tgt) * weights), w_sum
@@ -235,20 +244,30 @@ class FusedCrossEntropy(torch.autograd.Function):
     def backward(ctx, g_nll, g_w):
         x, head, targets, weights, lse = ctx.saved_tensors
         wg = (weights * g_nll).contiguous()
-        dx = fused_ce_dx(x, head, targets, wg, lse)
-        dhead = (fused_ce_dhead(x, head, targets, wg, lse)
-                 if ctx.needs_input_grad[1] else None)
-        return dx, dhead, None, None
+        need_dhead = ctx.needs_input_grad[1]
+        if x.is_cuda:   # the chunk reaches the kernels, not the wrappers
+            dx = _grad_launch("fused_ce_dx", x, head, targets, wg, lse,
+                              ctx.block_v)
+            dhead = (_grad_launch("fused_ce_dhead", x, head, targets, wg,
+                                  lse, ctx.block_v) if need_dhead else None)
+        else:
+            dx = fused_ce_dx(x, head, targets, wg, lse)
+            dhead = (fused_ce_dhead(x, head, targets, wg, lse)
+                     if need_dhead else None)
+        return dx, dhead, None, None, None
 
 
 def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                         targets: torch.Tensor, weights: torch.Tensor, *,
-                        vocab_axis: Optional[str] = None, mesh=None
+                        vocab_axis: Optional[str] = None, mesh=None,
+                        block_v: int = _CHUNK
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(weighted nll sum, weight sum), both fp32 — ``token_nll``
     semantics, the logits never materialized. x: [B, S, D] final-normed
     hidden; head: [D, V] (a transposed view, as a tied embedding gives,
-    is copied contiguous); targets / weights: [B, S].
+    is copied contiguous); targets / weights: [B, S]. ``block_v``: the
+    vocab chunk of the backward kernels (JAX's ``block_v`` vocab tile,
+    :248), a multiple of 128; the plain versions ignore it.
 
     ``vocab_axis`` / ``mesh`` (the JAX sharded-vocab merge, :274-284, and
     its shard_map call site) raise: meshes are not ported yet."""
@@ -264,4 +283,5 @@ def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     return FusedCrossEntropy.apply(
         x.reshape(B * S, D).contiguous(), head.contiguous(),
         targets.reshape(-1).to(device=dev, dtype=torch.int32).contiguous(),
-        weights.reshape(-1).to(device=dev, dtype=torch.float32).contiguous())
+        weights.reshape(-1).to(device=dev, dtype=torch.float32).contiguous(),
+        int(block_v))

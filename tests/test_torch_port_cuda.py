@@ -19,7 +19,11 @@ rms_norm and q/k RoPE kernels against their plain versions: max |error|
 relative to max(1, max |reference|), 1e-5 in float32 and 8e-3 in
 bfloat16 (both sides compute in fp32 and round once; the fp32 sum order
 and ``rsqrtf`` may move the last bit, which can round a bf16 output to
-its neighbour). The fused cross-entropy kernels against their plain
+its neighbour); the same for the per-head rms_norm + RoPE kernel's
+values, and its gradients within those limits of max |reference| (the
+backward is fp32 torch on both sides). The kernel sweep
+(``analysis/kernelcheck.py``) holds every registered case within its
+committed CUDA pin. The fused cross-entropy kernels against their plain
 versions: lse and the target logit within 2e-5 (float32) / 1e-4
 (bfloat16) of max(1, max |reference|) (fp32 sums over D and the vocab in
 other orders; bf16 products are exact in fp32); dx and dhead within 1e-4
@@ -43,8 +47,8 @@ from gke_ray_train_tpu_torch.ops.fused_ce import (
     fused_ce_dhead, fused_ce_dx, fused_ce_grads_reference, fused_ce_row_stats,
     fused_ce_row_stats_reference, fused_cross_entropy)
 from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
-    fused_rmsnorm, fused_rmsnorm_reference, fused_rope_qk,
-    fused_rope_qk_reference)
+    fused_rmsnorm, fused_rmsnorm_reference, fused_rmsnorm_rope,
+    fused_rmsnorm_rope_reference, fused_rope_qk, fused_rope_qk_reference)
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.serve import (
     BatchEngine, Request, form_prompt_buffer)
@@ -316,6 +320,109 @@ def test_fused_kernels_refuse_what_they_cannot_take(dev):
         fused_rope_qk(q, q.bfloat16(), pos, f)
     with pytest.raises(ValueError, match="inv_freqs"):
         fused_rope_qk(q, q, pos, f.double())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 1024, 32, 128), (1, 4096, 16, 256),
+                                   (1, 37, 3, 64), (2, 13, 5, 32),
+                                   (1, 9, 2, 6)])
+def test_fused_rmsnorm_rope_kernel_matches_plain_version(dev, shape, dtype):
+    """Per-head rms_norm + RoPE: the two full-width shapes, S that no row
+    tile divides, head dims of 16-byte vectors and one (6) of none,
+    positions that restart per document and reach 4,095, both scale
+    parameterizations; values and the gradients of x and scale."""
+    B, S, H, dh = shape
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).repeat(B, 1)
+    pos[:, S // 2:] -= S // 2                    # a second document
+    pos[0, -1] = 4095
+    freqs = (1.0 / 10000.0 ** (torch.arange(0, dh, 2, dtype=torch.float64)
+                               / dh)).float().to(dev)
+    for sp1 in (False, True):
+        s = (torch.randn((dh,), generator=g, device=dev) * 0.1
+             + (0.0 if sp1 else 1.0)).to(dtype)
+        kw = dict(eps=1e-6, scale_plus_one=sp1)
+        before = fused_rmsnorm_rope.launches
+        y = fused_rmsnorm_rope(x, s, pos, freqs, **kw)
+        torch.cuda.synchronize()
+        assert fused_rmsnorm_rope.launches == before + 1
+        _close(y, fused_rmsnorm_rope_reference(x, s, pos, freqs, **kw),
+               dtype)
+    probe = torch.randn(shape, generator=g, device=dev).to(dtype)
+    grads = []
+    for fn in (fused_rmsnorm_rope, fused_rmsnorm_rope_reference):
+        xg = x.clone().requires_grad_(True)
+        sg = s.clone().requires_grad_(True)
+        (fn(xg, sg, pos, freqs, **kw).float() * probe.float()).sum(
+            ).backward()
+        grads.append((xg.grad, sg.grad))
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype == dtype
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= \
+            FUSED_TOL[dtype] * scale
+
+
+def test_fused_rmsnorm_rope_unaligned_view_takes_the_scalar_path(dev):
+    """A contiguous view 4 bytes past a 16-byte boundary: the kernel reads
+    it with scalar accesses and agrees with the plain version."""
+    for dtype in (torch.float32, torch.bfloat16):
+        shape = (2, 40, 4, 64)
+        n = int(np.prod(shape))
+        g = torch.Generator(device=dev).manual_seed(3)
+        base = torch.randn((n + 8,), generator=g, device=dev).to(dtype)
+        off = 4 // base.element_size()
+        x = base[off:off + n].view(shape)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        pos = torch.arange(40, dtype=torch.int32, device=dev).repeat(2, 1)
+        freqs = (1.0 / 10000.0 ** (torch.arange(0, 64, 2,
+                                                dtype=torch.float64) / 64)
+                 ).float().to(dev)
+        s = torch.randn((64,), generator=g, device=dev).to(dtype)
+        y = fused_rmsnorm_rope(x, s, pos, freqs)
+        torch.cuda.synchronize()
+        _close(y, fused_rmsnorm_rope_reference(
+            x, s, pos, freqs, eps=1e-5, scale_plus_one=False), dtype)
+
+
+def test_fused_rmsnorm_rope_refuses_what_it_cannot_take(dev):
+    x = torch.zeros((1, 8, 2, 64), device=dev)
+    pos = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    f = torch.ones(32, device=dev)
+    s = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_rmsnorm_rope(x.transpose(1, 2).contiguous().transpose(1, 2),
+                           s, pos, f)
+    with pytest.raises(ValueError, match="float32 or torch.bfloat16"):
+        fused_rmsnorm_rope(x.half(), s, pos, f)
+    with pytest.raises(ValueError, match="head_dim <= 256"):
+        fused_rmsnorm_rope(torch.zeros((1, 8, 2, 512), device=dev),
+                           torch.ones(512, device=dev), pos,
+                           torch.ones(256, device=dev))
+    with pytest.raises(ValueError, match="inv_freqs"):
+        fused_rmsnorm_rope(x, s, pos, f.double())
+
+
+def test_kernelcheck_sweep_on_card_is_clean(dev):
+    """Every registered case that runs on the card, the two full-width
+    norm + rope cases among them, lies inside its committed CUDA pin;
+    the sweep launches every kernel it covers."""
+    from gke_ray_train_tpu_torch.analysis import kernelcheck
+    from gke_ray_train_tpu_torch.ops.flash_attention import (
+        flash_attention, flash_bwd_dkv, flash_bwd_dq)
+    counted = (flash_attention, flash_bwd_dq, flash_bwd_dkv, fused_rmsnorm,
+               fused_rope_qk, fused_rmsnorm_rope, fused_ce_row_stats,
+               fused_ce_dx, fused_ce_dhead)
+    before = [fn.launches for fn in counted]
+    results = kernelcheck.sweep(device=dev)
+    assert {(r.kernel, r.case) for r in results} >= {
+        ("fused_norm_rope", "composed_bf16_llama3_8b"),
+        ("fused_norm_rope", "composed_bf16_gemma2_9b")}
+    findings = (kernelcheck.registration_findings()
+                + kernelcheck.ledger_findings(results, "cuda"))
+    assert not findings, "\n".join(map(str, findings))
+    assert all(fn.launches > b for fn, b in zip(counted, before))
 
 
 # chip_smoke.py's CE_TOL: (lse and target logit, dx and dhead)
