@@ -21,7 +21,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              torch.profiler, per-call time between CUDA events beside it
              at the serving shapes. The flash kernels are also held and
              timed at the Gemma-2 training shape (one packed row of
-             4,096, head dim 256, softcap, with and without the window).
+             4,096, head dim 256, softcap, with and without the window),
+             and timed at one 4,096-token document a row; the bf16 dK/dV
+             kernel must repeat bitwise.
              The per-head rms_norm + RoPE is timed at the Llama-3.1-8B q
              of the training microbatch and the Gemma-2-9B q of one
              packed row.
@@ -271,6 +273,21 @@ KERNEL_CASES = {
                           dtype="bfloat16", causal=False),
     "fully_masked_rows_bf16": dict(B=1, S=128, T=128, H=4, K=2, dh=64,
                                    dtype="bfloat16", masked_rows=True),
+    # the edges of the bf16 wgmma bodies: TMA tails with S < T, a
+    # cluster of 7 query heads (Qwen2's 28 / 4) and of 1 (MHA), dh 256
+    # with packed documents, window, softcap and rows that attend
+    # nothing, and a row of interior tiles only (one segment, not causal)
+    "tail_s_lt_t_bf16": dict(B=2, S=77, T=333, H=8, K=2, dh=128,
+                             dtype="bfloat16"),
+    "gqa7_bf16": dict(B=1, S=300, T=300, H=14, K=2, dh=128,
+                      dtype="bfloat16"),
+    "mha_dh64_bf16": dict(B=2, S=256, T=256, H=4, K=4, dh=64,
+                          dtype="bfloat16"),
+    "packed_window_softcap_dh256_bf16": dict(
+        B=1, S=700, T=700, H=4, K=2, dh=256, dtype="bfloat16", packed=True,
+        window=128, softcap=50.0, masked_rows=True),
+    "interior_bf16": dict(B=1, S=512, T=512, H=4, K=2, dh=128,
+                          dtype="bfloat16", causal=False),
 }
 
 # the serving path's prefill shapes: Llama-3.1-8B, one prompt per prefill
@@ -288,6 +305,8 @@ GEMMA_ATTN_CASES = {
     "gemma2_9b_train_4096_sliding": dict(GEMMA_ATTN_SHAPE, window=4096),
     "gemma2_9b_train_4096_global": GEMMA_ATTN_SHAPE,
 }
+# the other committed length mix: one 4,096-token document a row
+GEMMA_ONE_DOC_SHAPE = dict(GEMMA_ATTN_SHAPE, packed_rows=False)
 
 
 def _check_case(name, case, dev):
@@ -370,6 +389,12 @@ def _check_bwd_case(name, case, dev):
     if case.get("masked_rows"):
         row["masked_rows_ok"] = float(dq[:, 5:10].float().abs().max()) == 0.0
         row["ok"] = row["ok"] and row["masked_rows_ok"]
+    # the GQA group sum has a fixed order (no atomics): a second launch
+    # gives the same bits
+    again = flash_bwd_dkv(*args, **_mask_kw(kw))
+    row["dkv_bitwise_repeat"] = all(bool(torch.equal(a, b))
+                                    for a, b in zip((dk, dv), again))
+    row["ok"] = row["ok"] and row["dkv_bitwise_repeat"]
     return row
 
 
@@ -505,34 +530,38 @@ def _time_train_shape(dev):
 
 
 def _time_gemma_attn(dev):
-    """Device ms of the three kernels (the scalar head-dim-256 bodies) at
-    the train_fused phase's attention (the global layers' case of
-    GEMMA_ATTN_CASES; the sliding layers' window of 4,096 masks no pair
-    more on rows of documents up to 1,024 tokens), with the live pairs of
-    that packed row and each kernel's bound on them."""
+    """Device ms of the three kernels at the train_fused phase's attention
+    (the global layers' case of GEMMA_ATTN_CASES; the sliding layers'
+    window of 4,096 masks no pair more on rows of documents up to 1,024
+    tokens), with the live pairs of that packed row and each kernel's
+    bound on them; then the same at one 4,096-token document a row
+    (GEMMA_ONE_DOC_SHAPE), the other length mix the numbers hold for."""
     from gke_ray_train_tpu_torch.ops.flash_attention import (
         flash_attention, flash_bwd_dkv, flash_bwd_dq)
-    q, k, v, kw = _attn_inputs(GEMMA_ATTN_CASES[
-        "gemma2_9b_train_4096_global"], dev)
-    mkw = _mask_kw(kw)
-    out, lse, do, dvec = _bwd_inputs(q, k, v, kw, 0)
-    args = (q, k, v, do, lse, dvec) + _mask_args(kw)
-    bounds = _bwd_bounds(q, k, v, kw)
-    bounds["flash_fwd"] = _bound_ms(q, k, v, kw)
-    fns = {"flash_fwd": lambda: flash_attention(q, k, v, **kw),
-           "flash_bwd_dq": lambda: flash_bwd_dq(*args, **mkw),
-           "flash_bwd_dkv": lambda: flash_bwd_dkv(*args, **mkw)}
-    pairs = _live_pairs(kw)
-    rows = {}
-    for name, fn in fns.items():
-        bound, by, nbytes, flops = bounds[name]
-        ms = device_ms(fn)
-        rows[name] = {"shape": "gemma2_9b_train_4096", "kernel_ms": ms,
-                      "bound_ms": bound, "bound_by": by, "flops": flops,
-                      "tflops_per_s": flops / ms / 1e9}
-    return {"live_pairs_per_head": pairs,
-            "all_causal_pairs": q.shape[1] * (q.shape[1] + 1) // 2,
-            "kernels": rows}
+    mixes = {"stand_in_mix": GEMMA_ATTN_CASES["gemma2_9b_train_4096_global"],
+             "one_doc": GEMMA_ONE_DOC_SHAPE}
+    res = {}
+    for mix, case in mixes.items():
+        q, k, v, kw = _attn_inputs(case, dev)
+        mkw = _mask_kw(kw)
+        out, lse, do, dvec = _bwd_inputs(q, k, v, kw, 0)
+        args = (q, k, v, do, lse, dvec) + _mask_args(kw)
+        bounds = _bwd_bounds(q, k, v, kw)
+        bounds["flash_fwd"] = _bound_ms(q, k, v, kw)
+        fns = {"flash_fwd": lambda: flash_attention(q, k, v, **kw),
+               "flash_bwd_dq": lambda: flash_bwd_dq(*args, **mkw),
+               "flash_bwd_dkv": lambda: flash_bwd_dkv(*args, **mkw)}
+        rows = {}
+        for name, fn in fns.items():
+            bound, by, nbytes, flops = bounds[name]
+            ms = device_ms(fn)
+            rows[name] = {"shape": f"gemma2_9b_train_4096_{mix}",
+                          "kernel_ms": ms, "bound_ms": bound, "bound_by": by,
+                          "flops": flops, "tflops_per_s": flops / ms / 1e9}
+        res[mix] = {"live_pairs_per_head": _live_pairs(kw),
+                    "all_causal_pairs": q.shape[1] * (q.shape[1] + 1) // 2,
+                    "kernels": rows}
+    return res
 
 
 # fused rms_norm cases: rows (3 x 37) that no block divides, D of the

@@ -29,36 +29,42 @@
 // Design. The TPU grid's sequential fourth axis becomes a loop inside one
 // CTA, and the fp32 accumulators live in registers:
 // - dQ: one CTA per (query tile, query head, batch row) loops over the kv
-//   tiles of kv head h / G;
-// - dK/dV: one CTA per (kv tile, kv head, batch row) loops over the G
-//   query heads of its group and all their live query tiles, so the GQA
-//   group sum happens in fp32 registers and dK/dV are written once as
-//   [B, T, K, dh]: no per-query-head [B, H, T, dh] buffer (JAX :465-479)
-//   and no atomics. In bf16 this rounds once where JAX rounds each head's
-//   partial before the sum; at fp32 the two agree.
-// Two bodies share that structure:
-// - bf16 with dh 64 or 128 (every training shape of the shipped Llama /
-//   Mistral / Qwen families): tensor cores through `mma.sync` m16n8k16,
-//   four warps of 16 own rows, 64-row loop tiles staged in shared memory
-//   as bf16, row-major and transposed. P and dS stay in registers between
-//   the two products of a tile: the score accumulators are laid out as the
-//   A operand of the second product, whose bf16 packing is the rounding
-//   the TPU kernels do with `.astype`.
-// - float32, and bf16 at dh 256 (Gemma-2): scalar fp32 FMAs, 256 threads
-//   as a 16 x 16 grid, each with a register micro-tile of scores and of
-//   output columns; tiles staged in shared memory as fp32, transposed
-//   where a product reads them down a column, with padded leading
-//   dimensions against bank conflicts.
+//   tiles of kv head h / G. bf16 at dh 64 / 128 takes `mma.sync`
+//   m16n8k16 (four warps of 16 query rows, 64-row kv tiles staged in
+//   shared memory, P and dS from registers into the second product);
+//   float32, and bf16 at dh 256, the scalar body.
+// - dK/dV, bf16 (dh 64 / 128 / 256): one CTA per (query head, batch row,
+//   kv tile), the small-t0 tiles (the most live query tiles under
+//   causality) launched first; the G CTAs of a kv head form one
+//   thread-block cluster (G <= 8). One producer warp loads K and V of the
+//   tile once and keeps a ring of Q / dO tiles in flight by TMA (lse, D,
+//   positions and segments beside them by cp.async); query tiles are
+//   classed up front as in the forward (dead, boundary, interior). Two
+//   consumer warpgroups: at dh 64 each owns 64 kv rows and computes
+//   S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q by wgmma;
+//   from dh 128 they share 64 kv rows: each computes S^T and dP^T for
+//   half of the query columns, forms and packs P^T and dS^T there, trades
+//   the packed half with the other through shared memory, and
+//   accumulates its half of dh of dK and dV (two 64 x dh accumulators
+//   and the score tiles do not fit one thread's registers). The second
+//   products read Q and dO as MN-major operands: no transposed copies.
+//   At the end every CTA writes its fp32 partial to its own shared
+//   memory, and rank r of the cluster sums its share of the rows over
+//   ranks 0..G-1 in order through distributed shared memory, rounds once
+//   and writes [B, T, K, dh]: no [B, H, T, dh] buffer, no atomics,
+//   bitwise-repeatable. In bf16 this rounds once where JAX rounds each
+//   head's partial before the sum (:465-479); at fp32 the two agree.
+// - dK/dV, float32: the scalar body, one CTA per (kv tile, kv head,
+//   batch row) over the G query heads; the parity path.
 //
 // Bound. At the training shape (B=2, S=T=1024, H=32, K=8, dh=128, bf16,
 // causal) the dQ kernel does 3 products and the dK/dV kernel 4 over the
 // 524,800 live pairs of each (batch row, head): 25.8 and 34.4 GFLOP, and
 // each moves ~50-60 MB, so both are bound by operations (~0.026 and
-// ~0.035 ms at 989 TFLOP/s bf16). `mma.sync` reaches a fraction of the
-// wgmma rate, loads are not overlapped with the products (no cp.async /
-// TMA ring), and the dK/dV grid has only T/64 x K x B CTAs with a causal
-// imbalance between them; wgmma, a TMA ring, warp specialisation and a
-// split of the dK/dV loop over more CTAs are the later work.
+// ~0.035 ms at 989 TFLOP/s bf16). What holds the wgmma dK/dV body back:
+// 64 x 64 tiles whose products are short against the elementwise phase
+// and the two exchanges between the warpgroups, none of it overlapped
+// with the tensor cores (see PERF.md).
 //
 // The C entry points return cudaGetLastError() after the launch; the
 // Python wrappers raise when that is not cudaSuccess.
@@ -69,6 +75,8 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -363,8 +371,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dK / dV: one CTA per (kv tile, kv head, batch row), over the G query
-// heads of the group
+// dK / dV, float32: one CTA per (kv tile, kv head, batch row), over the
+// G query heads of the group
 // ---------------------------------------------------------------------------
 
 template <int DH>
@@ -540,19 +548,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core bodies (dh 64 / 128)
+// dQ, bf16 tensor-core body (dh 64 / 128)
 // ---------------------------------------------------------------------------
 //
-// Four warps, 16 "own" rows each (query rows for dQ, kv rows for dK/dV), a
-// 64-row loop tile. Every product is `mma.sync` m16n8k16 (bf16 in, fp32
-// accumulate). The score-like products (S = Q K^T and dP = dO V^T, or
-// their transposes for dK/dV) read their A operand from registers (dQ: Q
-// and dO, loaded once) or from row-major shared memory (dK/dV: K and V),
+// Four warps, 16 query rows each, a 64-row kv loop tile. Every product is
+// `mma.sync` m16n8k16 (bf16 in, fp32 accumulate). S = Q K^T and dP =
+// dO V^T read their A operand from registers (Q and dO, loaded once) and
 // their B operand from row-major tiles; their accumulators are laid out
-// as the A operand of the second products, so P and dS go from registers
-// to dQ += dS K, dV += P^T dO and dK += dS^T Q, rounded to bf16 by the
-// operand packing, without touching shared memory. The B operands of the
-// second products are the transposed tiles.
+// as the A operand of dQ += dS K, so dS goes from registers to the second
+// product, rounded to bf16 by the operand packing. Its B operand is the
+// transposed K tile.
 
 constexpr int kMmaWarps = 4;
 constexpr int kMmaThreads = 32 * kMmaWarps;
@@ -567,10 +572,7 @@ struct MmaTile {
   static constexpr int INTS = 4 * kMmaTile + 4 * kMmaWarps;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack_bf16;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -587,19 +589,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows [r, r + 16) x columns [c, c + 16) of a row-major
-// bf16 tile with leading dimension ld.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int ld,
-                                       int r, int c, int g, int t) {
-  const __nv_bfloat16* p0 = tile + (r + g) * ld + c + 2 * t;
-  const __nv_bfloat16* p1 = p0 + 8 * ld;
-  a[0] = ld32(p0);
-  a[1] = ld32(p1);
-  a[2] = ld32(p0 + 8);
-  a[3] = ld32(p1 + 8);
 }
 
 // Stage rows [r0, r0 + nrows) of a [len, heads, DH] bf16 tensor's head
@@ -776,151 +765,460 @@ flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dK / dV, bf16: wgmma, a TMA ring, warp specialisation, and a cluster of
+// the G query heads of a kv head that sums the group through distributed
+// shared memory (dh 64 / 128 / 256)
+// ---------------------------------------------------------------------------
+
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // see flash_fwd.cu
+
+// Two consumer warpgroups and one producer warpgroup (one warp of it
+// issues the loads). At dh 64 each consumer owns 64 kv rows of a 128-row
+// tile. From dh 128 the two 64 x dh fp32 accumulators of dK and dV and
+// the two score tiles do not fit a thread's registers, so the two
+// share one 64-row tile and split dh: warpgroup 0 computes S^T,
+// warpgroup 1 dP^T, they swap them through shared memory, and each
+// accumulates its half of the columns of dK and dV.
 template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ dvec,
-                         const int* __restrict__ qpos,
-                         const int* __restrict__ kvpos,
-                         const int* __restrict__ qseg,
-                         const int* __restrict__ kvseg,
-                         __nv_bfloat16* __restrict__ dk,
-                         __nv_bfloat16* __restrict__ dv, int S, int T_len,
-                         int H, int K, Mask m) {
-  using C = MmaTile<DH>;
-  constexpr int KSTEPS = DH / 16;
-  constexpr int NT_O = DH / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + C::ROW_ELEMS;
-  __nv_bfloat16* Qs = Vs + C::ROW_ELEMS;
-  __nv_bfloat16* dOs = Qs + C::ROW_ELEMS;
-  __nv_bfloat16* Qt = dOs + C::ROW_ELEMS;
-  __nv_bfloat16* dOt = Qt + C::T_ELEMS;
-  float* lse_s = reinterpret_cast<float*>(dOt + C::T_ELEMS);
-  float* d_s = lse_s + kMmaTile;
-  int* qpos_s = reinterpret_cast<int*>(d_s + kMmaTile);
-  int* qseg_s = qpos_s + kMmaTile;
-  int* kpos_s = qseg_s + kMmaTile;
-  int* kseg_s = kpos_s + kMmaTile;
-  int* red = kseg_s + kMmaTile;
+struct DkvCfg {
+  static constexpr bool SPLIT = DH >= 128;
+  static constexpr int KVT = SPLIT ? 64 : 128;  // kv rows per CTA
+  static constexpr int BQ = 64;                 // query rows per ring entry
+  static constexpr int STAGES = DH == 256 ? 2 : 3;
+  static constexpr int CB = DH / 64;
+  static constexpr int THREADS = 384;
+  static constexpr int KV_BYTES = CB * KVT * 128;  // K or V
+  static constexpr int QT_BYTES = CB * BQ * 128;   // Q or dO, one stage
+  static constexpr int OFF_V = KV_BYTES;
+  static constexpr int OFF_Q = 2 * KV_BYTES;
+  static constexpr int OFF_DO = OFF_Q + STAGES * QT_BYTES;
+  // SPLIT: the warpgroups' exchange, 16 words a thread each way, in
+  // buffers of two tile parities (one at dh 256, whose tiles leave no
+  // room: a second barrier there keeps a tile's writes after the last
+  // tile's reads)
+  static constexpr int X_PARITIES = DH == 256 ? 1 : 2;
+  static constexpr int OFF_X = OFF_DO + STAGES * QT_BYTES;
+  static constexpr int X_BYTES = SPLIT ? X_PARITIES * 2 * 16 * 128 * 4 : 0;
+  // per stage: lse, D, positions, segments [BQ] each, then (q0, interior)
+  static constexpr int OFF_ROW = OFF_X + X_BYTES;
+  static constexpr int ROW_INTS = 4 * BQ + 2;
+  static constexpr int OFF_BAR = OFF_ROW + STAGES * ROW_INTS * 4;
+  // the class of every query tile (hopper::kDead / kBoundary / kInterior)
+  static constexpr int OFF_CLS = OFF_BAR + (1 + 2 * STAGES) * 8;
+  static constexpr int BYTES = OFF_CLS + hopper::kMaxTiles + 1024;
+  // the reduction's fp32 partials [KVT][SLD] over K, V and the ring
+  static constexpr int SLD = DH + 4;
+  static_assert(KVT * SLD * 4 <= OFF_X, "partials overflow the tiles");
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int t0 = blockIdx.x * kMmaTile;
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int G = H / K;
-  const int kvrows = min(kMmaTile, T_len - t0);
-  const size_t q_stride = size_t(H) * DH;
-  const size_t kv_stride = size_t(K) * DH;
-  const size_t kv_off = (size_t(b) * T_len * K + kh) * DH;
+struct DkvParams {
+  const float *lse, *dvec;
+  const int *qpos, *kvpos, *qseg, *kvseg;
+  __nv_bfloat16 *dk, *dv;
+  int S, T, H, K, G, causal, use_window, window;
+  float scale, softcap;
+};
 
-  stage_bf16<DH>(k + kv_off, kv_stride, t0, kvrows, Ks, nullptr);
-  stage_bf16<DH>(v + kv_off, kv_stride, t0, kvrows, Vs, nullptr);
-  if (tid < kMmaTile) {
-    const bool ok = tid < kvrows;
-    kpos_s[tid] = ok ? kvpos[size_t(b) * T_len + t0 + tid] : 0;
-    kseg_s[tid] = ok ? kvseg[size_t(b) * T_len + t0 + tid] : 0;
+// The producer warp: every live query tile of its head (from the class
+// table) into the ring (K and V of the CTA's kv tile are on their way
+// since the kernel's start): Q and dO
+// by TMA; lse, D, positions and segments by cp.async (rows past S
+// zero-filled: segment 0, never attended); its start and class by the
+// lane that issues the TMA.
+template <int DH>
+__device__ __forceinline__ void dkv_producer(const CUtensorMap* tq,
+                                             const CUtensorMap* tdo,
+                                             const DkvParams& p, int h, int b,
+                                             unsigned char* sm) {
+  using C = DkvCfg<DH>;
+  using namespace hopper;
+  int* rows_s = reinterpret_cast<int*>(sm + C::OFF_ROW);
+  const uint8_t* cls = sm + C::OFF_CLS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + C::STAGES;
+  const int lane = threadIdx.x & 31;
+
+  const int n_q = (p.S + C::BQ - 1) / C::BQ;
+  const float* lse = p.lse + (size_t(b) * p.H + h) * p.S;
+  const float* dvec = p.dvec + (size_t(b) * p.H + h) * p.S;
+  const int* qpos = p.qpos + size_t(b) * p.S;
+  const int* qseg = p.qseg + size_t(b) * p.S;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int it = 0; it < n_q; ++it) {
+    const uint8_t c = cls[it];
+    if (c == kDead) continue;
+    const int q0 = it * C::BQ;
+    mbar_wait(&empty[stage], phase ^ 1);
+    int* rs = rows_s + stage * C::ROW_INTS;
+#pragma unroll
+    for (int i = 0; i < C::BQ / 32; ++i) {
+      const int r = lane + 32 * i;
+      const bool ok = q0 + r < p.S;
+      const int src = ok ? q0 + r : 0;
+      cp_async4(&rs[r], lse + src, ok);
+      cp_async4(&rs[C::BQ + r], dvec + src, ok);
+      cp_async4(&rs[2 * C::BQ + r], qpos + src, ok);
+      cp_async4(&rs[3 * C::BQ + r], qseg + src, ok);
+    }
+    cp_async_arrive(&full[stage]);
+    if (lane == 0) {
+      rs[4 * C::BQ] = q0;
+      rs[4 * C::BQ + 1] = c == kInterior;
+      mbar_arrive_tx(&full[stage], 2 * C::QT_BYTES);
+      unsigned char* qdst = sm + C::OFF_Q + stage * C::QT_BYTES;
+      unsigned char* odst = sm + C::OFF_DO + stage * C::QT_BYTES;
+#pragma unroll
+      for (int cb = 0; cb < C::CB; ++cb) {
+        tma_load_4d(qdst + cb * C::BQ * 128, tq, &full[stage], cb * 64, h, q0,
+                    b);
+        tma_load_4d(odst + cb * C::BQ * 128, tdo, &full[stage], cb * 64, h,
+                    q0, b);
+      }
+    }
+    if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
   }
-  __syncthreads();
-  int kmm[4];
-  tile_minmax<kMmaWarps>(kpos_s, kseg_s, kvrows, kmm, red);
-  // this thread's two kv rows of its warp's 16
-  const int c0 = warp * 16 + g, c1 = c0 + 8;
-  const int kp[2] = {kpos_s[c0], kpos_s[c1]};
-  const int kseg_r[2] = {kseg_s[c0], kseg_s[c1]};
+  mbar_wait(&empty[stage], phase ^ 1);
+  if (lane == 0) {
+    rows_s[stage * C::ROW_INTS + 4 * C::BQ] = hopper::kEndTile;
+    mbar_arrive(&full[stage]);
+  }
+  cp_async_arrive(&full[stage]);  // no copies pending: arrives at once
+}
 
-  float dk_acc[NT_O][4], dv_acc[NT_O][4];
+// P^T and dS^T of query columns [8 J0, 8 (J0 + NJ)) of one 64 x 64 tile
+// from the raw products S^T = K Q^T and dP^T = V dO^T of those columns,
+// packed to bf16 as the A operands of dV += P^T dO and dK += dS^T Q
+// (query columns 16k..16k+15 form k16 step k). P = 0 where the pair is
+// masked (MASK: boundary tiles; rows that attend nothing have no kept
+// pair), the softcap factor where P > 0 (CAP). Compile-time forms, so
+// that a tile evaluates no softcap or mask it does not have.
+template <bool CAP, bool MASK, int J0, int NJ>
+__device__ __forceinline__ void dkv_elementwise(
+    const float (&st)[4 * NJ], const float (&dpt)[4 * NJ],
+    uint32_t (&pf)[4][4], uint32_t (&dsf)[4][4], const float* lse_s,
+    const float* d_s, const int* qpos_s, const int* qseg_s,
+    const int (&kp)[2], const int (&ksg)[2], int t, const DkvParams& p) {
+  using hopper::fast_exp2;
+  using hopper::kLog2e;
+  using hopper::pack_bf16;
+  // exp(x - lse) = 2^(x log2e - lse log2e), the scale folded into the
+  // multiplier when there is no softcap
+  const float mul = CAP ? kLog2e : p.scale * kLog2e;
+  const float cap_in = CAP ? p.scale / p.softcap : 0.f;
+  const float inv_cap = CAP ? 1.f / p.softcap : 0.f;
 #pragma unroll
-  for (int n = 0; n < NT_O; ++n)
+  for (int j = 0; j < NJ; ++j) {
+    float pr[4], ds[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int n_q = (S + kMmaTile - 1) / kMmaTile;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kh * G + gi;
-    const size_t q_off = (size_t(b) * S * H + h) * DH;
-    for (int it = 0; it < n_q; ++it) {
-      const int q0 = it * kMmaTile;
-      const int qrows = min(kMmaTile, S - q0);
-      if (tid < kMmaTile) {
-        const bool ok = tid < qrows;
-        const size_t hrow = (size_t(b) * H + h) * S + q0 + tid;
-        qpos_s[tid] = ok ? qpos[size_t(b) * S + q0 + tid] : 0;
-        qseg_s[tid] = ok ? qseg[size_t(b) * S + q0 + tid] : 0;
-        lse_s[tid] = ok ? lse[hrow] : 0.f;
-        d_s[tid] = ok ? dvec[hrow] : 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;                           // kv row c0 + 8 hr
+      const int r = 8 * (J0 + j) + 2 * t + (e & 1);    // query row
+      float x = st[4 * j + e];
+      if constexpr (CAP) x = tanhf(x * cap_in) * p.softcap;
+      float pv = fast_exp2(fmaf(x, mul, -lse_s[r] * kLog2e));
+      if constexpr (MASK) {
+        bool keep = qseg_s[r] == ksg[hr] && ksg[hr] != 0;
+        if (p.causal) keep = keep && kp[hr] <= qpos_s[r];
+        if (p.use_window) keep = keep && kp[hr] > qpos_s[r] - p.window;
+        pv = keep ? pv : 0.f;
       }
-      __syncthreads();
-      int qmm[4];
-      tile_minmax<kMmaWarps>(qpos_s, qseg_s, qrows, qmm, red);
-      if (!block_live(qmm, kmm, m.causal, m.use_window, m.window)) continue;
-
-      stage_bf16<DH>(q + q_off, q_stride, q0, qrows, Qs, Qt);
-      stage_bf16<DH>(dout + q_off, q_stride, q0, qrows, dOs, dOt);
-      __syncthreads();
-
-      // 16 query columns at a time: S^T = K Q^T and dP^T = V dO^T for two
-      // n8 tiles, P^T and dS^T packed as the A operands of dV += P^T dO
-      // and dK += dS^T Q
-#pragma unroll
-      for (int ks = 0; ks < kMmaTile / 16; ++ks) {
-        uint32_t pf[4], dsf[4];
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = 2 * ks + half;
-          float sc[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-          const __nv_bfloat16* qrow = Qs + (j * 8 + g) * C::LDR + 2 * t;
-          const __nv_bfloat16* orow = dOs + (j * 8 + g) * C::LDR + 2 * t;
-#pragma unroll
-          for (int kk = 0; kk < KSTEPS; ++kk) {
-            uint32_t a[4];
-            load_a(a, Ks, C::LDR, warp * 16, kk * 16, g, t);
-            mma_bf16(sc, a, ld32(qrow + kk * 16), ld32(qrow + kk * 16 + 8));
-            load_a(a, Vs, C::LDR, warp * 16, kk * 16, g, t);
-            mma_bf16(dp, a, ld32(orow + kk * 16), ld32(orow + kk * 16 + 8));
-          }
-          float p[4], ds[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int hr = e >> 1;                  // kv row c0 or c1
-            const int r = j * 8 + 2 * t + (e & 1);  // query row
-            p_and_ds(sc[e], dp[e], lse_s[r], d_s[r], qpos_s[r], qseg_s[r],
-                     kp[hr], kseg_r[hr], m, &p[e], &ds[e]);
-          }
-          pf[half * 2 + 0] = pack_bf16(p[0], p[1]);
-          pf[half * 2 + 1] = pack_bf16(p[2], p[3]);
-          dsf[half * 2 + 0] = pack_bf16(ds[0], ds[1]);
-          dsf[half * 2 + 1] = pack_bf16(ds[2], ds[3]);
-        }
-#pragma unroll
-        for (int n = 0; n < NT_O; ++n) {
-          const __nv_bfloat16* ot = dOt + (n * 8 + g) * C::LDT + ks * 16 + 2 * t;
-          const __nv_bfloat16* qt = Qt + (n * 8 + g) * C::LDT + ks * 16 + 2 * t;
-          mma_bf16(dv_acc[n], pf, ld32(ot), ld32(ot + 8));
-          mma_bf16(dk_acc[n], dsf, ld32(qt), ld32(qt + 8));
-        }
+      float d = pv * (dpt[4 * j + e] - d_s[r]);
+      if constexpr (CAP) {
+        const float c = x * inv_cap;
+        d = pv > 0.f ? d * (1.f - c * c) : d;
       }
-      __syncthreads();
+      pr[e] = pv;
+      ds[e] = d;
+    }
+    const int k = (J0 + j) / 2, h2 = ((J0 + j) & 1) * 2;
+    pf[k][h2 + 0] = pack_bf16(pr[0], pr[1]);
+    pf[k][h2 + 1] = pack_bf16(pr[2], pr[3]);
+    dsf[k][h2 + 0] = pack_bf16(ds[0], ds[1]);
+    dsf[k][h2 + 1] = pack_bf16(ds[2], ds[3]);
+  }
+}
+
+// The GQA group sum of one accumulator: every CTA of the cluster (one per
+// query head of kv head h / G) writes its fp32 partial to its own shared
+// memory (over K, V and the ring, all read by now); rank r then sums its
+// share of the rows over ranks 0..G-1 in order, through distributed
+// shared memory, scales, rounds once and writes [B, T, K, dh].
+template <int DH, int NACC>
+__device__ __forceinline__ void group_sum(const float (&acc)[NACC],
+                                          __nv_bfloat16* dst, float scale,
+                                          const DkvParams& p, int t0, int c0,
+                                          int col0, unsigned char* sm) {
+  using C = DkvCfg<DH>;
+  using namespace hopper;
+  float* part = reinterpret_cast<float*>(sm);
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = c0 + 8 * hr;
+      *reinterpret_cast<float2*>(part + row * C::SLD + col0 + 8 * j +
+                                 2 * t) =
+          make_float2(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
     }
   }
+  cluster_sync();
+  const int rank = int(cluster_rank());
+  const int share = (C::KVT + p.G - 1) / p.G;
+  const int rlo = rank * share, rhi = min(C::KVT, rlo + share);
+  const int b = blockIdx.y, kh = int(blockIdx.x) / p.G;
+  for (int i = threadIdx.x; i < (rhi - rlo) * (DH / 4); i += 256) {
+    const int row = rlo + i / (DH / 4), c = 4 * (i % (DH / 4));
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int src = 0; src < p.G; ++src) {
+      const float4 v =
+          ld_cluster_f4(cluster_addr(part + row * C::SLD + c, src));
+      sum.x += v.x; sum.y += v.y; sum.z += v.z; sum.w += v.w;
+    }
+    if (t0 + row < p.T) {
+      uint2 w;
+      w.x = pack_bf16(sum.x * scale, sum.y * scale);
+      w.y = pack_bf16(sum.z * scale, sum.w * scale);
+      *reinterpret_cast<uint2*>(
+          dst + ((size_t(b) * p.T + t0 + row) * p.K + kh) * DH + c) = w;
+    }
+  }
+  cluster_sync();  // the partials may be overwritten, the CTA may exit
+}
 
+template <int DH>
+__device__ __forceinline__ void dkv_consumer(const DkvParams& p, int h,
+                                             int b, int t0, int wg,
+                                             unsigned char* sm) {
+  using C = DkvCfg<DH>;
+  using namespace hopper;
+  constexpr int NACC = C::SPLIT ? DH / 4 : DH / 2;  // 64 x (dh or dh/2)
+  const int* rows_s = reinterpret_cast<const int*>(sm + C::OFF_ROW);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + C::STAGES;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // this thread's kv rows c0 and c0 + 8 of the tile
+  const int own = C::SPLIT ? 0 : 64 * wg;
+  const int c0 = own + 16 * warp + g;
+  int kp[2], ksg[2];
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int c = hr ? c1 : c0;
-    if (c >= kvrows) continue;
-    const size_t off = ((size_t(b) * T_len + t0 + c) * K + kh) * DH + 2 * t;
+    const int c = t0 + c0 + 8 * hr;
+    const bool ok = c < p.T;
+    kp[hr] = ok ? p.kvpos[size_t(b) * p.T + c] : 0;
+    ksg[hr] = ok ? p.kvseg[size_t(b) * p.T + c] : 0;
+  }
+  float dk[NACC], dv[NACC];
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      *reinterpret_cast<uint32_t*>(dk + off + n * 8) = pack_bf16(
-          dk_acc[n][2 * hr] * m.scale, dk_acc[n][2 * hr + 1] * m.scale);
-      *reinterpret_cast<uint32_t*>(dv + off + n * 8) =
-          pack_bf16(dv_acc[n][2 * hr], dv_acc[n][2 * hr + 1]);
+  for (int i = 0; i < NACC; ++i) dk[i] = dv[i] = 0.f;
+  // dh columns this warpgroup accumulates: all, or its half at dh 256
+  const int cb0 = C::SPLIT ? wg * C::CB / 2 : 0;
+  const unsigned char* k_own = sm + own * 128;
+  const unsigned char* v_own = sm + C::OFF_V + own * 128;
+  // the exchange at dh >= 128: [parity][warpgroup][16][128] words
+  uint32_t* xw = reinterpret_cast<uint32_t*>(sm + C::OFF_X);
+  int parity = 0;
+
+  mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(&full[stage], phase);
+    const int* rs = rows_s + stage * C::ROW_INTS;
+    if (rs[4 * C::BQ] == hopper::kEndTile) break;
+    const bool interior = rs[4 * C::BQ + 1] != 0;
+    const float* lse_s = reinterpret_cast<const float*>(rs);
+    const float* d_s = lse_s + C::BQ;
+    const int* qpos_s = rs + 2 * C::BQ;
+    const int* qseg_s = rs + 3 * C::BQ;
+    const unsigned char* q_st = sm + C::OFF_Q + stage * C::QT_BYTES;
+    const unsigned char* o_st = sm + C::OFF_DO + stage * C::QT_BYTES;
+
+    // S^T = K Q^T and dP^T = V dO^T for 64 kv rows and NQ query columns:
+    // all 64, or this warpgroup's half at dh >= 128
+    constexpr int NQ = C::SPLIT ? 32 : 64;
+    const int q_off = C::SPLIT ? wg * 32 * 128 : 0;
+    float st[NQ / 2], dpt[NQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int cb = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss(st, desc_sw128(k_own + cb * C::KVT * 128 + off, 16, 1024),
+               desc_sw128(q_st + cb * C::BQ * 128 + q_off + off, 16, 1024),
+               kk > 0);
     }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int cb = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss(dpt, desc_sw128(v_own + cb * C::KVT * 128 + off, 16, 1024),
+               desc_sw128(o_st + cb * C::BQ * 128 + q_off + off, 16, 1024),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(st);
+    reg_fence(dpt);
+
+    uint32_t pf[4][4], dsf[4][4];
+    const bool capped = p.softcap > 0.f;
+#define DKV_ELEMENTWISE(J0, NJ)                                             \
+  do {                                                                      \
+    if (capped) {                                                           \
+      if (interior)                                                         \
+        dkv_elementwise<true, false, J0, NJ>(st, dpt, pf, dsf, lse_s, d_s,  \
+                                             qpos_s, qseg_s, kp, ksg, t, p); \
+      else                                                                  \
+        dkv_elementwise<true, true, J0, NJ>(st, dpt, pf, dsf, lse_s, d_s,   \
+                                            qpos_s, qseg_s, kp, ksg, t, p); \
+    } else {                                                                \
+      if (interior)                                                         \
+        dkv_elementwise<false, false, J0, NJ>(st, dpt, pf, dsf, lse_s, d_s, \
+                                              qpos_s, qseg_s, kp, ksg, t,   \
+                                              p);                           \
+      else                                                                  \
+        dkv_elementwise<false, true, J0, NJ>(st, dpt, pf, dsf, lse_s, d_s,  \
+                                             qpos_s, qseg_s, kp, ksg, t, p); \
+    }                                                                       \
+  } while (0)
+    if constexpr (C::SPLIT) {
+      // each warpgroup packs its half of the query columns and hands it
+      // to the other through a buffer of this tile's parity; the other
+      // has read it before it reaches the next tile's exchange, so a
+      // write two tiles on is safe
+      uint32_t* mine = xw + ((parity * 2 + wg) * 16) * 128;
+      const uint32_t* theirs = xw + ((parity * 2 + 1 - wg) * 16) * 128;
+      if (wg == 0) {
+        DKV_ELEMENTWISE(0, 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          mine[i * 128 + tid] = pf[i / 4][i % 4];
+          mine[(8 + i) * 128 + tid] = dsf[i / 4][i % 4];
+        }
+      } else {
+        DKV_ELEMENTWISE(4, 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          mine[i * 128 + tid] = pf[2 + i / 4][i % 4];
+          mine[(8 + i) * 128 + tid] = dsf[2 + i / 4][i % 4];
+        }
+      }
+      named_sync(1, 256);
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          pf[2 + i / 4][i % 4] = theirs[i * 128 + tid];
+          dsf[2 + i / 4][i % 4] = theirs[(8 + i) * 128 + tid];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          pf[i / 4][i % 4] = theirs[i * 128 + tid];
+          dsf[i / 4][i % 4] = theirs[(8 + i) * 128 + tid];
+        }
+      }
+      if constexpr (C::X_PARITIES == 2)
+        parity ^= 1;
+      else
+        named_sync(2, 256);  // both have read before either writes again
+    } else {
+      DKV_ELEMENTWISE(0, 8);
+    }
+#undef DKV_ELEMENTWISE
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::BQ / 16; ++kk)
+      wgmma_rs(dv, pf[kk],
+               desc_sw128(o_st + cb0 * C::BQ * 128 + kk * 16 * 128,
+                          C::BQ * 128, 1024),
+               1);
+#pragma unroll
+    for (int kk = 0; kk < C::BQ / 16; ++kk)
+      wgmma_rs(dk, dsf[kk],
+               desc_sw128(q_st + cb0 * C::BQ * 128 + kk * 16 * 128,
+                          C::BQ * 128, 1024),
+               1);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(dv);
+    reg_fence(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+  }
+
+  // The GQA group sum: every CTA of the cluster (one per query head of
+  // kv head kh) writes its fp32 partial to its own shared memory; rank r
+  // then sums its share of the rows over ranks 0..G-1 in order, through
+  // distributed shared memory, and rounds once. dK first, then dV, in
+  // the same buffer (over K, V and the ring, all read by now).
+  named_sync(3, 256);
+  const int col0 = C::SPLIT ? wg * DH / 2 : 0;
+  group_sum<DH>(dk, p.dk, p.scale, p, t0, c0, col0, sm);
+  group_sum<DH>(dv, p.dv, 1.f, p, t0, c0, col0, sm);
+}
+
+// One CTA per (query head, batch row, kv tile), the G CTAs of a kv head
+// one cluster; the small-t0 kv tiles (the most live query tiles under
+// causality) launch first.
+template <int DH>
+__global__ void __launch_bounds__(DkvCfg<DH>::THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const DkvParams p) {
+  using C = DkvCfg<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align1024(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int t0 = int(blockIdx.z) * C::KVT;
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+    hopper::mbar_init(&bars[0], 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      // full: the 32 producer lanes' copies and the TMA lane's bytes
+      hopper::mbar_init(&bars[1 + s], 33);
+      hopper::mbar_init(&bars[1 + C::STAGES + s], 8);  // empty
+    }
+    hopper::fence_barrier_init();
+    // K and V now, so that they load while the query tiles are classed
+    const int kh = h / p.G;
+    hopper::mbar_arrive_tx(&bars[0], 2 * C::KV_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < C::CB; ++cb) {
+      hopper::tma_load_4d(sm + cb * C::KVT * 128, &tk, &bars[0], cb * 64, kh,
+                          t0, b);
+      hopper::tma_load_4d(sm + C::OFF_V + cb * C::KVT * 128, &tv, &bars[0],
+                          cb * 64, kh, t0, b);
+    }
+  }
+  // the class of every query tile against this kv tile, all threads (ends
+  // with a CTA barrier, which also publishes the mbarriers)
+  hopper::classify_tiles(p.kvpos + size_t(b) * p.T,
+                         p.kvseg + size_t(b) * p.T, t0,
+                         min(C::KVT, p.T - t0), t0 + C::KVT <= p.T,
+                         p.qpos + size_t(b) * p.S, p.qseg + size_t(b) * p.S,
+                         p.S, C::BQ, (p.S + C::BQ - 1) / C::BQ, false,
+                         p.causal, p.use_window, p.window, sm + C::OFF_CLS);
+  const int wg = hopper::warpgroup_index();
+  if (wg == 2) {
+    hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x / 32 == 8)
+      dkv_producer<DH>(&tq, &tdo, p, h, b, sm);
+    // the group sum's four cluster barriers count every thread
+#pragma unroll 1
+    for (int i = 0; i < 4; ++i) hopper::cluster_sync();
+  } else {
+    hopper::reg_alloc<kConsumerRegs>();
+    dkv_consumer<DH>(p, h, b, t0, wg, sm);
   }
 }
 
@@ -989,23 +1287,47 @@ cudaError_t launch_dq_mma(const Args& a, void* dq, cudaStream_t st) {
 }
 
 template <int DH>
-cudaError_t launch_dkv_mma(const Args& a, void* dk, void* dv,
-                           cudaStream_t st) {
-  using C = MmaTile<DH>;
-  auto kern = flash_bwd_dkv_mma_kernel<DH>;
-  constexpr size_t smem = size_t(4 * C::ROW_ELEMS + 2 * C::T_ELEMS) * 2 +
-                          size_t(2 * kMmaTile + C::INTS) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv,
+                             cudaStream_t st) {
+  using C = DkvCfg<DH>;
+  const int G = a.H / a.K;
+  if (G > 8) return cudaErrorInvalidValue;  // the cluster's portable limit
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = hopper::head_rows_map(&tq, a.q, a.B, a.S, a.H, DH, C::BQ)) !=
+          cudaSuccess ||
+      (err = hopper::head_rows_map(&tdo, a.dout, a.B, a.S, a.H, DH,
+                                   C::BQ)) != cudaSuccess ||
+      (err = hopper::head_rows_map(&tk, a.k, a.B, a.T, a.K, DH, C::KVT)) !=
+          cudaSuccess ||
+      (err = hopper::head_rows_map(&tv, a.v, a.B, a.T, a.K, DH, C::KVT)) !=
+          cudaSuccess)
+    return err;
+  if ((a.S + C::BQ - 1) / C::BQ > hopper::kMaxTiles)
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dkv_wgmma_kernel<DH>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.T + kMmaTile - 1) / kMmaTile, a.K, a.B);
-  kern<<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.dvec, a.qpos,
-      a.kvpos, a.qseg, a.kvseg, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), a.S, a.T, a.H, a.K, a.m);
+  const DkvParams p{a.lse, a.dvec, a.qpos, a.kvpos, a.qseg, a.kvseg,
+                    static_cast<__nv_bfloat16*>(dk),
+                    static_cast<__nv_bfloat16*>(dv), a.S, a.T, a.H, a.K, G,
+                    a.m.causal, a.m.use_window, a.m.window, a.m.scale,
+                    a.m.softcap};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.H, a.B, (a.T + C::KVT - 1) / C::KVT);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::BYTES;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, tq, tk, tv, tdo, p);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -1027,9 +1349,10 @@ bool make_args(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. softcap <= 0 means none; use_window = 0
-// means no sliding window. bf16 with dh 64/128 takes the tensor-core
-// bodies; they need q, k, v and dO 16-byte aligned (the wrapper checks).
-// Each returns a cudaError_t.
+// means no sliding window. In bf16 dK/dV takes the wgmma body at every
+// head dim (G <= 8) and dQ the mma.sync body at dh 64 / 128; they need q,
+// k, v and dO 16-byte aligned (the wrapper checks). Each returns a
+// cudaError_t.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* dvec, const void* qpos,
@@ -1075,9 +1398,9 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (dh) {
-      case 64: return int(launch_dkv_mma<64>(a, dk, dv, st));
-      case 128: return int(launch_dkv_mma<128>(a, dk, dv, st));
-      case 256: return int(launch_dkv<__nv_bfloat16, 256>(a, dk, dv, st));
+      case 64: return int(launch_dkv_wgmma<64>(a, dk, dv, st));
+      case 128: return int(launch_dkv_wgmma<128>(a, dk, dv, st));
+      case 256: return int(launch_dkv_wgmma<256>(a, dk, dv, st));
     }
   } else if (dtype == 0) {
     switch (dh) {

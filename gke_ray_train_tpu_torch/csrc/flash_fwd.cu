@@ -16,39 +16,42 @@
 //
 // Design. The TPU grid's sequential fourth axis (kv blocks, with the
 // running max/sum/accumulator carried in VMEM scratch) becomes a loop
-// inside one CTA: one CTA per (query tile of 64 rows, query head, batch
-// row). The CTA reads kv head h / G directly, so K/V are never repeated in
-// memory. Two bodies share that structure:
+// inside one CTA. The CTA reads kv head h / G directly, so K/V are never
+// repeated in memory. Two bodies:
 //
-// - bf16 with dh 64 or 128 (every serving shape of the shipped Llama /
-//   Mistral / Qwen families): tensor cores through `mma.sync` m16n8k16
-//   (bf16 in, fp32 accumulate), four warps of 16 query rows each. Q stays
-//   in registers for the whole kv loop; each kv tile of 64 rows is staged
-//   in shared memory as bf16 (K row-major, V transposed, padded against
-//   bank conflicts). The score accumulators are laid out exactly as the
-//   A operand of the P.V product wants them, so probabilities go from
-//   registers to the second product without touching shared memory; the
-//   online max/sum reduce over the four lanes that share a row.
-// - float32, and bf16 at dh 256 (Gemma-2): scalar fp32 FMAs, 256 threads,
-//   tiles staged in shared memory as fp32 (K transposed), a register
-//   micro-tile of scores per thread, four threads to a row for the
-//   softmax, the 64 x dh accumulator in registers.
+// - bf16, dh 64 / 128 / 256 (every shipped family): one CTA per (query
+//   head, batch row, query tile of 64 NC rows), the query tiles with the
+//   most live kv tiles under causality launched first. NC consumer
+//   warpgroups own 64 query rows each (NC = 2 where 128-row CTAs make two
+//   waves on the card, else 1; always 1 at dh 256, see launch_wgmma);
+//   one producer warp keeps a ring of K/V tiles in flight by TMA (the
+//   public layout's rows, 64-column blocks with the 128-byte swizzle; the
+//   ragged tail zero-filled and masked as segment 0) with mbarrier
+//   full/empty pairs, the tiles' positions and segments beside them by
+//   cp.async. Before the roles split, every thread of the CTA classes
+//   each kv tile from its min/max position and segment against the query
+//   tile (hopper.cuh::classify_tiles): dead tiles (`_block_live`) never
+//   enter the ring, interior tiles (every pair kept) skip the mask, only
+//   boundary tiles build it. S = Q K^T is wgmma with both operands in
+//   shared memory (K-major); the online softmax runs in registers in base
+//   2 (the scale folded into one FMA, ex2.approx; the softcap an accurate
+//   tanhf); P goes from registers as the A operand of O += P V, with V
+//   read as an MN-major operand: no transposed copy.
+// - float32: scalar fp32 FMAs, 256 threads, tiles staged in shared
+//   memory as fp32 (K transposed), one CTA per 64 query rows. It is the
+//   parity path; no bf16 call reaches it.
 //
 // Both round the probabilities to the value dtype before the P.V product,
 // as `p.astype(v.dtype)` does in the TPU kernel, while the row sum uses
-// the unrounded values. Tiles that the `_block_live` predicate (from each
-// tile's min/max position and segment id) proves dead are skipped before
-// their K/V are loaded; the ragged last tile masks its missing columns as
-// segment 0.
+// the unrounded values.
 //
-// Bound. At the serving shapes (B=1, S=T=512, H=32, K=8, dh=128, bf16,
-// causal) the function moves ~10.5 MB and does ~2.15 GFLOP: memory-bound
-// on an H100 (3.35 TB/s, 989 TFLOP/s bf16), a bound of ~3.1 us. What
-// bounds this version is latency, not either roofline: at 512 tokens
-// there are only 8 x 32 = 256 CTAs of four warps, `mma.sync` reaches a
-// fraction of the wgmma rate, and K/V loads are not overlapped with the
-// products. wgmma, TMA with a multi-stage ring and warp specialisation
-// are the later work.
+// Bound. At the Llama-3.1-8B training shape (B=2, S=T=1024, H=32, K=8,
+// dh=128, bf16, causal) the function does ~17.2 GFLOP over its live
+// pairs and moves ~34 MB: bound by operations (~0.017 ms at 989 TFLOP/s).
+// What holds this body back is the SFU: each score costs one ex2, and
+// the two warpgroups' softmax phases do not overlap their own products
+// (the FA3-style overlap of S of one tile with P V of the last needs
+// more than the 168 registers ptxas allows a thread here; see PERF.md).
 //
 // The C entry point returns cudaGetLastError() after the launch; the
 // Python wrapper raises when that is not cudaSuccess.
@@ -59,6 +62,8 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -82,18 +87,11 @@ struct Tile {
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // x rounded to T and back: the value `p.astype(v.dtype)` multiplies V with.
 template <typename T>
@@ -332,214 +330,233 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core body (dh 64 / 128)
+// bf16 body: wgmma, a TMA ring, warp specialisation (dh 64 / 128 / 256)
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;                  // 16 query rows each
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaBKV = 64;                   // kv rows per tile
+constexpr float kLn2 = 0.6931471805599453f;
+// setmaxnreg: the producer warpgroup's registers a thread, and the
+// consumers'. ptxas still allocates the consumers within the launch
+// bound's 168 (65,536 / 384), so this only hands the pool over.
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 
-template <int DH>
-struct MmaTile {
-  static constexpr int LDK = DH + 8;          // bf16 per K row in smem
-  static constexpr int LDV = kMmaBKV + 8;     // bf16 per V^T row in smem
-  static constexpr int INTS = 2 * kBQ + 2 * kMmaBKV + 4 * kMmaWarps;
-  static constexpr size_t SMEM_BYTES =
-      size_t(kMmaBKV) * LDK * 2 + size_t(DH) * LDV * 2 + size_t(INTS) * 4;
+// NC consumer warpgroups of 64 query rows each and one producer
+// warpgroup (one warp of it issues the loads). A kv tile of BKV rows
+// moves through a ring of STAGES K/V buffers.
+template <int DH, int NC>
+struct Cfg {
+  static constexpr int BQ = 64 * NC;
+  static constexpr int BKV = DH == 256 ? 64 : 128;
+  static constexpr int STAGES = DH == 64 ? 3 : 2;
+  static constexpr int CB = DH / 64;            // 64-column blocks
+  static constexpr int THREADS = 128 * (NC + 1);
+  static constexpr int Q_BYTES = CB * BQ * 128;
+  static constexpr int KV_BYTES = CB * BKV * 128;  // K or V, one stage
+  static constexpr int OFF_K = Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_POS = OFF_V + STAGES * KV_BYTES;
+  // per stage: kv positions and segments [BKV] each, then (t0, interior)
+  static constexpr int OFF_BAR = OFF_POS + STAGES * (2 * BKV + 2) * 4;
+  // the class of every kv tile (hopper::kDead / kBoundary / kInterior)
+  static constexpr int OFF_CLS = OFF_BAR + (1 + 2 * STAGES) * 8;
+  static constexpr int BYTES = OFF_CLS + hopper::kMaxTiles + 1024;
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+struct FwdParams {
+  const int *qpos, *kvpos, *qseg, *kvseg;
+  __nv_bfloat16* out;
+  float* lse;
+  int S, T, H, K, causal, use_window, window, n_qt;
+  float scale, softcap;
+};
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// The producer warp: every live kv tile (from the class table) into the
+// ring (Q is on its way since the kernel's start): K and V by TMA,
+// positions and segments by cp.async (the ragged tail's missing columns
+// zero-filled: segment 0, padding), its start and class by the lane that
+// issues the TMA.
+template <int DH, int NC>
+__device__ __forceinline__ void fwd_producer(const CUtensorMap* tk,
+                                             const CUtensorMap* tv,
+                                             const FwdParams& p, int h, int b,
+                                             unsigned char* sm) {
+  using C = Cfg<DH, NC>;
+  constexpr int BKV = C::BKV;
+  using namespace hopper;
+  int* kpos_s = reinterpret_cast<int*>(sm + C::OFF_POS);
+  int* kseg_s = kpos_s + C::STAGES * BKV;
+  int* info_s = kseg_s + C::STAGES * BKV;
+  const uint8_t* cls = sm + C::OFF_CLS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + C::STAGES;
+  const int lane = threadIdx.x & 31;
+  const int kh = h / (p.H / p.K);
+  const int* kvpos = p.kvpos + size_t(b) * p.T;
+  const int* kvseg = p.kvseg + size_t(b) * p.T;
 
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 acc.
-// Fragment layout (lane = 4 * g + t): a = {A[g][2t..], A[g+8][2t..],
-// A[g][2t+8..], A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]},
-// d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const int* __restrict__ qpos,
-                     const int* __restrict__ kvpos,
-                     const int* __restrict__ qseg,
-                     const int* __restrict__ kvseg,
-                     __nv_bfloat16* __restrict__ out,
-                     float* __restrict__ lse, int S, int T_len, int H, int K,
-                     int causal, int use_window, int window, float scale,
-                     float softcap) {
-  using C = MmaTile<DH>;
-  constexpr int BKV = kMmaBKV;
-  constexpr int KSTEPS = DH / 16;   // k16 steps of Q.K^T over the head dim
-  constexpr int NT_S = BKV / 8;     // n8 score tiles per kv tile
-  constexpr int NT_O = DH / 8;      // n8 output tiles
-  constexpr int VEC = 8;            // bf16 per 16-byte load
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BKV][LDK]
-  __nv_bfloat16* Vt = Ks + BKV * C::LDK;                            // [DH][LDV]
-  int* qpos_s = reinterpret_cast<int*>(Vt + DH * C::LDV);
-  int* qseg_s = qpos_s + kBQ;
-  int* kpos_s = qseg_s + kBQ;
-  int* kseg_s = kpos_s + BKV;
-  int* red = kseg_s + BKV;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / K);
-  const int qrows = min(kBQ, S - q0);
-  const size_t q_stride = size_t(H) * DH;
-  const size_t kv_stride = size_t(K) * DH;
-  const __nv_bfloat16* qb = q + (size_t(b) * S * H + h) * DH;
-  const __nv_bfloat16* kb = k + (size_t(b) * T_len * K + kh) * DH;
-  const __nv_bfloat16* vb = v + (size_t(b) * T_len * K + kh) * DH;
-
-  if (tid < kBQ) {
-    const bool ok = tid < qrows;
-    qpos_s[tid] = ok ? qpos[size_t(b) * S + q0 + tid] : 0;
-    qseg_s[tid] = ok ? qseg[size_t(b) * S + q0 + tid] : 0;
-  }
-  // this thread's two query rows of its warp's 16, and their Q fragments
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
-  const bool ok0 = r0 < qrows, ok1 = r1 < qrows;
-  const __nv_bfloat16* q_r0 = qb + size_t(q0 + r0) * q_stride + 2 * t;
-  const __nv_bfloat16* q_r1 = qb + size_t(q0 + r1) * q_stride + 2 * t;
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    qf[kk][0] = ok0 ? ld32(q_r0 + kk * 16) : 0u;
-    qf[kk][1] = ok1 ? ld32(q_r1 + kk * 16) : 0u;
-    qf[kk][2] = ok0 ? ld32(q_r0 + kk * 16 + 8) : 0u;
-    qf[kk][3] = ok1 ? ld32(q_r1 + kk * 16 + 8) : 0u;
-  }
-  __syncthreads();
-  int qmm[4];
-  {
-    const bool ok = tid < qrows;
-    qmm[0] = ok ? qpos_s[tid] : INT_MAX;
-    qmm[1] = ok ? qpos_s[tid] : INT_MIN;
-    qmm[2] = ok ? qseg_s[tid] : INT_MAX;
-    qmm[3] = ok ? qseg_s[tid] : INT_MIN;
-  }
-  block_minmax4<kMmaWarps>(qmm, red);
-  const int qp[2] = {qpos_s[r0], qpos_s[r1]};
-  const int qs[2] = {qseg_s[r0], qseg_s[r1]};
-
-  // running max / sum of rows r0, r1 (the four lanes of a row agree)
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  const int n_kv = (T_len + BKV - 1) / BKV;
+  const int n_kv = (p.T + BKV - 1) / BKV;
+  int stage = 0;
+  uint32_t phase = 0;
   for (int jt = 0; jt < n_kv; ++jt) {
+    const uint8_t c = cls[jt];
+    if (c == kDead) continue;
     const int t0 = jt * BKV;
-    const int kvcols = min(BKV, T_len - t0);
-    if (tid < BKV) {
-      const bool ok = tid < kvcols;
-      kpos_s[tid] = ok ? kvpos[size_t(b) * T_len + t0 + tid] : 0;
-      kseg_s[tid] = ok ? kvseg[size_t(b) * T_len + t0 + tid] : 0;
+    mbar_wait(&empty[stage], phase ^ 1);
+#pragma unroll
+    for (int i = 0; i < BKV / 32; ++i) {
+      const int col = lane + 32 * i;
+      const bool ok = t0 + col < p.T;
+      const int src = ok ? t0 + col : 0;
+      cp_async4(&kpos_s[stage * BKV + col], kvpos + src, ok);
+      cp_async4(&kseg_s[stage * BKV + col], kvseg + src, ok);
     }
-    __syncthreads();
-    int kmm[4];
-    {
-      const bool ok = tid < kvcols;
-      kmm[0] = ok ? kpos_s[tid] : INT_MAX;
-      kmm[1] = ok ? kpos_s[tid] : INT_MIN;
-      kmm[2] = ok ? kseg_s[tid] : INT_MAX;
-      kmm[3] = ok ? kseg_s[tid] : INT_MIN;
-    }
-    block_minmax4<kMmaWarps>(kmm, red);
-    bool live = !causal || qmm[1] >= kmm[0];
-    if (use_window) live = live && kmm[1] > qmm[0] - window;
-    live = live && qmm[2] <= kmm[3] && kmm[2] <= qmm[3];
-    if (!live) continue;  // uniform across the CTA
-
-    // stage K (row-major) and V (transposed), 16 bytes per load
-    for (int i = tid; i < BKV * DH / VEC; i += kMmaThreads) {
-      const int r = i / (DH / VEC), c = (i % (DH / VEC)) * VEC;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u), vv4 = kv4;
-      if (r < kvcols) {
-        const size_t off = size_t(t0 + r) * kv_stride + c;
-        kv4 = *reinterpret_cast<const uint4*>(kb + off);
-        vv4 = *reinterpret_cast<const uint4*>(vb + off);
+    cp_async_arrive(&full[stage]);
+    if (lane == 0) {
+      info_s[2 * stage] = t0;
+      info_s[2 * stage + 1] = c == kInterior;
+      mbar_arrive_tx(&full[stage], 2 * C::KV_BYTES);
+      unsigned char* kdst = sm + C::OFF_K + stage * C::KV_BYTES;
+      unsigned char* vdst = sm + C::OFF_V + stage * C::KV_BYTES;
+#pragma unroll
+      for (int cb = 0; cb < C::CB; ++cb) {
+        tma_load_4d(kdst + cb * BKV * 128, tk, &full[stage], cb * 64, kh, t0,
+                    b);
+        tma_load_4d(vdst + cb * BKV * 128, tv, &full[stage], cb * 64, kh, t0,
+                    b);
       }
-      *reinterpret_cast<uint4*>(Ks + r * C::LDK + c) = kv4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) Vt[(c + e) * C::LDV + r] = ve[e];
     }
-    __syncthreads();
+    if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+  }
+  mbar_wait(&empty[stage], phase ^ 1);
+  if (lane == 0) {
+    info_s[2 * stage] = hopper::kEndTile;
+    mbar_arrive(&full[stage]);
+  }
+  cp_async_arrive(&full[stage]);  // no copies pending: arrives at once
+}
 
-    // S = Q K^T for this warp's 16 rows x 64 kv columns
-    float sc[NT_S][4];
+// Scores of one tile in place: the tanh softcap (CAP) and the mask
+// (MASK: boundary tiles), and the row maxima of this thread's two rows.
+template <bool CAP, bool MASK, int N>
+__device__ __forceinline__ void fwd_scores(float (&s)[N], float (&mx)[2],
+                                           const FwdParams& p,
+                                           const int* kp, const int* ksg,
+                                           const int (&qp)[2],
+                                           const int (&qs)[2], int t) {
+  const float cap_in = CAP ? p.scale / p.softcap : 0.f;
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-      const __nv_bfloat16* krow = Ks + (j * 8 + g) * C::LDK + 2 * t;
+  for (int j = 0; j < N / 4; ++j) {
 #pragma unroll
-      for (int kk = 0; kk < KSTEPS; ++kk)
-        mma_bf16(sc[j], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-    }
-    // scale, softcap, mask; the row max over the four lanes of a row
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;                 // 0: row r0, 1: row r1
-        const int c = j * 8 + 2 * t + (e & 1);
-        float x = sc[j][e] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        const int kp = kpos_s[c], ks = kseg_s[c];
-        bool keep = qs[hr] == ks && ks != 0;
-        if (causal) keep = keep && kp <= qp[hr];
-        if (use_window) keep = keep && kp > qp[hr] - window;
-        // -inf: exp() of a masked score is exactly 0, while the running
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;
+      float x = s[4 * j + e];
+      if constexpr (CAP) x = tanhf(x * cap_in) * p.softcap;
+      if constexpr (MASK) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        const int kpv = kp[c], ksv = ksg[c];
+        bool keep = qs[hr] == ksv && ksv != 0;
+        if (p.causal) keep = keep && kpv <= qp[hr];
+        if (p.use_window) keep = keep && kpv > qp[hr] - p.window;
+        // -inf: 2^x of a masked score is exactly 0, while the running
         // max keeps the TPU kernel's NEG_INF floor
         x = keep ? x : -INFINITY;
-        sc[j][e] = x;
-        mx[hr] = fmaxf(mx[hr], x);
       }
+      s[4 * j + e] = x;
+      mx[hr] = fmaxf(mx[hr], x);
+    }
+  }
+}
+
+// A consumer warpgroup: 64 query rows, S = Q K^T and O += P V by wgmma,
+// the online softmax in registers between them.
+template <int DH, int NC>
+__device__ __forceinline__ void fwd_consumer(const FwdParams& p, int h,
+                                             int b, int q0, int wg,
+                                             unsigned char* sm) {
+  using C = Cfg<DH, NC>;
+  constexpr int BKV = C::BKV;
+  using namespace hopper;
+  const int* kpos_s = reinterpret_cast<const int*>(sm + C::OFF_POS);
+  const int* kseg_s = kpos_s + C::STAGES * BKV;
+  const int* info_s = kseg_s + C::STAGES * BKV;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + C::STAGES;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // this thread's rows r0 and r0 + 8; rows past S read as padding
+  const int r0 = q0 + 64 * wg + 16 * warp + g;
+  int qp[2], qs[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr;
+    const bool ok = r < p.S;
+    qp[hr] = ok ? p.qpos[size_t(b) * p.S + r] : 0;
+    qs[hr] = ok ? p.qseg[size_t(b) * p.S + r] : 0;
+  }
+  const bool capped = p.softcap > 0.f;
+  // exponents in base 2: exp(x - m) = 2^(x log2e - m log2e), the scale
+  // folded into the same multiplier when there is no softcap
+  const float mul = capped ? kLog2e : p.scale * kLog2e;
+  float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+
+  const unsigned char* q_wg = sm + wg * 64 * 128;
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(&full[stage], phase);
+    const int t0 = info_s[2 * stage];
+    if (t0 == hopper::kEndTile) break;
+    const bool interior = info_s[2 * stage + 1] != 0;
+    const unsigned char* ks_ = sm + C::OFF_K + stage * C::KV_BYTES;
+    const unsigned char* vs_ = sm + C::OFF_V + stage * C::KV_BYTES;
+    float s[BKV / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int cb = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss(s, desc_sw128(q_wg + cb * C::BQ * 128 + off, 16, 1024),
+               desc_sw128(ks_ + cb * BKV * 128 + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+    const int* kp = kpos_s + stage * BKV;
+    const int* ksg = kseg_s + stage * BKV;
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (capped) {
+      if (interior) fwd_scores<true, false>(s, mx, p, kp, ksg, qp, qs, t);
+      else fwd_scores<true, true>(s, mx, p, kp, ksg, qp, qs, t);
+    } else {
+      if (interior) fwd_scores<false, false>(s, mx, p, kp, ksg, qp, qs, t);
+      else fwd_scores<false, true>(s, mx, p, kp, ksg, qp, qs, t);
     }
     float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
       mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      const float m_new = fmaxf(m[hr], mx[hr]);
-      alpha[hr] = expf(m[hr] - m_new);
-      m[hr] = m_new;
+      const float m_new = fmaxf(m2[hr], mx[hr] * mul);
+      alpha[hr] = fast_exp2(m2[hr] - m_new);
+      m2[hr] = m_new;
     }
-    // probabilities: summed unrounded, rounded to bf16 into the A operand
-    // of P.V (score tiles 2ks and 2ks+1 form k-step ks)
     uint32_t pf[BKV / 16][4];
 #pragma unroll
-    for (int j = 0; j < NT_S; ++j) {
-      float p[4];
+    for (int j = 0; j < BKV / 8; ++j) {
+      float pr[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        p[e] = expf(sc[j][e] - m[e >> 1]);
-        sum[e >> 1] += p[e];
+        pr[e] = fast_exp2(fmaf(s[4 * j + e], mul, -m2[e >> 1]));
+        sum[e >> 1] += pr[e];
       }
-      pf[j / 2][(j & 1) * 2 + 0] = pack_bf16(p[0], p[1]);
-      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      pf[j / 2][(j & 1) * 2 + 0] = pack_bf16(pr[0], pr[1]);
+      pf[j / 2][(j & 1) * 2 + 1] = pack_bf16(pr[2], pr[3]);
     }
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
@@ -547,36 +564,93 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
       l[hr] = l[hr] * alpha[hr] + sum[hr];
     }
-    // O = O * alpha + P V
+    // O rescaled only where a row max of the warp moved
+    if (!__all_sync(0xffffffffu, alpha[0] == 1.f && alpha[1] == 1.f)) {
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-      const __nv_bfloat16* vrow = Vt + (n * 8 + g) * C::LDV + 2 * t;
-#pragma unroll
-      for (int ks = 0; ks < BKV / 16; ++ks)
-        mma_bf16(o[n], pf[ks], ld32(vrow + ks * 16), ld32(vrow + ks * 16 + 8));
+      for (int j = 0; j < DH / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
     }
-    __syncthreads();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs(o, pf[kk], desc_sw128(vs_ + kk * 16 * 128, BKV * 128, 1024),
+               1);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
   }
 
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
-    const int r = hr ? r1 : r0;
-    if (r >= qrows) continue;
+    const int r = r0 + 8 * hr;
+    if (r >= p.S) continue;
     const float lr = l[hr];
-    __nv_bfloat16* orow = out + ((size_t(b) * S + q0 + r) * H + h) * DH + 2 * t;
+    __nv_bfloat16* orow =
+        p.out + ((size_t(b) * p.S + r) * p.H + h) * DH + 2 * t;
 #pragma unroll
-    for (int n = 0; n < NT_O; ++n) {
-      const float a0 = lr > 0.f ? o[n][2 * hr] / lr : 0.f;
-      const float a1 = lr > 0.f ? o[n][2 * hr + 1] / lr : 0.f;
-      *reinterpret_cast<uint32_t*>(orow + n * 8) = pack_bf16(a0, a1);
+    for (int j = 0; j < DH / 8; ++j) {
+      const float a0 = lr > 0.f ? o[4 * j + 2 * hr] / lr : 0.f;
+      const float a1 = lr > 0.f ? o[4 * j + 2 * hr + 1] / lr : 0.f;
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) = pack_bf16(a0, a1);
     }
     if (t == 0)
-      lse[(size_t(b) * H + h) * S + q0 + r] =
-          lr > 0.f ? m[hr] + logf(lr) : kNegInf;
+      p.lse[(size_t(b) * p.H + h) * p.S + r] =
+          lr > 0.f ? (m2[hr] + log2f(lr)) * kLn2 : kNegInf;
+  }
+}
+
+// One CTA per (query head, batch row, query tile of 64 NC rows), the
+// query tiles with the most live kv tiles under causality first.
+template <int DH, int NC>
+__global__ void __launch_bounds__(Cfg<DH, NC>::THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const FwdParams p) {
+  using C = Cfg<DH, NC>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align1024(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (p.n_qt - 1 - int(blockIdx.z)) * C::BQ;
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+    hopper::mbar_init(&bars[0], 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      // full: the 32 producer lanes' copies and the TMA lane's bytes
+      hopper::mbar_init(&bars[1 + s], 33);
+      hopper::mbar_init(&bars[1 + C::STAGES + s], 4 * NC);  // empty
+    }
+    hopper::fence_barrier_init();
+    // Q now, so that it loads while the kv tiles are classed
+    hopper::mbar_arrive_tx(&bars[0], C::Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < C::CB; ++cb)
+      hopper::tma_load_4d(sm + cb * C::BQ * 128, &tq, &bars[0], cb * 64, h,
+                          q0, b);
+  }
+  // the class of every kv tile against this query tile, all threads
+  // (ends with a CTA barrier, which also publishes the mbarriers)
+  hopper::classify_tiles(p.qpos + size_t(b) * p.S, p.qseg + size_t(b) * p.S,
+                         q0, min(C::BQ, p.S - q0), true,
+                         p.kvpos + size_t(b) * p.T,
+                         p.kvseg + size_t(b) * p.T, p.T, C::BKV,
+                         (p.T + C::BKV - 1) / C::BKV, true, p.causal,
+                         p.use_window, p.window, sm + C::OFF_CLS);
+  const int wg = hopper::warpgroup_index();
+  if (wg == NC) {
+    if constexpr (NC == 2) hopper::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x / 32 == 4 * NC)
+      fwd_producer<DH, NC>(&tk, &tv, p, h, b, sm);
+  } else {
+    if constexpr (NC == 2) hopper::reg_alloc<kConsumerRegs>();
+    fwd_consumer<DH, NC>(p, h, b, q0, wg, sm);
   }
 }
 
@@ -614,16 +688,67 @@ cudaError_t launch_scalar(const Args& a, cudaStream_t stream) {
                    a, stream);
 }
 
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
+}
+
+template <int DH, int NC>
+cudaError_t launch_wgmma_nc(const Args& a, cudaStream_t stream) {
+  using C = Cfg<DH, NC>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = hopper::head_rows_map(&tq, a.q, a.B, a.S, a.H, DH, C::BQ)) !=
+          cudaSuccess ||
+      (err = hopper::head_rows_map(&tk, a.k, a.B, a.T, a.K, DH, C::BKV)) !=
+          cudaSuccess ||
+      (err = hopper::head_rows_map(&tv, a.v, a.B, a.T, a.K, DH, C::BKV)) !=
+          cudaSuccess)
+    return err;
+  if ((a.T + C::BKV - 1) / C::BKV > hopper::kMaxTiles)
+    return cudaErrorInvalidValue;
+  auto kern = flash_fwd_wgmma_kernel<DH, NC>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::BYTES);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.S + C::BQ - 1) / C::BQ;
+  const FwdParams p{a.qpos, a.kvpos, a.qseg, a.kvseg,
+                    static_cast<__nv_bfloat16*>(a.out), a.lse, a.S, a.T, a.H,
+                    a.K, a.causal, a.use_window, a.window, n_qt, a.scale,
+                    a.softcap};
+  kern<<<dim3(a.H, a.B, n_qt), C::THREADS, C::BYTES, stream>>>(tq, tk, tv,
+                                                               p);
+  return cudaGetLastError();
+}
+
+// 128-row CTAs where they make two waves on the card, 64-row ones below
+// (the short serving prefills)
+// dh 64 / 128: 128-row CTAs where they make two waves on the card,
+// 64-row ones below (the short serving prefills). dh 256: 64-row CTAs
+// always; two warpgroups' 64 x 256 accumulators spill out of the 168
+// registers ptxas gives a thread of a three-warpgroup CTA (it does not
+// raise that for the consumers' setmaxnreg), and the spills cost more
+// than the second warpgroup gains.
 template <int DH>
-cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(flash_fwd_mma_kernel<DH>, kMmaThreads,
-                               MmaTile<DH>::SMEM_BYTES, a, stream);
+cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
+  if constexpr (DH == 256) {
+    return launch_wgmma_nc<DH, 1>(a, stream);
+  } else {
+    const long ctas128 = long((a.S + 127) / 128) * a.H * a.B;
+    return ctas128 >= 2L * sm_count() ? launch_wgmma_nc<DH, 2>(a, stream)
+                                      : launch_wgmma_nc<DH, 1>(a, stream);
+  }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. softcap <= 0 means none; use_window = 0
-// means no sliding window. bf16 with dh 64/128 takes the tensor-core body;
+// means no sliding window. bf16 takes the wgmma body at every head dim;
 // it needs q, k, v and out 16-byte aligned (the wrapper checks). Returns a
 // cudaError_t.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
@@ -643,9 +768,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (dh) {
-      case 64: return int(launch_mma<64>(a, st));
-      case 128: return int(launch_mma<128>(a, st));
-      case 256: return int(launch_scalar<__nv_bfloat16, 256>(a, st));
+      case 64: return int(launch_wgmma<64>(a, st));
+      case 128: return int(launch_wgmma<128>(a, st));
+      case 256: return int(launch_wgmma<256>(a, st));
     }
   } else if (dtype == 0) {
     switch (dh) {

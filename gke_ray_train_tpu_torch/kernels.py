@@ -1,9 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 Each CUDA C++ source under ``csrc/`` holds one or more kernels behind
-plain C entry points. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
-shared library under ``_build/`` (listed in ``.gitignore``), named by a
-hash of its source and the compiler flags, and loaded with ``ctypes``.
+plain C entry points (the flash sources share ``csrc/hopper.cuh``). At
+first use it is compiled with ``nvcc`` for ``sm_90a`` into a shared
+library under ``_build/`` (listed in ``.gitignore``), named by a hash of
+its source, the shared headers and the compiler flags, and loaded with
+``ctypes``.
 A build or load failure raises; nothing falls back.
 
 ``build()`` starts one ``nvcc`` per source, all at once, and waits for
@@ -70,9 +72,14 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
+    """The library's path, named by a hash of the source, the shared
+    headers (``csrc/*.cuh``) and the compiler flags."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC, f)
+                                       for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

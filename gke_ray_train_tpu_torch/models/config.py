@@ -126,14 +126,26 @@ class ModelConfig:
         return self.n_layers // len(self.block_pattern)
 
     def param_count(self) -> int:
-        """Exact total param count of a dense model."""
+        """Exact total param count (for MoE every expert and the router
+        count). FLOP counts use ``active_param_count``."""
+        return self._count_params(self.n_experts)
+
+    def active_param_count(self) -> int:
+        """Params a token touches: for MoE the router and the top-k
+        experts only, the count ``train/metrics.py`` bills FLOPs for."""
+        return self._count_params(min(self.expert_top_k, self.n_experts)
+                                  if self.n_experts else 0)
+
+    def _count_params(self, experts_counted: int) -> int:
         hd = self.resolved_head_dim
         attn = (self.d_model * self.n_heads * hd
                 + 2 * self.d_model * self.n_kv_heads * hd
                 + self.n_heads * hd * self.d_model)
         if self.attn_qkv_bias:
             attn += self.n_heads * hd + 2 * self.n_kv_heads * hd
-        mlp = 3 * self.d_model * self.d_ff
+        ffn = 3 * self.d_model * self.d_ff
+        mlp = (self.d_model * self.n_experts + experts_counted * ffn
+               if self.n_experts else ffn)
         norms = 2 * self.d_model + (2 * self.d_model if self.post_block_norm
                                     else 0)
         embed = self.vocab_size * self.d_model

@@ -13,8 +13,12 @@ kernels replace the Pallas TPU kernels:
   ``flash_bwd_dkv`` replaces ``_dkv_kernel`` (:339): the gradient,
   recomputing the probabilities from the saved logsumexp.
 
-Each source note says what bounds the kernel on an H100 and what the
-design does about that. ``FlashAttention`` (a ``torch.autograd.Function``)
+In bf16 the forward and dK/dV kernels are Hopper designs (wgmma, a TMA
+ring fed by a producer warp, tiles classed dead / boundary / interior up
+front; dK/dV sums the GQA group across a thread-block cluster, so G is at
+most MAX_DKV_GROUP); float32 takes their scalar bodies. Each source note
+says what bounds the kernel on an H100 and what the design does about
+that. ``FlashAttention`` (a ``torch.autograd.Function``)
 is the counterpart of the JAX ``custom_vjp`` (:546-559): its forward
 saves q, k, v, out, lse and the mask inputs; its backward forms
 ``D = rowsum(dO * O)`` in fp32 outside the kernels, as JAX does
@@ -41,6 +45,11 @@ DEFAULT_BLOCK_Q = 256    # the JAX kernel's default blocks
 DEFAULT_BLOCK_KV = 1024
 
 HEAD_DIMS = (64, 128, 256)
+# the bf16 dK/dV kernel's cluster holds one CTA per query head of a kv
+# head; 8 is the portable cluster size (every shipped preset has G <= 8)
+MAX_DKV_GROUP = 8
+# the bf16 kernels class at most 2,048 tiles of 64 (or 128) rows up front
+MAX_KERNEL_LEN = 2048 * 64
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -258,12 +267,18 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, qp, kp, qs, ks, *, causal,
                   sliding_window, scale, logit_softcap
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [B, T, K, dh] from the dK/dV kernel, the GQA group summed
-    in-kernel; the arguments of ``flash_bwd_dq``.
+    in-kernel (in bf16 over a cluster of at most MAX_DKV_GROUP query
+    heads); the arguments of ``flash_bwd_dq``.
     ``flash_bwd_dkv.launches`` counts launches."""
     from gke_ray_train_tpu_torch.kernels import load
     kw = dict(causal=causal, sliding_window=sliding_window, scale=scale,
               logit_softcap=logit_softcap)
     ins, common = _bwd_args(q, k, v, do, lse, dvec, qp, kp, qs, ks, kw)
+    G = q.shape[2] // k.shape[2]
+    if q.dtype == torch.bfloat16 and G > MAX_DKV_GROUP:
+        raise ValueError(f"the bf16 dK/dV kernel sums a GQA group of at "
+                         f"most {MAX_DKV_GROUP} query heads in one thread "
+                         f"block cluster, not {G}")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
@@ -292,6 +307,10 @@ def _check_kernel_inputs(*ts: torch.Tensor) -> None:
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("the flash kernel reads q, k, v in 16-byte "
                          "vectors: their data must be 16-byte aligned")
+    if q.dtype == torch.bfloat16 and max(q.shape[1], ts[1].shape[1]) > \
+            MAX_KERNEL_LEN:
+        raise ValueError(f"the bf16 flash kernels take sequences of at "
+                         f"most {MAX_KERNEL_LEN} tokens")
 
 
 def _forward(q, k, v, qp, kp, qs, ks, kw):

@@ -6,7 +6,8 @@ package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
 (whole-prompt prefill reuse), ``GRADIENT_ACCUMULATION_STEPS``
 (microbatches per optimizer step) and ``FUSED_OPS`` (the train step's
-fused rms_norm / q-k RoPE kernels).
+fused rms_norm / q-k RoPE kernels, and the fused cross-entropy where the
+config has no logit softcap).
 """
 
 from __future__ import annotations
@@ -77,8 +78,8 @@ class ExecutionPlan:
     # microbatches accumulated per optimizer step (train/step.py)
     grad_accum: int = 1
     # the train step's rms_norms and q/k RoPE through the fused kernels
-    # (ops/fused_norm_rope.py); the JAX step would also fuse the
-    # cross-entropy where the config has no logit softcap
+    # (ops/fused_norm_rope.py) and, where the config has no logit
+    # softcap, its loss through the fused cross-entropy (ops/fused_ce.py)
     fused_ops: bool = False
 
     def __post_init__(self):

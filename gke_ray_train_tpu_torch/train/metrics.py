@@ -44,8 +44,10 @@ def train_flops_per_token(cfg: ModelConfig, seq_len: int, *,
     ``trainable="lora"``: the frozen base skips its weight-grad products
     (4N instead of 6N; the adapters' FLOPs are negligible at r << d).
     Recomputation under remat is not counted (the usual MFU
-    convention). Dense models only (the port runs no MoE)."""
-    n = cfg.param_count()
+    convention). MoE configs bill their active params (router and top-k
+    experts, ``ModelConfig.active_param_count``), as the JAX package
+    does."""
+    n = cfg.active_param_count()
     dense = (4.0 if trainable == "lora" else 6.0) * n
     d_attn = cfg.n_heads * cfg.resolved_head_dim
     attn = 12 * cfg.n_layers * d_attn * seq_len * 0.5

@@ -66,6 +66,19 @@ CASES = {
     # dh 256 (Gemma-2): sliding window and logit softcap
     "window_softcap_dh256": dict(B=1, S=192, T=192, H=4, K=2, dh=256,
                                  window=48, softcap=50.0),
+    # the edges of the bf16 wgmma bodies: TMA tails (S, T not multiples
+    # of 64 or 128) with S < T; a cluster of 7 query heads (Qwen2's
+    # 28 / 4) and of 1 (MHA); dh 256 with window, softcap, packed
+    # documents and rows that attend nothing; a row of interior tiles
+    # only (one segment, not causal: no tile runs the mask)
+    "tail_s_lt_t_dh128": dict(B=2, S=77, T=333, H=8, K=2, dh=128),
+    "gqa7_dh128": dict(B=1, S=300, T=300, H=14, K=2, dh=128),
+    "mha_dh64": dict(B=2, S=256, T=256, H=4, K=4, dh=64),
+    "packed_window_softcap_dh256": dict(B=1, S=700, T=700, H=4, K=2,
+                                        dh=256, window=128, softcap=50.0,
+                                        packed=True, dead_rows=True),
+    "interior_dh128": dict(B=1, S=512, T=512, H=4, K=2, dh=128,
+                           causal=False),
 }
 
 
@@ -97,7 +110,8 @@ def _inputs(case, dtype, dev):
         qs[:, 3:7] = 9                       # no key carries segment 9
     kw = dict(q_positions=qp.contiguous(), kv_positions=kp.contiguous(),
               q_segment_ids=qs.contiguous(), kv_segment_ids=ks.contiguous(),
-              causal=True, sliding_window=case.get("window"),
+              causal=case.get("causal", True),
+              sliding_window=case.get("window"),
               scale=dh ** -0.5, logit_softcap=case.get("softcap"))
     return randn(B, S, H, dh), randn(B, T, K, dh), randn(B, T, K, dh), kw
 
@@ -193,6 +207,36 @@ def test_backward_kernels_match_plain_version(dev, case, dtype):
             BWD_TOL[dtype] * scale
     if CASES[case].get("dead_rows"):
         assert float(dq[:, 3:7].float().abs().max()) == 0.0
+
+
+def test_dkv_kernel_is_deterministic(dev):
+    """The bf16 dK/dV kernel sums the GQA group in a fixed order (a
+    cluster reduction, no atomics): two launches agree bitwise."""
+    q, k, v, kw = _inputs(CASES["gqa7_dh128"], torch.bfloat16, dev)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(1), device=dev).to(torch.bfloat16)
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, dvec, kw["q_positions"], kw["kv_positions"],
+            kw["q_segment_ids"], kw["kv_segment_ids"])
+    mkw = {n: kw[n] for n in ("causal", "sliding_window", "scale",
+                              "logit_softcap")}
+    first = flash_bwd_dkv(*args, **mkw)
+    second = flash_bwd_dkv(*args, **mkw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+
+
+def test_dkv_kernel_refuses_a_group_past_its_cluster(dev):
+    q = torch.zeros((1, 128, 9, 64), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((1, 128, 1, 64), dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros((1, 9, 128), device=dev)
+    pos = torch.arange(128, dtype=torch.int32, device=dev)[None]
+    seg = torch.ones((1, 128), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="cluster"):
+        flash_bwd_dkv(q, kv, kv, q, lse, lse, pos, pos, seg, seg,
+                      causal=True, sliding_window=None, scale=0.125,
+                      logit_softcap=None)
 
 
 def test_autograd_reaches_the_backward_kernels(dev):
