@@ -7,7 +7,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  — nvidia-smi name and power limit, torch / CUDA versions.
 2. build   — compile every CUDA kernel of the port from ``csrc/`` with
-             nvcc for sm_90a (all sources at once).
+             nvcc for sm_90a (all sources at once); the line carries
+             ptxas's registers and spills per entry, those of the fused
+             cross-entropy's wgmma kernels also on their own.
 3. kernels — hold each kernel (flash forward, dQ, dK/dV, fused rms_norm,
              fused q/k RoPE, per-head rms_norm + RoPE, fused
              cross-entropy row statistics, dx and dhead) against its
@@ -23,7 +25,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              timed at the Gemma-2 training shape (one packed row of
              4,096, head dim 256, softcap, with and without the window),
              and timed at one 4,096-token document a row; the bf16 dK/dV
-             kernel must repeat bitwise.
+             kernel must repeat bitwise. At the Llama shape the
+             cross-entropy dx and dhead must take the wgmma body, which is
+             also timed against the mma.sync body it replaced, in
+             alternated turns.
              The per-head rms_norm + RoPE is timed at the Llama-3.1-8B q
              of the training microbatch and the Gemma-2-9B q of one
              packed row.
@@ -62,12 +67,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              width and depth with FUSED_OPS=1: the loss through the fused
              cross-entropy (no [2 x 1,024, 128,256] fp32 logits); per step
              row statistics and dx 4 times (dhead 0: the head is frozen),
-             the fused rms_norm 2 x 32 x 4 x 2 and RoPE 32 x 4 x 3 times.
+             dx on the wgmma body, the fused rms_norm 2 x 32 x 4 x 2 and
+             RoPE 32 x 4 x 3 times.
 11. train_fused_ce_parity — float32, Llama at full width and 4 layers:
              FUSED_OPS=1 against FUSED_OPS=0, both through the flash
              kernels, QLoRA and full fine-tuning (where dhead launches and
              the lm_head trains, held alike on both sides by the
-             trained-tensor check).
+             trained-tensor check); dx and dhead on the fp32 body.
 12. kernelcheck — run right after the kernels phase: the port's kernel
              sweep (``analysis/kernelcheck.py`` over
              ``ops/registry.py``) on the card: every registered case
@@ -87,6 +93,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -961,7 +968,9 @@ def _time_ce_llama_shape(dev):
     statistics) and its backward to x (dx) or to the head (dhead). Bounds:
     each input read once and each output written once, against 2 N D V
     bf16 FLOPs for the row statistics and 4 N D V (the recompute and the
-    gradient product) for dx and dhead."""
+    gradient product) for dx and dhead. The public dx and dhead calls
+    here must all take the wgmma body (``routes``), which is also timed
+    against the mma.sync body (``wgmma_vs_mma_sync``, ``_time_ce_routes``)."""
     import torch
     import torch.nn.functional as F
     from gke_ray_train_tpu_torch.ops.fused_ce import (
@@ -970,6 +979,7 @@ def _time_ce_llama_shape(dev):
     from gke_ray_train_tpu_torch.ops.matmul import matmul_f32
     case = CE_LLAMA_SHAPE
     x, head, t, w = _ce_inputs(case, dev, seed=4, in_range=True)
+    routes_before = _route_counts()
     errs = _ce_errors(case, x, head, t, w)[0]
     lse, _ = fused_ce_row_stats(x, head, t)
     N, D, V = case["N"], case["D"], case["V"]
@@ -1001,6 +1011,9 @@ def _time_ce_llama_shape(dev):
             lambda: torch.autograd.grad(nll_h, hg, retain_graph=True),
             iters=5),
     }
+    # the bodies the public calls above took at this shape
+    taken = {k: {r: n - routes_before[k][r] for r, n in v.items()}
+             for k, v in _route_counts().items()}
     es = x.element_size()
     ins = (N * D + D * V) * es + 4 * N
     work = {"fused_ce_row_stats": (ins + 8 * N, 2.0 * N * D * V),
@@ -1022,9 +1035,40 @@ def _time_ce_llama_shape(dev):
                   "library": "matmul_f32 + F.cross_entropy (two calls"
                   + (", forward)" if name == "fused_ce_row_stats"
                      else ", their backward)")})
+        if name in taken:
+            # every public call at this shape went through the wgmma body
+            r["routes"] = taken[name]
+            r["ok"] = r["ok"] and taken[name]["wgmma"] > 0 and sum(
+                taken[name].values()) == taken[name]["wgmma"]
+            r["wgmma_vs_mma_sync"] = _time_ce_routes(
+                name, x, head, t, w, lse, r["bound_ms"], flops)
     del nll_x, nll_h, xg, hg
     torch.cuda.empty_cache()
     return runs
+
+
+def _time_ce_routes(name, x, head, t, w, lse, bound, flops, pairs=2):
+    """The wgmma body of ``name`` (dx or dhead) against the ``mma.sync``
+    body it replaced, on the same inputs, in one process, in alternated
+    turns (mma_sync, wgmma, wgmma, mma_sync, ``pairs`` times; device ms,
+    3 calls a turn): both times, their spread ((max - min) / min over the
+    turns), TFLOP/s, the share of the bound, and the launches per route."""
+    from gke_ray_train_tpu_torch.ops import fused_ce
+    wrapper = getattr(fused_ce, name)
+    before = dict(wrapper.routes)
+    ms = {"mma_sync": [], "wgmma": []}
+    for route in ("mma_sync", "wgmma", "wgmma", "mma_sync") * pairs:
+        ms[route].append(device_ms(lambda: fused_ce._grad_launch(
+            name, x, head, t, w, lse, route=route), iters=3, warmup=1))
+    out = {"ms_runs": ms, "launches": {
+        r: n - before[r] for r, n in wrapper.routes.items()}}
+    for route, runs in ms.items():
+        best = min(runs)
+        out[route] = {"ms": best, "spread": (max(runs) - best) / best,
+                      "tflops_per_s": flops / best / 1e9,
+                      "bound_share": bound / best}
+    out["speedup"] = out["mma_sync"]["ms"] / out["wgmma"]["ms"]
+    return out
 
 
 def phase_kernels(dev):
@@ -1358,9 +1402,34 @@ def _launch_counts():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
+# the cross-entropy gradient entries, which count launches per GEMM body
+_ROUTED = ("fused_ce_dx", "fused_ce_dhead")
+
+
+def _route_counts():
+    """{dx / dhead entry: {route: launches}} (``ops/fused_ce.py::ROUTES``)."""
+    counted = _counted()
+    return {name: dict(counted[name].routes) for name in _ROUTED}
+
+
 def _reset_launch_counts():
-    for fn in _counted().values():
+    for name, fn in _counted().items():
         fn.launches = 0
+        if name in _ROUTED:
+            fn.routes = dict.fromkeys(fn.routes, 0)
+
+
+def _expected_routes(cfg, launches):
+    """The route counts of ``launches`` CE gradient launches on ``cfg``'s
+    model: all of them on the body ``grad_route`` picks for its dtype,
+    d_model and vocab (the train step's operands are fresh, aligned
+    allocations)."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.fused_ce import ROUTES, grad_route
+    route = grad_route(getattr(torch, cfg.dtype), cfg.d_model,
+                       cfg.vocab_size)
+    return {name: {r: launches[name] if r == route else 0 for r in ROUTES}
+            for name in _ROUTED}
 
 
 def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
@@ -1444,7 +1513,8 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     dropout 0.1 on all projections, microbatch 2 x grad-accum 4 at 1024
     tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and clip 0.3.
     One warm-up step, then ``steps`` timed ones; the launch counts of the
-    kernels are read over the timed steps."""
+    kernels, and the routes of the cross-entropy's gradient launches, are
+    read over the timed steps."""
     import torch
     from gke_ray_train_tpu_torch.train import (
         peak_flops_per_device, train_flops_per_token)
@@ -1476,6 +1546,7 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
         rows.append(m)
         emit({"phase": f"{phase}_step", "step": i, "seconds": dt, **m})
     launches = _launch_counts()
+    routes = _route_counts()
     per_step = {k: v / steps for k, v in launches.items()}
     want = expected_launches(cfg, plan.grad_accum, plan.fused_ops)
     p50 = sorted(times)[len(times) // 2]
@@ -1488,6 +1559,9 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
         problems.append("non-finite loss or grad_norm")
     if per_step != want:
         problems.append(f"launches per step {per_step} != {want}")
+    if routes != _expected_routes(cfg, launches):
+        problems.append(f"cross-entropy routes {routes} != "
+                        f"{_expected_routes(cfg, launches)}")
     if torch.equal(before, watch.detach()):
         problems.append("the adapters did not change")
     row = {"phase": phase, "ok": not problems, "problems": problems,
@@ -1511,6 +1585,7 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
            "train_flops_per_token": flops_tok,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "launches_per_step": per_step,
+           "ce_routes": routes,
            "losses": [r["loss"] for r in rows],
            "grad_norms": [r["grad_norm"] for r in rows]}
     emit(row)
@@ -1565,7 +1640,8 @@ def phase_train_profile(dev, cfg=None, config=None,
               "flash_kernels": ("flash_fwd", "flash_bwd"),
               "fused_norm_rope": ("rmsnorm_kernel", "rope_qk_kernel"),
               "fused_ce": ("row_stats_kernel", "merge_kernel",
-                           "dlogits_kernel", "dx_kernel", "dhead_kernel"),
+                           "dlogits_kernel", "dx_kernel", "dhead_kernel",
+                           "ce_wgmma_kernel"),
               "nf4_lookup": ("index_elementwise",)}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
     for e in kern:
@@ -1643,15 +1719,19 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
     arguments of ``_train_run``) against the ``plain`` one — relative
     errors of the loss / grad_norm streams, the relative error of the
     trained tensors' change, and the kernel run's launches against
-    ``expected_launches`` (2 microbatches a step). Full fine-tuning also
-    reports the lm_head's change on each side (``lm_head_delta_norm``)."""
+    ``expected_launches`` (2 microbatches a step), and the cross-entropy
+    gradient launches' routes against ``_expected_routes``. Full
+    fine-tuning also reports the lm_head's change on each side
+    (``lm_head_delta_norm``)."""
     import torch
     rows, ok = [], True
     for mode in ("qlora", "full"):
-        before = _launch_counts()
+        before, routes_before = _launch_counts(), _route_counts()
         got, d_got = _train_run(cfg, mode, dev=dev, steps=steps,
                                 batches=batches, **kernel)
         used = {k: v - before[k] for k, v in _launch_counts().items()}
+        routes = {k: {r: n - routes_before[k][r] for r, n in v.items()}
+                  for k, v in _route_counts().items()}
         ref, d_ref = _train_run(cfg, mode, dev=dev, steps=steps,
                                 batches=batches, **plain)
         num = sum(float(torch.sum((d_got[n] - b) ** 2))
@@ -1666,11 +1746,13 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
         row_ok = (all(v <= TRAIN_PARITY_RTOL for v in rel.values())
                   and delta_rel <= TRAIN_PARITY_DELTA_RTOL
                   and used == want
+                  and routes == _expected_routes(cfg, used)
                   and all(np.isfinite(got["loss"] + ref["loss"])))
         ok = ok and row_ok
         rows.append({"mode": mode, "ok": row_ok, "kernel_run": got,
                      "plain_run": ref, "max_rel_err": rel,
-                     "delta_rel_err": delta_rel, "launches": used})
+                     "delta_rel_err": delta_rel, "launches": used,
+                     "ce_routes": routes})
         if "lm_head" in d_ref:
             rows[-1]["lm_head_delta_norm"] = [
                 float(torch.linalg.vector_norm(d["lm_head"]))
@@ -1878,6 +1960,22 @@ KERNEL_SOURCES = {
 }
 
 
+def _wgmma_ptxas(report):
+    """The fused cross-entropy's wgmma entries from the build report:
+    {dlogits / dx / dhead: {"registers", "stack", "spill_stores",
+    "spill_loads"}}, and ptxas's warnings on that source."""
+    names = {"0": "dlogits", "1": "dx", "2": "dhead"}
+    out = {}
+    for e in report.get("fused_ce", {}).get("ptxas", []):
+        m = re.search(r"ce_wgmma_kernelILi(\d)E", e.get("entry", ""))
+        if m:
+            out[names[m.group(1)]] = {k: v for k, v in e.items()
+                                      if k != "entry"}
+        elif "warning" in e:
+            out.setdefault("warnings", []).append(e["warning"])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
@@ -1908,7 +2006,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report = kernels.build()
     emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
-          "kernels": report})
+          "fused_ce_wgmma_ptxas": _wgmma_ptxas(report), "kernels": report})
 
     # launches on the main paths: each path driven with the counts at 0
     launches = {name: None for name in KERNEL_SOURCES}

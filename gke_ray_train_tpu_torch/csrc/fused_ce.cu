@@ -27,15 +27,6 @@
 // ([256, 4,096] fp32 for dx: 4 MB). An SM has 228 KB of shared memory,
 // and 8 row tiles would fill 8 of 132 SMs, so the work is cut anew:
 //
-// - Every product is one tiled GEMM body: a CTA of 8 warps computes a
-//   128 x 128 tile, the K loop staging 32-deep slices of both operands
-//   in shared memory through a 3-stage cp.async ring, in the operands'
-//   own global layouts (K-, M- or N-contiguous); `ldmatrix` (with
-//   `.trans` where a tile is not K-contiguous) builds the fragments of
-//   `mma.sync` m16n8k16 (bf16 in, fp32 accumulate). Each warp holds a
-//   64 x 32 accumulator. Exact fp32 inputs (the parity runs, TF32 off)
-//   take a scalar fp32 FMA body of the same tile and thread mapping
-//   instead, as the flash kernels do.
 // - Row statistics: a grid of (row tile, vocab split), about two CTAs per
 //   SM. Each CTA walks its vocab tiles, each thread carries (m, l, t) of
 //   its 8 rows over its own columns online, and at the end the 16 threads
@@ -51,19 +42,57 @@
 //   fp32 logits); then the dx launch adds dl @ head_c^T into an fp32
 //   [N, D] buffer (rounded to the input dtype once, in the last chunk's
 //   epilogue), or the dhead launch writes x^T @ dl into dhead[:, chunk].
-//   dx and dhead each recompute dl, as the two TPU kernels do.
+//   dx and dhead each recompute dl, as the two TPU kernels do. Every
+//   output element is summed by one CTA in a fixed order (no split-K, no
+//   atomics), so two runs on the same inputs agree bitwise.
+//
+// Three GEMM bodies run these products, the route chosen by the caller
+// (ops/fused_ce.py::grad_route, from shapes, dtype and alignment) and
+// refused here with cudaErrorInvalidValue where the shape does not fit:
+//
+// - wgmma (bf16, D % 8 == 0, V % 8 == 0, 16-byte aligned operands: the
+//   rows TMA can address), the backward's products only. One persistent
+//   CTA of three warpgroups per SM walks the 128 x 256 output tiles: one
+//   producer warp starts 2-D TMA loads of 64-deep K slices (128-byte
+//   swizzled 64-column blocks, hopper.cuh) into a 4-stage ring with
+//   mbarrier full / empty pairs, running on into the next tile while the
+//   consumers finish the last; two consumer warpgroups each run wgmma
+//   m64n256k16 from shared memory into 128 fp32 registers a thread (168
+//   registers, no spills: ptxas's cap for a 384-thread CTA), one commit
+//   group kept in flight while the next slice's products start; the
+//   epilogue runs from registers. Operands are read in their own layouts
+//   through wgmma's transpose immediates: dlogits = x (K-major) @ head
+//   (MN-major, the vocab contiguous), dx = dl (K-major) @ head rows
+//   (K-major), dhead = x^T (MN-major) @ dl (MN-major). The dl map of
+//   each chunk is `vc` columns wide, so the dx and dhead products read
+//   zeros past the chunk's last column (never the scratch's stale tail)
+//   and the dlogits epilogue stores only columns < vc. Its exp is
+//   ex2.approx of a log2e-prescaled argument, fma(logit, log2e, -lse
+//   log2e). dx's epilogue loads the earlier chunks' fp32 sums in groups
+//   before it stores any, so that their memory round trips overlap.
+// - mma_sync (bf16 shapes TMA cannot take, and the row statistics): a
+//   CTA of 8 warps computes a 128 x 128 tile, the K loop staging 32-deep
+//   slices of both operands in shared memory through a 3-stage cp.async
+//   ring, in the operands' own global layouts (K-, M- or N-contiguous);
+//   `ldmatrix` (with `.trans` where a tile is not K-contiguous) builds
+//   the fragments of `mma.sync` m16n8k16 (bf16 in, fp32 accumulate).
+//   Each warp holds a 64 x 32 accumulator.
+// - fp32 (the parity runs, TF32 off): a scalar fp32 FMA body of the same
+//   tile and thread mapping as mma_sync, as the flash kernels keep.
 //
 // bf16 rounds dl to bf16 before the dx / dhead products, where the TPU
 // kernels keep it in fp32 (the same kind of rounding point as P and dS in
 // flash_bwd.cu); the plain version keeps fp32.
 //
-// Any N, D, V >= 1: ragged tiles are masked on load (zeros) and on store;
-// 16-byte copies where a matrix's rows start 16-byte aligned, element
-// copies elsewhere.
+// Any N, D, V >= 1 on the mma_sync and fp32 routes: ragged tiles are
+// masked on load (zeros) and on store; 16-byte copies where a matrix's
+// rows start 16-byte aligned, element copies elsewhere. On the wgmma
+// route TMA zero-fills past every edge and the epilogue masks stores.
 //
-// Later work: a cluster of CTAs splitting D and summing partial logits
-// through distributed shared memory, so that dl never leaves the chip;
-// wgmma with a TMA ring and warp specialisation.
+// Later work: the row statistics on the wgmma body; one dlogits pass
+// shared by dx and dhead in full fine-tuning; a cluster of CTAs splitting
+// D and summing partial logits through distributed shared memory, so
+// that dl never leaves the chip.
 //
 // The C entry points return cudaGetLastError() after their launches; the
 // Python wrappers raise when that is not cudaSuccess.
@@ -73,6 +102,8 @@
 
 #include <algorithm>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -666,8 +697,361 @@ cudaError_t grads_dhead(const void* x, const void* head, const int* targets,
   return cudaSuccess;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 wgmma body: a TMA ring, a producer warp, two consumer warpgroups
+// ---------------------------------------------------------------------------
+
+enum : int { kDlogits = 0, kDx = 1, kDhead = 2 };
+
+constexpr int kHBK = 64;          // K slice per stage: one 128-byte block
+constexpr int kHStages = 4;
+constexpr int kHThreads = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr int kHBM = 128;         // CTA tile rows: 64 per consumer
+constexpr int kHBN = 256;         // CTA tile columns
+constexpr int kDxGroup = 8;       // dx epilogue: sums loaded at a time
+
+template <int BN>
+struct HCfg {
+  static constexpr int A_BYTES = kHBM * kHBK * 2;
+  static constexpr int B_BYTES = BN * kHBK * 2;
+  static constexpr int STAGE = A_BYTES + B_BYTES;
+  static constexpr int OFF_BAR = kHStages * STAGE;
+  static constexpr int SMEM = OFF_BAR + 2 * kHStages * 8 + 1024;
+};
+
+// One product C [M, Nc] = A @ B over K, and what its epilogue needs.
+// Rows r < M and columns c < Nc of C exist; out holds C's transform
+// with rows ld_out apart. b_off moves B's column coordinate: the chunk's
+// first vocab column where B is the head (dlogits, dx), which is where
+// dlogits' label columns start too.
+struct HParams {
+  const int* targets;
+  const float* wg;
+  const float* lse;
+  bf16* out;    // dl (dlogits), dx (dx, last chunk), dhead + c0 (dhead)
+  float* acc;   // dx's fp32 sums over the chunks
+  int ld_out, M, Nc, K, b_off, first, last;
+};
+
+// The producer warp's lane 0: every K slice of the A and B tiles of each
+// of the CTA's output tiles into the ring. A K-major: one box of 128
+// rows; MN-major: two 64-column blocks of 64 K rows. B K-major: one box
+// of BN rows; MN-major: BN / 64 blocks of 64 K rows. TMA counts the whole
+// box, zero-filled past an edge, against the stage's transaction bytes.
+// The ring runs on across tiles, so the next tile's first slices land
+// while the consumers run the last one's epilogue.
+template <int TA, int TB, int BN>
+__device__ __forceinline__ void hopper_producer(const CUtensorMap* ta,
+                                                const CUtensorMap* tb,
+                                                unsigned char* sm,
+                                                uint64_t* full,
+                                                uint64_t* empty, int mt,
+                                                int tiles, int nk,
+                                                int b_off) {
+  using C = HCfg<BN>;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile % mt) * kHBM, n0 = (tile / mt) * BN;
+    for (int kt = 0; kt < nk; ++kt) {
+      const int k0 = kt * kHBK;
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      hopper::mbar_arrive_tx(&full[stage], C::STAGE);
+      unsigned char* a = sm + stage * C::STAGE;
+      unsigned char* b = a + C::A_BYTES;
+      if constexpr (TA != 0) {
+#pragma unroll
+        for (int i = 0; i < kHBM / 64; ++i)
+          hopper::tma_load_2d(a + i * 64 * 128, ta, &full[stage],
+                              m0 + 64 * i, k0);
+      } else {
+        hopper::tma_load_2d(a, ta, &full[stage], k0, m0);
+      }
+      if constexpr (TB != 0) {
+#pragma unroll
+        for (int i = 0; i < BN / 64; ++i)
+          hopper::tma_load_2d(b + i * 64 * 128, tb, &full[stage],
+                              b_off + n0 + 64 * i, k0);
+      } else {
+        hopper::tma_load_2d(b, tb, &full[stage], b_off + k0, n0);
+      }
+      if (++stage == kHStages) { stage = 0; phase ^= 1; }
+    }
+  }
+}
+
+// A consumer warpgroup: its 64 rows of one tile over every K slice, one
+// wgmma commit group in flight while the next slice starts; a stage goes
+// back to the producer once the group that read it has completed.
+// (stage, phase): the ring position, carried from tile to tile.
+template <int TA, int TB, int BN>
+__device__ __forceinline__ void hopper_mainloop(float (&acc)[BN / 2],
+                                                unsigned char* sm,
+                                                uint64_t* full,
+                                                uint64_t* empty, int wgi,
+                                                int nk, int& stage,
+                                                uint32_t& phase) {
+  using C = HCfg<BN>;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  // rows 64 wgi.. of a K-major A box and column block wgi of an MN-major
+  // A both start 8 KB in; MN-major blocks lie 64 rows x 128 bytes apart
+  const uint64_t a0 =
+      hopper::desc_sw128(sm + wgi * 64 * 128, TA ? 64 * 128 : 16, 1024);
+  const uint64_t b0 =
+      hopper::desc_sw128(sm + C::A_BYTES, TB ? 64 * 128 : 16, 1024);
+  // a k16 step: 32 bytes along a K-major row, 16 rows down an MN-major
+  // block (descriptor addresses count 16-byte units)
+  constexpr uint64_t a_step = TA ? 2048 / 16 : 32 / 16;
+  constexpr uint64_t b_step = TB ? 2048 / 16 : 32 / 16;
+  const int lane = threadIdx.x & 31;
+  int prev = stage;
+  for (int kt = 0; kt < nk; ++kt) {
+    hopper::mbar_wait(&full[stage], phase);
+    const uint64_t so = uint64_t(stage * C::STAGE) / 16;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHBK / 16; ++kk)
+      hopper::wgmma_ss_t<TA, TB>(acc, a0 + so + kk * a_step,
+                                 b0 + so + kk * b_step, 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == kHStages) { stage = 0; phase ^= 1; }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::reg_fence(acc);
+  if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+}
+
+// The epilogue from registers (hopper.cuh's accumulator layout: this
+// thread's rows 16 warp + g and + 8, columns 8j + 2t and 8j + 2t + 1).
+// Nc is a multiple of 8 on this route, so a column pair is whole.
+template <int MODE, int BN>
+__device__ __forceinline__ void hopper_epilogue(const float (&acc)[BN / 2],
+                                                const HParams& p, int m0,
+                                                int n0, int wgi) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int c_first = n0 + 2 * t;  // column of register pair j = 0
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = m0 + 64 * wgi + 16 * warp + g + 8 * hr;
+    if (r >= p.M) continue;
+    const size_t row = size_t(r) * p.ld_out + c_first;
+    if constexpr (MODE == kDlogits) {
+      // dl = (exp(logit - lse) - [c0 + c = target]) * wg, exp in base 2;
+      // `hit` is the label's offset from column c_first (a label outside
+      // [0, V) never meets a stored column c < vc)
+      const float l2 = p.lse[r] * hopper::kLog2e, w = p.wg[r];
+      const int hit = p.targets[r] - p.b_off - c_first;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (c_first + 8 * j >= p.Nc) continue;
+        const float e0 = hopper::fast_exp2(
+            fmaf(acc[4 * j + 2 * hr], hopper::kLog2e, -l2));
+        const float e1 = hopper::fast_exp2(
+            fmaf(acc[4 * j + 2 * hr + 1], hopper::kLog2e, -l2));
+        const float v0 = (e0 - (8 * j == hit ? 1.f : 0.f)) * w;
+        const float v1 = (e1 - (8 * j + 1 == hit ? 1.f : 0.f)) * w;
+        *reinterpret_cast<uint32_t*>(p.out + row + 8 * j) =
+            hopper::pack_bf16(v0, v1);
+      }
+    } else if constexpr (MODE == kDx) {
+      // the fp32 sums over the chunks, rounded to bf16 once, in the last.
+      // The earlier chunks' sums load kDxGroup column pairs at a time
+      // before any of them is stored: a load after each store would wait
+      // out one memory round trip per pair
+#pragma unroll
+      for (int j0 = 0; j0 < BN / 8; j0 += kDxGroup) {
+        float2 prev[kDxGroup];
+#pragma unroll
+        for (int j = j0; j < j0 + kDxGroup; ++j)
+          prev[j - j0] = !p.first && c_first + 8 * j < p.Nc
+                             ? *reinterpret_cast<const float2*>(
+                                   p.acc + row + 8 * j)
+                             : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int j = j0; j < j0 + kDxGroup; ++j) {
+          if (c_first + 8 * j >= p.Nc) continue;
+          float v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
+          if (!p.first) {
+            v0 += prev[j - j0].x;
+            v1 += prev[j - j0].y;
+          }
+          if (p.last)
+            *reinterpret_cast<uint32_t*>(p.out + row + 8 * j) =
+                hopper::pack_bf16(v0, v1);
+          else
+            *reinterpret_cast<float2*>(p.acc + row + 8 * j) =
+                make_float2(v0, v1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        if (c_first + 8 * j >= p.Nc) continue;
+        *reinterpret_cast<uint32_t*>(p.out + row + 8 * j) =
+            hopper::pack_bf16(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]);
+      }
+    }
+  }
+}
+
+// A persistent CTA per SM (at most one per tile) walks the (128-row,
+// BN-column) tiles of C, the row tile fastest, tile blockIdx.x first and
+// then every gridDim.x-th. TA / TB: A / B MN-major.
+template <int MODE, int TA, int TB, int BN>
+__global__ void __launch_bounds__(kHThreads, 1)
+ce_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                const __grid_constant__ CUtensorMap tb, const HParams p) {
+  using C = HCfg<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* empty = full + kHStages;
+  const int mt = (p.M + kHBM - 1) / kHBM;
+  const int tiles = mt * ((p.Nc + BN - 1) / BN);
+  const int nk = (p.K + kHBK - 1) / kHBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kHStages; ++s) {
+      hopper::mbar_init(&full[s], 1);   // the producer's expect_tx
+      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int wgi = hopper::warpgroup_index();
+  if (wgi == 2) {
+    if (threadIdx.x == 256)
+      hopper_producer<TA, TB, BN>(&ta, &tb, sm, full, empty, mt, tiles, nk,
+                                  p.b_off);
+  } else {
+    float acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      hopper_mainloop<TA, TB, BN>(acc, sm, full, empty, wgi, nk, stage,
+                                  phase);
+      hopper_epilogue<MODE, BN>(acc, p, (tile % mt) * kHBM,
+                                (tile / mt) * BN, wgi);
+    }
+  }
+}
+
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
+}
+
+template <int MODE, int TA, int TB>
+cudaError_t ce_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
+                     const HParams& p, cudaStream_t st) {
+  using C = HCfg<kHBN>;
+  auto kern = ce_wgmma_kernel<MODE, TA, TB, kHBN>;
+  cudaError_t err = allow_smem(kern, C::SMEM);
+  if (err != cudaSuccess) return err;
+  const int tiles = cdiv(p.M, kHBM) * cdiv(p.Nc, kHBN);
+  kern<<<std::min(tiles, sm_count()), kHThreads, C::SMEM, st>>>(ta, tb, p);
+  return cudaGetLastError();
+}
+
+// dl of chunk [c0, c0 + vc) = dlogits of x (K-major) @ head (MN-major)
+cudaError_t hopper_dlogits(const CUtensorMap& tx_k, const CUtensorMap& th_mn,
+                           const int* targets, const float* wg,
+                           const float* lse, void* dl, int chunk, int N,
+                           int D, int c0, int vc, cudaStream_t st) {
+  const HParams p{targets, wg, lse, static_cast<bf16*>(dl), nullptr,
+                  chunk, N, vc, D, c0, 0, 0};
+  return ce_wgmma<kDlogits, 0, 1>(tx_k, th_mn, p, st);
+}
+
+// TMA reads the operands' rows: 16-byte aligned bases and row strides
+bool hopper_fits(const void* x, const void* head, const void* dl, int D,
+                 int V) {
+  const auto a16 = [](const void* q) {
+    return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  };
+  return D % 8 == 0 && V % 8 == 0 && a16(x) && a16(head) && a16(dl);
+}
+
+cudaError_t hopper_dx(const void* x, const void* head, const int* targets,
+                      const float* wg, const float* lse, void* dl, int chunk,
+                      float* acc, void* dx, int N, int D, int V,
+                      cudaStream_t st) {
+  CUtensorMap tx_k, th_mn, th_k, tdl_k;
+  cudaError_t err;
+  if ((err = hopper::matrix_map(&tx_k, x, N, D, D, kHBM)) != cudaSuccess ||
+      (err = hopper::matrix_map(&th_mn, head, D, V, V, kHBK)) !=
+          cudaSuccess ||
+      (err = hopper::matrix_map(&th_k, head, D, V, V, kHBN)) != cudaSuccess)
+    return err;
+  for (int c0 = 0; c0 < V; c0 += chunk) {
+    const int vc = std::min(chunk, V - c0);
+    err = hopper_dlogits(tx_k, th_mn, targets, wg, lse, dl, chunk, N, D, c0,
+                         vc, st);
+    if (err != cudaSuccess) return err;
+    // dl's map is vc wide: the K tail past the chunk reads zeros
+    if ((err = hopper::matrix_map(&tdl_k, dl, N, vc, chunk, kHBM)) !=
+        cudaSuccess)
+      return err;
+    const HParams p{nullptr, nullptr, nullptr, static_cast<bf16*>(dx), acc,
+                    D, N, D, vc, c0, int(c0 == 0), int(c0 + chunk >= V)};
+    err = ce_wgmma<kDx, 0, 0>(tdl_k, th_k, p, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+cudaError_t hopper_dhead(const void* x, const void* head, const int* targets,
+                         const float* wg, const float* lse, void* dl,
+                         int chunk, void* dhead, int N, int D, int V,
+                         cudaStream_t st) {
+  CUtensorMap tx_k, th_mn, tx_mn, tdl_mn;
+  cudaError_t err;
+  if ((err = hopper::matrix_map(&tx_k, x, N, D, D, kHBM)) != cudaSuccess ||
+      (err = hopper::matrix_map(&th_mn, head, D, V, V, kHBK)) !=
+          cudaSuccess ||
+      (err = hopper::matrix_map(&tx_mn, x, N, D, D, kHBK)) != cudaSuccess)
+    return err;
+  for (int c0 = 0; c0 < V; c0 += chunk) {
+    const int vc = std::min(chunk, V - c0);
+    err = hopper_dlogits(tx_k, th_mn, targets, wg, lse, dl, chunk, N, D, c0,
+                         vc, st);
+    if (err != cudaSuccess) return err;
+    if ((err = hopper::matrix_map(&tdl_mn, dl, N, vc, chunk, kHBK)) !=
+        cudaSuccess)
+      return err;
+    const HParams p{nullptr, nullptr, nullptr,
+                    static_cast<bf16*>(dhead) + c0, nullptr, V, D, vc, N, 0,
+                    0, 0};
+    err = ce_wgmma<kDhead, 1, 1>(tx_mn, tdl_mn, p, st);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 bool shape_ok(int N, int D, int V) {
   return N >= 1 && D >= 1 && V >= 1 && cdiv(D, kBM) <= 65535;
+}
+
+// The gradient entries' route: 0 = fp32 (dtype 0), 1 = mma_sync (dtype
+// 1), 2 = wgmma (dtype 1, D % 8 == 0, V % 8 == 0, x, head and dl 16-byte
+// aligned); a route the dtype or shape does not fit is refused.
+enum : int { kRouteFp32 = 0, kRouteMma = 1, kRouteWgmma = 2 };
+
+bool route_ok(int route, int dtype, const void* x, const void* head,
+              const void* dl, int D, int V) {
+  if (route == kRouteFp32) return dtype == 0;
+  if (route == kRouteMma) return dtype == 1;
+  return route == kRouteWgmma && dtype == 1 &&
+         hopper_fits(x, head, dl, D, V);
 }
 
 }  // namespace
@@ -697,27 +1081,28 @@ extern "C" int fused_ce_row_stats(const void* x, const void* head,
 // dx [N, D] in the input dtype from wg (weight times the loss cotangent)
 // and lse [N] fp32. dl: [N, chunk] scratch in the input dtype, one vocab
 // chunk of the backward (chunk a positive multiple of 128); acc: [N, D]
-// fp32 scratch (bf16 over more than one chunk; float32 passes dx itself).
-// Returns a cudaError_t.
+// fp32 scratch (bf16 over more than one chunk; float32 passes dx itself);
+// route: 0 fp32, 1 mma_sync, 2 wgmma (route_ok). Returns a cudaError_t.
 extern "C" int fused_ce_dx(const void* x, const void* head,
                            const void* targets, const void* wg,
                            const void* lse, void* dl, void* acc, void* dx,
                            int N, int D, int V, int chunk, int dtype,
-                           void* stream) {
-  if (!shape_ok(N, D, V) || chunk < kBN || chunk % kBN != 0)
+                           int route, void* stream) {
+  if (!shape_ok(N, D, V) || chunk < kBN || chunk % kBN != 0 ||
+      !route_ok(route, dtype, x, head, dl, D, V))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(targets);
   const float* w = static_cast<const float*>(wg);
   const float* l = static_cast<const float*>(lse);
   float* a = static_cast<float*>(acc);
-  if (dtype == 0)
+  if (route == kRouteFp32)
     return int(
         grads_dx<float>(x, head, t, w, l, dl, chunk, a, dx, N, D, V, st));
-  if (dtype == 1)
+  if (route == kRouteMma)
     return int(
         grads_dx<bf16>(x, head, t, w, l, dl, chunk, a, dx, N, D, V, st));
-  return int(cudaErrorInvalidValue);
+  return int(hopper_dx(x, head, t, w, l, dl, chunk, a, dx, N, D, V, st));
 }
 
 // dhead [D, V] in the input dtype; the other arguments as fused_ce_dx.
@@ -725,19 +1110,20 @@ extern "C" int fused_ce_dx(const void* x, const void* head,
 extern "C" int fused_ce_dhead(const void* x, const void* head,
                               const void* targets, const void* wg,
                               const void* lse, void* dl, void* dhead, int N,
-                              int D, int V, int chunk, int dtype,
+                              int D, int V, int chunk, int dtype, int route,
                               void* stream) {
-  if (!shape_ok(N, D, V) || chunk < kBN || chunk % kBN != 0)
+  if (!shape_ok(N, D, V) || chunk < kBN || chunk % kBN != 0 ||
+      !route_ok(route, dtype, x, head, dl, D, V))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(targets);
   const float* w = static_cast<const float*>(wg);
   const float* l = static_cast<const float*>(lse);
-  if (dtype == 0)
+  if (route == kRouteFp32)
     return int(
         grads_dhead<float>(x, head, t, w, l, dl, chunk, dhead, N, D, V, st));
-  if (dtype == 1)
+  if (route == kRouteMma)
     return int(
         grads_dhead<bf16>(x, head, t, w, l, dl, chunk, dhead, N, D, V, st));
-  return int(cudaErrorInvalidValue);
+  return int(hopper_dhead(x, head, t, w, l, dl, chunk, dhead, N, D, V, st));
 }

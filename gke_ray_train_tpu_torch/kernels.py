@@ -16,11 +16,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import json
 import os
+import re
 import shutil
 import subprocess
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -57,11 +59,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                         + (_F, _I, _P)},
     # fused_ce_row_stats: x, head, targets, partials, lse, tgt, N, D, V,
     # ctas, dtype, stream; fused_ce_dx: x, head, targets, wg, lse, dl,
-    # acc, dx, N, D, V, chunk, dtype, stream; fused_ce_dhead: the same
-    # with dhead in place of acc, dx
+    # acc, dx, N, D, V, chunk, dtype, route, stream; fused_ce_dhead: the
+    # same with dhead in place of acc, dx
     "fused_ce": {"fused_ce_row_stats": (_P,) * 6 + (_I,) * 5 + (_P,),
-                 "fused_ce_dx": (_P,) * 8 + (_I,) * 5 + (_P,),
-                 "fused_ce_dhead": (_P,) * 7 + (_I,) * 5 + (_P,)},
+                 "fused_ce_dx": (_P,) * 8 + (_I,) * 6 + (_P,),
+                 "fused_ce_dhead": (_P,) * 7 + (_I,) * 6 + (_P,)},
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -98,10 +100,45 @@ def _nvcc() -> str:
     return found
 
 
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def ptxas_entries(log: str) -> List[dict]:
+    """Per entry function in ``nvcc -Xptxas -v`` output, ``{"entry":
+    mangled name, "registers", "stack", "spill_stores", "spill_loads"}``
+    (bytes); a ptxas warning line as ``{"warning": line}``."""
+    out: List[dict] = []
+    for ln in log.splitlines():
+        if "warning" in ln and "ptxas" in ln:
+            out.append({"warning": ln.strip()})
+        elif (m := _ENTRY.search(ln)):
+            out.append({"entry": m.group(1)})
+        elif out and "entry" in out[-1] and (m := _FRAME.search(ln)):
+            out[-1].update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        elif out and "entry" in out[-1] and (m := _REGS.search(ln)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
+
+
+def _read_ptxas(path: str) -> List[dict]:
+    """The ptxas entries kept beside a built library (none if missing)."""
+    try:
+        with open(f"{path}.ptxas.json") as f:
+            return json.load(f)
+    except OSError:
+        return []
+
+
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     """Compile every named kernel whose library is missing, all in
     parallel. Returns per kernel ``{"seconds", "cached", "ptxas"}``
-    (``ptxas``: the compiler's register / shared-memory / spill lines)."""
+    (``ptxas``: ``ptxas_entries`` of the compiler's output, kept beside
+    the library for a cached build)."""
     names = list(SIGNATURES if names is None else names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     report: Dict[str, dict] = {}
@@ -110,7 +147,8 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
     for name in names:
         path = library_path(name)
         if os.path.exists(path):
-            report[name] = {"seconds": 0.0, "cached": True, "ptxas": []}
+            report[name] = {"seconds": 0.0, "cached": True,
+                            "ptxas": _read_ptxas(path)}
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
@@ -123,11 +161,13 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        entries = ptxas_entries(log)
+        with open(f"{path}.ptxas.json", "w") as f:
+            json.dump(entries, f)
         os.replace(tmp, path)
         report[name] = {
             "seconds": time.perf_counter() - t0, "cached": False,
-            "ptxas": [ln.strip() for ln in log.splitlines()
-                      if "registers" in ln or "spill" in ln]}
+            "ptxas": entries}
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return report

@@ -30,6 +30,14 @@ kernels cannot take raises; nothing falls back. ``fused_ce_row_stats
 .launches``, ``fused_ce_dx.launches`` and ``fused_ce_dhead.launches``
 count calls that launched a kernel entry (each entry runs its launches
 over the vocab chunks itself).
+
+dx and dhead run one of three GEMM bodies, chosen by ``grad_route`` from
+the dtype, the shapes and the operands' alignment (never by a failure):
+``wgmma`` (the Hopper body: TMA ring, producer warp, wgmma) for bf16
+rows TMA can address, ``mma_sync`` for the other bf16 shapes, ``fp32``
+for float32. The C entry refuses a route the shape does not fit.
+``fused_ce_dx.routes`` / ``fused_ce_dhead.routes`` count launches per
+route beside ``.launches``.
 """
 
 from __future__ import annotations
@@ -45,6 +53,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ``block_v`` sets another
 _CHUNK = 8192
 _CHUNK_QUANTUM = 128
+# the gradient entries' GEMM bodies, by the C entry's route code
+ROUTES = {"fp32": 0, "mma_sync": 1, "wgmma": 2}
 
 
 def _logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
@@ -166,10 +176,28 @@ def fused_ce_row_stats(x: torch.Tensor, head: torch.Tensor,
 fused_ce_row_stats.launches = 0
 
 
+def grad_route(dtype: torch.dtype, D: int, V: int,
+               pointers: Tuple[int, ...] = ()) -> str:
+    """The GEMM body of the dx / dhead entries for x [N, D] and head
+    [D, V] of ``dtype`` at data pointers ``pointers``: ``wgmma`` where TMA
+    can address every operand row (bf16, rows of D and V elements a
+    multiple of 16 bytes, 16-byte aligned bases), ``mma_sync`` for other
+    bf16 shapes, ``fp32`` for float32."""
+    if dtype == torch.float32:
+        return "fp32"
+    if D % 8 == 0 and V % 8 == 0 and all(p % 16 == 0 for p in pointers):
+        return "wgmma"
+    return "mma_sync"
+
+
 def _grad_launch(entry: str, x, head, targets, wg, lse,
-                 chunk: int = _CHUNK) -> torch.Tensor:
+                 chunk: int = _CHUNK, route: Optional[str] = None
+                 ) -> torch.Tensor:
     """Launch ``entry`` (``fused_ce_dx`` or ``fused_ce_dhead``) with a
-    vocab chunk of ``chunk`` columns and count the launch on its wrapper."""
+    vocab chunk of ``chunk`` columns on ``route`` (default ``grad_route``
+    of the operands; another is for comparing the bodies, and the C
+    entry refuses one the shape does not fit) and count the launch on its
+    wrapper."""
     from gke_ray_train_tpu_torch.kernels import load
     _check_operands(x, head, targets, wg, lse)
     if chunk < _CHUNK_QUANTUM or chunk % _CHUNK_QUANTUM:
@@ -177,11 +205,15 @@ def _grad_launch(entry: str, x, head, targets, wg, lse,
                          f"{_CHUNK_QUANTUM}")
     N, D = x.shape
     V = head.shape[1]
+    if route is None:
+        route = grad_route(x.dtype, D, V, (x.data_ptr(), head.data_ptr()))
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {sorted(ROUTES)}")
     dl = torch.empty((N, chunk), dtype=x.dtype, device=x.device)
     lib = load("fused_ce")
     args = (x.data_ptr(), head.data_ptr(), targets.data_ptr(), wg.data_ptr(),
             lse.data_ptr(), dl.data_ptr())
-    tail = (N, D, V, chunk, _DTYPE_CODES[x.dtype], _stream(x))
+    tail = (N, D, V, chunk, _DTYPE_CODES[x.dtype], ROUTES[route], _stream(x))
     with torch.cuda.device(x.device):
         if entry == "fused_ce_dx":
             wrapper = fused_ce_dx
@@ -195,8 +227,9 @@ def _grad_launch(entry: str, x, head, targets, wg, lse,
             wrapper = fused_ce_dhead
             out = torch.empty_like(head)
             rc = lib.fused_ce_dhead(*args, out.data_ptr(), *tail)
-    _raise_on(rc, entry)
+    _raise_on(rc, f"{entry} ({route} route)")
     wrapper.launches += 1
+    wrapper.routes[route] += 1
     return out
 
 
@@ -211,6 +244,7 @@ def fused_ce_dx(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
 
 
 fused_ce_dx.launches = 0
+fused_ce_dx.routes = dict.fromkeys(ROUTES, 0)
 
 
 def fused_ce_dhead(x: torch.Tensor, head: torch.Tensor,
@@ -224,6 +258,7 @@ def fused_ce_dhead(x: torch.Tensor, head: torch.Tensor,
 
 
 fused_ce_dhead.launches = 0
+fused_ce_dhead.routes = dict.fromkeys(ROUTES, 0)
 
 
 class FusedCrossEntropy(torch.autograd.Function):

@@ -44,8 +44,9 @@ from gke_ray_train_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_reference, flash_attention_reference,
     flash_bwd_dkv, flash_bwd_dq)
 from gke_ray_train_tpu_torch.ops.fused_ce import (
-    fused_ce_dhead, fused_ce_dx, fused_ce_grads_reference, fused_ce_row_stats,
-    fused_ce_row_stats_reference, fused_cross_entropy)
+    _CHUNK, _grad_launch, fused_ce_dhead, fused_ce_dx,
+    fused_ce_grads_reference, fused_ce_row_stats,
+    fused_ce_row_stats_reference, fused_cross_entropy, grad_route)
 from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
     fused_rmsnorm, fused_rmsnorm_reference, fused_rmsnorm_rope,
     fused_rmsnorm_rope_reference, fused_rope_qk, fused_rope_qk_reference)
@@ -489,23 +490,58 @@ def _ce_inputs(N, D, V, dtype, dev, seed=0):
     return x, head, t, w
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(37, 64, 1000), (130, 100, 1001),
-                                   (200, 256, 9000), (5, 64, 1)])
-def test_fused_ce_kernels_match_plain_version(dev, shape, dtype):
+# (N, D, V, vocab chunk; None: the default). The last crosses two chunk
+# boundaries of 4,096 with a ragged last chunk (808) and ragged rows
+CE_SHAPES = [(37, 64, 1000, None), (130, 100, 1001, None),
+             (200, 256, 9000, None), (5, 64, 1, None), (300, 128, 9000, 4096)]
+
+
+def _ce_routes(dtype, D, V):
+    """The routes a shape admits: the one ``grad_route`` picks (fresh
+    allocations are aligned) and, beside wgmma, the mma_sync body it
+    replaced."""
+    chosen = grad_route(dtype, D, V)
+    return [chosen] + (["mma_sync"] if chosen == "wgmma" else [])
+
+
+CE_PARAMS = [pytest.param(shape, dtype, route, id="x".join(
+                 map(str, shape[:3])) + (f"-chunk{shape[3]}" if shape[3]
+                                         else "")
+                 + f"-{str(dtype)[6:]}-{route}")
+             for dtype in (torch.float32, torch.bfloat16)
+             for shape in CE_SHAPES
+             for route in _ce_routes(dtype, shape[1], shape[2])]
+
+
+def _ce_grads(x, head, t, w, lse, chunk, route, public):
+    """dx and dhead through the public wrappers (``public``) or through
+    ``_grad_launch`` on ``route`` with a vocab chunk of ``chunk``."""
+    if public:
+        return fused_ce_dx(x, head, t, w, lse), fused_ce_dhead(x, head, t,
+                                                                w, lse)
+    return tuple(_grad_launch(e, x, head, t, w, lse, chunk or _CHUNK, route)
+                 for e in ("fused_ce_dx", "fused_ce_dhead"))
+
+
+@pytest.mark.parametrize("shape, dtype, route", CE_PARAMS)
+def test_fused_ce_kernels_match_plain_version(dev, shape, dtype, route):
     """Ragged row tiles, a V no tile divides and an odd one, D that no
     16-byte vector divides, two backward chunks, V = 1; out-of-range
-    labels and weight-0 rows. dx and dhead run twice: with the labels, and
-    with every label out of range, so that the softmax term, which the
-    one-hot term dwarfs, is held on its own scale."""
-    N, D, V = shape
+    labels and weight-0 rows; each shape on every route it admits (the
+    public wrappers where that is the route they pick). dx and dhead run
+    twice: with the labels, and with every label out of range, so that the
+    softmax term, which the one-hot term dwarfs, is held on its own
+    scale. The route counters move on the route taken only."""
+    N, D, V, chunk = shape
     x, head, t, w = _ce_inputs(N, D, V, dtype, dev)
+    public = chunk is None and route == grad_route(
+        dtype, D, V, (x.data_ptr(), head.data_ptr()))
     before = (fused_ce_row_stats.launches, fused_ce_dx.launches,
               fused_ce_dhead.launches)
+    routes_before = (dict(fused_ce_dx.routes), dict(fused_ce_dhead.routes))
     lse, tgt = fused_ce_row_stats(x, head, t)
     ref_lse, ref_tgt = fused_ce_row_stats_reference(x, head, t)
-    dx = fused_ce_dx(x, head, t, w, ref_lse)
-    dh = fused_ce_dhead(x, head, t, w, ref_lse)
+    dx, dh = _ce_grads(x, head, t, w, ref_lse, chunk, route, public)
     torch.cuda.synchronize()
     assert (fused_ce_row_stats.launches, fused_ce_dx.launches,
             fused_ce_dhead.launches) == tuple(b + 1 for b in before)
@@ -517,8 +553,7 @@ def test_fused_ce_kernels_match_plain_version(dev, shape, dtype):
     assert float(tgt[min(3, N - 1)]) == 0.0 and float(tgt[N // 2]) == 0.0
     off = torch.where(torch.arange(N, device=dev) % 2 == 0, V + 5,
                       -1).to(torch.int32)
-    soft = (fused_ce_dx(x, head, off, w, ref_lse),
-            fused_ce_dhead(x, head, off, w, ref_lse))
+    soft = _ce_grads(x, head, off, w, ref_lse, chunk, route, public)
     ref_soft = fused_ce_grads_reference(x, head, off, w, ref_lse)
     assert all(float(r.float().abs().max()) > 0.0 for r in ref_soft)
     for got, want in zip((dx, dh) + soft, (ref_dx, ref_dh) + ref_soft):
@@ -526,21 +561,71 @@ def test_fused_ce_kernels_match_plain_version(dev, shape, dtype):
         assert float((got.float() - want.float()).abs().max()) <= \
             tol_grads * float(want.float().abs().max())
     assert float(dx[N // 3:N // 3 + 5].float().abs().max()) == 0.0
+    for wrapper, was in zip((fused_ce_dx, fused_ce_dhead), routes_before):
+        moved = {r: n - was[r] for r, n in wrapper.routes.items()}
+        assert moved == {r: 2 if r == route else 0 for r in moved}
+
+
+@pytest.mark.parametrize("shape", [(300, 128, 9000, 4096),
+                                   (1024, 1024, 32000, 8192)])
+def test_fused_ce_wgmma_grads_repeat_bitwise(dev, shape):
+    """Every dx and dhead element is summed by one CTA in a fixed order
+    (no split-K, no atomics): two runs on the same inputs agree bitwise."""
+    N, D, V, chunk = shape
+    x, head, t, w = _ce_inputs(N, D, V, torch.bfloat16, dev, seed=2)
+    lse, _ = fused_ce_row_stats_reference(x, head, t)
+    first = _ce_grads(x, head, t, w, lse, chunk, "wgmma", False)
+    again = _ce_grads(x, head, t, w, lse, chunk, "wgmma", False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_fused_ce_wgmma_route_refuses_what_tma_cannot_take(dev):
+    """The C entry refuses the wgmma route where a row is no multiple of
+    16 bytes (D 100, V 1,001) or a base is not 16-byte aligned, and a
+    route of the other dtype; nothing falls back."""
+    bf16 = torch.bfloat16
+    x, head, t, w = _ce_inputs(64, 100, 1000, bf16, dev)
+    lse, _ = fused_ce_row_stats_reference(x, head, t)
+    x2, head2, t2, w2 = _ce_inputs(64, 64, 1001, bf16, dev)
+    lse2, _ = fused_ce_row_stats_reference(x2, head2, t2)
+    buf = torch.zeros(64 * 64 + 1, dtype=bf16, device=dev)
+    x3 = buf[1:].view(64, 64)                  # 2 bytes past an aligned base
+    x3.copy_(x2)
+    head3 = head2[:, :1000].contiguous()
+    for entry in ("fused_ce_dx", "fused_ce_dhead"):
+        for args in ((x, head, t, w, lse), (x2, head2, t2, w2, lse2),
+                     (x3, head3, t2, w2, lse2)):
+            with pytest.raises(RuntimeError, match="wgmma route"):
+                _grad_launch(entry, *args, route="wgmma")
+        with pytest.raises(RuntimeError, match="fp32 route"):
+            _grad_launch(entry, x2, head3, t2, w2, lse2, route="fp32")
+        with pytest.raises(RuntimeError, match="wgmma route"):
+            _grad_launch(entry, x2.float(), head3.float(), t2, w2, lse2,
+                         route="wgmma")
+    assert grad_route(bf16, 64, 1000, (x3.data_ptr(), head3.data_ptr())) \
+        == "mma_sync"
 
 
 def test_fused_cross_entropy_autograd_reaches_the_kernels(dev):
-    """dhead launches only where the head takes a gradient."""
+    """dhead launches only where the head takes a gradient; both on the
+    wgmma body."""
     x, head, t, w = _ce_inputs(64, 128, 3000, torch.bfloat16, dev, seed=1)
     for head_grad, n_dhead in ((True, 1), (False, 0)):
         xg = x.clone().requires_grad_(True)
         hg = head.clone().requires_grad_(head_grad)
         before = (fused_ce_row_stats.launches, fused_ce_dx.launches,
                   fused_ce_dhead.launches)
+        wgmma = (fused_ce_dx.routes["wgmma"],
+                 fused_ce_dhead.routes["wgmma"])
         nll, ws = fused_cross_entropy(xg[None], hg, t[None], w[None])
         nll.backward()
         assert (fused_ce_row_stats.launches - before[0],
                 fused_ce_dx.launches - before[1],
                 fused_ce_dhead.launches - before[2]) == (1, 1, n_dhead)
+        # D 128 and V 3,000 in bf16: the wgmma body
+        assert (fused_ce_dx.routes["wgmma"] - wgmma[0],
+                fused_ce_dhead.routes["wgmma"] - wgmma[1]) == (1, n_dhead)
         assert bool(torch.isfinite(xg.grad.float()).all())
         assert (hg.grad is not None) == head_grad
         assert float(ws) == pytest.approx(float(w.sum()))

@@ -146,6 +146,58 @@ def test_fused_cross_entropy_refuses_what_is_not_ported():
         tfce.fused_cross_entropy(x, head, t[:, :3], w)
 
 
+# (dtype, D, V, misaligned x, the body dx / dhead take): the Llama-3.1-8B,
+# Gemma-2-9B and registry bf16 shapes on wgmma; rows TMA cannot address
+# (D 100, V 1,001, V 1) and a misaligned view on mma_sync; float32 on fp32
+ROUTE_CASES = [
+    (torch.bfloat16, 4096, 128256, False, "wgmma"),
+    (torch.bfloat16, 3584, 256128, False, "wgmma"),
+    (torch.bfloat16, 64, 256, False, "wgmma"),
+    (torch.bfloat16, 100, 1001, False, "mma_sync"),
+    (torch.bfloat16, 100, 1000, False, "mma_sync"),
+    (torch.bfloat16, 64, 1001, False, "mma_sync"),
+    (torch.bfloat16, 64, 1, False, "mma_sync"),
+    (torch.bfloat16, 64, 256, True, "mma_sync"),
+    (torch.float32, 4096, 128256, False, "fp32"),
+    (torch.float32, 100, 1001, True, "fp32"),
+]
+
+
+@pytest.mark.parametrize("dtype, D, V, misaligned, want", ROUTE_CASES)
+def test_grad_route_follows_dtype_shape_and_alignment(dtype, D, V,
+                                                      misaligned, want):
+    """The dx / dhead body is a function of dtype, shapes and the
+    operands' alignment alone. x is a real [2, D] tensor (a view 2 bytes
+    past an aligned base where ``misaligned``); head's pointer stands in
+    for a [D, V] allocation, which is aligned."""
+    buf = torch.zeros(2 * D + 1, dtype=dtype)
+    x = buf[1:].view(2, D) if misaligned else buf[:2 * D].view(2, D)
+    assert (x.data_ptr() % 16 != 0) == misaligned
+    assert tfce.grad_route(dtype, D, V, (x.data_ptr(), 4096)) == want
+    if not misaligned:
+        assert tfce.grad_route(dtype, D, V) == want
+
+
+def test_route_is_no_public_argument():
+    """The route is chosen from the operands; the public entry points and
+    the autograd.Function take no route, and ``_grad_launch`` names the
+    routes it knows."""
+    import inspect
+    for fn in (tfce.fused_cross_entropy, tfce.fused_ce_dx,
+               tfce.fused_ce_dhead, tfce.FusedCrossEntropy.forward):
+        assert "route" not in inspect.signature(fn).parameters
+    x, head, targets, weights = _ce_inputs(256, 11, Bn=2, Sn=8)
+    args = [torch.from_numpy(a) for a in (x, head, targets, weights)]
+    with pytest.raises(TypeError, match="route"):
+        tfce.fused_cross_entropy(*args, route="mma_sync")
+    xs, hs = args[0].reshape(-1, 64), args[1]
+    t, w = args[2].reshape(-1), args[3].reshape(-1)
+    lse, _ = tfce.fused_ce_row_stats_reference(xs, hs, t)
+    with pytest.raises(ValueError, match="route"):
+        tfce._grad_launch("fused_ce_dx", xs, hs, t, w, lse,
+                          route="tensor_cores")
+
+
 def _batch(seed):
     r = np.random.default_rng(seed)
     w = np.ones((B, S), np.float32)
