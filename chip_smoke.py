@@ -8,8 +8,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  — nvidia-smi name and power limit, torch / CUDA versions.
 2. build   — compile every CUDA kernel of the port from ``csrc/`` with
              nvcc for sm_90a (all sources at once); the line carries
-             ptxas's registers and spills per entry, those of the fused
-             cross-entropy's wgmma kernels also on their own.
+             ptxas's registers and spills per entry, those of the dQ and
+             fused cross-entropy wgmma kernels also on their own, and
+             fails if one of those spills.
 3. kernels — hold each kernel (flash forward, dQ, dK/dV, fused rms_norm,
              fused q/k RoPE, per-head rms_norm + RoPE, fused
              cross-entropy row statistics, dx and dhead) against its
@@ -24,11 +25,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              at the serving shapes. The flash kernels are also held and
              timed at the Gemma-2 training shape (one packed row of
              4,096, head dim 256, softcap, with and without the window),
-             and timed at one 4,096-token document a row; the bf16 dK/dV
-             kernel must repeat bitwise. At the Llama shape the
-             cross-entropy dx and dhead must take the wgmma body, which is
-             also timed against the mma.sync body it replaced, in
-             alternated turns.
+             and timed at one 4,096-token document a row; the dQ and
+             dK/dV kernels must repeat bitwise. dQ + dK/dV are timed
+             against SDPA's whole backward in alternated turns. At the Llama
+             shape the cross-entropy row statistics, dx and dhead must
+             take the wgmma body, which is also timed against the
+             mma.sync body it replaced, in alternated turns; the row
+             statistics must repeat bitwise. The fused rms_norm is timed
+             against F.rms_norm in alternated turns at Gemma-2's shape.
              The per-head rms_norm + RoPE is timed at the Llama-3.1-8B q
              of the training microbatch and the Gemma-2-9B q of one
              packed row.
@@ -57,7 +61,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              timed steps; finite loss and grad_norm, the adapters change,
              and per step the fused rms_norm runs 4 x 42 x 4 x 2 times, the
              fused RoPE 42 x 4 x 3 times (forward, recomputation,
-             backward), the flash forward 2 x 42 x 4 and dQ, dK/dV 42 x 4.
+             backward), the flash forward 2 x 42 x 4 and dQ, dK/dV 42 x 4
+             times.
 9. train_fused_parity — float32, Gemma-2 at full width and 4 layers:
              FUSED_OPS=1 against FUSED_OPS=0, both through the flash
              kernels, for QLoRA and full fine-tuning, 3 steps each on
@@ -67,8 +72,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              width and depth with FUSED_OPS=1: the loss through the fused
              cross-entropy (no [2 x 1,024, 128,256] fp32 logits); per step
              row statistics and dx 4 times (dhead 0: the head is frozen),
-             dx on the wgmma body, the fused rms_norm 2 x 32 x 4 x 2 and
-             RoPE 32 x 4 x 3 times.
+             row statistics and dx on the wgmma body, the fused
+             rms_norm 2 x 32 x 4 x 2 and RoPE 32 x 4 x 3 times.
 11. train_fused_ce_parity — float32, Llama at full width and 4 layers:
              FUSED_OPS=1 against FUSED_OPS=0, both through the flash
              kernels, QLoRA and full fine-tuning (where dhead launches and
@@ -91,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -396,12 +402,15 @@ def _check_bwd_case(name, case, dev):
     if case.get("masked_rows"):
         row["masked_rows_ok"] = float(dq[:, 5:10].float().abs().max()) == 0.0
         row["ok"] = row["ok"] and row["masked_rows_ok"]
-    # the GQA group sum has a fixed order (no atomics): a second launch
-    # gives the same bits
+    # every dQ element and the GQA group sum have a fixed order (no
+    # atomics): a second launch gives the same bits
     again = flash_bwd_dkv(*args, **_mask_kw(kw))
     row["dkv_bitwise_repeat"] = all(bool(torch.equal(a, b))
                                     for a, b in zip((dk, dv), again))
-    row["ok"] = row["ok"] and row["dkv_bitwise_repeat"]
+    row["dq_bitwise_repeat"] = bool(torch.equal(
+        dq, flash_bwd_dq(*args, **_mask_kw(kw))))
+    row["ok"] = (row["ok"] and row["dkv_bitwise_repeat"]
+                 and row["dq_bitwise_repeat"])
     return row
 
 
@@ -473,11 +482,44 @@ def _turns(plain, kernel, library, iters: int = 20):
             "plain_ms_runs": [plain_a, plain_b], "library_ms": lib}
 
 
+def _alternated(a, b, fa, fb, pairs: int = 2, iters: int = 3,
+                warmup: int = 1):
+    """Device ms of ``fa`` (named ``a``) and ``fb`` (``b``) in one
+    process, in alternated turns a, b, b, a, ``pairs`` times (``iters``
+    calls a turn): per name the best turn, every turn, and the spread
+    (max - min) / min over its turns."""
+    runs = {a: [], b: []}
+    for _ in range(pairs):
+        for name, fn in ((a, fa), (b, fb), (b, fb), (a, fa)):
+            runs[name].append(device_ms(fn, iters=iters, warmup=warmup))
+    return {name: {"ms": min(r), "spread": (max(r) - min(r)) / min(r),
+                   "ms_runs": r} for name, r in runs.items()}
+
+
+def _time_routes(wrapper, launch, old, bound, flops, pairs: int = 2,
+                 iters: int = 3):
+    """The wgmma body of a routed kernel against the body ``old`` it
+    replaced, on the same inputs (``launch(route)``), in alternated turns
+    (``_alternated``): both times and spreads, TFLOP/s, the share of the
+    bound, the speed-up, and the launches per route on ``wrapper``."""
+    before = dict(wrapper.routes)
+    out = _alternated(old, "wgmma", lambda: launch(old),
+                      lambda: launch("wgmma"), pairs, iters)
+    for r in out.values():
+        r.update({"tflops_per_s": flops / r["ms"] / 1e9,
+                  "bound_share": bound / r["ms"]})
+    out["speedup"] = out[old]["ms"] / out["wgmma"]["ms"]
+    out["launches"] = {r: n - before[r] for r, n in wrapper.routes.items()}
+    return out
+
+
 def _time_train_shape(dev):
     """The three kernels at the training shape (TRAIN_SHAPE), each
     against its plain version and a PyTorch library call: SDPA forward
     for flash_fwd, and for both backward kernels the device time of the
-    kernels SDPA's backward launches (dQ, dK and dV together)."""
+    kernels SDPA's backward launches (dQ, dK and dV together). Then the
+    like-for-like backward: dQ and dK/dV together against SDPA's whole
+    backward (``bwd_vs_sdpa``), in alternated turns."""
     import torch
     from gke_ray_train_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_bwd_reference,
@@ -533,6 +575,12 @@ def _time_train_shape(dev):
         r.update({"shape": "llama3_8b_train_1024", "bound_ms": bound,
                   "bound_by": by, "bytes": nbytes, "flops": flops,
                   "max_abs_err": errs[name]})
+    def ours_bwd():
+        return flash_bwd_dq(*args, **mkw), flash_bwd_dkv(*args, **mkw)
+    both = _alternated("sdpa_backward", "dq_plus_dkv", lib_bwd, ours_bwd,
+                       iters=10)
+    both["ratio"] = both["dq_plus_dkv"]["ms"] / both["sdpa_backward"]["ms"]
+    runs["flash_bwd_dq"]["bwd_vs_sdpa"] = both
     return runs
 
 
@@ -693,6 +741,13 @@ def _time_fused_gemma_shape(dev):
                  "bytes": nbytes, "flops": flops,
                  "library": "torch.nn.functional.rms_norm"})
     norm["bound_ms"], norm["bound_by"] = _bound(nbytes, flops, torch.float32)
+    # whether the kernel truly loses to the library call: alternated
+    # turns with their spread
+    vs = _alternated("library", "kernel",
+                     lambda: torch.nn.functional.rms_norm(x, (D,), w, 1e-6),
+                     lambda: fused_rmsnorm(x, s, **nkw), pairs=3, iters=50)
+    vs["ratio"] = vs["kernel"]["ms"] / vs["library"]["ms"]
+    norm["kernel_vs_library"] = vs
 
     B, S, H, K, dh = GEMMA_ROPE_SHAPE
     q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf)
@@ -968,11 +1023,13 @@ def _time_ce_llama_shape(dev):
     statistics) and its backward to x (dx) or to the head (dhead). Bounds:
     each input read once and each output written once, against 2 N D V
     bf16 FLOPs for the row statistics and 4 N D V (the recompute and the
-    gradient product) for dx and dhead. The public dx and dhead calls
-    here must all take the wgmma body (``routes``), which is also timed
-    against the mma.sync body (``wgmma_vs_mma_sync``, ``_time_ce_routes``)."""
+    gradient product) for dx and dhead. The public calls here must all
+    take the wgmma body (``routes``), which is also timed against the
+    mma.sync body it replaced, in alternated turns
+    (``wgmma_vs_mma_sync``); the row statistics must repeat bitwise."""
     import torch
     import torch.nn.functional as F
+    from gke_ray_train_tpu_torch.ops import fused_ce
     from gke_ray_train_tpu_torch.ops.fused_ce import (
         fused_ce_dhead, fused_ce_dx, fused_ce_grads_reference,
         fused_ce_row_stats, fused_ce_row_stats_reference)
@@ -981,7 +1038,11 @@ def _time_ce_llama_shape(dev):
     x, head, t, w = _ce_inputs(case, dev, seed=4, in_range=True)
     routes_before = _route_counts()
     errs = _ce_errors(case, x, head, t, w)[0]
-    lse, _ = fused_ce_row_stats(x, head, t)
+    lse, tgt = fused_ce_row_stats(x, head, t)
+    again = fused_ce_row_stats(x, head, t)
+    stats_repeat = bool(torch.equal(lse, again[0])
+                        and torch.equal(tgt, again[1]))
+    del again
     N, D, V = case["N"], case["D"], case["V"]
     tl = t.long()
 
@@ -1035,40 +1096,24 @@ def _time_ce_llama_shape(dev):
                   "library": "matmul_f32 + F.cross_entropy (two calls"
                   + (", forward)" if name == "fused_ce_row_stats"
                      else ", their backward)")})
-        if name in taken:
-            # every public call at this shape went through the wgmma body
-            r["routes"] = taken[name]
-            r["ok"] = r["ok"] and taken[name]["wgmma"] > 0 and sum(
-                taken[name].values()) == taken[name]["wgmma"]
-            r["wgmma_vs_mma_sync"] = _time_ce_routes(
-                name, x, head, t, w, lse, r["bound_ms"], flops)
+        # every public call at this shape went through the wgmma body
+        r["routes"] = taken[name]
+        r["ok"] = r["ok"] and taken[name]["wgmma"] > 0 and sum(
+            taken[name].values()) == taken[name]["wgmma"]
+        if name == "fused_ce_row_stats":
+            launch = functools.partial(fused_ce._row_stats_launch, x, head,
+                                       t)
+            r["bitwise_repeat"] = stats_repeat
+            r["ok"] = r["ok"] and stats_repeat
+        else:
+            launch = functools.partial(fused_ce._grad_launch, name, x, head,
+                                       t, w, lse)
+        r["wgmma_vs_mma_sync"] = _time_routes(
+            getattr(fused_ce, name), lambda route: launch(route=route),
+            "mma_sync", r["bound_ms"], flops)
     del nll_x, nll_h, xg, hg
     torch.cuda.empty_cache()
     return runs
-
-
-def _time_ce_routes(name, x, head, t, w, lse, bound, flops, pairs=2):
-    """The wgmma body of ``name`` (dx or dhead) against the ``mma.sync``
-    body it replaced, on the same inputs, in one process, in alternated
-    turns (mma_sync, wgmma, wgmma, mma_sync, ``pairs`` times; device ms,
-    3 calls a turn): both times, their spread ((max - min) / min over the
-    turns), TFLOP/s, the share of the bound, and the launches per route."""
-    from gke_ray_train_tpu_torch.ops import fused_ce
-    wrapper = getattr(fused_ce, name)
-    before = dict(wrapper.routes)
-    ms = {"mma_sync": [], "wgmma": []}
-    for route in ("mma_sync", "wgmma", "wgmma", "mma_sync") * pairs:
-        ms[route].append(device_ms(lambda: fused_ce._grad_launch(
-            name, x, head, t, w, lse, route=route), iters=3, warmup=1))
-    out = {"ms_runs": ms, "launches": {
-        r: n - before[r] for r, n in wrapper.routes.items()}}
-    for route, runs in ms.items():
-        best = min(runs)
-        out[route] = {"ms": best, "spread": (max(runs) - best) / best,
-                      "tflops_per_s": flops / best / 1e9,
-                      "bound_share": bound / best}
-    out["speedup"] = out["mma_sync"]["ms"] / out["wgmma"]["ms"]
-    return out
 
 
 def phase_kernels(dev):
@@ -1402,12 +1447,13 @@ def _launch_counts():
     return {name: fn.launches for name, fn in _counted().items()}
 
 
-# the cross-entropy gradient entries, which count launches per GEMM body
-_ROUTED = ("fused_ce_dx", "fused_ce_dhead")
+# the kernels that count launches per body: the cross-entropy entries
+# (``ops/fused_ce.py::ROUTES``)
+_ROUTED = ("fused_ce_row_stats", "fused_ce_dx", "fused_ce_dhead")
 
 
 def _route_counts():
-    """{dx / dhead entry: {route: launches}} (``ops/fused_ce.py::ROUTES``)."""
+    """{routed kernel: {route: launches}}."""
     counted = _counted()
     return {name: dict(counted[name].routes) for name in _ROUTED}
 
@@ -1420,15 +1466,14 @@ def _reset_launch_counts():
 
 
 def _expected_routes(cfg, launches):
-    """The route counts of ``launches`` CE gradient launches on ``cfg``'s
-    model: all of them on the body ``grad_route`` picks for its dtype,
-    d_model and vocab (the train step's operands are fresh, aligned
-    allocations)."""
+    """The route counts of the routed kernels' ``launches`` on ``cfg``'s
+    model: every cross-entropy launch on the body ``grad_route`` picks for
+    its dtype, d_model and vocab (the train step's operands are fresh,
+    aligned allocations)."""
     import torch
     from gke_ray_train_tpu_torch.ops.fused_ce import ROUTES, grad_route
-    route = grad_route(getattr(torch, cfg.dtype), cfg.d_model,
-                       cfg.vocab_size)
-    return {name: {r: launches[name] if r == route else 0 for r in ROUTES}
+    ce = grad_route(getattr(torch, cfg.dtype), cfg.d_model, cfg.vocab_size)
+    return {name: {r: launches[name] if r == ce else 0 for r in ROUTES}
             for name in _ROUTED}
 
 
@@ -1513,8 +1558,8 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     dropout 0.1 on all projections, microbatch 2 x grad-accum 4 at 1024
     tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and clip 0.3.
     One warm-up step, then ``steps`` timed ones; the launch counts of the
-    kernels, and the routes of the cross-entropy's gradient launches, are
-    read over the timed steps."""
+    kernels, and the routes of the cross-entropy's launches, are read over
+    the timed steps."""
     import torch
     from gke_ray_train_tpu_torch.train import (
         peak_flops_per_device, train_flops_per_token)
@@ -1560,7 +1605,7 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     if per_step != want:
         problems.append(f"launches per step {per_step} != {want}")
     if routes != _expected_routes(cfg, launches):
-        problems.append(f"cross-entropy routes {routes} != "
+        problems.append(f"routes {routes} != "
                         f"{_expected_routes(cfg, launches)}")
     if torch.equal(before, watch.detach()):
         problems.append("the adapters did not change")
@@ -1585,7 +1630,7 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
            "train_flops_per_token": flops_tok,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "launches_per_step": per_step,
-           "ce_routes": routes,
+           "routes": routes,
            "losses": [r["loss"] for r in rows],
            "grad_norms": [r["grad_norm"] for r in rows]}
     emit(row)
@@ -1720,7 +1765,7 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
     errors of the loss / grad_norm streams, the relative error of the
     trained tensors' change, and the kernel run's launches against
     ``expected_launches`` (2 microbatches a step), and the cross-entropy
-    gradient launches' routes against ``_expected_routes``. Full
+    routed kernels' launches against ``_expected_routes``. Full
     fine-tuning also reports the lm_head's change on each side
     (``lm_head_delta_norm``)."""
     import torch
@@ -1752,7 +1797,7 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
         rows.append({"mode": mode, "ok": row_ok, "kernel_run": got,
                      "plain_run": ref, "max_rel_err": rel,
                      "delta_rel_err": delta_rel, "launches": used,
-                     "ce_routes": routes})
+                     "routes": routes})
         if "lm_head" in d_ref:
             rows[-1]["lm_head_delta_norm"] = [
                 float(torch.linalg.vector_norm(d["lm_head"]))
@@ -1960,20 +2005,38 @@ KERNEL_SOURCES = {
 }
 
 
+# the wgmma entries the build line reports on their own: (source, entry
+# pattern, {template argument: name})
+_WGMMA_ENTRIES = (
+    ("flash_bwd", r"flash_bwd_dq_wgmma_kernelILi(\d+)E",
+     {"64": "dq_dh64", "128": "dq_dh128", "256": "dq_dh256"}),
+    ("fused_ce", r"ce_wgmma_kernelILi(\d)E",
+     {"0": "dlogits", "1": "dx", "2": "dhead", "3": "row_stats"}),
+)
+
+
 def _wgmma_ptxas(report):
-    """The fused cross-entropy's wgmma entries from the build report:
-    {dlogits / dx / dhead: {"registers", "stack", "spill_stores",
-    "spill_loads"}}, and ptxas's warnings on that source."""
-    names = {"0": "dlogits", "1": "dx", "2": "dhead"}
+    """The dQ and fused cross-entropy wgmma entries from the build report:
+    {source: {name: {"registers", "stack", "spill_stores",
+    "spill_loads"}}}, and ptxas's warnings on those sources."""
     out = {}
-    for e in report.get("fused_ce", {}).get("ptxas", []):
-        m = re.search(r"ce_wgmma_kernelILi(\d)E", e.get("entry", ""))
-        if m:
-            out[names[m.group(1)]] = {k: v for k, v in e.items()
-                                      if k != "entry"}
-        elif "warning" in e:
-            out.setdefault("warnings", []).append(e["warning"])
+    for source, pattern, names in _WGMMA_ENTRIES:
+        rows = out.setdefault(source, {})
+        for e in report.get(source, {}).get("ptxas", []):
+            m = re.search(pattern, e.get("entry", ""))
+            if m:
+                rows[names[m.group(1)]] = {k: v for k, v in e.items()
+                                           if k != "entry"}
+            elif "warning" in e:
+                rows.setdefault("warnings", []).append(e["warning"])
     return out
+
+
+def _spills(wgmma_ptxas):
+    """The reported wgmma entries that spill ("source/name")."""
+    return sorted(f"{src}/{name}" for src, rows in wgmma_ptxas.items()
+                  for name, e in rows.items() if name != "warnings"
+                  and (e.get("spill_stores") or e.get("spill_loads")))
 
 
 def main(argv=None) -> int:
@@ -2005,8 +2068,13 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     report = kernels.build()
-    emit({"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
-          "fused_ce_wgmma_ptxas": _wgmma_ptxas(report), "kernels": report})
+    wgmma = _wgmma_ptxas(report)
+    spills = _spills(wgmma)
+    emit({"phase": "build", "ok": not spills,
+          "seconds": time.perf_counter() - t0, "wgmma_ptxas": wgmma,
+          "spills": spills, "kernels": report})
+    if spills:
+        raise SystemExit(f"build phase: wgmma kernels spill: {spills}")
 
     # launches on the main paths: each path driven with the counts at 0
     launches = {name: None for name in KERNEL_SOURCES}

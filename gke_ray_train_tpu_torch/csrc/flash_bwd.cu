@@ -28,11 +28,23 @@
 //
 // Design. The TPU grid's sequential fourth axis becomes a loop inside one
 // CTA, and the fp32 accumulators live in registers:
-// - dQ: one CTA per (query tile, query head, batch row) loops over the kv
-//   tiles of kv head h / G. bf16 at dh 64 / 128 takes `mma.sync`
-//   m16n8k16 (four warps of 16 query rows, 64-row kv tiles staged in
-//   shared memory, P and dS from registers into the second product);
-//   float32, and bf16 at dh 256, the scalar body.
+// - dQ, bf16 (dh 64 / 128 / 256, operands TMA can address): one CTA per
+//   (query head, batch row, query tile) over the kv tiles of kv head h /
+//   G, the tiles with the most live kv tiles under causality launched
+//   first. Q and dO load once by TMA; one producer warp keeps a ring of
+//   64-row K / V tiles in flight by TMA (kv positions and segments beside
+//   them by cp.async), the kv tiles classed up front (dead tiles never
+//   enter the ring). Two consumer warpgroups compute S = Q K^T and dP = dO
+//   V^T by wgmma (both K-major), dS in registers (the softcap and the
+//   mask compile-time forms: an interior tile evaluates no mask), and dQ
+//   += dS K by wgmma with dS from registers and K read MN-major through
+//   the transpose immediate. At dh 64 / 128 each owns 64 query rows of a
+//   128-row tile; at dh 256 they share 64 rows and split the kv columns
+//   of S and dP and the columns of dQ, trading packed dS halves through
+//   shared memory (the dK/dV split, below). One CTA sums each dQ element
+//   in kv order: no atomics, bitwise-repeatable.
+// - dQ, float32: the scalar body, one CTA per (query tile, query head,
+//   batch row); the parity path.
 // - dK/dV, bf16 (dh 64 / 128 / 256): one CTA per (query head, batch row,
 //   kv tile), the small-t0 tiles (the most live query tiles under
 //   causality) launched first; the G CTAs of a kv head form one
@@ -61,10 +73,10 @@
 // causal) the dQ kernel does 3 products and the dK/dV kernel 4 over the
 // 524,800 live pairs of each (batch row, head): 25.8 and 34.4 GFLOP, and
 // each moves ~50-60 MB, so both are bound by operations (~0.026 and
-// ~0.035 ms at 989 TFLOP/s bf16). What holds the wgmma dK/dV body back:
-// 64 x 64 tiles whose products are short against the elementwise phase
-// and the two exchanges between the warpgroups, none of it overlapped
-// with the tensor cores (see PERF.md).
+// ~0.035 ms at 989 TFLOP/s bf16). What holds both wgmma bodies back:
+// 64-row kv (or query) tiles whose products are short against the
+// elementwise phase (and, where the warpgroups split a tile, their
+// exchanges), none of it overlapped with the tensor cores (see PERF.md).
 //
 // The C entry points return cudaGetLastError() after the launch; the
 // Python wrappers raise when that is not cudaSuccess.
@@ -547,223 +559,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------------------
-// dQ, bf16 tensor-core body (dh 64 / 128)
-// ---------------------------------------------------------------------------
-//
-// Four warps, 16 query rows each, a 64-row kv loop tile. Every product is
-// `mma.sync` m16n8k16 (bf16 in, fp32 accumulate). S = Q K^T and dP =
-// dO V^T read their A operand from registers (Q and dO, loaded once) and
-// their B operand from row-major tiles; their accumulators are laid out
-// as the A operand of dQ += dS K, so dS goes from registers to the second
-// product, rounded to bf16 by the operand packing. Its B operand is the
-// transposed K tile.
-
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kMmaTile = 64;  // own rows per CTA, loop rows per tile
-
-template <int DH>
-struct MmaTile {
-  static constexpr int LDR = DH + 8;        // bf16 per row-major row
-  static constexpr int LDT = kMmaTile + 8;  // bf16 per transposed row
-  static constexpr int ROW_ELEMS = kMmaTile * LDR;
-  static constexpr int T_ELEMS = DH * LDT;
-  static constexpr int INTS = 4 * kMmaTile + 4 * kMmaWarps;
-};
-
 using hopper::pack_bf16;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, fp32 acc.
-// Fragment layout (lane = 4 * g + t): a = {A[g][2t..], A[g+8][2t..],
-// A[g][2t+8..], A[g+8][2t+8..]}, b = {B[2t..][g], B[2t+8..][g]},
-// d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage rows [r0, r0 + nrows) of a [len, heads, DH] bf16 tensor's head
-// (row stride `stride` elements) into a row-major tile (leading dim LDR)
-// and, when `tr` is given, its transpose (leading dim LDT); rows past
-// nrows read as zero. 16-byte loads.
-template <int DH>
-__device__ __forceinline__ void stage_bf16(const __nv_bfloat16* base,
-                                           size_t stride, int r0, int nrows,
-                                           __nv_bfloat16* rows,
-                                           __nv_bfloat16* tr) {
-  using C = MmaTile<DH>;
-  constexpr int VEC = 8;
-  for (int i = threadIdx.x; i < kMmaTile * DH / VEC; i += kMmaThreads) {
-    const int r = i / (DH / VEC), c = (i % (DH / VEC)) * VEC;
-    uint4 v4 = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nrows)
-      v4 = *reinterpret_cast<const uint4*>(base + size_t(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(rows + r * C::LDR + c) = v4;
-    if (tr != nullptr) {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v4);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) tr[(c + j) * C::LDT + r] = e[j];
-    }
-  }
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kMmaThreads)
-flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
-                        const __nv_bfloat16* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ dvec,
-                        const int* __restrict__ qpos,
-                        const int* __restrict__ kvpos,
-                        const int* __restrict__ qseg,
-                        const int* __restrict__ kvseg,
-                        __nv_bfloat16* __restrict__ dq, int S, int T_len,
-                        int H, int K, Mask m) {
-  using C = MmaTile<DH>;
-  constexpr int KSTEPS = DH / 16;  // k16 steps over the head dim
-  constexpr int NT_O = DH / 8;     // n8 tiles of dQ
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Vs = Ks + C::ROW_ELEMS;
-  __nv_bfloat16* Kt = Vs + C::ROW_ELEMS;
-  int* qpos_s = reinterpret_cast<int*>(Kt + C::T_ELEMS);
-  int* qseg_s = qpos_s + kMmaTile;
-  int* kpos_s = qseg_s + kMmaTile;
-  int* kseg_s = kpos_s + kMmaTile;
-  int* red = kseg_s + kMmaTile;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kMmaTile;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / K);
-  const int qrows = min(kMmaTile, S - q0);
-  const size_t q_stride = size_t(H) * DH;
-  const size_t kv_stride = size_t(K) * DH;
-  const size_t q_off = (size_t(b) * S * H + h) * DH;
-  const size_t kv_off = (size_t(b) * T_len * K + kh) * DH;
-
-  if (tid < kMmaTile) {
-    const bool ok = tid < qrows;
-    qpos_s[tid] = ok ? qpos[size_t(b) * S + q0 + tid] : 0;
-    qseg_s[tid] = ok ? qseg[size_t(b) * S + q0 + tid] : 0;
-  }
-  // this thread's two query rows, their lse and D, and the A fragments of
-  // Q and dO for the whole kv loop
-  const int r0 = warp * 16 + g, r1 = r0 + 8;
-  const bool ok0 = r0 < qrows, ok1 = r1 < qrows;
-  const size_t hrow = (size_t(b) * H + h) * S + q0;
-  const float lse_r[2] = {ok0 ? lse[hrow + r0] : 0.f,
-                          ok1 ? lse[hrow + r1] : 0.f};
-  const float d_r[2] = {ok0 ? dvec[hrow + r0] : 0.f,
-                        ok1 ? dvec[hrow + r1] : 0.f};
-  uint32_t qf[KSTEPS][4], of[KSTEPS][4];
-  {
-    const __nv_bfloat16* q_r0 = q + q_off + size_t(q0 + r0) * q_stride + 2 * t;
-    const __nv_bfloat16* q_r1 = q + q_off + size_t(q0 + r1) * q_stride + 2 * t;
-    const __nv_bfloat16* o_r0 =
-        dout + q_off + size_t(q0 + r0) * q_stride + 2 * t;
-    const __nv_bfloat16* o_r1 =
-        dout + q_off + size_t(q0 + r1) * q_stride + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      qf[kk][0] = ok0 ? ld32(q_r0 + kk * 16) : 0u;
-      qf[kk][1] = ok1 ? ld32(q_r1 + kk * 16) : 0u;
-      qf[kk][2] = ok0 ? ld32(q_r0 + kk * 16 + 8) : 0u;
-      qf[kk][3] = ok1 ? ld32(q_r1 + kk * 16 + 8) : 0u;
-      of[kk][0] = ok0 ? ld32(o_r0 + kk * 16) : 0u;
-      of[kk][1] = ok1 ? ld32(o_r1 + kk * 16) : 0u;
-      of[kk][2] = ok0 ? ld32(o_r0 + kk * 16 + 8) : 0u;
-      of[kk][3] = ok1 ? ld32(o_r1 + kk * 16 + 8) : 0u;
-    }
-  }
-  __syncthreads();
-  int qmm[4];
-  tile_minmax<kMmaWarps>(qpos_s, qseg_s, qrows, qmm, red);
-  const int qp[2] = {qpos_s[r0], qpos_s[r1]};
-  const int qs[2] = {qseg_s[r0], qseg_s[r1]};
-
-  float o[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  const int n_kv = (T_len + kMmaTile - 1) / kMmaTile;
-  for (int jt = 0; jt < n_kv; ++jt) {
-    const int t0 = jt * kMmaTile;
-    const int kvcols = min(kMmaTile, T_len - t0);
-    if (tid < kMmaTile) {
-      const bool ok = tid < kvcols;
-      kpos_s[tid] = ok ? kvpos[size_t(b) * T_len + t0 + tid] : 0;
-      kseg_s[tid] = ok ? kvseg[size_t(b) * T_len + t0 + tid] : 0;
-    }
-    __syncthreads();
-    int kmm[4];
-    tile_minmax<kMmaWarps>(kpos_s, kseg_s, kvcols, kmm, red);
-    if (!block_live(qmm, kmm, m.causal, m.use_window, m.window)) continue;
-
-    stage_bf16<DH>(k + kv_off, kv_stride, t0, kvcols, Ks, Kt);
-    stage_bf16<DH>(v + kv_off, kv_stride, t0, kvcols, Vs, nullptr);
-    __syncthreads();
-
-    // 16 kv columns at a time: S and dP for two n8 tiles, dS packed as the
-    // A operand of dQ += dS K
-#pragma unroll
-    for (int ks = 0; ks < kMmaTile / 16; ++ks) {
-      uint32_t dsf[4];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int j = 2 * ks + half;
-        float sc[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-        const __nv_bfloat16* krow = Ks + (j * 8 + g) * C::LDR + 2 * t;
-        const __nv_bfloat16* vrow = Vs + (j * 8 + g) * C::LDR + 2 * t;
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          mma_bf16(sc, qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
-          mma_bf16(dp, of[kk], ld32(vrow + kk * 16), ld32(vrow + kk * 16 + 8));
-        }
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int hr = e >> 1;
-          const int c = j * 8 + 2 * t + (e & 1);
-          float p;
-          p_and_ds(sc[e], dp[e], lse_r[hr], d_r[hr], qp[hr], qs[hr],
-                   kpos_s[c], kseg_s[c], m, &p, &ds[e]);
-        }
-        dsf[half * 2 + 0] = pack_bf16(ds[0], ds[1]);
-        dsf[half * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
-#pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        const __nv_bfloat16* kt = Kt + (n * 8 + g) * C::LDT + ks * 16 + 2 * t;
-        mma_bf16(o[n], dsf, ld32(kt), ld32(kt + 8));
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int r = hr ? r1 : r0;
-    if (r >= qrows) continue;
-    __nv_bfloat16* row = dq + ((size_t(b) * S + q0 + r) * H + h) * DH + 2 * t;
-#pragma unroll
-    for (int n = 0; n < NT_O; ++n)
-      *reinterpret_cast<uint32_t*>(row + n * 8) =
-          pack_bf16(o[n][2 * hr] * m.scale, o[n][2 * hr + 1] * m.scale);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // dK / dV, bf16: wgmma, a TMA ring, warp specialisation, and a cluster of
@@ -1223,6 +1019,328 @@ flash_bwd_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// dQ, bf16: wgmma, a TMA ring, warp specialisation (dh 64 / 128 / 256)
+// ---------------------------------------------------------------------------
+
+// Two consumer warpgroups and one producer warpgroup (one warp of it
+// issues the loads). At dh 64 / 128 each consumer owns 64 query rows of a
+// 128-row tile: S and dP (64 x 64, 32 registers each) and its dQ (64 x
+// dh) fit a thread's registers. At dh 256 a 64 x 256 accumulator alone
+// takes 128 registers, so the two share one 64-row tile as dK/dV does:
+// each computes S and dP for half of the kv columns, forms and packs dS
+// there, trades its packed half with the other through shared memory,
+// and accumulates its half of dh of dQ (64 x 128).
+template <int DH>
+struct DqCfg {
+  static constexpr bool SPLIT = DH == 256;
+  static constexpr int BQ = SPLIT ? 64 : 128;  // query rows per CTA
+  static constexpr int BKV = 64;               // kv rows per ring entry
+  static constexpr int STAGES = SPLIT ? 2 : 4;
+  static constexpr int CB = DH / 64;
+  static constexpr int THREADS = 384;
+  static constexpr int Q_BYTES = CB * BQ * 128;    // Q or dO
+  static constexpr int KV_BYTES = CB * BKV * 128;  // K or V, one stage
+  static constexpr int OFF_DO = Q_BYTES;
+  static constexpr int OFF_K = 2 * Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  // SPLIT: the dS exchange, 8 words a thread each way, in buffers of two
+  // tile parities
+  static constexpr int OFF_X = OFF_V + STAGES * KV_BYTES;
+  static constexpr int X_BYTES = SPLIT ? 2 * 2 * 8 * 128 * 4 : 0;
+  // per stage: kv positions and segments [BKV] each, then (t0, interior)
+  static constexpr int OFF_POS = OFF_X + X_BYTES;
+  static constexpr int OFF_BAR = OFF_POS + STAGES * (2 * BKV + 2) * 4;
+  // the class of every kv tile (hopper::kDead / kBoundary / kInterior)
+  static constexpr int OFF_CLS = OFF_BAR + (1 + 2 * STAGES) * 8;
+  static constexpr int BYTES = OFF_CLS + hopper::kMaxTiles + 1024;
+  static_assert(BYTES <= 232448, "over the 227 KB of shared memory");
+};
+
+struct DqParams {
+  const float *lse, *dvec;
+  const int *qpos, *kvpos, *qseg, *kvseg;
+  __nv_bfloat16* dq;
+  int S, T, H, K, causal, use_window, window, n_qt;
+  float scale, softcap;
+};
+
+// dS of kv columns [8 J0, 8 (J0 + NJ)) of this thread's two query rows
+// from the raw products S = Q K^T and dP = dO V^T of those columns (s and
+// dp hold them from column 8 J0 on), packed to bf16 as the A operand of
+// dQ += dS K (kv columns 16k..16k+15 form k16 step k). P = exp(s~ - lse)
+// on kept pairs (MASK: boundary tiles), 0 elsewhere; the softcap factor
+// where P > 0 (CAP). Compile-time forms, so that a tile evaluates no
+// softcap or mask it does not have. lse2: lse log2e of the two rows.
+template <bool CAP, bool MASK, int J0, int NJ>
+__device__ __forceinline__ void dq_elementwise(
+    const float (&s)[4 * NJ], const float (&dp)[4 * NJ],
+    uint32_t (&dsf)[4][4], const float (&lse2)[2], const float (&dv)[2],
+    const int (&qp)[2], const int (&qs)[2], const int* kp, const int* ksg,
+    int t, const DqParams& p) {
+  using hopper::fast_exp2;
+  using hopper::kLog2e;
+  using hopper::pack_bf16;
+  // exp(x - lse) = 2^(x log2e - lse log2e), the scale folded into the
+  // multiplier when there is no softcap
+  const float mul = CAP ? kLog2e : p.scale * kLog2e;
+  const float cap_in = CAP ? p.scale / p.softcap : 0.f;
+  const float inv_cap = CAP ? 1.f / p.softcap : 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    float ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int hr = e >> 1;                          // query row g + 8 hr
+      const int c = 8 * (J0 + j) + 2 * t + (e & 1);   // kv column
+      float x = s[4 * j + e];
+      if constexpr (CAP) x = tanhf(x * cap_in) * p.softcap;
+      float pv = fast_exp2(fmaf(x, mul, -lse2[hr]));
+      if constexpr (MASK) {
+        bool keep = qs[hr] == ksg[c] && ksg[c] != 0;
+        if (p.causal) keep = keep && kp[c] <= qp[hr];
+        if (p.use_window) keep = keep && kp[c] > qp[hr] - p.window;
+        pv = keep ? pv : 0.f;
+      }
+      float d = pv * (dp[4 * j + e] - dv[hr]);
+      if constexpr (CAP) {
+        const float cc = x * inv_cap;
+        d = pv > 0.f ? d * (1.f - cc * cc) : d;
+      }
+      ds[e] = d;
+    }
+    const int k = (J0 + j) / 2, h2 = ((J0 + j) & 1) * 2;
+    dsf[k][h2 + 0] = pack_bf16(ds[0], ds[1]);
+    dsf[k][h2 + 1] = pack_bf16(ds[2], ds[3]);
+  }
+}
+
+// A consumer warpgroup: S = Q K^T and dP = dO V^T by wgmma from shared
+// memory (both operands K-major), dS in registers, dQ += dS K by wgmma
+// with dS from registers and K read MN-major through the transpose
+// immediate (no transposed copy); dQ scaled and rounded once at the end.
+template <int DH>
+__device__ __forceinline__ void dq_consumer(const DqParams& p, int h, int b,
+                                            int q0, int wg,
+                                            unsigned char* sm) {
+  using C = DqCfg<DH>;
+  constexpr int BKV = C::BKV;
+  using namespace hopper;
+  const int* kpos_s = reinterpret_cast<const int*>(sm + C::OFF_POS);
+  const int* kseg_s = kpos_s + C::STAGES * BKV;
+  const int* info_s = kseg_s + C::STAGES * BKV;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + C::STAGES;
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  // this thread's query rows r0 and r0 + 8 (the warpgroup's own 64, or
+  // the 64 both share at dh 256), with what stays fixed along the kv loop;
+  // rows past S read as padding and are never written
+  const int own = C::SPLIT ? 0 : 64 * wg;
+  const int r0 = q0 + own + 16 * warp + g;
+  float lse2[2], dv[2];
+  int qp[2], qs[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr;
+    const bool ok = r < p.S;
+    const size_t hrow = (size_t(b) * p.H + h) * p.S + r;
+    lse2[hr] = ok ? p.lse[hrow] * kLog2e : 0.f;
+    dv[hr] = ok ? p.dvec[hrow] : 0.f;
+    qp[hr] = ok ? p.qpos[size_t(b) * p.S + r] : 0;
+    qs[hr] = ok ? p.qseg[size_t(b) * p.S + r] : 0;
+  }
+  constexpr int NACC = C::SPLIT ? 64 : DH / 2;  // 64 x 128 or 64 x dh
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  const unsigned char* q_own = sm + own * 128;
+  const unsigned char* o_own = sm + C::OFF_DO + own * 128;
+  // dh columns this warpgroup accumulates: all, or its half at dh 256
+  const int cb0 = C::SPLIT ? wg * C::CB / 2 : 0;
+  // the exchange at dh 256: [parity][warpgroup][8][128] words
+  uint32_t* xw = reinterpret_cast<uint32_t*>(sm + C::OFF_X);
+  int parity = 0;
+  const bool capped = p.softcap > 0.f;
+
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  while (true) {
+    mbar_wait(&full[stage], phase);
+    if (info_s[2 * stage] == hopper::kEndTile) break;
+    const bool interior = info_s[2 * stage + 1] != 0;
+    const unsigned char* k_st = sm + C::OFF_K + stage * C::KV_BYTES;
+    const unsigned char* v_st = sm + C::OFF_V + stage * C::KV_BYTES;
+    const int* kp = kpos_s + stage * BKV;
+    const int* ksg = kseg_s + stage * BKV;
+
+    // S and dP for the 64 own query rows and NKV kv columns: all 64, or
+    // this warpgroup's half at dh 256
+    constexpr int NKV = C::SPLIT ? 32 : 64;
+    const int kv_off = C::SPLIT ? wg * 32 * 128 : 0;
+    float s[NKV / 2], dp[NKV / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int cb = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss(s, desc_sw128(q_own + cb * C::BQ * 128 + off, 16, 1024),
+               desc_sw128(k_st + cb * BKV * 128 + kv_off + off, 16, 1024),
+               kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const int cb = kk / 4, off = (kk % 4) * 32;
+      wgmma_ss(dp, desc_sw128(o_own + cb * C::BQ * 128 + off, 16, 1024),
+               desc_sw128(v_st + cb * BKV * 128 + kv_off + off, 16, 1024),
+               kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(s);
+    reg_fence(dp);
+
+    uint32_t dsf[4][4];
+#define DQ_ELEMENTWISE(J0, NJ)                                               \
+  do {                                                                       \
+    if (capped) {                                                            \
+      if (interior)                                                          \
+        dq_elementwise<true, false, J0, NJ>(s, dp, dsf, lse2, dv, qp, qs, kp, \
+                                            ksg, t, p);                      \
+      else                                                                   \
+        dq_elementwise<true, true, J0, NJ>(s, dp, dsf, lse2, dv, qp, qs, kp,  \
+                                           ksg, t, p);                       \
+    } else {                                                                 \
+      if (interior)                                                          \
+        dq_elementwise<false, false, J0, NJ>(s, dp, dsf, lse2, dv, qp, qs,   \
+                                             kp, ksg, t, p);                 \
+      else                                                                   \
+        dq_elementwise<false, true, J0, NJ>(s, dp, dsf, lse2, dv, qp, qs, kp, \
+                                            ksg, t, p);                      \
+    }                                                                        \
+  } while (0)
+    if constexpr (C::SPLIT) {
+      // each warpgroup packs dS of its half of the kv columns and hands
+      // it to the other through a buffer of this tile's parity; the other
+      // has read it before it reaches the next tile's exchange, so a
+      // write two tiles on is safe
+      uint32_t* mine = xw + ((parity * 2 + wg) * 8) * 128;
+      const uint32_t* theirs = xw + ((parity * 2 + 1 - wg) * 8) * 128;
+      if (wg == 0) {
+        DQ_ELEMENTWISE(0, 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) mine[i * 128 + tid] = dsf[i / 4][i % 4];
+      } else {
+        DQ_ELEMENTWISE(4, 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          mine[i * 128 + tid] = dsf[2 + i / 4][i % 4];
+      }
+      named_sync(1, 256);
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          dsf[2 + i / 4][i % 4] = theirs[i * 128 + tid];
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dsf[i / 4][i % 4] = theirs[i * 128 + tid];
+      }
+      parity ^= 1;
+    } else {
+      DQ_ELEMENTWISE(0, 8);
+    }
+#undef DQ_ELEMENTWISE
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs(acc, dsf[kk],
+               desc_sw128(k_st + cb0 * BKV * 128 + kk * 16 * 128, BKV * 128,
+                          1024),
+               1);
+    wgmma_commit();
+    wgmma_wait_all();
+    reg_fence(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+    if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int r = r0 + 8 * hr;
+    if (r >= p.S) continue;
+    __nv_bfloat16* row =
+        p.dq + ((size_t(b) * p.S + r) * p.H + h) * DH + cb0 * 64 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NACC / 4; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * hr] * p.scale,
+                    acc[4 * j + 2 * hr + 1] * p.scale);
+  }
+}
+
+// One CTA per (query head, batch row, query tile), the query tiles with
+// the most live kv tiles under causality (the last) launched first. Every
+// dQ element is summed by one CTA in kv order: no atomics,
+// bitwise-repeatable.
+template <int DH>
+__global__ void __launch_bounds__(DqCfg<DH>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const DqParams p) {
+  using C = DqCfg<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = hopper::align1024(smem_raw);
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (p.n_qt - 1 - int(blockIdx.z)) * C::BQ;
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+    hopper::mbar_init(&bars[0], 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      // full: the 32 producer lanes' copies and the TMA lane's bytes
+      hopper::mbar_init(&bars[1 + s], 33);
+      hopper::mbar_init(&bars[1 + C::STAGES + s], 8);  // empty
+    }
+    hopper::fence_barrier_init();
+    // Q and dO now, so that they load while the kv tiles are classed
+    hopper::mbar_arrive_tx(&bars[0], 2 * C::Q_BYTES);
+#pragma unroll
+    for (int cb = 0; cb < C::CB; ++cb) {
+      hopper::tma_load_4d(sm + cb * C::BQ * 128, &tq, &bars[0], cb * 64, h,
+                          q0, b);
+      hopper::tma_load_4d(sm + C::OFF_DO + cb * C::BQ * 128, &tdo, &bars[0],
+                          cb * 64, h, q0, b);
+    }
+  }
+  // the class of every kv tile against this query tile, all threads (ends
+  // with a CTA barrier, which also publishes the mbarriers); rows past S
+  // are never written, so the query tile counts as full
+  hopper::classify_tiles(p.qpos + size_t(b) * p.S, p.qseg + size_t(b) * p.S,
+                         q0, min(C::BQ, p.S - q0), true,
+                         p.kvpos + size_t(b) * p.T,
+                         p.kvseg + size_t(b) * p.T, p.T, C::BKV,
+                         (p.T + C::BKV - 1) / C::BKV, true, p.causal,
+                         p.use_window, p.window, sm + C::OFF_CLS);
+  const int wg = hopper::warpgroup_index();
+  if (wg == 2) {
+    hopper::reg_dealloc<kProducerRegs>();
+    // Q and dO are on their way since the kernel's start
+    if (threadIdx.x / 32 == 8)
+      hopper::kv_ring_producer<C>(&tk, &tv, p.kvpos + size_t(b) * p.T,
+                                  p.kvseg + size_t(b) * p.T, p.T,
+                                  h / (p.H / p.K), b, sm);
+  } else {
+    hopper::reg_alloc<kConsumerRegs>();
+    dq_consumer<DH>(p, h, b, q0, wg, sm);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1263,26 +1381,6 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t st) {
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.dvec, a.qpos, a.kvpos, a.qseg, a.kvseg, static_cast<T*>(dk),
       static_cast<T*>(dv), a.S, a.T, a.H, a.K, a.m);
-  return cudaGetLastError();
-}
-
-template <int DH>
-cudaError_t launch_dq_mma(const Args& a, void* dq, cudaStream_t st) {
-  using C = MmaTile<DH>;
-  auto kern = flash_bwd_dq_mma_kernel<DH>;
-  constexpr size_t smem =
-      size_t(2 * C::ROW_ELEMS + C::T_ELEMS) * 2 + size_t(C::INTS) * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.S + kMmaTile - 1) / kMmaTile, a.H, a.B);
-  kern<<<grid, kMmaThreads, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(a.q),
-      static_cast<const __nv_bfloat16*>(a.k),
-      static_cast<const __nv_bfloat16*>(a.v),
-      static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.dvec, a.qpos,
-      a.kvpos, a.qseg, a.kvseg, static_cast<__nv_bfloat16*>(dq), a.S, a.T,
-      a.H, a.K, a.m);
   return cudaGetLastError();
 }
 
@@ -1331,6 +1429,36 @@ cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv,
   return cudaGetLastError();
 }
 
+template <int DH>
+cudaError_t launch_dq_wgmma(const Args& a, void* dq, cudaStream_t st) {
+  using C = DqCfg<DH>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = hopper::head_rows_map(&tq, a.q, a.B, a.S, a.H, DH, C::BQ)) !=
+          cudaSuccess ||
+      (err = hopper::head_rows_map(&tdo, a.dout, a.B, a.S, a.H, DH,
+                                   C::BQ)) != cudaSuccess ||
+      (err = hopper::head_rows_map(&tk, a.k, a.B, a.T, a.K, DH, C::BKV)) !=
+          cudaSuccess ||
+      (err = hopper::head_rows_map(&tv, a.v, a.B, a.T, a.K, DH, C::BKV)) !=
+          cudaSuccess)
+    return err;
+  if ((a.T + C::BKV - 1) / C::BKV > hopper::kMaxTiles)
+    return cudaErrorInvalidValue;
+  auto kern = flash_bwd_dq_wgmma_kernel<DH>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::BYTES);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.S + C::BQ - 1) / C::BQ;
+  const DqParams p{a.lse, a.dvec, a.qpos, a.kvpos, a.qseg, a.kvseg,
+                   static_cast<__nv_bfloat16*>(dq), a.S, a.T, a.H, a.K,
+                   a.m.causal, a.m.use_window, a.m.window, n_qt, a.m.scale,
+                   a.m.softcap};
+  kern<<<dim3(a.H, a.B, n_qt), C::THREADS, C::BYTES, st>>>(tq, tk, tv, tdo,
+                                                           p);
+  return cudaGetLastError();
+}
+
 bool make_args(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* dvec, const void* qpos,
                const void* kvpos, const void* qseg, const void* kvseg, int B,
@@ -1349,9 +1477,9 @@ bool make_args(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. softcap <= 0 means none; use_window = 0
-// means no sliding window. In bf16 dK/dV takes the wgmma body at every
-// head dim (G <= 8) and dQ the mma.sync body at dh 64 / 128; they need q,
-// k, v and dO 16-byte aligned (the wrapper checks). Each returns a
+// means no sliding window. In bf16 both entries take their wgmma bodies at
+// every head dim (dK/dV: G <= 8); they need q, k, v and dO 16-byte aligned
+// (the wrapper checks). float32 takes the scalar bodies. Each returns a
 // cudaError_t.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
@@ -1368,9 +1496,9 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     switch (dh) {
-      case 64: return int(launch_dq_mma<64>(a, dq, st));
-      case 128: return int(launch_dq_mma<128>(a, dq, st));
-      case 256: return int(launch_dq<__nv_bfloat16, 256>(a, dq, st));
+      case 64: return int(launch_dq_wgmma<64>(a, dq, st));
+      case 128: return int(launch_dq_wgmma<128>(a, dq, st));
+      case 256: return int(launch_dq_wgmma<256>(a, dq, st));
     }
   } else if (dtype == 0) {
     switch (dh) {

@@ -369,72 +369,6 @@ struct FwdParams {
   float scale, softcap;
 };
 
-// The producer warp: every live kv tile (from the class table) into the
-// ring (Q is on its way since the kernel's start): K and V by TMA,
-// positions and segments by cp.async (the ragged tail's missing columns
-// zero-filled: segment 0, padding), its start and class by the lane that
-// issues the TMA.
-template <int DH, int NC>
-__device__ __forceinline__ void fwd_producer(const CUtensorMap* tk,
-                                             const CUtensorMap* tv,
-                                             const FwdParams& p, int h, int b,
-                                             unsigned char* sm) {
-  using C = Cfg<DH, NC>;
-  constexpr int BKV = C::BKV;
-  using namespace hopper;
-  int* kpos_s = reinterpret_cast<int*>(sm + C::OFF_POS);
-  int* kseg_s = kpos_s + C::STAGES * BKV;
-  int* info_s = kseg_s + C::STAGES * BKV;
-  const uint8_t* cls = sm + C::OFF_CLS;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
-  uint64_t* full = bars + 1;
-  uint64_t* empty = full + C::STAGES;
-  const int lane = threadIdx.x & 31;
-  const int kh = h / (p.H / p.K);
-  const int* kvpos = p.kvpos + size_t(b) * p.T;
-  const int* kvseg = p.kvseg + size_t(b) * p.T;
-
-  const int n_kv = (p.T + BKV - 1) / BKV;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int jt = 0; jt < n_kv; ++jt) {
-    const uint8_t c = cls[jt];
-    if (c == kDead) continue;
-    const int t0 = jt * BKV;
-    mbar_wait(&empty[stage], phase ^ 1);
-#pragma unroll
-    for (int i = 0; i < BKV / 32; ++i) {
-      const int col = lane + 32 * i;
-      const bool ok = t0 + col < p.T;
-      const int src = ok ? t0 + col : 0;
-      cp_async4(&kpos_s[stage * BKV + col], kvpos + src, ok);
-      cp_async4(&kseg_s[stage * BKV + col], kvseg + src, ok);
-    }
-    cp_async_arrive(&full[stage]);
-    if (lane == 0) {
-      info_s[2 * stage] = t0;
-      info_s[2 * stage + 1] = c == kInterior;
-      mbar_arrive_tx(&full[stage], 2 * C::KV_BYTES);
-      unsigned char* kdst = sm + C::OFF_K + stage * C::KV_BYTES;
-      unsigned char* vdst = sm + C::OFF_V + stage * C::KV_BYTES;
-#pragma unroll
-      for (int cb = 0; cb < C::CB; ++cb) {
-        tma_load_4d(kdst + cb * BKV * 128, tk, &full[stage], cb * 64, kh, t0,
-                    b);
-        tma_load_4d(vdst + cb * BKV * 128, tv, &full[stage], cb * 64, kh, t0,
-                    b);
-      }
-    }
-    if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
-  }
-  mbar_wait(&empty[stage], phase ^ 1);
-  if (lane == 0) {
-    info_s[2 * stage] = hopper::kEndTile;
-    mbar_arrive(&full[stage]);
-  }
-  cp_async_arrive(&full[stage]);  // no copies pending: arrives at once
-}
-
 // Scores of one tile in place: the tanh softcap (CAP) and the mask
 // (MASK: boundary tiles), and the row maxima of this thread's two rows.
 template <bool CAP, bool MASK, int N>
@@ -646,8 +580,11 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int wg = hopper::warpgroup_index();
   if (wg == NC) {
     if constexpr (NC == 2) hopper::reg_dealloc<kProducerRegs>();
+    // Q is on its way since the kernel's start
     if (threadIdx.x / 32 == 4 * NC)
-      fwd_producer<DH, NC>(&tk, &tv, p, h, b, sm);
+      hopper::kv_ring_producer<C>(&tk, &tv, p.kvpos + size_t(b) * p.T,
+                                  p.kvseg + size_t(b) * p.T, p.T,
+                                  h / (p.H / p.K), b, sm);
   } else {
     if constexpr (NC == 2) hopper::reg_alloc<kConsumerRegs>();
     fwd_consumer<DH, NC>(p, h, b, q0, wg, sm);

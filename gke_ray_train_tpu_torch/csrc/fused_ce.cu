@@ -27,13 +27,12 @@
 // ([256, 4,096] fp32 for dx: 4 MB). An SM has 228 KB of shared memory,
 // and 8 row tiles would fill 8 of 132 SMs, so the work is cut anew:
 //
-// - Row statistics: a grid of (row tile, vocab split), about two CTAs per
-//   SM. Each CTA walks its vocab tiles, each thread carries (m, l, t) of
-//   its 8 rows over its own columns online, and at the end the 16 threads
-//   that share a row merge theirs in shared memory into one per-split
-//   partial. A second small launch merges the splits exactly, the merge
-//   JAX uses across vocab shards (:282-284): m = max m_s, l = sum l_s
-//   exp(m_s - m), t = sum t_s, lse = m + log l.
+// - Row statistics: a grid of (row tile, vocab split). Each CTA walks its
+//   vocab tiles, each thread carries (m, l, t) of its rows over its own
+//   columns online, and at the end the threads that share a row merge
+//   theirs into one per-split partial. A second small launch merges the
+//   splits exactly, the merge JAX uses across vocab shards (:282-284): m =
+//   max m_s, l = sum l_s exp(m_s - m), t = sum t_s, lse = m + log l.
 // - Backward: the vocab is cut into chunks of `chunk` columns (the
 //   caller's dl scratch width, 8,192 from ops/fused_ce.py). Per chunk a
 //   dlogits launch recomputes the logits tile by tile and writes dl =
@@ -51,7 +50,7 @@
 // refused here with cudaErrorInvalidValue where the shape does not fit:
 //
 // - wgmma (bf16, D % 8 == 0, V % 8 == 0, 16-byte aligned operands: the
-//   rows TMA can address), the backward's products only. One persistent
+//   rows TMA can address). For the backward's products one persistent
 //   CTA of three warpgroups per SM walks the 128 x 256 output tiles: one
 //   producer warp starts 2-D TMA loads of 64-deep K slices (128-byte
 //   swizzled 64-column blocks, hopper.cuh) into a 4-stage ring with
@@ -70,7 +69,15 @@
 //   ex2.approx of a log2e-prescaled argument, fma(logit, log2e, -lse
 //   log2e). dx's epilogue loads the earlier chunks' fp32 sums in groups
 //   before it stores any, so that their memory round trips overlap.
-// - mma_sync (bf16 shapes TMA cannot take, and the row statistics): a
+//   The row statistics run dlogits' product (x @ head, over the whole
+//   vocab) on the same body, one CTA a (row tile, vocab split): at N
+//   2,048 16 row tiles x 8 splits of 63 vocab tiles, 128 CTAs on 132 SMs,
+//   the CTAs of a split walking the same head tiles in step. Their
+//   epilogue carries (m, l, t) in registers from tile to tile: each row's
+//   tile maximum, then one ex2.approx per element, the label gathered in
+//   its column, columns past V (zero-filled by TMA) kept out of all three;
+//   the 4 lanes of a row merge by shuffles at the end of the split.
+// - mma_sync (bf16 shapes TMA cannot take): a
 //   CTA of 8 warps computes a 128 x 128 tile, the K loop staging 32-deep
 //   slices of both operands in shared memory through a 3-stage cp.async
 //   ring, in the operands' own global layouts (K-, M- or N-contiguous);
@@ -89,8 +96,8 @@
 // rows start 16-byte aligned, element copies elsewhere. On the wgmma
 // route TMA zero-fills past every edge and the epilogue masks stores.
 //
-// Later work: the row statistics on the wgmma body; one dlogits pass
-// shared by dx and dhead in full fine-tuning; a cluster of CTAs splitting
+// Later work: one dlogits pass shared by dx and dhead in full
+// fine-tuning; a cluster of CTAs splitting
 // D and summing partial logits through distributed shared memory, so
 // that dl never leaves the chip.
 //
@@ -110,6 +117,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -2.0e38f;  // ops/attention.py NEG_INF
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBM = 128;             // CTA tile rows
 constexpr int kBN = 128;             // CTA tile columns
 constexpr int kThreads = 256;        // 8 warps
@@ -701,7 +709,7 @@ cudaError_t grads_dhead(const void* x, const void* head, const int* targets,
 // bf16 wgmma body: a TMA ring, a producer warp, two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-enum : int { kDlogits = 0, kDx = 1, kDhead = 2 };
+enum : int { kDlogits = 0, kDx = 1, kDhead = 2, kRowStats = 3 };
 
 constexpr int kHBK = 64;          // K slice per stage: one 128-byte block
 constexpr int kHStages = 4;
@@ -723,7 +731,8 @@ struct HCfg {
 // Rows r < M and columns c < Nc of C exist; out holds C's transform
 // with rows ld_out apart. b_off moves B's column coordinate: the chunk's
 // first vocab column where B is the head (dlogits, dx), which is where
-// dlogits' label columns start too.
+// dlogits' label columns start too. Row statistics write per-split
+// partials to `part` and walk `per` vocab tiles a split.
 struct HParams {
   const int* targets;
   const float* wg;
@@ -731,6 +740,35 @@ struct HParams {
   bf16* out;    // dl (dlogits), dx (dx, last chunk), dhead + c0 (dhead)
   float* acc;   // dx's fp32 sums over the chunks
   int ld_out, M, Nc, K, b_off, first, last;
+  float* part;  // row statistics: [splits][3][M] fp32
+  int per;
+};
+
+// The output tiles a CTA walks. Row statistics: one row tile and one run
+// of `per` vocab tiles (a split) in order, CTA i taking row tile i % mt of
+// split i / mt, so that the CTAs of a split walk the same head tiles in
+// step (each read from HBM about once, then from L2). The other modes:
+// tile blockIdx.x and every gridDim.x-th after it, the row tile fastest.
+template <int MODE, int BN>
+struct Walk {
+  int first, end, step, mt;
+  __device__ Walk(int mt_, int n_nt, int per) : mt(mt_) {
+    if constexpr (MODE == kRowStats) {
+      first = int(blockIdx.x) / mt * per;
+      end = min(first + per, n_nt);
+      step = 1;
+    } else {
+      first = blockIdx.x;
+      end = mt * n_nt;
+      step = gridDim.x;
+    }
+  }
+  __device__ int m0(int tile) const {
+    return (MODE == kRowStats ? int(blockIdx.x) : tile) % mt * kHBM;
+  }
+  __device__ int n0(int tile) const {
+    return (MODE == kRowStats ? tile : tile / mt) * BN;
+  }
 };
 
 // The producer warp's lane 0: every K slice of the A and B tiles of each
@@ -740,19 +778,19 @@ struct HParams {
 // box, zero-filled past an edge, against the stage's transaction bytes.
 // The ring runs on across tiles, so the next tile's first slices land
 // while the consumers run the last one's epilogue.
-template <int TA, int TB, int BN>
+template <int MODE, int TA, int TB, int BN>
 __device__ __forceinline__ void hopper_producer(const CUtensorMap* ta,
                                                 const CUtensorMap* tb,
                                                 unsigned char* sm,
                                                 uint64_t* full,
-                                                uint64_t* empty, int mt,
-                                                int tiles, int nk,
-                                                int b_off) {
+                                                uint64_t* empty,
+                                                const Walk<MODE, BN>& w,
+                                                int nk, int b_off) {
   using C = HCfg<BN>;
   int stage = 0;
   uint32_t phase = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int m0 = (tile % mt) * kHBM, n0 = (tile / mt) * BN;
+  for (int tile = w.first; tile < w.end; tile += w.step) {
+    const int m0 = w.m0(tile), n0 = w.n0(tile);
     for (int kt = 0; kt < nk; ++kt) {
       const int k0 = kt * kHBK;
       hopper::mbar_wait(&empty[stage], phase ^ 1);
@@ -899,9 +937,82 @@ __device__ __forceinline__ void hopper_epilogue(const float (&acc)[BN / 2],
   }
 }
 
-// A persistent CTA per SM (at most one per tile) walks the (128-row,
-// BN-column) tiles of C, the row tile fastest, tile blockIdx.x first and
-// then every gridDim.x-th. TA / TB: A / B MN-major.
+// Row statistics of one tile into this thread's running (m, l, t) of
+// its rows 16 warp + g and + 8 over its columns 8j + 2t and 8j + 2t + 1
+// (the accumulator layout). Columns c >= V (zero-filled by TMA past the
+// vocab) take no part: V % 8 == 0 on this route, so a column pair is
+// whole and column pair j exists while 8j < V - n0. Each row's tile
+// maximum first, then one ex2 per element of a log2e-prescaled argument;
+// m is kept in log2 units. tr: the row's label (or -1), gathered in the
+// one column equal to it.
+template <int BN>
+__device__ __forceinline__ void row_stats_tile(const float (&acc)[BN / 2],
+                                               float (&m2)[2], float (&l)[2],
+                                               float (&tg)[2],
+                                               const int (&tr)[2], int n0,
+                                               int V) {
+  const int c_first = n0 + 2 * (threadIdx.x & 3);
+  const int lim = V - n0;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      if (8 * j < lim)
+        mx = fmaxf(mx, fmaxf(acc[4 * j + 2 * hr], acc[4 * j + 2 * hr + 1]));
+    const float m_new = fmaxf(m2[hr], mx * hopper::kLog2e);
+    float sum = 0.f;
+    const int hit = tr[hr] - c_first;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if (8 * j < lim) {
+        const float a0 = acc[4 * j + 2 * hr], a1 = acc[4 * j + 2 * hr + 1];
+        sum += hopper::fast_exp2(fmaf(a0, hopper::kLog2e, -m_new)) +
+               hopper::fast_exp2(fmaf(a1, hopper::kLog2e, -m_new));
+        if (8 * j == hit) tg[hr] += a0;
+        if (8 * j + 1 == hit) tg[hr] += a1;
+      }
+    }
+    l[hr] = l[hr] * hopper::fast_exp2(m2[hr] - m_new) + sum;
+    m2[hr] = m_new;
+  }
+}
+
+// The end of a split: the 4 lanes that share a row merge their (m, l, t)
+// by shuffles, and the first writes the row's partial, m back in natural
+// units, to part[(split * 3 + {0, 1, 2}) * M + row] for merge_kernel.
+__device__ __forceinline__ void row_stats_store(float (&m2)[2], float (&l)[2],
+                                                float (&tg)[2],
+                                                const HParams& p, int m0,
+                                                int wgi, int split) {
+  const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, m2[hr], o);
+      const float ol = __shfl_xor_sync(0xffffffffu, l[hr], o);
+      const float ot = __shfl_xor_sync(0xffffffffu, tg[hr], o);
+      const float mm = fmaxf(m2[hr], om);
+      l[hr] = l[hr] * hopper::fast_exp2(m2[hr] - mm) +
+              ol * hopper::fast_exp2(om - mm);
+      m2[hr] = mm;
+      tg[hr] += ot;
+    }
+    const int r = m0 + 64 * wgi + 16 * warp + (lane >> 2) + 8 * hr;
+    if ((lane & 3) == 0 && r < p.M) {
+      float* q = p.part + size_t(split) * 3 * p.M + r;
+      q[0] = m2[hr] * kLn2;
+      q[size_t(p.M)] = l[hr];
+      q[2 * size_t(p.M)] = tg[hr];
+    }
+  }
+}
+
+// A CTA walks the (128-row, BN-column) tiles of C that `Walk` gives it:
+// the gradient modes as a persistent CTA per SM (at most one per tile),
+// the row statistics one (row tile, vocab split) each. TA / TB: A / B
+// MN-major.
 template <int MODE, int TA, int TB, int BN>
 __global__ void __launch_bounds__(kHThreads, 1)
 ce_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
@@ -912,7 +1023,7 @@ ce_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
   uint64_t* empty = full + kHStages;
   const int mt = (p.M + kHBM - 1) / kHBM;
-  const int tiles = mt * ((p.Nc + BN - 1) / BN);
+  const Walk<MODE, BN> walk(mt, (p.Nc + BN - 1) / BN, p.per);
   const int nk = (p.K + kHBK - 1) / kHBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kHStages; ++s) {
@@ -925,17 +1036,38 @@ ce_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
   const int wgi = hopper::warpgroup_index();
   if (wgi == 2) {
     if (threadIdx.x == 256)
-      hopper_producer<TA, TB, BN>(&ta, &tb, sm, full, empty, mt, tiles, nk,
-                                  p.b_off);
+      hopper_producer<MODE, TA, TB, BN>(&ta, &tb, sm, full, empty, walk, nk,
+                                        p.b_off);
+  } else if constexpr (MODE == kRowStats) {
+    // (m, l, t) of this thread's two rows carried across the split's
+    // vocab tiles; a label outside [0, V) matches no column
+    const int m0 = walk.m0(0);
+    float m2[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, tg[2] = {0.f, 0.f};
+    int tr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int r = m0 + 64 * wgi + 16 * ((threadIdx.x & 127) >> 5) +
+                    ((threadIdx.x & 31) >> 2) + 8 * hr;
+      const int lab = r < p.M ? p.targets[r] : -1;
+      tr[hr] = lab >= 0 && lab < p.Nc ? lab : -1;
+    }
+    float acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = walk.first; tile < walk.end; tile += walk.step) {
+      hopper_mainloop<TA, TB, BN>(acc, sm, full, empty, wgi, nk, stage,
+                                  phase);
+      row_stats_tile<BN>(acc, m2, l, tg, tr, walk.n0(tile), p.Nc);
+    }
+    row_stats_store(m2, l, tg, p, m0, wgi, int(blockIdx.x) / mt);
   } else {
     float acc[BN / 2];
     int stage = 0;
     uint32_t phase = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    for (int tile = walk.first; tile < walk.end; tile += walk.step) {
       hopper_mainloop<TA, TB, BN>(acc, sm, full, empty, wgi, nk, stage,
                                   phase);
-      hopper_epilogue<MODE, BN>(acc, p, (tile % mt) * kHBM,
-                                (tile / mt) * BN, wgi);
+      hopper_epilogue<MODE, BN>(acc, p, walk.m0(tile), walk.n0(tile), wgi);
     }
   }
 }
@@ -970,6 +1102,38 @@ cudaError_t hopper_dlogits(const CUtensorMap& tx_k, const CUtensorMap& th_mn,
   const HParams p{targets, wg, lse, static_cast<bf16*>(dl), nullptr,
                   chunk, N, vc, D, c0, 0, 0};
   return ce_wgmma<kDlogits, 0, 1>(tx_k, th_mn, p, st);
+}
+
+// Row statistics on the wgmma body: x (K-major) @ head (MN-major), the
+// dlogits product, over the whole vocab; as many vocab splits as one CTA
+// an SM (at most `ctas`, the partials' capacity) allows over the row
+// tiles, each split a run of whole 256-column tiles; then the exact merge.
+cudaError_t hopper_row_stats(const void* x, const void* head,
+                             const int* targets, float* part, float* lse,
+                             float* tgt, int N, int D, int V, int ctas,
+                             cudaStream_t st) {
+  CUtensorMap tx_k, th_mn;
+  cudaError_t err;
+  if ((err = hopper::matrix_map(&tx_k, x, N, D, D, kHBM)) != cudaSuccess ||
+      (err = hopper::matrix_map(&th_mn, head, D, V, V, kHBK)) !=
+          cudaSuccess)
+    return err;
+  const int mt = cdiv(N, kHBM), n_vt = cdiv(V, kHBN);
+  const int budget = std::min(ctas, sm_count());
+  const int per = cdiv(n_vt, std::max(1, std::min(budget / mt, n_vt)));
+  const int splits = cdiv(n_vt, per);  // none of them empty
+  HParams p{targets, nullptr, nullptr, nullptr, nullptr, 0, N, V, D, 0, 0, 0};
+  p.part = part;
+  p.per = per;
+  using C = HCfg<kHBN>;
+  auto kern = ce_wgmma_kernel<kRowStats, 0, 1, kHBN>;
+  err = allow_smem(kern, C::SMEM);
+  if (err != cudaSuccess) return err;
+  kern<<<mt * splits, kHThreads, C::SMEM, st>>>(tx_k, th_mn, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  merge_kernel<<<cdiv(N, 256), 256, 0, st>>>(part, lse, tgt, N, splits);
+  return cudaGetLastError();
 }
 
 // TMA reads the operands' rows: 16-byte aligned bases and row strides
@@ -1059,23 +1223,26 @@ bool route_ok(int route, int dtype, const void* x, const void* head,
 // dtype: 0 = float32, 1 = bfloat16, for x [N, D] and head [D, V] (both
 // contiguous). targets [N] int32; ctas: the CTA budget of the row
 // statistics launch (the caller's: two an SM), partials [3 * ctas, N] fp32
-// scratch; lse, tgt [N] fp32 out. Returns a cudaError_t.
+// scratch; lse, tgt [N] fp32 out; route: 0 fp32, 1 mma_sync, 2 wgmma
+// (route_ok, the gradients' predicate). Returns a cudaError_t.
 extern "C" int fused_ce_row_stats(const void* x, const void* head,
                                   const void* targets, void* partials,
                                   void* lse, void* tgt, int N, int D, int V,
-                                  int ctas, int dtype, void* stream) {
-  if (!shape_ok(N, D, V) || ctas < 1 || ctas > 65535)
+                                  int ctas, int dtype, int route,
+                                  void* stream) {
+  if (!shape_ok(N, D, V) || ctas < 1 || ctas > 65535 ||
+      !route_ok(route, dtype, x, head, head, D, V))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(targets);
   float* p = static_cast<float*>(partials);
   float* l = static_cast<float*>(lse);
   float* g = static_cast<float*>(tgt);
-  if (dtype == 0)
+  if (route == kRouteFp32)
     return int(row_stats<float>(x, head, t, p, l, g, N, D, V, ctas, st));
-  if (dtype == 1)
+  if (route == kRouteMma)
     return int(row_stats<bf16>(x, head, t, p, l, g, N, D, V, ctas, st));
-  return int(cudaErrorInvalidValue);
+  return int(hopper_row_stats(x, head, t, p, l, g, N, D, V, ctas, st));
 }
 
 // dx [N, D] in the input dtype from wg (weight times the loss cotangent)

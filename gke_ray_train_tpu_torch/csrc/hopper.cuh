@@ -612,6 +612,77 @@ __device__ __forceinline__ void classify_tiles(
   __syncthreads();
 }
 
+// ---- a ring of K / V tiles ---------------------------------------------------
+
+// The producer warp of a kernel that walks the kv tiles of one query tile
+// (the flash forward, dQ): every live kv tile (from the class table) into
+// a ring of C::STAGES stages with mbarrier full / empty pairs: K and V of
+// kv head kh by TMA (C::CB 64-column blocks of C::BKV rows), kv positions
+// and segments of batch row b (kvpos, kvseg: that row's) by cp.async (the
+// ragged tail's missing columns zero-filled: segment 0, padding), the
+// tile's start and class by the lane that issues the TMA; then an entry
+// that ends the loop. C is the kernel's shared-memory layout: K and V
+// rings at OFF_K and OFF_V (KV_BYTES a stage); at OFF_POS positions and
+// segments [STAGES][BKV] each, then (t0, interior) a stage; at OFF_BAR
+// the Q barrier, then full and empty a stage; the classes at OFF_CLS.
+template <class C>
+__device__ __forceinline__ void kv_ring_producer(const CUtensorMap* tk,
+                                                 const CUtensorMap* tv,
+                                                 const int* kvpos,
+                                                 const int* kvseg, int T,
+                                                 int kh, int b,
+                                                 unsigned char* sm) {
+  constexpr int BKV = C::BKV;
+  int* kpos_s = reinterpret_cast<int*>(sm + C::OFF_POS);
+  int* kseg_s = kpos_s + C::STAGES * BKV;
+  int* info_s = kseg_s + C::STAGES * BKV;
+  const uint8_t* cls = sm + C::OFF_CLS;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + C::OFF_BAR);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + C::STAGES;
+  const int lane = threadIdx.x & 31;
+
+  const int n_kv = (T + BKV - 1) / BKV;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int jt = 0; jt < n_kv; ++jt) {
+    const uint8_t c = cls[jt];
+    if (c == kDead) continue;
+    const int t0 = jt * BKV;
+    mbar_wait(&empty[stage], phase ^ 1);
+#pragma unroll
+    for (int i = 0; i < BKV / 32; ++i) {
+      const int col = lane + 32 * i;
+      const bool ok = t0 + col < T;
+      const int src = ok ? t0 + col : 0;
+      cp_async4(&kpos_s[stage * BKV + col], kvpos + src, ok);
+      cp_async4(&kseg_s[stage * BKV + col], kvseg + src, ok);
+    }
+    cp_async_arrive(&full[stage]);
+    if (lane == 0) {
+      info_s[2 * stage] = t0;
+      info_s[2 * stage + 1] = c == kInterior;
+      mbar_arrive_tx(&full[stage], 2 * C::KV_BYTES);
+      unsigned char* kdst = sm + C::OFF_K + stage * C::KV_BYTES;
+      unsigned char* vdst = sm + C::OFF_V + stage * C::KV_BYTES;
+#pragma unroll
+      for (int cb = 0; cb < C::CB; ++cb) {
+        tma_load_4d(kdst + cb * BKV * 128, tk, &full[stage], cb * 64, kh, t0,
+                    b);
+        tma_load_4d(vdst + cb * BKV * 128, tv, &full[stage], cb * 64, kh, t0,
+                    b);
+      }
+    }
+    if (++stage == C::STAGES) { stage = 0; phase ^= 1; }
+  }
+  mbar_wait(&empty[stage], phase ^ 1);
+  if (lane == 0) {
+    info_s[2 * stage] = kEndTile;
+    mbar_arrive(&full[stage]);
+  }
+  cp_async_arrive(&full[stage]);  // no copies pending: arrives at once
+}
+
 // ---- host: tensor maps -----------------------------------------------------
 
 // cuTensorMapEncodeTiled, looked up through cudaGetDriverEntryPoint so

@@ -58,10 +58,10 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
                         "fused_rmsnorm_rope": (_P,) * 5 + (_I,) * 6
                         + (_F, _I, _P)},
     # fused_ce_row_stats: x, head, targets, partials, lse, tgt, N, D, V,
-    # ctas, dtype, stream; fused_ce_dx: x, head, targets, wg, lse, dl,
-    # acc, dx, N, D, V, chunk, dtype, route, stream; fused_ce_dhead: the
-    # same with dhead in place of acc, dx
-    "fused_ce": {"fused_ce_row_stats": (_P,) * 6 + (_I,) * 5 + (_P,),
+    # ctas, dtype, route, stream; fused_ce_dx: x, head, targets, wg, lse,
+    # dl, acc, dx, N, D, V, chunk, dtype, route, stream; fused_ce_dhead:
+    # the same with dhead in place of acc, dx
+    "fused_ce": {"fused_ce_row_stats": (_P,) * 6 + (_I,) * 6 + (_P,),
                  "fused_ce_dx": (_P,) * 8 + (_I,) * 6 + (_P,),
                  "fused_ce_dhead": (_P,) * 7 + (_I,) * 6 + (_P,)},
 }

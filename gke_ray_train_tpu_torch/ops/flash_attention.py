@@ -13,10 +13,10 @@ kernels replace the Pallas TPU kernels:
   ``flash_bwd_dkv`` replaces ``_dkv_kernel`` (:339): the gradient,
   recomputing the probabilities from the saved logsumexp.
 
-In bf16 the forward and dK/dV kernels are Hopper designs (wgmma, a TMA
-ring fed by a producer warp, tiles classed dead / boundary / interior up
-front; dK/dV sums the GQA group across a thread-block cluster, so G is at
-most MAX_DKV_GROUP); float32 takes their scalar bodies. Each source note
+In bf16 the three kernels are Hopper designs (wgmma, a TMA ring fed by a
+producer warp, tiles classed dead / boundary / interior up front; dK/dV
+sums the GQA group across a thread-block cluster, so G is at most
+MAX_DKV_GROUP); float32 takes their scalar bodies. Each source note
 says what bounds the kernel on an H100 and what the design does about
 that. ``FlashAttention`` (a ``torch.autograd.Function``)
 is the counterpart of the JAX ``custom_vjp`` (:546-559): its forward

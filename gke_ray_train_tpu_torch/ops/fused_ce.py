@@ -31,13 +31,14 @@ kernels cannot take raises; nothing falls back. ``fused_ce_row_stats
 count calls that launched a kernel entry (each entry runs its launches
 over the vocab chunks itself).
 
-dx and dhead run one of three GEMM bodies, chosen by ``grad_route`` from
-the dtype, the shapes and the operands' alignment (never by a failure):
-``wgmma`` (the Hopper body: TMA ring, producer warp, wgmma) for bf16
-rows TMA can address, ``mma_sync`` for the other bf16 shapes, ``fp32``
-for float32. The C entry refuses a route the shape does not fit.
-``fused_ce_dx.routes`` / ``fused_ce_dhead.routes`` count launches per
-route beside ``.launches``.
+The row statistics, dx and dhead each run one of three GEMM bodies,
+chosen by ``grad_route`` from the dtype, the shapes and the operands'
+alignment (never by a failure): ``wgmma`` (the Hopper body: TMA ring,
+producer warp, wgmma) for bf16 rows TMA can address, ``mma_sync`` for the
+other bf16 shapes, ``fp32`` for float32. The C entries refuse a route the
+shape does not fit. ``fused_ce_row_stats.routes``, ``fused_ce_dx.routes``
+and ``fused_ce_dhead.routes`` count launches per route beside
+``.launches``.
 """
 
 from __future__ import annotations
@@ -53,7 +54,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # ``block_v`` sets another
 _CHUNK = 8192
 _CHUNK_QUANTUM = 128
-# the gradient entries' GEMM bodies, by the C entry's route code
+# the entries' GEMM bodies, by the C entries' route code
 ROUTES = {"fp32": 0, "mma_sync": 1, "wgmma": 2}
 
 
@@ -135,9 +136,26 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _row_stats_launch(x, head, targets):
+def _route_of(x: torch.Tensor, head: torch.Tensor) -> str:
+    """``grad_route`` of these operands: their dtype, D, V and data
+    pointers."""
+    return grad_route(x.dtype, x.shape[1], head.shape[1],
+                      (x.data_ptr(), head.data_ptr()))
+
+
+def _check_route(route: str) -> None:
+    if route not in ROUTES:
+        raise ValueError(f"route {route!r} is not one of {sorted(ROUTES)}")
+
+
+def _row_stats_launch(x, head, targets, route: Optional[str] = None):
+    """Launch the row statistics on ``route`` (default ``_route_of`` the
+    operands; another is for comparing the bodies, and the C entry
+    refuses one the shape does not fit) and count the launch."""
     from gke_ray_train_tpu_torch.kernels import load
     _check_operands(x, head, targets)
+    route = _route_of(x, head) if route is None else route
+    _check_route(route)
     N, D = x.shape
     V = head.shape[1]
     # the launch's CTA budget, two an SM, and room for as many vocab splits
@@ -150,9 +168,10 @@ def _row_stats_launch(x, head, targets):
         rc = load("fused_ce").fused_ce_row_stats(
             x.data_ptr(), head.data_ptr(), targets.data_ptr(),
             part.data_ptr(), lse.data_ptr(), tgt.data_ptr(), N, D, V,
-            ctas, _DTYPE_CODES[x.dtype], _stream(x))
-    _raise_on(rc, "fused_ce_row_stats")
+            ctas, _DTYPE_CODES[x.dtype], ROUTES[route], _stream(x))
+    _raise_on(rc, f"fused_ce_row_stats ({route} route)")
     fused_ce_row_stats.launches += 1
+    fused_ce_row_stats.routes[route] += 1
     return lse, tgt
 
 
@@ -174,15 +193,17 @@ def fused_ce_row_stats(x: torch.Tensor, head: torch.Tensor,
 
 
 fused_ce_row_stats.launches = 0
+fused_ce_row_stats.routes = dict.fromkeys(ROUTES, 0)
 
 
 def grad_route(dtype: torch.dtype, D: int, V: int,
                pointers: Tuple[int, ...] = ()) -> str:
-    """The GEMM body of the dx / dhead entries for x [N, D] and head
-    [D, V] of ``dtype`` at data pointers ``pointers``: ``wgmma`` where TMA
-    can address every operand row (bf16, rows of D and V elements a
-    multiple of 16 bytes, 16-byte aligned bases), ``mma_sync`` for other
-    bf16 shapes, ``fp32`` for float32."""
+    """The GEMM body of the row statistics, dx and dhead entries for x
+    [N, D] and head [D, V] of ``dtype`` at data pointers ``pointers``
+    (the dx / dhead scratch is a fresh, aligned allocation): ``wgmma``
+    where TMA can address every operand row (bf16, rows of D and V
+    elements a multiple of 16 bytes, 16-byte aligned bases), ``mma_sync``
+    for other bf16 shapes, ``fp32`` for float32."""
     if dtype == torch.float32:
         return "fp32"
     if D % 8 == 0 and V % 8 == 0 and all(p % 16 == 0 for p in pointers):
@@ -205,10 +226,8 @@ def _grad_launch(entry: str, x, head, targets, wg, lse,
                          f"{_CHUNK_QUANTUM}")
     N, D = x.shape
     V = head.shape[1]
-    if route is None:
-        route = grad_route(x.dtype, D, V, (x.data_ptr(), head.data_ptr()))
-    if route not in ROUTES:
-        raise ValueError(f"route {route!r} is not one of {sorted(ROUTES)}")
+    route = _route_of(x, head) if route is None else route
+    _check_route(route)
     dl = torch.empty((N, chunk), dtype=x.dtype, device=x.device)
     lib = load("fused_ce")
     args = (x.data_ptr(), head.data_ptr(), targets.data_ptr(), wg.data_ptr(),

@@ -44,7 +44,7 @@ from gke_ray_train_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_bwd_reference, flash_attention_reference,
     flash_bwd_dkv, flash_bwd_dq)
 from gke_ray_train_tpu_torch.ops.fused_ce import (
-    _CHUNK, _grad_launch, fused_ce_dhead, fused_ce_dx,
+    _CHUNK, _grad_launch, _row_stats_launch, fused_ce_dhead, fused_ce_dx,
     fused_ce_grads_reference, fused_ce_row_stats,
     fused_ce_row_stats_reference, fused_cross_entropy, grad_route)
 from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
@@ -226,6 +226,74 @@ def test_dkv_kernel_is_deterministic(dev):
     second = flash_bwd_dkv(*args, **mkw)
     torch.cuda.synchronize()
     assert all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+
+
+# dQ on the wgmma body: every head dim; causal, window + softcap, packed
+# documents and rows that attend nothing; S and T that no tile divides
+# (S < T too); GQA groups of 1, 2, 4 and 8; a row of interior tiles only
+DQ_CASES = {
+    "g1_dh64_packed": dict(B=2, S=200, T=200, H=4, K=4, dh=64, packed=True),
+    "g2_dh128_ragged_dead_rows": dict(B=1, S=130, T=200, H=8, K=4, dh=128,
+                                      dead_rows=True),
+    "g4_dh128_window_softcap": dict(B=1, S=300, T=300, H=16, K=4, dh=128,
+                                    window=48, softcap=50.0),
+    "g8_dh256_packed_window_softcap": dict(B=1, S=190, T=190, H=16, K=2,
+                                           dh=256, window=64, softcap=50.0,
+                                           packed=True, dead_rows=True),
+    "g8_dh256_causal": dict(B=2, S=129, T=129, H=8, K=1, dh=256),
+    "g2_dh256_tail_s_lt_t": dict(B=2, S=77, T=333, H=4, K=2, dh=256),
+    "g2_dh64_interior": dict(B=1, S=512, T=512, H=4, K=2, dh=64,
+                             causal=False),
+}
+
+
+def _dq_inputs(case, dtype, dev):
+    """(kernel arguments, mask keywords, plain dQ) of a DQ_CASES case."""
+    q, k, v, kw = _inputs(case, dtype, dev)
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(1), device=dev).to(dtype)
+    dvec = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    mask = (kw["q_positions"], kw["kv_positions"], kw["q_segment_ids"],
+            kw["kv_segment_ids"])
+    mkw = {n: kw[n] for n in ("causal", "sliding_window", "scale",
+                              "logit_softcap")}
+    ref = flash_attention_bwd_reference(q, k, v, out, lse, do, *mask,
+                                        **mkw)[0]
+    return (q, k, v, do, lse, dvec) + mask, mkw, ref
+
+
+def _assert_dq(got, want, case):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    scale = max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= \
+        BWD_TOL[got.dtype] * scale
+    if case.get("dead_rows"):
+        assert float(got[:, 3:7].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", DQ_CASES)
+def test_dq_wgmma_body_matches_plain_version(dev, case):
+    """The dQ entry's bf16 (wgmma) body, launched and counted once, within
+    BWD_TOL of the plain version."""
+    args, mkw, ref = _dq_inputs(DQ_CASES[case], torch.bfloat16, dev)
+    before = flash_bwd_dq.launches
+    dq = flash_bwd_dq(*args, **mkw)
+    torch.cuda.synchronize()
+    assert flash_bwd_dq.launches == before + 1
+    _assert_dq(dq, ref, DQ_CASES[case])
+
+
+@pytest.mark.parametrize("case", ["g4_dh128_window_softcap",
+                                  "g8_dh256_packed_window_softcap"])
+def test_dq_wgmma_body_repeats_bitwise(dev, case):
+    """Every dQ element is summed by one CTA in kv order (no atomics): two
+    launches agree bitwise."""
+    args, mkw, _ = _dq_inputs(DQ_CASES[case], torch.bfloat16, dev)
+    first = flash_bwd_dq(*args, **mkw)
+    again = flash_bwd_dq(*args, **mkw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_dkv_kernel_refuses_a_group_past_its_cluster(dev):
@@ -578,6 +646,66 @@ def test_fused_ce_wgmma_grads_repeat_bitwise(dev, shape):
     again = _ce_grads(x, head, t, w, lse, chunk, "wgmma", False)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# row statistics on the wgmma body: ragged N, V a multiple of 8 but not
+# of 256 (the last vocab tile's zero-filled columns), labels V + 5 and -1
+ROW_STATS_SHAPES = [(300, 128, 9000), (37, 64, 1000), (2053, 512, 32008),
+                    (5, 64, 8), (130, 256, 1000)]
+
+
+@pytest.mark.parametrize("shape", ROW_STATS_SHAPES,
+                         ids=["x".join(map(str, s)) for s in ROW_STATS_SHAPES])
+def test_fused_ce_row_stats_wgmma_body_matches_plain_version(dev, shape):
+    """The public row statistics take the wgmma body for bf16 rows TMA can
+    address (the launch counted on that route only): lse and the target
+    logit within CE_TOL of the plain version, a target logit of 0 for
+    labels out of range, and two launches bitwise equal."""
+    N, D, V = shape
+    x, head, t, _ = _ce_inputs(N, D, V, torch.bfloat16, dev, seed=3)
+    before = dict(fused_ce_row_stats.routes)
+    lse, tgt = fused_ce_row_stats(x, head, t)
+    again = _row_stats_launch(x, head, t, route="wgmma")
+    torch.cuda.synchronize()
+    assert {r: n - before[r] for r, n in fused_ce_row_stats.routes.items()} \
+        == {r: 2 * int(r == "wgmma") for r in before}
+    ref_lse, ref_tgt = fused_ce_row_stats_reference(x, head, t)
+    tol = CE_TOL[torch.bfloat16][0]
+    for got, want in ((lse, ref_lse), (tgt, ref_tgt)):
+        assert float((got - want).abs().max()) <= \
+            tol * max(1.0, float(want.abs().max()))
+    assert float(tgt[min(3, N - 1)]) == 0.0 and float(tgt[N // 2]) == 0.0
+    assert torch.equal(lse, again[0]) and torch.equal(tgt, again[1])
+
+
+def test_fused_ce_row_stats_refuse_a_route_the_shape_does_not_fit(dev):
+    """The row statistics' C entry refuses wgmma where a row is no
+    multiple of 16 bytes or a base is misaligned, and a route of the other
+    dtype; the wrapper an unknown route; nothing falls back."""
+    bf16 = torch.bfloat16
+    x, head, t, _ = _ce_inputs(64, 100, 1000, bf16, dev)
+    x2, head2, t2, _ = _ce_inputs(64, 64, 1000, bf16, dev)
+    buf = torch.zeros(64 * 64 + 1, dtype=bf16, device=dev)
+    x3 = buf[1:].view(64, 64)                  # 2 bytes past an aligned base
+    x3.copy_(x2)
+    for args in ((x, head, t), (x3, head2, t2), (x2.float(), head2.float(),
+                                                 t2)):
+        with pytest.raises(RuntimeError, match="wgmma route"):
+            _row_stats_launch(*args, route="wgmma")
+    with pytest.raises(RuntimeError, match="fp32 route"):
+        _row_stats_launch(x2, head2, t2, route="fp32")
+    with pytest.raises(RuntimeError, match="mma_sync route"):
+        _row_stats_launch(x2.float(), head2.float(), t2, route="mma_sync")
+    with pytest.raises(ValueError, match="route"):
+        _row_stats_launch(x2, head2, t2, route="tensor_cores")
+    # the public call routes a misaligned view to the mma.sync body
+    assert grad_route(bf16, 64, 1000, (x3.data_ptr(), head2.data_ptr())) \
+        == "mma_sync"
+    lse, tgt = fused_ce_row_stats(x3, head2, t2)
+    ref_lse, _ = fused_ce_row_stats_reference(x3, head2, t2)
+    torch.cuda.synchronize()
+    assert float((lse - ref_lse).abs().max()) <= \
+        CE_TOL[bf16][0] * max(1.0, float(ref_lse.abs().max()))
 
 
 def test_fused_ce_wgmma_route_refuses_what_tma_cannot_take(dev):

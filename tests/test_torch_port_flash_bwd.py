@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from gke_ray_train_tpu.ops import flash_attention as jflash
+from gke_ray_train_tpu_torch.models import config as tcfg
 from gke_ray_train_tpu_torch.ops import flash_attention as tflash
 
 GRAD_TOL = 5e-5
@@ -127,3 +128,16 @@ def test_backward_kernel_wrappers_check_their_arguments():
             fn(q, kv, kv, q, lse, lse, pos, pos, pos.long(), pos, **mkw)
         with pytest.raises(ValueError, match="CUDA"):
             fn(q, kv, kv, q, lse, lse, pos, pos, pos, pos, **mkw)
+
+
+PRESETS = ("llama2_7b", "llama2_13b", "llama2_70b", "llama3_8b",
+           "llama3_70b", "mistral_7b", "mixtral_8x7b", "qwen2_7b",
+           "gemma2_9b")
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_every_preset_head_dim_is_a_kernel_head_dim(preset):
+    """The head dim of every shipped model family is one the flash
+    kernels take (in bf16 each has a wgmma body)."""
+    cfg = getattr(tcfg, preset)(dtype="bfloat16")
+    assert cfg.resolved_head_dim in tflash.HEAD_DIMS

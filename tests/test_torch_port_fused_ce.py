@@ -198,6 +198,34 @@ def test_route_is_no_public_argument():
                           route="tensor_cores")
 
 
+@pytest.mark.parametrize("dtype, D, V, misaligned, want", ROUTE_CASES)
+def test_row_stats_take_the_gradients_route(dtype, D, V, misaligned, want):
+    """The row statistics pick their body by the gradients' predicate, from
+    their own operands: x a real [2, D] tensor (2 bytes past an aligned
+    base where ``misaligned``), head a [D, V] view of one element (shape
+    and an aligned pointer, no storage)."""
+    buf = torch.zeros(2 * D + 1, dtype=dtype)
+    x = buf[1:].view(2, D) if misaligned else buf[:2 * D].view(2, D)
+    head = torch.zeros((), dtype=dtype).expand(D, V)
+    assert tfce._route_of(x, head) == want
+
+
+def test_row_stats_route_is_no_public_argument():
+    """The public row statistics take no route; the private launch names
+    the routes it knows before it touches a device."""
+    import inspect
+    assert "route" not in inspect.signature(
+        tfce.fused_ce_row_stats).parameters
+    x, head, targets, _ = _ce_inputs(256, 12, Bn=2, Sn=8)
+    xs = torch.from_numpy(x).reshape(-1, 64)
+    hs, t = torch.from_numpy(head), torch.from_numpy(targets).reshape(-1)
+    with pytest.raises(TypeError, match="route"):
+        tfce.fused_ce_row_stats(xs, hs, t, route="wgmma")
+    with pytest.raises(ValueError, match="route"):
+        tfce._row_stats_launch(xs, hs, t, route="tensor_cores")
+    assert set(tfce.fused_ce_row_stats.routes) == set(tfce.ROUTES)
+
+
 def _batch(seed):
     r = np.random.default_rng(seed)
     w = np.ones((B, S), np.float32)
