@@ -9,8 +9,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build   — compile every CUDA kernel of the port from ``csrc/`` with
              nvcc for sm_90a (all sources at once); the line carries
              ptxas's registers and spills per entry, those of the dQ and
-             fused cross-entropy wgmma kernels also on their own, and
-             fails if one of those spills.
+             fused cross-entropy wgmma kernels and of the rms_norm's
+             registers body also on their own, and fails if one of those
+             spills.
 3. kernels — hold each kernel (flash forward, dQ, dK/dV, fused rms_norm,
              fused q/k RoPE, per-head rms_norm + RoPE, fused
              cross-entropy row statistics, dx and dhead) against its
@@ -31,8 +32,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              shape the cross-entropy row statistics, dx and dhead must
              take the wgmma body, which is also timed against the
              mma.sync body it replaced, in alternated turns; the row
-             statistics must repeat bitwise. The fused rms_norm is timed
-             against F.rms_norm in alternated turns at Gemma-2's shape.
+             statistics must repeat bitwise. The fused rms_norm (at
+             every width its registers body is built for, and at D 64 on
+             the two-pass body) must take the body ``norm_route`` picks;
+             at Gemma-2's and at Llama-3.1-8B's training shapes it must
+             take the registers body and repeat bitwise, and is timed
+             against F.rms_norm and against the two-pass body it
+             replaced, each in alternated turns.
              The per-head rms_norm + RoPE is timed at the Llama-3.1-8B q
              of the training microbatch and the Gemma-2-9B q of one
              packed row.
@@ -45,11 +51,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              token-identical to the sequential ``greedy_generate_cached``.
 6. train   — QLoRA fine-tune steps of Llama-3.1-8B at full width and
              depth with ray-jobs/fine_tune_config.json's settings (NF4
-             base, r 64, microbatch 2 x grad-accum 4 at 1024 tokens):
-             one warm-up and 5 timed steps; finite loss and grad_norm,
-             the adapters change, and per step the forward kernel runs
-             2 x 32 x 4 times (forward and remat recomputation), dQ and
-             dK/dV 32 x 4 times.
+             base, r 64, microbatch 2 x grad-accum 4 at 1024 tokens), on
+             the job's offline input path (``data/``: synthetic SQL
+             rows, downsampled, ByteTokenizer, prompt-masked, padded,
+             ``sft_epoch_batches``), delivered onto the card by the
+             prefetcher (pinned copies on a side stream, depth 2): one
+             warm-up and 5 timed steps; finite loss and grad_norm, the
+             adapters change, every delivered batch equals its numpy
+             batch, and per step the forward kernel runs 2 x 32 x 4
+             times (forward and remat recomputation), dQ and dK/dV
+             32 x 4 times. The line carries the real-token share and the
+             seconds the loop waited on the prefetcher.
 7. train_parity — float32, 4 layers at full width: QLoRA and full
              fine-tuning through the kernels against the dense attention
              path, 3 steps each: loss / grad_norm streams and the trained
@@ -57,23 +69,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
 8. train_fused — QLoRA fine-tune steps of Gemma-2-9B at full width and
              depth with ray-jobs/fine_tune_config_gemma2_4k.json's
              settings plus FUSED_OPS=1 (NF4 base, r 32, microbatch 1 x
-             grad-accum 4 at 4,096 tokens, packed rows): one warm-up and 2
-             timed steps; finite loss and grad_norm, the adapters change,
-             and per step the fused rms_norm runs 4 x 42 x 4 x 2 times, the
-             fused RoPE 42 x 4 x 3 times (forward, recomputation,
-             backward), the flash forward 2 x 42 x 4 and dQ, dK/dV 42 x 4
-             times.
+             grad-accum 4 at 4,096 tokens, packed rows of a stand-in
+             document mix): one warm-up and 2 timed steps; finite loss and
+             grad_norm, the adapters change, and per step the fused
+             rms_norm runs 4 x 42 x 4 x 2 times, every launch on its
+             registers body, the fused RoPE 42 x 4 x 3 times (forward,
+             recomputation, backward), the flash forward 2 x 42 x 4 and
+             dQ, dK/dV 42 x 4 times.
 9. train_fused_parity — float32, Gemma-2 at full width and 4 layers:
              FUSED_OPS=1 against FUSED_OPS=0, both through the flash
              kernels, for QLoRA and full fine-tuning, 3 steps each on
              packed rows: loss / grad_norm streams and the trained tensors
              agree.
 10. train_fused_ce — the train phase's Llama-3.1-8B QLoRA job at full
-             width and depth with FUSED_OPS=1: the loss through the fused
-             cross-entropy (no [2 x 1,024, 128,256] fp32 logits); per step
-             row statistics and dx 4 times (dhead 0: the head is frozen),
-             row statistics and dx on the wgmma body, the fused
-             rms_norm 2 x 32 x 4 x 2 and RoPE 32 x 4 x 3 times.
+             width and depth, on the same input path, with FUSED_OPS=1:
+             the loss through the fused cross-entropy (no [2 x 1,024,
+             128,256] fp32 logits); per step row statistics and dx 4
+             times (dhead 0: the head is frozen), row statistics and dx on
+             the wgmma body, the fused rms_norm 2 x 32 x 4 x 2 times, every
+             launch on its registers body, and RoPE 32 x 4 x 3 times.
 11. train_fused_ce_parity — float32, Llama at full width and 4 layers:
              FUSED_OPS=1 against FUSED_OPS=0, both through the flash
              kernels, QLoRA and full fine-tuning (where dhead launches and
@@ -97,6 +111,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import json
 import os
 import re
@@ -619,10 +634,13 @@ def _time_gemma_attn(dev):
     return res
 
 
-# fused rms_norm cases: rows (3 x 37) that no block divides, D of the
-# small tests, Gemma-2 (3,584, not a power of two) and Llama (4,096)
+# fused rms_norm cases: rows (3 x 37) that no block or row group divides,
+# D of the small tests (the two-pass body), and every width the registers
+# body is built for: Gemma-2 (3,584, not a power of two), Llama (4,096),
+# Llama-2-13B (5,120), 70B (8,192)
 NORM_CASES = [dict(D=D, dtype=dt, scale_plus_one=sp1)
-              for dt in ("float32", "bfloat16") for D in (64, 3584, 4096)
+              for dt in ("float32", "bfloat16")
+              for D in (64, 3584, 4096, 5120, 8192)
               for sp1 in (False, True)]
 # fused RoPE cases (B, S, H, K, dh): tiny, Gemma-2's training shape, Llama's
 ROPE_CASES = [dict(shape=shp, dtype=dt) for dt in ("float32", "bfloat16")
@@ -631,6 +649,8 @@ ROPE_CASES = [dict(shape=shp, dtype=dt) for dt in ("float32", "bfloat16")
 # the train_fused phase's shapes: Gemma-2-9B, one packed row of 4,096
 GEMMA_NORM_SHAPE = (1, 4096, 3584)
 GEMMA_ROPE_SHAPE = (1, 4096, 16, 8, 256)
+# the train_fused_ce phase's rms_norm: Llama-3.1-8B, microbatch 2 x 1,024
+LLAMA_NORM_SHAPE = (2, 1024, 4096)
 
 
 def _rel_err(got, want):
@@ -663,7 +683,7 @@ def _check_fused_cases(dev):
     import torch
     from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
         fused_rmsnorm, fused_rmsnorm_reference, fused_rope_qk,
-        fused_rope_qk_reference)
+        fused_rope_qk_reference, norm_route)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     rows = []
@@ -673,14 +693,19 @@ def _check_fused_cases(dev):
         x = torch.randn((3, 37, c["D"]), generator=g, device=dev).to(dt)
         s = (torch.randn((c["D"],), generator=g, device=dev) * 0.1
              + (0.0 if sp1 else 1.0)).to(dt)
+        before = dict(fused_rmsnorm.routes)
         y = fused_rmsnorm(x, s, eps=1e-6, scale_plus_one=sp1)
         torch.cuda.synchronize()
+        took = [r for r, n in fused_rmsnorm.routes.items()
+                if n != before[r]]
         err, scale = _rel_err(y, fused_rmsnorm_reference(
             x, s, eps=1e-6, scale_plus_one=sp1))
         tol = FUSED_TOL[c["dtype"]]
-        rows.append({"kernel": "fused_rmsnorm", **c, "max_abs_err": err,
-                     "max_abs_ref": scale, "tol_rel": tol,
+        rows.append({"kernel": "fused_rmsnorm", **c, "route": took,
+                     "max_abs_err": err, "max_abs_ref": scale,
+                     "tol_rel": tol,
                      "ok": err <= tol * scale
+                     and took == [norm_route(dt, c["D"])]
                      and bool(torch.isfinite(y.float()).all())})
     for c in ROPE_CASES:
         dt = getattr(torch, c["dtype"])
@@ -706,48 +731,119 @@ def _check_fused_cases(dev):
     return rows
 
 
+def _time_norm(x, s, nkw, shape_name):
+    """The fused rms_norm at one shape (bf16), held against its plain
+    version and timed against it and against
+    ``torch.nn.functional.rms_norm`` (the weight, ``1 + scale`` under
+    Gemma's form, formed beforehand), plain / kernel / kernel / plain /
+    library. Then in alternated turns with their spreads: the kernel
+    against ``F.rms_norm`` (``kernel_vs_library``) and the registers body
+    against the two-pass body it replaced (``registers_vs_two_pass``).
+    The public call must take the registers body and repeat bitwise.
+    Bound: each input read once and each output written once over the
+    memory rate, against fp32 FLOPs (the arithmetic runs in fp32 outside
+    the tensor cores) over the fp32 rate. Repeated calls on one x find it
+    in the 50 MB L2 where it fits (the Llama shape's 16.8 MB), so both
+    alternated comparisons run again with x cold (``cold``): each call
+    takes the next of copies of x that together pass 100 MB, so that the
+    one it reads is the least recently used."""
+    import torch
+    from gke_ray_train_tpu_torch.ops import fused_norm_rope as fnr
+    D = x.shape[-1]
+    eps, sp1 = nkw["eps"], nkw["scale_plus_one"]
+    w = (1.0 + s.float()).to(s.dtype) if sp1 else s
+    tol = FUSED_TOL["bfloat16"]
+    before = dict(fnr.fused_rmsnorm.routes)
+    y = fnr.fused_rmsnorm(x, s, **nkw)
+    again = fnr.fused_rmsnorm(x, s, **nkw)
+    torch.cuda.synchronize()
+    took = {r: n - before[r] for r, n in fnr.fused_rmsnorm.routes.items()}
+    repeat = bool(torch.equal(y, again))
+    err, ref = _rel_err(y, fnr.fused_rmsnorm_reference(x, s, **nkw))
+    old_err, _ = _rel_err(fnr._rmsnorm_launch(x, s, eps, sp1,
+                                              route="two_pass"), y)
+    del again
+
+    def compare(get_x):
+        """Both alternated comparisons, each call on ``get_x()``."""
+        vs = _alternated(
+            "library", "kernel",
+            lambda: torch.nn.functional.rms_norm(get_x(), (D,), w, eps),
+            lambda: fnr.fused_rmsnorm(get_x(), s, **nkw), pairs=3, iters=50)
+        vs["ratio"] = vs["kernel"]["ms"] / vs["library"]["ms"]
+        bodies = _alternated(
+            "two_pass", "registers",
+            lambda: fnr._rmsnorm_launch(get_x(), s, eps, sp1,
+                                        route="two_pass"),
+            lambda: fnr._rmsnorm_launch(get_x(), s, eps, sp1,
+                                        route="registers"),
+            pairs=3, iters=50)
+        bodies["speedup"] = (bodies["two_pass"]["ms"]
+                             / bodies["registers"]["ms"])
+        for name in ("two_pass", "registers"):
+            bodies[name]["bound_share"] = bound / bodies[name]["ms"]
+        return {"kernel_vs_library": vs, "registers_vs_two_pass": bodies}
+
+    norm = _turns(lambda: fnr.fused_rmsnorm_reference(x, s, **nkw),
+                  lambda: fnr.fused_rmsnorm(x, s, **nkw),
+                  lambda: torch.nn.functional.rms_norm(x, (D,), w, eps))
+    nbytes = 2 * x.numel() * x.element_size() + D * s.element_size()
+    flops = 4.0 * x.numel()          # square-add, x * r, times s
+    bound, by = _bound(nbytes, flops, torch.float32)
+    norm.update({"shape": shape_name, "dims": list(x.shape),
+                 "max_abs_err": err, "max_abs_ref": ref, "tol_rel": tol,
+                 "max_abs_diff_two_pass": old_err, "routes": took,
+                 "bitwise_repeat": repeat,
+                 "ok": (err <= tol * ref and repeat
+                        and took["registers"] == 2 and took["two_pass"] == 0
+                        and bool(torch.isfinite(y.float()).all())),
+                 "bytes": nbytes, "flops": flops, "bound_ms": bound,
+                 "bound_by": by, "library": "torch.nn.functional.rms_norm",
+                 **compare(lambda: x)})
+    copies = max(2, -(-100_000_000 // (x.numel() * x.element_size())) + 1)
+    xs = [x] + [x.clone() for _ in range(copies - 1)]
+    turn = [0]
+
+    def cold_x():
+        turn[0] = (turn[0] + 1) % copies
+        return xs[turn[0]]
+    norm["cold"] = {"copies": copies, **compare(cold_x)}
+    return norm
+
+
+def _time_llama_norm_shape(dev):
+    """The fused rms_norm at the train_fused_ce phase's Llama-3.1-8B
+    microbatch (LLAMA_NORM_SHAPE, bf16, eps 1e-5, the plain scale), as
+    ``_time_norm``."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    x = torch.randn(LLAMA_NORM_SHAPE, generator=g,
+                    device=dev).to(torch.bfloat16)
+    s = (torch.randn((x.shape[-1],), generator=g, device=dev) * 0.1
+         + 1.0).to(torch.bfloat16)
+    return _time_norm(x, s, dict(eps=1e-5, scale_plus_one=False),
+                      "llama3_8b_train_2x1024")
+
+
 def _time_fused_gemma_shape(dev):
     """Both fused kernels at the train_fused phase's Gemma-2-9B shapes
-    (bf16), against their plain versions and, for rms_norm,
-    ``torch.nn.functional.rms_norm`` with the weight 1 + scale formed
-    beforehand (RoPE has no single PyTorch call). Bounds: bytes of each
+    (bf16): the rms_norm as ``_time_norm``, the RoPE against its plain
+    version (it has no single PyTorch call). RoPE's bound: bytes of each
     input read once and each output written once over the memory rate,
-    against fp32 FLOPs (the arithmetic runs in fp32 outside the tensor
-    cores) over the fp32 rate."""
+    against fp32 FLOPs over the fp32 rate."""
     import torch
     from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
-        fused_rmsnorm, fused_rmsnorm_reference, fused_rope_qk,
-        fused_rope_qk_reference)
+        fused_rope_qk, fused_rope_qk_reference)
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     bf = torch.bfloat16
     x = torch.randn(GEMMA_NORM_SHAPE, generator=g, device=dev).to(bf)
     D = x.shape[-1]
     s = (torch.randn((D,), generator=g, device=dev) * 0.1).to(bf)
-    w = (1.0 + s.float()).to(bf)
-    nkw = dict(eps=1e-6, scale_plus_one=True)
+    norm = _time_norm(x, s, dict(eps=1e-6, scale_plus_one=True),
+                      "gemma2_9b_train_4096")
     tol = FUSED_TOL["bfloat16"]
-    y = fused_rmsnorm(x, s, **nkw)
-    norm_err, norm_ref = _rel_err(y, fused_rmsnorm_reference(x, s, **nkw))
-    norm_ok = (norm_err <= tol * norm_ref
-               and bool(torch.isfinite(y.float()).all()))
-    norm = _turns(lambda: fused_rmsnorm_reference(x, s, **nkw),
-                  lambda: fused_rmsnorm(x, s, **nkw),
-                  lambda: torch.nn.functional.rms_norm(x, (D,), w, 1e-6))
-    nbytes = 2 * x.numel() * x.element_size() + D * s.element_size()
-    flops = 4.0 * x.numel()          # square-add, x * r, times s
-    norm.update({"shape": "gemma2_9b_train_4096", "max_abs_err": norm_err,
-                 "max_abs_ref": norm_ref, "tol_rel": tol, "ok": norm_ok,
-                 "bytes": nbytes, "flops": flops,
-                 "library": "torch.nn.functional.rms_norm"})
-    norm["bound_ms"], norm["bound_by"] = _bound(nbytes, flops, torch.float32)
-    # whether the kernel truly loses to the library call: alternated
-    # turns with their spread
-    vs = _alternated("library", "kernel",
-                     lambda: torch.nn.functional.rms_norm(x, (D,), w, 1e-6),
-                     lambda: fused_rmsnorm(x, s, **nkw), pairs=3, iters=50)
-    vs["ratio"] = vs["kernel"]["ms"] / vs["library"]["ms"]
-    norm["kernel_vs_library"] = vs
 
     B, S, H, K, dh = GEMMA_ROPE_SHAPE
     q = torch.randn((B, S, H, dh), generator=g, device=dev).to(bf)
@@ -1169,17 +1265,19 @@ def phase_kernels(dev):
     gemma_attn = _time_gemma_attn(dev)
     fused_rows = _check_fused_cases(dev)
     fused = _time_fused_gemma_shape(dev)
+    llama_norm = _time_llama_norm_shape(dev)
     norm_rope_rows = _check_norm_rope_cases(dev)
     norm_rope = _time_norm_rope(dev)
     ce_rows = _check_ce_cases(dev)
     ce = _time_ce_llama_shape(dev)
     ok = all(r["ok"] for r in rows + bwd_rows + fused_rows + norm_rope_rows
              + ce_rows + list(fused.values()) + list(norm_rope.values())
-             + list(ce.values()))
+             + list(ce.values()) + [llama_norm])
     emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
           "fused_cases": fused_rows, "norm_rope_cases": norm_rope_rows,
           "ce_cases": ce_rows, "timings": timings, "train_shape": train,
           "gemma_train_shape": fused, "gemma_attn_shape": gemma_attn,
+          "llama_norm_shape": llama_norm,
           "norm_rope_shapes": norm_rope, "llama_ce_shape": ce,
           "device_ms_timer_calls": dict(TIMER_CALLS)})
     if not ok:
@@ -1448,8 +1546,10 @@ def _launch_counts():
 
 
 # the kernels that count launches per body: the cross-entropy entries
-# (``ops/fused_ce.py::ROUTES``)
-_ROUTED = ("fused_ce_row_stats", "fused_ce_dx", "fused_ce_dhead")
+# (``ops/fused_ce.py::ROUTES``) and the rms_norm
+# (``ops/fused_norm_rope.py::NORM_ROUTES``)
+_ROUTED = ("fused_ce_row_stats", "fused_ce_dx", "fused_ce_dhead",
+           "fused_rmsnorm")
 
 
 def _route_counts():
@@ -1468,22 +1568,57 @@ def _reset_launch_counts():
 def _expected_routes(cfg, launches):
     """The route counts of the routed kernels' ``launches`` on ``cfg``'s
     model: every cross-entropy launch on the body ``grad_route`` picks for
-    its dtype, d_model and vocab (the train step's operands are fresh,
-    aligned allocations)."""
+    its dtype, d_model and vocab, every rms_norm launch on the body
+    ``norm_route`` picks for its dtype and d_model (the train step's
+    operands are fresh, aligned allocations): at the shipped widths, the
+    registers body."""
     import torch
     from gke_ray_train_tpu_torch.ops.fused_ce import ROUTES, grad_route
-    ce = grad_route(getattr(torch, cfg.dtype), cfg.d_model, cfg.vocab_size)
-    return {name: {r: launches[name] if r == ce else 0 for r in ROUTES}
-            for name in _ROUTED}
+    from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
+        NORM_ROUTES, norm_route)
+    dtype = getattr(torch, cfg.dtype)
+    picked = {"fused_rmsnorm": (norm_route(dtype, cfg.d_model), NORM_ROUTES)}
+    ce = grad_route(dtype, cfg.d_model, cfg.vocab_size)
+    out = {}
+    for name in _ROUTED:
+        route, routes = picked.get(name, (ce, ROUTES))
+        out[name] = {r: launches[name] if r == route else 0 for r in routes}
+    return out
+
+
+def _sft_rows(ft, seq):
+    """The offline input of an unpacked job (ray-jobs/
+    fine_tune_llama_ray.py:215-256 where the hub is unreachable): gretel-
+    shaped synthetic SQL rows, downsampled to NUM_TRAIN_SAMPLES, rendered
+    by the fallback chat template and tokenized by bytes
+    (``ByteTokenizer``) to ``seq + 1`` tokens, prompt weight 0, each
+    padded to a row of ``seq``."""
+    from gke_ray_train_tpu_torch.data import (
+        ByteTokenizer, downsample, format_gretel_sql_example, pad_sft_rows,
+        synthetic_sql_rows, tokenize_sft_example)
+    n = int(ft["NUM_TRAIN_SAMPLES"])
+    rows = downsample(synthetic_sql_rows(max(n, 64), seed=0), n)
+    tok = ByteTokenizer()
+    return pad_sft_rows([tokenize_sft_example(
+        tok, format_gretel_sql_example(r), max_len=seq + 1) for r in rows],
+        seq)
 
 
 def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     """The QLoRA job of ``config`` (default ray-jobs/fine_tune_config.json)
     at ``cfg`` (default the job's MODEL_ID preset, bf16, remat): NF4 base
     from seed 0, adapters, optimizer and schedule, the step function with
-    the job's plan and ``plan_overrides``, and ``n_batches`` batches from
-    numpy seed 1234, packed where the job packs."""
+    the job's plan and ``plan_overrides``, and a batch source of
+    ``n_batches`` batches (``source``; ``batches``: the same batches in
+    numpy). An unpacked job (PACKING false) takes the job's offline input
+    path, ``_sft_rows`` batched by ``sft_epoch_batches`` (epoch 0, seed
+    42, as the job shuffles) and delivered onto the card by the port's
+    prefetcher (``make_batch_source(..., place_fn=make_place_batch(dev),
+    depth=2)``). A packed job keeps the stand-in mix of ``_packed_batch``
+    (numpy seed 1234), fed inline; the step places it."""
     import torch
+    from gke_ray_train_tpu_torch.data import (
+        make_batch_source, make_place_batch, sft_epoch_batches)
     from gke_ray_train_tpu_torch.models import (
         init_quantized_params, preset_for_model_id)
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
@@ -1517,13 +1652,22 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     step_fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=schedule,
                               plan=plan, device=dev)
     torch.cuda.synchronize()
-    rng = np.random.default_rng(1234)
-    make = _packed_batch if ft.get("PACKING") else _sft_batch
-    batches = [make(batch_rows, seq, cfg.vocab_size, rng)
-               for _ in range(n_batches)]
+    if ft.get("PACKING"):
+        rng = np.random.default_rng(1234)
+        batches = [_packed_batch(batch_rows, seq, cfg.vocab_size, rng)
+                   for _ in range(n_batches)]
+        source = make_batch_source(iter(batches))
+        input_path = "packed_stand_in"
+    else:
+        batches = list(itertools.islice(sft_epoch_batches(
+            _sft_rows(ft, seq), batch_rows), n_batches))
+        source = make_batch_source(iter(batches),
+                                   place_fn=make_place_batch(dev), depth=2)
+        input_path = "offline_sft"
     return dict(cfg=cfg, ft=ft, plan=plan, lcfg=lcfg, micro=micro,
                 batch_rows=batch_rows, seq=seq, state=state, step_fn=step_fn,
-                batches=batches, init_s=time.perf_counter() - t0)
+                batches=batches, source=source, input_path=input_path,
+                init_s=time.perf_counter() - t0)
 
 
 def expected_launches(cfg, grad_accum: int, fused_ops: bool,
@@ -1556,10 +1700,13 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     a job config; by default Llama-3.1-8B with
     ray-jobs/fine_tune_config.json: NF4 base, LoRA r 64 / alpha 16 /
     dropout 0.1 on all projections, microbatch 2 x grad-accum 4 at 1024
-    tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and clip 0.3.
-    One warm-up step, then ``steps`` timed ones; the launch counts of the
-    kernels, and the routes of the cross-entropy's launches, are read over
-    the timed steps."""
+    tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and clip 0.3,
+    on the job's offline input path (``_fine_tune_setup``). One warm-up
+    step, then ``steps`` timed ones; the launch counts of the kernels, the
+    routes of the cross-entropy's and the rms_norm's launches, and the
+    seconds the step loop waited on the batch source (``consume_wait_s``)
+    are read over the timed steps; every delivered batch must equal its
+    numpy batch."""
     import torch
     from gke_ray_train_tpu_torch.train import (
         peak_flops_per_device, train_flops_per_token)
@@ -1567,10 +1714,14 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     cfg, ft, plan, lcfg = job["cfg"], job["ft"], job["plan"], job["lcfg"]
     micro, batch_rows, seq = job["micro"], job["batch_rows"], job["seq"]
     state, step_fn, batches = job["state"], job["step_fn"], job["batches"]
-    init_s = job["init_s"]
+    source, init_s = job["source"], job["init_s"]
+    input_path = job["input_path"]
     del job
     watch = state.lora[0]["wq"]["b"]
     before = watch.detach().clone()
+    # each delivered batch back on the host against its numpy batch (the
+    # placement's round trip), outside the timed window
+    placed_equal = []
 
     def one(batch):
         torch.cuda.synchronize()
@@ -1579,17 +1730,32 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
         m = {k: float(v) for k, v in m.items()}      # waits for the card
         return st, m, time.perf_counter() - t
 
-    state, m, warm_s = one(batches[0])
+    def check(i, batch):
+        placed_equal.append(all(
+            np.array_equal(np.asarray(v.cpu()) if hasattr(v, "cpu")
+                           else v, batches[i][k])
+            for k, v in batch.items()) and sorted(batch) == sorted(
+                batches[i]))
+
+    batch = next(source)
+    state, m, warm_s = one(batch)
+    check(0, batch)
     emit({"phase": f"{phase}_step", "step": 0, "warmup": True,
           "seconds": warm_s, **m})
     torch.cuda.reset_peak_memory_stats()
     _reset_launch_counts()
+    source.consume_wait()
     times, rows = [], [m]
     for i in range(1, steps + 1):
-        state, m, dt = one(batches[i])
+        batch = next(source)
+        state, m, dt = one(batch)
+        check(i, batch)
         times.append(dt)
         rows.append(m)
         emit({"phase": f"{phase}_step", "step": i, "seconds": dt, **m})
+    consume_wait = source.consume_wait()
+    source.close()
+    del batch
     launches = _launch_counts()
     routes = _route_counts()
     per_step = {k: v / steps for k, v in launches.items()}
@@ -1609,6 +1775,10 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
                         f"{_expected_routes(cfg, launches)}")
     if torch.equal(before, watch.detach()):
         problems.append("the adapters did not change")
+    if not all(placed_equal):
+        problems.append(f"delivered batches differ from their numpy "
+                        f"batches: {placed_equal}")
+    real = float(np.median([r["tokens"] for r in rows[1:]]))
     row = {"phase": phase, "ok": not problems, "problems": problems,
            "nvidia_smi": nvidia_smi_line(),
            "model": cfg.name, "n_layers": cfg.n_layers,
@@ -1624,8 +1794,12 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
            "init_s": init_s, "warmup_step_s": warm_s, "steps": steps,
            "step_s": times, "step_s_p50": p50,
            "tokens_per_s": tokens / p50,
-           "real_tokens_per_s": float(np.median(
-               [r["tokens"] for r in rows[1:]])) / p50,
+           "real_tokens_per_s": real / p50,
+           "real_token_share": real / tokens,
+           "input": input_path, "prefetch_depth": getattr(
+               source, "depth", 0),
+           "consume_wait_s": consume_wait,
+           "placed_batches_equal": placed_equal,
            "mfu": tokens / p50 * flops_tok / peak_flops_per_device(name),
            "train_flops_per_token": flops_tok,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
@@ -1664,13 +1838,15 @@ def phase_train_profile(dev, cfg=None, config=None,
     from torch.profiler import ProfilerActivity, profile
     job = _fine_tune_setup(dev, cfg, 2, config, **plan_overrides)
     state, step_fn = job["state"], job["step_fn"]
-    state, m = step_fn(state, job["batches"][0])
+    first, second = list(job["source"])
+    job["source"].close()
+    state, m = step_fn(state, first)
     float(m["loss"])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, m = step_fn(state, job["batches"][1])
+        state, m = step_fn(state, second)
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -2032,9 +2208,32 @@ def _wgmma_ptxas(report):
     return out
 
 
-def _spills(wgmma_ptxas):
-    """The reported wgmma entries that spill ("source/name")."""
-    return sorted(f"{src}/{name}" for src, rows in wgmma_ptxas.items()
+_NORM_TYPES = {"13__nv_bfloat16": "bf16", "f": "f32"}
+
+
+def _norm_ptxas(report):
+    """The rms_norm registers body's entries from the build report:
+    {"fused_norm_rope": {"<x>_<scale>_D<width>[_sp1]": {"registers",
+    "stack", "spill_stores", "spill_loads"}}}. In the mangled name the
+    scale type is bf16 where it repeats x's (a substitution)."""
+    rows = {}
+    for e in report.get("fused_norm_rope", {}).get("ptxas", []):
+        m = re.search(r"rmsnorm_reg_kernelI(13__nv_bfloat16|f)"
+                      r"(13__nv_bfloat16|S\d*_|f)Li(\d+)ELb([01])E",
+                      e.get("entry", ""))
+        if m:
+            t = _NORM_TYPES[m.group(1)]
+            ts = _NORM_TYPES.get(m.group(2), "bf16")
+            name = f"{t}_{ts}_D{m.group(3)}" + ("_sp1" if m.group(4) == "1"
+                                                else "")
+            rows[name] = {k: v for k, v in e.items() if k != "entry"}
+    return {"fused_norm_rope": rows}
+
+
+def _spills(*ptxas):
+    """The reported entries that spill ("source/name")."""
+    return sorted(f"{src}/{name}" for report in ptxas
+                  for src, rows in report.items()
                   for name, e in rows.items() if name != "warnings"
                   and (e.get("spill_stores") or e.get("spill_loads")))
 
@@ -2069,12 +2268,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     report = kernels.build()
     wgmma = _wgmma_ptxas(report)
-    spills = _spills(wgmma)
+    norm = _norm_ptxas(report)
+    spills = _spills(wgmma, norm)
     emit({"phase": "build", "ok": not spills,
           "seconds": time.perf_counter() - t0, "wgmma_ptxas": wgmma,
-          "spills": spills, "kernels": report})
+          "norm_ptxas": norm, "spills": spills, "kernels": report})
     if spills:
-        raise SystemExit(f"build phase: wgmma kernels spill: {spills}")
+        raise SystemExit(f"build phase: reported kernels spill: {spills}")
 
     # launches on the main paths: each path driven with the counts at 0
     launches = {name: None for name in KERNEL_SOURCES}

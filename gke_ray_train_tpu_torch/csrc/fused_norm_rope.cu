@@ -5,7 +5,8 @@
 // gke_ray_train_tpu/ops/fused_norm_rope.py (plan knob FUSED_OPS and the
 // kernel registry):
 //
-// - rmsnorm_kernel replaces `_rmsnorm_kernel` (:96, launched by
+// - rmsnorm_reg_kernel and rmsnorm_kernel (two bodies of one function,
+//   below) replace `_rmsnorm_kernel` (:96, launched by
 //   `fused_rmsnorm` :129): y = x * rsqrt(mean(x^2) + eps) * s over the last
 //   axis, in fp32, with s = scale or 1 + scale (Gemma), cast to x's dtype;
 // - rope_qk_kernel replaces `_rope_qk_kernel` (:103, launched by
@@ -34,16 +35,37 @@
 // (~30 us); the per-head norm + rotation of a [1, 4,096, 16, 256] bf16 q
 // reads and writes 33.5 MB each way (~20 us).
 //
-// Design. rms_norm: one CTA of 128 threads per row. Each thread reads
-// 16-byte vectors of the row (8 bf16 or 4 fp32) where the row's start is
-// 16-byte aligned and D a multiple of the vector, with a scalar tail for
-// what is left, and sums its squares in fp32; a warp-shuffle reduce and a
-// shared-memory reduce across the four warps give the row's sum. The
-// second pass reads the row again (from L1 / L2: 7 KB at D = 3,584 in
-// bf16), scales it and writes it. rope: one CTA per (batch row, tile of 8
-// sequence rows). The CTA first computes cos and sin of the tile's
-// angles once into shared memory, then rotates every head of q and of k
-// of those rows with 16-byte vectors of each half where the halves allow.
+// Design. rms_norm has two bodies, chosen by the caller's route code
+// (ops/fused_norm_rope.py::norm_route); the C entry refuses a route the
+// shape does not fit.
+// - "registers" (route 1) for the shipped widths D 3,584 (Gemma-2-9B,
+//   Qwen-2-7B), 4,096 (Llama, Mistral, Mixtral), 5,120 (Llama-2-13B) and
+//   8,192 (70B), with x, y and scale 16-byte aligned: the row lives in
+//   registers. A group of WPR warps (set by D at compile time: 1 at 3,584
+//   and 4,096 in bf16, 2 or 4 elsewhere) holds one row, VPL 16-byte
+//   vectors a lane (at most 16; 14 at Gemma's width in bf16). Every load
+//   of the row is issued before the first square is summed, so they are
+//   all in flight together, and x is read from device memory once. Warp
+//   shuffles reduce the squares (no shared memory at WPR 1; at WPR > 1
+//   one float a warp and one __syncthreads()), then the same registers
+//   are scaled and stored. The scale comes by 16-byte vectors (8 bytes
+//   for a bf16 scale under fp32 x) from L1 / L2; scale_plus_one is a
+//   template form. Four warps a CTA, so 4 / WPR rows; at most 128
+//   registers a thread.
+// - "two_pass" (route 0) for every other shape (D not a multiple of the
+//   vector, a width with no template, operands not 16-byte aligned): one
+//   CTA of 128 threads per row. Each thread reads 16-byte vectors of the
+//   row (8 bf16 or 4 fp32) where the row's start is 16-byte aligned and D
+//   a multiple of the vector, with a scalar tail for what is left, and
+//   sums its squares in fp32; a warp-shuffle reduce and a shared-memory
+//   reduce across the four warps give the row's sum. The second pass
+//   reads the row again (from L1 / L2), scales it and writes it.
+// Both sum squares with fmaf and scale with the same _rn products; only
+// the order of the sum differs, so var may move in its last bit.
+// rope: one CTA per (batch row, tile of 8 sequence rows). The CTA first
+// computes cos and sin of the tile's angles once into shared memory, then
+// rotates every head of q and of k of those rows with 16-byte vectors of
+// each half where the halves allow.
 // rmsnorm_rope: the rope kernel's CTA and cos / sin table, and a group of
 // L lanes of one warp per head-row (L the power of two that covers the
 // row's vectors, up to 32: 8 lanes for dh 128 in bf16, so a warp holds 4
@@ -53,8 +75,6 @@
 // group, no shared-memory round trip) and the store; dh <= 256 is at
 // most 8 pairs a lane. 16-byte vectors where dh/2 and the pointers
 // allow, scalar accesses otherwise.
-// Later work: several rows per CTA at small D, and the norm row kept in
-// registers across the two passes.
 //
 // The C entry points return cudaGetLastError() after the launch; the
 // Python wrappers raise when that is not cudaSuccess.
@@ -63,6 +83,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
 
 namespace {
 
@@ -187,6 +208,176 @@ cudaError_t launch_rmsnorm(const void* x, const void* scale, void* y,
         static_cast<T*>(y), D, eps, sp1);
   }
   return cudaGetLastError();
+}
+
+// The route codes of the fused_rmsnorm entry (ops/fused_norm_rope.py's
+// NORM_ROUTES).
+constexpr int kRouteTwoPass = 0;
+constexpr int kRouteRegisters = 1;
+constexpr int kRegThreads = 128;  // four warps a CTA
+
+// The row-in-registers layout of width D in T: warps a row (the fewest of
+// 1, 2, 4 that leave at most 16 vectors a lane) and vectors a lane.
+template <typename T, int D>
+struct RegRow {
+  static constexpr int kVec = 16 / sizeof(T);
+  static constexpr int kVecs = D / kVec;
+  static constexpr int kWarps =
+      kVecs % 32 == 0 && kVecs / 32 <= 16   ? 1
+      : kVecs % 64 == 0 && kVecs / 64 <= 16 ? 2
+                                            : 4;
+  static constexpr int kPerLane = kVecs / (32 * kWarps);
+  static constexpr int kRows = kRegThreads / 32 / kWarps;  // rows a CTA
+  static_assert(D % kVec == 0 && kVecs % (32 * kWarps) == 0 &&
+                    kPerLane <= 16,
+                "no row-in-registers layout for this width");
+};
+
+// N scale values from p, widened to fp32, by 16-byte accesses (one 8-byte
+// access where N values of TS are 8 bytes: a bf16 scale under fp32 x).
+template <typename TS, int N>
+__device__ __forceinline__ void load_scale(const TS* __restrict__ p,
+                                           float (&s)[N]) {
+  constexpr int kPer = 16 / sizeof(TS);
+  if constexpr (N >= kPer) {
+#pragma unroll
+    for (int c = 0; c < N / kPer; ++c) {
+      const Vec<TS, kPer> v = load_vec<TS, kPer>(p + c * kPer);
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) s[c * kPer + e] = to_float(v.v[e]);
+    }
+  } else {
+    const Vec<TS, N> v = load_vec<TS, N>(p);
+#pragma unroll
+    for (int e = 0; e < N; ++e) s[e] = to_float(v.v[e]);
+  }
+}
+
+// Hide v's words from the compiler between the two uses of the row: it
+// then keeps the row as loaded (4 registers a 16-byte vector) and widens
+// it again for the scaling, instead of keeping the fp32 values of the sum
+// of squares live (8 registers a bf16 vector; 234 a thread at D 4,096).
+template <typename T, int N>
+__device__ __forceinline__ void opaque(Vec<T, N>& v) {
+  static_assert(sizeof(v) % 4 == 0, "a vector of 32-bit words");
+  uint32_t w[sizeof(v) / 4];
+  memcpy(w, &v, sizeof(v));
+#pragma unroll
+  for (int i = 0; i < int(sizeof(v) / 4); ++i) asm volatile("" : "+r"(w[i]));
+  memcpy(&v, w, sizeof(v));
+}
+
+// One group of WPR warps per row: lane `lane` of warp `sub` of the group
+// holds the row's vectors (k * WPR + sub) * 32 + lane, k < VPL, so each
+// load instruction of a warp reads 512 contiguous bytes. The row is loaded
+// whole, reduced, then scaled from the same registers and stored.
+// At most 128 registers a thread (four CTAs an SM): without the cap ptxas
+// spilled 8 bytes in two of the 32 forms at 56-72 registers.
+template <typename T, typename TS, int D, bool SP1>
+__global__ void __launch_bounds__(kRegThreads, 4)
+rmsnorm_reg_kernel(const T* __restrict__ x, const TS* __restrict__ scale,
+                   T* __restrict__ y, int rows, float eps) {
+  using L = RegRow<T, D>;
+  constexpr int VEC = L::kVec, WPR = L::kWarps, VPL = L::kPerLane;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = warp % WPR;
+  const int64_t row = int64_t(blockIdx.x) * L::kRows + warp / WPR;
+  const bool live = row < rows;  // uniform over the row's warps
+  const T* xr = x + row * D;
+
+  Vec<T, VEC> v[VPL];
+  float ss = 0.f;
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < VPL; ++k)
+      v[k] = load_vec<T, VEC>(xr + ((k * WPR + sub) * 32 + lane) * VEC);
+#pragma unroll
+    for (int k = 0; k < VPL; ++k) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float f = to_float(v[k].v[e]);
+        ss = fmaf(f, f, ss);
+      }
+    }
+  }
+  // a butterfly: every lane ends with the same bits
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  if constexpr (WPR > 1) {
+    __shared__ float red[kRegThreads / 32];
+    if (lane == 0) red[warp] = ss;
+    __syncthreads();
+    const int first = warp - sub;  // every warp of a row sums in one order
+    ss = red[first];
+#pragma unroll
+    for (int w = 1; w < WPR; ++w) ss += red[first + w];
+  }
+  if (!live) return;
+  // explicit roundings: with D a compile-time power of two the compiler
+  // could otherwise turn the division into a product and fuse it with the
+  // add, which the two-pass body (D at run time) never does
+  const float r = rsqrtf(__fadd_rn(__fdiv_rn(ss, float(D)), eps));
+
+  T* yr = y + row * D;
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) opaque(v[k]);
+#pragma unroll
+  for (int k = 0; k < VPL; ++k) {
+    const int c = ((k * WPR + sub) * 32 + lane) * VEC;
+    float s[VEC];
+    load_scale<TS, VEC>(scale + c, s);
+    Vec<T, VEC> o;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float se = SP1 ? __fadd_rn(1.f, s[e]) : s[e];
+      const float xe = to_float(v[k].v[e]);
+      o.v[e] = from_float<T>(__fmul_rn(__fmul_rn(xe, r), se));
+    }
+    store_vec<T, VEC>(yr + c, o);
+  }
+}
+
+template <typename T, typename TS, int D>
+cudaError_t launch_rmsnorm_reg(const void* x, const void* scale, void* y,
+                               int rows, float eps, int sp1,
+                               cudaStream_t stream) {
+  constexpr int kRows = RegRow<T, D>::kRows;
+  const dim3 grid((rows + kRows - 1) / kRows), block(kRegThreads);
+  auto kern = sp1 ? rmsnorm_reg_kernel<T, TS, D, true>
+                  : rmsnorm_reg_kernel<T, TS, D, false>;
+  kern<<<grid, block, 0, stream>>>(static_cast<const T*>(x),
+                                   static_cast<const TS*>(scale),
+                                   static_cast<T*>(y), rows, eps);
+  return cudaGetLastError();
+}
+
+// The body `route` names, or cudaErrorInvalidValue where the shape does not
+// fit it (registers: a templated width, every operand 16-byte aligned).
+template <typename T, typename TS>
+cudaError_t launch_rmsnorm_route(const void* x, const void* scale, void* y,
+                                 int rows, int D, float eps, int sp1,
+                                 int route, cudaStream_t stream) {
+  if (route == kRouteTwoPass)
+    return launch_rmsnorm<T, TS>(x, scale, y, rows, D, eps, sp1, stream);
+  if (route != kRouteRegisters || !aligned16(x) || !aligned16(y) ||
+      !aligned16(scale))
+    return cudaErrorInvalidValue;
+  switch (D) {
+    case 3584:
+      return launch_rmsnorm_reg<T, TS, 3584>(x, scale, y, rows, eps, sp1,
+                                             stream);
+    case 4096:
+      return launch_rmsnorm_reg<T, TS, 4096>(x, scale, y, rows, eps, sp1,
+                                             stream);
+    case 5120:
+      return launch_rmsnorm_reg<T, TS, 5120>(x, scale, y, rows, eps, sp1,
+                                             stream);
+    case 8192:
+      return launch_rmsnorm_reg<T, TS, 8192>(x, scale, y, rows, eps, sp1,
+                                             stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -396,24 +587,28 @@ cudaError_t launch_rmsnorm_rope(const void* x, const void* scale,
 }  // namespace
 
 // dtype / scale_dtype: 0 = float32, 1 = bfloat16. x and y are [rows, D]
-// contiguous, scale [D]. Returns a cudaError_t.
+// contiguous, scale [D]. route: 0 = two_pass (any shape), 1 = registers
+// (D 3,584 / 4,096 / 5,120 / 8,192, x, y and scale 16-byte aligned);
+// another route, or one the shape does not fit, is refused. Returns a
+// cudaError_t.
 extern "C" int fused_rmsnorm(const void* x, const void* scale, void* y,
                              int rows, int D, int dtype, int scale_dtype,
-                             float eps, int scale_plus_one, void* stream) {
+                             float eps, int scale_plus_one, int route,
+                             void* stream) {
   if (rows < 1 || D < 1) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && scale_dtype == 0)
-    return int(launch_rmsnorm<float, float>(x, scale, y, rows, D, eps,
-                                            scale_plus_one, st));
+    return int(launch_rmsnorm_route<float, float>(
+        x, scale, y, rows, D, eps, scale_plus_one, route, st));
   if (dtype == 0 && scale_dtype == 1)
-    return int(launch_rmsnorm<float, __nv_bfloat16>(x, scale, y, rows, D, eps,
-                                                    scale_plus_one, st));
+    return int(launch_rmsnorm_route<float, __nv_bfloat16>(
+        x, scale, y, rows, D, eps, scale_plus_one, route, st));
   if (dtype == 1 && scale_dtype == 0)
-    return int(launch_rmsnorm<__nv_bfloat16, float>(x, scale, y, rows, D, eps,
-                                                    scale_plus_one, st));
+    return int(launch_rmsnorm_route<__nv_bfloat16, float>(
+        x, scale, y, rows, D, eps, scale_plus_one, route, st));
   if (dtype == 1 && scale_dtype == 1)
-    return int(launch_rmsnorm<__nv_bfloat16, __nv_bfloat16>(
-        x, scale, y, rows, D, eps, scale_plus_one, st));
+    return int(launch_rmsnorm_route<__nv_bfloat16, __nv_bfloat16>(
+        x, scale, y, rows, D, eps, scale_plus_one, route, st));
   return int(cudaErrorInvalidValue);
 }
 

@@ -48,12 +48,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     "flash_bwd": {"flash_bwd_dq": (_P,) * 11 + _FLASH_TAIL,
                   "flash_bwd_dkv": (_P,) * 12 + _FLASH_TAIL},
     # fused_rmsnorm: x, scale, y, rows, D, dtype, scale dtype, eps,
-    # scale_plus_one, stream; fused_rope_qk: q, k, positions, inv_freqs,
+    # scale_plus_one, route, stream; fused_rope_qk: q, k, positions, inv_freqs,
     # out q, out k, B, S, H, K, dh, dtype, stream; fused_rmsnorm_rope: x,
     # scale, positions, inv_freqs, y, B, S, H, dh, dtype, scale dtype,
     # eps, scale_plus_one, stream
     "fused_norm_rope": {"fused_rmsnorm": (_P,) * 3 + (_I,) * 4
-                        + (_F, _I, _P),
+                        + (_F, _I, _I, _P),
                         "fused_rope_qk": (_P,) * 6 + (_I,) * 6 + (_P,),
                         "fused_rmsnorm_rope": (_P,) * 5 + (_I,) * 6
                         + (_F, _I, _P)},

@@ -7,7 +7,12 @@ Counterpart of ``gke_ray_train_tpu/ops/fused_norm_rope.py`` (plan knob
 
 - ``fused_rmsnorm`` replaces ``_rmsnorm_kernel`` (:96, via
   ``fused_rmsnorm`` :129): rms_norm over the last axis in fp32, with the
-  optional Gemma ``(1 + scale)``, read once and written once;
+  optional Gemma ``(1 + scale)``. Two bodies, chosen by ``norm_route``
+  from the dtype, the width and the operands' alignment (never by a
+  failure): ``registers`` (the row held in registers, x read once and y
+  written once) at the shipped widths ``REGISTER_WIDTHS``, ``two_pass``
+  for every other shape. The C entry refuses a route the shape does not
+  fit; ``fused_rmsnorm.routes`` counts launches per route;
 - ``fused_rope_qk`` replaces ``_rope_qk_kernel`` (:103, via
   ``fused_rope_qk`` :189): q [B, S, H, dh] and k [B, S, K, dh] rotated in
   one launch, cos / sin of ``position * inv_freq`` computed once per row
@@ -37,7 +42,7 @@ falls back. ``fused_rmsnorm.launches``, ``fused_rope_qk.launches`` and
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,6 +50,11 @@ from gke_ray_train_tpu_torch.ops.norms import rms_norm
 from gke_ray_train_tpu_torch.ops.rope import apply_rope
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the rms_norm bodies, by the C entry's route code
+NORM_ROUTES = {"two_pass": 0, "registers": 1}
+# the widths the registers body is built for: Gemma-2-9B and Qwen-2-7B,
+# Llama / Mistral / Mixtral, Llama-2-13B, the 70B models
+REGISTER_WIDTHS = (3584, 4096, 5120, 8192)
 
 
 def fused_rmsnorm_reference(x: torch.Tensor, scale: torch.Tensor, *,
@@ -95,8 +105,25 @@ def _check(name: str, t: torch.Tensor, dev: torch.device,
             f"{'' if t.is_contiguous() else ' (not contiguous)'}")
 
 
+def norm_route(dtype: torch.dtype, D: int,
+               pointers: Tuple[int, ...] = ()) -> str:
+    """The rms_norm body for rows of ``D`` elements of ``dtype`` whose
+    operands (x, scale, y) lie at data pointers ``pointers``:
+    ``registers`` at a width of ``REGISTER_WIDTHS`` with every pointer
+    16-byte aligned, ``two_pass`` otherwise."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    if D in REGISTER_WIDTHS and all(p % 16 == 0 for p in pointers):
+        return "registers"
+    return "two_pass"
+
+
 def _rmsnorm_launch(x: torch.Tensor, scale: torch.Tensor, eps: float,
-                    scale_plus_one: bool) -> torch.Tensor:
+                    scale_plus_one: bool, route: Optional[str] = None
+                    ) -> torch.Tensor:
+    """Launch the rms_norm on ``route`` (default ``norm_route`` of the
+    operands; another is for comparing the bodies, and the C entry
+    refuses one the shape does not fit) and count the launch."""
     from gke_ray_train_tpu_torch.kernels import load
     D = x.shape[-1]
     _check("x", x, x.device, tuple(_DTYPE_CODES))
@@ -104,19 +131,27 @@ def _rmsnorm_launch(x: torch.Tensor, scale: torch.Tensor, eps: float,
     if tuple(scale.shape) != (D,):
         raise ValueError(f"scale {tuple(scale.shape)} does not match "
                          f"the last axis of x ({D})")
+    if route is not None and route not in NORM_ROUTES:
+        raise ValueError(f"route {route!r} is not one of "
+                         f"{sorted(NORM_ROUTES)}")
     rows = x.numel() // D if D else 0
     y = torch.empty_like(x)
     if rows == 0:
         return y
+    if route is None:
+        route = norm_route(x.dtype, D, (x.data_ptr(), scale.data_ptr(),
+                                        y.data_ptr()))
     with torch.cuda.device(x.device):
         rc = load("fused_norm_rope").fused_rmsnorm(
             x.data_ptr(), scale.data_ptr(), y.data_ptr(), rows, D,
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[scale.dtype],
-            ctypes.c_float(eps), int(scale_plus_one), _stream(x))
+            ctypes.c_float(eps), int(scale_plus_one), NORM_ROUTES[route],
+            _stream(x))
     if rc != 0:
-        raise RuntimeError(f"fused_rmsnorm kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"fused_rmsnorm kernel launch failed ({route} "
+                           f"route): CUDA error {rc}")
     fused_rmsnorm.launches += 1
+    fused_rmsnorm.routes[route] += 1
     return y
 
 
@@ -181,6 +216,7 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
 
 
 fused_rmsnorm.launches = 0
+fused_rmsnorm.routes = dict.fromkeys(NORM_ROUTES, 0)
 
 
 def _rope_launch(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,

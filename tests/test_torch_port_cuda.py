@@ -28,7 +28,10 @@ versions: lse and the target logit within 2e-5 (float32) / 1e-4
 (bfloat16) of max(1, max |reference|) (fp32 sums over D and the vocab in
 other orders; bf16 products are exact in fp32); dx and dhead within 1e-4
 (float32) / 1e-2 (bfloat16) of max |reference| (bf16 rounds dl to bf16,
-2^-9 relative, before the products, and the outputs to bf16).
+2^-9 relative, before the products, and the outputs to bf16). Batches
+placed on the card (``data/prefetch.py::make_place_batch``) equal their
+numpy arrays exactly, and a tiny model's losses are bitwise the same with
+and without prefetching.
 """
 
 import dataclasses
@@ -48,8 +51,9 @@ from gke_ray_train_tpu_torch.ops.fused_ce import (
     fused_ce_grads_reference, fused_ce_row_stats,
     fused_ce_row_stats_reference, fused_cross_entropy, grad_route)
 from gke_ray_train_tpu_torch.ops.fused_norm_rope import (
-    fused_rmsnorm, fused_rmsnorm_reference, fused_rmsnorm_rope,
-    fused_rmsnorm_rope_reference, fused_rope_qk, fused_rope_qk_reference)
+    _rmsnorm_launch, fused_rmsnorm, fused_rmsnorm_reference,
+    fused_rmsnorm_rope, fused_rmsnorm_rope_reference, fused_rope_qk,
+    fused_rope_qk_reference, norm_route)
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.serve import (
     BatchEngine, Request, form_prompt_buffer)
@@ -433,6 +437,117 @@ def test_fused_kernels_refuse_what_they_cannot_take(dev):
         fused_rope_qk(q, q.bfloat16(), pos, f)
     with pytest.raises(ValueError, match="inv_freqs"):
         fused_rope_qk(q, q, pos, f.double())
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [3584, 4096, 5120, 8192])
+def test_fused_rmsnorm_registers_body_matches_plain_version(
+        dev, D, dtype, scale_dtype):
+    """The row-in-registers body at every width it is built for, bf16 /
+    fp32 x under a bf16 / fp32 scale, both scale forms, over 3 x 37 rows
+    (no group of 4 or 2 rows a CTA divides them); it repeats bitwise."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = (torch.randn((3, 37, D), generator=g, device=dev) * 3).to(dtype)
+    for sp1 in (False, True):
+        s = (torch.randn((D,), generator=g, device=dev) * 0.1
+             + (0.0 if sp1 else 1.0)).to(scale_dtype)
+        before = dict(fused_rmsnorm.routes)
+        y = fused_rmsnorm(x, s, eps=1e-6, scale_plus_one=sp1)
+        again = fused_rmsnorm(x, s, eps=1e-6, scale_plus_one=sp1)
+        torch.cuda.synchronize()
+        assert fused_rmsnorm.routes["registers"] == before["registers"] + 2
+        assert fused_rmsnorm.routes["two_pass"] == before["two_pass"]
+        _close(y, fused_rmsnorm_reference(x, s, eps=1e-6,
+                                          scale_plus_one=sp1), dtype)
+        assert torch.equal(y, again)
+        old = _rmsnorm_launch(x, s, 1e-6, sp1, route="two_pass")
+        _close(y, old, dtype)
+
+
+def test_fused_rmsnorm_refuses_a_route_the_shape_does_not_fit(dev):
+    """The C entry refuses the registers body at a width it is not built
+    for, and for an operand 2 bytes past an aligned base; the wrapper an
+    unknown route; the public call takes the two-pass body there."""
+    bf16 = torch.bfloat16
+    x = torch.randn((5, 64), device=dev).to(bf16)
+    s = torch.ones(64, dtype=bf16, device=dev)
+    with pytest.raises(RuntimeError, match="registers route"):
+        _rmsnorm_launch(x, s, 1e-6, False, route="registers")
+    buf = torch.randn(5 * 4096 + 1, device=dev).to(bf16)
+    xm = buf[1:].view(5, 4096)
+    s4 = torch.ones(4096, dtype=bf16, device=dev)
+    with pytest.raises(RuntimeError, match="registers route"):
+        _rmsnorm_launch(xm, s4, 1e-6, False, route="registers")
+    sm = torch.ones(4097, dtype=bf16, device=dev)[1:]
+    with pytest.raises(RuntimeError, match="registers route"):
+        _rmsnorm_launch(xm.contiguous(), sm, 1e-6, False, route="registers")
+    with pytest.raises(ValueError, match="route"):
+        _rmsnorm_launch(x, s, 1e-6, False, route="shared_memory")
+    assert norm_route(bf16, 4096, (xm.data_ptr(), s4.data_ptr())) == \
+        "two_pass"
+    before = dict(fused_rmsnorm.routes)
+    y = fused_rmsnorm(xm, s4, eps=1e-6)
+    torch.cuda.synchronize()
+    assert fused_rmsnorm.routes["two_pass"] == before["two_pass"] + 1
+    _close(y, fused_rmsnorm_reference(xm, s4, eps=1e-6,
+                                      scale_plus_one=False), bf16)
+
+
+def test_place_batch_on_card_equals_the_numpy_batch(dev):
+    """Pinned copies on a side stream, delivered through the inline and
+    the prefetching source: every tensor on the card equals its array."""
+    from gke_ray_train_tpu_torch.data import (
+        PlacedBatch, make_batch_source, make_place_batch)
+    rng = np.random.default_rng(0)
+    batches = [{"inputs": rng.integers(0, 1000, (4, 256)).astype(np.int32),
+                "weights": rng.random((4, 256)).astype(np.float32)}
+               for _ in range(6)]
+    for depth in (0, 2):
+        src = make_batch_source(iter(batches),
+                                place_fn=make_place_batch(dev), depth=depth)
+        got = list(src)
+        src.close()
+        assert len(got) == len(batches)
+        for placed, want in zip(got, batches):
+            assert isinstance(placed, PlacedBatch)
+            for k, v in want.items():
+                assert placed[k].device.type == "cuda"
+                assert np.array_equal(placed[k].cpu().numpy(), v)
+
+
+def test_tiny_model_losses_equal_with_and_without_prefetch_on_card(dev):
+    """Three steps of a tiny model on the offline SFT rows, batches placed
+    on the card inline (depth 0) and by two prefetch workers (depth 2):
+    the losses are bitwise equal."""
+    from gke_ray_train_tpu_torch.data import (
+        ByteTokenizer, format_gretel_sql_example, make_batch_source,
+        make_place_batch, pad_sft_rows, sft_epoch_batches,
+        synthetic_sql_rows, tokenize_sft_example)
+    from gke_ray_train_tpu_torch.train import (
+        make_optimizer, make_train_state, make_train_step)
+    seq = 320
+    cfg = tiny(vocab_size=260, max_seq_len=seq)
+    tok = ByteTokenizer()
+    rows = pad_sft_rows([tokenize_sft_example(
+        tok, format_gretel_sql_example(r), max_len=seq + 1)
+        for r in synthetic_sql_rows(12, seed=0)], seq)
+    runs = []
+    for depth in (0, 2):
+        spec = make_optimizer(1e-3)
+        state = make_train_state(cfg, spec, params=init_params(
+            cfg, seed=0, device=dev), device=dev)
+        step = make_train_step(cfg, spec, device=dev)
+        src = make_batch_source(sft_epoch_batches(rows, 4),
+                                place_fn=make_place_batch(dev), depth=depth)
+        losses = []
+        for batch in src:
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        src.close()
+        runs.append(losses)
+    assert len(runs[0]) == 3 and all(np.isfinite(runs[0]))
+    assert runs[0] == runs[1]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -88,6 +88,42 @@ def test_fused_rmsnorm_value_and_grads_match_jax(scale_plus_one):
     assert tx.grad is not None
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("D", [37, 64, 3584, 4096, 5120, 8192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_route(dtype, D, aligned):
+    """The registers body takes the shipped widths with every operand
+    16-byte aligned; any other width or a misaligned operand (a view 2 or
+    4 bytes past an aligned base) takes the two-pass body."""
+    x = torch.zeros(2 * D + 8, dtype=dtype)
+    view = x[:2 * D] if aligned else x[1:2 * D + 1]
+    scale = torch.ones(D, dtype=dtype)
+    ptrs = (view.data_ptr(), scale.data_ptr(), x.data_ptr())
+    want = ("registers" if aligned and D in (3584, 4096, 5120, 8192)
+            else "two_pass")
+    assert tfnr.norm_route(dtype, D, ptrs) == want
+    assert tfnr.norm_route(dtype, D) == ("registers" if D in (
+        3584, 4096, 5120, 8192) else "two_pass")
+
+
+def test_norm_route_is_no_public_argument():
+    import inspect
+    assert "route" not in inspect.signature(tfnr.fused_rmsnorm).parameters
+    assert sorted(tfnr.fused_rmsnorm.routes) == ["registers", "two_pass"]
+    assert tfnr.NORM_ROUTES == {"two_pass": 0, "registers": 1}
+    x, s = torch.zeros(3, 64), torch.ones(64)
+    # an unknown route raises before anything is launched
+    with pytest.raises(ValueError, match="route"):
+        tfnr._rmsnorm_launch(x, s, 1e-6, False, route="shared_memory")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfnr.norm_route(torch.float16, 4096)
+    # the CPU runs the plain version and counts no launch
+    before = dict(tfnr.fused_rmsnorm.routes), tfnr.fused_rmsnorm.launches
+    tfnr.fused_rmsnorm(x, s)
+    assert (dict(tfnr.fused_rmsnorm.routes),
+            tfnr.fused_rmsnorm.launches) == before
+
+
 def test_fused_rope_qk_value_and_vjp_match_jax():
     """GQA (4 query heads, 2 kv heads) with packed positions that restart
     per document; the VJP is the inverse rotation."""

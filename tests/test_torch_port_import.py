@@ -50,6 +50,8 @@ def test_every_module_imports_with_jax_blocked():
     for m in ("serve.engine", "ops.quant", "models.qinit", "train.lora",
               "train.optim", "train.metrics", "train.step", "interop",
               "ops.fused_norm_rope", "ops.fused_ce", "data.packing",
+              "data.tokenizer", "data.sft", "data.lm_dataset",
+              "data.prepare", "data.prefetch",
               "ops.registry", "analysis.kernelcheck", "analysis.__main__"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
