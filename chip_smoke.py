@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``gke_ray_train_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py            # the default phases, one card
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -49,45 +49,58 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. parity  — the same widths in float32 at 4 layers: flash-path prefill
              logits against the dense path, and every engine completion
              token-identical to the sequential ``greedy_generate_cached``.
-6. train   — QLoRA fine-tune steps of Llama-3.1-8B at full width and
-             depth with ray-jobs/fine_tune_config.json's settings (NF4
-             base, r 64, microbatch 2 x grad-accum 4 at 1024 tokens), on
-             the job's offline input path (``data/``: synthetic SQL
-             rows, downsampled, ByteTokenizer, prompt-masked, padded,
-             ``sft_epoch_batches``), delivered onto the card by the
-             prefetcher (pinned copies on a side stream, depth 2): one
-             warm-up and 5 timed steps; finite loss and grad_norm, the
-             adapters change, every delivered batch equals its numpy
-             batch, and per step the forward kernel runs 2 x 32 x 4
+6. train   — the Llama-3.1-8B QLoRA job (ray-jobs/fine_tune_config.json:
+             NF4 base, r 64, microbatch 2 x grad-accum 4 at 1024 tokens)
+             at full width and depth through the port's loop,
+             ``train/loop.py::run_training``, as the job calls it: the
+             offline input path (``data/``: synthetic SQL rows,
+             downsampled, ByteTokenizer, prompt-masked, padded,
+             ``sft_epoch_batches``) placed on the card by the prefetcher
+             (pinned copies on a side stream, depth 2), a
+             ThroughputMeter, the goodput ledger, a log line every step,
+             a TensorBoard writer, eval (``sharded_eval_loss`` over
+             ``make_eval_step``: 16 held-out rows every 3 steps, cut from
+             the job's 200 rows every 50 steps), all under
+             TRANSFER_GUARD=disallow. One warm-up and 5 timed steps; a
+             timer around the step synchronizes before and after it (the
+             step time of earlier runs). Finite loss, grad_norm and
+             eval_loss, the adapters change, every delivered batch equals
+             its numpy batch, per step the forward kernel runs 2 x 32 x 4
              times (forward and remat recomputation), dQ and dK/dV
-             32 x 4 times. The line carries the real-token share and the
-             seconds the loop waited on the prefetcher.
+             32 x 4 times, each eval pass 32 forwards a batch; the ledger's
+             terms sum to the loop's wall within 1 ms. The line carries
+             step p50 and the meter's tokens/s per card, MFU and
+             data_stall_frac (its window holds the warm-up step),
+             compile_s (eager: the first step's wall time),
+             restart_to_first_step_s, the eval pauses, the ledger, the
+             TensorBoard backend and scalar count.
 7. train_parity — float32, 4 layers at full width: QLoRA and full
              fine-tuning through the kernels against the dense attention
              path, 3 steps each: loss / grad_norm streams and the trained
              tensors agree.
-8. train_fused — QLoRA fine-tune steps of Gemma-2-9B at full width and
+8. train_fused — the train phase's loop on Gemma-2-9B at full width and
              depth with ray-jobs/fine_tune_config_gemma2_4k.json's
              settings plus FUSED_OPS=1 (NF4 base, r 32, microbatch 1 x
              grad-accum 4 at 4,096 tokens, packed rows of a stand-in
-             document mix): one warm-up and 2 timed steps; finite loss and
-             grad_norm, the adapters change, and per step the fused
-             rms_norm runs 4 x 42 x 4 x 2 times, every launch on its
-             registers body, the fused RoPE 42 x 4 x 3 times (forward,
-             recomputation, backward), the flash forward 2 x 42 x 4 and
-             dQ, dK/dV 42 x 4 times.
+             document mix, placed by the prefetcher; no eval): one
+             warm-up and 2 timed steps; finite loss and grad_norm, the
+             adapters change, and per step the fused rms_norm runs
+             4 x 42 x 4 x 2 times, every launch on its registers body,
+             the fused RoPE 42 x 4 x 3 times (forward, recomputation,
+             backward), the flash forward 2 x 42 x 4 and dQ, dK/dV
+             42 x 4 times.
 9. train_fused_parity — float32, Gemma-2 at full width and 4 layers:
              FUSED_OPS=1 against FUSED_OPS=0, both through the flash
              kernels, for QLoRA and full fine-tuning, 3 steps each on
              packed rows: loss / grad_norm streams and the trained tensors
              agree.
-10. train_fused_ce — the train phase's Llama-3.1-8B QLoRA job at full
-             width and depth, on the same input path, with FUSED_OPS=1:
-             the loss through the fused cross-entropy (no [2 x 1,024,
-             128,256] fp32 logits); per step row statistics and dx 4
-             times (dhead 0: the head is frozen), row statistics and dx on
-             the wgmma body, the fused rms_norm 2 x 32 x 4 x 2 times, every
-             launch on its registers body, and RoPE 32 x 4 x 3 times.
+10. train_fused_ce — the train phase (its loop, eval and guard) on the
+             same Llama-3.1-8B QLoRA job with FUSED_OPS=1: the loss
+             through the fused cross-entropy (no [2 x 1,024, 128,256]
+             fp32 logits); per step row statistics and dx 4 times (dhead
+             0: the head is frozen), row statistics and dx on the wgmma
+             body, the fused rms_norm 2 x 32 x 4 x 2 times, every launch
+             on its registers body, and RoPE 32 x 4 x 3 times.
 11. train_fused_ce_parity — float32, Llama at full width and 4 layers:
              FUSED_OPS=1 against FUSED_OPS=0, both through the flash
              kernels, QLoRA and full fine-tuning (where dhead launches and
@@ -100,6 +113,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
              committed CUDA pin (``analysis/tolerances/*.json``), the
              full-width per-head rms_norm + RoPE cases among them; the
              sweep's launches count as a driven path's.
+
+13. train_profile — the train phase's job for one warm-up and one traced
+             step through ``run_training`` with the port's
+             ``TraceProfiler`` (PROFILE_START_STEP 1, PROFILE_NUM_STEPS
+             1): the Chrome trace it wrote must hold the step's flash
+             launches; device busy share and kernel time by group.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -1586,18 +1605,29 @@ def _expected_routes(cfg, launches):
     return out
 
 
-def _sft_rows(ft, seq):
+# the eval of the Llama train phases, cut from the job's NUM_EVAL_SAMPLES
+# 200 and EVAL_STEPS_SFT 50 so that it runs twice in 1 + 5 steps
+EVAL_ROWS = 16
+EVAL_EVERY = 3
+# the train phases' loop runs under TRANSFER_GUARD=disallow: a wait on
+# the card in the hot loop outside the loop's allow-list raises
+TRAIN_GUARD = "disallow"
+
+
+def _sft_rows(ft, seq, split="train"):
     """The offline input of an unpacked job (ray-jobs/
-    fine_tune_llama_ray.py:215-256 where the hub is unreachable): gretel-
-    shaped synthetic SQL rows, downsampled to NUM_TRAIN_SAMPLES, rendered
-    by the fallback chat template and tokenized by bytes
-    (``ByteTokenizer``) to ``seq + 1`` tokens, prompt weight 0, each
-    padded to a row of ``seq``."""
+    fine_tune_llama_ray.py:207-255 where the hub is unreachable): gretel-
+    shaped synthetic SQL rows (train: seed 0, NUM_TRAIN_SAMPLES of at
+    least 64 drawn; eval: seed 1, ``EVAL_ROWS`` of at least 16, as the
+    job draws them), rendered by the fallback chat template and tokenized
+    by bytes (``ByteTokenizer``) to ``seq + 1`` tokens, prompt weight 0,
+    each padded to a row of ``seq``."""
     from gke_ray_train_tpu_torch.data import (
         ByteTokenizer, downsample, format_gretel_sql_example, pad_sft_rows,
         synthetic_sql_rows, tokenize_sft_example)
-    n = int(ft["NUM_TRAIN_SAMPLES"])
-    rows = downsample(synthetic_sql_rows(max(n, 64), seed=0), n)
+    n, least, seed = ((int(ft["NUM_TRAIN_SAMPLES"]), 64, 0)
+                      if split == "train" else (EVAL_ROWS, 16, 1))
+    rows = downsample(synthetic_sql_rows(max(n, least), seed=seed), n)
     tok = ByteTokenizer()
     return pad_sft_rows([tokenize_sft_example(
         tok, format_gretel_sql_example(r), max_len=seq + 1) for r in rows],
@@ -1608,17 +1638,17 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     """The QLoRA job of ``config`` (default ray-jobs/fine_tune_config.json)
     at ``cfg`` (default the job's MODEL_ID preset, bf16, remat): NF4 base
     from seed 0, adapters, optimizer and schedule, the step function with
-    the job's plan and ``plan_overrides``, and a batch source of
-    ``n_batches`` batches (``source``; ``batches``: the same batches in
-    numpy). An unpacked job (PACKING false) takes the job's offline input
-    path, ``_sft_rows`` batched by ``sft_epoch_batches`` (epoch 0, seed
-    42, as the job shuffles) and delivered onto the card by the port's
-    prefetcher (``make_batch_source(..., place_fn=make_place_batch(dev),
-    depth=2)``). A packed job keeps the stand-in mix of ``_packed_batch``
-    (numpy seed 1234), fed inline; the step places it."""
+    the job's plan and ``plan_overrides``, and ``n_batches`` numpy
+    batches (``batches``), which ``run_training`` places on the card
+    (``place``: ``make_place_batch(dev)``, pinned copies on a side
+    stream) through the job's prefetcher (``plan.prefetch``, 2). An
+    unpacked job (PACKING false) takes the job's offline input path,
+    ``_sft_rows`` batched by ``sft_epoch_batches`` (epoch 0, seed 42, as
+    the job shuffles); a packed job the stand-in mix of
+    ``_packed_batch`` (numpy seed 1234)."""
     import torch
     from gke_ray_train_tpu_torch.data import (
-        make_batch_source, make_place_batch, sft_epoch_batches)
+        make_place_batch, sft_epoch_batches)
     from gke_ray_train_tpu_torch.models import (
         init_quantized_params, preset_for_model_id)
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
@@ -1656,18 +1686,15 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
         rng = np.random.default_rng(1234)
         batches = [_packed_batch(batch_rows, seq, cfg.vocab_size, rng)
                    for _ in range(n_batches)]
-        source = make_batch_source(iter(batches))
         input_path = "packed_stand_in"
     else:
         batches = list(itertools.islice(sft_epoch_batches(
             _sft_rows(ft, seq), batch_rows), n_batches))
-        source = make_batch_source(iter(batches),
-                                   place_fn=make_place_batch(dev), depth=2)
         input_path = "offline_sft"
     return dict(cfg=cfg, ft=ft, plan=plan, lcfg=lcfg, micro=micro,
                 batch_rows=batch_rows, seq=seq, state=state, step_fn=step_fn,
-                batches=batches, source=source, input_path=input_path,
-                init_s=time.perf_counter() - t0)
+                batches=batches, place=make_place_batch(dev),
+                input_path=input_path, init_s=time.perf_counter() - t0)
 
 
 def expected_launches(cfg, grad_accum: int, fused_ops: bool,
@@ -1694,76 +1721,157 @@ def expected_launches(cfg, grad_accum: int, fused_ops: bool,
             "fused_ce_dhead": ce if full_ft else 0}
 
 
+def _drive(dev, job, eval_rows=None, profiler=None):
+    """The job's batches through the port's ``run_training``, as
+    ray-jobs/fine_tune_llama_ray.py:401-430 calls it: epochs 1, prefetch
+    ``plan.prefetch`` with ``job["place"]``, log_every 1, a
+    ``ThroughputMeter(trainable="lora", n_devices=1)``, report_fn,
+    heartbeat_fn, ``tb_writer=writer_from_config(ft, <tmp dir>)``, with
+    ``eval_rows`` the job's ``sharded_eval_loss`` over the port's
+    ``make_eval_step`` every ``EVAL_EVERY`` steps at host batch
+    PER_DEVICE_TRAIN_BATCH_SIZE, ``guards=plan.runtime_guards()`` and
+    ``profiler``.
+
+    ``step_fn`` is wrapped in a timer that synchronizes before and after
+    each call (the step time of earlier runs), reads the kernels' launch
+    counts around it, and holds the delivered batch against its numpy
+    batch; all three run inside ``allow_transfers()``. After the first
+    (warm-up) call it sets the launch counters to 0 and resets the peak
+    memory. Returns what the phase lines print."""
+    import shutil
+    import tempfile
+    import torch
+    from gke_ray_train_tpu_torch.analysis.guards import allow_transfers
+    from gke_ray_train_tpu_torch.rayint import get_context
+    from gke_ray_train_tpu_torch.train import (
+        ThroughputMeter, make_eval_step, sharded_eval_loss)
+    from gke_ray_train_tpu_torch.train.loop import run_training
+    from gke_ray_train_tpu_torch.train.metrics import finish_ledger
+    from gke_ray_train_tpu_torch.train.tb import writer_from_config
+    cfg, ft, batches = job["cfg"], job["ft"], job["batches"]
+    out = dict(step_s=[], metrics=[], placed_equal=[], reports=[],
+               heartbeats=[], eval_s=[], eval_losses=[], eval_calls=0,
+               step_launches=dict.fromkeys(_counted(), 0))
+
+    def timed_step(state, batch):
+        i = len(out["step_s"])
+        with allow_transfers():
+            torch.cuda.synchronize()
+            before = _launch_counts()
+            t = time.perf_counter()
+            state, m = job["step_fn"](state, batch)
+            torch.cuda.synchronize()
+            out["step_s"].append(time.perf_counter() - t)
+            after = _launch_counts()
+            # the placement's round trip, outside the timed call
+            out["placed_equal"].append(sorted(batch) == sorted(
+                batches[i]) and all(np.array_equal(
+                    np.asarray(v.cpu()) if hasattr(v, "cpu") else v,
+                    batches[i][k]) for k, v in batch.items()))
+        out["metrics"].append(m)
+        if i == 0:
+            _reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+        else:
+            for k, n in after.items():
+                out["step_launches"][k] += n - before[k]
+        return state, m
+
+    eval_fn = None
+    if eval_rows is not None:
+        eval_step = make_eval_step(cfg, lora_cfg=job["lcfg"], device=dev)
+
+        def counted_eval(st, b):
+            out["eval_calls"] += 1
+            return eval_step(st, b)
+
+        def eval_fn(st):
+            t = time.perf_counter()
+            loss = sharded_eval_loss(st, counted_eval, eval_rows,
+                                     host_batch=job["micro"],
+                                     place_batch=job["place"])
+            out["eval_s"].append(time.perf_counter() - t)
+            out["eval_losses"].append(loss)
+            return {"eval_loss": loss}
+    tb_dir = tempfile.mkdtemp(prefix="chip_smoke_tb_")
+    tb = writer_from_config(ft, tb_dir)
+    meter = ThroughputMeter(cfg, seq_len=job["seq"], n_devices=1,
+                            trainable="lora", device=dev)
+    try:
+        t0 = time.perf_counter()
+        state, last = run_training(
+            job["state"], timed_step, lambda epoch: iter(batches), epochs=1,
+            log_every=1, meter=meter, report_fn=out["reports"].append,
+            eval_fn=eval_fn, eval_every=EVAL_EVERY if eval_fn else None,
+            place_batch=job["place"], prefetch=job["plan"].prefetch,
+            profiler=profiler, tb_writer=tb,
+            heartbeat_fn=lambda s, done=False: out["heartbeats"].append(
+                (s, done)),
+            guards=job["plan"].runtime_guards())
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tb_dir, ignore_errors=True)
+    out["launches"] = _launch_counts()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["ledger"] = finish_ledger(get_context().goodput, out["wall_s"])
+    out["metrics"] = [{k: float(v) for k, v in m.items()}
+                      for m in out["metrics"]]
+    out.update(state=state, last=last, tb_backend=tb and tb.backend,
+               tb_scalars=tb.scalars if tb else 0)
+    return out
+
+
 def phase_train(dev, cfg=None, steps: int = 5, config=None,
-                phase: str = "train", **plan_overrides):
+                phase: str = "train", guard=TRAIN_GUARD, **plan_overrides):
     """QLoRA fine-tune steps at full width and depth with the settings of
-    a job config; by default Llama-3.1-8B with
-    ray-jobs/fine_tune_config.json: NF4 base, LoRA r 64 / alpha 16 /
-    dropout 0.1 on all projections, microbatch 2 x grad-accum 4 at 1024
-    tokens, AdamW (lr 2e-4, wd 0.001) with warmup-cosine and clip 0.3,
-    on the job's offline input path (``_fine_tune_setup``). One warm-up
-    step, then ``steps`` timed ones; the launch counts of the kernels, the
-    routes of the cross-entropy's and the rms_norm's launches, and the
-    seconds the step loop waited on the batch source (``consume_wait_s``)
-    are read over the timed steps; every delivered batch must equal its
-    numpy batch."""
+    a job config, through the port's ``run_training`` (``_drive``); by
+    default Llama-3.1-8B with ray-jobs/fine_tune_config.json: NF4 base,
+    LoRA r 64 / alpha 16 / dropout 0.1 on all projections, microbatch 2
+    x grad-accum 4 at 1024 tokens, AdamW (lr 2e-4, wd 0.001) with
+    warmup-cosine and clip 0.3, on the job's offline input path
+    (``_fine_tune_setup``), with eval (``EVAL_ROWS`` held-out rows every
+    ``EVAL_EVERY`` steps); a packed job (Gemma-2) runs without eval. One
+    warm-up step, then ``steps`` timed ones; the step launch counts, the
+    routes of the cross-entropy's and the rms_norm's launches and the
+    input wait (the ledger's ``data_stall_s``) cover the timed steps;
+    every delivered batch must equal its numpy batch; the eval passes
+    launch the flash forward once a layer, nothing else; the goodput
+    ledger's terms sum to the loop's wall within 1 ms; with ``guard``
+    the loop runs under that TRANSFER_GUARD mode."""
     import torch
     from gke_ray_train_tpu_torch.train import (
         peak_flops_per_device, train_flops_per_token)
-    job = _fine_tune_setup(dev, cfg, steps + 1, config, **plan_overrides)
+    from gke_ray_train_tpu_torch.train.metrics import LEDGER_TERMS
+    job = _fine_tune_setup(dev, cfg, steps + 1, config,
+                           transfer_guard=guard, **plan_overrides)
     cfg, ft, plan, lcfg = job["cfg"], job["ft"], job["plan"], job["lcfg"]
     micro, batch_rows, seq = job["micro"], job["batch_rows"], job["seq"]
-    state, step_fn, batches = job["state"], job["step_fn"], job["batches"]
-    source, init_s = job["source"], job["init_s"]
-    input_path = job["input_path"]
-    del job
-    watch = state.lora[0]["wq"]["b"]
+    packed = bool(ft.get("PACKING"))
+    watch = job["state"].lora[0]["wq"]["b"]
     before = watch.detach().clone()
-    # each delivered batch back on the host against its numpy batch (the
-    # placement's round trip), outside the timed window
-    placed_equal = []
-
-    def one(batch):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        st, m = step_fn(state, batch)
-        m = {k: float(v) for k, v in m.items()}      # waits for the card
-        return st, m, time.perf_counter() - t
-
-    def check(i, batch):
-        placed_equal.append(all(
-            np.array_equal(np.asarray(v.cpu()) if hasattr(v, "cpu")
-                           else v, batches[i][k])
-            for k, v in batch.items()) and sorted(batch) == sorted(
-                batches[i]))
-
-    batch = next(source)
-    state, m, warm_s = one(batch)
-    check(0, batch)
-    emit({"phase": f"{phase}_step", "step": 0, "warmup": True,
-          "seconds": warm_s, **m})
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launch_counts()
-    source.consume_wait()
-    times, rows = [], [m]
-    for i in range(1, steps + 1):
-        batch = next(source)
-        state, m, dt = one(batch)
-        check(i, batch)
-        times.append(dt)
-        rows.append(m)
-        emit({"phase": f"{phase}_step", "step": i, "seconds": dt, **m})
-    consume_wait = source.consume_wait()
-    source.close()
-    del batch
-    launches = _launch_counts()
+    eval_rows = None if packed else _sft_rows(ft, seq, split="eval")
+    run = _drive(dev, job, eval_rows=eval_rows)
+    state = run.pop("state")
+    init_s, input_path = job["init_s"], job["input_path"]
+    del job
+    rows, times = run["metrics"], run["step_s"][1:]
+    warm_s = run["step_s"][0]
+    for i, (m, dt) in enumerate(zip(rows, run["step_s"])):
+        emit({"phase": f"{phase}_step", "step": i, "warmup": i == 0,
+              "seconds": dt, **m})
+    launches = run["step_launches"]
     routes = _route_counts()
     per_step = {k: v / steps for k, v in launches.items()}
     want = expected_launches(cfg, plan.grad_accum, plan.fused_ops)
+    eval_launches = {k: run["launches"][k] - launches[k] for k in launches}
+    want_eval = {k: cfg.n_layers * run["eval_calls"]
+                 if k == "flash_fwd" else 0 for k in launches}
     p50 = sorted(times)[len(times) // 2]
     tokens = batch_rows * seq
     name = torch.cuda.get_device_name(dev)
     flops_tok = train_flops_per_token(cfg, seq, trainable="lora")
+    last, led = run["last"], run["ledger"]
+    ledger_sum = sum(led[t] for t in LEDGER_TERMS)
     problems = []
     if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                for r in rows):
@@ -1773,47 +1881,91 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     if routes != _expected_routes(cfg, launches):
         problems.append(f"routes {routes} != "
                         f"{_expected_routes(cfg, launches)}")
+    if eval_launches != want_eval:
+        problems.append(f"eval launches {eval_launches} != {want_eval}")
     if torch.equal(before, watch.detach()):
         problems.append("the adapters did not change")
-    if not all(placed_equal):
+    if not all(run["placed_equal"]):
         problems.append(f"delivered batches differ from their numpy "
-                        f"batches: {placed_equal}")
+                        f"batches: {run['placed_equal']}")
+    if eval_rows is not None and not (
+            len(run["eval_losses"]) == (steps + 1) // EVAL_EVERY
+            and np.all(np.isfinite(run["eval_losses"]))):
+        problems.append(f"eval losses {run['eval_losses']}, "
+                        f"{(steps + 1) // EVAL_EVERY} passes expected")
+    if abs(ledger_sum - run["wall_s"]) > 1e-3:
+        problems.append(f"ledger terms sum to {ledger_sum} s, the loop's "
+                        f"wall is {run['wall_s']} s")
+    if run["heartbeats"] != [(i, False) for i in range(1, steps + 2)] + [
+            (steps + 1, True)]:
+        problems.append(f"heartbeats {run['heartbeats']}")
+    if [r["step"] for r in run["reports"]] != [steps + 1]:
+        problems.append(f"reports {run['reports']}")
     real = float(np.median([r["tokens"] for r in rows[1:]]))
     row = {"phase": phase, "ok": not problems, "problems": problems,
            "nvidia_smi": nvidia_smi_line(),
            "model": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "params": cfg.param_count(), "dtype": cfg.dtype,
-           "fused_ops": plan.fused_ops, "packed": bool(ft.get("PACKING")),
+           "fused_ops": plan.fused_ops, "packed": packed,
            "quant": ft["QUANT_KIND"], "lora_r": lcfg.r,
            "lora_alpha": lcfg.alpha, "lora_dropout": lcfg.dropout,
            "trainable_params": sum(
                t.numel() for layer in state.lora for ab in layer.values()
                for t in ab.values()),
            "microbatch": micro, "grad_accum": plan.grad_accum, "seq": seq,
-           "init_s": init_s, "warmup_step_s": warm_s, "steps": steps,
+           "loop": "train/loop.py::run_training",
+           "transfer_guard": plan.transfer_guard or "off",
+           "init_s": init_s,
+           "warmup_step_s": warm_s, "steps": steps,
            "step_s": times, "step_s_p50": p50,
            "tokens_per_s": tokens / p50,
            "real_tokens_per_s": real / p50,
            "real_token_share": real / tokens,
-           "input": input_path, "prefetch_depth": getattr(
-               source, "depth", 0),
-           "consume_wait_s": consume_wait,
-           "placed_batches_equal": placed_equal,
            "mfu": tokens / p50 * flops_tok / peak_flops_per_device(name),
+           # the loop's meter: its window starts at the first trained
+           # batch, so it holds the warm-up step that the p50 leaves out
+           "meter": {k: last[k] for k in (
+               "tokens_per_sec_per_chip", "mfu", "data_stall_frac",
+               "tokens_per_sec_per_chip_incl_stalls", "mfu_incl_stalls")},
+           # eager PyTorch: the first step's wall time (kernel libraries
+           # loaded, cuBLAS and the allocator warmed; no trace, no compile)
+           "compile_s": last["compile_s"],
+           "restart_to_first_step_s": last["restart_to_first_step_s"],
+           "eval": ({"rows": EVAL_ROWS, "every": EVAL_EVERY,
+                     "cut_from": {"NUM_EVAL_SAMPLES":
+                                  ft.get("NUM_EVAL_SAMPLES"),
+                                  "EVAL_STEPS_SFT":
+                                  ft.get("EVAL_STEPS_SFT")},
+                     "host_batch": micro, "passes": len(run["eval_s"]),
+                     "eval_step_calls": run["eval_calls"],
+                     "eval_loss": run["eval_losses"],
+                     "pause_s": run["eval_s"],
+                     "ledger_eval_ckpt_stall_s": led["eval_ckpt_stall_s"]}
+                    if eval_rows is not None else
+                    "none: the packed stand-in job runs without eval"),
+           "goodput_ledger": led, "ledger_sum_s": ledger_sum,
+           "loop_wall_s": run["wall_s"],
+           "tensorboard": {"backend": run["tb_backend"],
+                           "scalars": run["tb_scalars"]},
+           "input": input_path, "prefetch_depth": plan.prefetch,
+           "consume_wait_s": led["data_stall_s"],
+           "placed_batches_equal": run["placed_equal"],
            "train_flops_per_token": flops_tok,
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "peak_mem_bytes": run["peak_mem_bytes"],
            "launches": launches, "launches_per_step": per_step,
-           "routes": routes,
+           "eval_launches": eval_launches, "routes": routes,
            "losses": [r["loss"] for r in rows],
            "grad_norms": [r["grad_norm"] for r in rows]}
     emit(row)
     if problems:
         raise SystemExit(f"{phase} phase failed: " + "; ".join(problems))
-    del state
+    del state, run
     torch.cuda.empty_cache()
-    # the launches of the kernels this path runs
-    return {k: n for k, n in launches.items() if want[k]}
+    # the launches of the kernels this path runs: the timed steps' and
+    # the eval passes'
+    return {k: launches[k] + eval_launches[k] for k in launches
+            if want[k] or want_eval[k]}
 
 
 def phase_train_fused(dev, cfg=None, steps: int = 2):
@@ -1830,57 +1982,76 @@ def phase_train_fused(dev, cfg=None, steps: int = 2):
 
 def phase_train_profile(dev, cfg=None, config=None,
                         phase: str = "train_profile", **plan_overrides):
-    """Where a QLoRA step's time goes: torch.profiler over one step of the
-    train phase's job (or ``config``'s) after one warm-up step. Device
-    busy share = summed kernel time over the step's wall time (one
-    stream)."""
+    """Where a QLoRA step's time goes: the train phase's job (or
+    ``config``'s) for one warm-up and one traced step through
+    ``run_training`` with the port's ``TraceProfiler`` (PROFILE_START_STEP
+    1, PROFILE_NUM_STEPS 1). Reads the Chrome trace the profiler wrote:
+    it must exist and hold the step's flash launches
+    (``expected_launches``). Device busy share = summed kernel time in
+    the trace over the traced step's wall time (one stream)."""
+    import shutil
+    import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from gke_ray_train_tpu_torch.train.profiling import profiler_from_config
     job = _fine_tune_setup(dev, cfg, 2, config, **plan_overrides)
-    state, step_fn = job["state"], job["step_fn"]
-    first, second = list(job["source"])
-    job["source"].close()
-    state, m = step_fn(state, first)
-    float(m["loss"])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step_fn(state, second)
-        float(m["loss"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    # kernels only: a user annotation (Optimizer.step) spans kernels that
-    # are counted on their own
-    kern = [e for e in prof.key_averages() if e.device_type == cuda
-            and not getattr(e, "is_user_annotation", False)
-            and "#" not in e.key]
-    busy_us = sum(e.self_device_time_total for e in kern)
+    cfg, plan = job["cfg"], job["plan"]
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        prof = profiler_from_config({"PROFILE": trace_dir,
+                                     "PROFILE_START_STEP": 1,
+                                     "PROFILE_NUM_STEPS": 1}, trace_dir)
+        run = _drive(dev, job, profiler=prof)
+        del job, run["state"]
+        path = prof.trace_path
+        size = os.path.getsize(path) if path else 0
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    del events
+    wall = run["step_s"][1]
+    busy_us = sum(e.get("dur", 0) for e in kern)
+    flash = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+             "flash_bwd_dkv": "flash_bwd_dkv"}
+    in_trace = {k: sum(pat in e["name"] for e in kern)
+                for k, pat in flash.items()}
+    want = {k: v for k, v in expected_launches(
+        cfg, plan.grad_accum, plan.fused_ops).items() if k in flash}
     groups = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
               "flash_kernels": ("flash_fwd", "flash_bwd"),
-              "fused_norm_rope": ("rmsnorm_kernel", "rope_qk_kernel"),
+              "fused_norm_rope": ("rmsnorm_kernel", "rmsnorm_reg_kernel",
+                                  "rope_qk_kernel"),
               "fused_ce": ("row_stats_kernel", "merge_kernel",
                            "dlogits_kernel", "dx_kernel", "dhead_kernel",
                            "ce_wgmma_kernel"),
               "nf4_lookup": ("index_elementwise",)}
     by_group = {g: 0.0 for g in list(groups) + ["other"]}
+    by_name = {}
     for e in kern:
         g = next((g for g, keys in groups.items()
-                  if any(k in e.key for k in keys)), "other")
-        by_group[g] += e.self_device_time_total / 1e3
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:25]
-    emit({"phase": phase, "ok": busy_us > 0, "wall_s": wall,
+                  if any(k in e["name"] for k in keys)), "other")
+        by_group[g] += e.get("dur", 0) / 1e3
+        ms, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:25]
+    problems = []
+    if busy_us <= 0:
+        problems.append("the trace shows no device time")
+    if in_trace != want:
+        problems.append(f"flash launches in the trace {in_trace} != {want}")
+    emit({"phase": phase, "ok": not problems, "problems": problems,
+          "profiler": "train/profiling.py::TraceProfiler via run_training",
+          "trace_bytes": size, "wall_s": wall,
           "device_busy_s": busy_us / 1e6,
           "device_busy_share": busy_us / 1e6 / wall,
-          "kernel_launches": sum(e.count for e in kern),
+          "kernel_launches": len(kern), "flash_launches": in_trace,
           "device_ms_by_group": by_group,
-          "top_kernels": [{"name": e.key[:90],
-                           "ms": e.self_device_time_total / 1e3,
-                           "calls": e.count} for e in top]})
-    if busy_us <= 0:
-        raise SystemExit(f"{phase} phase: the trace shows no device time")
-    del state, job
+          "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
+                          for k, (ms, n) in top]})
+    if problems:
+        raise SystemExit(f"{phase} phase: " + "; ".join(problems))
+    del run
     torch.cuda.empty_cache()
 
 
@@ -2155,9 +2326,9 @@ def phase_profile(dev, steps: int = 10):
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train", "train_parity", "train_fused", "train_fused_parity",
-          "train_fused_ce", "train_fused_ce_parity", "profile",
-          "train_profile", "train_fused_profile", "train_fused_ce_profile")
-DEFAULT_PHASES = PHASES[:-4]
+          "train_fused_ce", "train_fused_ce_parity", "train_profile",
+          "profile", "train_fused_profile", "train_fused_ce_profile")
+DEFAULT_PHASES = PHASES[:-3]
 
 KERNEL_SOURCES = {
     "flash_fwd": ("gke_ray_train_tpu_torch/csrc/flash_fwd.cu",
@@ -2242,7 +2413,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but the four profiles)")
+                    + " (default: all but the last three profiles)")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2302,8 +2473,8 @@ def main(argv=None) -> int:
     run("train_fused_parity", phase_train_fused_parity)
     add(run("train_fused_ce", phase_train_fused_ce))
     add(run("train_fused_ce_parity", phase_train_fused_ce_parity))
-    run("profile", phase_profile)
     run("train_profile", phase_train_profile)
+    run("profile", phase_profile)
     run("train_fused_profile", phase_train_fused_profile)
     run("train_fused_ce_profile", phase_train_fused_ce_profile)
     emit({"phase": "seconds", "ok": True, "seconds": seconds})

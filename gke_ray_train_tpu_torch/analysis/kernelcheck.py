@@ -384,11 +384,13 @@ def registration_findings() -> List[KernelFinding]:
         for name in sorted(REQUIRED_KERNELS - have)]
 
 
-def quick_verify(device: DeviceLike = None) -> List[CaseResult]:
-    """The worker-start probe: the first case of every registered kernel
-    that runs on ``device``'s type, values only, against the shipped
-    ledger. Raises on a regression (KER100 / KER101): a worker whose
-    kernels disagree with their oracles must not train."""
+def quick_verify(device: DeviceLike = None, log=None) -> List[CaseResult]:
+    """The worker-start probe (``KERNELCHECK=1``): the first case of every
+    registered kernel that runs on ``device``'s type, values only,
+    against the shipped ledger. Raises on a regression (KER100 / KER101):
+    a worker whose kernels disagree with their oracles must not train.
+    ``log(fmt, *args)`` (e.g. ``logger.info``), when given, gets one line
+    per case once all passed."""
     from gke_ray_train_tpu_torch.ops import registry
     device = resolve_device(device)
     results = []
@@ -407,6 +409,10 @@ def quick_verify(device: DeviceLike = None) -> List[CaseResult]:
         raise KernelCheckError(
             "kernel verification at start failed:\n  "
             + "\n  ".join(str(f) for f in findings))
+    if log is not None:
+        for r in results:
+            log("KERNELCHECK: %s/%s on %s: value error %.3g (%.3f s)",
+                r.kernel, r.case, device.type, r.value_err, r.seconds)
     return results
 
 

@@ -34,7 +34,28 @@ def check_on(t: torch.Tensor, device: torch.device, what: str) -> None:
         raise ValueError(f"{what} lies on {t.device}, not on {device}")
 
 
+def host_to_device(x, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or CPU tensor) on ``device`` without making the
+    host wait: on CUDA through pinned memory and a ``non_blocking`` copy
+    (a copy from pageable memory waits for the card); elsewhere a plain
+    copy."""
+    t = torch.as_tensor(x)
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def synchronize(device: Optional[torch.device]) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def world_size() -> int:
+    """Ranks of the initialized ``torch.distributed`` group (1 without
+    one)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1

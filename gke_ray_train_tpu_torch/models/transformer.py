@@ -34,7 +34,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from gke_ray_train_tpu_torch.device import DeviceLike, check_on, resolve_device
+from gke_ray_train_tpu_torch.device import (
+    DeviceLike, check_on, host_to_device, resolve_device)
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.ops.attention import (
     dot_product_attention, make_attention_mask)
@@ -420,9 +421,22 @@ def embed_tokens(params: Transformer, tokens: torch.Tensor,
     whole table), with Gemma's sqrt(d_model) scale."""
     x = F.embedding(tokens.long(), params.embed).to(dtype)
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype,
-                             device=x.device)
+        # the scale rounded to x's dtype on the host (JAX multiplies by
+        # it as an array of that dtype): no tensor made on the card
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=dtype))
     return x
+
+
+# position tables on each device, made once: a copy from the host per
+# forward would make the host wait for the card every microbatch
+_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def _device_table(key: tuple, make, device: torch.device) -> torch.Tensor:
+    table = _TABLES.get(key + (device,))
+    if table is None:
+        table = _TABLES[key + (device,)] = host_to_device(make(), device)
+    return table
 
 
 def position_inputs(cfg: ModelConfig, x: torch.Tensor,
@@ -430,13 +444,17 @@ def position_inputs(cfg: ModelConfig, x: torch.Tensor,
     """(x with the sinusoidal table added, None) or (x, RoPE inverse
     frequencies on x's device)."""
     if cfg.positional == "sinusoidal":
-        table = torch.from_numpy(
-            sinusoidal_positions(cfg.max_seq_len, cfg.d_model)).to(x.device)
+        table = _device_table(
+            ("sinusoidal", cfg.max_seq_len, cfg.d_model),
+            lambda: sinusoidal_positions(cfg.max_seq_len, cfg.d_model),
+            x.device)
         idx = positions.long().clamp(0, cfg.max_seq_len - 1)
         return x + table.to(x.dtype)[idx], None
-    rope = torch.from_numpy(rope_frequencies(
-        cfg.resolved_head_dim, theta=cfg.rope_theta,
-        llama3_scaling=cfg.rope_scaling)).to(x.device)
+    rope = _device_table(
+        ("rope", cfg.resolved_head_dim, cfg.rope_theta, cfg.rope_scaling),
+        lambda: rope_frequencies(cfg.resolved_head_dim, theta=cfg.rope_theta,
+                                 llama3_scaling=cfg.rope_scaling),
+        x.device)
     return x, rope
 
 

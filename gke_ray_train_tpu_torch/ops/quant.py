@@ -24,6 +24,8 @@ from typing import Any, Dict, Iterable, Union
 import torch
 from torch import nn
 
+from gke_ray_train_tpu_torch.device import host_to_device
+
 # NF4 codebook (QLoRA appendix E): quantiles of N(0, 1) normalized to
 # [-1, 1]; the JAX package's values, float32
 NF4_CODEBOOK = (
@@ -112,17 +114,17 @@ def quantize_tensor(w: torch.Tensor, kind: str = "nf4",
                    scales[..., 0, :].contiguous(), kind, group)
 
 
-# the codebook as a tensor, one per device: made once, since a copy from
-# the host to the card waits for the card
+# the codebook as a tensor, one per device: made once, and through
+# pinned memory, since a copy from pageable host memory to the card waits
+# for the card
 _BOOKS: Dict[torch.device, torch.Tensor] = {}
 
 
 def _codebook(device: torch.device) -> torch.Tensor:
     book = _BOOKS.get(device)
     if book is None:
-        book = _BOOKS[device] = torch.tensor(NF4_CODEBOOK,
-                                             dtype=torch.float32,
-                                             device=device)
+        book = _BOOKS[device] = host_to_device(
+            torch.tensor(NF4_CODEBOOK, dtype=torch.float32), device)
     return book
 
 

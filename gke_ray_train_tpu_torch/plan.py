@@ -1,13 +1,17 @@
 """The ported fields of the execution plan (counterpart of the serving
-part and of ``grad_accum`` in ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
+part, ``grad_accum``, the input pipeline and the runtime guards of
+``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Five knobs, read from the same environment / config keys as the JAX
+Eight knobs, read from the same environment / config keys as the JAX
 package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
 (whole-prompt prefill reuse), ``GRADIENT_ACCUMULATION_STEPS``
-(microbatches per optimizer step) and ``FUSED_OPS`` (the train step's
+(microbatches per optimizer step), ``FUSED_OPS`` (the train step's
 fused rms_norm / q-k RoPE kernels, and the fused cross-entropy where the
-config has no logit softcap).
+config has no logit softcap), ``PREFETCH_BATCHES`` (the loop's prefetch
+depth), ``TRANSFER_GUARD`` and ``DIVERGENCE_GUARD`` (the loop's runtime
+guards, ``analysis/guards.py``). The last three are operational: they
+change no result, so :meth:`ExecutionPlan.fingerprint` leaves them out.
 """
 
 from __future__ import annotations
@@ -29,17 +33,32 @@ CONFIG_KEYS: Dict[str, str] = {
     "prefix_cache": "PREFIX_CACHE",
     "grad_accum": "GRADIENT_ACCUMULATION_STEPS",
     "fused_ops": "FUSED_OPS",
+    "prefetch": "PREFETCH_BATCHES",
+    "transfer_guard": "TRANSFER_GUARD",
+    "divergence_guard": "DIVERGENCE_GUARD",
 }
+
+_TRANSFER_GUARD_MODES = (None, "log", "disallow")
+
+# knobs that change how a run executes, never what it computes: kept out
+# of the fingerprint, as the JAX package keeps them out of its compile
+# fingerprints
+OPERATIONAL_FIELDS = ("prefetch", "transfer_guard", "divergence_guard")
 
 
 def _coerce(field: str, value: Any) -> Any:
     """One coercion for env strings, JSON values and python kwargs."""
-    if field in ("max_batch", "grad_accum"):
+    if field in ("max_batch", "grad_accum", "prefetch"):
         try:
             return int(value)
         except (TypeError, ValueError):
             raise PlanError(f"{field}={value!r} is not an int") from None
-    if field in ("prefix_cache", "fused_ops"):
+    if field == "transfer_guard":
+        v = (str(value).strip().lower() if value is not None else None)
+        if v in ("", "0", "off", "false", "allow", None):
+            return None
+        return v
+    if field in ("prefix_cache", "fused_ops", "divergence_guard"):
         if isinstance(value, (bool, int, float)):
             return bool(value)
         s = str(value).strip().lower()
@@ -81,12 +100,24 @@ class ExecutionPlan:
     # (ops/fused_norm_rope.py) and, where the config has no logit
     # softcap, its loss through the fused cross-entropy (ops/fused_ce.py)
     fused_ops: bool = False
+    # queue depth of the loop's asynchronous input pipeline
+    # (data/prefetch.py); 0 = synchronous
+    prefetch: int = 2
+    # runtime guards of the loop (analysis/guards.py)
+    transfer_guard: Optional[str] = None      # None | "log" | "disallow"
+    divergence_guard: bool = False
 
     def __post_init__(self):
         if self.max_batch < 1:
             raise PlanError(f"max_batch={self.max_batch} must be >= 1")
         if self.grad_accum < 1:
             raise PlanError(f"grad_accum={self.grad_accum} must be >= 1")
+        if self.prefetch < 0:
+            raise PlanError(f"prefetch={self.prefetch} must be >= 0")
+        if self.transfer_guard not in _TRANSFER_GUARD_MODES:
+            raise PlanError(
+                f"transfer_guard={self.transfer_guard!r} not in "
+                f"{_TRANSFER_GUARD_MODES}")
         self.bucket_list()
 
     @classmethod
@@ -118,10 +149,18 @@ class ExecutionPlan:
         return plan
 
     def fingerprint(self) -> str:
-        """Stable 16-hex-char identity of the plan."""
+        """Stable 16-hex-char identity of what the plan computes: every
+        field but the :data:`OPERATIONAL_FIELDS`."""
+        fields = {k: v for k, v in dataclasses.asdict(self).items()
+                  if k not in OPERATIONAL_FIELDS}
         return hashlib.sha256(json.dumps(
-            dataclasses.asdict(self), sort_keys=True).encode()
-        ).hexdigest()[:16]
+            fields, sort_keys=True).encode()).hexdigest()[:16]
+
+    def runtime_guards(self):
+        """The resolved guard bundle ``run_training`` consumes."""
+        from gke_ray_train_tpu_torch.analysis.guards import RuntimeGuards
+        return RuntimeGuards(transfer_mode=self.transfer_guard,
+                             divergence=self.divergence_guard)
 
     def bucket_list(self) -> Tuple[int, ...]:
         """``decode_buckets`` parsed to ascending unique ints."""

@@ -1,0 +1,94 @@
+"""Worker train context (counterpart of
+``gke_ray_train_tpu/rayint/context.py``, the port's own copy): the
+``ray.train.get_context()`` / ``train.report`` surface a worker function
+relies on, for a single local process. The training loop records the
+step it resumed from (:meth:`TrainContext.note_resume`) and its goodput
+ledger (:meth:`TrainContext.note_goodput`) here.
+
+Stdlib only. The trainer, supervisor and elastic modules that read it
+are not ported yet (ROADMAP queue 1 item 6).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from typing import Optional
+
+logger = logging.getLogger(__name__)
+
+
+class TrainContext:
+    def __init__(self):
+        self.last_reported: Optional[dict] = None
+        # step the current attempt resumed from (None = fresh start);
+        # set by the train loop, read into Result.attempt_log
+        self.resumed_step: Optional[int] = None
+        # the attempt's goodput ledger (train/metrics.py LEDGER_TERMS),
+        # set by the loop's exit path on success AND failure — on the
+        # local trainer path it survives a crashed attempt where the
+        # worker payload does not
+        self.goodput: Optional[dict] = None
+        # fingerprint of the ExecutionPlan the attempt ran under (set
+        # by _run_worker after resolve/replan) — attempt_log provenance
+        self.plan_fingerprint: Optional[str] = None
+        # heartbeat sink wired by the trainer: callable(rank, step, done)
+        # forwarding to the supervisor actor (Ray) or the local board
+        self._heartbeat = None
+
+    def get_world_size(self) -> int:
+        return int(os.environ.get("NUM_PROCESSES", "1"))
+
+    def get_world_rank(self) -> int:
+        return int(os.environ.get("PROCESS_ID", "0"))
+
+    def get_local_rank(self) -> int:
+        return 0  # one process per card; multi-card is not ported yet
+
+    def is_host0(self) -> bool:
+        return self.get_world_rank() == 0
+
+    def set_heartbeat_sink(self, fn) -> None:
+        self._heartbeat = fn
+
+    def heartbeat(self, step: int, done: bool = False) -> None:
+        """Report step progress to the supervisor (rayint/supervisor.py).
+        Best-effort: liveness reporting must never kill a live worker."""
+        if self._heartbeat is None:
+            return
+        try:
+            self._heartbeat(self.get_world_rank(), int(step), done)
+        except Exception as e:  # noqa: BLE001
+            logger.debug("heartbeat dropped: %s", e)
+
+    def heartbeat_done(self) -> None:
+        """Mark this rank finished — a done worker is never 'stalled'."""
+        self.heartbeat(-1, done=True)
+
+    def note_resume(self, step: Optional[int]) -> None:
+        self.resumed_step = step
+
+    def note_goodput(self, ledger: Optional[dict]) -> None:
+        self.goodput = dict(ledger) if ledger is not None else None
+
+    def report(self, metrics: dict, checkpoint_path: Optional[str] = None):
+        """train.report parity: metrics become the trainer Result. Unlike
+        Ray Train this is not a barrier — collective synchronization
+        belongs to the collectives themselves (orbax save / psum), not to
+        the metrics channel."""
+        self.last_reported = dict(metrics)
+        if checkpoint_path:
+            self.last_reported["checkpoint_path"] = checkpoint_path
+        if self.is_host0():
+            logger.info("report: %s", self.last_reported)
+
+
+_context = TrainContext()
+
+
+def get_context() -> TrainContext:
+    return _context
+
+
+def report(metrics: dict, checkpoint_path: Optional[str] = None) -> None:
+    _context.report(metrics, checkpoint_path)

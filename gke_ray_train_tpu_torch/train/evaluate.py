@@ -1,0 +1,69 @@
+"""Sharded exact-eval walk (counterpart of
+``gke_ray_train_tpu/train/evaluate.py``).
+
+The eval rows are partitioned across input-shard groups while every
+group walks the same number of steps:
+
+- the global row count is padded up to steps * host_batch * in_shards;
+- padding rows carry zero weights, so they add nothing to the
+  token-weighted sums;
+- the eval step returns (nll_sum, weight_sum) of its batch, so the
+  per-shard sums combine into the exact global eval loss.
+
+The walk is numpy on the host; ``place_batch`` puts each slice on the
+card (``data/prefetch.py::make_place_batch``; a batch copied on its side
+stream is waited for on the current one), else the eval step does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+
+from gke_ray_train_tpu_torch.data.prefetch import PlacedBatch
+
+
+def sharded_eval_sums(state, eval_step: Callable,
+                      rows: Dict[str, np.ndarray], *,
+                      host_batch: int, in_shards: int = 1,
+                      in_shard_id: int = 0,
+                      place_batch: Callable = None) -> tuple:
+    """Walk this shard group's partition of ``rows`` and return its
+    (nll_sum, weight_sum) floats. Every shard must be called with the
+    same ``rows``: the partition is computed from ``in_shard_id``."""
+    eb = max(host_batch, 1)
+    n_rows = len(rows["inputs"])
+    stride = eb * in_shards
+    steps = max((n_rows + stride - 1) // stride, 1)
+    nll = w = 0.0
+    for s in range(steps):
+        start = s * stride + in_shard_id * eb
+        b = {k: v[start:start + eb] for k, v in rows.items()}
+        got = len(b["inputs"])
+        if got < eb:
+            # zero-weight padding keeps the batch shape constant and
+            # every shard in step, even where only some have tail rows
+            b = {k: np.concatenate(
+                [v, np.zeros((eb - got,) + v.shape[1:], v.dtype)])
+                for k, v in b.items()}
+        if place_batch is not None:
+            b = place_batch(b)
+            if isinstance(b, PlacedBatch):
+                b = b.wait()
+        n, ww = eval_step(state, b)
+        nll += float(n)
+        w += float(ww)
+    return nll, w
+
+
+def sharded_eval_loss(state, eval_step: Callable,
+                      rows: Dict[str, np.ndarray], *,
+                      host_batch: int, in_shards: int = 1,
+                      in_shard_id: int = 0,
+                      place_batch: Callable = None) -> float:
+    nll, w = sharded_eval_sums(
+        state, eval_step, rows, host_batch=host_batch,
+        in_shards=in_shards, in_shard_id=in_shard_id,
+        place_batch=place_batch)
+    return nll / max(w, 1.0)

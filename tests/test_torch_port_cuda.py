@@ -886,3 +886,133 @@ def test_fused_ce_kernels_refuse_what_they_cannot_take(dev):
         fused_ce_row_stats(x, head, t.long())
     with pytest.raises(ValueError, match="contiguous"):
         fused_ce_row_stats(x, head.T.contiguous().T, t)
+
+
+# -- the training loop on the card: no host sync in the hot loop -------------
+
+LOOP_SEQ = 384      # byte-rendered SQL rows are ~300 tokens
+
+
+def _loop_job(dev, family="llama", fused_ops=False):
+    """A QLoRA job at tiny widths (head dim 64, so the flash kernels run;
+    bf16, remat) on the offline SQL rows: cfg, state, step, eval step,
+    rows and the card placement."""
+    from gke_ray_train_tpu_torch.data import (
+        ByteTokenizer, format_gretel_sql_example, make_place_batch,
+        pad_sft_rows, synthetic_sql_rows, tokenize_sft_example)
+    from gke_ray_train_tpu_torch.models import gemma2_9b
+    from gke_ray_train_tpu_torch.train import (
+        LoraConfig, make_eval_step, make_optimizer, make_train_state,
+        make_train_step, warmup_cosine_schedule)
+    widths = dict(vocab_size=260, d_model=256, n_layers=2, n_heads=4,
+                  n_kv_heads=2, d_ff=512, max_seq_len=LOOP_SEQ,
+                  dtype="bfloat16", param_dtype="bfloat16", remat=True)
+    cfg = (dataclasses.replace(gemma2_9b(), head_dim=64, sliding_window=128,
+                               attn_scale=64 ** -0.5, **widths)
+           if family == "gemma" else tiny(**widths))
+    tok = ByteTokenizer()
+    rows = pad_sft_rows([tokenize_sft_example(
+        tok, format_gretel_sql_example(r), max_len=LOOP_SEQ + 1)
+        for r in synthetic_sql_rows(12, seed=0)], LOOP_SEQ)
+    sched = warmup_cosine_schedule(1e-3, 10)
+    spec = make_optimizer(sched)
+    lcfg = LoraConfig(r=8, alpha=16)
+    state = make_train_state(cfg, spec, lora_cfg=lcfg,
+                             params=init_quantized_params(cfg, device=dev),
+                             device=dev)
+    step = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=sched,
+                           plan=ExecutionPlan(grad_accum=2,
+                                              fused_ops=fused_ops),
+                           device=dev)
+    return dict(cfg=cfg, state=state, step=step, rows=rows,
+                eval_step=make_eval_step(cfg, lora_cfg=lcfg, device=dev),
+                place=make_place_batch(dev))
+
+
+def _clear_device_tables():
+    """Drop the RoPE / sinusoidal tables and NF4 codebooks made on the
+    card, so the next step makes them again."""
+    from gke_ray_train_tpu_torch.models import transformer
+    from gke_ray_train_tpu_torch.ops import quant
+    transformer._TABLES.clear()
+    quant._BOOKS.clear()
+
+
+@pytest.mark.parametrize("fused_ops", [False, True])
+@pytest.mark.parametrize("family", ["llama", "gemma"])
+def test_qlora_step_makes_no_host_sync(dev, family, fused_ops):
+    """Two QLoRA steps on batches placed by ``make_place_batch``, with the
+    device tables cleared first, under ``set_sync_debug_mode("error")``:
+    nothing waits for the card. Before the repair the RoPE frequencies
+    were copied from pageable memory in every forward, the NF4 codebook
+    on its first use and Gemma's embedding scale made on the card in
+    every forward: each a host wait."""
+    from gke_ray_train_tpu_torch.data import sft_epoch_batches
+    job = _loop_job(dev, family, fused_ops)
+    batches = [job["place"](b).wait()
+               for b in sft_epoch_batches(job["rows"], 4)][:2]
+    torch.cuda.synchronize()
+    _clear_device_tables()
+    state, launches = job["state"], flash_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in batches:
+            state, m = job["step"](state, b)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert flash_attention.launches - launches == 2 * 2 * 2 * 2
+    assert np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.parametrize("prefetch", [0, 2])
+@pytest.mark.parametrize("fused_ops", [False, True])
+def test_run_training_on_card_under_transfer_guard_flags_nothing(
+        dev, fused_ops, prefetch):
+    """``run_training`` with TRANSFER_GUARD=disallow, the batches placed
+    on the card (inline or by the prefetcher), a meter, eval (every 2
+    steps and at the epoch's end) and a log line every step: the guard
+    raises nothing and is lifted after."""
+    from gke_ray_train_tpu_torch.analysis.guards import RuntimeGuards
+    from gke_ray_train_tpu_torch.data import sft_epoch_batches
+    from gke_ray_train_tpu_torch.train import (
+        ThroughputMeter, sharded_eval_loss)
+    from gke_ray_train_tpu_torch.train.loop import run_training
+    job = _loop_job(dev, fused_ops=fused_ops)
+    rows = job["rows"]
+    before = flash_attention.launches
+    state, last = run_training(
+        job["state"], job["step"], lambda e: sft_epoch_batches(rows, 4),
+        epochs=1, log_every=1, prefetch=prefetch, place_batch=job["place"],
+        meter=ThroughputMeter(job["cfg"], seq_len=LOOP_SEQ, n_devices=1,
+                              device=dev),
+        eval_fn=lambda st: {"eval_loss": sharded_eval_loss(
+            st, job["eval_step"], rows, host_batch=4,
+            place_batch=job["place"])},
+        eval_every=2, eval_at_epoch_end=True,
+        guards=RuntimeGuards(transfer_mode="disallow"))
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert last["step"] == 3 and np.isfinite(last["loss"])
+    assert np.isfinite(last["eval_loss"])
+    # 3 steps x 2 microbatches x 2 layers x 2 (forward, recomputation),
+    # and two eval passes (step 2, epoch end) of 3 batches x 2 layers
+    assert flash_attention.launches - before == 3 * 2 * 2 * 2 + 2 * 3 * 2
+
+
+def test_planted_item_raises_under_transfer_guard(dev):
+    """A step that reads its loss with ``.item()`` raises under
+    TRANSFER_GUARD=disallow, at the call; the guard is lifted after."""
+    from gke_ray_train_tpu_torch.analysis.guards import RuntimeGuards
+    from gke_ray_train_tpu_torch.data import sft_epoch_batches
+    from gke_ray_train_tpu_torch.train.loop import run_training
+    job = _loop_job(dev)
+
+    def leaky_step(state, batch):
+        state, m = job["step"](state, batch)
+        m["loss"].item()
+        return state, m
+    with pytest.raises(RuntimeError, match="synchronizing"):
+        run_training(job["state"], leaky_step,
+                     lambda e: sft_epoch_batches(job["rows"], 4),
+                     epochs=1, prefetch=2, place_batch=job["place"],
+                     guards=RuntimeGuards(transfer_mode="disallow"))
+    assert torch.cuda.get_sync_debug_mode() == 0

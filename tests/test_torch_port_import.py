@@ -52,7 +52,10 @@ def test_every_module_imports_with_jax_blocked():
               "ops.fused_norm_rope", "ops.fused_ce", "data.packing",
               "data.tokenizer", "data.sft", "data.lm_dataset",
               "data.prepare", "data.prefetch",
-              "ops.registry", "analysis.kernelcheck", "analysis.__main__"):
+              "ops.registry", "analysis.kernelcheck", "analysis.__main__",
+              "analysis.guards", "config", "rayint.context",
+              "train.loop", "train.evaluate", "train.preempt", "train.tb",
+              "train.profiling"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
