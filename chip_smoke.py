@@ -120,6 +120,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              1): the Chrome trace it wrote must hold the step's flash
              launches; device busy share and kernel time by group.
 
+14. entry — ``gke_ray_train_tpu_torch/fine_tune.py``'s worker, as
+             ``python -m gke_ray_train_tpu_torch.fine_tune`` runs it, on
+             ray-jobs/fine_tune_config_offline_8b.json at full width and
+             depth (Llama-3.1-8B, random NF4 base from seed 0, r 64,
+             dropout 0, 2 x 4 microbatches of 1,024, synthetic SQL rows),
+             cut to 8 steps with a save and an eval of 16 rows every 4:
+             run A uninterrupted; run B (ASYNC_CKPT=1) preempted after
+             step 5 by a SIGTERM from the context's heartbeat sink; run C
+             resuming B's directory. C's losses of steps 6-8 and its last
+             checkpoint are held against A's (bitwise expected; a loss
+             more than 1e-3 off fails); A's merged bf16 export is read
+             back quantized and its NF4 codes, scales, norms, embedding
+             and head must equal the merged weights quantized directly,
+             bitwise. A line per run (the meter, the host time between
+             step returns, eval pauses, the ledger, restore / save /
+             commit seconds, checkpoint bytes, peak memory, launches) and
+             one for the export (seconds, bytes, shards, read-back).
+15. entry_full (opt-in) — the same worker on that config unchanged (~125
+             steps, eval of 200 rows and a save every 50, the export).
+
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -2323,12 +2343,505 @@ def phase_profile(dev, steps: int = 10):
 
 
 # ---------------------------------------------------------------------------
+# phases 14-15: the GPU fine-tune entry
+# ---------------------------------------------------------------------------
+
+ENTRY_CONFIG = os.path.join(HERE, "ray-jobs",
+                            "fine_tune_config_offline_8b.json")
+# the entry phase's cut of that job (1,000 rows, ~125 steps, eval of 200
+# rows and a save every 50 steps): 8 steps, a save and an eval of 16
+# rows every 4, a log line every 2, TensorBoard on
+ENTRY_CUT = {"NUM_TRAIN_SAMPLES": 64, "NUM_EVAL_SAMPLES": 16,
+             "SAVE_STEPS_SFT": 4, "EVAL_STEPS_SFT": 4, "LOGGING_STEPS": 2,
+             "REPORT_TO": "tensorboard"}
+# run B is preempted after this step and run C resumes from it
+ENTRY_PREEMPT_AFTER = 5
+# a resumed run's losses against the uninterrupted run's (relative); the
+# expectation is bitwise: dropout 0, and the seed rebuilds the same base
+ENTRY_LOSS_RTOL = 1e-3
+
+
+def _entry_hooks(rec):
+    """Wrap what ``fine_tune.train_loop_per_worker`` calls, to read each
+    run: the step (its loss tensors, read after the run so the loop is
+    not synchronized, and the host time each step returns), the
+    checkpoint manager through its public calls (save, wait and restore
+    seconds; the background commits from its ``commit_log``), the eval
+    walk (pause seconds, loss) and the export (seconds, shards, bytes).
+    Returns the originals, for ``_entry_unhook``; ``_entry_run`` fails
+    when a wrapped name went unused."""
+    from gke_ray_train_tpu_torch import fine_tune as ft
+    orig = {n: getattr(ft, n) for n in (
+        "make_train_step", "CheckpointManager", "sharded_eval_loss",
+        "save_hf_checkpoint")}
+
+    def make_train_step(*a, **kw):
+        step = orig["make_train_step"](*a, **kw)
+
+        def recorded(state, batch):
+            state, m = step(state, batch)
+            rec["losses"][state.step] = m["loss"].detach()
+            rec["step_done"].append(time.perf_counter())
+            return state, m
+        return recorded
+
+    class TimedManager(orig["CheckpointManager"]):
+        def __init__(self, directory, **kw):
+            super().__init__(directory, **kw)
+            rec["ckpt_dir"] = directory
+            rec["commits"] = self.commit_log
+
+        def save(self, step, state, metrics=None, force=False):
+            t = time.perf_counter()
+            saved = super().save(step, state, metrics, force)
+            if saved:
+                rec["saves"].append({"step": step, "force": force,
+                                     "call_s": time.perf_counter() - t})
+            return saved
+
+        def wait(self, timeout=None):
+            t = time.perf_counter()
+            super().wait(timeout)
+            rec["wait_s"].append(time.perf_counter() - t)
+
+        def restore_if_available(self, state_like):
+            t = time.perf_counter()
+            out = super().restore_if_available(state_like)
+            rec["restore"] = {"step": out[1],
+                              "seconds": time.perf_counter() - t}
+            return out
+
+    def sharded_eval_loss(*a, **kw):
+        t = time.perf_counter()
+        loss = orig["sharded_eval_loss"](*a, **kw)
+        rec["evals"].append({"seconds": time.perf_counter() - t,
+                             "eval_loss": loss})
+        return loss
+
+    def save_hf_checkpoint(*a, **kw):
+        t = time.perf_counter()
+        info = orig["save_hf_checkpoint"](*a, **kw)
+        rec["export"] = {"seconds": time.perf_counter() - t, **info,
+                         "dir": a[2]}
+        return info
+
+    for name, fn in (("make_train_step", make_train_step),
+                     ("CheckpointManager", TimedManager),
+                     ("sharded_eval_loss", sharded_eval_loss),
+                     ("save_hf_checkpoint", save_hf_checkpoint)):
+        setattr(ft, name, fn)
+    return orig
+
+
+def _entry_unhook(orig):
+    from gke_ray_train_tpu_torch import fine_tune as ft
+    for name, fn in orig.items():
+        setattr(ft, name, fn)
+
+
+def _entry_run(dev, config, label, preempt_after=None):
+    """One call of ``fine_tune.train_loop_per_worker(config)`` on the card,
+    with the launch counts at 0 just before it and read just after; with
+    ``preempt_after`` the context's heartbeat sink sends this process a
+    SIGTERM after that step, the loop's own preemption path (a forced
+    save, ``Preempted``). Returns what the run's line prints."""
+    import gc
+    import signal
+    import torch
+    from gke_ray_train_tpu_torch import fine_tune as ft
+    from gke_ray_train_tpu_torch.rayint import get_context
+    from gke_ray_train_tpu_torch.train import preempt
+    from gke_ray_train_tpu_torch.train.metrics import finish_ledger
+    rec = dict(losses={}, step_done=[], saves=[], commits=[], wait_s=[],
+               evals=[], restore=None, export=None, ckpt_dir=None)
+    ctx = get_context()
+    orig = _entry_hooks(rec)
+
+    def sink(rank, step, done):
+        if step == preempt_after and not done:
+            os.kill(os.getpid(), signal.SIGTERM)
+    preempted = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    if preempt_after is not None:
+        preempt.reset()
+        preempt.install()
+        ctx.set_heartbeat_sink(sink)
+    t0 = time.perf_counter()
+    try:
+        metrics = ft.train_loop_per_worker(config, device=dev)
+    except preempt.Preempted as e:
+        metrics = None
+        preempted = {"step": e.step, "save_s": e.save_s,
+                     "grace_s": e.grace_s}
+    finally:
+        wall = time.perf_counter() - t0
+        _entry_unhook(orig)
+        if preempt_after is not None:
+            ctx.set_heartbeat_sink(None)
+            preempt.uninstall()
+            preempt.reset()
+    torch.cuda.synchronize(dev)
+    launches = _launch_counts()
+    unused = [n for n, hit in (
+        ("make_train_step", rec["losses"]),
+        ("CheckpointManager", rec["ckpt_dir"]),
+        ("sharded_eval_loss", rec["evals"]),
+        ("save_hf_checkpoint", rec["export"] or preempted)) if not hit]
+    if unused:
+        raise SystemExit(f"entry run {label}: the entry no longer calls "
+                         f"{unused} by those names, so the run went unread")
+    losses = {s: float(v) for s, v in sorted(rec["losses"].items())}
+    gaps = np.diff(rec["step_done"]).tolist()
+    ckpt = None
+    if rec["ckpt_dir"] is not None:
+        from gke_ray_train_tpu_torch.ckpt import CheckpointManager
+        mgr = CheckpointManager(rec["ckpt_dir"], score_attribute=None)
+        latest = mgr.latest_step()
+        ckpt = {"dir": rec["ckpt_dir"], "steps": mgr.all_steps(),
+                "latest": latest,
+                "bytes": mgr.step_nbytes(latest) if latest else None}
+    out = {"label": label, "wall_s": wall, "metrics": metrics,
+           "preempted": preempted, "resumed_step": ctx.resumed_step,
+           "losses": losses,
+           # the host clock between consecutive step returns: the loop
+           # synchronizes only where it fetches metrics (log steps,
+           # saves, eval), so this is the loop's own rhythm
+           "step_gap_s": gaps,
+           "step_gap_s_p50": (sorted(gaps)[len(gaps) // 2]
+                              if gaps else None),
+           "ledger": finish_ledger(ctx.goodput, wall),
+           "restore": rec["restore"], "saves": rec["saves"],
+           "commits": rec["commits"], "wait_s": rec["wait_s"],
+           "checkpoint": ckpt, "evals": rec["evals"],
+           "export": rec["export"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+           "launches": launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _entry_config(root, full=False, **over):
+    with open(ENTRY_CONFIG) as f:
+        config = json.load(f)
+    if not full:
+        config.update(ENTRY_CUT)
+    config.update(over)
+    config["OUTPUT_DIR_BASE"] = root
+    return config
+
+
+def _entry_setup(config, dev):
+    """The model config, LoRA config and the job's shape the entry
+    resolves from ``config``: one card, no pretrained directory."""
+    from gke_ray_train_tpu_torch.models import preset_for_model_id
+    from gke_ray_train_tpu_torch.plan import ExecutionPlan
+    from gke_ray_train_tpu_torch.train import LoraConfig
+    cfg = preset_for_model_id(config["MODEL_ID"], dtype=config["TRAIN_DTYPE"],
+                              param_dtype=config["TRAIN_DTYPE"])
+    plan = ExecutionPlan.resolve(config, env={})
+    return cfg, LoraConfig.from_dict(config), plan
+
+
+def _entry_disk(root, cfg, lcfg, runs):
+    """Free bytes where the entry writes, and what the phase needs: the
+    bf16 export (2 bytes a parameter) and ``runs`` checkpoint directories
+    of 2 kept steps (adapters and two moments, fp32); fails loudly when
+    the disk is short."""
+    import shutil
+    from gke_ray_train_tpu_torch.models.transformer import proj_shapes
+    trainable = sum(
+        lcfg.r * (d_in + d_out) for d_in, d_out in
+        proj_shapes(cfg).values()) * cfg.n_layers
+    need = 2 * cfg.param_count() + runs * 2 * 3 * 4 * trainable + (1 << 30)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise SystemExit(
+            f"entry phase: {free / 1e9:.2f} GB free under {root}, the "
+            f"export and checkpoints need {need / 1e9:.2f} GB")
+    return {"root": root, "free_bytes": free, "need_bytes": need}
+
+
+def _entry_launch_check(cfg, plan, run, n_eval_rows):
+    """Launches of one run: each trained step's (``expected_launches``)
+    and one flash forward a layer per eval batch."""
+    trained = len(run["losses"])
+    per_step = expected_launches(cfg, plan.grad_accum, plan.fused_ops)
+    batch = plan.per_device_batch * plan.grad_accum
+    eval_batches = len(run["evals"]) * -(-n_eval_rows // batch)
+    want = {k: trained * v + (cfg.n_layers * eval_batches
+                              if k == "flash_fwd" else 0)
+            for k, v in per_step.items()}
+    return want
+
+
+def _entry_line(phase, run, cfg, plan, want_launches):
+    m = run["metrics"] or {}
+    keys = ("tokens_per_sec_per_chip", "mfu", "data_stall_frac",
+            "tokens_per_sec_per_chip_incl_stalls", "mfu_incl_stalls",
+            "compile_s", "restart_to_first_step_s", "loss", "grad_norm",
+            "learning_rate", "step", "eval_loss")
+    return {"phase": phase, "run": run["label"],
+            "nvidia_smi": nvidia_smi_line(), "model": cfg.name,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "grad_accum": plan.grad_accum, "seq": plan.max_seq_len,
+            "meter": {k: m[k] for k in keys if k in m},
+            "step_gap_s_p50": run["step_gap_s_p50"],
+            "step_gap_s": run["step_gap_s"], "losses": run["losses"],
+            "preempted": run["preempted"],
+            "resumed_step": run["resumed_step"],
+            "restore": run["restore"],
+            "restore_s": run["ledger"].get("restore_s"),
+            "eval_pause_s": [e["seconds"] for e in run["evals"]],
+            "eval_loss": [e["eval_loss"] for e in run["evals"]],
+            "saves": run["saves"], "commits": run["commits"],
+            "wait_s": run["wait_s"], "checkpoint": run["checkpoint"],
+            # the attempt's ledger: lost_s is the entry's time outside
+            # the loop (weights, rows, the export)
+            "goodput_ledger": run["ledger"],
+            "goodput_frac": run["ledger"]["step_s"] / run["wall_s"],
+            "wall_s": run["wall_s"],
+            "peak_mem_bytes": run["peak_mem_bytes"],
+            "launches": {k: run["launches"][k] for k in want_launches},
+            "expected_launches": want_launches}
+
+
+def _entry_adapters(mgr_dir, step, cfg, lcfg, dev):
+    """The adapters and moments of a saved step, restored into a fresh
+    LoRA view through the port's manager."""
+    from gke_ray_train_tpu_torch.ckpt import CheckpointManager, flat_state
+    from gke_ray_train_tpu_torch.train import init_lora, make_optimizer
+    from gke_ray_train_tpu_torch.train.step import (
+        TrainState, trainable_tensors)
+    lora = init_lora(cfg, lcfg, seed=1, device=dev)
+    view = TrainState(params=None, lora=lora, opt_state=make_optimizer(
+        0.0).build(trainable_tensors(None, lora)), step=0)
+    CheckpointManager(mgr_dir, score_attribute=None).restore(view, step)
+    return view, flat_state(view)
+
+
+def _same_bf16(x, y):
+    """Equal in the export's dtype (the base's own, bf16, at 8B)."""
+    import torch
+    return torch.equal(x.to(torch.bfloat16), y.to(torch.bfloat16))
+
+
+def _entry_readback(export_dir, cfg, lcfg, view, dev):
+    """Read the export back with ``load_hf_checkpoint(quantize="nf4")``
+    and hold it against the merged weights quantized directly: the NF4
+    base from seed 0 (what the entry trained on) dequantized to fp32,
+    plus ``(alpha / r) A B`` of ``view``'s adapters, cast to bf16, then
+    quantized. Codes, scales, norms, embedding and head must be equal
+    bitwise; config.json must be a Llama config of the model's shape."""
+    import torch
+    from gke_ray_train_tpu_torch.ckpt import load_hf_checkpoint
+    from gke_ray_train_tpu_torch.models import init_quantized_params
+    from gke_ray_train_tpu_torch.ops.quant import (
+        QUANT_TARGETS, dequantize, quantize_tensor)
+    t = time.perf_counter()
+    back = load_hf_checkpoint(export_dir, cfg, quantize="nf4", device=dev)
+    load_s = time.perf_counter() - t
+    base = init_quantized_params(cfg, seed=0, kind="nf4", device=dev)
+    differ = []
+    with torch.no_grad():
+        for i, (b, r) in enumerate(zip(base.blocks, back.blocks)):
+            for key in QUANT_TARGETS:
+                ab = view.lora[i][key]
+                merged = (dequantize(getattr(b, key), torch.float32)
+                          + (ab["a"].float() @ ab["b"].float())
+                          * lcfg.scale).to(torch.bfloat16)
+                q, got = quantize_tensor(merged, "nf4"), getattr(r, key)
+                if not (torch.equal(q.codes, got.codes)
+                        and torch.equal(q.scales, got.scales)):
+                    differ.append(f"{i}.{key}")
+            for key in ("attn_norm", "mlp_norm"):
+                if not _same_bf16(getattr(b, key), getattr(r, key)):
+                    differ.append(f"{i}.{key}")
+        for key in ("embed", "final_norm", "lm_head"):
+            if not _same_bf16(getattr(base, key), getattr(back, key)):
+                differ.append(key)
+    with open(os.path.join(export_dir, "config.json")) as f:
+        hf = json.load(f)
+    want = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "hidden_size": cfg.d_model, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads,
+            "num_key_value_heads": cfg.n_kv_heads,
+            "intermediate_size": cfg.d_ff, "vocab_size": cfg.vocab_size,
+            "rope_scaling": ({"rope_type": "llama3",
+                              **dict(cfg.rope_scaling)}
+                             if cfg.rope_scaling else None)}
+    config_ok = all(hf.get(k) == v for k, v in want.items())
+    del back, base
+    torch.cuda.empty_cache()
+    return {"load_quantized_s": load_s, "projections": cfg.n_layers * len(
+        QUANT_TARGETS), "differ": differ, "config_json_llama": config_ok,
+        "tokenizer": sorted(f for f in os.listdir(export_dir)
+                            if "tokenizer" in f)}
+
+
+def phase_entry(dev):
+    """``python -m gke_ray_train_tpu_torch.fine_tune``'s worker on the card:
+    ray-jobs/fine_tune_config_offline_8b.json at full width and depth
+    (Llama-3.1-8B, bf16, random NF4 base from seed 0, LoRA r 64 / alpha
+    16 / dropout 0, 2 x 4 microbatches of 1,024 on synthetic SQL rows),
+    cut to ``ENTRY_CUT`` (8 steps, a save and an eval of 16 rows every 4),
+    written under a temporary directory. Three runs: A uninterrupted; B
+    in a fresh directory with ASYNC_CKPT=1, preempted after step
+    ``ENTRY_PREEMPT_AFTER`` (SIGTERM, forced save, ``Preempted``); C
+    resuming B's directory (restore, fast-forward, steps 6-8). C's losses
+    of steps 6-8 and its last checkpoint's adapters and moments are held
+    against A's (bitwise expected; a loss more than ``ENTRY_LOSS_RTOL``
+    off fails); A's export is read back quantized and held bitwise
+    against the merged weights (``_entry_readback``). One line per run
+    and one for the export; the free disk is checked first."""
+    import shutil
+    import tempfile
+    import torch
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["HF_DATASETS_OFFLINE"] = "1"
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    try:
+        ca = _entry_config(os.path.join(root, "a"))
+        cfg, lcfg, plan = _entry_setup(ca, dev)
+        disk = _entry_disk(root, cfg, lcfg, runs=2)
+        n_eval = int(ca["NUM_EVAL_SAMPLES"])
+        problems = []
+        lines = {}
+        runs = {}
+        for label, config, kw in (
+                ("A", ca, {}),
+                ("B", _entry_config(os.path.join(root, "b"), ASYNC_CKPT=1),
+                 {"preempt_after": ENTRY_PREEMPT_AFTER}),
+                ("C", _entry_config(os.path.join(root, "b")), {})):
+            run = _entry_run(dev, config, label, **kw)
+            want = _entry_launch_check(cfg, plan, run, n_eval)
+            line = _entry_line("entry", run, cfg, plan, want)
+            emit(line)
+            lines[label], runs[label] = line, run
+            if line["launches"] != want:
+                problems.append(f"{label}: launches {line['launches']} != "
+                                f"{want}")
+            if not all(np.isfinite(v) for v in run["losses"].values()):
+                problems.append(f"{label}: non-finite loss")
+            if label == "A":
+                adapters_a, flat_a = _entry_adapters(
+                    run["checkpoint"]["dir"], run["checkpoint"]["latest"],
+                    cfg, lcfg, dev)
+                export = dict(run["export"])
+                export["readback"] = _entry_readback(
+                    export["dir"], cfg, lcfg, adapters_a, dev)
+                del adapters_a
+                shutil.rmtree(export["dir"])
+        a, b, c = runs["A"], runs["B"], runs["C"]
+        steps = sorted(a["losses"])
+        if steps != list(range(1, 9)) or sorted(b["losses"]) != list(
+                range(1, ENTRY_PREEMPT_AFTER + 1)) or sorted(
+                c["losses"]) != list(range(ENTRY_PREEMPT_AFTER + 1, 9)):
+            problems.append(f"trained steps A {sorted(a['losses'])} B "
+                            f"{sorted(b['losses'])} C {sorted(c['losses'])}")
+        if (b["preempted"] or {}).get("step") != ENTRY_PREEMPT_AFTER:
+            problems.append(f"B was not preempted at step "
+                            f"{ENTRY_PREEMPT_AFTER}: {b['preempted']}")
+        if c["resumed_step"] != ENTRY_PREEMPT_AFTER:
+            problems.append(f"C resumed from {c['resumed_step']}")
+        rel = {s: abs(c["losses"][s] - a["losses"][s])
+               / max(abs(a["losses"][s]), 1e-30) for s in c["losses"]}
+        # B's steps before the preemption: the same run as A's
+        rel.update({f"B{s}": abs(b["losses"][s] - a["losses"][s])
+                    / max(abs(a["losses"][s]), 1e-30)
+                    for s in b["losses"]})
+        if any(r > ENTRY_LOSS_RTOL for r in rel.values()):
+            problems.append(f"losses off by {rel}")
+        _, flat_c = _entry_adapters(c["checkpoint"]["dir"],
+                                    c["checkpoint"]["latest"], cfg, lcfg,
+                                    dev)
+        # per entry: max |C - A| relative to max |A|
+        differ = {}
+        for k, v in flat_a.items():
+            if not torch.is_tensor(v):
+                if v != flat_c[k]:
+                    differ[k] = float("inf")
+            elif not torch.equal(v, flat_c[k]):
+                differ[k] = float((v - flat_c[k]).abs().max()
+                                  / v.abs().max().clamp_min(1e-30))
+        flat_keys = list(flat_a)
+        del flat_a, flat_c
+        if any(r > ENTRY_LOSS_RTOL for r in differ.values()):
+            problems.append(f"{len(differ)} checkpoint entries differ: "
+                            f"{dict(list(differ.items())[:4])}")
+        rb = export["readback"]
+        if rb["differ"] or not rb["config_json_llama"]:
+            problems.append(f"export read-back: {rb}")
+        emit({"phase": "entry_export", "run": "A",
+              "seconds": export["seconds"], "bytes": export["bytes"],
+              "shards": len(export["shards"]), "readback": rb,
+              "disk": disk})
+        emit({"phase": "entry", "ok": not problems, "problems": problems,
+              "resumed_vs_uninterrupted": {
+                  "loss_rel_diff": rel, "bitwise_losses": all(
+                      r == 0 for r in rel.values()),
+                  "checkpoint_entries": len(flat_keys),
+                  "checkpoint_entries_differ": differ},
+              "config": os.path.relpath(ENTRY_CONFIG, HERE),
+              "cut": ENTRY_CUT, "preempt_after": ENTRY_PREEMPT_AFTER})
+        if problems:
+            raise SystemExit("entry phase failed: " + "; ".join(problems))
+        return {k: sum(runs[r]["launches"][k] for r in runs)
+                for k, n in lines["A"]["expected_launches"].items() if n}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_entry_full(dev):
+    """The entry on ray-jobs/fine_tune_config_offline_8b.json unchanged
+    (1,000 rows, ~125 steps, eval of 200 rows and a save every 50 steps,
+    the export), but for its output directory, a temporary one: the
+    loop's meter, MFU, goodput and ledger at the job's length, without
+    a synchronize around each step."""
+    import shutil
+    import tempfile
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["HF_DATASETS_OFFLINE"] = "1"
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_full_")
+    try:
+        config = _entry_config(root, full=True)
+        cfg, lcfg, plan = _entry_setup(config, dev)
+        disk = _entry_disk(root, cfg, lcfg, runs=1)
+        run = _entry_run(dev, config, "full")
+        want = _entry_launch_check(cfg, plan, run,
+                                   int(config["NUM_EVAL_SAMPLES"]))
+        line = _entry_line("entry_full", run, cfg, plan, want)
+        problems = []
+        if line["launches"] != want:
+            problems.append(f"launches {line['launches']} != {want}")
+        if not all(np.isfinite(v) for v in run["losses"].values()):
+            problems.append("non-finite loss")
+        line.update(ok=not problems, problems=problems, disk=disk,
+                    export={k: v for k, v in (run["export"] or {}).items()
+                            if k != "dir"})
+        emit(line)
+        if problems:
+            raise SystemExit("entry_full phase failed: "
+                             + "; ".join(problems))
+        return {k: run["launches"][k] for k, n in want.items() if n}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train", "train_parity", "train_fused", "train_fused_parity",
           "train_fused_ce", "train_fused_ce_parity", "train_profile",
-          "profile", "train_fused_profile", "train_fused_ce_profile")
-DEFAULT_PHASES = PHASES[:-3]
+          "entry", "profile", "train_fused_profile",
+          "train_fused_ce_profile", "entry_full")
+# run only when asked for
+OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
+                 "entry_full")
+DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
     "flash_fwd": ("gke_ray_train_tpu_torch/csrc/flash_fwd.cu",
@@ -2413,7 +2926,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(DEFAULT_PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (default: all but the last three profiles)")
+                    + " (default: all but " + ",".join(OPT_IN_PHASES)
+                    + ")")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -2474,9 +2988,11 @@ def main(argv=None) -> int:
     add(run("train_fused_ce", phase_train_fused_ce))
     add(run("train_fused_ce_parity", phase_train_fused_ce_parity))
     run("train_profile", phase_train_profile)
+    add(run("entry", phase_entry))
     run("profile", phase_profile)
     run("train_fused_profile", phase_train_fused_profile)
     run("train_fused_ce_profile", phase_train_fused_ce_profile)
+    add(run("entry_full", phase_entry_full))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -1,0 +1,347 @@
+"""The LLM fine-tune entry on one GPU (counterpart of
+``ray-jobs/fine_tune_llama_ray.py``: ``train_loop_per_worker`` and its
+``__main__``).
+
+    FINE_TUNE_CONFIG=ray-jobs/fine_tune_config_offline_8b.json \\
+        python -m gke_ray_train_tpu_torch.fine_tune
+
+``main`` reads the flat UPPER_CASE config named by ``FINE_TUNE_CONFIG``
+(default ``ray-jobs/fine_tune_config.json``), runs
+``train_loop_per_worker(config)`` in this process with the port's train
+context (``rayint/context.py``; Ray itself is ROADMAP queue 1 item 6),
+and prints one JSON line, ``{"metric": "flagship_final", ...}``, as the
+last line of stdout; it exits 1 on failure. The worker keeps the JAX
+entry's names, config keys and order of steps: audit, plan and
+tokenizer; the model config; the weights (``PRETRAINED_CHECKPOINT_DIR``
+streamed and quantized on load, else random weights from seed 0 with a
+loud warning); the dataset (synthetic SQL rows when the hub is
+unreachable); rows, optimizer and schedule, state, step, eval step and
+checkpoint manager; ``run_training``; then the export of a HF-layout
+model (LoRA merged one projection at a time on the card) with the
+tokenizer beside it.
+
+Not ported yet, each raising where the config asks for it: the
+inference comparison and the post-train serving smoke (``INFERENCE``,
+``SERVE_AFTER_TRAIN``: queue 1 item 7), peer replication (item 8), the
+multi-host export and a world above one process (item 5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import sys
+
+import numpy as np
+
+from gke_ray_train_tpu_torch.ckpt import (
+    CheckpointManager, load_hf_checkpoint, save_hf_checkpoint)
+from gke_ray_train_tpu_torch.config import (
+    audit_config, cadence_from_config, optimizer_from_config,
+    quant_kind_from_config, schedule_from_config)
+from gke_ray_train_tpu_torch.data import (
+    ByteTokenizer, downsample, format_gretel_sql_example, load_hf_tokenizer,
+    make_place_batch, pack_examples, pad_sft_rows, save_tokenizer,
+    sft_epoch_batches, synthetic_sql_rows, tokenize_sft_example)
+from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
+from gke_ray_train_tpu_torch.models import (
+    init_params, init_quantized_params, preset_for_model_id, tiny)
+from gke_ray_train_tpu_torch.ops.quant import quantize_params
+from gke_ray_train_tpu_torch.plan import ExecutionPlan
+from gke_ray_train_tpu_torch.rayint import get_context
+from gke_ray_train_tpu_torch.train import (
+    LoraConfig, ThroughputMeter, make_eval_step, make_train_state,
+    make_train_step, sharded_eval_loss)
+from gke_ray_train_tpu_torch.train import preempt
+from gke_ray_train_tpu_torch.train.loop import run_training
+from gke_ray_train_tpu_torch.train.profiling import (
+    apply_debug_flags, profiler_from_config)
+from gke_ray_train_tpu_torch.train.tb import writer_from_config
+
+logger = logging.getLogger("fine_tune")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEFAULT_CONFIG = os.path.join(REPO, "ray-jobs", "fine_tune_config.json")
+
+
+def _flag(config: dict, key: str) -> bool:
+    """A boolean knob, config first, then the environment ("0", "false",
+    "no" and "" are off)."""
+    return str(config.get(key, os.environ.get(key, "0"))).strip().lower() \
+        not in ("", "0", "false", "no")
+
+
+def _hub_offline() -> bool:
+    return any(os.environ.get(k, "").strip().lower() not in ("", "0", "false")
+               for k in ("HF_HUB_OFFLINE", "HF_DATASETS_OFFLINE"))
+
+
+def _sql_datasets(config: dict, n_train: int, n_eval: int):
+    """(train rows, test rows): the hub dataset, or synthetic gretel-
+    shaped SQL rows (train seed 0, test seed 1) when it is unreachable.
+    With ``HF_HUB_OFFLINE`` / ``HF_DATASETS_OFFLINE`` set the hub is not
+    tried, so no socket opens."""
+    if not _hub_offline():
+        try:
+            from datasets import load_dataset
+            return (list(load_dataset(config["DATASET_NAME"], split="train")),
+                    list(load_dataset(config["DATASET_NAME"], split="test")))
+        except Exception as e:  # noqa: BLE001 - any hub failure falls back
+            logger.warning("dataset hub unavailable (%s); synthetic SQL "
+                           "rows", type(e).__name__)
+    else:
+        logger.warning("hub offline; synthetic SQL rows")
+    return (synthetic_sql_rows(max(n_train, 64), seed=0),
+            synthetic_sql_rows(max(n_eval, 16), seed=1))
+
+
+def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
+    """The worker: trains, checkpoints and resumes, exports; returns the
+    loop's last metrics. Runs on ``device`` (default ``cuda``, which must
+    exist)."""
+    for key, item in (("INFERENCE", 7), ("SERVE_AFTER_TRAIN", 7)):
+        if _flag(config, key):
+            raise NotImplementedError(
+                f"{key} is not ported yet (ROADMAP queue 1 item {item}); "
+                "set it false")
+    ctx = get_context()
+    if ctx.is_host0():
+        audit_config(config)
+    plan = ExecutionPlan.resolve(config)
+    apply_debug_flags(config)
+    dev = resolve_device(device)
+    smoke = bool(config.get("SMOKE_TEST", False))
+    logger.info("worker on %s; plan %s", dev, plan.fingerprint())
+
+    # ---- tokenizer + model config ------------------------------------
+    model_id = config["MODEL_ID"]
+    hf_token = os.environ.get("HF_TOKEN")
+    try:
+        tokenizer = load_hf_tokenizer(model_id, hf_token)
+    except Exception as e:  # noqa: BLE001 - any failure falls back
+        logger.warning("HF tokenizer unavailable (%s); using ByteTokenizer",
+                       type(e).__name__)
+        tokenizer = ByteTokenizer()
+
+    max_seq = plan.max_seq_len
+    use_lora = bool(config.get("USE_QLORA", False))
+    # a frozen (Q)LoRA base keeps its unquantized leaves in the compute
+    # dtype; full fine-tuning defaults to fp32 master params
+    train_dtype = config.get("TRAIN_DTYPE", "bfloat16")
+    param_dtype = config.get("PARAM_DTYPE",
+                             train_dtype if use_lora else "float32")
+    if smoke:
+        cfg = tiny(vocab_size=max(getattr(tokenizer, "vocab_size", 260), 260),
+                   max_seq_len=max_seq,
+                   dtype=config.get("TRAIN_DTYPE", "float32"),
+                   param_dtype=config.get("PARAM_DTYPE", "float32"),
+                   attn_impl=config.get("ATTN_IMPL", "auto"), n_layers=2)
+    else:
+        cfg = preset_for_model_id(
+            model_id, dtype=train_dtype, param_dtype=param_dtype,
+            attn_impl=config.get("ATTN_IMPL", "auto"),
+            remat_policy=config.get("REMAT_POLICY", "full"))
+
+    # ---- weights ------------------------------------------------------
+    # a local HF directory, else random weights (the hub download,
+    # ckpt/hub.py, is not ported)
+    ckpt_dir = config.get("PRETRAINED_CHECKPOINT_DIR")
+    have_local = bool(ckpt_dir and os.path.exists(str(ckpt_dir)))
+    quant_kind = quant_kind_from_config(config, use_lora)
+    load_quant = quant_kind if (use_lora and quant_kind != "none") else None
+    already_quantized = False
+    if have_local:
+        # a QLoRA base quantizes during the stream, one projection on
+        # the card at a time
+        params = load_hf_checkpoint(str(ckpt_dir), cfg, quantize=load_quant,
+                                    device=dev)
+        already_quantized = load_quant is not None
+        logger.info("loaded pretrained weights from %s%s", ckpt_dir,
+                    f" (quantized {load_quant} on load)" if load_quant
+                    else "")
+    else:
+        if not smoke:
+            logger.warning(
+                "no local checkpoint (PRETRAINED_CHECKPOINT_DIR) and no "
+                "hub download in the port; initializing RANDOM weights "
+                "(fine-tuning semantics require a pretrained checkpoint)")
+        if load_quant is not None:
+            params = init_quantized_params(cfg, seed=0, kind=load_quant,
+                                           device=dev)
+            already_quantized = True
+        else:
+            params = init_params(cfg, seed=0, device=dev)
+
+    # ---- dataset ------------------------------------------------------
+    n_train = int(config.get("NUM_TRAIN_SAMPLES", 1000))
+    n_eval = int(config.get("NUM_EVAL_SAMPLES", 200))
+    ds_train, ds_test = _sql_datasets(config, n_train, n_eval)
+    ds_train = downsample(ds_train, n_train)
+    ds_test = downsample(ds_test, n_eval)
+
+    def tokenize_rows(rows):
+        return [tokenize_sft_example(
+            tokenizer, format_gretel_sql_example(r), max_len=max_seq + 1)
+            for r in rows]
+
+    train_exs = tokenize_rows(ds_train)
+    eval_exs = tokenize_rows(ds_test)
+    n_dead = sum(1 for ex in train_exs if ex["loss_weights"].sum() == 0)
+    if n_dead:
+        logger.warning(
+            "%d/%d train examples have ZERO trainable tokens — the prompt "
+            "fills MAX_SEQ_LENGTH=%d and truncation drops the completion; "
+            "raise MAX_SEQ_LENGTH or shorten prompts", n_dead,
+            len(train_exs), max_seq)
+    if n_dead == len(train_exs):
+        raise ValueError("every train example truncated to zero trainable "
+                         "tokens; training would silently learn nothing")
+
+    # one card: the global batch is one device's microbatches
+    global_batch = plan.per_device_batch * plan.grad_accum
+    if plan.packing:
+        packed = list(pack_examples(train_exs, max_seq))
+        train_rows = {k: np.stack([r[k] for r in packed])
+                      for k in packed[0]}
+    else:
+        train_rows = pad_sft_rows(train_exs, max_seq)
+    eval_rows = pad_sft_rows(eval_exs, max_seq)
+    # ceil: the final partial batch trains too (zero-weight padded)
+    steps_per_epoch = max(-(-len(train_rows["inputs"]) // global_batch), 1)
+    epochs = int(config.get("NUM_TRAIN_EPOCHS", 1))
+    total_steps = steps_per_epoch * epochs
+
+    # ---- optimizer / adapters / state ---------------------------------
+    lora_cfg = LoraConfig.from_dict(config) if use_lora else None
+    schedule = schedule_from_config(config, total_steps)
+    opt = optimizer_from_config(config, schedule)
+    if use_lora and quant_kind != "none" and not already_quantized:
+        quantize_params(params, kind=quant_kind)
+        logger.info("quantized frozen base weights to %s", quant_kind)
+    # the weights are handed in: no second random init
+    state = make_train_state(cfg, opt, seed=0, lora_cfg=lora_cfg,
+                             params=params, device=dev)
+    step_fn = make_train_step(cfg, opt, lora_cfg=lora_cfg,
+                              schedule=schedule, plan=plan, device=dev)
+    eval_step = make_eval_step(cfg, lora_cfg=lora_cfg, device=dev)
+    out_base = config.get("OUTPUT_DIR_BASE", "/tmp/grt_sft")
+    sft_dir = os.path.join(out_base, config.get("SFT_SUBDIR_NAME", "sft"))
+    cadence = cadence_from_config(config)
+    mgr = None
+    if cadence["save_enabled"]:
+        # recency retention, keep 2: this manager exists to resume, and
+        # the corrupt-checkpoint fallback needs an earlier step
+        mgr = CheckpointManager(
+            sft_dir, max_to_keep=2, score_attribute=None,
+            async_commit=_flag(config, "ASYNC_CKPT"),
+            commit_timeout_s=float(config.get(
+                "CKPT_COMMIT_TIMEOUT_S",
+                os.environ.get("CKPT_COMMIT_TIMEOUT_S", "120"))),
+            peer=True if _flag(config, "PEER_REPLICATION") else None)
+
+    group_by_length = bool(config.get("GROUP_BY_LENGTH", False))
+    if group_by_length and plan.packing:
+        logger.warning("GROUP_BY_LENGTH is redundant under PACKING; "
+                       "packed sequences have no padding to group away")
+        group_by_length = False
+
+    def epoch_batches(epoch):
+        yield from sft_epoch_batches(train_rows, global_batch, epoch=epoch,
+                                     group_by_length=group_by_length)
+
+    place = make_place_batch(dev)
+
+    def eval_fn(st):
+        return {"eval_loss": sharded_eval_loss(
+            st, eval_step, eval_rows, host_batch=global_batch,
+            place_batch=place)}
+
+    # LoRA runs bill the 4N FLOP count (the frozen base takes no
+    # weight-grad products)
+    meter = ThroughputMeter(cfg, seq_len=max_seq, n_devices=1,
+                            trainable="lora" if use_lora else "full",
+                            device=dev)
+    # a LoRA checkpoint holds the adapters and the optimizer only: the
+    # frozen base is rebuilt from the pretrained weights on resume
+    ckpt_view = None
+    if use_lora:
+        ckpt_view = (
+            lambda st: dataclasses.replace(st, params=None),
+            lambda st, v: dataclasses.replace(v, params=st.params),
+        )
+    try:
+        state, metrics = run_training(
+            state, step_fn, epoch_batches,
+            epochs=epochs,
+            place_batch=place,
+            guards=plan.runtime_guards(),
+            prefetch=plan.prefetch,
+            log_every=int(config.get("LOGGING_STEPS", 10)),
+            meter=meter, ckpt_manager=mgr,
+            report_fn=lambda m: ctx.report(m),
+            eval_fn=eval_fn if cadence["eval_enabled"] else None,
+            eval_every=cadence["eval_every"],
+            eval_at_epoch_end=cadence["eval_at_epoch_end"],
+            ckpt_every=cadence["ckpt_every"],
+            ckpt_view=ckpt_view,
+            heartbeat_fn=ctx.heartbeat,
+            profiler=profiler_from_config(
+                config, os.path.join(out_base, "profile")),
+            tb_writer=writer_from_config(
+                config, os.path.join(out_base, "tensorboard"),
+                is_host0=ctx.is_host0()),
+            is_host0=ctx.is_host0())
+    finally:
+        if mgr is not None:
+            mgr.close()
+
+    # ---- the final artifact: HF layout and the tokenizer --------------
+    final_dir = os.path.join(
+        out_base, config.get("MERGED_MODEL_SUBDIR_NAME", "merged")
+        if use_lora else config.get("FULL_FT_MODEL_SUBDIR_NAME", "full"))
+    if ctx.is_host0():
+        # LoRA: merged one projection at a time on the card, streamed to
+        # the writer; the trained state is left as it was
+        save_hf_checkpoint(state.params, cfg, final_dir,
+                           lora=state.lora if use_lora else None,
+                           lora_scale=lora_cfg.scale if use_lora else 1.0)
+        save_tokenizer(tokenizer, final_dir)
+        logger.info("saved final model + tokenizer to %s", final_dir)
+    return metrics
+
+
+def main(argv=None) -> int:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(name)s: %(message)s")
+    path = os.environ.get("FINE_TUNE_CONFIG", DEFAULT_CONFIG)
+    try:
+        with open(path) as f:
+            config = json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        logger.error("failed to load %s: %s", path, e)
+        return 1
+    # the attempt's SIGTERM handler, as the JAX trainer installs it
+    preempt.install()
+    try:
+        metrics = train_loop_per_worker(config)
+    except preempt.Preempted as e:
+        logger.error("%s; run again to resume from the checkpoint", e)
+        return 1
+    except Exception:  # noqa: BLE001 - the process boundary reports it
+        logger.exception("training failed")
+        return 1
+    finally:
+        preempt.uninstall()
+    logger.info("final metrics: %s", metrics)
+    # one machine-readable line, last on stdout (logging goes to stderr)
+    print(json.dumps({"metric": "flagship_final", "attempts": 1,
+                      "preemptions": 0, **{
+                          k: v for k, v in (metrics or {}).items()
+                          if isinstance(v, (int, float))}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,11 +2,12 @@
 part, ``grad_accum``, the input pipeline and the runtime guards of
 ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Eight knobs, read from the same environment / config keys as the JAX
+Eleven knobs, read from the same environment / config keys as the JAX
 package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
-(whole-prompt prefill reuse), ``GRADIENT_ACCUMULATION_STEPS``
-(microbatches per optimizer step), ``FUSED_OPS`` (the train step's
+(whole-prompt prefill reuse), ``PER_DEVICE_TRAIN_BATCH_SIZE``,
+``MAX_SEQ_LENGTH`` and ``PACKING`` (the train batch's shape),
+``GRADIENT_ACCUMULATION_STEPS`` (microbatches per optimizer step), ``FUSED_OPS`` (the train step's
 fused rms_norm / q-k RoPE kernels, and the fused cross-entropy where the
 config has no logit softcap), ``PREFETCH_BATCHES`` (the loop's prefetch
 depth), ``TRANSFER_GUARD`` and ``DIVERGENCE_GUARD`` (the loop's runtime
@@ -31,7 +32,10 @@ CONFIG_KEYS: Dict[str, str] = {
     "max_batch": "MAX_BATCH",
     "decode_buckets": "DECODE_BUCKETS",
     "prefix_cache": "PREFIX_CACHE",
+    "per_device_batch": "PER_DEVICE_TRAIN_BATCH_SIZE",
     "grad_accum": "GRADIENT_ACCUMULATION_STEPS",
+    "max_seq_len": "MAX_SEQ_LENGTH",
+    "packing": "PACKING",
     "fused_ops": "FUSED_OPS",
     "prefetch": "PREFETCH_BATCHES",
     "transfer_guard": "TRANSFER_GUARD",
@@ -48,7 +52,8 @@ OPERATIONAL_FIELDS = ("prefetch", "transfer_guard", "divergence_guard")
 
 def _coerce(field: str, value: Any) -> Any:
     """One coercion for env strings, JSON values and python kwargs."""
-    if field in ("max_batch", "grad_accum", "prefetch"):
+    if field in ("max_batch", "per_device_batch", "grad_accum",
+                 "max_seq_len", "prefetch"):
         try:
             return int(value)
         except (TypeError, ValueError):
@@ -58,7 +63,8 @@ def _coerce(field: str, value: Any) -> Any:
         if v in ("", "0", "off", "false", "allow", None):
             return None
         return v
-    if field in ("prefix_cache", "fused_ops", "divergence_guard"):
+    if field in ("prefix_cache", "packing", "fused_ops",
+                 "divergence_guard"):
         if isinstance(value, (bool, int, float)):
             return bool(value)
         s = str(value).strip().lower()
@@ -94,6 +100,11 @@ class ExecutionPlan:
     # re-submission reuses the first request's prefilled cache row and
     # first token instead of prefilling again
     prefix_cache: bool = False
+    # the train batch: rows per device and microbatch, sequence length,
+    # and whether rows are packed (data/packing.py)
+    per_device_batch: int = 2
+    max_seq_len: int = 1024
+    packing: bool = False
     # microbatches accumulated per optimizer step (train/step.py)
     grad_accum: int = 1
     # the train step's rms_norms and q/k RoPE through the fused kernels
@@ -110,8 +121,10 @@ class ExecutionPlan:
     def __post_init__(self):
         if self.max_batch < 1:
             raise PlanError(f"max_batch={self.max_batch} must be >= 1")
-        if self.grad_accum < 1:
-            raise PlanError(f"grad_accum={self.grad_accum} must be >= 1")
+        for field in ("per_device_batch", "grad_accum", "max_seq_len"):
+            if getattr(self, field) < 1:
+                raise PlanError(f"{field}={getattr(self, field)} must be "
+                                ">= 1")
         if self.prefetch < 0:
             raise PlanError(f"prefetch={self.prefetch} must be >= 0")
         if self.transfer_guard not in _TRANSFER_GUARD_MODES:

@@ -17,10 +17,11 @@ loop. PyTorch's idiom in its place:
   (``analysis/guards.py``), and every sanctioned wait on the card runs
   inside ``allow_transfers()``.
 
-Not ported yet, each named in ROADMAP.md: the checkpoint manager (item
-3; any object with ``restore_if_available`` / ``save`` / ``wait`` /
+The checkpoint manager is ``ckpt/manager.py::CheckpointManager``; any
+object with ``restore_if_available`` / ``save`` / ``wait`` /
 ``latest_step``, optionally ``async_commit`` and
-``last_restore_source``, serves), the multi-card preemption agreement
+``last_restore_source``, serves. Not ported yet, each named in
+ROADMAP.md: the multi-card preemption agreement
 (item 5: a ``torch.distributed`` world above 1 raises), the
 ``FAULT_SPEC`` injector (item 6: an injector passed in is called; the
 variable set with none raises) and the telemetry hooks (item 9).

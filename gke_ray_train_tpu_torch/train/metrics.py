@@ -152,19 +152,24 @@ def ledger_metrics(led: dict) -> dict:
 # FLOPs, peak rate, the throughput meter
 # ---------------------------------------------------------------------------
 
-# dense bf16 tensor-core peaks (NVIDIA data sheets, SXM parts, no
-# sparsity), by a lower-case substring of torch.cuda.get_device_name();
-# "cpu" is nominal, so MFU stays finite in CPU tests
+# dense bf16 tensor-core peaks (NVIDIA data sheets, no sparsity), by a
+# lower-case substring of torch.cuda.get_device_name(), one entry per
+# H100 variant: the SXM part ("NVIDIA H100 80GB HBM3"), the PCIe card and
+# the NVL card; "cpu" is nominal, so MFU stays finite in CPU tests
 PEAK_FLOPS = {
-    "h100": 989e12,
+    "h100 80gb hbm3": 989e12,
+    "h100 sxm": 989e12,
+    "h100 pcie": 756e12,
+    "h100 nvl": 835e12,
     "cpu": 1e12,
 }
 DEFAULT_PEAK_FLOPS = 989e12
 
 
 def peak_flops_per_device(device_name: str) -> float:
-    """The bf16 peak of the card named ``device_name``; an unknown card
-    warns once and gets the H100's rate."""
+    """The bf16 peak of the card named ``device_name``, longest matching
+    key first; a card that matches no entry (an H100 variant not in the
+    table among them) warns once and gets the H100 SXM's rate."""
     kind = device_name.lower()
     for k, v in sorted(PEAK_FLOPS.items(), key=lambda kv: -len(kv[0])):
         if k in kind:

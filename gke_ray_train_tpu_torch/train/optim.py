@@ -13,6 +13,9 @@ with optax's numerics where they differ from torch's own:
   direction before the learning rate scales both;
 - the learning rate is ``schedule(count)`` with ``count`` the number of
   updates already made, set into the param groups before each update.
+
+``SGD`` is the same clip before ``optax.sgd`` with momentum (the
+config's ``OPTIM=sgd``).
 """
 
 from __future__ import annotations
@@ -71,9 +74,10 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
-    """What ``make_optimizer`` returns: the settings, and ``build`` to
-    make the optimizer over a model's named trainable tensors (as
-    ``make_train_state`` does)."""
+    """What ``make_optimizer`` / ``make_sgd`` return: the settings, and
+    ``build`` to make the optimizer over a model's named trainable
+    tensors (as ``make_train_state`` does). ``kind`` "adamw" uses b1, b2,
+    eps and the decay; "sgd" uses ``momentum`` only."""
     schedule: Union[Schedule, float]
     weight_decay: float = 0.01
     clip_norm: Optional[float] = 1.0
@@ -82,22 +86,31 @@ class OptimizerSpec:
     eps: float = 1e-8
     weight_decay_mask: Callable[[str, torch.Tensor], bool] = \
         default_weight_decay_mask
+    kind: str = "adamw"
+    momentum: float = 0.9
 
     def lr(self, count: int) -> float:
         s = self.schedule
         return float(s(count)) if callable(s) else float(s)
 
     def build(self, named_params: Iterable[Tuple[str, torch.Tensor]]
-              ) -> "AdamW":
-        return AdamW(named_params, self)
+              ) -> "ClippedOptimizer":
+        if self.kind not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer kind {self.kind!r}; "
+                             f"valid: {sorted(OPTIMIZERS)}")
+        return OPTIMIZERS[self.kind](named_params, self)
 
 
-class AdamW(torch.optim.Optimizer):
-    """Global-norm clipping then AdamW, in optax's arithmetic (module
-    doc). Two param groups: decayed and not. ``step()`` updates in place
-    and keeps the pre-clip global norm in ``last_grad_norm`` (a 0-dim
-    fp32 tensor, read without a host sync); ``count`` is the number of
-    updates made."""
+class ClippedOptimizer(torch.optim.Optimizer):
+    """Global-norm clipping, then the update of a subclass, in optax's
+    arithmetic (module doc). Two param groups: decayed and not. The
+    per-parameter state (``STATE_KEYS``, zeros like the parameter) is
+    made here, as optax's ``init`` makes it, so a checkpoint restores
+    into it before any step. ``step()`` updates in place and keeps the
+    pre-clip global norm in ``last_grad_norm`` (a 0-dim fp32 tensor, read
+    without a host sync); ``count`` is the number of updates made."""
+
+    STATE_KEYS: Tuple[str, ...] = ()
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
                  spec: OptimizerSpec):
@@ -112,6 +125,17 @@ class AdamW(torch.optim.Optimizer):
         self.spec = spec
         self.count = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
+        for g in self.param_groups:
+            for p in g["params"]:
+                self.state[p] = {k: torch.zeros_like(p)
+                                 for k in self.STATE_KEYS}
+
+    def _update(self, p: torch.Tensor, g: torch.Tensor, st: dict,
+                lr: float, wd: float) -> None:
+        raise NotImplementedError
+
+    def _begin(self) -> None:
+        """Per-step constants, after ``count`` moved to this update."""
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -133,27 +157,53 @@ class AdamW(torch.optim.Optimizer):
                      for p, g in grads.items()}
         lr = spec.lr(self.count)
         self.count += 1
-        # bias corrections in fp32, as optax forms them
-        n = torch.tensor(float(self.count), dtype=torch.float32)
-        c1 = float(1.0 - torch.tensor(spec.b1, dtype=torch.float32) ** n)
-        c2 = float(1.0 - torch.tensor(spec.b2, dtype=torch.float32) ** n)
+        self._begin()
         for group in self.param_groups:
             group["lr"] = lr
-            wd = group["weight_decay"]
             for p in group["params"]:
-                g = grads[p]
-                st = self.state[p]
-                if not st:
-                    st["mu"] = torch.zeros_like(p)
-                    st["nu"] = torch.zeros_like(p)
-                mu, nu = st["mu"], st["nu"]
-                mu.copy_((1.0 - spec.b1) * g + spec.b1 * mu)
-                nu.copy_((1.0 - spec.b2) * torch.square(g) + spec.b2 * nu)
-                u = (mu / c1) / (torch.sqrt(nu / c2) + spec.eps)
-                if wd:
-                    u = u + wd * p
-                p.add_((u * -lr).to(p.dtype))
+                self._update(p, grads[p], self.state[p], lr,
+                             group["weight_decay"])
         return loss
+
+
+class AdamW(ClippedOptimizer):
+    """Clip, then AdamW: moments ``mu`` / ``nu``, bias corrections in
+    fp32 as optax forms them, decoupled decay added to the direction."""
+
+    STATE_KEYS = ("mu", "nu")
+
+    def _begin(self) -> None:
+        spec = self.spec
+        n = torch.tensor(float(self.count), dtype=torch.float32)
+        self._c1 = float(1.0 - torch.tensor(spec.b1, dtype=torch.float32)
+                         ** n)
+        self._c2 = float(1.0 - torch.tensor(spec.b2, dtype=torch.float32)
+                         ** n)
+
+    def _update(self, p, g, st, lr, wd):
+        spec = self.spec
+        mu, nu = st["mu"], st["nu"]
+        mu.copy_((1.0 - spec.b1) * g + spec.b1 * mu)
+        nu.copy_((1.0 - spec.b2) * torch.square(g) + spec.b2 * nu)
+        u = (mu / self._c1) / (torch.sqrt(nu / self._c2) + spec.eps)
+        if wd:
+            u = u + wd * p
+        p.add_((u * -lr).to(p.dtype))
+
+
+class SGD(ClippedOptimizer):
+    """Clip, then ``optax.sgd(schedule, momentum)``: the trace ``g +
+    momentum * trace`` scaled by the learning rate; no decay."""
+
+    STATE_KEYS = ("trace",)
+
+    def _update(self, p, g, st, lr, wd):
+        tr = st["trace"]
+        tr.copy_(g + self.spec.momentum * tr)
+        p.add_((tr * -lr).to(p.dtype))
+
+
+OPTIMIZERS = {"adamw": AdamW, "sgd": SGD}
 
 
 def make_optimizer(schedule: Union[Schedule, float], *,
@@ -169,3 +219,12 @@ def make_optimizer(schedule: Union[Schedule, float], *,
         schedule=schedule, weight_decay=weight_decay, clip_norm=clip_norm,
         b1=b1, b2=b2, eps=eps,
         weight_decay_mask=weight_decay_mask or default_weight_decay_mask)
+
+
+def make_sgd(schedule: Union[Schedule, float], *,
+             clip_norm: Optional[float] = 1.0,
+             momentum: float = 0.9) -> OptimizerSpec:
+    """``optax.chain(clip_by_global_norm(clip_norm), sgd(schedule,
+    momentum))`` as an ``OptimizerSpec``."""
+    return OptimizerSpec(schedule=schedule, weight_decay=0.0,
+                         clip_norm=clip_norm, kind="sgd", momentum=momentum)

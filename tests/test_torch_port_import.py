@@ -55,7 +55,8 @@ def test_every_module_imports_with_jax_blocked():
               "ops.registry", "analysis.kernelcheck", "analysis.__main__",
               "analysis.guards", "config", "rayint.context",
               "train.loop", "train.evaluate", "train.preempt", "train.tb",
-              "train.profiling"):
+              "train.profiling", "ckpt", "ckpt.manager", "ckpt.hf_io",
+              "fine_tune"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
