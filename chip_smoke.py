@@ -137,8 +137,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
              step returns, eval pauses, the ledger, restore / save /
              commit seconds, checkpoint bytes, peak memory, launches) and
              one for the export (seconds, bytes, shards, read-back).
-15. entry_full (opt-in) — the same worker on that config unchanged (~125
+15. train_moe — the train phase's loop on Mixtral-8x7B QLoRA at full
+             width and depth (8 experts top 2) with
+             ray-jobs/fine_tune_config_mixtral.json's settings (NF4 with
+             QUANT_STORE=uint4, drawn and quantized one expert slice at a
+             time; r 64 on attention only, dropout 0.05; 1 x 8
+             microbatches of 1,024 on the offline SQL rows), under
+             TRANSFER_GUARD=disallow: one warm-up and 2 timed steps, one
+             eval of 8 rows. Finite loss, grad_norm, eval_loss and router
+             aux; the adapters change, the routers and a bank do not; per
+             step the flash forward 2 x 32 x 8 times, dQ and dK/dV 32 x 8.
+             The line adds the base's bytes on the card and the routing
+             (router aux, dropped (token, slot) share) read from every
+             ``moe_mlp`` call.
+16. train_moe_parity — float32, Mixtral at full width and 2 layers,
+             QLoRA, 3 steps: flash against dense attention within the
+             train-parity bounds, and a uint4 base against an int8 one,
+             bitwise.
+17. serve_moe — Mixtral at full width and 4 layers in float32 through
+             ``BatchEngine`` at capacity_factor 4.0 (drop-free): 8
+             requests over the 256 and 512 buckets, every completion
+             equal to sequential greedy, flash once per layer per prefill.
+18. entry_moe — the entry's worker on the Mixtral job at full width,
+             depth cut to 4 layers (the full export is 93.4 GB), 4 steps
+             with a save and an eval of 8 rows every 2; ``df`` of the
+             output directory first; the merged export read back
+             quantized, bitwise.
+19. entry_full (opt-in) — the same worker on that config unchanged (~125
              steps, eval of 200 rows and a save every 50, the export).
+20. train_moe_profile (opt-in) — the train_profile route over one step
+             of the train_moe job, with its device time by MoE group
+             (dequantize, expert GEMMs, dispatch, flash).
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -148,6 +177,7 @@ package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import itertools
@@ -1634,11 +1664,11 @@ EVAL_EVERY = 3
 TRAIN_GUARD = "disallow"
 
 
-def _sft_rows(ft, seq, split="train"):
+def _sft_rows(ft, seq, split="train", n_eval=EVAL_ROWS):
     """The offline input of an unpacked job (ray-jobs/
     fine_tune_llama_ray.py:207-255 where the hub is unreachable): gretel-
     shaped synthetic SQL rows (train: seed 0, NUM_TRAIN_SAMPLES of at
-    least 64 drawn; eval: seed 1, ``EVAL_ROWS`` of at least 16, as the
+    least 64 drawn; eval: seed 1, ``n_eval`` of at least 16, as the
     job draws them), rendered by the fallback chat template and tokenized
     by bytes (``ByteTokenizer``) to ``seq + 1`` tokens, prompt weight 0,
     each padded to a row of ``seq``."""
@@ -1646,7 +1676,7 @@ def _sft_rows(ft, seq, split="train"):
         ByteTokenizer, downsample, format_gretel_sql_example, pad_sft_rows,
         synthetic_sql_rows, tokenize_sft_example)
     n, least, seed = ((int(ft["NUM_TRAIN_SAMPLES"]), 64, 0)
-                      if split == "train" else (EVAL_ROWS, 16, 1))
+                      if split == "train" else (n_eval, 16, 1))
     rows = downsample(synthetic_sql_rows(max(n, least), seed=seed), n)
     tok = ByteTokenizer()
     return pad_sft_rows([tokenize_sft_example(
@@ -1702,6 +1732,7 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     step_fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=schedule,
                               plan=plan, device=dev)
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
     if ft.get("PACKING"):
         rng = np.random.default_rng(1234)
         batches = [_packed_batch(batch_rows, seq, cfg.vocab_size, rng)
@@ -1714,7 +1745,16 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     return dict(cfg=cfg, ft=ft, plan=plan, lcfg=lcfg, micro=micro,
                 batch_rows=batch_rows, seq=seq, state=state, step_fn=step_fn,
                 batches=batches, place=make_place_batch(dev),
-                input_path=input_path, init_s=time.perf_counter() - t0)
+                input_path=input_path, init_s=init_s,
+                base_bytes=_module_bytes(params))
+
+
+def _module_bytes(module):
+    """Bytes of a module's parameters and buffers (a QLoRA base: codes,
+    scales and the full-precision rest)."""
+    return sum(t.numel() * t.element_size()
+               for t in itertools.chain(module.parameters(),
+                                        module.buffers()))
 
 
 def expected_launches(cfg, grad_accum: int, fused_ops: bool,
@@ -1842,14 +1882,15 @@ def _drive(dev, job, eval_rows=None, profiler=None):
 
 
 def phase_train(dev, cfg=None, steps: int = 5, config=None,
-                phase: str = "train", guard=TRAIN_GUARD, **plan_overrides):
+                phase: str = "train", guard=TRAIN_GUARD,
+                n_eval: int = EVAL_ROWS, **plan_overrides):
     """QLoRA fine-tune steps at full width and depth with the settings of
     a job config, through the port's ``run_training`` (``_drive``); by
     default Llama-3.1-8B with ray-jobs/fine_tune_config.json: NF4 base,
     LoRA r 64 / alpha 16 / dropout 0.1 on all projections, microbatch 2
     x grad-accum 4 at 1024 tokens, AdamW (lr 2e-4, wd 0.001) with
     warmup-cosine and clip 0.3, on the job's offline input path
-    (``_fine_tune_setup``), with eval (``EVAL_ROWS`` held-out rows every
+    (``_fine_tune_setup``), with eval (``n_eval`` held-out rows every
     ``EVAL_EVERY`` steps); a packed job (Gemma-2) runs without eval. One
     warm-up step, then ``steps`` timed ones; the step launch counts, the
     routes of the cross-entropy's and the rms_norm's launches and the
@@ -1857,7 +1898,10 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     every delivered batch must equal its numpy batch; the eval passes
     launch the flash forward once a layer, nothing else; the goodput
     ledger's terms sum to the loop's wall within 1 ms; with ``guard``
-    the loop runs under that TRANSFER_GUARD mode."""
+    the loop runs under that TRANSFER_GUARD mode. On an MoE model
+    (Mixtral) every ``moe_mlp`` call of the run is read by ``_MoeProbe``
+    (router aux, dropped assignments), the router and expert banks must
+    stay as they were, and the line adds the base's bytes on the card."""
     import torch
     from gke_ray_train_tpu_torch.train import (
         peak_flops_per_device, train_flops_per_token)
@@ -1869,10 +1913,22 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
     packed = bool(ft.get("PACKING"))
     watch = job["state"].lora[0]["wq"]["b"]
     before = watch.detach().clone()
-    eval_rows = None if packed else _sft_rows(ft, seq, split="eval")
-    run = _drive(dev, job, eval_rows=eval_rows)
+    eval_rows = None if packed else _sft_rows(ft, seq, split="eval",
+                                              n_eval=n_eval)
+    moe = cfg.n_experts > 0
+    frozen = {}
+    if moe:
+        # the base must not move: every router, and one bank's codes
+        blocks = job["state"].params.blocks
+        frozen = {f"blocks.{i}.router": (b.router, b.router.detach().clone())
+                  for i, b in enumerate(blocks)}
+        frozen["blocks.0.w_gate.codes"] = (
+            blocks[0].w_gate.codes, blocks[0].w_gate.codes.clone())
+    with _MoeProbe(dev, enabled=moe) as probe:
+        run = _drive(dev, job, eval_rows=eval_rows)
     state = run.pop("state")
     init_s, input_path = job["init_s"], job["input_path"]
+    base_bytes = job["base_bytes"]
     del job
     rows, times = run["metrics"], run["step_s"][1:]
     warm_s = run["step_s"][0]
@@ -1905,6 +1961,13 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
         problems.append(f"eval launches {eval_launches} != {want_eval}")
     if torch.equal(before, watch.detach()):
         problems.append("the adapters did not change")
+    moved = [k for k, (t, t0) in frozen.items() if not torch.equal(t, t0)]
+    if moved:
+        problems.append(f"the frozen base moved: {moved}")
+    del frozen
+    routing = probe.read() if moe else None
+    if moe and not np.isfinite(routing["router_aux_mean"]):
+        problems.append(f"router aux {routing['router_aux_mean']}")
     if not all(run["placed_equal"]):
         problems.append(f"delivered batches differ from their numpy "
                         f"batches: {run['placed_equal']}")
@@ -1952,7 +2015,7 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
            # loaded, cuBLAS and the allocator warmed; no trace, no compile)
            "compile_s": last["compile_s"],
            "restart_to_first_step_s": last["restart_to_first_step_s"],
-           "eval": ({"rows": EVAL_ROWS, "every": EVAL_EVERY,
+           "eval": ({"rows": n_eval, "every": EVAL_EVERY,
                      "cut_from": {"NUM_EVAL_SAMPLES":
                                   ft.get("NUM_EVAL_SAMPLES"),
                                   "EVAL_STEPS_SFT":
@@ -1973,10 +2036,19 @@ def phase_train(dev, cfg=None, steps: int = 5, config=None,
            "placed_batches_equal": run["placed_equal"],
            "train_flops_per_token": flops_tok,
            "peak_mem_bytes": run["peak_mem_bytes"],
+           "base_bytes": base_bytes,
            "launches": launches, "launches_per_step": per_step,
            "eval_launches": eval_launches, "routes": routes,
            "losses": [r["loss"] for r in rows],
            "grad_norms": [r["grad_norm"] for r in rows]}
+    if moe:
+        from gke_ray_train_tpu_torch.ops.moe import expert_capacity
+        row.update(active_params=cfg.active_param_count(),
+                   experts=cfg.n_experts, top_k=cfg.expert_top_k,
+                   capacity_factor=cfg.capacity_factor,
+                   capacity=expert_capacity(cfg, seq),
+                   quant_store=os.environ.get("QUANT_STORE", "int8"),
+                   routing=routing)
     emit(row)
     if problems:
         raise SystemExit(f"{phase} phase failed: " + "; ".join(problems))
@@ -2008,7 +2080,9 @@ def phase_train_profile(dev, cfg=None, config=None,
     1, PROFILE_NUM_STEPS 1). Reads the Chrome trace the profiler wrote:
     it must exist and hold the step's flash launches
     (``expected_launches``). Device busy share = summed kernel time in
-    the trace over the traced step's wall time (one stream)."""
+    the trace over the traced step's wall time (one stream). On an MoE
+    model the line adds the step's device time by MoE group
+    (``_moe_groups``: dequantize, expert GEMMs, dispatch, flash)."""
     import shutil
     import tempfile
     import torch
@@ -2020,7 +2094,8 @@ def phase_train_profile(dev, cfg=None, config=None,
         prof = profiler_from_config({"PROFILE": trace_dir,
                                      "PROFILE_START_STEP": 1,
                                      "PROFILE_NUM_STEPS": 1}, trace_dir)
-        run = _drive(dev, job, profiler=prof)
+        with _moe_ranges(enabled=cfg.n_experts > 0):
+            run = _drive(dev, job, profiler=prof)
         del job, run["state"]
         path = prof.trace_path
         size = os.path.getsize(path) if path else 0
@@ -2028,6 +2103,7 @@ def phase_train_profile(dev, cfg=None, config=None,
             events = json.load(f)["traceEvents"]
     finally:
         shutil.rmtree(trace_dir, ignore_errors=True)
+    moe_groups = _moe_groups(events) if cfg.n_experts else None
     kern = [e for e in events if e.get("cat") == "kernel"]
     del events
     wall = run["step_s"][1]
@@ -2067,6 +2143,7 @@ def phase_train_profile(dev, cfg=None, config=None,
           "device_busy_share": busy_us / 1e6 / wall,
           "kernel_launches": len(kern), "flash_launches": in_trace,
           "device_ms_by_group": by_group,
+          **({"moe_device_ms_by_group": moe_groups} if moe_groups else {}),
           "top_kernels": [{"name": k[:90], "ms": ms, "calls": n}
                           for k, (ms, n) in top]})
     if problems:
@@ -2287,6 +2364,369 @@ def phase_train_fused_ce_profile(dev, cfg=None):
     train_fused_ce phase's job."""
     phase_train_profile(dev, cfg, phase="train_fused_ce_profile",
                         fused_ops=True)
+
+
+# ---------------------------------------------------------------------------
+# the Mixture-of-Experts slice: Mixtral-8x7B
+# ---------------------------------------------------------------------------
+
+MIXTRAL_CONFIG = os.path.join(HERE, "ray-jobs",
+                              "fine_tune_config_mixtral.json")
+# train_moe's cut of the Mixtral job (1,000 rows, ~125 steps, an eval of
+# 200 rows every 50): one warm-up and 2 timed steps, one eval pass of 8
+# held-out rows after step 3
+MOE_STEPS = 2
+MOE_EVAL_ROWS = 8
+# the NF4 store of the MoE train phases: two codes a byte (base 26.7 GB
+# in place of 49.9 GB with int8 codes)
+MOE_STORE = "uint4"
+
+
+@contextlib.contextmanager
+def _quant_store(store):
+    """``QUANT_STORE`` set to ``store`` inside the block, restored after
+    (the port reads it at each quantization)."""
+    old = os.environ.get("QUANT_STORE")
+    os.environ["QUANT_STORE"] = store
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("QUANT_STORE", None)
+        else:
+            os.environ["QUANT_STORE"] = old
+
+
+class _MoeProbe:
+    """While entered (and ``enabled``), ``ops.moe.moe_mlp`` is wrapped:
+    each call's routing is read again (``moe.route``, no grad) and summed
+    on the device, so nothing waits for the card inside the loop: the
+    (token, slot) assignments kept and dropped, over all tokens and over
+    tokens of weight > 0, the router aux and the calls (training
+    forwards, remat recomputations and eval forwards alike). ``read()``
+    after the run."""
+
+    def __init__(self, dev, enabled=True):
+        self.dev, self.enabled = dev, enabled
+
+    def __enter__(self):
+        if not self.enabled:
+            return self
+        import torch
+        from gke_ray_train_tpu_torch.ops import moe
+        self._orig = orig = moe.moe_mlp
+        self.sums = sums = torch.zeros(6, dtype=torch.float64,
+                                       device=self.dev)
+
+        def probed(x, router_w, w_gate, w_up, w_down, cfg, dtype,
+                   weights=None):
+            y, aux = orig(x, router_w, w_gate, w_up, w_down, cfg, dtype,
+                          weights=weights)
+            with torch.no_grad():
+                r = moe.route(x, router_w, cfg)
+                real = (torch.ones_like(r.keep) if weights is None else
+                        (weights > 0)[..., None].expand_as(r.keep))
+                sums[0] += r.keep.sum()
+                sums[1] += (~r.keep).sum()
+                sums[2] += (r.keep & real).sum()
+                sums[3] += (~r.keep & real).sum()
+                sums[4] += aux.detach()
+                sums[5] += 1
+            return y, aux
+        moe.moe_mlp = probed
+        return self
+
+    def __exit__(self, *exc):
+        if self.enabled:
+            from gke_ray_train_tpu_torch.ops import moe
+            moe.moe_mlp = self._orig
+
+    def read(self):
+        kept, dropped, kept_real, dropped_real, aux, calls = (
+            float(v) for v in self.sums.cpu())
+        return {"moe_calls": int(calls),
+                "router_aux_mean": aux / max(calls, 1.0),
+                "assignments": int(kept + dropped),
+                "dropped_share": dropped / max(kept + dropped, 1.0),
+                "dropped_share_real_tokens": dropped_real / max(
+                    kept_real + dropped_real, 1.0)}
+
+
+@contextlib.contextmanager
+def _moe_ranges(enabled=True):
+    """While entered (and ``enabled``), ``ops.quant.dequantize`` and
+    ``ops.moe.moe_mlp`` run inside ``torch.profiler.record_function``
+    ranges (``chip_smoke::dequantize``, ``chip_smoke::moe_mlp``), which
+    ``_moe_groups`` reads back from the trace."""
+    if not enabled:
+        yield
+        return
+    from torch.profiler import record_function
+    from gke_ray_train_tpu_torch.ops import moe, quant
+    orig = (quant.dequantize, moe.moe_mlp)
+
+    def ranged(name, fn):
+        def inner(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return inner
+    quant.dequantize = ranged("chip_smoke::dequantize", quant.dequantize)
+    moe.moe_mlp = ranged("chip_smoke::moe_mlp", moe.moe_mlp)
+    try:
+        yield
+    finally:
+        quant.dequantize, moe.moe_mlp = orig
+
+
+_GEMM_KEYS = ("nvjet", "gemm", "cutlass", "sm90_xmma")
+
+
+def _moe_groups(events):
+    """Device ms of a traced MoE step by group. Each kernel is tied to
+    the host call that launched it (its ``correlation`` with a runtime or
+    driver launch, then the CPU ops and ranges open on that thread at
+    that moment): ``flash`` (the flash kernels), ``expert_gemm``
+    (launched inside ``aten::bmm``, the expert FFN's products forward,
+    recomputed and backward), ``dequantize`` (inside a
+    ``chip_smoke::dequantize`` range: the banks' and the attention
+    projections' NF4 lookups), ``moe_dispatch`` (the rest of
+    ``moe_mlp``: routing, placing the tokens, the activation, the
+    combine; and their backward, found by the sequence number autograd
+    gives a backward function and the forward op it came from),
+    ``other_gemm`` (the attention projections, LoRA, the head) and
+    ``rest``."""
+    launch, spans = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, args = e.get("cat"), e.get("args", {})
+        if cat in ("cuda_runtime", "cuda_driver") and "correlation" in args:
+            launch[args["correlation"]] = (e["tid"], e["ts"])
+        elif cat in ("cpu_op", "user_annotation"):
+            spans.setdefault(e["tid"], []).append(
+                (e["ts"], e["ts"] + e.get("dur", 0), e["name"],
+                 args.get("Sequence number")))
+    points = {}
+    for corr, (tid, ts) in launch.items():
+        points.setdefault(tid, []).append((ts, corr))
+    chain_of, moe_seqs = {}, set()
+    for tid, sp in spans.items():
+        sp.sort(key=lambda s: (s[0], -s[1]))
+        stack, i = [], 0
+        for ts, corr in sorted(points.get(tid, [])) + [(float("inf"),
+                                                         None)]:
+            while i < len(sp) and sp[i][0] <= ts:
+                while stack and stack[-1][1] <= sp[i][0]:
+                    stack.pop()
+                if sp[i][3] is not None and not sp[i][2].startswith(
+                        "autograd::") and any(
+                        s[2] == "chip_smoke::moe_mlp" for s in stack):
+                    moe_seqs.add(sp[i][3])
+                stack.append(sp[i])
+                i += 1
+            while stack and stack[-1][1] < ts:
+                stack.pop()
+            if corr is not None:
+                chain_of[corr] = tuple(stack)
+    out = dict.fromkeys(("flash", "expert_gemm", "dequantize",
+                         "moe_dispatch", "other_gemm", "rest"), 0.0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        name = e["name"]
+        chain = chain_of.get(e.get("args", {}).get("correlation"), ())
+        names = {s[2] for s in chain}
+        if "flash_" in name:
+            g = "flash"
+        elif "aten::bmm" in names:
+            g = "expert_gemm"
+        elif "chip_smoke::dequantize" in names:
+            g = "dequantize"
+        elif "chip_smoke::moe_mlp" in names or any(
+                s[2].startswith("autograd::engine::evaluate_function")
+                and s[3] in moe_seqs for s in chain):
+            g = "moe_dispatch"
+        elif any(k in name for k in _GEMM_KEYS):
+            g = "other_gemm"
+        else:
+            g = "rest"
+        out[g] += e.get("dur", 0) / 1e3
+    return out
+
+
+def phase_train_moe(dev, cfg=None, steps: int = MOE_STEPS):
+    """Mixtral-8x7B QLoRA at full width and depth (32 layers, d_model
+    4,096, 8 experts top 2, d_ff 14,336, vocab 32,000) with
+    ray-jobs/fine_tune_config_mixtral.json's settings through
+    ``run_training`` (the train phase's ``_drive``): NF4 base from seed 0
+    with ``QUANT_STORE=uint4``, quantized one expert slice at a time, LoRA
+    r 64 / alpha 16 / dropout 0.05 on attention only, microbatch 1 x
+    grad-accum 8 at 1,024 tokens, AdamW (lr 2e-4, wd 0.001), warmup-
+    cosine, clip 0.3, on the offline SQL rows through the prefetcher,
+    under TRANSFER_GUARD=disallow. One warm-up and ``steps`` timed steps,
+    an eval pass of ``MOE_EVAL_ROWS`` held-out rows after step 3; per
+    step the flash forward 2 x 32 x 8 times, dQ and dK/dV 32 x 8. The
+    job's v5e-16 mesh (MESH_FSDP 4, MESH_MODEL 4) becomes one card."""
+    with _quant_store(MOE_STORE):
+        return phase_train(dev, cfg, steps, config=MIXTRAL_CONFIG,
+                           phase="train_moe", n_eval=MOE_EVAL_ROWS)
+
+
+def phase_train_moe_profile(dev, cfg=None):
+    """The profile of ``phase_train_profile`` over one step of the
+    train_moe phase's job, with its device time by MoE group."""
+    with _quant_store(MOE_STORE):
+        phase_train_profile(dev, cfg, MIXTRAL_CONFIG,
+                            phase="train_moe_profile")
+
+
+def phase_train_moe_parity(dev, cfg=None, steps: int = 3):
+    """fp32 (TF32 off), Mixtral at full width and 2 layers, QLoRA (NF4,
+    r 64, dropout 0), 3 steps of 2 microbatches of 1,024 tokens: the
+    flash kernels against dense attention (loss / grad_norm streams and
+    the adapters' change within the train-parity bounds), and a uint4
+    base against an int8 one, both through flash: the same codes, so the
+    loss and grad_norm streams must be equal bitwise. Returns the flash
+    launches of the two flash runs."""
+    import torch
+    from gke_ray_train_tpu_torch.models import mixtral_8x7b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg is None:
+        cfg = dataclasses.replace(
+            mixtral_8x7b(dtype="float32", param_dtype="float32", remat=True),
+            max_seq_len=1024, n_layers=2)
+    rng = np.random.default_rng(80)
+    batches = [_sft_batch(2, cfg.max_seq_len, cfg.vocab_size, rng)
+               for _ in range(steps)]
+    runs, used = {}, {}
+    for label, impl, store in (("flash_int8", "flash", "int8"),
+                               ("xla_int8", "xla", "int8"),
+                               ("flash_uint4", "flash", "uint4")):
+        before = _launch_counts()
+        with _quant_store(store):
+            runs[label] = _train_run(cfg, "qlora", impl, dev, steps, batches)
+        used[label] = {k: v - before[k] for k, v in _launch_counts().items()}
+    (got, d_got), (ref, d_ref), (u4, d_u4) = (
+        runs["flash_int8"], runs["xla_int8"], runs["flash_uint4"])
+    num = sum(float(torch.sum((d_got[n] - b) ** 2)) for n, b in d_ref.items())
+    den = sum(float(torch.sum(b ** 2)) for b in d_ref.values())
+    delta_rel = (num / den) ** 0.5 if den > 0 else float("inf")
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(got[k], ref[k]))
+           for k in got}
+    want = {k: v * steps for k, v in expected_launches(cfg, 2, False).items()}
+    u4_bitwise = got == u4 and all(torch.equal(d_got[n], d_u4[n])
+                                   for n in d_got)
+    problems = []
+    if not (all(v <= TRAIN_PARITY_RTOL for v in rel.values())
+            and delta_rel <= TRAIN_PARITY_DELTA_RTOL):
+        problems.append(f"flash against dense: {rel}, delta {delta_rel}")
+    if got != u4:
+        problems.append(f"uint4 streams {u4} != int8 streams {got}")
+    if not all(np.isfinite(got["loss"] + ref["loss"])):
+        problems.append("non-finite loss")
+    for label in ("flash_int8", "flash_uint4"):
+        if used[label] != want:
+            problems.append(f"{label} launches {used[label]} != {want}")
+    if any(used["xla_int8"].values()):
+        problems.append(f"the dense run launched {used['xla_int8']}")
+    emit({"phase": "train_moe_parity", "ok": not problems,
+          "problems": problems, "dtype": "float32", "model": cfg.name,
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "experts": cfg.n_experts, "steps": steps,
+          "tol_streams_rel": TRAIN_PARITY_RTOL,
+          "tol_delta_rel": TRAIN_PARITY_DELTA_RTOL,
+          "flash_vs_dense": {"kernel_run": got, "plain_run": ref,
+                             "max_rel_err": rel,
+                             "delta_rel_err": delta_rel},
+          "uint4_vs_int8": {"uint4_run": u4, "bitwise_streams": got == u4,
+                            "bitwise_adapters": u4_bitwise},
+          "launches": used})
+    if problems:
+        raise SystemExit("train_moe_parity phase failed: "
+                         + "; ".join(problems))
+    return {k: used["flash_int8"][k] + used["flash_uint4"][k]
+            for k, n in want.items() if n}
+
+
+# served at 4 layers in fp32: each layer's banks are 5.64 GB
+SERVE_MOE_LAYERS = 4
+
+
+def phase_serve_moe(dev, cfg=None):
+    """Mixtral at full width and ``SERVE_MOE_LAYERS`` layers in fp32 (TF32
+    off; random weights from seed 2, about 24 GB) through ``BatchEngine``:
+    8 requests over the 256 and 512 buckets, 4 slots, capacity_factor 4.0
+    so that routing drops nothing (E / K = 4: JAX tests/test_kvcache.py's
+    rule). Every completion must equal the sequential batch-1
+    ``greedy_generate_cached`` token for token, and the flash kernel must
+    run once per layer per prefill. Returns the engine's flash
+    launches."""
+    import torch
+    from gke_ray_train_tpu_torch.models import (
+        greedy_generate_cached, init_params, mixtral_8x7b)
+    from gke_ray_train_tpu_torch.ops.flash_attention import flash_attention
+    from gke_ray_train_tpu_torch.plan import ExecutionPlan
+    from gke_ray_train_tpu_torch.serve import BatchEngine, form_prompt_buffer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg is None:
+        cfg = dataclasses.replace(
+            mixtral_8x7b(dtype="float32", param_dtype="float32",
+                         remat=False),
+            max_seq_len=512, n_layers=SERVE_MOE_LAYERS, capacity_factor=4.0)
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=2, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    plan = ExecutionPlan.from_kwargs(max_batch=4, decode_buckets="256,512")
+    eos = (2,)
+    reqs = _requests(8, cfg.vocab_size, seed=98, new=(8, 24))
+    engine = BatchEngine(model, cfg, plan=plan, eos_ids=eos, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = engine.run_until_drained(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    stats = engine.stats()
+    mismatched = []
+    for r, c in zip(reqs, comps):
+        buf, plen = form_prompt_buffer(r.token_ids, c.bucket)
+        ref = greedy_generate_cached(
+            model, buf, [plen], cfg, max_new_tokens=r.max_new_tokens,
+            eos_ids=eos, device=dev)
+        if not np.array_equal(ref[0].cpu().numpy(), c.tokens):
+            mismatched.append(r.rid)
+    buckets = sorted({c.bucket for c in comps})
+    gen = [c.length - c.prompt_len for c in comps]
+    problems = []
+    if mismatched:
+        problems.append(f"completions differ from sequential greedy: "
+                        f"{mismatched}")
+    if len(comps) != 8 or buckets != [256, 512]:
+        problems.append(f"{len(comps)} completions over buckets {buckets}")
+    if stats["prefills"] != 8 or launches != cfg.n_layers * 8:
+        problems.append(f"flash launches {launches} != n_layers "
+                        f"{cfg.n_layers} x prefills {stats['prefills']}")
+    emit({"phase": "serve_moe", "ok": not problems, "problems": problems,
+          "model": cfg.name, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "experts": cfg.n_experts,
+          "capacity_factor": cfg.capacity_factor, "dtype": cfg.dtype,
+          "params": cfg.param_count(), "init_s": init_s,
+          "requests": len(comps), "generated_tokens": int(sum(gen)),
+          "wall_s": wall, "tokens_per_s": sum(gen) / wall,
+          "token_latency_p50_s": stats["p50_token_latency_s"],
+          "refills": stats["refills"], "prefills": stats["prefills"],
+          "flash_launches": launches, "buckets": buckets,
+          "token_identical_to_sequential": not mismatched,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    if problems:
+        raise SystemExit("serve_moe phase failed: " + "; ".join(problems))
+    del model, engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2524,26 +2964,44 @@ def _entry_run(dev, config, label, preempt_after=None):
     return out
 
 
-def _entry_config(root, full=False, **over):
-    with open(ENTRY_CONFIG) as f:
+def _entry_config(root, full=False, path=ENTRY_CONFIG, cut=ENTRY_CUT,
+                  **over):
+    with open(path) as f:
         config = json.load(f)
     if not full:
-        config.update(ENTRY_CUT)
+        config.update(cut)
     config.update(over)
     config["OUTPUT_DIR_BASE"] = root
     return config
 
 
-def _entry_setup(config, dev):
+def _entry_setup(config, dev, n_layers=None):
     """The model config, LoRA config and the job's shape the entry
-    resolves from ``config``: one card, no pretrained directory."""
+    resolves from ``config``: one card, no pretrained directory; with
+    ``n_layers`` the depth cut ``_depth_cut`` gives the entry."""
     from gke_ray_train_tpu_torch.models import preset_for_model_id
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
     from gke_ray_train_tpu_torch.train import LoraConfig
     cfg = preset_for_model_id(config["MODEL_ID"], dtype=config["TRAIN_DTYPE"],
                               param_dtype=config["TRAIN_DTYPE"])
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     plan = ExecutionPlan.resolve(config, env={})
     return cfg, LoraConfig.from_dict(config), plan
+
+
+@contextlib.contextmanager
+def _depth_cut(n_layers):
+    """While entered, the entry's ``preset_for_model_id`` gives the preset
+    cut to ``n_layers`` layers (its widths unchanged)."""
+    from gke_ray_train_tpu_torch import fine_tune as ft
+    orig = ft.preset_for_model_id
+    ft.preset_for_model_id = lambda *a, **kw: dataclasses.replace(
+        orig(*a, **kw), n_layers=n_layers)
+    try:
+        yield
+    finally:
+        ft.preset_for_model_id = orig
 
 
 def _entry_disk(root, cfg, lcfg, runs):
@@ -2553,9 +3011,10 @@ def _entry_disk(root, cfg, lcfg, runs):
     the disk is short."""
     import shutil
     from gke_ray_train_tpu_torch.models.transformer import proj_shapes
-    trainable = sum(
-        lcfg.r * (d_in + d_out) for d_in, d_out in
-        proj_shapes(cfg).values()) * cfg.n_layers
+    from gke_ray_train_tpu_torch.train.lora import _effective_targets
+    shapes = proj_shapes(cfg)
+    trainable = sum(lcfg.r * sum(shapes[t])
+                    for t in _effective_targets(cfg, lcfg)) * cfg.n_layers
     need = 2 * cfg.param_count() + runs * 2 * 3 * 4 * trainable + (1 << 30)
     free = shutil.disk_usage(root).free
     if free < need:
@@ -2629,13 +3088,19 @@ def _same_bf16(x, y):
     return torch.equal(x.to(torch.bfloat16), y.to(torch.bfloat16))
 
 
+_HF_FAMILY = {"llama": ("LlamaForCausalLM", "llama"),
+              "mixtral": ("MixtralForCausalLM", "mixtral")}
+
+
 def _entry_readback(export_dir, cfg, lcfg, view, dev):
     """Read the export back with ``load_hf_checkpoint(quantize="nf4")``
     and hold it against the merged weights quantized directly: the NF4
     base from seed 0 (what the entry trained on) dequantized to fp32,
-    plus ``(alpha / r) A B`` of ``view``'s adapters, cast to bf16, then
-    quantized. Codes, scales, norms, embedding and head must be equal
-    bitwise; config.json must be a Llama config of the model's shape."""
+    plus ``(alpha / r) A B`` of ``view``'s adapters where a projection has
+    one (an MoE model's expert banks have none), cast to bf16, then
+    quantized. Codes, scales, norms, router, embedding and head must be
+    equal bitwise; config.json must be a Llama (Mixtral) config of the
+    model's shape."""
     import torch
     from gke_ray_train_tpu_torch.ckpt import load_hf_checkpoint
     from gke_ray_train_tpu_torch.models import init_quantized_params
@@ -2649,15 +3114,19 @@ def _entry_readback(export_dir, cfg, lcfg, view, dev):
     with torch.no_grad():
         for i, (b, r) in enumerate(zip(base.blocks, back.blocks)):
             for key in QUANT_TARGETS:
-                ab = view.lora[i][key]
-                merged = (dequantize(getattr(b, key), torch.float32)
-                          + (ab["a"].float() @ ab["b"].float())
-                          * lcfg.scale).to(torch.bfloat16)
-                q, got = quantize_tensor(merged, "nf4"), getattr(r, key)
+                merged = dequantize(getattr(b, key), torch.float32)
+                if key in view.lora[i]:
+                    ab = view.lora[i][key]
+                    merged = merged + (ab["a"].float() @ ab["b"].float()
+                                       ) * lcfg.scale
+                q = quantize_tensor(merged.to(torch.bfloat16), "nf4")
+                got = getattr(r, key)
+                del merged
                 if not (torch.equal(q.codes, got.codes)
                         and torch.equal(q.scales, got.scales)):
                     differ.append(f"{i}.{key}")
-            for key in ("attn_norm", "mlp_norm"):
+            for key in ("attn_norm", "mlp_norm") + (
+                    ("router",) if cfg.n_experts else ()):
                 if not _same_bf16(getattr(b, key), getattr(r, key)):
                     differ.append(f"{i}.{key}")
         for key in ("embed", "final_norm", "lm_head"):
@@ -2665,7 +3134,8 @@ def _entry_readback(export_dir, cfg, lcfg, view, dev):
                 differ.append(key)
     with open(os.path.join(export_dir, "config.json")) as f:
         hf = json.load(f)
-    want = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    arch, model_type = _HF_FAMILY["mixtral" if cfg.n_experts else "llama"]
+    want = {"architectures": [arch], "model_type": model_type,
             "hidden_size": cfg.d_model, "num_hidden_layers": cfg.n_layers,
             "num_attention_heads": cfg.n_heads,
             "num_key_value_heads": cfg.n_kv_heads,
@@ -2673,11 +3143,14 @@ def _entry_readback(export_dir, cfg, lcfg, view, dev):
             "rope_scaling": ({"rope_type": "llama3",
                               **dict(cfg.rope_scaling)}
                              if cfg.rope_scaling else None)}
+    if cfg.n_experts:
+        want.update(num_local_experts=cfg.n_experts,
+                    num_experts_per_tok=cfg.expert_top_k)
     config_ok = all(hf.get(k) == v for k, v in want.items())
     del back, base
     torch.cuda.empty_cache()
     return {"load_quantized_s": load_s, "projections": cfg.n_layers * len(
-        QUANT_TARGETS), "differ": differ, "config_json_llama": config_ok,
+        QUANT_TARGETS), "differ": differ, "config_json": config_ok,
         "tokenizer": sorted(f for f in os.listdir(export_dir)
                             if "tokenizer" in f)}
 
@@ -2773,7 +3246,7 @@ def phase_entry(dev):
             problems.append(f"{len(differ)} checkpoint entries differ: "
                             f"{dict(list(differ.items())[:4])}")
         rb = export["readback"]
-        if rb["differ"] or not rb["config_json_llama"]:
+        if rb["differ"] or not rb["config_json"]:
             problems.append(f"export read-back: {rb}")
         emit({"phase": "entry_export", "run": "A",
               "seconds": export["seconds"], "bytes": export["bytes"],
@@ -2831,16 +3304,87 @@ def phase_entry_full(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+MOE_ENTRY_LAYERS = 4
+# entry_moe's cut of the Mixtral job (1,000 rows, ~125 steps, an eval of
+# 200 rows and a save every 50): 4 steps of 8 rows, a save and an eval of
+# 8 rows every 2, a log line every 2
+MOE_ENTRY_CUT = {"NUM_TRAIN_SAMPLES": 32, "NUM_EVAL_SAMPLES": 8,
+                 "SAVE_STEPS_SFT": 2, "EVAL_STEPS_SFT": 2,
+                 "LOGGING_STEPS": 2}
+
+
+def phase_entry_moe(dev):
+    """``fine_tune.py``'s worker on ray-jobs/fine_tune_config_mixtral.json
+    at full width with the depth cut to ``MOE_ENTRY_LAYERS`` layers (the
+    merged bf16 export of the full depth is 93.4 GB; at 4 layers about 12
+    GB) and ``MOE_ENTRY_CUT`` (4 steps, a save and an eval of 8 rows every
+    2), ``QUANT_STORE=uint4``, written under a temporary directory whose
+    free disk (``df``) is printed first. The launches must be the
+    trained steps' and the eval batches'; the merged export is read back
+    quantized and its NF4 codes and scales (expert banks included),
+    router, norms, embedding and head must equal the merged weights
+    quantized directly, bitwise (``_entry_readback``)."""
+    import shutil
+    import tempfile
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["HF_DATASETS_OFFLINE"] = "1"
+    root = tempfile.mkdtemp(prefix="chip_smoke_entry_moe_")
+    try:
+        config = _entry_config(root, path=MIXTRAL_CONFIG, cut=MOE_ENTRY_CUT)
+        cfg, lcfg, plan = _entry_setup(config, dev,
+                                       n_layers=MOE_ENTRY_LAYERS)
+        df = subprocess.run(["df", "-B1", root], capture_output=True,
+                            text=True, timeout=60).stdout
+        disk = _entry_disk(root, cfg, lcfg, runs=1)
+        emit({"phase": "entry_moe_disk", "df": df.strip().splitlines(),
+              **disk})
+        with _depth_cut(MOE_ENTRY_LAYERS), _quant_store(MOE_STORE):
+            run = _entry_run(dev, config, "A")
+            want = _entry_launch_check(cfg, plan, run,
+                                       int(config["NUM_EVAL_SAMPLES"]))
+            line = _entry_line("entry_moe", run, cfg, plan, want)
+            problems = []
+            if line["launches"] != want:
+                problems.append(f"launches {line['launches']} != {want}")
+            if sorted(run["losses"]) != [1, 2, 3, 4] or not all(
+                    np.isfinite(v) for v in run["losses"].values()):
+                problems.append(f"losses {run['losses']}")
+            if len(run["evals"]) < 2:
+                problems.append(f"evals {run['evals']}")
+            ckpt = run["checkpoint"]
+            view, _ = _entry_adapters(ckpt["dir"], ckpt["latest"], cfg,
+                                      lcfg, dev)
+            export = dict(run["export"])
+            rb = _entry_readback(export["dir"], cfg, lcfg, view, dev)
+            del view
+        if rb["differ"] or not rb["config_json"]:
+            problems.append(f"export read-back: {rb}")
+        line.update(ok=not problems, problems=problems,
+                    config=os.path.relpath(MIXTRAL_CONFIG, HERE),
+                    cut=MOE_ENTRY_CUT, quant_store=MOE_STORE,
+                    export={"seconds": export["seconds"],
+                            "bytes": export["bytes"],
+                            "shards": len(export["shards"]),
+                            "readback": rb})
+        emit(line)
+        if problems:
+            raise SystemExit("entry_moe phase failed: " + "; ".join(problems))
+        return {k: run["launches"][k] for k, n in want.items() if n}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train", "train_parity", "train_fused", "train_fused_parity",
           "train_fused_ce", "train_fused_ce_parity", "train_profile",
-          "entry", "profile", "train_fused_profile",
-          "train_fused_ce_profile", "entry_full")
+          "entry", "train_moe", "train_moe_parity", "serve_moe", "entry_moe",
+          "profile", "train_fused_profile", "train_fused_ce_profile",
+          "train_moe_profile", "entry_full")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
-                 "entry_full")
+                 "train_moe_profile", "entry_full")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -2989,9 +3533,15 @@ def main(argv=None) -> int:
     add(run("train_fused_ce_parity", phase_train_fused_ce_parity))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
+    add(run("train_moe", phase_train_moe))
+    add(run("train_moe_parity", phase_train_moe_parity))
+    serve_moe = run("serve_moe", phase_serve_moe)
+    add({"flash_fwd": serve_moe} if serve_moe is not None else None)
+    add(run("entry_moe", phase_entry_moe))
     run("profile", phase_profile)
     run("train_fused_profile", phase_train_fused_profile)
     run("train_fused_ce_profile", phase_train_fused_ce_profile)
+    run("train_moe_profile", phase_train_moe_profile)
     add(run("entry_full", phase_entry_full))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)

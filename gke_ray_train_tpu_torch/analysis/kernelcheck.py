@@ -53,7 +53,7 @@ LEDGER_FLOOR = 1e-9
 # the ops every build of the port must register (KER006)
 REQUIRED_KERNELS = frozenset({
     "flash_attention", "rope", "kvcache_insert", "quant_matmul",
-    "fused_norm_rope", "fused_cross_entropy"})
+    "moe_dispatch", "fused_norm_rope", "fused_cross_entropy"})
 
 
 class KernelCheckError(AssertionError):

@@ -13,15 +13,20 @@
   biases copy as they are. HF's Gemma-2 RMSNorm stores ``w`` of a
   ``(1 + w)`` norm, as ``norm_scale_plus_one`` does. A tied head has no
   ``lm_head.weight``; Qwen-2 adds the q/k/v biases.
+- Mixtral's layout (``n_experts > 0``): the router is
+  ``block_sparse_moe.gate`` and the expert banks are per (layer, expert)
+  tensors ``block_sparse_moe.experts.{e}.w1 / w3 / w2`` (gate / up /
+  down), each ``[out, in]``; the port's banks are ``[E, d_in, d_out]``.
 - ``quantize="nf4" | "int8"`` quantizes each projection on the device as
-  it streams in, so the full-precision tree of an 8B QLoRA base never
-  exists on the card or in host memory.
+  it streams in, an expert bank one (layer, expert) slice at a time, so
+  the full-precision tree of a QLoRA base never exists on the card or in
+  host memory.
 - ``save_hf_checkpoint(..., lora=...)`` merges ``W + (alpha / r) A B``
   one projection at a time on the device, in fp32 as
   ``train/lora.py::merge_lora`` forms it, and streams the result in the
-  export dtype to the writer: the trained state is left as it was.
-
-MoE models (Mixtral's expert banks) raise: ROADMAP queue 1 item 4.
+  export dtype to the writer: the trained state is left as it was. Expert
+  banks stream expert by expert, with no merge (MoE adapters are
+  attention-only).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from gke_ray_train_tpu_torch.models.transformer import (
     Lora, Transformer, torch_dtype)
 from gke_ray_train_tpu_torch.ops.quant import (
     DEFAULT_GROUP, QUANT_KINDS, QUANT_TARGETS, dequantize, is_qtensor,
-    quantize_tensor)
+    quantize_stacked, quantize_tensor)
 
 
 INDEX_FILE = "model.safetensors.index.json"
@@ -156,15 +161,9 @@ class ShardedSafetensorsWriter:
         return names
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "HF io of MoE models (expert banks) is not ported yet "
-            "(ROADMAP queue 1 item 4)")
-
-
 def _hf_layer_names(cfg: ModelConfig, i: int) -> Dict[str, str]:
-    """our key -> HF tensor name for decoder layer ``i``."""
+    """our key -> HF tensor name for decoder layer ``i``'s per-layer
+    tensors (an MoE model's banks: ``_hf_expert_names``)."""
     base = f"model.layers.{i}"
     names = {
         "wq": f"{base}.self_attn.q_proj.weight",
@@ -172,14 +171,17 @@ def _hf_layer_names(cfg: ModelConfig, i: int) -> Dict[str, str]:
         "wv": f"{base}.self_attn.v_proj.weight",
         "wo": f"{base}.self_attn.o_proj.weight",
         "attn_norm": f"{base}.input_layernorm.weight",
-        "w_gate": f"{base}.mlp.gate_proj.weight",
-        "w_up": f"{base}.mlp.up_proj.weight",
-        "w_down": f"{base}.mlp.down_proj.weight",
     }
     if cfg.attn_qkv_bias:  # Qwen-2 layout
         names["bq"] = f"{base}.self_attn.q_proj.bias"
         names["bk"] = f"{base}.self_attn.k_proj.bias"
         names["bv"] = f"{base}.self_attn.v_proj.bias"
+    if cfg.n_experts:  # Mixtral layout
+        names["router"] = f"{base}.block_sparse_moe.gate.weight"
+    else:
+        names["w_gate"] = f"{base}.mlp.gate_proj.weight"
+        names["w_up"] = f"{base}.mlp.up_proj.weight"
+        names["w_down"] = f"{base}.mlp.down_proj.weight"
     if cfg.post_block_norm:  # Gemma-2 has four norms per block
         names["attn_post_norm"] = f"{base}.post_attention_layernorm.weight"
         names["mlp_norm"] = f"{base}.pre_feedforward_layernorm.weight"
@@ -189,8 +191,20 @@ def _hf_layer_names(cfg: ModelConfig, i: int) -> Dict[str, str]:
     return names
 
 
-# HF stores every projection as [out, in]; the port keeps [in, out]
-_TRANSPOSED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+# Mixtral's expert naming: w1 = gate, w3 = up, w2 = down
+_EXPERT_HF = {"w_gate": "w1", "w_up": "w3", "w_down": "w2"}
+
+
+def _hf_expert_names(i: int, e: int) -> Dict[str, str]:
+    """bank key -> HF tensor name of expert ``e`` in layer ``i``."""
+    base = f"model.layers.{i}.block_sparse_moe.experts.{e}"
+    return {k: f"{base}.{v}.weight" for k, v in _EXPERT_HF.items()}
+
+
+# HF stores every projection (and the Mixtral router) as [out, in]; the
+# port keeps [in, out]
+_TRANSPOSED = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+               "router"}
 
 
 def _maybe_t(t: torch.Tensor, key: str) -> torch.Tensor:
@@ -207,9 +221,9 @@ def load_hf_checkpoint(model_dir: str, cfg: ModelConfig, *,
 
     ``quantize``: "nf4" | "int8" — each projection is cast to bf16 and
     quantized on the device as it is read (the JAX package's
-    ``load_quantized``: the same codes and scales); norms, embedding and
-    head stay in ``dtype``."""
-    _check_dense(cfg)
+    ``load_quantized``: the same codes and scales), an expert bank one
+    (layer, expert) slice at a time; norms, router, embedding and head
+    stay in ``dtype``."""
     if quantize is not None and quantize not in QUANT_KINDS:
         raise ValueError(f"quantize={quantize!r} not in {QUANT_KINDS}")
     dev = resolve_device(device)
@@ -227,6 +241,17 @@ def load_hf_checkpoint(model_dir: str, cfg: ModelConfig, *,
                         DEFAULT_GROUP))
                 else:
                     getattr(blk, key).copy_(w)
+            for key in _EXPERT_HF if cfg.n_experts else ():
+                experts = (_maybe_t(reader.get_tensor(
+                    _hf_expert_names(i, e)[key]), key)
+                    for e in range(cfg.n_experts))
+                if key in targets:
+                    setattr(blk, key, quantize_stacked(
+                        (w.to(dev).to(torch.bfloat16) for w in experts),
+                        quantize, DEFAULT_GROUP))
+                else:
+                    for e, w in enumerate(experts):
+                        getattr(blk, key)[e].copy_(w)
         model.embed.copy_(reader.get_tensor("model.embed_tokens.weight"))
         model.final_norm.copy_(reader.get_tensor("model.norm.weight"))
         if model.lm_head is not None:
@@ -258,9 +283,9 @@ def save_hf_checkpoint(params: Transformer, cfg: ModelConfig, out_dir: str,
     A quantized projection is dequantized to fp32 on its device; with
     ``lora`` (per-layer adapters) each adapted projection becomes
     ``W + lora_scale * A B`` in fp32 there before the cast: the merged
-    model ``merge_lora`` would give, without changing ``params``.
-    Returns ``{"shards": [file names], "bytes": written}``."""
-    _check_dense(cfg)
+    model ``merge_lora`` would give, without changing ``params``. An
+    expert bank streams expert by expert (dequantized one expert at a
+    time). Returns ``{"shards": [file names], "bytes": written}``."""
     w = ShardedSafetensorsWriter(out_dir, max_shard_bytes=max_shard_bytes)
     try:
         w.add("model.embed_tokens.weight", hf_tensor(params.embed, dtype))
@@ -279,6 +304,13 @@ def save_hf_checkpoint(params: Transformer, cfg: ModelConfig, out_dir: str,
                         t = t + (ab["a"].float() @ ab["b"].float()) \
                             * lora_scale
                 w.add(tname, hf_tensor(_maybe_t(t, key), dtype))
+            for key in _EXPERT_HF if cfg.n_experts else ():
+                bank = getattr(blk, key)
+                for e in range(cfg.n_experts):
+                    t = (dequantize(bank.select(e), torch.float32)
+                         if is_qtensor(bank) else bank[e])
+                    w.add(_hf_expert_names(i, e)[key],
+                          hf_tensor(_maybe_t(t, key), dtype))
         shards = w.finish()
     except BaseException:
         w.abort()

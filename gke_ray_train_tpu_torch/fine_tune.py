@@ -48,7 +48,6 @@ from gke_ray_train_tpu_torch.data import (
 from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
 from gke_ray_train_tpu_torch.models import (
     init_params, init_quantized_params, preset_for_model_id, tiny)
-from gke_ray_train_tpu_torch.ops.quant import quantize_params
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.rayint import get_context
 from gke_ray_train_tpu_torch.train import (
@@ -151,13 +150,11 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     have_local = bool(ckpt_dir and os.path.exists(str(ckpt_dir)))
     quant_kind = quant_kind_from_config(config, use_lora)
     load_quant = quant_kind if (use_lora and quant_kind != "none") else None
-    already_quantized = False
     if have_local:
-        # a QLoRA base quantizes during the stream, one projection on
-        # the card at a time
+        # a QLoRA base quantizes during the stream, one projection (one
+        # expert of a bank) on the card at a time
         params = load_hf_checkpoint(str(ckpt_dir), cfg, quantize=load_quant,
                                     device=dev)
-        already_quantized = load_quant is not None
         logger.info("loaded pretrained weights from %s%s", ckpt_dir,
                     f" (quantized {load_quant} on load)" if load_quant
                     else "")
@@ -168,9 +165,10 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
                 "hub download in the port; initializing RANDOM weights "
                 "(fine-tuning semantics require a pretrained checkpoint)")
         if load_quant is not None:
+            # quantized as it is drawn: the full-precision base (93 GB
+            # of bf16 at Mixtral-8x7B) never exists
             params = init_quantized_params(cfg, seed=0, kind=load_quant,
                                            device=dev)
-            already_quantized = True
         else:
             params = init_params(cfg, seed=0, device=dev)
 
@@ -217,9 +215,6 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     lora_cfg = LoraConfig.from_dict(config) if use_lora else None
     schedule = schedule_from_config(config, total_steps)
     opt = optimizer_from_config(config, schedule)
-    if use_lora and quant_kind != "none" and not already_quantized:
-        quantize_params(params, kind=quant_kind)
-        logger.info("quantized frozen base weights to %s", quant_kind)
     # the weights are handed in: no second random init
     state = make_train_state(cfg, opt, seed=0, lora_cfg=lora_cfg,
                              params=params, device=dev)

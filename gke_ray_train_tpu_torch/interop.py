@@ -7,10 +7,16 @@ The JAX tree, after ``jax.tree.map(np.asarray, params)``, is
 repeat ``i // P`` at pattern position ``i % P``. Both packages keep the
 ``[d_in, d_out]`` orientation, so leaves copy over with no transposes.
 
-A quantized (QLoRA) tree has ``QTensor`` leaves at the projections,
-which ``jax.tree.map(np.asarray, ...)`` keeps as QTensors holding numpy
-``codes [R, D, F]`` and ``scales [R, D / group, F]``;
-``qparams_from_numpy`` carries them over bitwise.
+An MoE tree adds the router ``[R, D, E]`` and expert banks ``[R, E, D,
+F]`` (``[R, E, F, D]`` for ``w_down``), carried over the same way.
+
+A quantized (QLoRA) tree has ``QTensor`` leaves at the projections and
+banks, which ``jax.tree.map(np.asarray, ...)`` keeps as QTensors holding
+numpy ``codes [R, ..., D, F]`` and ``scales [R, ..., D / group, F]``;
+``qparams_from_numpy`` carries them over bitwise. NF4 codes stored as
+int8 stay int8; codes stored as uint4 (JAX ``QUANT_STORE=uint4``: numpy
+sees an ``ml_dtypes`` uint4 array) become the port's uint4 store, two
+codes a byte (``ops/quant.py::pack_uint4``).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
     Lora, Transformer, torch_dtype)
-from gke_ray_train_tpu_torch.ops.quant import QTensor
+from gke_ray_train_tpu_torch.ops.quant import QTensor, pack_uint4
 
 
 def _tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -37,6 +43,19 @@ def _tensor(a: Any, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 def _is_quantized(leaf: Any) -> bool:
     # the JAX QTensor, duck-typed: the port never imports its class
     return all(hasattr(leaf, a) for a in ("codes", "scales", "kind", "group"))
+
+
+def _qtensor(leaf: Any, r: int, device: torch.device) -> QTensor:
+    """Repeat ``r`` of a JAX QTensor leaf as the port's ``QTensor``."""
+    codes = np.asarray(leaf.codes)[r]
+    scales = torch.from_numpy(np.array(np.asarray(leaf.scales)[r],
+                                       np.float32)).to(device)
+    if codes.dtype.name == "uint4":
+        return QTensor(pack_uint4(torch.from_numpy(
+            codes.astype(np.uint8))).to(device), scales, leaf.kind,
+            leaf.group, store="uint4")
+    return QTensor(torch.from_numpy(np.array(codes, np.int8)).to(device),
+                   scales, leaf.kind, leaf.group)
 
 
 @torch.no_grad()
@@ -68,13 +87,7 @@ def params_from_numpy(np_params: Mapping[str, Any], cfg: ModelConfig, *,
             leaf = np.asarray(blocks[i % P][name])[i // P]
             param.copy_(_tensor(leaf, dev, dt))
         for name in quantized:
-            leaf = blocks[i % P][name]
-            setattr(blk, name, QTensor(
-                torch.from_numpy(np.array(np.asarray(leaf.codes)[i // P],
-                                          np.int8)).to(dev),
-                torch.from_numpy(np.array(np.asarray(leaf.scales)[i // P],
-                                          np.float32)).to(dev),
-                leaf.kind, leaf.group))
+            setattr(blk, name, _qtensor(blocks[i % P][name], i // P, dev))
     model.embed.copy_(_tensor(np_params["embed"], dev, dt))
     model.final_norm.copy_(_tensor(np_params["final_norm"], dev, dt))
     if model.lm_head is not None:

@@ -46,7 +46,7 @@ class ModelConfig:
 
     activation: str = "silu"                # "silu" | "gelu_tanh"
 
-    # Mixture-of-Experts; the port runs dense models only (n_experts=0)
+    # Mixture-of-Experts (ops/moe.py): 0 is a dense MLP
     n_experts: int = 0
     expert_top_k: int = 2
     capacity_factor: float = 1.25

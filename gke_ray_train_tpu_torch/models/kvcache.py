@@ -159,7 +159,16 @@ def forward_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
             h = rms_norm(h, lp.attn_post_norm, eps=eps, scale_plus_one=sp1)
         x = x + h
         h = rms_norm(x, lp.mlp_norm, eps=eps, scale_plus_one=sp1)
-        h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale)
+        if cfg.n_experts:
+            # the routed expert MLP; its load-balance aux is a training
+            # loss term, dropped at inference. Capacity is per call:
+            # routing is drop-free, and decode equals a full recompute,
+            # only with ample capacity_factor (JAX's rule)
+            from gke_ray_train_tpu_torch.ops import moe
+            h, _ = moe.moe_mlp(h, lp.router, lp.w_gate, lp.w_up,
+                               lp.w_down, cfg, dtype)
+        else:
+            h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale)
         if cfg.post_block_norm:
             h = rms_norm(h, lp.mlp_post_norm, eps=eps, scale_plus_one=sp1)
         x = x + h

@@ -5,12 +5,15 @@ A random Llama-3.1-8B at full width has 6.98 G projection weights: 14 GB
 in bf16, 28 GB in fp32, while its NF4 codes take 7 GB as int8. This init
 builds each projection in bf16, quantizes it and frees it before the
 next one, one layer at a time, so the full-precision tree never sits
-whole on the card. Norms, embedding and head stay in ``cfg.param_dtype``.
+whole on the card. An MoE expert bank (Mixtral-8x7B: 45.1 G values, 90
+GB in bf16) is drawn and quantized one expert slice at a time, so not
+even one bank exists in full precision; JAX's MoE path, which builds the
+whole tree and then quantizes, would not fit one card. Norms, router,
+embedding and head stay in ``cfg.param_dtype``.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Collection
 
 import torch
@@ -19,9 +22,9 @@ from torch import nn
 from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
-    Transformer, proj_shapes, torch_dtype)
+    Transformer, init_std, proj_shapes, torch_dtype)
 from gke_ray_train_tpu_torch.ops.quant import (
-    DEFAULT_GROUP, QUANT_TARGETS, quantize_tensor)
+    DEFAULT_GROUP, QUANT_TARGETS, quantize_stacked, quantize_tensor)
 
 
 @torch.no_grad()
@@ -35,21 +38,16 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
     The same init distribution as the JAX package: truncated normal
     (±3 std) at std 0.02, the residual writers (wo, w_down) scaled by
     1/sqrt(2 * n_layers); a projection is rounded to bf16 before it is
-    quantized, as JAX does (:39-41). The draws come from a
-    ``torch.Generator`` seeded with ``seed`` and are not JAX's: tests
+    quantized, as JAX does (:39-41). An expert bank is drawn, rounded and
+    quantized one expert ``[d_in, d_out]`` at a time. The draws come from
+    a ``torch.Generator`` seeded with ``seed`` and are not JAX's: tests
     carry quantized JAX trees over with ``interop.qparams_from_numpy``."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE models (n_experts > 0) are not ported yet")
     dev = resolve_device(device)
     pdt = torch_dtype(cfg.param_dtype)
     targets = tuple(targets)
     model = Transformer(cfg, device=dev, dtype=pdt, quantized=targets)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    depth_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
-    stds = {name: 0.02 * (depth_scale if name in ("wo", "w_down") else 1.0)
-            for name in proj_shapes(cfg)}
 
     def draw(shape, std: float) -> torch.Tensor:
         w = torch.empty(shape, dtype=torch.float32, device=dev)
@@ -69,13 +67,16 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
             if b is not None:
                 b.zero_()
         for name, shape in proj_shapes(cfg).items():
-            w = draw(shape, stds[name])
-            if name in targets:
-                setattr(blk, name, quantize_tensor(
-                    w.to(torch.bfloat16), kind, group))
+            std = init_std(cfg, name)
+            if name not in targets:
+                getattr(blk, name).copy_(draw(shape, std))
+            elif len(shape) == 3:
+                setattr(blk, name, quantize_stacked(
+                    (draw(shape[1:], std).to(torch.bfloat16)
+                     for _ in range(shape[0])), kind, group))
             else:
-                getattr(blk, name).copy_(w)
-            del w
+                setattr(blk, name, quantize_tensor(
+                    draw(shape, std).to(torch.bfloat16), kind, group))
     norm_(model.final_norm)
     if model.lm_head is not None:
         model.lm_head.copy_(draw(model.lm_head.shape, 0.02))

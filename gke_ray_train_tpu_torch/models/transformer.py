@@ -8,10 +8,12 @@ the JAX package's ``[d_in, d_out]`` orientation (``x @ w``, the
 transposes (``interop.py``). Layer ``i`` is the JAX stack's repeat
 ``i // len(block_pattern)`` at pattern position ``i % len(block_pattern)``.
 
-Dense families only: llama2/3, mistral (window), qwen2 (q/k/v bias) and
-gemma2 (softcaps, post-norms, ``(1 + w)`` norms, gelu_tanh, tied and
-scaled embeddings). A projection weight may be a ``QTensor`` (a QLoRA
-base, ``ops/quant.py``), dequantized at use. ``forward`` is
+Families: llama2/3, mistral (window), qwen2 (q/k/v bias), gemma2
+(softcaps, post-norms, ``(1 + w)`` norms, gelu_tanh, tied and scaled
+embeddings) and mixtral (``n_experts > 0``: a router and expert banks in
+place of the MLP, ``ops/moe.py``; LoRA adapts attention only, as in the
+JAX package). A projection weight or expert bank may be a ``QTensor`` (a
+QLoRA base, ``ops/quant.py``), dequantized at use. ``forward`` is
 differentiable: with ``cfg.remat`` each repeat of the block pattern runs
 under ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of
 ``repeat_body``), and LoRA dropout draws its masks from explicit
@@ -75,12 +77,28 @@ def _param(*shape, device, dtype) -> nn.Parameter:
 
 
 def proj_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """``[d_in, d_out]`` of the seven projections of a block."""
+    """``[d_in, d_out]`` of the projections of a block, in init order: the
+    four attention projections, then the MLP's three, or on an MoE model
+    the router ``[D, E]`` and the expert banks ``[E, d_in, d_out]``."""
     hd = cfg.resolved_head_dim
     D, Fd, H, K = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads
-    return {"wq": (D, H * hd), "wk": (D, K * hd), "wv": (D, K * hd),
-            "wo": (H * hd, D), "w_gate": (D, Fd), "w_up": (D, Fd),
-            "w_down": (Fd, D)}
+    shapes = {"wq": (D, H * hd), "wk": (D, K * hd), "wv": (D, K * hd),
+              "wo": (H * hd, D)}
+    E = cfg.n_experts
+    if E:
+        shapes.update(router=(D, E), w_gate=(E, D, Fd), w_up=(E, D, Fd),
+                      w_down=(E, Fd, D))
+    else:
+        shapes.update(w_gate=(D, Fd), w_up=(D, Fd), w_down=(Fd, D))
+    return shapes
+
+
+def init_std(cfg: ModelConfig, name: str) -> float:
+    """The init std of projection ``name``: 0.02, the residual writers
+    (wo, w_down) scaled by 1/sqrt(2 * n_layers), as in the JAX package."""
+    if name in ("wo", "w_down"):
+        return 0.02 / math.sqrt(2 * cfg.n_layers)
+    return 0.02
 
 
 class Block(nn.Module):
@@ -121,10 +139,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
                  dtype: torch.dtype, quantized: Collection[str] = ()):
         super().__init__()
-        if cfg.n_experts:
-            raise NotImplementedError(
-                "MoE models (n_experts > 0) are not ported yet; the port "
-                "runs dense families")
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed = _param(cfg.vocab_size, cfg.d_model, **kw)
@@ -156,13 +170,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     Truncated-normal (±3 std) init drawn from a ``torch.Generator`` on the
     target device, seeded with ``seed``; the two residual-writing
     matrices (wo, w_down) are scaled by 1/sqrt(2*n_layers), as in the
-    JAX package. The draws are not JAX's: tests carry JAX's params over
-    with ``interop.params_from_numpy`` instead."""
+    JAX package; an MoE router draws at std 0.02. The draws are not
+    JAX's: tests carry JAX's params over with
+    ``interop.params_from_numpy`` instead."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev, dtype=torch_dtype(cfg.param_dtype))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    depth_scale = 1.0 / math.sqrt(2 * cfg.n_layers)
 
     def normal_(p: torch.Tensor, std: float) -> None:
         tmp = torch.empty(p.shape, dtype=torch.float32, device=dev)
@@ -176,17 +190,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     normal_(model.embed, 0.02)
     for blk in model.blocks:
         norm_(blk.attn_norm)
-        normal_(blk.wq, 0.02)
-        normal_(blk.wk, 0.02)
-        normal_(blk.wv, 0.02)
-        normal_(blk.wo, 0.02 * depth_scale)
         norm_(blk.mlp_norm)
         for b in (blk.bq, blk.bk, blk.bv):
             if b is not None:
                 b.zero_()
-        normal_(blk.w_gate, 0.02)
-        normal_(blk.w_up, 0.02)
-        normal_(blk.w_down, 0.02 * depth_scale)
+        for name in proj_shapes(cfg):
+            normal_(getattr(blk, name), init_std(cfg, name))
         norm_(blk.attn_post_norm)
         norm_(blk.mlp_post_norm)
     norm_(model.final_norm)
@@ -338,7 +347,9 @@ def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
 
 def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
            positions, masks, segment_ids, lo, lora_scale: float,
-           drop_rate: float, drop_seed: Optional[int], fused_ops: bool):
+           drop_rate: float, drop_seed: Optional[int], fused_ops: bool,
+           token_weights: Optional[torch.Tensor] = None):
+    """One decoder layer: ``(x, the layer's router aux or None)``."""
     def norm(h, scale):
         return _rms_norm(h, scale, eps=cfg.norm_eps,
                          scale_plus_one=cfg.norm_scale_plus_one,
@@ -352,11 +363,18 @@ def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
         h = norm(h, lp.attn_post_norm)
     x = x + h
     h = norm(x, lp.mlp_norm)
-    h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale,
-             drop_rate=drop_rate, drop_seed=drop_seed)
+    aux = None
+    if cfg.n_experts:
+        # no adapter and no dropout on the routed expert bank, as in JAX
+        from gke_ray_train_tpu_torch.ops import moe
+        h, aux = moe.moe_mlp(h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
+                             cfg, dtype, weights=token_weights)
+    else:
+        h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale,
+                 drop_rate=drop_rate, drop_seed=drop_seed)
     if cfg.post_block_norm:
         h = norm(h, lp.mlp_post_norm)
-    return x + h
+    return x + h, aux
 
 
 def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
@@ -364,18 +382,21 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
                     lora: Optional[Lora] = None, lora_scale: float = 1.0,
                     lora_dropout: float = 0.0,
                     lora_seed: Optional[int] = None,
-                    fused_ops: bool = False):
+                    fused_ops: bool = False,
+                    token_weights: Optional[torch.Tensor] = None):
     """Run ``blocks`` (a sequence of ``Block``) over the residual stream
-    ``x``; ``lora``, when given, holds one adapter dict per block.
+    ``x``: ``(x, the summed router aux of the layers)``, the aux None on a
+    dense model. ``lora``, when given, holds one adapter dict per block.
     ``fused_ops``: the norms and the q/k RoPE through the fused kernels;
     under remat their Functions run again in the recomputation.
+    ``token_weights``: the MoE router aux's weights.
 
     With ``cfg.remat`` and autograd recording, each repeat of the block
     pattern is one ``torch.utils.checkpoint`` region (non-reentrant): its
-    activations are recomputed in the backward instead of kept. LoRA
-    dropout is active when ``lora``, ``lora_dropout`` > 0 and
-    ``lora_seed`` are all given; layer ``i`` seeds its masks from
-    ``(lora_seed, i)``."""
+    activations are recomputed in the backward instead of kept; on an
+    MoE model the aux rides through it with x. LoRA dropout is active
+    when ``lora``, ``lora_dropout`` > 0 and ``lora_seed`` are all given;
+    layer ``i`` seeds its masks from ``(lora_seed, i)``."""
     drop = (lora is not None and lora_dropout > 0.0
             and lora_seed is not None)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -386,23 +407,28 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
             "(remat_policy='full')")
     P = len(cfg.block_pattern)
 
-    def repeat(x, first):
+    def repeat(x, aux, first):
         for i in range(first, min(first + P, len(blocks))):
-            x = _layer(x, blocks[i], cfg, impl, dtype, rope, positions,
-                       masks, segment_ids,
-                       lora[i] if lora is not None else None, lora_scale,
-                       lora_dropout,
-                       dropout_seed(lora_seed, i) if drop else None,
-                       fused_ops)
-        return x
+            x, a = _layer(x, blocks[i], cfg, impl, dtype, rope, positions,
+                          masks, segment_ids,
+                          lora[i] if lora is not None else None, lora_scale,
+                          lora_dropout,
+                          dropout_seed(lora_seed, i) if drop else None,
+                          fused_ops, token_weights)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    # the JAX scan's carry: the aux sums layer by layer from 0
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+           if cfg.n_experts else None)
     for first in range(0, len(blocks), P):
         if remat:
-            x = torch.utils.checkpoint.checkpoint(repeat, x, first,
-                                                  use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(
+                repeat, x, aux, first, use_reentrant=False)
         else:
-            x = repeat(x, first)
-    return x
+            x, aux = repeat(x, aux, first)
+    return x, aux
 
 
 def resolve_seq_impl(cfg: ModelConfig, S: int, device: torch.device) -> str:
@@ -466,7 +492,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             lora_dropout: float = 0.0,
             lora_seed: Optional[int] = None,
             fused_ops: bool = False,
-            return_pre_unembed: bool = False) -> torch.Tensor:
+            return_pre_unembed: bool = False,
+            with_aux: bool = False,
+            token_weights: Optional[torch.Tensor] = None):
     """tokens [B, S] integer → logits [B, S, vocab] float32. Runs on the
     device the params and tokens lie on.
 
@@ -476,7 +504,12 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     kernels (plan knob ``FUSED_OPS``); the final norm stays the plain op,
     as in the JAX package.
     ``return_pre_unembed``: return the final-normed hidden state
-    [B, S, D] instead of the logits."""
+    [B, S, D] instead of the logits.
+    ``with_aux``: return ``(out, {"router_aux": the mean of the layers'
+    Switch load-balance aux})`` (0 on a dense model), as JAX does; the
+    train step asks for it on MoE models. ``token_weights`` (optional
+    [B, S], the loss weights): the aux balances real tokens, not
+    padding; dense models ignore it."""
     B, S = tokens.shape
     dev = params.embed.device
     check_on(tokens, dev, "tokens")
@@ -496,13 +529,19 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
                 positions, positions, segment_ids, segment_ids, causal=True,
                 sliding_window=(cfg.sliding_window if kind == "sliding"
                                 else None))
-    x = run_block_stack(x, params.blocks, cfg, impl, dtype, rope, positions,
-                        masks, segment_ids, lora=lora, lora_scale=lora_scale,
-                        lora_dropout=lora_dropout, lora_seed=lora_seed,
-                        fused_ops=fused_ops)
+    x, aux = run_block_stack(
+        x, params.blocks, cfg, impl, dtype, rope, positions, masks,
+        segment_ids, lora=lora, lora_scale=lora_scale,
+        lora_dropout=lora_dropout, lora_seed=lora_seed, fused_ops=fused_ops,
+        token_weights=token_weights)
     if return_pre_unembed:
-        return pre_unembed(x, params, cfg)
-    return _unembed(x, params, cfg, dtype)
+        out = pre_unembed(x, params, cfg)
+    else:
+        out = _unembed(x, params, cfg, dtype)
+    if with_aux:
+        return out, {"router_aux": aux / cfg.n_layers if aux is not None
+                     else torch.zeros((), dtype=torch.float32, device=dev)}
+    return out
 
 
 def pre_unembed(x, params: Transformer, cfg: ModelConfig) -> torch.Tensor:

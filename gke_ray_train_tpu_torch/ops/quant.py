@@ -1,24 +1,30 @@
 """Blockwise weight quantization (counterpart of
 ``gke_ray_train_tpu/ops/quant.py``).
 
-A targeted projection weight ``[D, F]`` becomes a ``QTensor``: codes of
-the same shape plus one fp32 scale per group of ``group`` input rows and
-output column (``[D / group, F]``), grouped along the input dim.
+A targeted projection weight ``[..., D, F]`` (a ``[D, F]`` matrix or an
+MoE expert bank ``[E, D, F]``) becomes a ``QTensor``: codes plus one fp32
+scale per group of ``group`` input rows and output column (``[...,
+D / group, F]``), grouped along the input dim.
 
 - ``"nf4"``: the 4-bit NormalFloat codebook of QLoRA, absmax-scaled per
-  group; codes are stored one per int8 (the JAX package's default
-  ``QUANT_STORE=int8``; its ``uint4`` opt-in is not ported).
-- ``"int8"``: symmetric per-group int8.
+  group. ``QUANT_STORE`` picks how the codes are stored, as in the JAX
+  package: ``int8`` (the default) one code a byte, ``uint4`` two codes a
+  byte (``pack_uint4``; half the bytes), read from the environment at
+  each quantization.
+- ``"int8"``: symmetric per-group int8, one code a byte whatever
+  ``QUANT_STORE`` says (JAX's rule).
 
 Codes and scales are bitwise equal to the JAX package's: the same fp32
 ``w / absmax`` and the first nearest codebook entry (``argmin`` order).
-``dequantize`` looks codes up in the 16-entry table, the plain form on a
-GPU (the JAX select chain is a TPU idiom), and multiplies in fp32 before
-the one cast to the compute dtype, as JAX does.
+``dequantize`` unpacks uint4 codes with shifts and masks, looks codes up
+in the 16-entry table, the plain form on a GPU (the JAX select chain is a
+TPU idiom), and multiplies in fp32 before the one cast to the compute
+dtype, as JAX does.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Iterable, Union
 
 import torch
@@ -41,31 +47,80 @@ DEFAULT_GROUP = 64
 # imports nothing of models/, whose package imports it)
 QUANT_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 QUANT_KINDS = ("nf4", "int8")
+QUANT_STORES = ("int8", "uint4")
+
+
+def nf4_store() -> str:
+    """How NF4 codes are stored: ``QUANT_STORE`` from the environment,
+    ``int8`` (default) or ``uint4``; any other value raises."""
+    want = os.environ.get("QUANT_STORE", "int8").lower()
+    if want not in QUANT_STORES:
+        raise ValueError(f"QUANT_STORE={want!r}; use int8|uint4")
+    return want
+
+
+def pack_uint4(codes: torch.Tensor) -> torch.Tensor:
+    """Codes 0..15 ``[..., F]`` (F even) as bytes ``[..., F / 2]`` uint8:
+    column 2j in the low nibble, 2j + 1 in the high one."""
+    if codes.shape[-1] % 2:
+        raise ValueError(f"uint4 packing needs an even last dim, got "
+                         f"{tuple(codes.shape)}")
+    c = codes.to(torch.uint8)
+    return (c[..., 0::2] | (c[..., 1::2] << 4)).contiguous()
+
+
+def unpack_uint4(packed: torch.Tensor) -> torch.Tensor:
+    """``pack_uint4`` undone: bytes ``[..., F / 2]`` to codes ``[..., F]``
+    uint8."""
+    return torch.stack((packed & 15, packed >> 4), dim=-1).flatten(-2)
 
 
 class QTensor(nn.Module):
-    """codes ``[D, F]`` int8 + scales ``[D / group, F]`` float32.
+    """codes + scales ``[..., D / group, F]`` float32. ``store`` "int8":
+    codes ``[..., D, F]`` int8; "uint4" (NF4 only): codes ``[..., D,
+    F / 2]`` uint8, two a byte (``pack_uint4``). ``shape`` is the logical
+    ``[..., D, F]`` either way.
 
     A module holding two buffers, so it sits in a ``Block`` where the
     full-precision weight would, moves with ``.to()`` and never takes a
     gradient."""
 
     def __init__(self, codes: torch.Tensor, scales: torch.Tensor,
-                 kind: str = "nf4", group: int = DEFAULT_GROUP):
+                 kind: str = "nf4", group: int = DEFAULT_GROUP,
+                 store: str = "int8"):
         super().__init__()
         if kind not in QUANT_KINDS:
             raise ValueError(f"unknown quant kind {kind!r}")
+        if store not in QUANT_STORES or (store == "uint4" and kind != "nf4"):
+            raise ValueError(f"store {store!r} for quant kind {kind!r}")
         self.register_buffer("codes", codes)
         self.register_buffer("scales", scales)
         self.kind = kind
         self.group = group
+        self.store = store
 
     @property
     def shape(self) -> torch.Size:
-        return self.codes.shape
+        s = self.codes.shape
+        if self.store == "uint4":
+            return torch.Size((*s[:-1], 2 * s[-1]))
+        return s
+
+    def select(self, i: int) -> "QTensor":
+        """Index ``i`` of the leading dim (one expert of a bank): views of
+        the codes and scales."""
+        return QTensor(self.codes[i], self.scales[i], self.kind, self.group,
+                       self.store)
+
+    def unpacked_codes(self) -> torch.Tensor:
+        """The codes one a byte, ``[..., D, F]``."""
+        if self.store == "uint4":
+            return unpack_uint4(self.codes)
+        return self.codes
 
     def extra_repr(self) -> str:
-        return f"{self.kind}, shape={tuple(self.shape)}, group={self.group}"
+        return (f"{self.kind}, shape={tuple(self.shape)}, group={self.group}"
+                f", store={self.store}")
 
 
 def is_qtensor(x: Any) -> bool:
@@ -92,7 +147,8 @@ def quantize_tensor(w: torch.Tensor, kind: str = "nf4",
                     group: int = DEFAULT_GROUP) -> QTensor:
     """Quantize ``w [..., D, F]`` along the input dim (axis -2) in groups
     of ``group`` rows; a D that ``group`` does not divide takes the
-    largest divisor of D below it (tiny models have odd widths)."""
+    largest divisor of D below it (tiny models have odd widths). NF4
+    codes are stored as ``nf4_store()`` says."""
     *lead, D, F = w.shape
     if D % group:
         group = next(g for g in range(min(group, D), 0, -1) if D % g == 0)
@@ -102,16 +158,36 @@ def quantize_tensor(w: torch.Tensor, kind: str = "nf4",
     if kind == "nf4":
         scales = absmax
         codes = _nf4_codes(wg / torch.where(scales > 0, scales, one))
+        store = nf4_store()
     elif kind == "int8":
         # XLA folds the JAX package's `absmax / 127.0` into a product
         # with the fp32 reciprocal; the same product keeps scales bitwise
         scales = absmax * torch.tensor(1.0 / 127.0, dtype=torch.float32)
         codes = torch.round(wg / torch.where(scales > 0, scales, one)
                             ).clamp_(-127, 127).to(torch.int8)
+        store = "int8"
     else:
         raise ValueError(f"unknown quant kind {kind!r}")
-    return QTensor(codes.reshape(*lead, D, F).contiguous(),
-                   scales[..., 0, :].contiguous(), kind, group)
+    codes = codes.reshape(*lead, D, F)
+    codes = pack_uint4(codes) if store == "uint4" else codes.contiguous()
+    return QTensor(codes, scales[..., 0, :].contiguous(), kind, group, store)
+
+
+@torch.no_grad()
+def quantize_stacked(slices: Iterable[torch.Tensor], kind: str = "nf4",
+                     group: int = DEFAULT_GROUP) -> QTensor:
+    """One ``QTensor [E, D, F]`` from the slices ``w_e [D, F]`` of an
+    expert bank, quantized one at a time: a caller that makes each slice
+    as it is consumed (a generator) never holds the bank in full
+    precision. Groups run along D, so this equals quantizing the stack."""
+    qs = []
+    for w in slices:
+        qs.append(quantize_tensor(w, kind, group))
+        del w               # freed before the next slice is made
+    q0 = qs[0]
+    return QTensor(torch.stack([q.codes for q in qs]),
+                   torch.stack([q.scales for q in qs]), q0.kind, q0.group,
+                   q0.store)
 
 
 # the codebook as a tensor, one per device: made once, and through
@@ -131,9 +207,9 @@ def _codebook(device: torch.device) -> torch.Tensor:
 def dequantize(qt: QTensor, dtype: torch.dtype = torch.bfloat16
                ) -> torch.Tensor:
     """``codes -> value * scale`` in fp32, cast once to ``dtype``."""
-    *lead, D, F = qt.codes.shape
+    *lead, D, F = qt.shape
     g = qt.group
-    codes = qt.codes.reshape(*lead, D // g, g, F)
+    codes = qt.unpacked_codes().reshape(*lead, D // g, g, F)
     if qt.kind == "nf4":
         vals = _codebook(codes.device)[codes.int()]
     else:

@@ -16,8 +16,8 @@ sweeps against the port's tolerance ledger
 (``analysis/tolerances/*.json``, one pin per case and device type).
 Case names and sizes are the JAX package's, so the two registries can be
 held against each other on the same inputs. The JAX package's sharded
-cases and the ops the port lacks (ring and all-to-all attention, MoE
-dispatch, batched LoRA, the hierarchical psum) wait for their modules.
+cases and the ops the port lacks (ring and all-to-all attention, batched
+LoRA, the hierarchical psum) wait for their modules.
 
 Inputs are built on the CPU from a ``torch.Generator`` seeded by the
 sweep (``zlib.crc32("<spec>/<case>")``), then moved to the device, so a
@@ -206,6 +206,75 @@ register(KernelSpec(
         KernelCase("int8", grads=False, kwargs=(("kind", "int8"),)),
         KernelCase("nf4_cuda_vs_cpu", grads=False, exact=True,
                    kwargs=(("kind", "nf4"), ("device_vs_cpu", True))),
+    ),
+))
+
+
+# -- MoE dispatch -----------------------------------------------------------
+
+def _moe_cfg():
+    from gke_ray_train_tpu_torch.models.config import ModelConfig
+    return ModelConfig(name="moe_oracle", d_model=16, n_layers=1,
+                       n_heads=2, n_kv_heads=2, d_ff=32, vocab_size=64,
+                       max_seq_len=32, n_experts=4, expert_top_k=2,
+                       capacity_factor=1.25)
+
+
+def _moe_inputs(case: KernelCase, g: torch.Generator, B=2, S=32):
+    cfg = _moe_cfg()
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = case.torch_dtype
+    x = _normal(g, (B, S, D)).to(dt)
+    router = _normal(g, (D, E), 0.1)
+    w_gate = _normal(g, (E, D, F), 0.1).to(dt)
+    w_up = _normal(g, (E, D, F), 0.1).to(dt)
+    w_down = _normal(g, (E, F, D), 0.1).to(dt)
+    return (x, router, w_gate, w_up, w_down), (0, 2)
+
+
+def _moe_kernel(case: KernelCase, x, router, w_gate, w_up, w_down):
+    from gke_ray_train_tpu_torch.ops.moe import moe_mlp
+    y, aux = moe_mlp(x, router, w_gate, w_up, w_down, _moe_cfg(),
+                     case.torch_dtype)
+    return {"y": y, "aux": aux}
+
+
+def _moe_oracle(case: KernelCase, x, router, w_gate, w_up, w_down):
+    """Per-token gather MoE (JAX's oracle): the same routing and capacity
+    semantics, which are part of the spec, but each token's expert FFN
+    through a one-hot gather of that expert's weights, in fp32: no
+    dispatch buffer and no combine, so both are cross-checked."""
+    from gke_ray_train_tpu_torch.ops.moe import route
+    cfg = _moe_cfg()
+    dt = case.torch_dtype
+    E, K = cfg.n_experts, cfg.expert_top_k
+    r = route(x, router, cfg)
+    f32 = torch.float32
+    y = torch.zeros(x.shape, dtype=f32, device=x.device)
+    xin = x.to(dt).to(f32)
+    for k in range(K):
+        oh = torch.nn.functional.one_hot(r.expert[..., k], E).to(f32)
+        wg = torch.einsum("bse,edf->bsdf", oh, w_gate.to(f32))
+        wu = torch.einsum("bse,edf->bsdf", oh, w_up.to(f32))
+        wd = torch.einsum("bse,efd->bsfd", oh, w_down.to(f32))
+        gt = torch.einsum("bsd,bsdf->bsf", xin, wg)
+        up = torch.einsum("bsd,bsdf->bsf", xin, wu)
+        act = (torch.nn.functional.silu(gt) if cfg.activation == "silu"
+               else torch.nn.functional.gelu(gt, approximate="tanh"))
+        h = torch.einsum("bsf,bsfd->bsd", act * up, wd)
+        gate = (r.keep[..., k].to(f32) * r.gate[..., k]).to(dt).to(f32)
+        y = y + h * gate[..., None]
+    return {"y": y.to(dt), "aux": r.aux}
+
+
+register(KernelSpec(
+    name="moe_dispatch",
+    build=_moe_inputs,
+    kernel=_moe_kernel,
+    oracle=_moe_oracle,
+    cases=(
+        KernelCase("top2_f32"),
+        KernelCase("top2_bf16", dtype="bfloat16"),
     ),
 ))
 

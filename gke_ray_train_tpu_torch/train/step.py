@@ -135,17 +135,18 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     projection), so a resumed run and the recomputation under remat draw
     the same masks. ``plan.fused_ops`` (``FUSED_OPS``, read from the plan
     only, as in the JAX step) runs the fused rms_norm / RoPE kernels and,
-    without a logit softcap, the fused cross-entropy. Manual overlap,
-    meshes and MoE raise ``NotImplementedError``."""
+    without a logit softcap, the fused cross-entropy. On an MoE model
+    each microbatch's loss adds ``cfg.router_aux_coef * router_aux * w``
+    (the forward's aux over the microbatch's loss weights, billed per
+    token so the divide by the total weight gives ce_mean + coef *
+    aux_mean), as the JAX step does (:293-296). Manual overlap and meshes
+    raise ``NotImplementedError``."""
     if grad_accum is _UNSET:
         grad_accum = plan.grad_accum if plan is not None else 1
     fused_ops = plan is not None and plan.fused_ops
     if mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP queue 1, multi-GPU)")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "MoE training is not ported yet (ROADMAP queue 1)")
     fused_ce = fused_ops and cfg.logit_softcap is None
     if overlap == "manual":
         raise NotImplementedError(
@@ -155,6 +156,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     lora_mode = lora_cfg is not None
     drop = lora_cfg.dropout if lora_mode else 0.0
     dtype = torch_dtype(cfg.dtype)
+    moe = cfg.n_experts > 0
 
     def train_step(state: TrainState, batch: Batch):
         if state.opt_state.spec is not optimizer:
@@ -184,7 +186,9 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                 lora=state.lora,
                 lora_scale=lora_cfg.scale if lora_mode else 1.0,
                 lora_dropout=drop, lora_seed=seed, fused_ops=fused_ops,
-                return_pre_unembed=fused_ce)
+                return_pre_unembed=fused_ce, with_aux=moe,
+                token_weights=micro["weights"] if moe else None)
+            out, aux = out if moe else (out, None)
             if fused_ce:
                 # the head of the one param tree: frozen under LoRA, so
                 # the kernel forms no dhead; trained in full fine-tuning
@@ -195,6 +199,8 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             else:
                 nll, w = token_nll(out, micro["targets"], micro["weights"])
             del out
+            if moe:
+                nll = nll + cfg.router_aux_coef * aux["router_aux"] * w
             nll.backward()
             nll_sum += nll.detach()
             w_sum += w
@@ -222,7 +228,8 @@ def make_eval_step(cfg: ModelConfig, *, mesh=None,
                    lora_cfg: Optional[LoraConfig] = None,
                    device: DeviceLike = None):
     """``(state, batch) -> (nll_sum, weight_sum)``: callers sum across
-    batches, then divide (the exact eval loss)."""
+    batches, then divide (the exact eval loss). NLL only: an MoE model's
+    router aux is a training term, as in the JAX eval step."""
     if mesh is not None:
         raise NotImplementedError(
             "meshes are not ported yet (ROADMAP queue 1, multi-GPU)")

@@ -6,15 +6,17 @@ stock ``transformers``, at tiny dims on the CPU:
   and the reader follows an index the package's files are named in;
 - a JAX ``save_hf_checkpoint`` loads into the port bitwise and the
   port's export loads into JAX bitwise (Llama; Gemma-2 with its pattern,
-  ``(1 + w)`` norms and softcaps; Qwen-2 with nonzero biases), in fp32
-  and bf16;
+  ``(1 + w)`` norms and softcaps; Qwen-2 with nonzero biases; Mixtral
+  with its router and per-expert tensors), in fp32 and bf16;
 - ``load_hf_checkpoint(quantize="nf4" | "int8")`` gives JAX's codes and
-  scales bitwise;
+  scales bitwise, Mixtral's expert banks included;
 - the port's export passes the checks ``tests/test_hf_config_interop.py``
   and ``tests/test_torch_parity.py`` run on JAX's: stock ``AutoConfig``
   loads it, and the stock model's fp32 logits match the port's forward
-  (rtol / atol 2e-4, the JAX test's); a stock ``save_pretrained`` loads
-  into the port exactly;
+  (rtol / atol 2e-4, the JAX test's; Mixtral at capacity_factor 4.0,
+  where the port's static capacity drops nothing, as HF's dropless
+  routing); a stock ``save_pretrained`` loads into the port exactly, a
+  ``MixtralForCausalLM`` built from a local tiny config too;
 - the merged LoRA export equals ``merge_lora`` followed by an export,
   bitwise, and leaves the trained state as it was.
 """
@@ -119,6 +121,8 @@ FAMILIES = {
     "gemma2": ("gemma2_9b", {"n_layers": 4, "head_dim": 16,
                              "sliding_window": 16,
                              "attn_scale": 16 ** -0.5}),
+    # 8 experts, top 2: capacity_factor E / K = 4 is drop-free
+    "mixtral": ("mixtral_8x7b", {"capacity_factor": 4.0}),
 }
 
 
@@ -151,7 +155,8 @@ def _assert_models_equal(a, b):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("family", ["llama3", "gemma2", "qwen2"])
+@pytest.mark.parametrize("family", ["llama3", "gemma2", "qwen2",
+                                    "mixtral"])
 def test_exports_cross_between_the_packages_bitwise(tmp_path, family,
                                                     dtype):
     jc, tc = _configs(family)
@@ -352,10 +357,55 @@ def test_merged_lora_export_equals_merge_lora(tmp_path):
         assert a[k].dtype == torch.bfloat16 and torch.equal(a[k], b[k]), k
 
 
-def test_moe_raises_naming_the_roadmap(tmp_path):
-    cfg = tcfg.mixtral_8x7b()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        thf.load_hf_checkpoint(str(tmp_path), cfg, device="cpu")
+@pytest.mark.parametrize("kind", ["nf4", "int8"])
+def test_mixtral_round_trip_quantized_and_stock(tmp_path, kind):
+    """Mixtral: a JAX bf16 export loads quantized into the port with JAX's
+    codes and scales, the expert banks streamed one (layer, expert) at a
+    time; a stock ``MixtralForCausalLM`` (a local tiny config, no
+    download) saved with ``save_pretrained`` loads into the port with its
+    router and experts in place and the same fp32 logits, drop-free; and
+    an unknown quant kind is refused."""
+    jc, tc = _configs("mixtral")
+    d = str(tmp_path / "jax")
+    jhf.save_hf_checkpoint(_jax_params(jc), jc, d, dtype="bfloat16")
+    theirs = jhf.load_hf_checkpoint(d, jc, quantize=kind)
+    ours = thf.load_hf_checkpoint(d, tc, quantize=kind, device="cpu")
+    for i, blk in enumerate(ours.blocks):
+        for key in thf.QUANT_TARGETS:
+            q, jq = getattr(blk, key), theirs["blocks"][0][key]
+            assert q.kind == jq.kind == kind and q.group == jq.group
+            np.testing.assert_array_equal(
+                q.codes.numpy(), np.asarray(jq.codes)[i], err_msg=key)
+            np.testing.assert_array_equal(
+                q.scales.numpy(), np.asarray(jq.scales)[i], err_msg=key)
+        assert tuple(blk.w_down.shape) == (8, tc.d_ff, tc.d_model)
+        np.testing.assert_array_equal(
+            blk.router.detach().numpy(),
+            np.asarray(theirs["blocks"][0]["router"])[i])
+
+    hf_cfg = transformers.MixtralConfig(
+        vocab_size=257, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=2, intermediate_size=128,
+        num_local_experts=4, num_experts_per_tok=2,
+        max_position_embeddings=64, rope_theta=1e6, rms_norm_eps=1e-5,
+        tie_word_embeddings=False, sliding_window=None)
+    torch.manual_seed(0)
+    hf = transformers.MixtralForCausalLM(hf_cfg).eval()
+    hf.save_pretrained(str(tmp_path / "stock"), safe_serialization=True)
+    cfg = dataclasses.replace(tc, n_experts=4)
+    model = thf.load_hf_checkpoint(str(tmp_path / "stock"), cfg,
+                                   device="cpu")
+    sd = hf.state_dict()
+    mlp = "model.layers.1.block_sparse_moe"
+    assert torch.equal(model.blocks[1].router, sd[f"{mlp}.gate.weight"].T)
+    assert torch.equal(model.blocks[1].w_up[3],
+                       sd[f"{mlp}.experts.3.w3.weight"].T)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 257, (2, 24)))
+    with torch.no_grad():
+        np.testing.assert_allclose(forward(model, tokens, cfg).numpy(),
+                                   hf(tokens).logits.numpy(),
+                                   rtol=2e-4, atol=2e-4)
     with pytest.raises(ValueError, match="quantize"):
         thf.load_hf_checkpoint(str(tmp_path), tcfg.tiny(), quantize="fp8",
                                device="cpu")

@@ -197,5 +197,26 @@ def test_init_params_shapes_and_device_rule(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttr.init_params(tc, seed=0)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttr.init_params(dataclasses.replace(tc, n_experts=2), device="cpu")
+    # an MoE config: the router [D, E] at std 0.02 and the expert banks
+    # [E, d_in, d_out], w_down scaled by depth; quantized, the banks are
+    # QTensors of that logical shape and no full-precision bank exists
+    moe = dataclasses.replace(tc, n_experts=2, d_model=128, d_ff=256)
+    m = ttr.init_params(moe, seed=0, device="cpu")
+    blk = m.blocks[0]
+    assert blk.router.shape == (128, 2)
+    assert blk.w_gate.shape == blk.w_up.shape == (2, 128, 256)
+    assert blk.w_down.shape == (2, 256, 128)
+    assert 0.017 < float(blk.router.std()) < 0.023
+    assert 0.017 < float(blk.w_gate.std()) < 0.023
+    assert float(blk.w_down.std()) < 0.6 * float(blk.w_up.std())
+    assert sum(p.numel() for p in m.parameters()) == moe.param_count()
+    from gke_ray_train_tpu_torch.models.qinit import init_quantized_params
+    from gke_ray_train_tpu_torch.ops.quant import QTensor
+    q = init_quantized_params(moe, seed=0, device="cpu")
+    names = {n for n, _ in q.named_parameters()}
+    for key in ("w_gate", "w_up", "w_down"):
+        qt = getattr(q.blocks[0], key)
+        assert isinstance(qt, QTensor)
+        assert qt.shape == getattr(blk, key).shape
+        assert not any(n.endswith("." + key) for n in names)
+    assert "blocks.0.router" in names
