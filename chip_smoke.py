@@ -49,6 +49,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. parity  — the same widths in float32 at 4 layers: flash-path prefill
              logits against the dense path, and every engine completion
              token-identical to the sequential ``greedy_generate_cached``.
+5b. serve_tenants — the serve phase's model and 24 requests through an
+             ``AdapterPool`` of 2 slots with a loader over three random
+             r-64 tenants (alpha 16, the seven projections), tagged in
+             turn None, t0, t1, t2: all complete; a miss, an eviction and
+             a pinned retry happen; flash once per layer per prefill; the
+             None rows bitwise a no-pool engine's. Printed: tokens/s,
+             TTFT, per-token p50/p99, the pool's bytes, peak memory, the
+             tenant rows' agreement with single-adapter engines, and two
+             sub-runs on 8 requests: SPEC_DRAFT=self with SPEC_K 4
+             (acceptance share) and SERVE_QUANT=nf4 (the base's bytes).
+5c. serve_tenants_parity — float32 at 4 layers, TF32 off: the
+             mixed-tenant pooled batch, the self draft, a 2-layer random
+             distilled draft, speculation with the pool and
+             SERVE_QUANT=nf4, each token-identical to the sequential
+             ``greedy_generate_cached`` (per tenant; on the quantized
+             model).
 6. train   — the Llama-3.1-8B QLoRA job (ray-jobs/fine_tune_config.json:
              NF4 base, r 64, microbatch 2 x grad-accum 4 at 1024 tokens)
              at full width and depth through the port's loop,
@@ -133,10 +149,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              more than 1e-3 off fails); A's merged bf16 export is read
              back quantized and its NF4 codes, scales, norms, embedding
              and head must equal the merged weights quantized directly,
-             bitwise. A line per run (the meter, the host time between
-             step returns, eval pauses, the ledger, restore / save /
-             commit seconds, checkpoint bytes, peak memory, launches) and
-             one for the export (seconds, bytes, shards, read-back).
+             bitwise. Run A also runs with INFERENCE and
+             SERVE_AFTER_TRAIN (64 new tokens an answer, cut from 300):
+             inference_comparison.json must hold its 2 records, each
+             tuned answer non-empty text from generated tokens, and
+             serve_smoke.json every prompt completed through the
+             adapter pool. A line per run (the meter, the host time
+             between step returns, eval pauses, the ledger, restore /
+             save / commit seconds, checkpoint bytes, peak memory,
+             launches, the comparison and the smoke) and one for the
+             export (seconds, bytes, shards, read-back).
 15. train_moe — the train phase's loop on Mixtral-8x7B QLoRA at full
              width and depth (8 experts top 2) with
              ray-jobs/fine_tune_config_mixtral.json's settings (NF4 with
@@ -1549,6 +1571,391 @@ def phase_parity(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 5b / 5c: multi-tenant and speculative serving
+# ---------------------------------------------------------------------------
+
+# ray-jobs/fine_tune_config.json's adapters: r 64, alpha 16, the seven
+# projections
+TENANT_RANK = 64
+TENANT_ALPHA = 16
+TENANTS = ("t0", "t1", "t2")
+# requests tagged in turn: the base model, then each tenant
+TENANT_TAGS = (None,) + TENANTS
+# tenant slots of the pool: fewer than the tenants, so a miss, an
+# eviction and a pinned retry all happen
+TENANT_SLOTS = 2
+SPEC_K = 4
+SUBRUN_REQUESTS = 8
+
+
+def _tenant_adapters(cfg, dev, seed, rank=TENANT_RANK, b_std=0.02):
+    """One random fp32 adapter on the seven projections: A ~ N(0, 1/r) as
+    ``train/lora.py::init_lora`` draws it, B ~ N(0, ``b_std``) instead of
+    0, so that each tenant moves the output (at alpha / r = 0.25 the
+    delta is about a quarter of a base projection's output)."""
+    import torch
+    from gke_ray_train_tpu_torch.models.transformer import proj_shapes
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    shapes = proj_shapes(cfg)
+    out = []
+    for _ in range(cfg.n_layers):
+        layer = {}
+        for t in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            d_in, d_out = shapes[t]
+            layer[t] = {
+                "a": torch.randn((d_in, rank), generator=gen, device=dev)
+                / rank ** 0.5,
+                "b": torch.randn((rank, d_out), generator=gen, device=dev)
+                * b_std}
+        out.append(layer)
+    return out
+
+
+def _counting_pool(template, **kw):
+    """An ``AdapterPool`` whose ``acquire`` counts in ``pinned_refusals``
+    the admissions it refused because every slot was pinned (the engine
+    retries them next iteration)."""
+    from gke_ray_train_tpu_torch.serve import AdapterPool, AdapterPoolPinned
+
+    class CountingPool(AdapterPool):
+        pinned_refusals = 0
+
+        def acquire(self, adapter_id):
+            try:
+                return super().acquire(adapter_id)
+            except AdapterPoolPinned:
+                self.pinned_refusals += 1
+                raise
+    return CountingPool(template, **kw)
+
+
+def _tagged(reqs, tags=TENANT_TAGS):
+    return [dataclasses.replace(r, adapter_id=tags[i % len(tags)])
+            for i, r in enumerate(reqs)]
+
+
+def _serve_run(engine, reqs, dev):
+    """Drain ``reqs`` through ``engine`` from launch counts at 0; returns
+    (completions, wall seconds, flash launches, the engine's stats)."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.flash_attention import flash_attention
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    comps = engine.run_until_drained(reqs)
+    torch.cuda.synchronize(dev)
+    return (comps, time.perf_counter() - t0, flash_attention.launches,
+            engine.stats())
+
+
+def _serve_numbers(comps, wall, stats, dev):
+    import torch
+    gen = sum(c.length - c.prompt_len for c in comps)
+    ttft = sorted(c.first_token_s for c in comps)
+    return {"requests": len(comps), "generated_tokens": int(gen),
+            "wall_s": wall, "tokens_per_s": gen / wall,
+            "ttft_p50_s": ttft[len(ttft) // 2], "ttft_max_s": ttft[-1],
+            "token_latency_p50_s": stats["p50_token_latency_s"],
+            "token_latency_p99_s": stats["p99_token_latency_s"],
+            "batch_occupancy": stats["batch_occupancy"],
+            "iterations": stats["iterations"], "prefills": stats["prefills"],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+
+
+def _completion_problems(reqs, comps, vocab):
+    problems = []
+    if len(comps) != len(reqs):
+        problems.append(f"{len(comps)} of {len(reqs)} completed")
+    for r, c in zip(reqs, comps):
+        g = c.generated
+        if not (1 <= len(g) <= r.max_new_tokens):
+            problems.append(f"{r.rid}: {len(g)} tokens generated")
+        if len(g) and (g.min() < 0 or g.max() >= vocab):
+            problems.append(f"{r.rid}: token out of vocab")
+        if c.adapter_id != r.adapter_id:
+            problems.append(f"{r.rid}: served as {c.adapter_id}")
+    return problems
+
+
+def _module_nbytes(module):
+    """Bytes of a model's parameters and buffers (a QTensor's codes and
+    scales are buffers)."""
+    return sum(t.numel() * t.element_size()
+               for t in itertools.chain(module.parameters(),
+                                        module.buffers()))
+
+
+def phase_serve_tenants(dev, cfg=None):
+    """Llama-3.1-8B at full width and depth (bf16, random weights from
+    seed 0, ``max_seq_len`` 512) through ``BatchEngine`` with an
+    ``AdapterPool`` of ``TENANT_SLOTS`` slots and a loader over three
+    random r-64 tenants on the seven projections (alpha 16): the serve
+    phase's 24 requests (seed 1234), tagged in turn None, t0, t1, t2.
+    Gates: every request completes within its budget and the vocab;
+    a miss, an eviction and a pinned retry happen; the flash forward runs
+    once per layer per prefill; the None-tagged completions are bitwise a
+    no-pool engine's. Printed: t0's rows' token agreement with a single
+    ``lora=`` engine (bf16 bmm against a 2-D product rounds apart), and,
+    with the pool and tenants released, two sub-runs on
+    ``SUBRUN_REQUESTS`` requests beside a plain one: ``SPEC_DRAFT=self``
+    (``SPEC_K`` 4: acceptance share, tokens/s) and ``SERVE_QUANT=nf4``
+    (the quantized base's bytes, tokens/s, peak memory, with the bf16
+    model released first). Returns the flash launches of the main run."""
+    import torch
+    from gke_ray_train_tpu_torch.models import init_params, llama3_8b
+    from gke_ray_train_tpu_torch.ops.quant import quantize_for_serving
+    from gke_ray_train_tpu_torch.plan import ExecutionPlan
+    from gke_ray_train_tpu_torch.serve import BatchEngine
+    cfg = cfg or dataclasses.replace(
+        llama3_8b(param_dtype="bfloat16", dtype="bfloat16", remat=False),
+        max_seq_len=512)
+    model = init_params(cfg, seed=0, device=dev)
+    tenants = {t: _tenant_adapters(cfg, dev, seed=100 + i)
+               for i, t in enumerate(TENANTS)}
+    env = {"MAX_BATCH": "8", "DECODE_BUCKETS": "256,512",
+           "MAX_ADAPTERS": str(TENANT_SLOTS)}
+    plan = ExecutionPlan.resolve(env=env)
+    eos = (128001, 128009)
+    scale = TENANT_ALPHA / TENANT_RANK
+    pool = _counting_pool(tenants["t0"], max_adapters=plan.max_adapters,
+                         loader=tenants.__getitem__)
+    engine = BatchEngine(model, cfg, plan=plan, eos_ids=eos, adapters=pool,
+                         lora_scale=scale, device=dev)
+    engine.warm_up()
+    reqs = _tagged(_requests(24, cfg.vocab_size, seed=1234))
+    comps, wall, launches, stats = _serve_run(engine, reqs, dev)
+    main = _serve_numbers(comps, wall, stats, dev)
+    problems = _completion_problems(reqs, comps, cfg.vocab_size)
+    pinned_retries = pool.pinned_refusals
+    if stats["adapter_misses"] < 1 or stats["adapter_evictions"] < 1 \
+            or pinned_retries < 1:
+        problems.append(
+            f"misses {stats['adapter_misses']}, evictions "
+            f"{stats['adapter_evictions']}, pinned retries "
+            f"{pinned_retries}: want each >= 1")
+    if launches != cfg.n_layers * stats["prefills"] or \
+            stats["prefills"] != len(reqs):
+        problems.append(f"flash launches {launches} != n_layers "
+                        f"{cfg.n_layers} x prefills {stats['prefills']}")
+    del engine
+
+    # the zero slot: bitwise a no-pool engine's completions
+    base_reqs = [r for r in reqs if r.adapter_id is None]
+    plain = BatchEngine(model, cfg, plan=plan, eos_ids=eos, device=dev)
+    want = plain.run_until_drained(
+        [dataclasses.replace(r, rid=r.rid + "p") for r in base_reqs])
+    del plain
+    got = {c.rid: c for c in comps}
+    zero_differ = [r.rid for r, w in zip(base_reqs, want)
+                   if not np.array_equal(got[r.rid].tokens, w.tokens)]
+    if zero_differ:
+        problems.append(f"zero-slot rows differ from the no-pool engine: "
+                        f"{zero_differ}")
+
+    # one tenant's rows against a single-adapter engine (not gated)
+    agree = {}
+    for t in TENANTS[:1]:
+        rs = [r for r in reqs if r.adapter_id == t]
+        single = BatchEngine(model, cfg, plan=plan, eos_ids=eos,
+                             lora=tenants[t], lora_scale=scale, device=dev)
+        ws = single.run_until_drained([dataclasses.replace(
+            r, rid=r.rid + "s", adapter_id=None) for r in rs])
+        del single
+        same = total = 0
+        for r, w in zip(rs, ws):
+            a, b = got[r.rid].generated, w.generated
+            n = min(len(a), len(b))
+            same += int(np.sum(a[:n] == b[:n]))
+            total += max(len(a), len(b))
+        agree[t] = {"requests": len(rs), "tokens_equal": same,
+                    "tokens": total,
+                    "identical_requests": sum(
+                        np.array_equal(got[r.rid].tokens, w.tokens)
+                        for r, w in zip(rs, ws))}
+
+    pool_bytes = pool.nbytes()
+    del pool, tenants
+    torch.cuda.empty_cache()
+
+    # sub-runs on the first SUBRUN_REQUESTS requests, untagged
+    sub = [dataclasses.replace(r, adapter_id=None)
+           for r in reqs[:SUBRUN_REQUESTS]]
+    plain = BatchEngine(model, cfg, plan=plan, eos_ids=eos, device=dev)
+    plain.warm_up()
+    pc, pwall, _, pstats = _serve_run(plain, [
+        dataclasses.replace(r, rid=r.rid + "b") for r in sub], dev)
+    plain_numbers = _serve_numbers(pc, pwall, pstats, dev)
+    del plain
+    spec_plan = ExecutionPlan.resolve(env=dict(
+        env, SPEC_DRAFT="self", SPEC_K=str(SPEC_K)))
+    spec = BatchEngine(model, cfg, plan=spec_plan, eos_ids=eos, device=dev)
+    spec.warm_up()
+    sc, swall, slaunch, sstats = _serve_run(spec, [
+        dataclasses.replace(r, rid=r.rid + "x") for r in sub], dev)
+    del spec
+    problems += [f"spec {p}" for p in _completion_problems(
+        sub, sc, cfg.vocab_size)]
+    spec_numbers = dict(
+        _serve_numbers(sc, swall, sstats, dev),
+        spec_k=SPEC_K, spec_proposed=sstats["spec_proposed"],
+        spec_accepted=sstats["spec_accepted"],
+        acceptance_share=(sstats["spec_accepted"]
+                          / max(sstats["spec_proposed"], 1)),
+        flash_launches=slaunch,
+        tokens_equal_to_plain=sum(
+            np.array_equal(a.tokens, b.tokens) for a, b in zip(sc, pc)))
+    # the target's prefill and the self draft's: 2 x n_layers each
+    if slaunch != 2 * cfg.n_layers * sstats["prefills"]:
+        problems.append(f"spec flash launches {slaunch} != 2 x n_layers x "
+                        f"prefills {sstats['prefills']}")
+
+    bf16_bytes = _module_nbytes(model)
+    nf4 = quantize_for_serving(model, "nf4")
+    del model           # the bf16 projections go; embed / norms are shared
+    torch.cuda.empty_cache()
+    nf4_plan = ExecutionPlan.resolve(env=dict(env, SERVE_QUANT="nf4"))
+    qeng = BatchEngine(nf4, cfg, plan=nf4_plan, eos_ids=eos, device=dev)
+    qeng.warm_up()
+    qc, qwall, _, qstats = _serve_run(qeng, [
+        dataclasses.replace(r, rid=r.rid + "q") for r in sub], dev)
+    problems += [f"nf4 {p}" for p in _completion_problems(
+        sub, qc, cfg.vocab_size)]
+    nf4_numbers = dict(_serve_numbers(qc, qwall, qstats, dev),
+                       base_bytes=_module_nbytes(qeng.params),
+                       bf16_base_bytes=bf16_bytes,
+                       tokens_equal_to_bf16=sum(
+                           np.array_equal(a.tokens, b.tokens)
+                           for a, b in zip(qc, pc)))
+    del qeng, nf4
+    torch.cuda.empty_cache()
+
+    row = {"phase": "serve_tenants", "ok": not problems,
+           "problems": problems, "nvidia_smi": nvidia_smi_line(),
+           "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype,
+           "tenants": len(TENANTS), "rank": TENANT_RANK,
+           "alpha": TENANT_ALPHA, "max_adapters": plan.max_adapters,
+           "pool_bytes": pool_bytes, **main,
+           "flash_launches": launches,
+           "adapter_counters": {k: stats[k] for k in (
+               "adapter_hits", "adapter_misses", "adapter_evictions",
+               "adapter_resident")},
+           "pinned_retries": pinned_retries,
+           "zero_slot_bitwise": not zero_differ,
+           "tenant_agreement_with_single_lora": agree,
+           "subrun_plain": plain_numbers, "subrun_spec_self": spec_numbers,
+           "subrun_nf4": nf4_numbers}
+    emit(row)
+    if problems:
+        raise SystemExit("serve_tenants phase failed: " + "; ".join(problems))
+    return launches
+
+
+def phase_serve_tenants_parity(dev, cfg=None):
+    """float32, Llama-3.1-8B at full width cut to 4 layers, TF32 off:
+    token equality with the sequential oracles (``greedy_generate_cached``
+    per request) for the mixed-tenant pooled batch (each tagged request
+    with its tenant's adapter, the None rows with none; a pool of
+    ``TENANT_SLOTS`` slots and a loader), the ``self`` draft and a
+    2-layer random ``distilled`` draft (the garbage draft), speculation
+    composed with the pool, and ``SERVE_QUANT=nf4`` against the oracle on
+    the quantized model."""
+    import torch
+    from gke_ray_train_tpu_torch.models import (
+        greedy_generate_cached, init_params, llama3_8b)
+    from gke_ray_train_tpu_torch.ops.quant import quantize_for_serving
+    from gke_ray_train_tpu_torch.plan import ExecutionPlan
+    from gke_ray_train_tpu_torch.serve import BatchEngine, form_prompt_buffer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg or dataclasses.replace(
+        llama3_8b(dtype="float32", param_dtype="float32", remat=False),
+        max_seq_len=512, n_layers=4)
+    model = init_params(cfg, seed=1, device=dev)
+    tenants = {t: _tenant_adapters(cfg, dev, seed=200 + i)
+               for i, t in enumerate(TENANTS)}
+    scale = TENANT_ALPHA / TENANT_RANK
+    eos = (128001, 128009)
+    env = {"MAX_BATCH": "4", "DECODE_BUCKETS": "256,512",
+           "MAX_ADAPTERS": str(TENANT_SLOTS)}
+    reqs = _tagged(_requests(12, cfg.vocab_size, seed=77, new=(8, 32)))
+
+    memo = {}
+
+    def oracle(kind, r, width):
+        """The sequential greedy decode of ``r`` at its engine's bucket
+        ``width``: on the base ("base"), with its tenant ("tuned"), or on
+        the quantized model ("nf4")."""
+        key = (kind, r.rid, width)
+        if key not in memo:
+            params = qmodel if kind == "nf4" else model
+            lora = (tenants[r.adapter_id] if kind == "tuned"
+                    and r.adapter_id else None)
+            buf, plen = form_prompt_buffer(r.token_ids, width)
+            memo[key] = greedy_generate_cached(
+                params, buf, [plen], cfg, max_new_tokens=r.max_new_tokens,
+                eos_ids=eos, lora=lora, lora_scale=scale if lora else 1.0,
+                device=dev)[0].cpu().numpy()
+        return memo[key]
+
+    def run(name, kind, plan_env, rs, params=None, **kw):
+        eng = BatchEngine(params if params is not None else model, cfg,
+                          plan=ExecutionPlan.resolve(env=plan_env),
+                          eos_ids=eos, device=dev, **kw)
+        comps = eng.run_until_drained(rs)
+        st = eng.stats()
+        results[name] = {
+            "differ": [c.rid for r, c in zip(rs, comps)
+                       if not np.array_equal(
+                           c.tokens, oracle(kind, r, c.bucket))],
+            "buckets": sorted({c.bucket for c in comps})}
+        for k in ("spec_accepted", "spec_proposed", "adapter_misses",
+                  "adapter_evictions"):
+            if k in st:
+                results[name][k] = st[k]
+
+    def pool():
+        return _counting_pool(tenants["t0"], max_adapters=TENANT_SLOTS,
+                             loader=tenants.__getitem__)
+    results = {}
+    qmodel = None
+    spec_env = dict(env, SPEC_DRAFT="self", SPEC_K=str(SPEC_K))
+    untagged = [dataclasses.replace(r, adapter_id=None) for r in reqs]
+    run("mixed_tenants", "tuned", env, reqs, adapters=pool(),
+        lora_scale=scale)
+    run("spec_self", "base", spec_env, untagged)
+    dcfg = dataclasses.replace(cfg, n_layers=2)
+    draft = init_params(dcfg, seed=7, device=dev)
+    run("spec_garbage_draft", "base",
+        dict(env, SPEC_DRAFT="distilled", SPEC_K=str(SPEC_K)), untagged,
+        draft=(draft, dcfg))
+    del draft
+    run("spec_with_adapters", "tuned", spec_env, reqs, adapters=pool(),
+        lora_scale=scale)
+    qmodel = quantize_for_serving(model, "nf4")
+    run("nf4", "nf4", dict(env, SERVE_QUANT="nf4"), untagged[:6],
+        params=qmodel)
+    del qmodel, model, tenants, memo
+    torch.cuda.empty_cache()
+    problems = [f"{k}: {v['differ']}" for k, v in results.items()
+                if v["differ"]]
+    mixed = results["mixed_tenants"]
+    if mixed["adapter_misses"] < 1 or mixed["adapter_evictions"] < 1:
+        problems.append(f"mixed-tenant run counters {mixed}")
+    garbage = results["spec_garbage_draft"]
+    if garbage["spec_accepted"] >= garbage["spec_proposed"]:
+        problems.append("the garbage draft was never rejected")
+    emit({"phase": "serve_tenants_parity", "ok": not problems,
+          "problems": problems, "dtype": "float32", "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "requests": len(reqs), "results": results})
+    if problems:
+        raise SystemExit("serve_tenants_parity phase failed: "
+                         + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
 # phase 6: train
 # ---------------------------------------------------------------------------
 
@@ -2796,6 +3203,10 @@ ENTRY_CUT = {"NUM_TRAIN_SAMPLES": 64, "NUM_EVAL_SAMPLES": 16,
              "REPORT_TO": "tensorboard"}
 # run B is preempted after this step and run C resumes from it
 ENTRY_PREEMPT_AFTER = 5
+# run A also compares base and tuned answers and serves the tuned adapter
+# after training; the job's 300 new tokens an answer are cut to 64
+ENTRY_SERVE = {"INFERENCE": True, "SERVE_AFTER_TRAIN": True,
+               "MAX_NEW_GENERATION_TOKENS_INFERENCE": 64}
 # a resumed run's losses against the uninterrupted run's (relative); the
 # expectation is bitwise: dropout 0, and the seed rebuilds the same base
 ENTRY_LOSS_RTOL = 1e-3
@@ -2811,9 +3222,13 @@ def _entry_hooks(rec):
     Returns the originals, for ``_entry_unhook``; ``_entry_run`` fails
     when a wrapped name went unused."""
     from gke_ray_train_tpu_torch import fine_tune as ft
+    from gke_ray_train_tpu_torch import inference
     orig = {n: getattr(ft, n) for n in (
         "make_train_step", "CheckpointManager", "sharded_eval_loss",
-        "save_hf_checkpoint")}
+        "save_hf_checkpoint", "run_inference_comparison",
+        "post_train_smoke")}
+    orig["inference.greedy_generate_cached"] = \
+        inference.greedy_generate_cached
 
     def make_train_step(*a, **kw):
         step = orig["make_train_step"](*a, **kw)
@@ -2865,18 +3280,49 @@ def _entry_hooks(rec):
                          "dir": a[2]}
         return info
 
+    def run_inference_comparison(*a, **kw):
+        t = time.perf_counter()
+        records = orig["run_inference_comparison"](*a, **kw)
+        rec["inference"] = {"seconds": time.perf_counter() - t,
+                            "records": records}
+        return records
+
+    def post_train_smoke(*a, **kw):
+        t = time.perf_counter()
+        out = orig["post_train_smoke"](*a, **kw)
+        rec["smoke"] = {"seconds": time.perf_counter() - t,
+                        "returned": out is not None,
+                        "stats": out[1] if out is not None else None}
+        return out
+
+    def greedy_generate_cached(params, prompt, prompt_len, cfg, **kw):
+        # the new tokens of each answer: the byte tokenizer decodes ids
+        # 4-259 only, so a random model's text says little
+        out = orig["inference.greedy_generate_cached"](
+            params, prompt, prompt_len, cfg, **kw)
+        plen = int(np.asarray(prompt_len).reshape(-1)[0])
+        row = out[0].cpu().numpy()
+        rec["generated"].append(int(np.count_nonzero(
+            row[plen:plen + kw["max_new_tokens"]])))
+        return out
+
     for name, fn in (("make_train_step", make_train_step),
                      ("CheckpointManager", TimedManager),
                      ("sharded_eval_loss", sharded_eval_loss),
-                     ("save_hf_checkpoint", save_hf_checkpoint)):
+                     ("save_hf_checkpoint", save_hf_checkpoint),
+                     ("run_inference_comparison", run_inference_comparison),
+                     ("post_train_smoke", post_train_smoke)):
         setattr(ft, name, fn)
+    inference.greedy_generate_cached = greedy_generate_cached
     return orig
 
 
 def _entry_unhook(orig):
     from gke_ray_train_tpu_torch import fine_tune as ft
+    from gke_ray_train_tpu_torch import inference
     for name, fn in orig.items():
-        setattr(ft, name, fn)
+        mod, _, attr = name.rpartition(".")
+        setattr(inference if mod == "inference" else ft, attr, fn)
 
 
 def _entry_run(dev, config, label, preempt_after=None):
@@ -2893,7 +3339,8 @@ def _entry_run(dev, config, label, preempt_after=None):
     from gke_ray_train_tpu_torch.train import preempt
     from gke_ray_train_tpu_torch.train.metrics import finish_ledger
     rec = dict(losses={}, step_done=[], saves=[], commits=[], wait_s=[],
-               evals=[], restore=None, export=None, ckpt_dir=None)
+               evals=[], restore=None, export=None, ckpt_dir=None,
+               inference=None, smoke=None, generated=[])
     ctx = get_context()
     orig = _entry_hooks(rec)
 
@@ -2958,7 +3405,8 @@ def _entry_run(dev, config, label, preempt_after=None):
            "checkpoint": ckpt, "evals": rec["evals"],
            "export": rec["export"],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-           "launches": launches}
+           "launches": launches, "inference": rec["inference"],
+           "generated": rec["generated"], "smoke": rec["smoke"]}
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3025,13 +3473,17 @@ def _entry_disk(root, cfg, lcfg, runs):
 
 
 def _entry_launch_check(cfg, plan, run, n_eval_rows):
-    """Launches of one run: each trained step's (``expected_launches``)
-    and one flash forward a layer per eval batch."""
+    """Launches of one run: each trained step's (``expected_launches``),
+    one flash forward a layer per eval batch, per answer the inference
+    comparison generates and per prefill of the serving smoke."""
     trained = len(run["losses"])
     per_step = expected_launches(cfg, plan.grad_accum, plan.fused_ops)
     batch = plan.per_device_batch * plan.grad_accum
     eval_batches = len(run["evals"]) * -(-n_eval_rows // batch)
-    want = {k: trained * v + (cfg.n_layers * eval_batches
+    smoke = (run["smoke"] or {}).get("stats") or {}
+    prefills = (eval_batches + len(run["generated"])
+                + smoke.get("prefills", 0))
+    want = {k: trained * v + (cfg.n_layers * prefills
                               if k == "flash_fwd" else 0)
             for k, v in per_step.items()}
     return want
@@ -3065,7 +3517,56 @@ def _entry_line(phase, run, cfg, plan, want_launches):
             "wall_s": run["wall_s"],
             "peak_mem_bytes": run["peak_mem_bytes"],
             "launches": {k: run["launches"][k] for k in want_launches},
-            "expected_launches": want_launches}
+            "expected_launches": want_launches,
+            "inference": _inference_line(run), "serve_smoke": run["smoke"]}
+
+
+def _inference_line(run):
+    inf = run["inference"]
+    if inf is None:
+        return None
+    return {"seconds": inf["seconds"], "records": len(inf["records"]),
+            "answer_chars": [
+                [len(r["base_model_answer"]),
+                 len(r["finetuned_model_answer"])] for r in inf["records"]],
+            "generated_tokens": run["generated"]}
+
+
+def _entry_serve_problems(run, config):
+    """Run A's INFERENCE / SERVE_AFTER_TRAIN gates: the comparison file
+    holds NUM_EVAL_SAMPLES_INFERENCE records with non-empty tuned answers
+    (the trained adapters emit byte-tokenizer ids; the random base's
+    answers mostly decode to nothing), each from generated tokens, and
+    the smoke returned and wrote every prompt completed through the
+    adapter pool."""
+    root = config["OUTPUT_DIR_BASE"]
+    n = int(config.get("NUM_EVAL_SAMPLES_INFERENCE", 2))
+    problems = []
+    path = os.path.join(root, "inference_comparison.json")
+    records = []
+    if os.path.exists(path):
+        with open(path) as f:
+            records = json.load(f)
+    if len(records) != n or run["inference"] is None:
+        problems.append(f"inference_comparison.json holds {len(records)} "
+                        f"records, want {n}")
+    # base and tuned answer per record, in that order
+    tuned = run["generated"][1::2]
+    if len(run["generated"]) != 2 * n or not all(g >= 1 for g in tuned):
+        problems.append(f"tuned answers' new tokens {run['generated']}")
+    if not all(r["finetuned_model_answer"] for r in records):
+        problems.append("a tuned answer is empty")
+    path = os.path.join(root, "serve_smoke.json")
+    smoke = run["smoke"] or {}
+    if not smoke.get("returned") or not os.path.exists(path):
+        problems.append(f"post_train_smoke returned nothing: {smoke}")
+    else:
+        with open(path) as f:
+            stats = json.load(f)
+        if stats["completed"] != n or stats["adapter_requests"] != n \
+                or stats["pending"]:
+            problems.append(f"serve_smoke.json: {stats}")
+    return problems
 
 
 def _entry_adapters(mgr_dir, step, cfg, lcfg, dev):
@@ -3184,6 +3685,7 @@ def phase_entry(dev):
         problems = []
         lines = {}
         runs = {}
+        ca.update(ENTRY_SERVE)
         for label, config, kw in (
                 ("A", ca, {}),
                 ("B", _entry_config(os.path.join(root, "b"), ASYNC_CKPT=1),
@@ -3200,6 +3702,7 @@ def phase_entry(dev):
             if not all(np.isfinite(v) for v in run["losses"].values()):
                 problems.append(f"{label}: non-finite loss")
             if label == "A":
+                problems += _entry_serve_problems(run, config)
                 adapters_a, flat_a = _entry_adapters(
                     run["checkpoint"]["dir"], run["checkpoint"]["latest"],
                     cfg, lcfg, dev)
@@ -3259,7 +3762,8 @@ def phase_entry(dev):
                   "checkpoint_entries": len(flat_keys),
                   "checkpoint_entries_differ": differ},
               "config": os.path.relpath(ENTRY_CONFIG, HERE),
-              "cut": ENTRY_CUT, "preempt_after": ENTRY_PREEMPT_AFTER})
+              "cut": ENTRY_CUT, "serve_run_A": ENTRY_SERVE,
+              "preempt_after": ENTRY_PREEMPT_AFTER})
         if problems:
             raise SystemExit("entry phase failed: " + "; ".join(problems))
         return {k: sum(runs[r]["launches"][k] for r in runs)
@@ -3377,7 +3881,7 @@ def phase_entry_moe(dev):
 # ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
-          "train", "train_parity", "train_fused", "train_fused_parity",
+          "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
           "train_fused_ce", "train_fused_ce_parity", "train_profile",
           "entry", "train_moe", "train_moe_parity", "serve_moe", "entry_moe",
           "profile", "train_fused_profile", "train_fused_ce_profile",
@@ -3525,6 +4029,9 @@ def main(argv=None) -> int:
     serve = run("serve", phase_serve)
     add({"flash_fwd": serve} if serve is not None else None)
     run("parity", phase_parity)
+    tenants = run("serve_tenants", phase_serve_tenants)
+    add({"flash_fwd": tenants} if tenants is not None else None)
+    run("serve_tenants_parity", phase_serve_tenants_parity)
     add(run("train", phase_train))
     run("train_parity", phase_train_parity)
     add(run("train_fused", phase_train_fused))

@@ -594,6 +594,43 @@ class CheckpointManager:
             _dcp_call("load", flat, checkpoint_id=self._step_dir(step))
         return _apply_numbers(state_like, flat)
 
+    def restore_raw(self, step: Optional[int] = None) -> Dict[str, Any]:
+        """Topology-free restore: the keys, shapes and dtypes come from
+        the step's ``torch.distributed.checkpoint`` metadata, and every
+        tensor lands on the CPU, so a host with no live state (a serving
+        replica, a converter) can read a checkpoint. Returns the
+        :func:`flat_state` keys nested at their first ``/``, with a
+        train state's ``lora/<layer>.<target>.<a|b>`` entries as the
+        port's per-layer adapter list."""
+        from torch.distributed.checkpoint import FileSystemReader
+        from torch.distributed.checkpoint.metadata import (
+            TensorStorageMetadata)
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint in {self.directory}")
+        path = self._step_dir(step)
+        meta = FileSystemReader(path).read_metadata()
+        flat: Dict[str, Any] = {
+            k: (torch.empty(tuple(m.size), dtype=m.properties.dtype)
+                if isinstance(m, TensorStorageMetadata) else None)
+            for k, m in meta.state_dict_metadata.items()}
+        with torch.no_grad():
+            _dcp_call("load", flat, checkpoint_id=path)
+        out: Dict[str, Any] = {}
+        for key, v in flat.items():
+            head, _, rest = key.partition("/")
+            if not rest:
+                out[key] = v
+            else:
+                out.setdefault(head, {})[rest] = v
+        if isinstance(out.get("lora"), dict):
+            layers: Dict[int, dict] = {}
+            for key, v in out["lora"].items():
+                i, target, ab = key.split(".")
+                layers.setdefault(int(i), {}).setdefault(target, {})[ab] = v
+            out["lora"] = [layers[i] for i in sorted(layers)]
+        return out
+
     def _quarantine(self, step: int) -> str:
         """Move an unrestorable step aside (``<step>.corrupt``) so it
         never shadows a good checkpoint again, drop its markers (a later

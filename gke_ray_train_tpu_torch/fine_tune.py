@@ -18,12 +18,15 @@ loud warning); the dataset (synthetic SQL rows when the hub is
 unreachable); rows, optimizer and schedule, state, step, eval step and
 checkpoint manager; ``run_training``; then the export of a HF-layout
 model (LoRA merged one projection at a time on the card) with the
-tokenizer beside it.
+tokenizer beside it; with ``INFERENCE`` the base and tuned models'
+answers to the test rows (``inference_comparison.json``), and with
+``SERVE_AFTER_TRAIN`` the tuned model served through the continuous-
+batching engine, a LoRA run's adapter through an ``AdapterPool``
+(``serve_smoke.json``).
 
-Not ported yet, each raising where the config asks for it: the
-inference comparison and the post-train serving smoke (``INFERENCE``,
-``SERVE_AFTER_TRAIN``: queue 1 item 7), peer replication (item 8), the
-multi-host export and a world above one process (item 5).
+Not ported yet, each raising where the config asks for it: peer
+replication (ROADMAP queue 1 item 8), the multi-host export and a world
+above one process (item 5).
 """
 
 from __future__ import annotations
@@ -45,11 +48,14 @@ from gke_ray_train_tpu_torch.data import (
     ByteTokenizer, downsample, format_gretel_sql_example, load_hf_tokenizer,
     make_place_batch, pack_examples, pad_sft_rows, save_tokenizer,
     sft_epoch_batches, synthetic_sql_rows, tokenize_sft_example)
+from gke_ray_train_tpu_torch.data.sft import render_chat
 from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
+from gke_ray_train_tpu_torch.inference import run_inference_comparison
 from gke_ray_train_tpu_torch.models import (
     init_params, init_quantized_params, preset_for_model_id, tiny)
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.rayint import get_context
+from gke_ray_train_tpu_torch.serve import post_train_smoke
 from gke_ray_train_tpu_torch.train import (
     LoraConfig, ThroughputMeter, make_eval_step, make_train_state,
     make_train_step, sharded_eval_loss)
@@ -100,11 +106,6 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     """The worker: trains, checkpoints and resumes, exports; returns the
     loop's last metrics. Runs on ``device`` (default ``cuda``, which must
     exist)."""
-    for key, item in (("INFERENCE", 7), ("SERVE_AFTER_TRAIN", 7)):
-        if _flag(config, key):
-            raise NotImplementedError(
-                f"{key} is not ported yet (ROADMAP queue 1 item {item}); "
-                "set it false")
     ctx = get_context()
     if ctx.is_host0():
         audit_config(config)
@@ -304,6 +305,67 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
                            lora_scale=lora_cfg.scale if use_lora else 1.0)
         save_tokenizer(tokenizer, final_dir)
         logger.info("saved final model + tokenizer to %s", final_dir)
+
+    # ---- optional inference comparison --------------------------------
+    if bool(config.get("INFERENCE", False)):
+        # LoRA: the tuned model is the frozen base plus the adapters at
+        # decode time, never a merged copy of the base
+        if use_lora:
+            base_params = tuned_params = state.params
+        elif have_local:
+            base_params = load_hf_checkpoint(str(ckpt_dir), cfg, device=dev)
+            tuned_params = state.params
+        else:
+            if ctx.is_host0():
+                logger.warning(
+                    "full-FT smoke without a pretrained checkpoint: "
+                    "comparing tuned model against itself")
+            base_params = tuned_params = state.params
+        run_inference_comparison(
+            base_params, tuned_params, cfg, tokenizer, ds_test,
+            num_samples=int(config.get("NUM_EVAL_SAMPLES_INFERENCE", 2)),
+            max_new_tokens=int(
+                config.get("MAX_NEW_GENERATION_TOKENS_INFERENCE", 300)),
+            output_path=os.path.join(out_base, "inference_comparison.json"),
+            row_filter=(lambda r: r.get("sql_complexity")
+                        == "window functions"),
+            is_host0=ctx.is_host0(),
+            tuned_lora=state.lora if use_lora else None,
+            lora_scale=lora_cfg.scale if use_lora else 1.0, device=dev)
+
+    # ---- optional post-train serving smoke ----------------------------
+    # config, then env; only "1" / "true" turn it on (JAX's rule: the
+    # documented disable value "0" must disable)
+    serve_flag = config.get("SERVE_AFTER_TRAIN",
+                            os.environ.get("SERVE_AFTER_TRAIN", "0"))
+    if str(serve_flag).strip().lower() in ("1", "true"):
+        eos = ([int(tokenizer.eos_token_id)]
+               if getattr(tokenizer, "eos_token_id", None) is not None
+               else [])
+        prompts = []
+        for row in ds_test[:int(config.get("NUM_EVAL_SAMPLES_INFERENCE",
+                                           2))]:
+            text = render_chat(tokenizer, format_gretel_sql_example(row),
+                               add_generation_prompt=True)
+            prompts.append(np.asarray(
+                tokenizer(text, add_special_tokens=False)["input_ids"],
+                np.int32))
+        # a LoRA run tags every prompt with the trained adapter's id, so
+        # the smoke runs the multi-tenant batched-adapter decode
+        out = post_train_smoke(
+            state.params, cfg, plan, prompts, eos_ids=eos,
+            lora=state.lora if use_lora else None,
+            lora_scale=lora_cfg.scale if use_lora else 1.0,
+            adapter_ids=["tuned"] * len(prompts) if use_lora else None,
+            max_new_tokens=64, device=dev)
+        if out is not None and ctx.is_host0():
+            comps, stats = out
+            for c in comps:
+                logger.info("serve smoke %s (%s): %s", c.rid,
+                            c.finish_reason, tokenizer.decode(c.generated))
+            os.makedirs(out_base, exist_ok=True)
+            with open(os.path.join(out_base, "serve_smoke.json"), "w") as f:
+                json.dump(stats, f, indent=2)
     return metrics
 
 

@@ -19,7 +19,7 @@
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,10 +86,18 @@ def _warn_dense_prefill(T: int, max_len: int) -> None:
 
 def forward_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                  cache: Cache, lens: torch.Tensor, *,
-                 lora: Optional[Lora] = None,
+                 lora: Optional[Union[Lora, Dict[str, Any]]] = None,
                  lora_scale: float = 1.0) -> Tuple[torch.Tensor, Cache]:
     """tokens [B, T] at per-row absolute positions lens + arange(T) →
-    (logits [B, T, vocab] float32, the cache updated in place)."""
+    (logits [B, T, vocab] float32, the cache updated in place).
+
+    ``lora``: one adapter (``lora[i][name] = {"a", "b"}``), or in
+    multi-tenant serving ``{"aslot": [B] int32, "blocks": pool}`` with
+    the stacked pool of ``serve/adapters.py``, from which each row's
+    adapter is gathered layer by layer (``ops/lora_batched.py``)."""
+    pool = aslot = None
+    if isinstance(lora, dict) and "aslot" in lora:
+        pool, aslot, lora = lora["blocks"], lora["aslot"], None
     B, T = tokens.shape
     dev = params.embed.device
     check_on(tokens, dev, "tokens")
@@ -122,7 +130,11 @@ def forward_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                                 else None))
 
     for i, lp in enumerate(params.blocks):
-        lo = lora[i] if lora is not None else None
+        if pool is not None:
+            from gke_ray_train_tpu_torch.ops.lora_batched import gather_pool
+            lo = gather_pool(pool[i], aslot)
+        else:
+            lo = lora[i] if lora is not None else None
 
         def lr(name):
             return _lora_entry(lo, name)

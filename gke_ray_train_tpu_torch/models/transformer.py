@@ -239,7 +239,9 @@ def _proj(x: torch.Tensor, w, lora_p, lora_scale: float,
           drop_rate: float = 0.0, drop_seed: Optional[int] = None
           ) -> torch.Tensor:
     """x @ w (+ bias), plus the low-rank LoRA bypass (two small products,
-    never a materialized delta-W) when an adapter is given. The weight
+    never a materialized delta-W) when an adapter is given: ``[d_in, r]``
+    / ``[r, d_out]``, or per-row ``[B, d_in, r]`` / ``[B, r, d_out]``
+    (``ops/lora_batched.py::bgmv``). The weight
     (a tensor or a ``QTensor``) is cast or dequantized to the compute
     dtype per call — a no-op cast when the params are stored in it.
 
@@ -247,16 +249,21 @@ def _proj(x: torch.Tensor, w, lora_p, lora_scale: float,
     on the adapter-branch input only; the frozen-base path never drops."""
     y = x @ maybe_dequantize(w, dtype)
     if lora_p is not None:
-        if lora_p["a"].dim() != 2:
-            raise NotImplementedError(
-                "per-row adapters (batched multi-LoRA) are not ported yet")
         xl = x
         if drop_seed is not None and drop_rate > 0.0:
             xl = _lora_dropout(x, drop_rate, drop_seed)
-        xa = xl @ lora_p["a"].to(dtype)
-        # a fill, not a host-to-card copy (which would wait for the card)
-        y = y + (xa @ lora_p["b"].to(dtype)) * torch.full(
-            (), lora_scale, dtype=dtype, device=x.device)
+        if lora_p["a"].dim() == 3:
+            # per-row adapters gathered from a multi-tenant pool ([B,
+            # d_in, r] / [B, r, d_out]): the engine's batched multi-LoRA
+            from gke_ray_train_tpu_torch.ops.lora_batched import bgmv
+            y = y + bgmv(xl, lora_p["a"], lora_p["b"], scale=lora_scale,
+                         dtype=dtype)
+        else:
+            xa = xl @ lora_p["a"].to(dtype)
+            # a fill, not a host-to-card copy (which would wait for the
+            # card)
+            y = y + (xa @ lora_p["b"].to(dtype)) * torch.full(
+                (), lora_scale, dtype=dtype, device=x.device)
     if bias is not None:
         y = y + bias.to(dtype)
     return y

@@ -24,8 +24,9 @@ dtype, as JAX does.
 
 from __future__ import annotations
 
+import copy
 import os
-from typing import Any, Dict, Iterable, Union
+from typing import Any, Dict, Iterable, Optional, Union
 
 import torch
 from torch import nn
@@ -241,3 +242,35 @@ def quantize_params(params: nn.Module, kind: str = "nf4",
             delattr(blk, name)
             setattr(blk, name, qt)
     return params
+
+
+SERVE_QUANT_KINDS = ("none", "int8", "nf4")
+
+
+def _shallow_copy(module: nn.Module) -> nn.Module:
+    """A copy of ``module`` sharing its tensors, with registries of its
+    own: replacing a parameter of the copy leaves ``module`` as it is."""
+    out = copy.copy(module)
+    for reg in ("_parameters", "_buffers", "_modules"):
+        object.__setattr__(out, reg, dict(getattr(module, reg)))
+    return out
+
+
+@torch.no_grad()
+def quantize_for_serving(params: nn.Module, kind: Optional[str],
+                         group: int = DEFAULT_GROUP) -> nn.Module:
+    """The serving engine's weight-encoding hook (``serve/engine.py``):
+    ``"none"`` returns ``params`` itself; ``"int8"`` / ``"nf4"`` return a
+    new model whose projection targets are quantized, sharing every other
+    tensor with ``params``, which is left as it was (the JAX package
+    returns a new tree). Leaves already quantized (a QLoRA base) stay as
+    they are."""
+    kind = (kind or "none").strip().lower()
+    if kind == "none":
+        return params
+    if kind not in SERVE_QUANT_KINDS:
+        raise ValueError(f"serve quant kind {kind!r}; use "
+                         f"{'|'.join(SERVE_QUANT_KINDS)}")
+    out = _shallow_copy(params)
+    out.blocks = nn.ModuleList(_shallow_copy(b) for b in params.blocks)
+    return quantize_params(out, kind=kind, group=group)

@@ -16,8 +16,8 @@ sweeps against the port's tolerance ledger
 (``analysis/tolerances/*.json``, one pin per case and device type).
 Case names and sizes are the JAX package's, so the two registries can be
 held against each other on the same inputs. The JAX package's sharded
-cases and the ops the port lacks (ring and all-to-all attention, batched
-LoRA, the hierarchical psum) wait for their modules.
+cases and the ops the port lacks (ring and all-to-all attention, the
+hierarchical psum) wait for their modules.
 
 Inputs are built on the CPU from a ``torch.Generator`` seeded by the
 sweep (``zlib.crc32("<spec>/<case>")``), then moved to the device, so a
@@ -27,6 +27,7 @@ CPU sweep and a CUDA sweep see the same numbers.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -529,5 +530,56 @@ register(KernelSpec(
         # V = 256 in vocab chunks of 128: the backward crosses a chunk
         # boundary, not just the one-chunk degenerate case
         KernelCase("vocab_tiled_f32", kwargs=(("block_v", 128),)),
+    ),
+))
+
+
+# -- batched multi-LoRA matmul (multi-tenant serving) ----------------------
+
+def _lora_batched_inputs(case: KernelCase, g: torch.Generator, B=4, d_in=32,
+                         d_out=48, r=4, A=3):
+    T = case.kw().get("T", 1)
+    x = _normal(g, (B, T, d_in), 0.5).to(case.torch_dtype)
+    # pools stay fp32 like the trained adapters; slot 0 is the reserved
+    # zero adapter (the no-LoRA tenant, serve/adapters.py)
+    a_pool = _normal(g, (A, d_in, r)) / math.sqrt(r)
+    b_pool = _normal(g, (A, r, d_out), 0.5)
+    a_pool[0] = 0.0
+    b_pool[0] = 0.0
+    aslot = torch.randint(0, A, (B,), generator=g, dtype=torch.int32)
+    return (x, a_pool, b_pool, aslot), ()
+
+
+def _lora_batched_kernel(case: KernelCase, x, a_pool, b_pool, aslot):
+    from gke_ray_train_tpu_torch.ops.lora_batched import lora_batched_matmul
+    return lora_batched_matmul(x, a_pool, b_pool, aslot, scale=0.5,
+                               dtype=case.torch_dtype)
+
+
+def _lora_batched_oracle(case: KernelCase, x, a_pool, b_pool, aslot):
+    """The per-request sequential single-adapter loop: each row alone
+    through ``_proj``'s single-adapter products, concatenated. Bitwise in
+    JAX; in torch a batched product and a batch-1 one may round apart at
+    T = 1 (fp32 ~1e-7), which the ledger pins."""
+    dt = case.torch_dtype
+    rows = []
+    for i in range(x.shape[0]):
+        s = int(aslot[i])
+        xa = x[i:i + 1].to(dt) @ a_pool[s].to(dt)
+        rows.append((xa @ b_pool[s].to(dt))
+                    * torch.full((), 0.5, dtype=dt, device=x.device))
+    return torch.cat(rows, dim=0)
+
+
+register(KernelSpec(
+    name="lora_batched",
+    build=_lora_batched_inputs,
+    kernel=_lora_batched_kernel,
+    oracle=_lora_batched_oracle,
+    # serving is forward-only: a value-only contract
+    cases=(
+        KernelCase("decode_f32", grads=False),
+        KernelCase("prefill_f32", grads=False, kwargs=(("T", 8),)),
+        KernelCase("decode_bf16", dtype="bfloat16", grads=False),
     ),
 ))

@@ -2,10 +2,13 @@
 part, ``grad_accum``, the input pipeline and the runtime guards of
 ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Eleven knobs, read from the same environment / config keys as the JAX
+Fifteen knobs, read from the same environment / config keys as the JAX
 package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
-(whole-prompt prefill reuse), ``PER_DEVICE_TRAIN_BATCH_SIZE``,
+(whole-prompt prefill reuse), ``SERVE_QUANT`` (the served weights'
+encoding), ``MAX_ADAPTERS`` (tenant slots of the adapter pool),
+``SPEC_DRAFT`` / ``SPEC_K`` (speculative decoding),
+``PER_DEVICE_TRAIN_BATCH_SIZE``,
 ``MAX_SEQ_LENGTH`` and ``PACKING`` (the train batch's shape),
 ``GRADIENT_ACCUMULATION_STEPS`` (microbatches per optimizer step), ``FUSED_OPS`` (the train step's
 fused rms_norm / q-k RoPE kernels, and the fused cross-entropy where the
@@ -32,6 +35,10 @@ CONFIG_KEYS: Dict[str, str] = {
     "max_batch": "MAX_BATCH",
     "decode_buckets": "DECODE_BUCKETS",
     "prefix_cache": "PREFIX_CACHE",
+    "serve_quant": "SERVE_QUANT",
+    "max_adapters": "MAX_ADAPTERS",
+    "spec_draft": "SPEC_DRAFT",
+    "spec_k": "SPEC_K",
     "per_device_batch": "PER_DEVICE_TRAIN_BATCH_SIZE",
     "grad_accum": "GRADIENT_ACCUMULATION_STEPS",
     "max_seq_len": "MAX_SEQ_LENGTH",
@@ -44,6 +51,15 @@ CONFIG_KEYS: Dict[str, str] = {
 
 _TRANSFER_GUARD_MODES = (None, "log", "disallow")
 
+SPEC_DRAFT_MODES = ("none", "self", "distilled")
+
+
+def _serve_quant_kinds() -> Tuple[str, ...]:
+    """``ops/quant.py`` owns the serving quantization vocabulary; imported
+    at validation time only."""
+    from gke_ray_train_tpu_torch.ops.quant import SERVE_QUANT_KINDS
+    return tuple(SERVE_QUANT_KINDS)
+
 # knobs that change how a run executes, never what it computes: kept out
 # of the fingerprint, as the JAX package keeps them out of its compile
 # fingerprints
@@ -53,7 +69,7 @@ OPERATIONAL_FIELDS = ("prefetch", "transfer_guard", "divergence_guard")
 def _coerce(field: str, value: Any) -> Any:
     """One coercion for env strings, JSON values and python kwargs."""
     if field in ("max_batch", "per_device_batch", "grad_accum",
-                 "max_seq_len", "prefetch"):
+                 "max_seq_len", "prefetch", "max_adapters", "spec_k"):
         try:
             return int(value)
         except (TypeError, ValueError):
@@ -63,6 +79,11 @@ def _coerce(field: str, value: Any) -> Any:
         if v in ("", "0", "off", "false", "allow", None):
             return None
         return v
+    if field in ("serve_quant", "spec_draft"):
+        # "", "0", "false" and "off" spell the disabled arm (the env
+        # dialect needs one: ``env SPEC_DRAFT= python ...``)
+        v = str(value).strip().lower()
+        return "none" if v in ("", "0", "false", "no", "off") else v
     if field in ("prefix_cache", "packing", "fused_ops",
                  "divergence_guard"):
         if isinstance(value, (bool, int, float)):
@@ -100,6 +121,16 @@ class ExecutionPlan:
     # re-submission reuses the first request's prefilled cache row and
     # first token instead of prefilling again
     prefix_cache: bool = False
+    # weight quantization the engine serves: "none" | "int8" | "nf4"
+    serve_quant: str = "none"
+    # tenant slots of the adapter pool (serve/adapters.py), beside the
+    # reserved zero adapter at slot 0
+    max_adapters: int = 8
+    # speculative decoding: "none" | "self" (the target drafts for
+    # itself) | "distilled" (a small draft model handed to the engine);
+    # spec_k draft tokens proposed per iteration
+    spec_draft: str = "none"
+    spec_k: int = 4
     # the train batch: rows per device and microbatch, sequence length,
     # and whether rows are packed (data/packing.py)
     per_device_batch: int = 2
@@ -121,7 +152,8 @@ class ExecutionPlan:
     def __post_init__(self):
         if self.max_batch < 1:
             raise PlanError(f"max_batch={self.max_batch} must be >= 1")
-        for field in ("per_device_batch", "grad_accum", "max_seq_len"):
+        for field in ("per_device_batch", "grad_accum", "max_seq_len",
+                      "max_adapters", "spec_k"):
             if getattr(self, field) < 1:
                 raise PlanError(f"{field}={getattr(self, field)} must be "
                                 ">= 1")
@@ -132,6 +164,12 @@ class ExecutionPlan:
                 f"transfer_guard={self.transfer_guard!r} not in "
                 f"{_TRANSFER_GUARD_MODES}")
         self.bucket_list()
+        if self.serve_quant not in _serve_quant_kinds():
+            raise PlanError(f"serve_quant={self.serve_quant!r} not in "
+                            f"{_serve_quant_kinds()}")
+        if self.spec_draft not in SPEC_DRAFT_MODES:
+            raise PlanError(f"spec_draft={self.spec_draft!r} not in "
+                            f"{SPEC_DRAFT_MODES}")
 
     @classmethod
     def from_config(cls, config: Mapping[str, Any]) -> "ExecutionPlan":

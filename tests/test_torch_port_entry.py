@@ -20,9 +20,15 @@ the CPU:
   within one bf16 ulp; under LoRA the first step's loss agrees (B = 0;
   the adapters' initialisations differ by design);
 - the port's entry preempted after step 3 and resumed ends on the
-  checkpoint and export of an uninterrupted run, bitwise; ``INFERENCE`` /
-  ``SERVE_AFTER_TRAIN`` raise; ``main`` exits 1 without a card and
-  prints the ``flagship_final`` line last.
+  checkpoint and export of an uninterrupted run, bitwise;
+- ``INFERENCE`` and ``SERVE_AFTER_TRAIN``: each switch writes its file
+  alone (``"0"`` in the environment keeps the smoke off); with both on,
+  the full fine-tuning run above writes JAX's
+  ``inference_comparison.json`` answers and ``serve_smoke.json`` counts,
+  and the LoRA run JAX's base answers and the smoke's tenant counts (its
+  tuned adapters start apart by design);
+- ``main`` exits 1 without a card and prints the ``flagship_final``
+  line last.
 """
 
 import glob
@@ -246,9 +252,44 @@ def _bf16_ulp(x):
     return np.spacing(np.abs(x).astype(np.float32)) * 2.0 ** 16
 
 
+# both post-training switches, answers cut to 32 new tokens
+INFER = {"NUM_EVAL_SAMPLES_INFERENCE": 2,
+         "MAX_NEW_GENERATION_TOKENS_INFERENCE": 32,
+         "INFERENCE": True, "SERVE_AFTER_TRAIN": True}
+SMOKE_COUNTS = ("completed", "pending", "adapter_requests", "adapter_hits",
+                "adapter_misses", "adapter_evictions", "adapter_resident")
+
+
+def _same_comparison_and_smoke(jout, tout, lora):
+    """The two entries' ``inference_comparison.json`` and
+    ``serve_smoke.json``: the same rows (the window-function filter) and
+    base answers; in full fine-tuning (trained alike, 1e-4) the same tuned
+    answers and smoke stream; a LoRA run's smoke serves every prompt
+    through the pool under the tenant tag, as JAX's (its tuned adapters
+    start apart by design)."""
+    docs = {}
+    for side, d in (("jax", jout), ("port", tout)):
+        with open(d / "inference_comparison.json") as f, \
+                open(d / "serve_smoke.json") as g:
+            docs[side] = (json.load(f), json.load(g))
+    (jrows, jsmoke), (trows, tsmoke) = docs["jax"], docs["port"]
+    assert len(trows) == len(jrows) == 2
+    keys = ["index", "question", "reference_answer", "base_model_answer"]
+    if not lora:
+        keys.append("finetuned_model_answer")
+    for a, b in zip(trows, jrows):
+        assert {k: a[k] for k in keys} == {k: b[k] for k in keys}
+    counts = SMOKE_COUNTS + (() if lora else ("generated_tokens",
+                                             "iterations"))
+    assert {k: tsmoke.get(k) for k in counts} == \
+        {k: jsmoke.get(k) for k in counts}
+    assert tsmoke["completed"] == 2
+    assert tsmoke["adapter_requests"] == (2 if lora else 0)
+
+
 def test_entry_full_ft_matches_jax(tmp_path, monkeypatch, offline, hf_dir):
     jm, tm, jout, tout = _both(tmp_path, monkeypatch,
-                               PRETRAINED_CHECKPOINT_DIR=hf_dir)
+                               PRETRAINED_CHECKPOINT_DIR=hf_dir, **INFER)
     assert tm["step"] == jm["step"] == 6
     js = _read_scalars(str(jout / "tensorboard"))["loss"]
     ts = _read_scalars(str(tout / "tensorboard"))["loss"]
@@ -268,6 +309,7 @@ def test_entry_full_ft_matches_jax(tmp_path, monkeypatch, offline, hf_dir):
     for name in ("config.json", "graft_tokenizer.json"):
         with open(jout / "full" / name) as f, open(tout / "full" / name) as g:
             assert json.load(f) == json.load(g), name
+    _same_comparison_and_smoke(jout, tout, lora=False)
 
 
 def test_entry_lora_first_step_matches_jax(tmp_path, monkeypatch, offline,
@@ -275,12 +317,13 @@ def test_entry_lora_first_step_matches_jax(tmp_path, monkeypatch, offline,
     jm, tm, jout, tout = _both(
         tmp_path, monkeypatch, PRETRAINED_CHECKPOINT_DIR=hf_dir,
         USE_QLORA=True, LORA_R=4, LORA_ALPHA=8,
-        EVALUATION_STRATEGY_SFT="no", NUM_TRAIN_SAMPLES=4)
+        EVALUATION_STRATEGY_SFT="no", NUM_TRAIN_SAMPLES=4, **INFER)
     js = _read_scalars(str(jout / "tensorboard"))["loss"]
     ts = _read_scalars(str(tout / "tensorboard"))["loss"]
     assert sorted(ts) == sorted(js) == [1, 2]
     np.testing.assert_allclose(ts[1], js[1], rtol=1e-4)
     assert os.path.exists(tout / "merged" / thf.SINGLE_FILE)
+    _same_comparison_and_smoke(jout, tout, lora=True)
 
 
 def _flat_checkpoint(d, step):
@@ -348,10 +391,31 @@ def test_entry_preempted_and_resumed_matches_uninterrupted(
 
 
 @pytest.mark.parametrize("key", ["INFERENCE", "SERVE_AFTER_TRAIN"])
-def test_inference_and_serve_after_train_raise(tmp_path, offline, key):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        fine_tune.train_loop_per_worker(
-            _smoke_config(tmp_path, **{key: True}), device="cpu")
+def test_inference_and_serve_after_train_raise(tmp_path, monkeypatch,
+                                               offline, key):
+    """Each switch alone, where the entry raised before they were
+    ported: the run ends and writes that switch's file and not the
+    other's; SERVE_AFTER_TRAIN=0 in the environment keeps the smoke
+    off."""
+    monkeypatch.setenv("SERVE_AFTER_TRAIN", "0")
+    config = _smoke_config(tmp_path, **INFER)
+    del config["SERVE_AFTER_TRAIN"]
+    config["INFERENCE"] = False
+    config[key] = True
+    fine_tune.train_loop_per_worker(config, device="cpu")
+    files = {"INFERENCE": "inference_comparison.json",
+             "SERVE_AFTER_TRAIN": "serve_smoke.json"}
+    for k, name in files.items():
+        assert os.path.exists(tmp_path / name) == (k == key), name
+    with open(tmp_path / files[key]) as f:
+        out = json.load(f)
+    if key == "INFERENCE":
+        assert len(out) == 2 and all(
+            set(r) == {"index", "question", "reference_answer",
+                       "base_model_answer", "finetuned_model_answer"}
+            for r in out)
+    else:
+        assert out["completed"] == 2 and out["adapter_requests"] == 0
 
 
 def test_main_exit_codes_and_last_line(tmp_path, monkeypatch, capsys,

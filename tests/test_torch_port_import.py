@@ -56,7 +56,8 @@ def test_every_module_imports_with_jax_blocked():
               "analysis.guards", "config", "rayint.context",
               "train.loop", "train.evaluate", "train.preempt", "train.tb",
               "train.profiling", "ckpt", "ckpt.manager", "ckpt.hf_io",
-              "fine_tune"):
+              "fine_tune", "serve.adapters", "ops.lora_batched",
+              "inference"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
