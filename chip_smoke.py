@@ -122,6 +122,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
              kernels, QLoRA and full fine-tuning (where dhead launches and
              the lm_head trains, held alike on both sides by the
              trained-tensor check); dx and dhead on the fp32 body.
+11b. train_mesh — the train_fused_ce job on a world-1 NCCL group's
+             data 1 x fsdp 1 mesh (``parallel/``): every weight a DTensor
+             sharded by FSDP2, the NF4 codes and scales too; one warm-up
+             and 3 timed steps through ``run_training``, the per-step
+             launches of the unmeshed run, losses within 1e-3 of an
+             unmeshed run of the same seed and rows (run first); both
+             runs' p50 and peak memory.
+11c. train_mesh_parity — float32 (TF32 off), Llama at full width and 4
+             layers, QLoRA and full fine-tuning, 3 steps: meshed (world
+             1) against unmeshed and ``remat_policy="dots"`` against
+             ``"full"``, within 1e-6; ``OPTIM=adafactor`` through the
+             kernels against its plain run, finite and moving.
+11d. train_remat_dots — Llama-3.1-8B QLoRA (FUSED_OPS=1) at full width
+             and depth: 1 + 3 steps with ``"dots"`` against ``"full"``
+             (p50, peak, losses), and OPTIM=adafactor against AdamW (p50,
+             the optimizer state's bytes), both of these steps under
+             TRANSFER_GUARD=disallow.
 12. kernelcheck — run right after the kernels phase: the port's kernel
              sweep (``analysis/kernelcheck.py`` over
              ``ops/registry.py``) on the card: every registered case
@@ -187,6 +204,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              quantized, bitwise.
 19. entry_full (opt-in) — the same worker on that config unchanged (~125
              steps, eval of 200 rows and a save every 50, the export).
+19b. train_mesh_multi (opt-in) — a host with N >= 2 cards (fewer
+             fails): the train_mesh job with LoRA dropout off, first on
+             one card as one-row microbatches, then with one rank per
+             card on an fsdp=N NCCL mesh, the same 8 rows a step as
+             one-row microbatches (spawned as N processes under one
+             deadline): every step's loss and grad_norm within 1e-2 of
+             the one-card run's; per card p50, tokens/s, peak, the bytes
+             all-gathered a step from the shapes. Then the entry
+             (``fine_tune.train_loop_per_worker``) under torchrun on the
+             N cards, on the entry phase's job cut to 4 layers and 4
+             steps, a save and an eval every 2: every rank exits 0 with
+             the same finite loss and eval loss, and the sharded export
+             converts to an HF directory of finite tensors; the
+             export's peak memory a card.
 20. train_moe_profile (opt-in) — the train_profile route over one step
              of the train_moe job, with its device time by MoE group
              (dequantize, expert GEMMs, dispatch, flash).
@@ -202,6 +233,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import glob
 import itertools
 import json
 import os
@@ -2091,7 +2123,9 @@ def _sft_rows(ft, seq, split="train", n_eval=EVAL_ROWS):
         seq)
 
 
-def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
+def _fine_tune_setup(dev, cfg, n_batches, config=None, *, mesh=None,
+                     optim="adamw", params=None, ft_over=None,
+                     **plan_overrides):
     """The QLoRA job of ``config`` (default ray-jobs/fine_tune_config.json)
     at ``cfg`` (default the job's MODEL_ID preset, bf16, remat): NF4 base
     from seed 0, adapters, optimizer and schedule, the step function with
@@ -2102,18 +2136,25 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     unpacked job (PACKING false) takes the job's offline input path,
     ``_sft_rows`` batched by ``sft_epoch_batches`` (epoch 0, seed 42, as
     the job shuffles); a packed job the stand-in mix of
-    ``_packed_batch`` (numpy seed 1234)."""
+    ``_packed_batch`` (numpy seed 1234).
+
+    ``mesh``: the base is sharded as it is made and the state over the
+    mesh (``parallel/``), the step and its placement run on it; ``optim``
+    "adafactor" swaps AdamW for the job's ``OPTIM=adafactor`` chain;
+    ``params``: a base already made (not rebuilt, not timed);
+    ``ft_over``: keys that replace the job's (``LORA_DROPOUT``)."""
     import torch
+    from gke_ray_train_tpu_torch.config import optimizer_from_config
     from gke_ray_train_tpu_torch.data import (
         make_place_batch, sft_epoch_batches)
     from gke_ray_train_tpu_torch.models import (
         init_quantized_params, preset_for_model_id)
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
     from gke_ray_train_tpu_torch.train import (
-        LoraConfig, make_optimizer, make_train_state, make_train_step,
+        LoraConfig, make_train_state, make_train_step,
         warmup_cosine_schedule)
     with open(config or FINE_TUNE_CONFIG) as f:
-        ft = json.load(f)
+        ft = dict(json.load(f), **(ft_over or {}))
     seq = int(ft["MAX_SEQ_LENGTH"])
     if cfg is None:
         cfg = dataclasses.replace(
@@ -2128,16 +2169,17 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     schedule = warmup_cosine_schedule(
         float(ft["LEARNING_RATE"]), total,
         warmup_frac=float(ft["WARMUP_RATIO"]))
-    spec = make_optimizer(schedule, weight_decay=float(ft["WEIGHT_DECAY"]),
-                          clip_norm=float(ft["MAX_GRAD_NORM"]))
+    # the job's clip and decay (OPTIM adamw: make_optimizer's spec)
+    spec = optimizer_from_config(dict(ft, OPTIM=optim), schedule)
     lcfg = LoraConfig.from_dict(ft)
     t0 = time.perf_counter()
-    params = init_quantized_params(cfg, seed=0, kind=ft["QUANT_KIND"],
-                                   device=dev)
+    if params is None:
+        params = init_quantized_params(cfg, seed=0, kind=ft["QUANT_KIND"],
+                                       device=dev, mesh=mesh)
     state = make_train_state(cfg, spec, seed=0, lora_cfg=lcfg, params=params,
-                             device=dev)
+                             device=dev, mesh=mesh)
     step_fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=schedule,
-                              plan=plan, device=dev)
+                              plan=plan, device=dev, mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     if ft.get("PACKING"):
@@ -2152,14 +2194,16 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, **plan_overrides):
     return dict(cfg=cfg, ft=ft, plan=plan, lcfg=lcfg, micro=micro,
                 batch_rows=batch_rows, seq=seq, state=state, step_fn=step_fn,
                 batches=batches, place=make_place_batch(dev),
-                input_path=input_path, init_s=init_s,
-                base_bytes=_module_bytes(params))
+                input_path=input_path, init_s=init_s, mesh=mesh,
+                spec=spec, base_bytes=_module_bytes(params))
 
 
 def _module_bytes(module):
     """Bytes of a module's parameters and buffers (a QLoRA base: codes,
-    scales and the full-precision rest)."""
-    return sum(t.numel() * t.element_size()
+    scales and the full-precision rest); a sharded tensor counts its
+    local shard."""
+    from gke_ray_train_tpu_torch.parallel.sharding import local
+    return sum(local(t).numel() * t.element_size()
                for t in itertools.chain(module.parameters(),
                                         module.buffers()))
 
@@ -2246,7 +2290,8 @@ def _drive(dev, job, eval_rows=None, profiler=None):
 
     eval_fn = None
     if eval_rows is not None:
-        eval_step = make_eval_step(cfg, lora_cfg=job["lcfg"], device=dev)
+        eval_step = make_eval_step(cfg, lora_cfg=job["lcfg"], device=dev,
+                                   mesh=job.get("mesh"))
 
         def counted_eval(st, b):
             out["eval_calls"] += 1
@@ -2570,47 +2615,70 @@ def phase_train_fused_profile(dev, cfg=None):
 # phase 7: train-parity
 # ---------------------------------------------------------------------------
 
-def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False):
+def _release():
+    """Free what earlier runs left: a sharded model's FSDP2 hooks hold it
+    in reference cycles, which only the collector breaks."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _train_run(cfg, mode, impl, dev, steps, batches, fused_ops=False,
+               mesh=None, remat_policy=None, optim="adamw"):
     """``steps`` steps of full fine-tuning or QLoRA with attention
     through ``impl`` (and with ``fused_ops`` the fused rms_norm / RoPE
     kernels, and the fused cross-entropy where the config has no logit
-    softcap); returns the metric streams and {name: the change that
-    trained tensor underwent}."""
+    softcap); on ``mesh`` sharded over it, with ``remat_policy`` in
+    place of the config's, and ``optim`` "adafactor" in place of AdamW
+    (the config's clip-then-adafactor chain); returns the metric streams
+    and {name: the change that trained tensor underwent} (a sharded
+    tensor's whole)."""
     import torch
     from gke_ray_train_tpu_torch.models import init_params
     from gke_ray_train_tpu_torch.models import init_quantized_params
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
     from gke_ray_train_tpu_torch.train import (
-        LoraConfig, make_optimizer, make_train_state, make_train_step,
+        LoraConfig, make_train_state, make_train_step,
         warmup_cosine_schedule)
+    from gke_ray_train_tpu_torch.config import optimizer_from_config
     from gke_ray_train_tpu_torch.train.step import trainable_tensors
     cfg = dataclasses.replace(cfg, attn_impl=impl)
+    if remat_policy is not None:
+        cfg = dataclasses.replace(cfg, remat_policy=remat_policy)
     lcfg = LoraConfig(r=64, alpha=16) if mode == "qlora" else None
     params = (init_quantized_params(cfg, seed=3, device=dev)
               if mode == "qlora" else init_params(cfg, seed=3, device=dev))
     sched = warmup_cosine_schedule(2e-4, 10, warmup_frac=0.1)
-    spec = make_optimizer(sched, weight_decay=0.001, clip_norm=0.3)
+    spec = optimizer_from_config(
+        {"OPTIM": optim, "WEIGHT_DECAY": 0.001, "MAX_GRAD_NORM": 0.3}, sched)
     state = make_train_state(cfg, spec, seed=3, lora_cfg=lcfg,
-                             params=params, device=dev)
-    start = {n: t.detach().clone() for n, t in
+                             params=params, device=dev, mesh=mesh)
+
+    def whole(t):
+        t = t.detach()
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+    start = {n: whole(t).clone() for n, t in
              trainable_tensors(state.params, state.lora)}
     fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=sched,
                          plan=ExecutionPlan(grad_accum=2,
                                             fused_ops=fused_ops),
-                         device=dev)
+                         device=dev, mesh=mesh)
     streams = {"loss": [], "grad_norm": []}
     for b in batches[:steps]:
         state, m = fn(state, b)
         for k in streams:
             streams[k].append(float(m[k]))
-    deltas = {n: t.detach() - start[n] for n, t in
+    deltas = {n: whole(t) - start[n] for n, t in
               trainable_tensors(state.params, state.lora)}
-    del state, params, start
-    torch.cuda.empty_cache()
+    del state, params, start, fn
+    _release()
     return streams, deltas
 
 
-def _parity_runs(cfg, dev, steps, batches, kernel, plain):
+def _parity_runs(cfg, dev, steps, batches, kernel, plain,
+                 rtol=TRAIN_PARITY_RTOL, delta_rtol=TRAIN_PARITY_DELTA_RTOL,
+                 modes=("qlora", "full")):
     """For QLoRA and full fine-tuning: the ``kernel`` run (keyword
     arguments of ``_train_run``) against the ``plain`` one — relative
     errors of the loss / grad_norm streams, the relative error of the
@@ -2621,7 +2689,7 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
     (``lm_head_delta_norm``)."""
     import torch
     rows, ok = [], True
-    for mode in ("qlora", "full"):
+    for mode in modes:
         before, routes_before = _launch_counts(), _route_counts()
         got, d_got = _train_run(cfg, mode, dev=dev, steps=steps,
                                 batches=batches, **kernel)
@@ -2639,8 +2707,8 @@ def _parity_runs(cfg, dev, steps, batches, kernel, plain):
         want = {k: v * steps for k, v in expected_launches(
             cfg, 2, kernel.get("fused_ops", False),
             full_ft=mode == "full").items()}
-        row_ok = (all(v <= TRAIN_PARITY_RTOL for v in rel.values())
-                  and delta_rel <= TRAIN_PARITY_DELTA_RTOL
+        row_ok = (all(v <= rtol for v in rel.values())
+                  and delta_rel <= delta_rtol
                   and used == want
                   and routes == _expected_routes(cfg, used)
                   and all(np.isfinite(got["loss"] + ref["loss"])))
@@ -2771,6 +2839,658 @@ def phase_train_fused_ce_profile(dev, cfg=None):
     train_fused_ce phase's job."""
     phase_train_profile(dev, cfg, phase="train_fused_ce_profile",
                         fused_ops=True)
+
+
+# ---------------------------------------------------------------------------
+# the multi-card slice: the data x fsdp mesh (FSDP2), remat "dots",
+# adafactor
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 3                  # after the warm-up: 4 steps a run
+MESH_LOSS_RTOL = 1e-3           # meshed against unmeshed, bf16
+MESH_PARITY_RTOL = 1e-6         # fp32, TF32 off
+DOTS_STEPS = 3
+MESH_MULTI_TIMEOUT_S = 240          # each of the phase's two multi-process runs
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+@contextlib.contextmanager
+def _world1_mesh(dev):
+    """A world-1 NCCL group in this process (127.0.0.1, a free port) and
+    its data 1 x fsdp 1 mesh; the group is destroyed on the way out."""
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    distributed_init(dev, world_size=1, rank=0,
+                     init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        yield build_mesh(MeshConfig(data=1, fsdp=1))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_report(params):
+    """(every parameter a DTensor, {placement: count})."""
+    from torch.distributed.tensor import DTensor
+    kinds = {}
+    for p in params.parameters():
+        key = (",".join(str(x) for x in p.placements)
+               if isinstance(p, DTensor) else "local")
+        kinds[key] = kinds.get(key, 0) + 1
+    return "local" not in kinds, kinds
+
+
+def _mesh_run(dev, mesh, steps=MESH_STEPS):
+    """The train_fused_ce job (Llama-3.1-8B QLoRA, FUSED_OPS=1, the job's
+    rows) through ``_drive``, sharded on ``mesh`` or not; guard off on
+    both sides so they run the same code around the step."""
+    import torch
+    job = _fine_tune_setup(dev, None, steps + 1, mesh=mesh, fused_ops=True,
+                           transfer_guard=None)
+    sharded = _sharded_report(job["state"].params) if mesh is not None \
+        else (False, {})
+    run = _drive(dev, job, eval_rows=None)
+    cfg, plan = job["cfg"], job["plan"]
+    times = run["step_s"][1:]
+    out = {"losses": [m["loss"] for m in run["metrics"]],
+           "grad_norms": [m["grad_norm"] for m in run["metrics"]],
+           "step_s": times, "step_s_p50": sorted(times)[len(times) // 2],
+           "peak_mem_bytes": run["peak_mem_bytes"],
+           "init_s": job["init_s"], "base_bytes": job["base_bytes"],
+           "launches_per_step": {k: v / steps for k, v in
+                                 run["step_launches"].items()},
+           "launches": run["step_launches"], "sharded": sharded[0],
+           "placements": sharded[1], "tokens": job["batch_rows"] * job["seq"]}
+    want = expected_launches(cfg, plan.grad_accum, plan.fused_ops)
+    del job, run
+    _release()
+    out["held_after_bytes"] = torch.cuda.memory_allocated()
+    return out, want, cfg
+
+
+def phase_train_mesh(dev):
+    """The Llama-3.1-8B QLoRA job with FUSED_OPS=1 (train_fused_ce's) at
+    full width and depth on a world-1 NCCL group's data 1 x fsdp 1 mesh:
+    every weight a DTensor, sharded by FSDP2 (``parallel/sharding.py``),
+    one warm-up and 3 timed steps through ``run_training``; per step the
+    kernels launch as in the unmeshed run (flash forward 256, dQ and
+    dK/dV 128, CE row statistics and dx 4, rms_norm 512, RoPE 384), and
+    the losses stay within 1e-3 of an unmeshed run of the same seed and
+    rows, run first in this phase. Both runs' p50 and peak memory."""
+    plain, want, cfg = _mesh_run(dev, None)
+    with _world1_mesh(dev) as mesh:
+        meshed, _, _ = _mesh_run(dev, mesh)
+        _release()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(meshed["losses"],
+                                                plain["losses"])]
+    problems = []
+    if not meshed["sharded"]:
+        problems.append(f"weights not all sharded: {meshed['placements']}")
+    for name, run in (("meshed", meshed), ("unmeshed", plain)):
+        if run["launches_per_step"] != want:
+            problems.append(f"{name} launches per step "
+                            f"{run['launches_per_step']} != {want}")
+        if not all(np.isfinite(run["losses"] + run["grad_norms"])):
+            problems.append(f"{name}: non-finite loss or grad_norm")
+    if max(gaps) > MESH_LOSS_RTOL:
+        problems.append(f"meshed losses {max(gaps)} off the unmeshed")
+    emit({"phase": "train_mesh", "ok": not problems, "problems": problems,
+          "nvidia_smi": nvidia_smi_line(), "model": cfg.name,
+          "n_layers": cfg.n_layers, "world": 1,
+          "mesh": {"data": 1, "fsdp": 1}, "backend": "nccl",
+          "fused_ops": True, "steps": MESH_STEPS, "meshed": meshed,
+          "unmeshed": plain, "loss_rel_gaps": gaps,
+          "max_loss_rel_gap": max(gaps), "tol_loss_rel": MESH_LOSS_RTOL,
+          "fsdp_overhead_p50": meshed["step_s_p50"] / plain["step_s_p50"],
+          "peak_mem_ratio": meshed["peak_mem_bytes"]
+          / plain["peak_mem_bytes"]})
+    if problems:
+        raise SystemExit("train_mesh phase failed: " + "; ".join(problems))
+    return meshed["launches"]
+
+
+def phase_train_mesh_parity(dev, cfg=None, steps: int = 3):
+    """fp32 (TF32 off), Llama-3.1-8B at full width and 4 layers, flash
+    and FUSED_OPS=1, QLoRA and full fine-tuning, 3 steps each: on a
+    world-1 NCCL mesh against unmeshed, and ``remat_policy="dots"``
+    against ``"full"``, each within 1e-6 (streams and the trained
+    tensors' change); then ``OPTIM=adafactor`` (QLoRA: the unfactored
+    branch; full fine-tuning: the factored one) through the kernels
+    against the same step with every kernel on its plain version (dense
+    attention, FUSED_OPS=0), within the train-parity bounds, finite and
+    moving."""
+    import torch
+    from gke_ray_train_tpu_torch.models import llama3_8b
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if cfg is None:
+        cfg = dataclasses.replace(
+            llama3_8b(dtype="float32", param_dtype="float32", remat=True),
+            max_seq_len=1024, n_layers=4)
+    rng = np.random.default_rng(80)
+    batches = [_sft_batch(2, cfg.max_seq_len, cfg.vocab_size, rng)
+               for _ in range(steps)]
+    kernel = dict(impl="flash", fused_ops=True)
+    launches = {}
+
+    def count(rows):
+        for r in rows:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    with _world1_mesh(dev) as mesh:
+        mesh_rows, mesh_ok = _parity_runs(
+            cfg, dev, steps, batches, dict(kernel, mesh=mesh), kernel,
+            rtol=MESH_PARITY_RTOL, delta_rtol=MESH_PARITY_RTOL)
+    count(mesh_rows)
+    dots_rows, dots_ok = _parity_runs(
+        cfg, dev, steps, batches, dict(kernel, remat_policy="dots"),
+        dict(kernel, remat_policy="full"), rtol=MESH_PARITY_RTOL,
+        delta_rtol=MESH_PARITY_RTOL)
+    count(dots_rows)
+    ada_rows, ada_ok = _parity_runs(
+        cfg, dev, steps, batches, dict(kernel, optim="adafactor"),
+        dict(impl="xla", fused_ops=False, optim="adafactor"))
+    count(ada_rows)
+    for r in ada_rows:
+        losses = r["kernel_run"]["loss"]
+        moving = len(set(losses)) == len(losses)
+        r["ok"] = r["ok"] and moving and r["delta_rel_err"] < 1.0
+        ada_ok = ada_ok and r["ok"]
+    ok = mesh_ok and dots_ok and ada_ok
+    emit({"phase": "train_mesh_parity", "ok": ok, "dtype": "float32",
+          "model": cfg.name, "n_layers": cfg.n_layers, "steps": steps,
+          "mesh_vs_unmeshed": {"ok": mesh_ok, "runs": mesh_rows,
+                               "tol_rel": MESH_PARITY_RTOL},
+          "dots_vs_full": {"ok": dots_ok, "runs": dots_rows,
+                           "tol_rel": MESH_PARITY_RTOL},
+          "adafactor_kernels_vs_plain": {
+              "ok": ada_ok, "runs": ada_rows,
+              "tol_streams_rel": TRAIN_PARITY_RTOL,
+              "tol_delta_rel": TRAIN_PARITY_DELTA_RTOL}})
+    if not ok:
+        raise SystemExit("train_mesh_parity phase failed")
+    return launches
+
+
+def _opt_state_bytes(opt):
+    return sum(t.numel() * t.element_size()
+               for st in opt.state.values() for t in st.values())
+
+
+def _timed_steps(dev, job, steps, guard=None):
+    """One warm-up and ``steps`` timed steps of ``job`` (synchronized
+    around each); the peak memory after the warm-up, and the memory held
+    before the first step (the base, the adapters, the optimizer
+    state). ``guard``: each step runs under that TRANSFER_GUARD mode
+    (``disallow`` raises on any wait of the host for the card)."""
+    import torch
+    from gke_ray_train_tpu_torch.analysis.guards import transfer_guard_ctx
+    state, fn = job["state"], job["step_fn"]
+    losses, norms, times = [], [], []
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    for i, b in enumerate(job["batches"][:steps + 1]):
+        b = job["place"](b)
+        b = b.wait() if hasattr(b, "wait") else b
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with transfer_guard_ctx(guard):
+            state, m = fn(state, b)
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+        else:
+            times.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return {"losses": losses, "grad_norms": norms, "step_s": times,
+            "transfer_guard": guard or "off",
+            "step_s_p50": sorted(times)[len(times) // 2],
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "held_before_bytes": held,
+            "opt_state_bytes": _opt_state_bytes(state.opt_state)}
+
+
+def phase_train_remat_dots(dev, steps: int = DOTS_STEPS):
+    """Llama-3.1-8B QLoRA at full width and depth (the train_fused_ce
+    job, one NF4 base for every run): 1 + 3 steps with
+    ``remat_policy="dots"`` against 1 + 3 with ``"full"`` (p50, peak
+    memory, losses), then ``OPTIM=adafactor`` against AdamW under
+    ``"full"`` (p50, peak, the optimizer state's bytes), these two under
+    TRANSFER_GUARD=disallow. The saved
+    activations the dots policy adds are reckoned from the shapes: every
+    2-D product's output per token and layer (the seven base
+    projections' and, with LoRA, the two adapter products of each)."""
+    import torch
+    from gke_ray_train_tpu_torch.models.transformer import proj_shapes
+    runs, base = {}, None
+    # AdamW and adafactor under "full" step under TRANSFER_GUARD=disallow
+    for name, policy, optim, guard in (
+            ("full", "full", "adamw", "disallow"),
+            ("dots", "dots", "adamw", None),
+            ("adafactor", "full", "adafactor", "disallow")):
+        _release()
+        cfg = None
+        if base is not None:
+            cfg = dataclasses.replace(base.cfg, remat_policy=policy)
+        else:
+            from gke_ray_train_tpu_torch.models import preset_for_model_id
+            with open(FINE_TUNE_CONFIG) as f:
+                ft = json.load(f)
+            cfg = dataclasses.replace(
+                preset_for_model_id(ft["MODEL_ID"], dtype="bfloat16",
+                                    param_dtype="bfloat16", remat=True,
+                                    remat_policy=policy),
+                max_seq_len=int(ft["MAX_SEQ_LENGTH"]))
+        job = _fine_tune_setup(dev, cfg, steps + 1, params=base,
+                               optim=optim, fused_ops=True,
+                               transfer_guard=None)
+        base = job["state"].params
+        before = _launch_counts()
+        runs[name] = _timed_steps(dev, job, steps, guard=guard)
+        runs[name]["launches"] = {k: v - before[k]
+                                  for k, v in _launch_counts().items()}
+        micro, seq, lcfg = job["micro"], job["seq"], job["lcfg"]
+        del job
+    cfg = base.cfg
+    shapes = proj_shapes(cfg)
+    per_tok = sum(d_out for _, d_out in shapes.values())
+    lora_per_tok = sum(lcfg.r + d_out for _, d_out in shapes.values())
+    tokens = micro * seq
+    saved = 2 * (per_tok + lora_per_tok) * tokens * cfg.n_layers
+    problems = []
+    for name, r in runs.items():
+        if not all(np.isfinite(r["losses"])):
+            problems.append(f"{name}: non-finite loss")
+    gap = max(abs(a - b) / abs(b) for a, b in zip(runs["dots"]["losses"],
+                                                  runs["full"]["losses"]))
+    if gap > MESH_LOSS_RTOL:
+        problems.append(f"dots losses {gap} off full's")
+    if runs["dots"]["launches"] != runs["full"]["launches"]:
+        problems.append("dots launched other kernels than full")
+    emit({"phase": "train_remat_dots", "ok": not problems,
+          "problems": problems, "nvidia_smi": nvidia_smi_line(),
+          "model": cfg.name, "n_layers": cfg.n_layers, "steps": steps,
+          "microbatch_tokens": tokens, "runs": runs,
+          "dots_loss_rel_gap": gap,
+          "dots_saved_bytes_reckoned": saved,
+          "dots_saved_per_token_layer": {"base": per_tok,
+                                         "lora": lora_per_tok},
+          "dots_extra_peak_bytes": runs["dots"]["peak_mem_bytes"]
+          - runs["full"]["peak_mem_bytes"],
+          "dots_p50_ratio": runs["dots"]["step_s_p50"]
+          / runs["full"]["step_s_p50"],
+          "adafactor_state_ratio": runs["adafactor"]["opt_state_bytes"]
+          / runs["full"]["opt_state_bytes"]})
+    del base
+    torch.cuda.empty_cache()
+    if problems:
+        raise SystemExit("train_remat_dots phase failed: "
+                         + "; ".join(problems))
+    return runs["dots"]["launches"]
+
+
+def _gathered_bytes_per_step(cfg, n, grad_accum, base):
+    """Bytes one rank receives by FSDP2 all-gathers in a step, reckoned
+    from the shapes: per microbatch each block's weights are gathered
+    for its forward and again for its backward (under remat the
+    recomputation reuses the backward's), the root's once; a rank
+    receives (n - 1) / n of each gathered tensor."""
+    block = sum(t.numel() * t.element_size()
+                for t in itertools.chain(base.blocks[0].parameters(),
+                                         base.blocks[0].buffers()))
+    root = sum(t.numel() * t.element_size()
+               for t in (base.embed, base.final_norm, base.lm_head)
+               if t is not None)
+    whole = grad_accum * (2 * block * cfg.n_layers + root)
+    return int(whole * (n - 1) / n), whole
+
+
+# train_mesh_multi: LoRA dropout off on both sides, so that a step's
+# masks do not depend on how the rows fall into microbatches
+MESH_MULTI_FT = {"LORA_DROPOUT": 0.0}
+# every step's loss and grad_norm across N ranks against one card, both
+# as one-row microbatches (relative): a few bf16 roundings (2 ** -8) of
+# the summation order of the adapters' gradients and the sums of nll
+MESH_MULTI_RTOL = 1e-2
+# the entry under torchrun: the entry phase's job cut to 4 layers, 4
+# steps of the N-card global batch, a save and an eval of 16 rows every
+# 2, the rank agreement on preemption at every boundary
+MESH_MULTI_ENTRY_LAYERS = 4
+MESH_MULTI_ENTRY_CUT = {"NUM_EVAL_SAMPLES": 16, "SAVE_STEPS_SFT": 2,
+                        "EVAL_STEPS_SFT": 2, "LOGGING_STEPS": 1,
+                        "REPORT_TO": "none"}
+MESH_MULTI_ENTRY_STEPS = 4
+
+
+def _one_row_step(job, dev, mesh=None):
+    """``job``'s step taking each of a batch's rows as its own
+    microbatch (the job's plan, schedule and optimizer)."""
+    from gke_ray_train_tpu_torch.train import make_train_step
+    rows = len(job["batches"][0]["inputs"])
+    return make_train_step(job["cfg"], job["spec"], lora_cfg=job["lcfg"],
+                           plan=job["plan"], grad_accum=rows, device=dev,
+                           mesh=mesh)
+
+
+def _mesh_worker(out_path):
+    """One rank of train_mesh_multi (env: RANK / WORLD_SIZE / LOCAL_RANK /
+    MASTER_ADDR / MASTER_PORT): the train_mesh job, dropout off, on an
+    fsdp=N mesh, each rank the global batch's rows ``rank::N`` as one-row
+    microbatches (8 / N of them), one warm-up and 3 timed steps."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    dev = distributed_init()
+    world = dist.get_world_size()
+    mesh = build_mesh(MeshConfig(data=1, fsdp=world))
+    rank = dist.get_rank()
+    job = _fine_tune_setup(dev, None, MESH_STEPS + 1, mesh=mesh,
+                           ft_over=MESH_MULTI_FT, fused_ops=True,
+                           transfer_guard=None)
+    global_rows = job["batch_rows"]
+    job["batches"] = [{k: v[rank::world] for k, v in b.items()}
+                      for b in job["batches"]]
+    local_rows = global_rows // world
+    job["step_fn"] = _one_row_step(job, dev, mesh)
+    sharded = _sharded_report(job["state"].params)
+    r = _timed_steps(dev, job, MESH_STEPS)
+    recv, whole = _gathered_bytes_per_step(
+        job["cfg"], world, local_rows, job["state"].params)
+    tokens = global_rows * job["seq"]
+    r.update(rank=rank, world=world, sharded=sharded[0],
+             placements=sharded[1], local_rows=local_rows,
+             grad_accum=local_rows,
+             tokens_per_s_per_card=tokens / r["step_s_p50"] / world,
+             allgather_bytes_received_per_step=recv,
+             allgather_bytes_gathered_per_step=whole,
+             base_bytes_local=job["base_bytes"],
+             device_name=torch.cuda.get_device_name(dev))
+    with open(out_path + f".{rank}", "w") as f:
+        json.dump(r, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _entry_worker(config_path, out_path):
+    """One rank of train_mesh_multi's entry run, started by torchrun
+    (its env): ``fine_tune.train_loop_per_worker`` on the job of
+    ``config_path`` cut to ``MESH_MULTI_ENTRY_LAYERS`` layers; each eval
+    loss read from ``sharded_eval_loss``, the training's peak memory and
+    the export's seconds and peak read around ``save_export``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch import fine_tune as ft
+    with open(config_path) as f:
+        config = json.load(f)
+    rec = {"evals": []}
+    orig, orig_eval = ft.save_export, ft.sharded_eval_loss
+
+    def sharded_eval_loss(*a, **kw):
+        loss = orig_eval(*a, **kw)
+        rec["evals"].append(float(loss))
+        return loss
+
+    def save_export(params, cfg, export_dir, step, **kw):
+        torch.cuda.synchronize()
+        rec["train_peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        rec["held_before_export_bytes"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = orig(params, cfg, export_dir, step, **kw)
+        torch.cuda.synchronize()
+        rec["export"] = dict(out, dir=export_dir, step=int(step),
+                             seconds=time.perf_counter() - t,
+                             peak_mem_bytes=torch.cuda.max_memory_allocated())
+        return out
+    ft.save_export, ft.sharded_eval_loss = save_export, sharded_eval_loss
+    t0 = time.perf_counter()
+    try:
+        with _depth_cut(MESH_MULTI_ENTRY_LAYERS):
+            metrics = ft.train_loop_per_worker(config)
+    finally:
+        ft.save_export, ft.sharded_eval_loss = orig, orig_eval
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec.update(rank=rank, world=world, wall_s=time.perf_counter() - t0,
+               metrics={k: v for k, v in (metrics or {}).items()
+                        if isinstance(v, (int, float))},
+               device_name=torch.cuda.get_device_name())
+    with open(out_path + f".{rank}", "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _descendants(pid):
+    """Every process below ``pid`` (Linux ``/proc``): torchrun starts
+    its workers in sessions of their own, out of its process group."""
+    out, todo = [], [pid]
+    while todo:
+        p = todo.pop()
+        for task in glob.glob(f"/proc/{p}/task/*/children"):
+            try:
+                with open(task) as f:
+                    kids = [int(x) for x in f.read().split()]
+            except OSError:
+                continue
+            out += kids
+            todo += kids
+    return out
+
+
+def _wait_all(procs, timeout):
+    """Wait for ``procs`` under one deadline; kill what is left, with
+    every process below it. Returns (hung indices, exit codes)."""
+    import signal
+    deadline = time.monotonic() + timeout
+    hung = []
+    for i, p in enumerate(procs):
+        try:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            hung.append(i)
+    for p in procs:
+        if p.poll() is None:
+            for pid in _descendants(p.pid) + [p.pid]:
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+            p.wait()
+    return hung, [p.returncode for p in procs]
+
+
+def _read_ranks(out, n):
+    ranks = []
+    for rank in range(n):
+        try:
+            with open(out + f".{rank}") as f:
+                ranks.append(json.load(f))
+        except OSError:
+            ranks.append(None)
+    return ranks
+
+
+def _multi_reference(dev):
+    """The train_mesh job, dropout off, on this card unmeshed with every
+    row its own microbatch: what the ranks' streams are held to."""
+    import torch
+    job = _fine_tune_setup(dev, None, MESH_STEPS + 1, ft_over=MESH_MULTI_FT,
+                           fused_ops=True, transfer_guard=None)
+    job["step_fn"] = _one_row_step(job, dev)
+    r = _timed_steps(dev, job, MESH_STEPS)
+    r["tokens_per_s"] = job["batch_rows"] * job["seq"] / r["step_s_p50"]
+    del job
+    _release()
+    torch.cuda.empty_cache()
+    return r
+
+
+def _multi_entry(n):
+    """The entry under torchrun on ``n`` cards (module doc, 19b); then
+    its sharded export converted here. Returns (line, problems)."""
+    import tempfile
+    import numpy as np
+    from safetensors import safe_open
+    from gke_ray_train_tpu_torch.ckpt.convert import convert
+    from gke_ray_train_tpu_torch.ckpt.hf_io import _hf_layer_names
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_entry_")
+    with open(ENTRY_CONFIG) as f:
+        job = json.load(f)
+    rows = (int(job["PER_DEVICE_TRAIN_BATCH_SIZE"]) * n
+            * int(job["GRADIENT_ACCUMULATION_STEPS"]))
+    config = _entry_config(
+        os.path.join(root, "run"), path=ENTRY_CONFIG, cut=dict(
+            MESH_MULTI_ENTRY_CUT,
+            NUM_TRAIN_SAMPLES=rows * MESH_MULTI_ENTRY_STEPS))
+    cfg, lcfg, _ = _entry_setup(config, None, MESH_MULTI_ENTRY_LAYERS)
+    disk = _entry_disk(root, cfg, lcfg, 1)
+    cfg_path = os.path.join(root, "config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    out = os.path.join(root, "rank")
+    log_path = os.path.join(root, "torchrun.log")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
+           "--master-port", str(_free_port()), os.path.abspath(__file__),
+           "--entry-worker", cfg_path, out]
+    env = dict(os.environ, PREEMPT_SYNC_EVERY="1")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=log,
+                                stderr=subprocess.STDOUT)
+        hung, rcs = _wait_all([proc], MESH_MULTI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ranks = _read_ranks(out, n)
+    problems = []
+    line = {"torchrun": " ".join(cmd[1:6] + [str(n)]), "wall_s": wall,
+            "exit_code": rcs[0], "n_layers": cfg.n_layers, "disk": disk,
+            "config": {k: config[k] for k in sorted(MESH_MULTI_ENTRY_CUT)},
+            "ranks": ranks}
+    if hung or rcs[0] != 0 or None in ranks:
+        with open(log_path) as f:
+            line["log_tail"] = f.read()[-6000:]
+        problems.append(f"torchrun entry: hung {bool(hung)}, exit code "
+                        f"{rcs[0]}, ranks written "
+                        f"{[r is not None for r in ranks]}")
+        return line, problems
+    ms = [r["metrics"] for r in ranks]
+    streams = {"loss": [[m.get("loss")] for m in ms],
+               "eval_loss": [r["evals"] for r in ranks]}
+    for key, vals in streams.items():
+        flat = [v for vs in vals for v in vs]
+        if not vals[0] or None in flat or not all(np.isfinite(flat)):
+            problems.append(f"torchrun entry: {key} {vals}")
+        elif any(vs != vals[0] for vs in vals):
+            problems.append(f"torchrun entry: ranks disagree on {key}: "
+                            f"{vals}")
+    if any(m.get("step") != MESH_MULTI_ENTRY_STEPS for m in ms):
+        problems.append(f"torchrun entry: steps {[m.get('step') for m in ms]}"
+                        f" != {MESH_MULTI_ENTRY_STEPS}")
+    # the sharded export, converted in this process
+    hf_dir = os.path.join(root, "hf")
+    t = time.perf_counter()
+    convert(ranks[0]["export"]["dir"], hf_dir)
+    want = {"model.embed_tokens.weight": (cfg.vocab_size, cfg.d_model),
+            "model.norm.weight": (cfg.d_model,)}
+    if not cfg.tie_embeddings:
+        want["lm_head.weight"] = (cfg.vocab_size, cfg.d_model)
+    names = {n for i in range(cfg.n_layers)
+             for n in _hf_layer_names(cfg, i).values()}
+    got, bad = {}, []
+    for path in sorted(glob.glob(os.path.join(hf_dir, "*.safetensors"))):
+        with safe_open(path, "pt") as f:
+            for k in f.keys():
+                x = f.get_tensor(k)
+                got[k] = tuple(x.shape)
+                if not bool(x.float().isfinite().all()):
+                    bad.append(k)
+    if set(got) != set(want) | names:
+        problems.append(f"converted export: {len(got)} tensors, missing "
+                        f"{sorted(set(want) | names - set(got))[:4]}, "
+                        f"extra {sorted(set(got) - set(want) - names)[:4]}")
+    wrong = [k for k, shape in want.items() if got.get(k) != shape]
+    if wrong or bad:
+        problems.append(f"converted export: shapes {wrong}, non-finite "
+                        f"{bad[:4]}")
+    line["convert"] = {"seconds": time.perf_counter() - t,
+                       "tensors": len(got), "non_finite": len(bad),
+                       "bytes": sum(os.path.getsize(p) for p in glob.glob(
+                           os.path.join(hf_dir, "*.safetensors")))}
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    return line, problems
+
+
+def phase_train_mesh_multi(dev):
+    """Opt-in, a host with N >= 2 cards (module doc, 19b). Prints the
+    card count first. The train_mesh job, LoRA dropout off, on this card
+    as one-row microbatches; then one rank per card on an fsdp=N NCCL
+    mesh (torchrun's env, set here), the same 8 rows a step as one-row
+    microbatches, spawned as N processes under one deadline: each step's
+    loss and grad_norm within ``MESH_MULTI_RTOL`` of the one-card run's;
+    per card p50, tokens/s, peak and the bytes all-gathered a step (from
+    the shapes). Then the entry under torchrun (``_multi_entry``). Fewer
+    than 2 cards fails."""
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    emit({"phase": "train_mesh_multi_devices", "ok": n >= 2,
+          "device_count": n, "nvidia_smi": nvidia_smi_line()})
+    if n < 2:
+        raise SystemExit(f"train_mesh_multi needs 2 or more cards; this "
+                         f"host has {n}")
+    ref = _multi_reference(dev)
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_mesh_"), "rank")
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
+             out], env=env, cwd=HERE))
+    hung, rcs = _wait_all(procs, MESH_MULTI_TIMEOUT_S)
+    ranks = _read_ranks(out, n)
+    problems, gaps = [], {}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+    else:
+        for r in ranks:
+            if not r["sharded"]:
+                problems.append(f"rank {r['rank']}: not all sharded "
+                                f"{r['placements']}")
+            for key in ("losses", "grad_norms"):
+                g = [abs(a - b) / abs(b)
+                     for a, b in zip(r[key], ref[key])]
+                gaps.setdefault(key, []).append(g)
+                if not (all(np.isfinite(r[key]))
+                        and max(g) <= MESH_MULTI_RTOL):
+                    problems.append(f"rank {r['rank']}: {key} {r[key]} "
+                                    f"against one card's {ref[key]}")
+    entry, entry_problems = _multi_entry(n)
+    problems += entry_problems
+    emit({"phase": "train_mesh_multi", "ok": not problems,
+          "problems": problems, "nvidia_smi": nvidia_smi_line(),
+          "world": n, "mesh": {"data": 1, "fsdp": n},
+          "lora_dropout": MESH_MULTI_FT["LORA_DROPOUT"],
+          "one_card": ref, "ranks": ranks, "rel_gaps": gaps,
+          "max_rel_gap": {k: max(max(g) for g in v)
+                          for k, v in gaps.items()},
+          "tol_rel": MESH_MULTI_RTOL, "entry": entry})
+    if problems:
+        raise SystemExit("train_mesh_multi phase failed: "
+                         + "; ".join(problems))
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -3882,13 +4602,14 @@ def phase_entry_moe(dev):
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
-          "train_fused_ce", "train_fused_ce_parity", "train_profile",
+          "train_fused_ce", "train_fused_ce_parity", "train_mesh",
+          "train_mesh_parity", "train_remat_dots", "train_profile",
           "entry", "train_moe", "train_moe_parity", "serve_moe", "entry_moe",
           "profile", "train_fused_profile", "train_fused_ce_profile",
-          "train_moe_profile", "entry_full")
+          "train_moe_profile", "entry_full", "train_mesh_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
-                 "train_moe_profile", "entry_full")
+                 "train_moe_profile", "entry_full", "train_mesh_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -3976,7 +4697,19 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (default: all but " + ",".join(OPT_IN_PHASES)
                     + ")")
+    ap.add_argument("--mesh-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--entry-worker", nargs=2, metavar=("CONFIG", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.mesh_worker or args.entry_worker:
+        # one rank of train_mesh_multi, spawned by that phase
+        sys.path.insert(0, HERE)
+        if args.mesh_worker:
+            _mesh_worker(args.mesh_worker)
+        else:
+            _entry_worker(*args.entry_worker)
+        return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:
@@ -4038,6 +4771,9 @@ def main(argv=None) -> int:
     run("train_fused_parity", phase_train_fused_parity)
     add(run("train_fused_ce", phase_train_fused_ce))
     add(run("train_fused_ce_parity", phase_train_fused_ce_parity))
+    add(run("train_mesh", phase_train_mesh))
+    add(run("train_mesh_parity", phase_train_mesh_parity))
+    add(run("train_remat_dots", phase_train_remat_dots))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -4050,6 +4786,7 @@ def main(argv=None) -> int:
     run("train_fused_ce_profile", phase_train_fused_ce_profile)
     run("train_moe_profile", phase_train_moe_profile)
     add(run("entry_full", phase_entry_full))
+    run("train_mesh_multi", phase_train_mesh_multi)
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

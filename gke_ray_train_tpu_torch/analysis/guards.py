@@ -17,9 +17,15 @@
   the same way. Without CUDA the guard does nothing, as JAX's does on
   its CPU backend.
 - ``DIVERGENCE_GUARD=1`` checks that every rank runs the same step
-  program. A single process has nothing to compare (JAX returns at one
-  process too); a ``torch.distributed`` world above 1 raises
-  ``NotImplementedError``: multi-card training is ROADMAP queue 1 item 5.
+  program before the first step. A single process has nothing to compare
+  (JAX returns at one process too). JAX fingerprints the lowered HLO;
+  eager PyTorch lowers nothing, so the port's identity of the step
+  (:func:`step_identity_text`) is the step's settings (the model config,
+  the plan's fingerprint, the optimizer, LoRA and mesh), the module
+  tree's names, shapes, dtypes and placements, the batch's shapes, and
+  the hash of every kernel source. The ranks exchange its hash with
+  ``all_gather_object``; on a mismatch every rank raises
+  :class:`StepDivergenceError` with the diff against a disagreeing peer.
 - ``RECOMPILE_LIMIT`` has no counterpart: the port runs eagerly and
   compiles nothing.
 """
@@ -27,6 +33,10 @@
 from __future__ import annotations
 
 import contextlib
+import difflib
+import glob
+import hashlib
+import json
 import logging
 import os
 from typing import Optional
@@ -34,6 +44,11 @@ from typing import Optional
 from gke_ray_train_tpu_torch.device import world_size
 
 logger = logging.getLogger(__name__)
+
+
+class StepDivergenceError(RuntimeError):
+    """Ranks would run DIFFERENT step programs — their collectives would
+    wedge (JAX's ``HloDivergenceError``)."""
 
 # TRANSFER_GUARD mode -> torch.cuda.set_sync_debug_mode argument
 _SYNC_DEBUG_MODES = {"log": "warn", "disallow": "error"}
@@ -124,13 +139,105 @@ class RuntimeGuards:
         return transfer_guard_ctx(self.transfer_mode)
 
     def check_divergence(self, step_fn, state, batch,
-                         label: str = "train_step") -> None:
+                         label: str = "train_step") -> Optional[str]:
         if self.divergence and world_size() > 1:
-            raise NotImplementedError(
-                f"DIVERGENCE_GUARD across {world_size()} ranks ({label}): "
-                "multi-card training is not ported yet (ROADMAP queue 1 "
-                "item 5)")
+            return check_step_agreement(step_fn, state, batch, label=label)
+        return None
 
     def __repr__(self) -> str:  # pragma: no cover - logging nicety
         return (f"RuntimeGuards(transfer={self.transfer_mode or 'off'}, "
                 f"divergence={'on' if self.divergence else 'off'})")
+
+
+# ---------------------------------------------------------------------------
+# the identity of the step, and its agreement across ranks
+# ---------------------------------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "csrc")
+# the per-rank text a mismatch ships for the diff is capped
+_DIFF_TEXT_CAP = 200_000
+
+
+def _placement(t) -> str:
+    pls = getattr(t, "placements", None)
+    return "local" if pls is None else ",".join(str(p) for p in pls)
+
+
+def _tensor_line(name: str, t) -> str:
+    return (f"{name} {tuple(t.shape)} {str(t.dtype).replace('torch.', '')} "
+            f"{_placement(t)}")
+
+
+def kernel_sources_digest() -> str:
+    """sha256 over every kernel source in ``csrc/`` (name and bytes)."""
+    h = hashlib.sha256()
+    for path in sorted(glob.glob(os.path.join(_CSRC, "*"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()
+
+
+def step_identity_text(step_fn, state, batch=None) -> str:
+    """The text the divergence guard hashes: ``step_fn``'s
+    ``step_identity`` (its settings, set by ``train/step.py``), every
+    tensor of the state (the model's parameters and buffers, the
+    adapters) by name, shape, dtype and placement, the batch's keys,
+    shapes and dtypes, and the kernel sources' digest."""
+    lines = ["step " + json.dumps(getattr(step_fn, "step_identity", None),
+                                  sort_keys=True, default=str)]
+    params = getattr(state, "params", None)
+    if params is not None:
+        for name, t in params.named_parameters():
+            lines.append(_tensor_line("param " + name, t))
+        for name, t in params.named_buffers():
+            lines.append(_tensor_line("buffer " + name, t))
+    for i, layer in enumerate(getattr(state, "lora", None) or ()):
+        for target in sorted(layer):
+            for k in sorted(layer[target]):
+                lines.append(_tensor_line(f"lora {i}.{target}.{k}",
+                                          layer[target][k]))
+    for k in sorted(batch or {}):
+        v = batch[k]
+        lines.append(f"batch {k} {tuple(v.shape)} "
+                     f"{str(v.dtype).replace('torch.', '')}")
+    lines.append("kernels " + kernel_sources_digest())
+    return "\n".join(lines)
+
+
+def _all_gather(value):
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def check_step_agreement(step_fn, state, batch=None, *,
+                         label: str = "train_step") -> str:
+    """Exchange this rank's step identity hash; return it when every
+    rank agrees, else raise :class:`StepDivergenceError` on every rank
+    with the per-rank hashes and the diff against a disagreeing peer."""
+    import torch.distributed as dist
+    text = step_identity_text(step_fn, state, batch)
+    digest = hashlib.sha256(text.encode()).hexdigest()
+    with allow_transfers():
+        digests = _all_gather(digest)
+        if len(set(digests)) == 1:
+            logger.info("divergence guard: %d ranks agree on %s (%s)",
+                        len(digests), label, digest[:12])
+            return digest
+        # every rank saw the same verdict: the second exchange is
+        # symmetric
+        texts = _all_gather(text[:_DIFF_TEXT_CAP])
+    rank = dist.get_rank()
+    per_rank = ", ".join(f"rank {i}: {d[:12]}" for i, d in enumerate(digests))
+    peer = next((i for i, d in enumerate(digests) if d != digest), None)
+    diff = list(difflib.unified_diff(
+        texts[rank].splitlines(), texts[peer].splitlines(), lineterm="",
+        fromfile=f"rank {rank} (this rank)", tofile=f"rank {peer}"))[:40]
+    raise StepDivergenceError(
+        f"ranks would run DIFFERENT {label} programs — the collectives "
+        f"they launch would wedge, not train. Identities: {per_rank}.\n"
+        "Likely causes: per-rank config or plan drift, a different "
+        "checkout, or a different model.\n" + "\n".join(diff))

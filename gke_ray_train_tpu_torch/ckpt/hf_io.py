@@ -264,6 +264,19 @@ def load_hf_checkpoint(model_dir: str, cfg: ModelConfig, *,
     return model
 
 
+def merged_weight(t, adapter: Optional[dict] = None,
+                  lora_scale: float = 1.0) -> torch.Tensor:
+    """A layer tensor as the export holds it before the cast: a quantized
+    projection dequantized to fp32, an adapted one ``W + lora_scale * A
+    B`` in fp32, any other tensor as it is."""
+    if not is_qtensor(t) and adapter is None:
+        return t
+    t = dequantize(t, torch.float32) if is_qtensor(t) else t.float()
+    if adapter is not None:
+        t = t + (adapter["a"].float() @ adapter["b"].float()) * lora_scale
+    return t
+
+
 def hf_tensor(t: torch.Tensor, dtype: str) -> torch.Tensor:
     """``t`` as the export stores it: cast to ``dtype`` where it lies,
     then a contiguous CPU tensor (the counterpart of JAX
@@ -295,14 +308,8 @@ def save_hf_checkpoint(params: Transformer, cfg: ModelConfig, out_dir: str,
         for i, blk in enumerate(params.blocks):
             adapters = lora[i] if lora is not None else {}
             for key, tname in _hf_layer_names(cfg, i).items():
-                t = getattr(blk, key)
-                if is_qtensor(t) or key in adapters:
-                    t = dequantize(t, torch.float32) if is_qtensor(t) \
-                        else t.float()
-                    if key in adapters:
-                        ab = adapters[key]
-                        t = t + (ab["a"].float() @ ab["b"].float()) \
-                            * lora_scale
+                t = merged_weight(getattr(blk, key), adapters.get(key),
+                                  lora_scale)
                 w.add(tname, hf_tensor(_maybe_t(t, key), dtype))
             for key in _EXPERT_HF if cfg.n_experts else ():
                 bank = getattr(blk, key)

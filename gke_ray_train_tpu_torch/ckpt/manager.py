@@ -1,6 +1,6 @@
 """Checkpointing with retention, resume and a write-ahead commit
 (counterpart of ``gke_ray_train_tpu/ckpt/manager.py``), on
-``torch.distributed.checkpoint`` in one process.
+``torch.distributed.checkpoint``.
 
 A step is a directory ``<directory>/<step>`` written by ``dcp.save`` into
 ``<step>.tmp`` and renamed into place, with the save's metrics in
@@ -35,8 +35,19 @@ first; retention keeps the last ``max_to_keep`` saved with
 (of equal scores the later saved) and every step saved without metrics;
 a score metric missing from a save's metrics raises ``KeyError`` where
 orbax ranks. Not ported yet: peer-slice replication
-(``PEER_REPLICATION``, ROADMAP queue 1 item 8) and the resharded restore
-with its topology note (item 5).
+(``PEER_REPLICATION``, ROADMAP queue 1 item 8).
+
+Across a ``torch.distributed`` world above one every rank calls
+``save`` and the restores together: ``dcp`` writes each rank's shards of
+a sharded state (DTensors: the params and optimizer state of a model
+sharded with FSDP2) and one copy of what is replicated (the adapters),
+and reads a step back into whatever placement the template has, so a
+step saved at world N restores at world M, or into the plain tensors of
+one process (:meth:`CheckpointManager.restore_resharded`). Rank 0 alone
+writes the markers, the metrics, the rename and ``topology.json`` (the
+saving world's size, so a restore can say it resharded), between
+barriers. Async commit is one process's: it raises at a world above
+one.
 """
 
 from __future__ import annotations
@@ -54,12 +65,21 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from gke_ray_train_tpu_torch.device import world_size
+
 logger = logging.getLogger(__name__)
 
 # write-ahead marker names; <name>.<step> files beside the step dirs
 _WAL_OPEN = "COMMITTING"
 _WAL_DONE = "COMMITTED"
 METRICS_FILE = "metrics.json"
+TOPOLOGY_NOTE = "topology.json"
+
+
+def _barrier() -> None:
+    if world_size() > 1:
+        import torch.distributed as dist
+        dist.barrier()
 
 
 def _env_flag(name: str, default: bool = False) -> bool:
@@ -96,7 +116,13 @@ def flat_state(state: Any) -> Dict[str, Any]:
         from gke_ray_train_tpu_torch.train.step import trainable_tensors
         out["step"] = int(state.step)
         if state.params is not None:
+            from gke_ray_train_tpu_torch.parallel.sharding import as_dtype
             for k, v in state.params.state_dict(keep_vars=True).items():
+                if k.endswith(".codes"):
+                    # the codes as a QTensor defines them, whatever byte
+                    # dtype a sharded one holds them in
+                    v = as_dtype(v, state.params.get_submodule(
+                        k[:-len(".codes")]).code_dtype)
                 out[f"params/{k}"] = v.detach()
         if state.lora is not None:
             for i, layer in enumerate(state.lora):
@@ -166,18 +192,20 @@ def _host_snapshot(flat: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def _dcp_call(name: str, *args, **kwargs):
-    """``dcp.save`` / ``dcp.load`` in this process. dcp raises its
-    ``CheckpointException``, a ``BaseException``, which becomes a
+def _dcp_call(name: str, *args, collective: bool = True, **kwargs):
+    """``dcp.save`` / ``dcp.load``: over the world's ranks when a world
+    above one is up and ``collective``, else in this process. dcp raises
+    its ``CheckpointException``, a ``BaseException``, which becomes a
     ``CheckpointRestoreError`` here so callers catch it as an error; its
     warning that with no process group it assumes one process is this
     manager's design, and is silenced."""
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint.api import CheckpointException
+    no_dist = not (collective and world_size() > 1)
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=".*single process.*")
         try:
-            return getattr(dcp, name)(*args, no_dist=True, **kwargs)
+            return getattr(dcp, name)(*args, no_dist=no_dist, **kwargs)
         except CheckpointException as e:
             raise CheckpointRestoreError(f"dcp.{name}: {e}") from None
 
@@ -203,6 +231,16 @@ class CheckpointManager:
         if async_commit is None:
             async_commit = _env_flag("ASYNC_CKPT")
         self.async_commit = bool(async_commit)
+        self.world = world_size()
+        self.is_writer = True
+        if self.world > 1:
+            import torch.distributed as dist
+            self.is_writer = dist.get_rank() == 0
+            if self.async_commit:
+                raise NotImplementedError(
+                    f"async commit (ASYNC_CKPT) across {self.world} ranks "
+                    "is not ported yet (ROADMAP queue 1 item 5); save "
+                    "synchronously")
         if commit_timeout_s is None:
             commit_timeout_s = float(
                 os.environ.get("CKPT_COMMIT_TIMEOUT_S", "120"))
@@ -213,7 +251,9 @@ class CheckpointManager:
         # emulated storage latency per commit
         self.storage_delay_s = max(float(storage_delay_s), 0.0)
         self.directory = str(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        if self.is_writer:
+            os.makedirs(self.directory, exist_ok=True)
+        _barrier()
         self.max_to_keep = int(max_to_keep)
         self.score_attribute = score_attribute
         self.score_mode = score_mode
@@ -221,6 +261,9 @@ class CheckpointManager:
         # "storage" | None: which path served the last
         # restore_if_available (the loop books restore_s off it)
         self.last_restore_source: Optional[str] = None
+        # (saved world, restoring world) of the last restore that
+        # resharded, else None
+        self.last_restore_resharded: Optional[tuple] = None
         # async-commit machinery (committer thread started lazily)
         self._commit_lock = threading.Condition()
         self._commit_queue: list = []
@@ -295,7 +338,9 @@ class CheckpointManager:
 
     def _write_marker(self, kind: str, step: int) -> None:
         """A marker, fsync'd (file then directory) so the ordering the
-        recovery rule relies on survives a crash."""
+        recovery rule relies on survives a crash (rank 0's)."""
+        if not self.is_writer:
+            return
         fd = os.open(self._marker_path(kind, step),
                      os.O_CREAT | os.O_WRONLY | os.O_TRUNC, 0o644)
         try:
@@ -306,6 +351,8 @@ class CheckpointManager:
         self._fsync_dir()
 
     def _remove_marker(self, kind: str, step: int) -> None:
+        if not self.is_writer:
+            return
         try:
             os.remove(self._marker_path(kind, step))
         except FileNotFoundError:
@@ -375,18 +422,23 @@ class CheckpointManager:
                                   f"in {self.directory}")
         final = self._step_dir(step)
         tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
+        if self.is_writer:
+            shutil.rmtree(tmp, ignore_errors=True)
+        _barrier()
         _dcp_call("save", flat, checkpoint_id=tmp)
         kept = metrics if self.score_attribute is not None else None
-        if kept is not None:
-            with open(os.path.join(tmp, METRICS_FILE), "w") as f:
-                json.dump(kept, f)
-                f.flush()
-                os.fsync(f.fileno())
-        # a torn directory of this step the cache does not hold
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        self._fsync_dir()
+        if self.is_writer:
+            if kept is not None:
+                with open(os.path.join(tmp, METRICS_FILE), "w") as f:
+                    json.dump(kept, f)
+                    f.flush()
+                    os.fsync(f.fileno())
+            # a torn directory of this step the cache does not hold
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            self._fsync_dir()
+            self._write_topology_note(step)
+        _barrier()
         self._checkpoints.append((step, kept))
         self._retain()
 
@@ -407,7 +459,7 @@ class CheckpointManager:
             keep |= {s for s, m in infos if m is None}
         self._checkpoints = [i for i in infos if i[0] in keep]
         for s, _ in infos:
-            if s not in keep:
+            if s not in keep and self.is_writer:
                 shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     def save(self, step: int, state: Any, metrics: Optional[dict] = None,
@@ -430,6 +482,7 @@ class CheckpointManager:
             # the emulated storage round trip blocks the loop here
             time.sleep(self.storage_delay_s)
         self._mark_committed(step)
+        _barrier()
         logger.info("checkpoint saved at step %d (metrics=%s)", step,
                     metrics)
         return True
@@ -563,6 +616,38 @@ class CheckpointManager:
         return step
 
     # ------------------------------------------------------------------
+    # topology note
+
+    def _write_topology_note(self, step: int) -> None:
+        """The saving world's size beside the steps (best-effort)."""
+        try:
+            with open(os.path.join(self.directory, TOPOLOGY_NOTE),
+                      "w") as f:
+                json.dump({"step": int(step), "n_devices": self.world}, f)
+        except OSError as e:  # pragma: no cover - the note is best-effort
+            logger.debug("could not write topology note: %s", e)
+
+    def saved_topology(self) -> Optional[dict]:
+        try:
+            with open(os.path.join(self.directory, TOPOLOGY_NOTE)) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def _note_reshard(self, step: int) -> None:
+        """Log and record a restore onto another world size than the
+        save's (the JAX manager's elastic-resume witness)."""
+        self.last_restore_resharded = None
+        note = self.saved_topology()
+        saved = int(note.get("n_devices", 0)) if note else 0
+        if saved and saved != self.world:
+            self.last_restore_resharded = (saved, self.world)
+            logger.warning(
+                "checkpoint step %d was saved on %d ranks; restored "
+                "RESHARDED onto %d (placements from the restore "
+                "template)", step, saved, self.world)
+
+    # ------------------------------------------------------------------
     # queries
 
     def latest_step(self) -> Optional[int]:
@@ -592,7 +677,19 @@ class CheckpointManager:
         flat = flat_state(state_like)
         with torch.no_grad():
             _dcp_call("load", flat, checkpoint_id=self._step_dir(step))
+        self._note_reshard(step)
         return _apply_numbers(state_like, flat)
+
+    def restore_resharded(self, state_like: Any,
+                          step: Optional[int] = None) -> Any:
+        """Cross-topology restore: load ``step`` into ``state_like``'s
+        placements, whatever the saving world was (``dcp`` reads each
+        rank's part of the saved shards; a one-process template reads
+        whole tensors). The JAX manager re-derives shardings from a spec
+        tree on a new mesh; a port template already carries its
+        placements (``make_train_state(mesh=)``). Sets
+        ``last_restore_resharded``; returns ``state_like``."""
+        return self.restore(state_like, step)
 
     def restore_raw(self, step: Optional[int] = None) -> Dict[str, Any]:
         """Topology-free restore: the keys, shapes and dtypes come from
@@ -615,7 +712,7 @@ class CheckpointManager:
                 if isinstance(m, TensorStorageMetadata) else None)
             for k, m in meta.state_dict_metadata.items()}
         with torch.no_grad():
-            _dcp_call("load", flat, checkpoint_id=path)
+            _dcp_call("load", flat, checkpoint_id=path, collective=False)
         out: Dict[str, Any] = {}
         for key, v in flat.items():
             head, _, rest = key.partition("/")
@@ -641,10 +738,11 @@ class CheckpointManager:
         while os.path.exists(dst):
             n += 1
             dst = f"{src}.corrupt{n}"
-        if os.path.isdir(src):
+        if os.path.isdir(src) and self.is_writer:
             shutil.move(src, dst)
         self._remove_marker(_WAL_OPEN, step)
         self._remove_marker(_WAL_DONE, step)
+        _barrier()
         self._reload()
         return dst
 

@@ -7,7 +7,11 @@ silently ignored. The same key sets as the JAX package, so a config
 audits alike in both; on top of that, the keys that only mean something
 on a TPU mesh (:data:`TPU_ONLY_KEYS`: mesh axes, topology, XLA overlap,
 the compile cache and AOT sidecar, autotune, elastic re-formation) warn
-by name, because the port trains on one card and ignores them.
+by name, because the port ignores them. The mesh keys are the exception
+under a ``torch.distributed`` world above one: there ``MESH_DATA`` /
+``MESH_FSDP`` shape the mesh (:func:`mesh_config_from_config`) and the
+axes not ported yet raise; on one card they warn and are ignored, as
+before.
 
 The learning-rate schedules are plain functions of the step count, equal
 to optax's at every step; the optimizers are the port's
@@ -20,7 +24,7 @@ import logging
 from typing import Callable, List
 
 from gke_ray_train_tpu_torch.train.optim import (
-    OptimizerSpec, Schedule, make_optimizer, make_sgd,
+    OptimizerSpec, Schedule, make_adafactor, make_optimizer, make_sgd,
     warmup_cosine_schedule)
 
 logger = logging.getLogger(__name__)
@@ -94,28 +98,44 @@ TPU_ONLY_KEYS = frozenset({
     "NUM_SLICES", "DCN_SYNC", "DCN_COMPRESS", "BUDGET_PRESET",
 })
 TPU_ONLY_PREFIXES = ("MESH_", "PIPE_")
+# the mesh keys a world above one process reads (parallel/mesh.py)
+MESH_KEYS = frozenset({"MESH_DATA", "MESH_FSDP", "MESH_MODEL",
+                       "MESH_CONTEXT", "MESH_PIPE", "NUM_SLICES"})
 
 
-def tpu_only_keys(config: dict) -> List[str]:
-    """The keys of ``config`` that only a TPU mesh or XLA reads."""
+def tpu_only_keys(config: dict, world: int = 1) -> List[str]:
+    """The keys of ``config`` that only a TPU mesh or XLA reads; at a
+    ``world`` above 1 the mesh keys are the port's too."""
     return sorted(k for k in config
-                  if k in TPU_ONLY_KEYS or k.startswith(TPU_ONLY_PREFIXES))
+                  if (k in TPU_ONLY_KEYS or k.startswith(TPU_ONLY_PREFIXES))
+                  and not (world > 1 and k in MESH_KEYS))
+
+
+def mesh_config_from_config(config: dict, world: int):
+    """The ``parallel/mesh.py::MeshConfig`` of ``config`` resolved over
+    ``world`` ranks and checked (``MESH_MODEL`` / ``MESH_CONTEXT`` /
+    ``MESH_PIPE`` or ``NUM_SLICES`` above 1 raise, naming their ROADMAP
+    item); None for one process, whose runs ignore the mesh keys."""
+    if world <= 1:
+        return None
+    from gke_ray_train_tpu_torch.parallel.mesh import MeshConfig
+    return MeshConfig.from_dict(config).resolve(world).check_ported()
 
 
 def audit_config(config: dict, *, known=KNOWN_KEYS,
-                 extra_known=()) -> list:
+                 extra_known=(), world: int = 1) -> list:
     """Warn about unknown keys and return them; keys starting with "_"
-    are comments. TPU-only keys warn by name (the port ignores them),
-    and so does ``USE_NESTED_QUANT``."""
+    are comments. TPU-only keys warn by name (the port ignores them; at
+    a ``world`` above 1 it reads the mesh keys), and so does
+    ``USE_NESTED_QUANT``."""
     unknown = sorted(k for k in config
                      if k not in known and k not in extra_known
                      and not k.startswith("_"))
     if unknown:
         logger.warning("config keys not recognized (ignored): %s", unknown)
-    for k in tpu_only_keys(config):
+    for k in tpu_only_keys(config, world):
         logger.warning("config key %s=%r configures a TPU mesh or XLA; "
-                       "the port trains on one card and ignores it", k,
-                       config[k])
+                       "the port ignores it", k, config[k])
     if bool(config.get("USE_NESTED_QUANT", False)):
         logger.warning("USE_NESTED_QUANT: nested/double quantization is "
                        "not implemented; using single-level %s",
@@ -179,18 +199,18 @@ def schedule_from_config(config: dict, total_steps: int) -> Schedule:
 
 
 def optimizer_from_config(config: dict, schedule: Callable) -> OptimizerSpec:
-    """OPTIM: the adamw family (and ``adam``) -> clip + AdamW; ``sgd``
-    -> clip + SGD with momentum 0.9; unknown names warn and fall back to
-    adamw. ``adafactor`` raises: no port of optax's adafactor exists."""
+    """OPTIM: the adamw family (and ``adam``) -> clip + AdamW;
+    ``adafactor`` -> clip + Adafactor (optax's defaults, decay rate
+    ``WEIGHT_DECAY`` or none); ``sgd`` -> clip + SGD with momentum 0.9;
+    unknown names warn and fall back to adamw."""
     name = str(config.get("OPTIM", "adamw")).lower()
     wd = float(config.get("WEIGHT_DECAY", 0.001))
     clip = float(config.get("MAX_GRAD_NORM", 0.3))
     if "adamw" in name or name == "adam":
         return make_optimizer(schedule, weight_decay=wd, clip_norm=clip)
     if "adafactor" in name:
-        raise NotImplementedError(
-            f"OPTIM={name!r}: adafactor is not ported yet (ROADMAP queue "
-            "1 item 4); use adamw or sgd")
+        return make_adafactor(schedule, clip_norm=clip,
+                              weight_decay_rate=wd or None)
     if name == "sgd":
         return make_sgd(schedule, clip_norm=clip, momentum=0.9)
     logger.warning("OPTIM=%r not recognized; using adamw", name)

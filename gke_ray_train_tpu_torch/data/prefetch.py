@@ -305,7 +305,9 @@ def make_place_batch(device: DeviceLike = None
     ``non_blocking`` copies on a side stream of that device, returned as
     a :class:`PlacedBatch` (the stream is made once, here). With
     ``device="cpu"``: CPU tensors holding a copy of each array, and no
-    CUDA call."""
+    CUDA call. On a rank of a process group the batch is this rank's
+    rows (``parallel/placement.py``) and ``device`` None is the rank's
+    own card, ``cuda:LOCAL_RANK``."""
     dev = resolve_device(device)
     if dev.type == "cpu":
         def place_cpu(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

@@ -16,12 +16,17 @@ DeviceLike = Union[str, torch.device, None]
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """``device`` as a ``torch.device``; ``None`` means ``cuda``, which
-    must then exist."""
+    must then exist: ``cuda:LOCAL_RANK`` under a process group (one
+    rank per card), else bare ``cuda``."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run "
                 "on the CPU explicitly")
+        from gke_ray_train_tpu_torch.parallel.mesh import (
+            is_distributed, local_rank)
+        if is_distributed():
+            return torch.device("cuda", local_rank())
         return torch.device("cuda")
     return torch.device(device)
 

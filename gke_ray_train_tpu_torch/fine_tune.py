@@ -1,9 +1,11 @@
-"""The LLM fine-tune entry on one GPU (counterpart of
-``ray-jobs/fine_tune_llama_ray.py``: ``train_loop_per_worker`` and its
-``__main__``).
+"""The LLM fine-tune entry on one GPU or one rank per GPU (counterpart
+of ``ray-jobs/fine_tune_llama_ray.py``: ``train_loop_per_worker`` and
+its ``__main__``).
 
     FINE_TUNE_CONFIG=ray-jobs/fine_tune_config_offline_8b.json \\
         python -m gke_ray_train_tpu_torch.fine_tune
+    torchrun --nproc-per-node N -m gke_ray_train_tpu_torch.fine_tune \\
+        ray-jobs/fine_tune_config.json
 
 ``main`` reads the flat UPPER_CASE config named by ``FINE_TUNE_CONFIG``
 (default ``ray-jobs/fine_tune_config.json``), runs
@@ -24,9 +26,19 @@ answers to the test rows (``inference_comparison.json``), and with
 batching engine, a LoRA run's adapter through an ``AdapterPool``
 (``serve_smoke.json``).
 
-Not ported yet, each raising where the config asks for it: peer
-replication (ROADMAP queue 1 item 8), the multi-host export and a world
-above one process (item 5).
+Under a ``torch.distributed`` world above one (torchrun or Ray Train's
+rendezvous env; ``parallel/mesh.py::distributed_init``: NCCL, one rank
+per card, gloo only with ``device="cpu"``) the worker builds the mesh
+from ``MESH_DATA`` / ``MESH_FSDP``, shards the model with FSDP2, feeds
+each rank its share of every global batch (``PER_DEVICE_TRAIN_BATCH_SIZE
+× data × fsdp × GRADIENT_ACCUMULATION_STEPS`` rows), meters tokens/s
+and MFU per card over the world, and exports through the checkpoint
+manager (``<final dir>_dcp``, with the ``model_config.json`` sidecar and
+the tokenizer from rank 0) for ``ckpt/convert.py`` to turn into the HF
+layout. Not ported yet, each raising where the config asks for it: peer
+replication (ROADMAP queue 1 item 8), and at a world above one
+``INFERENCE`` / ``SERVE_AFTER_TRAIN``, async checkpoint commit and the
+mesh axes other than data and fsdp (item 5).
 """
 
 from __future__ import annotations
@@ -41,18 +53,24 @@ import numpy as np
 
 from gke_ray_train_tpu_torch.ckpt import (
     CheckpointManager, load_hf_checkpoint, save_hf_checkpoint)
+from gke_ray_train_tpu_torch.ckpt.convert import (
+    TOKENIZER_SUBDIR, save_export, write_sidecar)
 from gke_ray_train_tpu_torch.config import (
-    audit_config, cadence_from_config, optimizer_from_config,
-    quant_kind_from_config, schedule_from_config)
+    audit_config, cadence_from_config, mesh_config_from_config,
+    optimizer_from_config, quant_kind_from_config, schedule_from_config)
 from gke_ray_train_tpu_torch.data import (
     ByteTokenizer, downsample, format_gretel_sql_example, load_hf_tokenizer,
     make_place_batch, pack_examples, pad_sft_rows, save_tokenizer,
     sft_epoch_batches, synthetic_sql_rows, tokenize_sft_example)
 from gke_ray_train_tpu_torch.data.sft import render_chat
-from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
+from gke_ray_train_tpu_torch.device import DeviceLike, world_size
 from gke_ray_train_tpu_torch.inference import run_inference_comparison
 from gke_ray_train_tpu_torch.models import (
     init_params, init_quantized_params, preset_for_model_id, tiny)
+from gke_ray_train_tpu_torch.parallel.mesh import (
+    build_mesh, distributed_init)
+from gke_ray_train_tpu_torch.parallel.placement import (
+    host_batch_size, input_shard_layout)
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.rayint import get_context
 from gke_ray_train_tpu_torch.serve import post_train_smoke
@@ -105,15 +123,29 @@ def _sql_datasets(config: dict, n_train: int, n_eval: int):
 def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     """The worker: trains, checkpoints and resumes, exports; returns the
     loop's last metrics. Runs on ``device`` (default ``cuda``, which must
-    exist)."""
+    exist; ``cuda:LOCAL_RANK`` on a rank of a world), joining the
+    process group the environment names (module doc)."""
+    dev = distributed_init(device)
+    world = world_size()
     ctx = get_context()
     if ctx.is_host0():
-        audit_config(config)
+        audit_config(config, world=world)
     plan = ExecutionPlan.resolve(config)
     apply_debug_flags(config)
-    dev = resolve_device(device)
+    # the mesh axes not ported yet raise here, before any work
+    mesh_cfg = mesh_config_from_config(config, world)
+    mesh = build_mesh(mesh_cfg, device_type=dev.type) if world > 1 else None
+    if mesh is not None:
+        for key in ("INFERENCE", "SERVE_AFTER_TRAIN"):
+            if str(config.get(key, os.environ.get(key, "0"))).strip() \
+                    .lower() in ("1", "true"):
+                raise NotImplementedError(
+                    f"{key} across {world} ranks is not ported yet "
+                    "(ROADMAP queue 1 item 5); run it on one card")
     smoke = bool(config.get("SMOKE_TEST", False))
-    logger.info("worker on %s; plan %s", dev, plan.fingerprint())
+    logger.info("worker on %s (world %d%s); plan %s", dev, world,
+                f", mesh {mesh_cfg.shape}" if mesh_cfg else "",
+                plan.fingerprint())
 
     # ---- tokenizer + model config ------------------------------------
     model_id = config["MODEL_ID"]
@@ -167,9 +199,10 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
                 "(fine-tuning semantics require a pretrained checkpoint)")
         if load_quant is not None:
             # quantized as it is drawn: the full-precision base (93 GB
-            # of bf16 at Mixtral-8x7B) never exists
+            # of bf16 at Mixtral-8x7B) never exists; on a mesh each
+            # block is sharded as soon as it is made
             params = init_quantized_params(cfg, seed=0, kind=load_quant,
-                                           device=dev)
+                                           device=dev, mesh=mesh)
         else:
             params = init_params(cfg, seed=0, device=dev)
 
@@ -198,8 +231,12 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         raise ValueError("every train example truncated to zero trainable "
                          "tokens; training would silently learn nothing")
 
-    # one card: the global batch is one device's microbatches
-    global_batch = plan.per_device_batch * plan.grad_accum
+    # the global batch spans the batch axes; each input shard (one rank
+    # a shard) feeds its share of the rows
+    data_par = mesh_cfg.data * mesh_cfg.fsdp if mesh_cfg else 1
+    global_batch = plan.per_device_batch * data_par * plan.grad_accum
+    in_shards, in_shard_id = input_shard_layout(mesh)
+    host_batch = host_batch_size(global_batch, num_shards=in_shards)
     if plan.packing:
         packed = list(pack_examples(train_exs, max_seq))
         train_rows = {k: np.stack([r[k] for r in packed])
@@ -218,10 +255,12 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     opt = optimizer_from_config(config, schedule)
     # the weights are handed in: no second random init
     state = make_train_state(cfg, opt, seed=0, lora_cfg=lora_cfg,
-                             params=params, device=dev)
+                             params=params, device=dev, mesh=mesh)
     step_fn = make_train_step(cfg, opt, lora_cfg=lora_cfg,
-                              schedule=schedule, plan=plan, device=dev)
-    eval_step = make_eval_step(cfg, lora_cfg=lora_cfg, device=dev)
+                              schedule=schedule, plan=plan, device=dev,
+                              mesh=mesh)
+    eval_step = make_eval_step(cfg, lora_cfg=lora_cfg, device=dev,
+                               mesh=mesh)
     out_base = config.get("OUTPUT_DIR_BASE", "/tmp/grt_sft")
     sft_dir = os.path.join(out_base, config.get("SFT_SUBDIR_NAME", "sft"))
     cadence = cadence_from_config(config)
@@ -244,19 +283,22 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         group_by_length = False
 
     def epoch_batches(epoch):
-        yield from sft_epoch_batches(train_rows, global_batch, epoch=epoch,
+        yield from sft_epoch_batches(train_rows, global_batch,
+                                     num_hosts=in_shards,
+                                     host_id=in_shard_id, epoch=epoch,
                                      group_by_length=group_by_length)
 
     place = make_place_batch(dev)
 
     def eval_fn(st):
         return {"eval_loss": sharded_eval_loss(
-            st, eval_step, eval_rows, host_batch=global_batch,
+            st, eval_step, eval_rows, host_batch=host_batch,
+            in_shards=in_shards, in_shard_id=in_shard_id,
             place_batch=place)}
 
     # LoRA runs bill the 4N FLOP count (the frozen base takes no
-    # weight-grad products)
-    meter = ThroughputMeter(cfg, seq_len=max_seq, n_devices=1,
+    # weight-grad products); tokens/s and MFU per card of the world
+    meter = ThroughputMeter(cfg, seq_len=max_seq, n_devices=world,
                             trainable="lora" if use_lora else "full",
                             device=dev)
     # a LoRA checkpoint holds the adapters and the optimizer only: the
@@ -297,7 +339,7 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     final_dir = os.path.join(
         out_base, config.get("MERGED_MODEL_SUBDIR_NAME", "merged")
         if use_lora else config.get("FULL_FT_MODEL_SUBDIR_NAME", "full"))
-    if ctx.is_host0():
+    if mesh is None and ctx.is_host0():
         # LoRA: merged one projection at a time on the card, streamed to
         # the writer; the trained state is left as it was
         save_hf_checkpoint(state.params, cfg, final_dir,
@@ -305,6 +347,21 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
                            lora_scale=lora_cfg.scale if use_lora else 1.0)
         save_tokenizer(tokenizer, final_dir)
         logger.info("saved final model + tokenizer to %s", final_dir)
+    elif mesh is not None:
+        # every rank saves its shards of the merged model (one block
+        # gathered at a time); rank 0 adds the sidecar and tokenizer,
+        # and `python -m gke_ray_train_tpu_torch.ckpt.convert
+        # <dir>_dcp <dir>` writes the HF layout offline
+        export_dir = final_dir + "_dcp"
+        save_export(state.params, cfg, export_dir, state.step,
+                    lora=state.lora if use_lora else None,
+                    lora_scale=lora_cfg.scale if use_lora else 1.0)
+        if ctx.is_host0():
+            write_sidecar(cfg, export_dir)
+            save_tokenizer(tokenizer, os.path.join(export_dir,
+                                                   TOKENIZER_SUBDIR))
+            logger.info("saved the sharded export + tokenizer to %s",
+                        export_dir)
 
     # ---- optional inference comparison --------------------------------
     if bool(config.get("INFERENCE", False)):
@@ -370,9 +427,15 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
 
 
 def main(argv=None) -> int:
+    """Run the worker on the config named by ``argv[0]`` (the command
+    line's first argument), else by ``FINE_TUNE_CONFIG``, else the
+    default; under torchrun every rank runs it and only rank 0 prints
+    the last line."""
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
-    path = os.environ.get("FINE_TUNE_CONFIG", DEFAULT_CONFIG)
+    args = list(argv or ())
+    path = args[0] if args else os.environ.get("FINE_TUNE_CONFIG",
+                                               DEFAULT_CONFIG)
     try:
         with open(path) as f:
             config = json.load(f)
@@ -391,7 +454,10 @@ def main(argv=None) -> int:
         return 1
     finally:
         preempt.uninstall()
+        _leave_group()
     logger.info("final metrics: %s", metrics)
+    if not get_context().is_host0():
+        return 0
     # one machine-readable line, last on stdout (logging goes to stderr)
     print(json.dumps({"metric": "flagship_final", "attempts": 1,
                       "preemptions": 0, **{
@@ -400,5 +466,11 @@ def main(argv=None) -> int:
     return 0
 
 
+def _leave_group() -> None:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -10,6 +10,13 @@ GB in bf16) is drawn and quantized one expert slice at a time, so not
 even one bank exists in full precision; JAX's MoE path, which builds the
 whole tree and then quantizes, would not fit one card. Norms, router,
 embedding and head stay in ``cfg.param_dtype``.
+
+On a mesh every rank makes the same draws (the meshed and plain inits
+give the same weights, JAX ``qinit.py``'s sharding-invariant contract)
+and shards each block over ``fsdp`` as soon as its projections are
+quantized (``parallel/sharding.py::shard_unit``), so a rank keeps its
+shard of each block, and of the full-precision weights only the one
+projection being quantized.
 """
 
 from __future__ import annotations
@@ -25,13 +32,15 @@ from gke_ray_train_tpu_torch.models.transformer import (
     Transformer, init_std, proj_shapes, torch_dtype)
 from gke_ray_train_tpu_torch.ops.quant import (
     DEFAULT_GROUP, QUANT_TARGETS, quantize_stacked, quantize_tensor)
+from gke_ray_train_tpu_torch.parallel.sharding import shard_unit
 
 
 @torch.no_grad()
 def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
                           kind: str = "nf4", group: int = DEFAULT_GROUP,
                           targets: Collection[str] = QUANT_TARGETS,
-                          device: DeviceLike = None) -> Transformer:
+                          device: DeviceLike = None,
+                          mesh=None) -> Transformer:
     """``init_params`` with the targeted projections quantized as they
     are created, on ``device`` (default ``cuda``).
 
@@ -41,7 +50,10 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
     quantized, as JAX does (:39-41). An expert bank is drawn, rounded and
     quantized one expert ``[d_in, d_out]`` at a time. The draws come from
     a ``torch.Generator`` seeded with ``seed`` and are not JAX's: tests
-    carry quantized JAX trees over with ``interop.qparams_from_numpy``."""
+    carry quantized JAX trees over with ``interop.qparams_from_numpy``.
+
+    ``mesh``: each block is sharded over its fsdp axis once made (the
+    root is left for ``make_train_state(mesh=)`` to shard)."""
     dev = resolve_device(device)
     pdt = torch_dtype(cfg.param_dtype)
     targets = tuple(targets)
@@ -77,6 +89,8 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
             else:
                 setattr(blk, name, quantize_tensor(
                     draw(shape, std).to(torch.bfloat16), kind, group))
+        if mesh is not None:
+            shard_unit(blk, cfg, mesh)
     norm_(model.final_norm)
     if model.lm_head is not None:
         model.lm_head.copy_(draw(model.lm_head.shape, 0.02))

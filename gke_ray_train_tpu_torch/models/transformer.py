@@ -16,20 +16,29 @@ JAX package). A projection weight or expert bank may be a ``QTensor`` (a
 QLoRA base, ``ops/quant.py``), dequantized at use. ``forward`` is
 differentiable: with ``cfg.remat`` each repeat of the block pattern runs
 under ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint`` of
-``repeat_body``), and LoRA dropout draws its masks from explicit
-generators so a recomputed block redraws the same masks. With
-``fused_ops`` the blocks' rms_norms and q/k RoPE run through the fused
-kernels (``ops/fused_norm_rope.py``). The pipeline and mesh paths of the
-JAX ``forward`` belong to later slices.
+``repeat_body``; ``remat_policy="dots"`` keeps the no-batch-dim matmul
+outputs and recomputes the rest, :func:`dots_policy`), and LoRA dropout
+draws its masks from explicit generators so a recomputed block redraws
+the same masks. With ``fused_ops`` the blocks' rms_norms and q/k RoPE
+run through the fused kernels (``ops/fused_norm_rope.py``).
+
+Every layer runs through ``Block.__call__`` and the embedding, final
+norm and head inside ``Transformer.__call__`` (a caller's loss through
+``forward``'s ``loss_fn``), so a model sharded with FSDP2
+(``parallel/sharding.py``) gathers each unit's weights around its
+forward and again in its backward (under remat, inside the
+recomputation too). The pipeline path of the JAX ``forward`` belongs to
+a later slice.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import logging
 import math
 import struct
-from typing import Collection, Dict, List, Optional
+from typing import Callable, Collection, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -131,6 +140,11 @@ class Block(nn.Module):
             self.register_parameter(
                 name, _param(D, **kw) if cfg.post_block_norm else None)
 
+    def forward(self, x, *args, **kwargs):
+        """The layer over ``x`` (``_layer``'s arguments after its
+        ``lp``): ``(x, the layer's router aux or None)``."""
+        return _layer(x, self, *args, **kwargs)
+
 
 class Transformer(nn.Module):
     """Embedding, ``n_layers`` Blocks, final norm and (untied) head;
@@ -151,8 +165,11 @@ class Transformer(nn.Module):
             "lm_head", None if cfg.tie_embeddings
             else _param(cfg.d_model, cfg.vocab_size, **kw))
 
-    def forward(self, tokens: torch.Tensor, **kw) -> torch.Tensor:
-        return forward(self, tokens, self.cfg, **kw)
+    def forward(self, tokens: torch.Tensor,
+                cfg: Optional[ModelConfig] = None, **kw):
+        """:func:`forward` of this model (``cfg`` defaults to the one it
+        was built with)."""
+        return forward(self, tokens, cfg or self.cfg, **kw)
 
 
 Params = Transformer
@@ -407,21 +424,23 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
     drop = (lora is not None and lora_dropout > 0.0
             and lora_seed is not None)
     remat = cfg.remat and torch.is_grad_enabled()
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported yet (ROADMAP "
-            "queue 1); the port recomputes whole blocks "
-            "(remat_policy='full')")
+    ckpt_kw = {}
+    if remat and cfg.remat_policy == "dots":
+        from torch.utils.checkpoint import (
+            create_selective_checkpoint_contexts)
+        ckpt_kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)
     P = len(cfg.block_pattern)
 
     def repeat(x, aux, first):
         for i in range(first, min(first + P, len(blocks))):
-            x, a = _layer(x, blocks[i], cfg, impl, dtype, rope, positions,
-                          masks, segment_ids,
-                          lora[i] if lora is not None else None, lora_scale,
-                          lora_dropout,
-                          dropout_seed(lora_seed, i) if drop else None,
-                          fused_ops, token_weights)
+            # through Block.__call__: a sharded block gathers its weights
+            x, a = blocks[i](x, cfg, impl, dtype, rope, positions,
+                             masks, segment_ids,
+                             lora[i] if lora is not None else None,
+                             lora_scale, lora_dropout,
+                             dropout_seed(lora_seed, i) if drop else None,
+                             fused_ops, token_weights)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -432,10 +451,35 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
     for first in range(0, len(blocks), P):
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                repeat, x, aux, first, use_reentrant=False)
+                repeat, x, aux, first, use_reentrant=False, **ckpt_kw)
         else:
             x, aux = repeat(x, aux, first)
     return x, aux
+
+
+# the matmuls ``remat_policy="dots"`` saves: JAX's
+# ``dots_with_no_batch_dims_saveable`` keeps every dot_general without
+# batch dims, which in torch is a 2-D product (``x @ w`` with a 2-D
+# ``w`` folds its leading dims into ``mm``); batched products (``bmm``),
+# the dequantize passes, norms, activations and the kernels'
+# autograd Functions are recomputed
+DOTS_SAVED_OPS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+# an optional ``(op, saved: bool)`` callback each decision of
+# :func:`dots_policy` is reported to (tests watch what is saved)
+dots_policy_hook: Optional[Callable] = None
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat_policy="dots"``: save
+    the outputs of :data:`DOTS_SAVED_OPS`, recompute everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    save = op in DOTS_SAVED_OPS
+    if dots_policy_hook is not None and not ctx.is_recompute:
+        dots_policy_hook(op, save)
+    return (CheckpointPolicy.MUST_SAVE if save
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def resolve_seq_impl(cfg: ModelConfig, S: int, device: torch.device) -> str:
@@ -501,7 +545,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             fused_ops: bool = False,
             return_pre_unembed: bool = False,
             with_aux: bool = False,
-            token_weights: Optional[torch.Tensor] = None):
+            token_weights: Optional[torch.Tensor] = None,
+            loss_fn: Optional[Callable] = None):
     """tokens [B, S] integer → logits [B, S, vocab] float32. Runs on the
     device the params and tokens lie on.
 
@@ -516,7 +561,11 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     Switch load-balance aux})`` (0 on a dense model), as JAX does; the
     train step asks for it on MoE models. ``token_weights`` (optional
     [B, S], the loss weights): the aux balances real tokens, not
-    padding; dense models ignore it."""
+    padding; dense models ignore it.
+    ``loss_fn``: when given, ``forward`` returns ``loss_fn(out, params)``
+    (``out`` the logits or the pre-unembed state, as asked; with
+    ``with_aux`` paired with the aux), so a loss that reads the head runs
+    while a sharded root holds it gathered (``train/step.py``)."""
     B, S = tokens.shape
     dev = params.embed.device
     check_on(tokens, dev, "tokens")
@@ -545,6 +594,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         out = pre_unembed(x, params, cfg)
     else:
         out = _unembed(x, params, cfg, dtype)
+    if loss_fn is not None:
+        out = loss_fn(out, params)
     if with_aux:
         return out, {"router_aux": aux / cfg.n_layers if aux is not None
                      else torch.zeros((), dtype=torch.float32, device=dev)}

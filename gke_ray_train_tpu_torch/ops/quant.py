@@ -84,7 +84,11 @@ class QTensor(nn.Module):
 
     A module holding two buffers, so it sits in a ``Block`` where the
     full-precision weight would, moves with ``.to()`` and never takes a
-    gradient."""
+    gradient. Sharded with FSDP2 (``parallel/sharding.py``) the two are
+    frozen parameters, and the codes are kept as a one-byte float dtype
+    (the same bytes: FSDP2 makes every parameter it shards able to take
+    a gradient, which an integer tensor cannot); :meth:`code_tensor`
+    reads them back as ``code_dtype``."""
 
     def __init__(self, codes: torch.Tensor, scales: torch.Tensor,
                  kind: str = "nf4", group: int = DEFAULT_GROUP,
@@ -96,6 +100,7 @@ class QTensor(nn.Module):
             raise ValueError(f"store {store!r} for quant kind {kind!r}")
         self.register_buffer("codes", codes)
         self.register_buffer("scales", scales)
+        self.code_dtype = codes.dtype
         self.kind = kind
         self.group = group
         self.store = store
@@ -110,14 +115,20 @@ class QTensor(nn.Module):
     def select(self, i: int) -> "QTensor":
         """Index ``i`` of the leading dim (one expert of a bank): views of
         the codes and scales."""
-        return QTensor(self.codes[i], self.scales[i], self.kind, self.group,
-                       self.store)
+        return QTensor(self.code_tensor()[i], self.scales[i], self.kind,
+                       self.group, self.store)
+
+    def code_tensor(self) -> torch.Tensor:
+        """The stored codes as ``code_dtype`` (int8, or uint8 for
+        uint4), whatever byte dtype holds them."""
+        c = self.codes
+        return c if c.dtype == self.code_dtype else c.view(self.code_dtype)
 
     def unpacked_codes(self) -> torch.Tensor:
         """The codes one a byte, ``[..., D, F]``."""
         if self.store == "uint4":
-            return unpack_uint4(self.codes)
-        return self.codes
+            return unpack_uint4(self.code_tensor())
+        return self.code_tensor()
 
     def extra_repr(self) -> str:
         return (f"{self.kind}, shape={tuple(self.shape)}, group={self.group}"
@@ -186,7 +197,7 @@ def quantize_stacked(slices: Iterable[torch.Tensor], kind: str = "nf4",
         qs.append(quantize_tensor(w, kind, group))
         del w               # freed before the next slice is made
     q0 = qs[0]
-    return QTensor(torch.stack([q.codes for q in qs]),
+    return QTensor(torch.stack([q.code_tensor() for q in qs]),
                    torch.stack([q.scales for q in qs]), q0.kind, q0.group,
                    q0.store)
 

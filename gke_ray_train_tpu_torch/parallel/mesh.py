@@ -1,0 +1,228 @@
+"""Topology and process-group init (counterpart of
+``gke_ray_train_tpu/parallel/mesh.py``).
+
+The JAX package names five mesh axes and lets GSPMD derive the
+collectives from sharding specs. Here the same axis vocabulary names the
+dims of a ``torch.distributed`` ``DeviceMesh`` over the world's ranks,
+one rank per card, and the collectives are NCCL's (gloo when a caller
+asks for the CPU):
+
+==========  ========================================================
+axis        what is sharded over it
+==========  ========================================================
+``data``    the batch only (replicas of the sharded model: HSDP)
+``fsdp``    the batch AND the parameters (FSDP2, ``parallel/sharding.py``)
+``model``   tensor parallelism (not ported: ROADMAP queue 1 item 5)
+``context`` sequence parallelism (not ported: item 8)
+``pipe``    pipeline stages (not ported: item 8)
+==========  ========================================================
+
+:func:`distributed_init` reads the rendezvous that torchrun and Ray Train
+set (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``); :func:`build_mesh` resolves a :class:`MeshConfig` over
+the world and returns the ``DeviceMesh``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import math
+import os
+from typing import Optional
+
+import torch
+
+from gke_ray_train_tpu_torch.device import DeviceLike
+
+logger = logging.getLogger(__name__)
+
+AXIS_DATA = "data"
+AXIS_FSDP = "fsdp"
+AXIS_MODEL = "model"
+AXIS_CONTEXT = "context"
+AXIS_PIPE = "pipe"
+MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL, AXIS_CONTEXT, AXIS_PIPE)
+
+# the batch is sharded over both data-parallel axes
+BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
+
+# the ROADMAP item that ports each axis the port cannot shard over yet
+UNPORTED_AXES = {
+    AXIS_MODEL: "tensor parallelism on `model` (ROADMAP queue 1 item 5)",
+    AXIS_CONTEXT: "context parallelism (ROADMAP queue 1 item 8)",
+    AXIS_PIPE: "pipeline parallelism (ROADMAP queue 1 item 8)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical mesh shape; any one axis may be -1 ("fill with what
+    remains"). ``num_slices`` counts DCN-joined slices in the JAX
+    package; a value above 1 raises here (ROADMAP queue 1 item 8)."""
+
+    data: int = 1
+    fsdp: int = -1
+    model: int = 1
+    context: int = 1
+    pipe: int = 1
+    num_slices: int = 1
+
+    def resolve(self, n_devices: int) -> "MeshConfig":
+        """Resolve -1 entries so the product equals ``n_devices``."""
+        sizes = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)
+                 if f.name in MESH_AXES}
+        fills = [k for k, v in sizes.items() if v == -1]
+        if len(fills) > 1:
+            raise ValueError(f"at most one mesh axis may be -1, got {fills}")
+        bad = {k: v for k, v in sizes.items() if v != -1 and v < 1}
+        if bad:
+            raise ValueError(f"mesh axis sizes must be >=1 (or -1): {bad}")
+        fixed = math.prod(v for v in sizes.values() if v != -1)
+        if fills:
+            if n_devices % fixed != 0:
+                raise ValueError(
+                    f"cannot fill axis {fills[0]}: {n_devices} devices not "
+                    f"divisible by fixed product {fixed} ({sizes})")
+            sizes[fills[0]] = n_devices // fixed
+        if math.prod(sizes.values()) != n_devices:
+            raise ValueError(
+                f"mesh {sizes} has {math.prod(sizes.values())} slots but "
+                f"{n_devices} devices are present")
+        return dataclasses.replace(self, **sizes)
+
+    @property
+    def shape(self) -> tuple:
+        return (self.data, self.fsdp, self.model, self.context, self.pipe)
+
+    @staticmethod
+    def from_dict(cfg: dict) -> "MeshConfig":
+        """From the flat UPPER_CASE config keys (``MESH_DATA`` ...
+        ``NUM_SLICES``)."""
+        return MeshConfig(
+            data=int(cfg.get("MESH_DATA", 1)),
+            fsdp=int(cfg.get("MESH_FSDP", -1)),
+            model=int(cfg.get("MESH_MODEL", 1)),
+            context=int(cfg.get("MESH_CONTEXT", 1)),
+            pipe=int(cfg.get("MESH_PIPE", 1)),
+            num_slices=int(cfg.get("NUM_SLICES", 1)),
+        )
+
+    def check_ported(self) -> "MeshConfig":
+        """Raise unless only the batch axes (data, fsdp) exceed 1 and
+        there is one slice; returns ``self``."""
+        if self.num_slices > 1:
+            raise NotImplementedError(
+                f"NUM_SLICES={self.num_slices}: multi-slice meshes are not "
+                "ported yet (ROADMAP queue 1 item 8)")
+        for axis, what in UNPORTED_AXES.items():
+            size = getattr(self, axis)
+            if size > 1:
+                raise NotImplementedError(
+                    f"MESH_{axis.upper()}={size}: {what} is not ported yet; "
+                    "the port shards over data and fsdp only")
+        return self
+
+
+def _env_int(name: str, default: int) -> int:
+    v = os.environ.get(name)
+    return default if v in (None, "") else int(v)
+
+
+def local_rank() -> int:
+    """This process's card index on its host (``LOCAL_RANK``, 0 when
+    unset)."""
+    return _env_int("LOCAL_RANK", 0)
+
+
+def is_distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def collective_device() -> torch.device:
+    """Where a small tensor for a collective of the default group lives:
+    this rank's card under NCCL, the CPU under gloo."""
+    import torch.distributed as dist
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def distributed_init(device: DeviceLike = None, *,
+                     world_size: Optional[int] = None,
+                     rank: Optional[int] = None,
+                     init_method: Optional[str] = None) -> torch.device:
+    """Join the process group and return this rank's device.
+
+    ``world_size`` / ``rank`` default to ``WORLD_SIZE`` / ``RANK``;
+    ``init_method`` to ``env://`` (``MASTER_ADDR`` / ``MASTER_PORT``).
+    With a world of one and no ``world_size`` passed no group is made,
+    and the device resolves as ``device.py`` does. Otherwise the group
+    uses NCCL on ``cuda:LOCAL_RANK`` (the card is made current), or gloo
+    when ``device`` is ``"cpu"``: nothing gives way to gloo on the card.
+    A group already initialized is reused."""
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.device import resolve_device
+    asked = world_size is not None
+    world = world_size if asked else _env_int("WORLD_SIZE", 1)
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if not cpu:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run "
+                "on the CPU explicitly")
+        torch.cuda.set_device(local_rank())
+    if world <= 1 and not asked and not is_distributed():
+        return resolve_device(device)
+    if not is_distributed():
+        dist.init_process_group(
+            backend="gloo" if cpu else "nccl",
+            init_method=init_method or "env://", world_size=world,
+            rank=rank if rank is not None else _env_int("RANK", 0))
+        logger.info("process group up: rank %d of %d (%s)",
+                    dist.get_rank(), dist.get_world_size(),
+                    dist.get_backend())
+    elif dist.get_backend() != ("gloo" if cpu else "nccl"):
+        raise RuntimeError(
+            f"the process group runs {dist.get_backend()!r}; "
+            f"{'gloo' if cpu else 'nccl'} is needed on "
+            f"{'the CPU' if cpu else 'the card'}")
+    return torch.device("cpu") if cpu else resolve_device(None)
+
+
+def build_mesh(config: Optional[MeshConfig] = None, *,
+               device_type: Optional[str] = None):
+    """The five-axis ``DeviceMesh`` of the world's ranks, ``config``
+    (default ``MeshConfig()``: all ranks on fsdp) resolved over the
+    world size and checked (:meth:`MeshConfig.check_ported`). Needs an
+    initialized process group; ``device_type`` defaults to the group's
+    (``cuda`` under NCCL, ``cpu`` under gloo)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    if not is_distributed():
+        raise RuntimeError("build_mesh needs a process group "
+                           "(parallel/mesh.py::distributed_init)")
+    config = (config or MeshConfig()).resolve(dist.get_world_size())
+    config.check_ported()
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    return init_device_mesh(device_type, config.shape,
+                            mesh_dim_names=MESH_AXES)
+
+
+def mesh_config_of(mesh) -> MeshConfig:
+    """The resolved ``MeshConfig`` of a mesh :func:`build_mesh` made."""
+    return MeshConfig(**{a: mesh.size(i) for i, a in enumerate(MESH_AXES)})
+
+
+def batch_group_size(mesh) -> int:
+    """Ranks over the batch axes (data × fsdp)."""
+    return math.prod(mesh[a].size() for a in BATCH_AXES)
+
+
+def batch_rank(mesh) -> int:
+    """This rank's index among the batch axes' tiles, data-major (the
+    order of the JAX package's ``P(("data", "fsdp"))``)."""
+    return (mesh[AXIS_DATA].get_local_rank() * mesh[AXIS_FSDP].size()
+            + mesh[AXIS_FSDP].get_local_rank())

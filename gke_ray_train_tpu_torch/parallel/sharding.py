@@ -1,0 +1,266 @@
+"""Parameter sharding over the ``fsdp`` axis with FSDP2 (the port's
+counterpart of ``gke_ray_train_tpu/models/transformer.py::param_specs``
+and ``parallel/sharding.py``).
+
+:func:`param_specs` is the JAX package's PartitionSpec table over the
+port's per-layer parameter names (no stacked repeat dim, so no ``pipe``
+entry). :func:`shard_model` turns it into FSDP2 placements: each
+``Block`` is one ``fully_shard`` unit and the root holds the embedding,
+final norm and head, every parameter sharded on the dim its spec puts on
+``fsdp``. Two departures, recorded in ROADMAP.md's known divergences:
+FSDP2 shards every parameter it manages, so the norms and biases JAX
+replicates are sharded on dim 0; and where the ``fsdp`` dim does not
+divide by the shard count FSDP2 takes dim 0 (it shards unevenly only
+there). A QLoRA base's NF4 / int8 codes and scales are sharded too: FSDP2
+shards parameters, not buffers, so they become frozen parameters
+(``requires_grad=False``) of their ``QTensor`` first, on the weight's
+fsdp dim; the codes' bytes are held as ``CODE_CONTAINER``, a one-byte
+float dtype, because FSDP2 (torch 2.11) makes each sharded parameter
+able to take a gradient, which an integer tensor cannot
+(``QTensor.code_tensor`` reads them back).
+
+Gradients are summed over the batch ranks, not averaged (the train step
+divides by the global token weight), and a ``data`` axis above 1 makes
+the units HSDP: replicated over ``data``, sharded over ``fsdp``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from gke_ray_train_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP
+
+if TYPE_CHECKING:   # models/ imports this module (qinit)
+    from gke_ray_train_tpu_torch.models.config import ModelConfig
+
+Spec = Tuple[Optional[str], ...]
+
+# the one-byte float dtype sharded codes are held in (bit for bit)
+CODE_CONTAINER = torch.float8_e4m3fn
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
+    """The logical sharding of every parameter, by its leaf name: a
+    block's tensors by their attribute name, the root's as ``embed`` /
+    ``final_norm`` / ``lm_head`` (JAX ``param_specs`` without the
+    leading ``pipe`` dim)."""
+    s: Dict[str, Spec] = {
+        "attn_norm": (None,),
+        "wq": (AXIS_FSDP, "model"),
+        "wk": (AXIS_FSDP, "model"),
+        "wv": (AXIS_FSDP, "model"),
+        "wo": ("model", AXIS_FSDP),
+        "mlp_norm": (None,),
+    }
+    if cfg.attn_qkv_bias:
+        s.update(bq=("model",), bk=("model",), bv=("model",))
+    if cfg.n_experts:
+        s.update(router=(AXIS_FSDP, None),
+                 w_gate=("model", AXIS_FSDP, None),
+                 w_up=("model", AXIS_FSDP, None),
+                 w_down=("model", None, AXIS_FSDP))
+    else:
+        s.update(w_gate=(AXIS_FSDP, "model"), w_up=(AXIS_FSDP, "model"),
+                 w_down=("model", AXIS_FSDP))
+    if cfg.post_block_norm:
+        s.update(attn_post_norm=(None,), mlp_post_norm=(None,))
+    s.update(embed=("model", AXIS_FSDP), final_norm=(None,))
+    if not cfg.tie_embeddings:
+        s["lm_head"] = (AXIS_FSDP, "model")
+    return s
+
+
+def _leaf_key(name: str) -> str:
+    """``wq`` for ``wq`` / ``wq.codes`` / ``wq.scales`` (a QTensor's
+    tensors follow their weight's spec)."""
+    parts = name.split(".")
+    if parts[-1] in ("codes", "scales") and len(parts) > 1:
+        return parts[-2]
+    return parts[-1]
+
+
+def shard_dim(cfg: ModelConfig, name: str, shape: torch.Size,
+              n_shards: int) -> int:
+    """The dim FSDP2 shards parameter ``name`` on: its spec's ``fsdp``
+    dim when the spec has one and it divides by ``n_shards``, else 0."""
+    spec = param_specs(cfg).get(_leaf_key(name))
+    if spec is None or AXIS_FSDP not in spec:
+        return 0
+    d = spec.index(AXIS_FSDP)
+    if d >= len(shape) or shape[d] % n_shards:
+        return 0
+    return d
+
+
+def fsdp_mesh(mesh):
+    """The mesh FSDP2 runs on: ``fsdp`` alone, or (``data``, ``fsdp``)
+    for HSDP when ``data`` exceeds 1."""
+    if mesh[AXIS_DATA].size() > 1:
+        return mesh[AXIS_DATA, AXIS_FSDP]
+    return mesh[AXIS_FSDP]
+
+
+def _quant_tensors_as_params(module: nn.Module) -> None:
+    """Make each ``QTensor``'s codes and scales frozen parameters in
+    place of buffers (FSDP2 shards parameters only), the codes' bytes
+    held as :data:`CODE_CONTAINER`."""
+    from gke_ray_train_tpu_torch.ops.quant import is_qtensor
+    for m in module.modules():
+        if not is_qtensor(m):
+            continue
+        for key in ("codes", "scales"):
+            t = m._buffers.pop(key, None)
+            if t is not None:
+                if key == "codes":
+                    t = t.view(CODE_CONTAINER)
+                m.register_parameter(key, nn.Parameter(
+                    t, requires_grad=False))
+
+
+def as_dtype(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t``'s bytes as ``dtype`` of the same size, a view (a DTensor's
+    local part viewed, placed as ``t`` is)."""
+    if t.dtype == dtype:
+        return t
+    if not is_sharded(t):
+        return t.view(dtype)
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(t.to_local().view(dtype), t.device_mesh,
+                              t.placements, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _sum_gradients(module: nn.Module) -> None:
+    """FSDP2 averages gradients over the ranks by default; make it sum
+    (a divide factor of 1, reduced with a plain sum: gloo has no
+    pre-multiplied sum)."""
+    setter = getattr(module, "set_gradient_divide_factor", None) or \
+        getattr(module, "set_reduce_scatter_divide_factor")
+    setter(1.0)
+    force_sum = getattr(module, "set_force_sum_reduction_for_comms", None)
+    if force_sum is not None:
+        force_sum(True)
+
+
+def shard_unit(module: nn.Module, cfg: ModelConfig, mesh, *,
+               reshard_after_forward: bool = True) -> nn.Module:
+    """``fully_shard`` one unit (a ``Block``, or the root after its
+    blocks) on ``param_specs``' fsdp dims."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+    fm = fsdp_mesh(mesh)
+    n = mesh[AXIS_FSDP].size()
+    _quant_tensors_as_params(module)
+    dims = {}
+    for name, p in module.named_parameters():
+        dims[id(p)] = shard_dim(cfg, name, p.shape, n)
+    fully_shard(module, mesh=fm,
+                reshard_after_forward=reshard_after_forward,
+                shard_placement_fn=lambda p: Shard(dims.get(id(p), 0)))
+    _sum_gradients(module)
+    return module
+
+
+def shard_model(params: nn.Module, mesh) -> nn.Module:
+    """Shard a ``Transformer`` over ``mesh``'s fsdp axis in place: each
+    block is a unit (gathered before its forward and again in the
+    backward, freed after each), the root holds the rest. Blocks that are
+    already units (:func:`shard_unit` during a sharded init) are left
+    as they are. Returns ``params``."""
+    from torch.distributed.fsdp import FSDPModule
+    cfg = params.cfg
+    for blk in params.blocks:
+        if not isinstance(blk, FSDPModule):
+            shard_unit(blk, cfg, mesh)
+    # the root's embedding and head are needed again first thing in the
+    # backward: kept gathered between forward and backward
+    shard_unit(params, cfg, mesh, reshard_after_forward=False)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# local views of sharded tensors, and the reductions over their shards
+# ---------------------------------------------------------------------------
+
+def is_sharded(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's part of ``t`` (``t`` itself when not a DTensor); a
+    view that in-place updates write through."""
+    return t.to_local() if is_sharded(t) else t
+
+
+def sharded_dims(t) -> List[Tuple[int, object]]:
+    """[(tensor dim, process group)] of the dims ``t`` is sharded on."""
+    if not is_sharded(t):
+        return []
+    out = []
+    for mdim, pl in enumerate(t.placements):
+        if pl.is_shard():
+            out.append((pl.dim, t.device_mesh.get_group(mdim)))
+    return out
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """In place over ``group``; returns ``x``."""
+    import torch.distributed as dist
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def global_sum(x: torch.Tensor, like, dims: Optional[Iterable[int]] = None,
+               keepdim: bool = False) -> torch.Tensor:
+    """The sum over ``dims`` (all when None) of the full tensor whose
+    local part is ``x`` and whose placement ``like`` has: the local sum,
+    all-reduced over each sharded dim that is summed over."""
+    nd = x.dim()
+    dims = tuple(range(nd)) if dims is None else tuple(d % nd for d in dims)
+    s = torch.sum(x, dim=dims, keepdim=keepdim) if dims else x
+    for d, group in sharded_dims(like):
+        if d in dims:
+            s = all_reduce_sum(s.contiguous(), group)
+    return s
+
+
+def global_mean(x: torch.Tensor, like, dims: Optional[Iterable[int]] = None,
+                keepdim: bool = False) -> torch.Tensor:
+    """:func:`global_sum` over the global element count of ``dims``."""
+    shape = like.shape
+    nd = len(shape)
+    dims = tuple(range(nd)) if dims is None else tuple(d % nd for d in dims)
+    if not any(d in dims for d, _ in sharded_dims(like)):
+        return torch.mean(x, dim=dims, keepdim=keepdim) if dims else x
+    count = math.prod(shape[d] for d in dims)
+    return global_sum(x, like, dims, keepdim) / count
+
+
+def like_placed(local_t: torch.Tensor, like, shape: Tuple[int, ...],
+                dropped: Tuple[int, ...] = ()) -> torch.Tensor:
+    """A DTensor of global ``shape`` whose local part is ``local_t``,
+    placed as ``like`` is with the tensor dims in ``dropped`` removed
+    (a reduction's output: sharded where ``like``'s sharded dim
+    survives, else replicated); ``local_t`` itself when ``like`` is not
+    sharded."""
+    if not is_sharded(like):
+        return local_t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    pls = []
+    for pl in like.placements:
+        if pl.is_shard() and pl.dim not in dropped:
+            pls.append(Shard(pl.dim - sum(1 for d in dropped if d < pl.dim)))
+        else:
+            pls.append(Replicate())
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(local_t, like.device_mesh, pls,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+

@@ -1,7 +1,8 @@
 """Worker train context (counterpart of
 ``gke_ray_train_tpu/rayint/context.py``, the port's own copy): the
 ``ray.train.get_context()`` / ``train.report`` surface a worker function
-relies on, for a single local process. The training loop records the
+relies on, for one process or a rank of a ``torch.distributed`` world
+(:meth:`TrainContext.is_host0` is rank 0). The training loop records the
 step it resumed from (:meth:`TrainContext.note_resume`) and its goodput
 ledger (:meth:`TrainContext.note_goodput`) here.
 
@@ -16,6 +17,16 @@ import os
 from typing import Optional
 
 logger = logging.getLogger(__name__)
+
+
+def _group():
+    """``torch.distributed`` when a process group is up (imported only
+    if torch is already loaded), else None."""
+    import sys
+    dist = sys.modules.get("torch.distributed")
+    if dist is not None and dist.is_available() and dist.is_initialized():
+        return dist
+    return None
 
 
 class TrainContext:
@@ -37,13 +48,26 @@ class TrainContext:
         self._heartbeat = None
 
     def get_world_size(self) -> int:
-        return int(os.environ.get("NUM_PROCESSES", "1"))
+        """The ``torch.distributed`` world when a group is up, else
+        ``WORLD_SIZE`` (torchrun, Ray Train), else ``NUM_PROCESSES``."""
+        dist = _group()
+        if dist is not None:
+            return dist.get_world_size()
+        return int(os.environ.get("WORLD_SIZE",
+                                  os.environ.get("NUM_PROCESSES", "1")))
 
     def get_world_rank(self) -> int:
-        return int(os.environ.get("PROCESS_ID", "0"))
+        """The group's rank when a group is up, else ``RANK``, else
+        ``PROCESS_ID``."""
+        dist = _group()
+        if dist is not None:
+            return dist.get_rank()
+        return int(os.environ.get("RANK", os.environ.get("PROCESS_ID", "0")))
 
     def get_local_rank(self) -> int:
-        return 0  # one process per card; multi-card is not ported yet
+        """This process's card on its host (``LOCAL_RANK``; one rank per
+        card)."""
+        return int(os.environ.get("LOCAL_RANK", "0"))
 
     def is_host0(self) -> bool:
         return self.get_world_rank() == 0

@@ -11,8 +11,8 @@ from gke_ray_train_tpu_torch.train.lora import (  # noqa: F401
 from gke_ray_train_tpu_torch.train.metrics import (  # noqa: F401
     ThroughputMeter, peak_flops_per_device, train_flops_per_token)
 from gke_ray_train_tpu_torch.train.optim import (  # noqa: F401
-    SGD, AdamW, OptimizerSpec, default_weight_decay_mask, make_optimizer,
-    make_sgd, warmup_cosine_schedule)
+    SGD, Adafactor, AdamW, OptimizerSpec, default_weight_decay_mask,
+    make_adafactor, make_optimizer, make_sgd, warmup_cosine_schedule)
 from gke_ray_train_tpu_torch.train.step import (  # noqa: F401
     TrainState, make_eval_step, make_train_state, make_train_step,
     token_nll)

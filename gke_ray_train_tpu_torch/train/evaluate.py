@@ -13,6 +13,10 @@ group walks the same number of steps:
 The walk is numpy on the host; ``place_batch`` puts each slice on the
 card (``data/prefetch.py::make_place_batch``; a batch copied on its side
 stream is waited for on the current one), else the eval step does.
+With more than one input shard under a ``torch.distributed`` world
+above one (one rank per shard, ``parallel/placement.py``) the shards'
+sums are all-reduced, so every rank returns the global sums; in one
+process a walk returns its own shard's sums.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Callable, Dict
 import numpy as np
 
 from gke_ray_train_tpu_torch.data.prefetch import PlacedBatch
+from gke_ray_train_tpu_torch.device import world_size
 
 
 def sharded_eval_sums(state, eval_step: Callable,
@@ -54,6 +59,21 @@ def sharded_eval_sums(state, eval_step: Callable,
         n, ww = eval_step(state, b)
         nll += float(n)
         w += float(ww)
+    if in_shards > 1 and world_size() > 1:
+        nll, w = _sum_over_shards(nll, w)
+    return nll, w
+
+
+def _sum_over_shards(nll: float, w: float) -> tuple:
+    """The shards' sums added in float64 over the world (on the card
+    under NCCL)."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel.mesh import collective_device
+    sums = torch.tensor([nll, w], dtype=torch.float64,
+                        device=collective_device())
+    dist.all_reduce(sums)
+    nll, w = sums.tolist()
     return nll, w
 
 

@@ -20,11 +20,13 @@ loop. PyTorch's idiom in its place:
 The checkpoint manager is ``ckpt/manager.py::CheckpointManager``; any
 object with ``restore_if_available`` / ``save`` / ``wait`` /
 ``latest_step``, optionally ``async_commit`` and
-``last_restore_source``, serves. Not ported yet, each named in
-ROADMAP.md: the multi-card preemption agreement
-(item 5: a ``torch.distributed`` world above 1 raises), the
-``FAULT_SPEC`` injector (item 6: an injector passed in is called; the
-variable set with none raises) and the telemetry hooks (item 9).
+``last_restore_source``, serves. Across a ``torch.distributed`` world
+every rank exits a preemption at the same boundary: every
+``PREEMPT_SYNC_EVERY`` boundaries the local SIGTERM flags meet in a MAX
+all-reduce (:func:`agree_preempt`), and off-cycle boundaries never
+exit. Not ported yet, each named in ROADMAP.md: the ``FAULT_SPEC``
+injector (item 6: an injector passed in is called; the variable set with
+none raises) and the telemetry hooks (item 9).
 """
 
 from __future__ import annotations
@@ -49,6 +51,19 @@ from gke_ray_train_tpu_torch.train.metrics import (
 from gke_ray_train_tpu_torch.train.step import TrainState
 
 logger = logging.getLogger(__name__)
+
+
+def agree_preempt(local: bool) -> bool:
+    """Any rank's preemption flag, on every rank: a MAX all-reduce of
+    the local flag over the world (on the group's device: the card under
+    NCCL)."""
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel.mesh import collective_device
+    flag = torch.tensor([1 if local else 0], dtype=torch.int32,
+                        device=collective_device())
+    with allow_transfers():
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
 
 def _fetch_metrics(m: dict) -> dict:
@@ -194,17 +209,25 @@ def run_training(state: TrainState,
     last_metrics = {}
     global_step = int(state.step)
     n_procs = world_size()
+    # the flag agreement runs only every K-th boundary, so the ranks do
+    # not meet in a collective every step; K is the same on every rank,
+    # so they still agree on the exit step (JAX loop.py:241-273)
+    preempt_sync_every = max(
+        1, int(os.environ.get("PREEMPT_SYNC_EVERY", "4")))
+    boundary = [0]
 
     def _preempt_requested() -> bool:
-        """The preemption verdict at a step boundary. Across ranks every
-        one must exit at the same boundary (an allgather of the flags,
-        JAX loop.py:252-273): multi-card is not ported yet."""
-        if n_procs > 1:
-            raise NotImplementedError(
-                f"run_training across {n_procs} ranks: the preemption "
-                "agreement and multi-card training are not ported yet "
-                "(ROADMAP queue 1 item 5)")
-        return preempt.requested()
+        """The preemption verdict at a step boundary: the local flag in
+        one process; across ranks every one exits at the same boundary,
+        any rank's flag preempting all, and an off-cycle boundary never
+        exits."""
+        local = preempt.requested()
+        if n_procs <= 1:
+            return local
+        boundary[0] += 1
+        if boundary[0] % preempt_sync_every:
+            return False
+        return agree_preempt(local)
 
     def _preempt_exit(state, m, step):
         """Grace-window exit: force-save, wait until durable, raise the

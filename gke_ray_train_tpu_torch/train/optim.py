@@ -15,7 +15,14 @@ with optax's numerics where they differ from torch's own:
   updates already made, set into the param groups before each update.
 
 ``SGD`` is the same clip before ``optax.sgd`` with momentum (the
-config's ``OPTIM=sgd``).
+config's ``OPTIM=sgd``), and ``Adafactor`` the clip before
+``optax.adafactor`` with its defaults (``OPTIM=adafactor``).
+
+On a model sharded with FSDP2 (``parallel/sharding.py``) the parameters,
+their gradients and the optimizer state are DTensors: each update runs on
+this rank's shards, and what optax reads over a whole tensor (the global
+norm; Adafactor's factored row / column means, its update RMS and the
+parameter RMS) is summed over the shards.
 """
 
 from __future__ import annotations
@@ -24,7 +31,11 @@ import dataclasses
 import math
 from typing import Callable, Iterable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+from gke_ray_train_tpu_torch.parallel.sharding import (
+    all_reduce_sum, global_mean, like_placed, local, sharded_dims)
 
 Schedule = Callable[[int], float]
 
@@ -65,11 +76,26 @@ def default_weight_decay_mask(name: str, p: torch.Tensor) -> bool:
     return name.rsplit(".", 1)[-1] not in _NO_DECAY_KEYS and p.dim() >= 2
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+def global_norm(grads: Iterable[Tuple[torch.Tensor, torch.Tensor]]
+                ) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (optax's
-    ``global_norm``)."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float()))
-                          for t in tensors))
+    ``global_norm``), of ``(parameter, local gradient)`` pairs whose
+    parameters may be sharded DTensors: each shard group's sum of squares
+    is all-reduced once; a replicated gradient counts once."""
+    plain: List[torch.Tensor] = []
+    by_group: dict = {}
+    for p, g in grads:
+        sq = torch.sum(torch.square(g.float()))
+        dims = sharded_dims(p)
+        if dims:
+            by_group.setdefault(dims[0][1], []).append(sq)
+        else:
+            plain.append(sq)
+    total = sum(plain) if plain else None
+    for group, sqs in by_group.items():
+        part = all_reduce_sum(sum(sqs), group)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +114,11 @@ class OptimizerSpec:
         default_weight_decay_mask
     kind: str = "adamw"
     momentum: float = 0.9
+    # adafactor (optax 0.2.6 defaults)
+    decay_rate: float = 0.8
+    min_dim_size_to_factor: int = 128
+    clipping_threshold: Optional[float] = 1.0
+    multiply_by_parameter_scale: bool = True
 
     def lr(self, count: int) -> float:
         s = self.schedule
@@ -104,11 +135,14 @@ class OptimizerSpec:
 class ClippedOptimizer(torch.optim.Optimizer):
     """Global-norm clipping, then the update of a subclass, in optax's
     arithmetic (module doc). Two param groups: decayed and not. The
-    per-parameter state (``STATE_KEYS``, zeros like the parameter) is
-    made here, as optax's ``init`` makes it, so a checkpoint restores
-    into it before any step. ``step()`` updates in place and keeps the
-    pre-clip global norm in ``last_grad_norm`` (a 0-dim fp32 tensor, read
-    without a host sync); ``count`` is the number of updates made."""
+    per-parameter state (``STATE_KEYS``, zeros like the parameter, or
+    what ``_init_state`` makes) is made here, as optax's ``init`` makes
+    it, so a checkpoint restores into it before any step. ``step()``
+    updates in place and keeps the pre-clip global norm in
+    ``last_grad_norm`` (a 0-dim fp32 tensor, read without a host sync);
+    ``count`` is the number of updates made. ``_update`` gets the
+    (possibly sharded) parameter and its state, and this rank's part of
+    the clipped gradient."""
 
     STATE_KEYS: Tuple[str, ...] = ()
 
@@ -127,8 +161,10 @@ class ClippedOptimizer(torch.optim.Optimizer):
         self.last_grad_norm: Optional[torch.Tensor] = None
         for g in self.param_groups:
             for p in g["params"]:
-                self.state[p] = {k: torch.zeros_like(p)
-                                 for k in self.STATE_KEYS}
+                self.state[p] = self._init_state(p)
+
+    def _init_state(self, p: torch.Tensor) -> dict:
+        return {k: torch.zeros_like(p) for k in self.STATE_KEYS}
 
     def _update(self, p: torch.Tensor, g: torch.Tensor, st: dict,
                 lr: float, wd: float) -> None:
@@ -145,9 +181,10 @@ class ClippedOptimizer(torch.optim.Optimizer):
                 loss = closure()
         spec = self.spec
         params = [p for g in self.param_groups for p in g["params"]]
-        grads = {p: (p.grad if p.grad is not None else torch.zeros_like(p))
+        grads = {p: (local(p.grad) if p.grad is not None
+                     else torch.zeros_like(local(p)))
                  for p in params}
-        norm = global_norm(grads.values())
+        norm = global_norm(grads.items())
         self.last_grad_norm = norm
         if spec.clip_norm is not None:
             # optax: select(norm < max_norm, g, g / norm * max_norm)
@@ -182,7 +219,7 @@ class AdamW(ClippedOptimizer):
 
     def _update(self, p, g, st, lr, wd):
         spec = self.spec
-        mu, nu = st["mu"], st["nu"]
+        p, mu, nu = local(p), local(st["mu"]), local(st["nu"])
         mu.copy_((1.0 - spec.b1) * g + spec.b1 * mu)
         nu.copy_((1.0 - spec.b2) * torch.square(g) + spec.b2 * nu)
         u = (mu / self._c1) / (torch.sqrt(nu / self._c2) + spec.eps)
@@ -198,12 +235,94 @@ class SGD(ClippedOptimizer):
     STATE_KEYS = ("trace",)
 
     def _update(self, p, g, st, lr, wd):
-        tr = st["trace"]
+        p, tr = local(p), local(st["trace"])
         tr.copy_(g + self.spec.momentum * tr)
         p.add_((tr * -lr).to(p.dtype))
 
 
-OPTIMIZERS = {"adamw": AdamW, "sgd": SGD}
+def factored_dims(shape, min_dim_size_to_factor: int
+                  ) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: (second largest, largest) dim of a
+    tensor of at least 2 dims whose second largest dim reaches
+    ``min_dim_size_to_factor``, else None (numpy's argsort, as optax)."""
+    if len(shape) < 2:
+        return None
+    order = np.argsort(tuple(shape))
+    if shape[order[-2]] < min_dim_size_to_factor:
+        return None
+    return int(order[-2]), int(order[-1])
+
+
+class Adafactor(ClippedOptimizer):
+    """Clip, then ``optax.adafactor(learning_rate=schedule,
+    weight_decay_rate=...)`` with optax 0.2.6's defaults: factored
+    second moments (``v_row`` / ``v_col``) on tensors whose two largest
+    dims reach ``min_dim_size_to_factor``, a full ``v`` otherwise, decay
+    ``1 - t ** -decay_rate``, the update clipped to block RMS
+    ``clipping_threshold``, scaled by the learning rate, then by the
+    parameter's RMS (at least 1e-3), plus ``weight_decay`` times the
+    parameter (every parameter: optax is given no mask), in that order.
+    Every mean is over the whole tensor when it is sharded."""
+
+    def _init_state(self, p):
+        fd = factored_dims(p.shape, self.spec.min_dim_size_to_factor)
+        if fd is None:
+            return {"v": torch.zeros_like(p)}
+        d1, d0 = fd
+        lp = local(p)
+        out = {}
+        for key, drop in (("v_row", d0), ("v_col", d1)):
+            shape = tuple(n for i, n in enumerate(p.shape) if i != drop)
+            lshape = tuple(n for i, n in enumerate(lp.shape) if i != drop)
+            out[key] = like_placed(
+                torch.zeros(lshape, dtype=p.dtype, device=lp.device), p,
+                shape, dropped=(drop,))
+        return out
+
+    def _begin(self) -> None:
+        # optax: t = count + 1 in fp32, decay 1 - t ** -decay_rate; kept
+        # as Python floats so that no step copies a scalar to the card
+        t = torch.tensor(float(self.count), dtype=torch.float32)
+        decay = 1.0 - t ** (-self.spec.decay_rate)
+        self._decay, self._keep = float(decay), float(1.0 - decay)
+
+    def _update(self, p, g, st, lr, wd):
+        spec = self.spec
+        lp = local(p)
+        dev = lp.device
+        dr, keep = self._decay, self._keep
+        g2 = torch.square(g) + spec.eps
+        fd = factored_dims(p.shape, spec.min_dim_size_to_factor)
+        if fd is not None:
+            d1, d0 = fd
+            vr, vc = local(st["v_row"]), local(st["v_col"])
+            new_vr = (dr * vr + keep * global_mean(g2, p, (d0,))).to(vr.dtype)
+            new_vc = (dr * vc + keep * global_mean(g2, p, (d1,))).to(vc.dtype)
+            rd1 = d1 - 1 if d1 > d0 else d1
+            row_mean = global_mean(new_vr, st["v_row"], (rd1,), keepdim=True)
+            u = (g * torch.unsqueeze((new_vr / row_mean) ** -0.5, d0)
+                 * torch.unsqueeze(new_vc ** -0.5, d1))
+            vr.copy_(new_vr)
+            vc.copy_(new_vc)
+        else:
+            v = local(st["v"])
+            new_v = (dr * v + keep * g2).to(v.dtype)
+            u = g * new_v ** -0.5
+            v.copy_(new_v)
+        if spec.clipping_threshold is not None:
+            rms = torch.sqrt(global_mean(torch.square(u), p))
+            u = u / torch.clamp_min(rms / spec.clipping_threshold, 1.0)
+        u = torch.full((), lr, dtype=u.dtype, device=dev) * u
+        if spec.multiply_by_parameter_scale:
+            prms = torch.sqrt(global_mean(torch.square(lp), p))
+            u = u * torch.where(prms <= 1e-3,
+                                torch.full_like(prms, 1e-3), prms)
+        if wd:
+            u = u + wd * lp
+        lp.add_((-u).to(lp.dtype))
+
+
+OPTIMIZERS = {"adamw": AdamW, "sgd": SGD, "adafactor": Adafactor}
 
 
 def make_optimizer(schedule: Union[Schedule, float], *,
@@ -219,6 +338,22 @@ def make_optimizer(schedule: Union[Schedule, float], *,
         schedule=schedule, weight_decay=weight_decay, clip_norm=clip_norm,
         b1=b1, b2=b2, eps=eps,
         weight_decay_mask=weight_decay_mask or default_weight_decay_mask)
+
+
+def make_adafactor(schedule: Union[Schedule, float], *,
+                   clip_norm: Optional[float] = 1.0,
+                   weight_decay_rate: Optional[float] = None
+                   ) -> OptimizerSpec:
+    """``optax.chain(clip_by_global_norm(clip_norm),
+    adafactor(learning_rate=schedule,
+    weight_decay_rate=weight_decay_rate))`` as an ``OptimizerSpec``
+    (optax 0.2.6's other defaults: ``min_dim_size_to_factor`` 128,
+    ``decay_rate`` 0.8, ``decay_offset`` 0, parameter scaling on,
+    ``clipping_threshold`` 1.0, no momentum, ``eps`` 1e-30)."""
+    return OptimizerSpec(schedule=schedule,
+                         weight_decay=weight_decay_rate or 0.0,
+                         clip_norm=clip_norm, eps=1e-30, kind="adafactor",
+                         weight_decay_mask=lambda name, p: True)
 
 
 def make_sgd(schedule: Union[Schedule, float], *,

@@ -13,6 +13,15 @@ fused cross-entropy (``ops/fused_ce.py``) on the final-normed hidden
 state, as the JAX step does (:234-240, :278-292). Otherwise logits are
 materialized in fp32 and reduced by ``token_nll``.
 
+On a mesh (``parallel/mesh.py::build_mesh``: ranks over ``data`` ×
+``fsdp``, one card each) the model is sharded with FSDP2
+(``parallel/sharding.py``) and each rank runs the step on its own rows.
+The token NLL and weight sums are all-reduced before the divide, so the
+loss and the gradient scale are the global ones; FSDP2 sums the sharded
+gradients over the ranks once a step (on the last microbatch), and the
+LoRA adapters, replicated on every rank, have their gradients summed in
+one all-reduce. The optimizer reads the global norm over the shards.
+
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
 JAX signature; the step count is a Python int.
@@ -29,12 +38,14 @@ import torch
 from gke_ray_train_tpu_torch.device import DeviceLike, check_on, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
-    Lora, Transformer, dropout_seed, forward, init_params, torch_dtype,
+    Lora, Transformer, dropout_seed, init_params, torch_dtype,
     unembed_head)
 from gke_ray_train_tpu_torch.ops.fused_ce import fused_cross_entropy
 from gke_ray_train_tpu_torch.ops.quant import is_qtensor
 from gke_ray_train_tpu_torch.train.lora import LoraConfig, init_lora
 from gke_ray_train_tpu_torch.train.optim import AdamW, OptimizerSpec
+from gke_ray_train_tpu_torch.parallel.sharding import (
+    is_sharded, local, shard_model)
 
 Batch = Dict[str, Any]
 
@@ -72,6 +83,18 @@ def trainable_tensors(params: Transformer, lora: Optional[Lora]
                 yield f"blocks.{i}.{t}.{k}", v
 
 
+def _check_mesh(mesh) -> None:
+    """Raise unless ``mesh`` is a ``build_mesh`` mesh whose only axes
+    above 1 are the ported batch axes (data, fsdp)."""
+    if mesh is None:
+        return
+    from gke_ray_train_tpu_torch.parallel.mesh import mesh_config_of
+    if not hasattr(mesh, "mesh_dim_names"):
+        raise TypeError(f"mesh must be a DeviceMesh from parallel/mesh.py::"
+                        f"build_mesh, not {type(mesh).__name__}")
+    mesh_config_of(mesh).check_ported()
+
+
 def make_train_state(cfg: ModelConfig, optimizer: OptimizerSpec,
                      seed: int = 0, *, mesh=None,
                      lora_cfg: Optional[LoraConfig] = None,
@@ -80,12 +103,16 @@ def make_train_state(cfg: ModelConfig, optimizer: OptimizerSpec,
     """Params (random from ``seed`` unless pre-built ``params`` are
     passed, e.g. a quantized base), LoRA adapters from ``seed + 1`` in
     LoRA mode, and the optimizer over the trainables, on ``device``
-    (default ``cuda``). In LoRA mode the base is frozen; in full
-    fine-tuning every parameter is trainable."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP queue 1, multi-GPU); the "
-            "port trains on one device")
+    (default ``cuda``, ``cuda:LOCAL_RANK`` under a process group). In
+    LoRA mode the base is frozen; in full fine-tuning every parameter is
+    trainable.
+
+    ``mesh``: the params are sharded over its fsdp axis
+    (``parallel/sharding.py::shard_model``; params a sharded init already
+    sharded stay so), the adapters are the same on every rank (rank 0's,
+    broadcast), and the optimizer's state is sharded like its
+    parameters."""
+    _check_mesh(mesh)
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, seed, device=dev)
@@ -100,6 +127,14 @@ def make_train_state(cfg: ModelConfig, optimizer: OptimizerSpec,
                              "params; a quantized base trains through "
                              "LoRA (pass lora_cfg)")
         params.requires_grad_(True)
+    if mesh is not None:
+        import torch.distributed as dist
+        shard_model(params, mesh)
+        # the batch axes span every rank while only data and fsdp are
+        # ported: the world group
+        for _, t in trainable_tensors(None, lora) if lora else ():
+            with torch.no_grad():
+                dist.broadcast(t, src=0)
     opt = optimizer.build(trainable_tensors(params, lora))
     return TrainState(params=params, lora=lora, opt_state=opt, step=0)
 
@@ -139,14 +174,16 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     each microbatch's loss adds ``cfg.router_aux_coef * router_aux * w``
     (the forward's aux over the microbatch's loss weights, billed per
     token so the divide by the total weight gives ce_mean + coef *
-    aux_mean), as the JAX step does (:293-296). Manual overlap and meshes
-    raise ``NotImplementedError``."""
+    aux_mean), as the JAX step does (:293-296). Manual overlap raises
+    ``NotImplementedError``.
+
+    ``mesh``: the state is sharded over it (``make_train_state(mesh=)``)
+    and ``batch`` is this rank's rows; ``loss`` and ``tokens`` are the
+    global ones (module doc)."""
     if grad_accum is _UNSET:
         grad_accum = plan.grad_accum if plan is not None else 1
     fused_ops = plan is not None and plan.fused_ops
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP queue 1, multi-GPU)")
+    _check_mesh(mesh)
     fused_ce = fused_ops and cfg.logit_softcap is None
     if overlap == "manual":
         raise NotImplementedError(
@@ -164,6 +201,9 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                              "this step's optimizer spec")
         params = state.params
         check_on(params.embed, dev, "the train state")
+        if mesh is not None and not is_sharded(params.embed):
+            raise ValueError("a meshed step needs the state "
+                             "make_train_state(mesh=) shards")
         trainables = [t for _, t in trainable_tensors(params, state.lora)]
         b = _as_device(batch, dev)
         B = b["inputs"].shape[0]
@@ -179,38 +219,47 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             micro = {k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
             seed = (dropout_seed(state.step, m)
                     if lora_mode and drop > 0.0 else None)
-            out = forward(
-                params, micro["inputs"], cfg,
+
+            def loss_fn(out, p, micro=micro):
+                if fused_ce:
+                    # the head of the one param tree: frozen under LoRA,
+                    # so the kernel forms no dhead; trained in full
+                    # fine-tuning (a tied head through embed.T)
+                    return fused_cross_entropy(
+                        out, unembed_head(p, cfg).to(dtype),
+                        micro["targets"], micro["weights"])
+                return token_nll(out, micro["targets"], micro["weights"])
+            if mesh is not None:
+                # FSDP2 sums the sharded gradients once, on the last one
+                params.set_requires_gradient_sync(m == grad_accum - 1)
+            # through Transformer.__call__, with the loss inside it: a
+            # sharded root holds the embedding and head gathered
+            out = params(
+                micro["inputs"], cfg,
                 positions=micro.get("positions"),
                 segment_ids=micro.get("segment_ids"),
                 lora=state.lora,
                 lora_scale=lora_cfg.scale if lora_mode else 1.0,
                 lora_dropout=drop, lora_seed=seed, fused_ops=fused_ops,
                 return_pre_unembed=fused_ce, with_aux=moe,
-                token_weights=micro["weights"] if moe else None)
-            out, aux = out if moe else (out, None)
-            if fused_ce:
-                # the head of the one param tree: frozen under LoRA, so
-                # the kernel forms no dhead; trained in full fine-tuning
-                # (a tied head through embed.T)
-                nll, w = fused_cross_entropy(
-                    out, unembed_head(params, cfg).to(dtype),
-                    micro["targets"], micro["weights"])
-            else:
-                nll, w = token_nll(out, micro["targets"], micro["weights"])
-            del out
+                token_weights=micro["weights"] if moe else None,
+                loss_fn=loss_fn)
+            (nll, w), aux = out if moe else (out, None)
             if moe:
                 nll = nll + cfg.router_aux_coef * aux["router_aux"] * w
             nll.backward()
             nll_sum += nll.detach()
             w_sum += w
+        if mesh is not None:
+            nll_sum, w_sum = _sum_over_ranks(nll_sum, w_sum, trainables)
         inv_w = torch.where(w_sum > 0, 1.0 / w_sum,
                             torch.zeros((), device=dev))
         with torch.no_grad():
             for t in trainables:
                 if t.grad is None:
                     t.grad = torch.zeros_like(t)
-                t.grad.mul_(inv_w.to(t.grad.dtype))
+                g = local(t.grad)
+                g.mul_(inv_w.to(g.dtype))
         metrics = {"loss": nll_sum * inv_w, "tokens": w_sum}
         if schedule is not None:
             metrics["learning_rate"] = float(schedule(state.step))
@@ -221,7 +270,39 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
         state.step += 1
         return state, metrics
 
+    # what the divergence guard hashes of this step's settings
+    # (analysis/guards.py::step_identity_text); callables are left out
+    train_step.step_identity = {
+        "model": dataclasses.asdict(cfg),
+        "plan": plan.fingerprint() if plan is not None else None,
+        "optimizer": {f.name: getattr(optimizer, f.name)
+                      for f in dataclasses.fields(optimizer)
+                      if not callable(getattr(optimizer, f.name))},
+        "grad_accum": grad_accum, "fused_ops": fused_ops,
+        "lora": dataclasses.asdict(lora_cfg) if lora_mode else None,
+        "mesh": list(mesh.mesh.shape) if mesh is not None else None,
+    }
     return train_step
+
+
+def _sum_over_ranks(nll_sum, w_sum, trainables):
+    """The step's global sums over the world: the NLL and weight sums
+    all-reduced in one call, and the replicated trainables' (the
+    adapters') gradients summed in one flat all-reduce; FSDP2 has summed
+    the sharded ones."""
+    import torch.distributed as dist
+    sums = torch.stack([nll_sum, w_sum])
+    dist.all_reduce(sums)
+    grads = [t.grad for t in trainables
+             if t.grad is not None and not is_sharded(t)]
+    if grads:
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+    return sums[0], sums[1]
 
 
 def make_eval_step(cfg: ModelConfig, *, mesh=None,
@@ -229,21 +310,27 @@ def make_eval_step(cfg: ModelConfig, *, mesh=None,
                    device: DeviceLike = None):
     """``(state, batch) -> (nll_sum, weight_sum)``: callers sum across
     batches, then divide (the exact eval loss). NLL only: an MoE model's
-    router aux is a training term, as in the JAX eval step."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "meshes are not ported yet (ROADMAP queue 1, multi-GPU)")
+    router aux is a training term, as in the JAX eval step. On a
+    ``mesh`` the sums are this rank's rows'
+    (``train/evaluate.py::sharded_eval_sums`` all-reduces them)."""
+    _check_mesh(mesh)
     dev = resolve_device(device)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch):
         check_on(state.params.embed, dev, "the train state")
         b = _as_device(batch, dev)
-        logits = forward(state.params, b["inputs"], cfg,
-                         positions=b.get("positions"),
-                         segment_ids=b.get("segment_ids"),
-                         lora=state.lora if lora_cfg is not None else None,
-                         lora_scale=lora_cfg.scale if lora_cfg else 1.0)
-        return token_nll(logits, b["targets"], b["weights"])
+        out = state.params(
+            b["inputs"], cfg, positions=b.get("positions"),
+            segment_ids=b.get("segment_ids"),
+            lora=state.lora if lora_cfg is not None else None,
+            lora_scale=lora_cfg.scale if lora_cfg else 1.0,
+            loss_fn=lambda logits, p: token_nll(logits, b["targets"],
+                                                b["weights"]))
+        if mesh is not None:
+            # a sharded root keeps its gathered weights after a forward,
+            # for the backward (shard_model); an eval has none to wait for
+            state.params.reshard()
+        return out
 
     return eval_step

@@ -140,8 +140,19 @@ def test_optimizer_from_config_takes_optax_step(name):
 
 
 def test_adafactor_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 4"):
-        tconfig.optimizer_from_config({"OPTIM": "adafactor"}, 1e-3)
+    """OPTIM=adafactor raised until it was ported; it now builds the
+    clip + adafactor chain JAX's config builds (optax's defaults, the
+    decay rate WEIGHT_DECAY or none), tested against optax in
+    test_torch_port_remat_adafactor.py."""
+    spec = tconfig.optimizer_from_config({"OPTIM": "adafactor"}, 1e-3)
+    assert (spec.kind, spec.eps, spec.clip_norm, spec.weight_decay) == (
+        "adafactor", 1e-30, 0.3, 0.001)
+    assert (spec.decay_rate, spec.min_dim_size_to_factor,
+            spec.clipping_threshold, spec.multiply_by_parameter_scale) == (
+        0.8, 128, 1.0, True)
+    spec = tconfig.optimizer_from_config(
+        {"OPTIM": "adafactor", "WEIGHT_DECAY": 0.0}, 1e-3)
+    assert spec.weight_decay == 0.0
 
 
 @pytest.mark.parametrize("config", [

@@ -57,7 +57,8 @@ def test_every_module_imports_with_jax_blocked():
               "train.loop", "train.evaluate", "train.preempt", "train.tb",
               "train.profiling", "ckpt", "ckpt.manager", "ckpt.hf_io",
               "fine_tune", "serve.adapters", "ops.lora_batched",
-              "inference"):
+              "inference", "parallel", "parallel.mesh",
+              "parallel.sharding", "parallel.placement", "ckpt.convert"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -563,19 +563,35 @@ def test_plan_loop_knobs_match_jax_and_leave_the_fingerprint():
 
 
 def test_guards_on_cpu_and_the_multi_card_refusals(monkeypatch):
-    """Without CUDA the transfer guard does nothing; the divergence guard
-    and the loop raise NotImplementedError in a world above 1."""
+    """Without CUDA the transfer guard does nothing. In a world above 1
+    (refused until it was ported) the divergence guard exchanges the
+    step's identity and raises on a mismatch, and the loop asks the
+    ranks to agree on preemption every PREEMPT_SYNC_EVERY boundaries
+    only (the real collectives run in test_torch_port_multirank.py)."""
     with tguards.transfer_guard_ctx("disallow"), tguards.allow_transfers():
         pass
     g = tguards.RuntimeGuards(transfer_mode="disallow", divergence=True)
-    g.check_divergence(None, None, None)          # one process: nothing
-    monkeypatch.setattr(tguards, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        g.check_divergence(None, None, None)
+    assert g.check_divergence(None, None, None) is None   # one process
     state, step, batches, _ = _tiny_port()
+    monkeypatch.setattr(tguards, "world_size", lambda: 2)
+    import torch.distributed as dist
+    monkeypatch.setattr(dist, "get_rank", lambda: 0)
+    mine = tguards.step_identity_text(step, state)
+    monkeypatch.setattr(tguards, "_all_gather",
+                        lambda v: [v, v])
+    assert g.check_divergence(step, state, None) == \
+        tguards.hashlib.sha256(mine.encode()).hexdigest()
+    monkeypatch.setattr(tguards, "_all_gather",
+                        lambda v: [v, "other " + v])
+    with pytest.raises(tguards.StepDivergenceError, match="rank 1"):
+        g.check_divergence(step, state, None)
     monkeypatch.setattr(tloop, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tloop.run_training(state, step, batches, epochs=1)
+    asked = []
+    monkeypatch.setattr(tloop, "agree_preempt",
+                        lambda local: asked.append(local) or False)
+    monkeypatch.setenv("PREEMPT_SYNC_EVERY", "2")
+    tloop.run_training(state, step, batches, epochs=1)
+    assert len(asked) >= 1 and not any(asked)
 
 
 # -- the rest of the loop's hooks --------------------------------------------

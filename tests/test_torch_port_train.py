@@ -275,14 +275,29 @@ def test_trainable_names_drive_the_decay_mask():
 
 
 def test_train_step_refuses_what_is_not_ported():
+    """Manual overlap still raises; a mesh must be a DeviceMesh, and one
+    with an axis other than data / fsdp above 1 raises naming its
+    ROADMAP item; ``remat_policy="dots"`` (which raised before it was
+    ported) now trains, to the numbers of ``"full"``."""
     _, tc = _cfgs()
     spec = make_optimizer(0.1)
-    for kw, match in ((dict(overlap="manual"), "OVERLAP"),
-                      (dict(mesh=object()), "mesh")):
-        with pytest.raises(NotImplementedError, match=match):
-            make_train_step(tc, spec, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="dots"):
-        cfg = dataclasses.replace(tc, remat=True, remat_policy="dots")
+    with pytest.raises(NotImplementedError, match="OVERLAP"):
+        make_train_step(tc, spec, device="cpu", overlap="manual")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        make_train_step(tc, spec, device="cpu", mesh=object())
+
+    class TPMesh:                   # data 1 x fsdp 1 x model 2
+        mesh_dim_names = ("data", "fsdp", "model", "context", "pipe")
+
+        def size(self, i):
+            return (1, 1, 2, 1, 1)[i]
+    with pytest.raises(NotImplementedError, match="model.*item 5"):
+        make_train_step(tc, spec, device="cpu", mesh=TPMesh())
+    losses = {}
+    for policy in ("full", "dots"):
+        cfg = dataclasses.replace(tc, remat=True, remat_policy=policy)
         model = init_params(cfg, seed=0, device="cpu")
         state = make_train_state(cfg, spec, params=model, device="cpu")
-        make_train_step(cfg, spec, device="cpu")(state, _batch(0))
+        _, m = make_train_step(cfg, spec, device="cpu")(state, _batch(0))
+        losses[policy] = (float(m["loss"]), float(m["grad_norm"]))
+    np.testing.assert_allclose(losses["dots"], losses["full"], rtol=1e-6)
