@@ -41,7 +41,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              replaced, each in alternated turns.
              The per-head rms_norm + RoPE is timed at the Llama-3.1-8B q
              of the training microbatch and the Gemma-2-9B q of one
-             packed row.
+             packed row. Under tensor parallelism the kernels take a
+             rank's part: flash and RoPE are held at the local heads of
+             Llama-3.1-8B at model 2 and Llama-3.1-70B at model 4, and
+             the cross-entropy kernels over 2 and 4 vocab shards of the
+             Llama head (64,128 and 32,064 columns) through the port's
+             shift and merge, against the unsharded kernel and the plain
+             version, and timed on one shard with its bound and the
+             two-call route on it.
 4. serve   — Llama-3.1-8B at full width and depth (bf16, random weights
              from a seed) through ``BatchEngine``: 24 requests over the
              256 and 512 buckets; the flash kernel must have run once per
@@ -139,6 +146,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (p50, peak, losses), and OPTIM=adafactor against AdamW (p50,
              the optimizer state's bytes), both of these steps under
              TRANSFER_GUARD=disallow.
+11e. train_tp — tensor parallelism on one card: the train_mesh job at
+             full width cut to 4 layers, in this process, then as two
+             ranks of this card over gloo at model 2 x fsdp 1 (gloo's
+             collectives on the card's tensors probed first; where one
+             the path makes is missing the line says so and the phase
+             rests on the kernels phase's local-head and vocab-shard
+             cases): 1 + 3 steps, each rank's losses and grad_norms
+             within 1e-2 of this process's and per step the launches of
+             the unmeshed step (flash on 16 of 32 heads, the
+             cross-entropy on a 64,128-column vocab shard on wgmma); 1 +
+             1 steps at LORA_DROPOUT 0.1 whose first column-parallel masks
+             agree across the ranks and row-parallel masks differ; the
+             job in fp32 (TF32 off) at 2 layers within 1e-3.
 12. kernelcheck — run right after the kernels phase: the port's kernel
              sweep (``analysis/kernelcheck.py`` over
              ``ops/registry.py``) on the card: every registered case
@@ -218,6 +238,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the same finite loss and eval loss, and the sharded export
              converts to an HF directory of finite tensors; the
              export's peak memory a card.
+19c. train_tp_multi (opt-in) — the four-card host (fewer fails): one
+             card first (the 70B config at 1 layer; the train_mesh job,
+             dropout off, one-row microbatches), then one rank a card
+             over NCCL: ray-jobs/fine_tune_config_70b.json (full
+             fine-tuning of a bf16 base over fp32 masters, AdamW,
+             FUSED_OPS=1) on fsdp 1 x model 4, every step within 1e-2
+             of one card at 1 layer, and at 8 of its 80 layers per card
+             p50, tokens/s, peak and the bytes all-reduced a step; the
+             8B job at data 2 x fsdp 2 and fsdp 2 x model 2, each within
+             1e-2 of one card; then the entry under torchrun at
+             MESH_MODEL 2 with its export converted.
 20. train_moe_profile (opt-in) — the train_profile route over one step
              of the train_moe job, with its device time by MoE group
              (dequantize, expert GEMMs, dispatch, flash).
@@ -439,6 +470,13 @@ KERNEL_CASES = {
         window=128, softcap=50.0, masked_rows=True),
     "interior_bf16": dict(B=1, S=512, T=512, H=4, K=2, dh=128,
                           dtype="bfloat16", causal=False),
+    # a rank's local heads under tensor parallelism: Llama-3.1-8B at
+    # model 2 (train_tp: 32 / 2 query over 8 / 2 KV heads) and
+    # Llama-3.1-70B at model 4 (train_tp_multi: 64 / 4 over 8 / 4)
+    "llama3_8b_tp2_bf16": dict(B=2, S=1024, T=1024, H=16, K=4, dh=128,
+                               dtype="bfloat16"),
+    "llama3_70b_tp4_bf16": dict(B=1, S=1024, T=1024, H=16, K=2, dh=128,
+                                dtype="bfloat16"),
 }
 
 # the serving path's prefill shapes: Llama-3.1-8B, one prompt per prefill
@@ -765,10 +803,13 @@ NORM_CASES = [dict(D=D, dtype=dt, scale_plus_one=sp1)
               for dt in ("float32", "bfloat16")
               for D in (64, 3584, 4096, 5120, 8192)
               for sp1 in (False, True)]
-# fused RoPE cases (B, S, H, K, dh): tiny, Gemma-2's training shape, Llama's
+# fused RoPE cases (B, S, H, K, dh): tiny, Gemma-2's training shape,
+# Llama's, and the local heads of Llama-3.1-8B at model 2 and of
+# Llama-3.1-70B at model 4
 ROPE_CASES = [dict(shape=shp, dtype=dt) for dt in ("float32", "bfloat16")
               for shp in ((1, 128, 4, 2, 32), (1, 4096, 16, 8, 256),
-                          (2, 1024, 32, 8, 128))]
+                          (2, 1024, 32, 8, 128), (2, 1024, 16, 4, 128),
+                          (1, 1024, 16, 2, 128))]
 # the train_fused phase's shapes: Gemma-2-9B, one packed row of 4,096
 GEMMA_NORM_SHAPE = (1, 4096, 3584)
 GEMMA_ROPE_SHAPE = (1, 4096, 16, 8, 256)
@@ -1335,6 +1376,146 @@ def _time_ce_llama_shape(dev):
     return runs
 
 
+# the vocab shards of the Llama-3.1-8B head the TP paths give the
+# cross-entropy kernels: model 2 (V / 2 = 64,128) and model 4 (V / 4 =
+# 32,064, no multiple of a 128-column vocab tile)
+CE_SHARDS = (2, 4)
+
+
+def _time_ce_vocab_shards(dev):
+    """Rows 4-6 over the vocab shards of the Llama-3.1-8B head
+    (CE_LLAMA_SHAPE split ``CE_SHARDS`` ways), in one process through the
+    port's own shift and merge (``parallel/tensor.py::shift_labels``,
+    ``merge_shard_stats``): every shard's row statistics of its shifted
+    labels, merged, and dx summed over the shards and the dhead shards
+    side by side, held against the unsharded plain version and the
+    unsharded kernel. Shard 1 (labels off it on both sides: negative and
+    past its end) is held kernel against plain on its own and timed,
+    better of two turns: kernel, plain version, and ``matmul_f32`` +
+    ``F.cross_entropy`` on the same shard (labels taken modulo the shard's
+    width: F.cross_entropy takes no label outside it), with its bound."""
+    import torch
+    import torch.nn.functional as F
+    from gke_ray_train_tpu_torch.ops.fused_ce import (
+        fused_ce_dhead, fused_ce_dx, fused_ce_grads_reference,
+        fused_ce_row_stats, fused_ce_row_stats_reference)
+    from gke_ray_train_tpu_torch.ops.matmul import matmul_f32
+    from gke_ray_train_tpu_torch.parallel.tensor import (
+        merge_shard_stats, shift_labels)
+    case = CE_LLAMA_SHAPE
+    tol = CE_TOL[case["dtype"]]
+    x, head, t, w = _ce_inputs(case, dev, seed=6, in_range=True)
+    N, D, V = case["N"], case["D"], case["V"]
+    ref_lse, ref_tgt = fused_ce_row_stats_reference(x, head, t)
+    ref_dx, ref_dh = fused_ce_grads_reference(x, head, t, w, ref_lse)
+    un_lse, un_tgt = fused_ce_row_stats(x, head, t)
+    un_dx = fused_ce_dx(x, head, t, w, un_lse)
+    un_dh = fused_ce_dhead(x, head, t, w, un_lse)
+
+    def err(got, want, floor=0.0):
+        e = float((got.float() - want.float()).abs().max())
+        if not bool(torch.isfinite(got.float()).all()):
+            e = float("inf")
+        return e, max(floor, float(want.float().abs().max()))
+    out = {}
+    for n in CE_SHARDS:
+        vl = V // n
+        shards = [s.contiguous() for s in head.split(vl, dim=1)]
+        labels = [shift_labels(t, k, vl) for k in range(n)]
+        stats = [fused_ce_row_stats(x, s, lab)
+                 for s, lab in zip(shards, labels)]
+        lse, tgt = merge_shard_stats(torch.stack([a for a, _ in stats]),
+                                     torch.stack([b for _, b in stats]))
+        dx = sum(fused_ce_dx(x, s, lab, w, lse).float()
+                 for s, lab in zip(shards, labels)).to(x.dtype)
+        dh = torch.cat([fused_ce_dhead(x, s, lab, w, lse)
+                        for s, lab in zip(shards, labels)], dim=1)
+        torch.cuda.synchronize()
+        row = {"shards": n, "v_local": vl,
+               "labels_off_shard_1": {
+                   "negative": int((labels[1] < 0).sum()),
+                   "past_end": int((labels[1] >= vl).sum())}}
+        checks = {
+            "merged_stats_vs_plain": (max(err(lse, ref_lse, 1.0)[0],
+                                          err(tgt, ref_tgt, 1.0)[0]),
+                                      max(err(lse, ref_lse, 1.0)[1],
+                                          err(tgt, ref_tgt, 1.0)[1]),
+                                      tol["stats"]),
+            "merged_stats_vs_unsharded_kernel": (
+                max(err(lse, un_lse, 1.0)[0], err(tgt, un_tgt, 1.0)[0]),
+                max(err(lse, un_lse, 1.0)[1], err(tgt, un_tgt, 1.0)[1]),
+                tol["stats"]),
+            "dx_vs_plain": err(dx, ref_dx) + (tol["grads"],),
+            "dx_vs_unsharded_kernel": err(dx, un_dx) + (tol["grads"],),
+            "dhead_vs_plain": err(dh, ref_dh) + (tol["grads"],),
+            "dhead_vs_unsharded_kernel": err(dh, un_dh) + (tol["grads"],)}
+        del dx, dh, stats
+        # shard 1 alone: kernel against plain, then timed
+        s1, l1 = shards[1], labels[1]
+        p_lse, p_tgt = fused_ce_row_stats_reference(x, s1, l1)
+        k_lse, k_tgt = fused_ce_row_stats(x, s1, l1)
+        p_dx, p_dh = fused_ce_grads_reference(x, s1, l1, w, p_lse)
+        checks["shard1_row_stats"] = (
+            max(err(k_lse, p_lse, 1.0)[0], err(k_tgt, p_tgt, 1.0)[0]),
+            max(err(k_lse, p_lse, 1.0)[1], err(k_tgt, p_tgt, 1.0)[1]),
+            tol["stats"])
+        checks["shard1_dx"] = err(fused_ce_dx(x, s1, l1, w, p_lse),
+                                  p_dx) + (tol["grads"],)
+        checks["shard1_dhead"] = err(fused_ce_dhead(x, s1, l1, w, p_lse),
+                                     p_dh) + (tol["grads"],)
+        del p_dx, p_dh
+        row["checks"] = {k: {"max_abs_err": e, "max_abs_ref": sc,
+                             "tol_rel": tl, "ok": e <= tl * sc}
+                         for k, (e, sc, tl) in checks.items()}
+        row["ok"] = all(c["ok"] for c in row["checks"].values())
+        tl_mod = (l1.long() % vl)
+
+        def unfused_nll(xx, hh):
+            return torch.sum(F.cross_entropy(matmul_f32(xx, hh), tl_mod,
+                                             reduction="none") * w)
+        xg = x.clone().requires_grad_(True)
+        hg = s1.clone().requires_grad_(True)
+        nll_x, nll_h = unfused_nll(xg, s1), unfused_nll(x, hg)
+
+        def lib_fwd():
+            with torch.no_grad():
+                return unfused_nll(x, s1)
+        es = x.element_size()
+        ins = (N * D + D * vl) * es + 4 * N
+        work = {"fused_ce_row_stats": (ins + 8 * N, 2.0 * N * D * vl),
+                "fused_ce_dx": (ins + 8 * N + N * D * es,
+                                4.0 * N * D * vl),
+                "fused_ce_dhead": (ins + 8 * N + D * vl * es,
+                                   4.0 * N * D * vl)}
+        timed = {
+            "fused_ce_row_stats": _turns(
+                lambda: fused_ce_row_stats_reference(x, s1, l1),
+                lambda: fused_ce_row_stats(x, s1, l1), lib_fwd, iters=5),
+            "fused_ce_dx": _turns(
+                lambda: fused_ce_grads_reference(x, s1, l1, w, k_lse),
+                lambda: fused_ce_dx(x, s1, l1, w, k_lse),
+                lambda: torch.autograd.grad(nll_x, xg, retain_graph=True),
+                iters=5),
+            "fused_ce_dhead": _turns(
+                lambda: fused_ce_grads_reference(x, s1, l1, w, k_lse),
+                lambda: fused_ce_dhead(x, s1, l1, w, k_lse),
+                lambda: torch.autograd.grad(nll_h, hg, retain_graph=True),
+                iters=5)}
+        for name, r in timed.items():
+            nbytes, flops = work[name]
+            bound, by = _bound(nbytes, flops, x.dtype)
+            r.update({"bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                      "flops": flops, "bound_ratio": r["kernel_ms"] / bound,
+                      "tflops_per_s": flops / r["kernel_ms"] / 1e9,
+                      "library": "matmul_f32 + F.cross_entropy on the "
+                      "shard"})
+        row["timed_shard1"] = timed
+        out[f"v_over_{n}"] = row
+        del nll_x, nll_h, xg, hg, shards, labels
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(dev):
     import torch
     from gke_ray_train_tpu_torch.ops.flash_attention import (
@@ -1393,15 +1574,17 @@ def phase_kernels(dev):
     norm_rope = _time_norm_rope(dev)
     ce_rows = _check_ce_cases(dev)
     ce = _time_ce_llama_shape(dev)
+    ce_shards = _time_ce_vocab_shards(dev)
     ok = all(r["ok"] for r in rows + bwd_rows + fused_rows + norm_rope_rows
              + ce_rows + list(fused.values()) + list(norm_rope.values())
-             + list(ce.values()) + [llama_norm])
+             + list(ce.values()) + list(ce_shards.values()) + [llama_norm])
     emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
           "fused_cases": fused_rows, "norm_rope_cases": norm_rope_rows,
           "ce_cases": ce_rows, "timings": timings, "train_shape": train,
           "gemma_train_shape": fused, "gemma_attn_shape": gemma_attn,
           "llama_norm_shape": llama_norm,
           "norm_rope_shapes": norm_rope, "llama_ce_shape": ce,
+          "llama_ce_vocab_shards": ce_shards,
           "device_ms_timer_calls": dict(TIMER_CALLS)})
     if not ok:
         raise SystemExit("kernel phase: a case disagrees with the plain "
@@ -2142,7 +2325,9 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, *, mesh=None,
     mesh (``parallel/``), the step and its placement run on it; ``optim``
     "adafactor" swaps AdamW for the job's ``OPTIM=adafactor`` chain;
     ``params``: a base already made (not rebuilt, not timed);
-    ``ft_over``: keys that replace the job's (``LORA_DROPOUT``)."""
+    ``ft_over``: keys that replace the job's (``LORA_DROPOUT``). A job
+    with ``USE_QLORA`` false is full fine-tuning of a random base in
+    ``cfg.param_dtype`` (no adapters), as the entry builds it."""
     import torch
     from gke_ray_train_tpu_torch.config import optimizer_from_config
     from gke_ray_train_tpu_torch.data import (
@@ -2171,11 +2356,15 @@ def _fine_tune_setup(dev, cfg, n_batches, config=None, *, mesh=None,
         warmup_frac=float(ft["WARMUP_RATIO"]))
     # the job's clip and decay (OPTIM adamw: make_optimizer's spec)
     spec = optimizer_from_config(dict(ft, OPTIM=optim), schedule)
-    lcfg = LoraConfig.from_dict(ft)
+    use_lora = bool(ft.get("USE_QLORA", True))
+    lcfg = LoraConfig.from_dict(ft) if use_lora else None
     t0 = time.perf_counter()
-    if params is None:
+    if params is None and use_lora:
         params = init_quantized_params(cfg, seed=0, kind=ft["QUANT_KIND"],
                                        device=dev, mesh=mesh)
+    elif params is None:
+        from gke_ray_train_tpu_torch.models import init_params
+        params = init_params(cfg, seed=0, device=dev)
     state = make_train_state(cfg, spec, seed=0, lora_cfg=lcfg, params=params,
                              device=dev, mesh=mesh)
     step_fn = make_train_step(cfg, spec, lora_cfg=lcfg, schedule=schedule,
@@ -3333,9 +3522,11 @@ def _multi_reference(dev):
     return r
 
 
-def _multi_entry(n):
-    """The entry under torchrun on ``n`` cards (module doc, 19b); then
-    its sharded export converted here. Returns (line, problems)."""
+def _multi_entry(n, extra=None):
+    """The entry under torchrun on ``n`` cards (module doc, 19b), the
+    config's keys ``extra`` replaced (``MESH_MODEL``: the global batch
+    spans the n / model batch ranks); then its sharded export converted
+    here. Returns (line, problems)."""
     import tempfile
     import numpy as np
     from safetensors import safe_open
@@ -3345,11 +3536,13 @@ def _multi_entry(n):
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_entry_")
     with open(ENTRY_CONFIG) as f:
         job = json.load(f)
-    rows = (int(job["PER_DEVICE_TRAIN_BATCH_SIZE"]) * n
+    extra = dict(extra or {})
+    batch_ranks = n // int(extra.get("MESH_MODEL", 1))
+    rows = (int(job["PER_DEVICE_TRAIN_BATCH_SIZE"]) * batch_ranks
             * int(job["GRADIENT_ACCUMULATION_STEPS"]))
     config = _entry_config(
         os.path.join(root, "run"), path=ENTRY_CONFIG, cut=dict(
-            MESH_MULTI_ENTRY_CUT,
+            MESH_MULTI_ENTRY_CUT, **extra,
             NUM_TRAIN_SAMPLES=rows * MESH_MULTI_ENTRY_STEPS))
     cfg, lcfg, _ = _entry_setup(config, None, MESH_MULTI_ENTRY_LAYERS)
     disk = _entry_disk(root, cfg, lcfg, 1)
@@ -3373,7 +3566,8 @@ def _multi_entry(n):
     problems = []
     line = {"torchrun": " ".join(cmd[1:6] + [str(n)]), "wall_s": wall,
             "exit_code": rcs[0], "n_layers": cfg.n_layers, "disk": disk,
-            "config": {k: config[k] for k in sorted(MESH_MULTI_ENTRY_CUT)},
+            "config": {k: config[k] for k in sorted(
+                dict(MESH_MULTI_ENTRY_CUT, **extra))},
             "ranks": ranks}
     if hung or rcs[0] != 0 or None in ranks:
         with open(log_path) as f:
@@ -3450,17 +3644,8 @@ def phase_train_mesh_multi(dev):
                          f"host has {n}")
     ref = _multi_reference(dev)
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_mesh_"), "rank")
-    port = _free_port()
-    procs = []
-    for rank in range(n):
-        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
-                   LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-worker",
-             out], env=env, cwd=HERE))
-    hung, rcs = _wait_all(procs, MESH_MULTI_TIMEOUT_S)
-    ranks = _read_ranks(out, n)
+    hung, rcs, ranks = _spawn_ranks("--mesh-worker", out, n, list(range(n)),
+                                    MESH_MULTI_TIMEOUT_S)
     problems, gaps = [], {}
     if hung or any(rcs) or None in ranks:
         problems.append(f"ranks hung {hung}, exit codes {rcs}")
@@ -3490,6 +3675,479 @@ def phase_train_mesh_multi(dev):
     if problems:
         raise SystemExit("train_mesh_multi phase failed: "
                          + "; ".join(problems))
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel slice: the model axis (DTensor), HSDP, the 70B layout
+# ---------------------------------------------------------------------------
+
+# train_tp: the train_mesh job cut to 4 layers, as two ranks of one card
+# at model 2 x fsdp 1 over gloo (NCCL takes one rank a card); its bf16
+# streams against one process within MESH_MULTI_RTOL (the bound of bf16
+# runs whose sums are cut across ranks: each rank's partial products are
+# rounded to bf16 before they are summed), and the same job in fp32 (TF32
+# off) at TP_PARITY_LAYERS layers within MESH_LOSS_RTOL
+TP_LAYERS = 4
+TP_PARITY_LAYERS = 2
+TP_MODEL = 2
+TP_TIMEOUT_S = 420
+# the second run's LORA_DROPOUT: fine_tune_config.json's own
+TP_DROPOUT = 0.1
+# the collectives of the TP path on the card's tensors, by the group they
+# run on, and whether train_tp's QLoRA step makes them: the model group's
+# sums (bf16 row-parallel outputs, fp32 statistics) and max, the world's
+# broadcast of the adapters, FSDP2's all-gather on the fsdp group of one
+# rank; its reduce-scatter only where the base trains (full fine-tuning)
+TP_PROBE = {"all_reduce_sum_bf16_model": True,
+            "all_reduce_sum_f32_model": True,
+            "all_reduce_max_f32_model": True,
+            "broadcast_f32_world": True,
+            "all_gather_into_tensor_fsdp": True,
+            "reduce_scatter_tensor_fsdp": False}
+# train_tp_multi on the four-card host: ray-jobs/fine_tune_config_70b.json
+# (full fine-tuning, bf16 compute over fp32 masters, AdamW) on fsdp 1 x
+# model 4, cut in depth to what four cards hold; held against one card
+# at a depth one card holds
+FT_70B_CONFIG = os.path.join(HERE, "ray-jobs", "fine_tune_config_70b.json")
+TP_70B_LAYERS = 8
+TP_70B_REF_LAYERS = 1
+# the loss through the fused cross-entropy (its dhead on each rank's
+# [8,192, 32,064] head shard); the job sets no FUSED_OPS
+TP_70B_PLAN = {"fused_ops": True}
+# the 8B job's meshes on four cards, each against one card
+TP_MULTI_MESHES = {"hsdp": dict(data=2, fsdp=2),
+                   "fsdp_model": dict(fsdp=2, model=2)}
+TP_MULTI_TIMEOUT_S = 900
+# the entry under torchrun at MESH_MODEL 2
+TP_MULTI_ENTRY = {"MESH_MODEL": 2}
+
+
+def _llama_cfg(config, n_layers, dtype="bfloat16", param_dtype="bfloat16"):
+    """The MODEL_ID preset of ``config`` at full width, ``n_layers``
+    deep, remat on, at the job's MAX_SEQ_LENGTH."""
+    from gke_ray_train_tpu_torch.models import preset_for_model_id
+    with open(config) as f:
+        ft = json.load(f)
+    return dataclasses.replace(
+        preset_for_model_id(ft["MODEL_ID"], dtype=dtype,
+                            param_dtype=param_dtype, remat=True),
+        max_seq_len=int(ft["MAX_SEQ_LENGTH"]), n_layers=n_layers)
+
+
+def _mask_digest(mask):
+    import hashlib
+    return hashlib.sha256(mask.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _first_masks(run):
+    """Run ``run()`` with the LoRA dropout hook recording the digest of
+    the first mask each projection draws (layer 0, microbatch 0)."""
+    from gke_ray_train_tpu_torch.models import transformer as tr
+    masks = {}
+    tr.dropout_hook = lambda name, m: masks.setdefault(
+        name, {"digest": _mask_digest(m), "shape": list(m.shape),
+               "kept": float(m.float().mean())})
+    try:
+        out = run()
+    finally:
+        tr.dropout_hook = None
+    return out, masks
+
+
+def _tp_probe(dev, mesh):
+    """Each collective of ``TP_PROBE`` once on this card's tensors:
+    {name: "ok" or the error}."""
+    import torch
+    import torch.distributed as dist
+    out = {}
+    model, fsdp = mesh["model"].get_group(), mesh["fsdp"].get_group()
+    n = mesh["fsdp"].size()
+    calls = {
+        "all_reduce_sum_bf16_model": lambda: dist.all_reduce(
+            torch.ones(64, dtype=torch.bfloat16, device=dev), group=model),
+        "all_reduce_sum_f32_model": lambda: dist.all_reduce(
+            torch.ones(64, device=dev), group=model),
+        "all_reduce_max_f32_model": lambda: dist.all_reduce(
+            torch.ones(64, device=dev), op=dist.ReduceOp.MAX, group=model),
+        "broadcast_f32_world": lambda: dist.broadcast(
+            torch.ones(64, device=dev), src=0),
+        "all_gather_into_tensor_fsdp": lambda: dist.all_gather_into_tensor(
+            torch.empty(64 * n, dtype=torch.uint8, device=dev),
+            torch.ones(64, dtype=torch.uint8, device=dev), group=fsdp),
+        "reduce_scatter_tensor_fsdp": lambda: dist.reduce_scatter_tensor(
+            torch.empty(64, device=dev), torch.ones(64 * n, device=dev),
+            group=fsdp)}
+    for name in TP_PROBE:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the probe reports it
+            out[name] = f"{type(e).__name__}: {e}"[:400]
+    return out
+
+
+def _tp_rank_run(dev, cfg, mesh, dropout, steps, config=None, rows=None,
+                 one_row=False, plan=None):
+    """One training run of a rank (or of one card without ``mesh``):
+    the job of ``config`` (default the train_mesh job) at ``cfg``,
+    ``steps`` timed steps after a warm-up, the launch counts set to 0
+    just before the timed steps and read just after; ``rows`` (count,
+    index) keeps this batch rank's rows ``index::count`` of every batch;
+    ``one_row``: each row its own microbatch."""
+    import torch
+    job = _fine_tune_setup(dev, cfg, steps + 1, config=config, mesh=mesh,
+                           ft_over={"LORA_DROPOUT": dropout},
+                           transfer_guard=None,
+                           **(plan or {"fused_ops": True}))
+    global_rows = job["batch_rows"]
+    if rows is not None:
+        job["batches"] = [{k: v[rows[1]::rows[0]] for k, v in b.items()}
+                          for b in job["batches"]]
+    if one_row:
+        job["step_fn"] = _one_row_step(job, dev, mesh)
+    grad_accum = (len(job["batches"][0]["inputs"]) if one_row
+                  else job["plan"].grad_accum)
+    counts = {}
+    fn = job["step_fn"]
+
+    def step(state, b):
+        if not counts:
+            counts["calls"] = 0
+        if counts["calls"] == 1:
+            _reset_launch_counts()
+        counts["calls"] += 1
+        return fn(state, b)
+    job["step_fn"] = step
+    r = _timed_steps(dev, job, steps)
+    launches = _launch_counts()
+    routes = _route_counts()
+    r.update(launches_per_step={k: v / steps for k, v in launches.items()},
+             routes=routes, tokens=global_rows * job["seq"],
+             base_bytes=job["base_bytes"], grad_accum=grad_accum,
+             want_launches=expected_launches(
+                 job["cfg"], grad_accum, job["plan"].fused_ops,
+                 full_ft=job["lcfg"] is None),
+             n_layers=job["cfg"].n_layers)
+    del job
+    _release()
+    return r, launches
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """float32 products in full precision (no TF32) inside the block."""
+    import torch
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = was
+
+
+def _tp_fp32_cfg():
+    return _llama_cfg(FINE_TUNE_CONFIG, TP_PARITY_LAYERS, dtype="float32",
+                      param_dtype="float32")
+
+
+def _tp_worker(out_path):
+    """One of train_tp's two ranks on the one card (env: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
+    tensors, the model 2 x fsdp 1 mesh, the collectives probed
+    (``TP_PROBE``); if those the path makes run, the train_mesh job at ``TP_LAYERS`` layers
+    (dropout 0, 1 + 3 steps), then at LORA_DROPOUT ``TP_DROPOUT`` (1 + 1
+    steps) with the digests of the first masks drawn."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1, model=TP_MODEL),
+                          device_type="cuda")
+        rec["probe"] = _tp_probe(dev, mesh)
+        if all(rec["probe"][k] == "ok" for k, need in TP_PROBE.items()
+               if need):
+            cfg = _llama_cfg(FINE_TUNE_CONFIG, TP_LAYERS)
+            rec["run"], rec["launches"] = _tp_rank_run(
+                dev, cfg, mesh, 0.0, MESH_STEPS)
+            (rec["dropout_run"], _), rec["masks"] = _first_masks(
+                lambda: _tp_rank_run(dev, cfg, mesh, TP_DROPOUT, 1))
+            with _tf32_off():
+                rec["fp32_run"], _ = _tp_rank_run(
+                    dev, _tp_fp32_cfg(), mesh, 0.0, MESH_STEPS)
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(flag, out, n, local_ranks, timeout):
+    """``n`` processes of this script with ``flag out`` and torchrun's
+    env (rank r on card ``local_ranks[r]``) under one deadline: (hung,
+    exit codes, what each rank wrote)."""
+    port = _free_port()
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(local_ranks[rank]),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   HF_HUB_OFFLINE="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), flag, out],
+            env=env, cwd=HERE))
+    hung, rcs = _wait_all(procs, timeout)
+    return hung, rcs, _read_ranks(out, n)
+
+
+def _gaps(got, want):
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def _hold_streams(name, got, want, tol, problems):
+    """Every step's loss and grad_norm of ``got`` against ``want``'s,
+    relative: the gaps; a problem where one is off or not finite."""
+    gaps = {}
+    for key in ("losses", "grad_norms"):
+        g = _gaps(got[key], want[key])
+        gaps[key] = g
+        if not (len(g) == len(want[key]) and all(np.isfinite(got[key]))
+                and max(g) <= tol):
+            problems.append(f"{name}: {key} {got[key]} against {want[key]}")
+    return gaps
+
+
+def phase_train_tp(dev):
+    """Tensor parallelism on the one-card host: the train_mesh job
+    (Llama-3.1-8B QLoRA, FUSED_OPS=1, the job's rows) at full width cut
+    to 4 layers, first in this process, then as two ranks of this card
+    at model 2 x fsdp 1 over gloo (``_tp_worker``), whose collectives are
+    probed first. Where they run: both ranks' losses and grad_norms of 1
+    + 3 steps within MESH_MULTI_RTOL of this process's, per step the
+    launches of the unmeshed step (flash on 16 of 32 query heads, the
+    cross-entropy on a 64,128-column vocab shard, all on wgmma); then at
+    LORA_DROPOUT 0.1 finite losses, the first masks of the column-parallel
+    projections equal across the ranks and of the row-parallel ones
+    different; then the job in fp32 (TF32 off) at 2 layers, 1 + 3 steps,
+    within MESH_LOSS_RTOL of this process's. Where a collective is missing on gloo the line says which,
+    and the phase holds the kernels at these inputs alone (the kernels
+    phase's local-head and vocab-shard cases); the TP path then runs on
+    the four-card host only (train_tp_multi)."""
+    import tempfile
+    cfg = _llama_cfg(FINE_TUNE_CONFIG, TP_LAYERS)
+    ref, _ = _tp_rank_run(dev, cfg, None, 0.0, MESH_STEPS)
+    with _tf32_off():
+        ref32, _ = _tp_rank_run(dev, _tp_fp32_cfg(), None, 0.0, MESH_STEPS)
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_"), "rank")
+    hung, rcs, ranks = _spawn_ranks("--tp-worker", out, TP_MODEL,
+                                    [0] * TP_MODEL, TP_TIMEOUT_S)
+    problems, line = [], {"phase": "train_tp", "nvidia_smi":
+                          nvidia_smi_line(), "model": cfg.name,
+                          "n_layers": cfg.n_layers, "mesh": {
+                              "data": 1, "fsdp": 1, "model": TP_MODEL},
+                          "backend": "gloo", "ranks_on_one_card": TP_MODEL,
+                          "one_process": ref, "one_process_fp32": ref32}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    probe = ranks[0].get("probe", {}) if ranks[0] else {}
+    missing = {k: v for k, v in probe.items()
+               if v != "ok" and TP_PROBE[k]}
+    line["probe"] = probe
+    launches = None
+    if not problems and missing:
+        # gloo lacks a collective on the card's tensors: no TP run here
+        line["tp_run"] = "not run: gloo misses " + ", ".join(sorted(missing))
+        line["held_instead"] = ("kernels phase: flash / RoPE at the local "
+                                "heads, rows 4-6 over 2 and 4 vocab shards")
+    elif not problems:
+        line["ranks"] = ranks
+        gaps = {}
+        for r in ranks:
+            run = r["run"]
+            gaps[r["rank"]] = {
+                "bf16": _hold_streams(f"rank {r['rank']}", run, ref,
+                                      MESH_MULTI_RTOL, problems),
+                "fp32": _hold_streams(f"rank {r['rank']} fp32",
+                                      r["fp32_run"], ref32, MESH_LOSS_RTOL,
+                                      problems)}
+            for key in ("run", "fp32_run"):
+                got = r[key]
+                if got["launches_per_step"] != got["want_launches"]:
+                    problems.append(f"rank {r['rank']} {key} launches per "
+                                    f"step {got['launches_per_step']} != "
+                                    f"{got['want_launches']}")
+            ce = {k: v for k, v in run["routes"].items()
+                  if k.startswith("fused_ce")}
+            if any(n and route != "wgmma" for rr in ce.values()
+                   for route, n in rr.items()):
+                problems.append(f"rank {r['rank']} CE routes {ce}")
+            if not all(np.isfinite(r["dropout_run"]["losses"])):
+                problems.append(f"rank {r['rank']}: dropout run losses "
+                                f"{r['dropout_run']['losses']}")
+        m0, m1 = ranks[0]["masks"], ranks[1]["masks"]
+        col = {k: m0[k]["digest"] == m1[k]["digest"]
+               for k in ("wq", "wk", "wv", "w_gate", "w_up")}
+        row = {k: m0[k]["digest"] != m1[k]["digest"]
+               for k in ("wo", "w_down")}
+        if not (all(col.values()) and all(row.values())):
+            problems.append(f"masks: column equal {col}, row differ {row}")
+        line.update(rel_gaps=gaps, tol_rel={"bf16": MESH_MULTI_RTOL,
+                                            "fp32": MESH_LOSS_RTOL},
+                    masks_column_equal=col, masks_row_differ=row,
+                    dropout=TP_DROPOUT, p50_ratio=[
+                        r["run"]["step_s_p50"] / ref["step_s_p50"]
+                        for r in ranks])
+        launches = {}
+        for r in ranks:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_tp phase failed: " + "; ".join(problems))
+    return launches
+
+
+def _tp_allreduce_bytes(cfg, mb_rows, seq, grad_accum):
+    """Bytes a rank all-reduces over ``model`` in a step, from the
+    shapes, per microbatch: each layer's attention and MLP outputs (the
+    row-parallel partial sums) in the forward and again in the
+    recomputation under remat, and the gradients of their inputs in the
+    backward, all ``[rows, seq, d_model]`` in the compute dtype; the
+    embedding's rows and the fused loss's dx (the same size each), and
+    its row statistics (3 fp32 a token)."""
+    import torch
+    es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    tok = mb_rows * seq
+    per_layer = 2 * (2 if cfg.remat else 1) + 2
+    return grad_accum * ((per_layer * cfg.n_layers + 2) * tok * cfg.d_model
+                         * es + 3 * 4 * tok)
+
+
+def _tp_multi_worker(out_path):
+    """One rank of train_tp_multi (NCCL, one card a rank): the 70B job
+    on fsdp 1 x model N at ``TP_70B_REF_LAYERS`` and ``TP_70B_LAYERS``
+    layers, then the train_mesh job (dropout off, one-row microbatches)
+    on each of ``TP_MULTI_MESHES``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    from gke_ray_train_tpu_torch.parallel.placement import (
+        input_shard_layout)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world,
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=-1, model=world))
+        for key, layers in (("70b_ref", TP_70B_REF_LAYERS),
+                            ("70b", TP_70B_LAYERS)):
+            cfg = _llama_cfg(FT_70B_CONFIG, layers, param_dtype="float32")
+            torch.cuda.reset_peak_memory_stats()
+            r, launches = _tp_rank_run(dev, cfg, mesh, 0.0, MESH_STEPS,
+                                       config=FT_70B_CONFIG,
+                                       plan=TP_70B_PLAN)
+            r["tokens_per_s_per_card"] = r["tokens"] / r["step_s_p50"] / world
+            r["allreduce_bytes_per_step"] = _tp_allreduce_bytes(
+                cfg, 1, cfg.max_seq_len, r["grad_accum"])
+            rec[key] = r
+            rec["launches"] = launches
+        cfg8 = _llama_cfg(FINE_TUNE_CONFIG, 32)
+        for key, kw in TP_MULTI_MESHES.items():
+            m = build_mesh(MeshConfig(**kw))
+            r, _ = _tp_rank_run(dev, cfg8, m, 0.0, MESH_STEPS,
+                                rows=input_shard_layout(m), one_row=True)
+            r["tokens_per_s_per_card"] = r["tokens"] / r["step_s_p50"] / world
+            rec[key] = r
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_train_tp_multi(dev):
+    """Opt-in, the four-card host (fewer than 4 cards fails). Prints the
+    card count first. One card first: the 70B job
+    (ray-jobs/fine_tune_config_70b.json: full fine-tuning, bf16 compute
+    over fp32 masters, AdamW, 1 x 8 rows of 1,024, FUSED_OPS=1) at
+    ``TP_70B_REF_LAYERS`` layer, and the train_mesh job with dropout off
+    as one-row microbatches. Then one rank a card over NCCL
+    (``_tp_multi_worker``): the 70B job on fsdp 1 x model 4 at the same
+    depth, each step's loss and grad_norm within MESH_MULTI_RTOL of the
+    one card's, and at ``TP_70B_LAYERS`` layers its per-card p50,
+    tokens/s, peak memory and the bytes all-reduced a step (from the
+    shapes); the 8B job at data 2 x fsdp 2 and fsdp 2 x model 2, each
+    within MESH_MULTI_RTOL of the one card. Last the entry under torchrun
+    at MESH_MODEL 2 (``_multi_entry``): every rank exits 0 and the
+    sharded export converts to finite tensors."""
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    emit({"phase": "train_tp_multi_devices", "ok": n >= 4,
+          "device_count": n, "nvidia_smi": nvidia_smi_line()})
+    if n < 4:
+        raise SystemExit(f"train_tp_multi needs 4 cards; this host has {n}")
+    ref70, _ = _tp_rank_run(
+        dev, _llama_cfg(FT_70B_CONFIG, TP_70B_REF_LAYERS,
+                        param_dtype="float32"),
+        None, 0.0, MESH_STEPS, config=FT_70B_CONFIG, plan=TP_70B_PLAN)
+    ref8 = _multi_reference(dev)
+    torch.cuda.empty_cache()
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_multi_"),
+                       "rank")
+    hung, rcs, ranks = _spawn_ranks("--tp-multi-worker", out, n,
+                                    list(range(n)), TP_MULTI_TIMEOUT_S)
+    problems, gaps = [], {}
+    line = {"phase": "train_tp_multi", "nvidia_smi": nvidia_smi_line(),
+            "world": n, "one_card": {"70b_ref": ref70, "8b": ref8},
+            "cut": {"70b": f"{TP_70B_LAYERS} of 80 layers (held against one "
+                    f"card at {TP_70B_REF_LAYERS}), FUSED_OPS=1, 1 + "
+                    f"{MESH_STEPS} steps", "8b": "LORA_DROPOUT 0, one-row "
+                    "microbatches, 1 + 3 steps"}}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+    else:
+        for r in ranks:
+            gaps[r["rank"]] = {
+                "70b_ref": _hold_streams(f"rank {r['rank']} 70B",
+                                         r["70b_ref"], ref70,
+                                         MESH_MULTI_RTOL, problems),
+                **{k: _hold_streams(f"rank {r['rank']} 8B {k}", r[k], ref8,
+                                    MESH_MULTI_RTOL, problems)
+                   for k in TP_MULTI_MESHES}}
+            for key in ("70b_ref", "70b"):
+                run = r[key]
+                if run["launches_per_step"] != run["want_launches"]:
+                    problems.append(f"rank {r['rank']} {key} launches "
+                                    f"{run['launches_per_step']} != "
+                                    f"{run['want_launches']}")
+    line.update(ranks=ranks, rel_gaps=gaps, tol_rel=MESH_MULTI_RTOL)
+    entry, entry_problems = _multi_entry(n, TP_MULTI_ENTRY)
+    problems += entry_problems
+    line.update(entry=entry, ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_tp_multi phase failed: "
+                         + "; ".join(problems))
+    if ranks and None not in ranks:
+        launches = {}
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        return launches
     return None
 
 
@@ -4603,13 +5261,15 @@ def phase_entry_moe(dev):
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
           "train_fused_ce", "train_fused_ce_parity", "train_mesh",
-          "train_mesh_parity", "train_remat_dots", "train_profile",
-          "entry", "train_moe", "train_moe_parity", "serve_moe", "entry_moe",
-          "profile", "train_fused_profile", "train_fused_ce_profile",
-          "train_moe_profile", "entry_full", "train_mesh_multi")
+          "train_mesh_parity", "train_remat_dots", "train_tp",
+          "train_profile", "entry", "train_moe", "train_moe_parity",
+          "serve_moe", "entry_moe", "profile", "train_fused_profile",
+          "train_fused_ce_profile", "train_moe_profile", "entry_full",
+          "train_mesh_multi", "train_tp_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
-                 "train_moe_profile", "entry_full", "train_mesh_multi")
+                 "train_moe_profile", "entry_full", "train_mesh_multi",
+                 "train_tp_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -4701,14 +5361,20 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--entry-worker", nargs=2, metavar=("CONFIG", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.mesh_worker or args.entry_worker:
-        # one rank of train_mesh_multi, spawned by that phase
+    workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
+               "tp_multi_worker": _tp_multi_worker}
+    if args.entry_worker or any(getattr(args, k) for k in workers):
+        # one rank of a multi-process phase, spawned by that phase
         sys.path.insert(0, HERE)
-        if args.mesh_worker:
-            _mesh_worker(args.mesh_worker)
-        else:
+        if args.entry_worker:
             _entry_worker(*args.entry_worker)
+        for key, fn in workers.items():
+            if getattr(args, key):
+                fn(getattr(args, key))
         return 0
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -4774,6 +5440,7 @@ def main(argv=None) -> int:
     add(run("train_mesh", phase_train_mesh))
     add(run("train_mesh_parity", phase_train_mesh_parity))
     add(run("train_remat_dots", phase_train_remat_dots))
+    add(run("train_tp", phase_train_tp))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -4787,6 +5454,7 @@ def main(argv=None) -> int:
     run("train_moe_profile", phase_train_moe_profile)
     add(run("entry_full", phase_entry_full))
     run("train_mesh_multi", phase_train_mesh_multi)
+    add(run("train_tp_multi", phase_train_tp_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -63,25 +63,41 @@ def _gathered(module):
         module.reshard()
 
 
+def _whole(w):
+    """A gathered unit's weight whole: one sharded over ``model`` (a
+    DTensor, or a ``QTensor`` of DTensors) all-gathered over its model
+    group (every rank enters; the codes travel as their own integer
+    dtype), anything else as it is."""
+    from torch.distributed.tensor import DTensor
+    from gke_ray_train_tpu_torch.ops.quant import QTensor, is_qtensor
+    from gke_ray_train_tpu_torch.parallel.sharding import as_dtype
+    if is_qtensor(w) and isinstance(w.codes, DTensor):
+        return QTensor(as_dtype(w.codes, w.code_dtype).full_tensor(),
+                       w.scales.full_tensor(), w.kind, w.group, w.store)
+    return w.full_tensor() if isinstance(w, DTensor) else w
+
+
 def export_tensors(params, cfg, *, lora=None, lora_scale: float = 1.0
                    ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(key, tensor) of the merged model, one unit gathered at a time:
+    """(key, tensor) of the merged model, one unit gathered at a time
+    (over ``model`` too: every rank then holds each tensor whole):
     ``embed``, ``final_norm``, ``lm_head``, then ``blocks.<i>.<key>`` in
     the HF writer's order (an MoE bank dequantized whole)."""
     from gke_ray_train_tpu_torch.ckpt.hf_io import (
         _EXPERT_HF, _hf_layer_names, merged_weight)
     from gke_ray_train_tpu_torch.ops.quant import dequantize, is_qtensor
     with _gathered(params):
-        yield "embed", params.embed
+        yield "embed", _whole(params.embed)
         yield "final_norm", params.final_norm
         if params.lm_head is not None:
-            yield "lm_head", params.lm_head
+            yield "lm_head", _whole(params.lm_head)
     for i, blk in enumerate(params.blocks):
         adapters = lora[i] if lora is not None else {}
         with _gathered(blk):
             for key in _hf_layer_names(cfg, i):
                 yield f"blocks.{i}.{key}", merged_weight(
-                    getattr(blk, key), adapters.get(key), lora_scale)
+                    _whole(getattr(blk, key)), adapters.get(key),
+                    lora_scale)
             for key in _EXPERT_HF if cfg.n_experts else ():
                 bank = getattr(blk, key)
                 yield f"blocks.{i}.{key}", (
@@ -94,9 +110,11 @@ def save_export(params, cfg, export_dir: str, step: int, *, lora=None,
                 lora_scale: float = 1.0) -> Dict[str, int]:
     """Save the merged model under ``export_dir`` through the checkpoint
     manager, synchronously (a final export has no goodput to protect).
-    Every rank calls it: across ranks each tensor is cut into the ranks'
-    row blocks (a DTensor sharded on dim 0 over a host mesh), so each
-    rank writes its part; in one process the tensors are saved whole.
+    Every rank calls it: across ranks each tensor, whole on every rank
+    once its unit is gathered over fsdp and model, is cut into the
+    world's row blocks (a DTensor sharded on dim 0 over a host mesh), so
+    each rank writes its part; in one process the tensors are saved
+    whole.
     What is saved is copied to host memory as each unit is gathered, so
     the card holds one gathered unit at a time. Returns ``{"tensors": n,
     "bytes": local bytes}``."""

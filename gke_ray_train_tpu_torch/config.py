@@ -113,9 +113,9 @@ def tpu_only_keys(config: dict, world: int = 1) -> List[str]:
 
 def mesh_config_from_config(config: dict, world: int):
     """The ``parallel/mesh.py::MeshConfig`` of ``config`` resolved over
-    ``world`` ranks and checked (``MESH_MODEL`` / ``MESH_CONTEXT`` /
-    ``MESH_PIPE`` or ``NUM_SLICES`` above 1 raise, naming their ROADMAP
-    item); None for one process, whose runs ignore the mesh keys."""
+    ``world`` ranks and checked (``MESH_CONTEXT`` / ``MESH_PIPE`` or
+    ``NUM_SLICES`` above 1 raise, naming their ROADMAP item); None for
+    one process, whose runs ignore the mesh keys."""
     if world <= 1:
         return None
     from gke_ray_train_tpu_torch.parallel.mesh import MeshConfig

@@ -29,16 +29,19 @@ batching engine, a LoRA run's adapter through an ``AdapterPool``
 Under a ``torch.distributed`` world above one (torchrun or Ray Train's
 rendezvous env; ``parallel/mesh.py::distributed_init``: NCCL, one rank
 per card, gloo only with ``device="cpu"``) the worker builds the mesh
-from ``MESH_DATA`` / ``MESH_FSDP``, shards the model with FSDP2, feeds
-each rank its share of every global batch (``PER_DEVICE_TRAIN_BATCH_SIZE
-× data × fsdp × GRADIENT_ACCUMULATION_STEPS`` rows), meters tokens/s
-and MFU per card over the world, and exports through the checkpoint
-manager (``<final dir>_dcp``, with the ``model_config.json`` sidecar and
-the tokenizer from rank 0) for ``ckpt/convert.py`` to turn into the HF
+from ``MESH_DATA`` / ``MESH_FSDP`` / ``MESH_MODEL`` (a model that cannot
+tile ``model`` raises before any weight is built), shards the model over
+``model`` (tensor parallelism) and with FSDP2, feeds each batch rank its
+share of every global batch (``PER_DEVICE_TRAIN_BATCH_SIZE × data × fsdp
+× GRADIENT_ACCUMULATION_STEPS`` rows; the ``model`` peers of a batch
+rank feed the same rows), meters tokens/s and MFU per card over the
+world, and exports through the checkpoint manager (``<final dir>_dcp``,
+with the ``model_config.json`` sidecar and the tokenizer from rank 0) for ``ckpt/convert.py`` to turn into the HF
 layout. Not ported yet, each raising where the config asks for it: peer
-replication (ROADMAP queue 1 item 8), and at a world above one
-``INFERENCE`` / ``SERVE_AFTER_TRAIN``, async checkpoint commit and the
-mesh axes other than data and fsdp (item 5).
+replication, the ``context`` / ``pipe`` mesh axes and an MoE model at
+``MESH_MODEL`` above 1 (ROADMAP queue 1 item 8), and at a world above
+one ``INFERENCE`` / ``SERVE_AFTER_TRAIN`` and async checkpoint commit
+(item 5).
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ from gke_ray_train_tpu_torch.parallel.mesh import (
     build_mesh, distributed_init)
 from gke_ray_train_tpu_torch.parallel.placement import (
     host_batch_size, input_shard_layout)
+from gke_ray_train_tpu_torch.parallel.sharding import check_model_on_mesh
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.rayint import get_context
 from gke_ray_train_tpu_torch.serve import post_train_smoke
@@ -132,7 +136,8 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         audit_config(config, world=world)
     plan = ExecutionPlan.resolve(config)
     apply_debug_flags(config)
-    # the mesh axes not ported yet raise here, before any work
+    # the mesh axes not ported yet raise here, before any work (whether
+    # the model tiles `model` is checked once its config is known)
     mesh_cfg = mesh_config_from_config(config, world)
     mesh = build_mesh(mesh_cfg, device_type=dev.type) if world > 1 else None
     if mesh is not None:
@@ -175,6 +180,10 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
             model_id, dtype=train_dtype, param_dtype=param_dtype,
             attn_impl=config.get("ATTN_IMPL", "auto"),
             remat_policy=config.get("REMAT_POLICY", "full"))
+    if mesh_cfg is not None:
+        # a model that cannot tile the model axis raises here, before
+        # any weight is built
+        check_model_on_mesh(cfg, mesh_cfg.model)
 
     # ---- weights ------------------------------------------------------
     # a local HF directory, else random weights (the hub download,
@@ -294,7 +303,7 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         return {"eval_loss": sharded_eval_loss(
             st, eval_step, eval_rows, host_batch=host_batch,
             in_shards=in_shards, in_shard_id=in_shard_id,
-            place_batch=place)}
+            place_batch=place, mesh=mesh)}
 
     # LoRA runs bill the 4N FLOP count (the frozen base takes no
     # weight-grad products); tokens/s and MFU per card of the world

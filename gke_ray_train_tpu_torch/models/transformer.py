@@ -29,6 +29,22 @@ norm and head inside ``Transformer.__call__`` (a caller's loss through
 forward and again in its backward (under remat, inside the
 recomputation too). The pipeline path of the JAX ``forward`` belongs to
 a later slice.
+
+Under tensor parallelism (``model`` above 1, ``parallel/tensor.py``) a
+gathered unit's sharded weights are DTensors of the ``model`` submesh;
+the layer computes on this rank's parts: ``n_heads / model`` query and
+``n_kv_heads / model`` KV heads and ``d_ff / model`` MLP columns (the
+local counts read from the local weights' widths), the column-parallel
+projections behind ``copy_to_model`` and the row-parallel ones (``wo``,
+``w_down``) followed by ``reduce_from_model`` (the partial products
+summed in the compute dtype, as JAX's GSPMD sums them). An adapter
+keeps its whole A and B on every rank and uses B's local columns on a
+column-parallel projection and A's local rows on a row-parallel one,
+whose partial ``x_r A_r B`` joins the partial base product before the
+all-reduce (exact: the sum is linear). The embedding and the head are
+sharded on the vocab: the lookup is ``vocab_parallel_embedding``, and
+the logits (or, through the fused loss, the row statistics) are this
+rank's vocab shard.
 """
 
 from __future__ import annotations
@@ -55,6 +71,9 @@ from gke_ray_train_tpu_torch.ops.norms import rms_norm
 from gke_ray_train_tpu_torch.ops.quant import maybe_dequantize
 from gke_ray_train_tpu_torch.ops.rope import (
     apply_rope, rope_frequencies, sinusoidal_positions)
+from gke_ray_train_tpu_torch.parallel.tensor import (
+    copy_to_model, local_weight, reduce_from_model, tp_of,
+    vocab_parallel_embedding)
 
 # per-layer LoRA adapters: lora[i][name] = {"a": [d_in, r], "b": [r, d_out]}
 Lora = List[Dict[str, Dict[str, torch.Tensor]]]
@@ -229,6 +248,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
 # tags: q k v o under the attention key, gate up down under the MLP's)
 _DROP_TAGS = {"wq": 0, "wk": 1, "wv": 2, "wo": 3, "w_gate": 4, "w_up": 5,
               "w_down": 6}
+# the projections whose input dim is sharded over ``model`` (the rest
+# shard their output dim)
+ROW_PARALLEL = frozenset({"wo", "w_down"})
+
+# an optional ``(projection name, keep mask)`` callback each LoRA dropout
+# draw is reported to (tests and the card check read the masks)
+dropout_hook: Optional[Callable] = None
 
 
 def dropout_seed(*parts: int) -> int:
@@ -239,7 +265,8 @@ def dropout_seed(*parts: int) -> int:
     return int.from_bytes(h.digest(), "little") >> 1
 
 
-def _lora_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _lora_dropout(x: torch.Tensor, rate: float, seed: int,
+                  name: Optional[str] = None) -> torch.Tensor:
     """Inverted dropout of the adapter-branch input, its keep mask drawn
     from a generator seeded with ``seed``: recomputing a checkpointed
     block redraws exactly the mask of its first forward."""
@@ -247,14 +274,16 @@ def _lora_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     gen = torch.Generator(device=x.device)
     gen.manual_seed(seed)
     mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    if dropout_hook is not None:
+        dropout_hook(name, mask)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
 
 def _proj(x: torch.Tensor, w, lora_p, lora_scale: float,
           dtype: torch.dtype, bias: Optional[torch.Tensor] = None, *,
-          drop_rate: float = 0.0, drop_seed: Optional[int] = None
-          ) -> torch.Tensor:
+          drop_rate: float = 0.0, drop_seed: Optional[int] = None,
+          drop_name: Optional[str] = None) -> torch.Tensor:
     """x @ w (+ bias), plus the low-rank LoRA bypass (two small products,
     never a materialized delta-W) when an adapter is given: ``[d_in, r]``
     / ``[r, d_out]``, or per-row ``[B, d_in, r]`` / ``[B, r, d_out]``
@@ -263,12 +292,14 @@ def _proj(x: torch.Tensor, w, lora_p, lora_scale: float,
     dtype per call — a no-op cast when the params are stored in it.
 
     ``drop_rate`` / ``drop_seed``: LoRA dropout with peft semantics —
-    on the adapter-branch input only; the frozen-base path never drops."""
-    y = x @ maybe_dequantize(w, dtype)
+    on the adapter-branch input only; the frozen-base path never drops
+    (``drop_name``: the projection, for ``dropout_hook``). A weight or
+    bias sharded over ``model`` computes on this rank's part."""
+    y = x @ maybe_dequantize(local_weight(w), dtype)
     if lora_p is not None:
         xl = x
         if drop_seed is not None and drop_rate > 0.0:
-            xl = _lora_dropout(x, drop_rate, drop_seed)
+            xl = _lora_dropout(x, drop_rate, drop_seed, drop_name)
         if lora_p["a"].dim() == 3:
             # per-row adapters gathered from a multi-tenant pool ([B,
             # d_in, r] / [B, r, d_out]): the engine's batched multi-LoRA
@@ -282,21 +313,39 @@ def _proj(x: torch.Tensor, w, lora_p, lora_scale: float,
             y = y + (xa @ lora_p["b"].to(dtype)) * torch.full(
                 (), lora_scale, dtype=dtype, device=x.device)
     if bias is not None:
-        y = y + bias.to(dtype)
+        y = y + local_weight(bias).to(dtype)
     return y
 
 
-def _lora_entry(lora_p, name):
-    return None if lora_p is None or name not in lora_p else lora_p[name]
+def _lora_entry(lora_p, name, tp=None):
+    """Projection ``name``'s adapter; under tensor parallelism ``tp`` the
+    part this rank applies: B's local columns (a column-parallel
+    projection) or A's local rows (``ROW_PARALLEL``)."""
+    if lora_p is None or name not in lora_p:
+        return None
+    ab = lora_p[name]
+    if tp is None:
+        return ab
+    if name in ROW_PARALLEL:
+        return {"a": ab["a"].chunk(tp.size, dim=0)[tp.rank], "b": ab["b"]}
+    return {"a": ab["a"], "b": ab["b"].chunk(tp.size, dim=1)[tp.rank]}
 
 
-def _drop_kw(name: str, drop_rate: float, drop_seed: Optional[int]) -> dict:
+def _drop_kw(name: str, drop_rate: float, drop_seed: Optional[int],
+             tp=None) -> dict:
     """The dropout arguments of projection ``name`` in one layer, whose
-    own seed is ``drop_seed`` (None: no dropout)."""
+    own seed is ``drop_seed`` (None: no dropout). Under tensor
+    parallelism a row-parallel projection's input is this model rank's
+    slice of heads or ffn columns, a part of JAX's one global mask: the
+    model rank enters its seed. A column-parallel one's input is the same
+    on every model rank, and so is its mask."""
     if drop_seed is None:
         return {}
-    return dict(drop_rate=drop_rate,
-                drop_seed=dropout_seed(drop_seed, _DROP_TAGS[name]))
+    parts = (drop_seed, _DROP_TAGS[name])
+    if tp is not None and name in ROW_PARALLEL:
+        parts += (tp.rank,)
+    return dict(drop_rate=drop_rate, drop_seed=dropout_seed(*parts),
+                drop_name=name)
 
 
 def _rms_norm(x, scale, *, eps: float, scale_plus_one: bool,
@@ -323,9 +372,13 @@ def _apply_rope_qk(q, k, positions, rope, fused_ops: bool = False):
 def _mlp(x, lp: Block, cfg: ModelConfig, dtype, lora_p=None,
          lora_scale: float = 1.0, drop_rate: float = 0.0,
          drop_seed: Optional[int] = None):
+    tp = tp_of(lp.w_gate)
+
     def proj(h, name):
-        return _proj(h, getattr(lp, name), _lora_entry(lora_p, name),
-                     lora_scale, dtype, **_drop_kw(name, drop_rate, drop_seed))
+        return _proj(h, getattr(lp, name), _lora_entry(lora_p, name, tp),
+                     lora_scale, dtype,
+                     **_drop_kw(name, drop_rate, drop_seed, tp))
+    x = copy_to_model(x, tp)
     gate = proj(x, "w_gate")
     up = proj(x, "w_up")
     if cfg.activation == "silu":
@@ -334,7 +387,7 @@ def _mlp(x, lp: Block, cfg: ModelConfig, dtype, lora_p=None,
         act = F.gelu(gate, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {cfg.activation}")
-    return proj(act * up, "w_down")
+    return reduce_from_model(proj(act * up, "w_down"), tp)
 
 
 def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
@@ -343,15 +396,17 @@ def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
           drop_seed: Optional[int] = None, fused_ops: bool = False):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    H, K = cfg.n_heads, cfg.n_kv_heads
+    tp = tp_of(lp.wq)
 
     def proj(h, name, bias=None):
-        return _proj(h, getattr(lp, name), _lora_entry(lora_p, name),
+        return _proj(h, getattr(lp, name), _lora_entry(lora_p, name, tp),
                      lora_scale, dtype, bias=bias,
-                     **_drop_kw(name, drop_rate, drop_seed))
-    q = proj(x, "wq", lp.bq).reshape(B, S, H, hd)
-    k = proj(x, "wk", lp.bk).reshape(B, S, K, hd)
-    v = proj(x, "wv", lp.bv).reshape(B, S, K, hd)
+                     **_drop_kw(name, drop_rate, drop_seed, tp))
+    # this rank's heads: all of them, or n_heads / model under TP
+    x = copy_to_model(x, tp)
+    q = proj(x, "wq", lp.bq).reshape(B, S, -1, hd)
+    k = proj(x, "wk", lp.bk).reshape(B, S, -1, hd)
+    v = proj(x, "wv", lp.bv).reshape(B, S, -1, hd)
     if rope is not None:
         q, k = _apply_rope_qk(q, k, positions, rope, fused_ops=fused_ops)
     if impl == "xla":
@@ -366,7 +421,7 @@ def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
             q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
             causal=True, sliding_window=window, scale=cfg.attn_scale,
             logit_softcap=cfg.attn_softcap)
-    return proj(out.reshape(B, S, H * hd), "wo")
+    return reduce_from_model(proj(out.reshape(B, S, -1), "wo"), tp)
 
 
 def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
@@ -495,8 +550,14 @@ def resolve_seq_impl(cfg: ModelConfig, S: int, device: torch.device) -> str:
 def embed_tokens(params: Transformer, tokens: torch.Tensor,
                  cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
     """Embedding lookup in the compute dtype (gathered rows cast, not the
-    whole table), with Gemma's sqrt(d_model) scale."""
-    x = F.embedding(tokens.long(), params.embed).to(dtype)
+    whole table), with Gemma's sqrt(d_model) scale; a table sharded on
+    the vocab over ``model`` through ``vocab_parallel_embedding``."""
+    tp = tp_of(params.embed)
+    if tp is None:
+        x = F.embedding(tokens.long(), params.embed).to(dtype)
+    else:
+        x = vocab_parallel_embedding(tokens, local_weight(params.embed), tp,
+                                     dtype)
     if cfg.embed_scale:
         # the scale rounded to x's dtype on the host (JAX multiplies by
         # it as an array of that dtype): no tensor made on the card
@@ -547,8 +608,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             with_aux: bool = False,
             token_weights: Optional[torch.Tensor] = None,
             loss_fn: Optional[Callable] = None):
-    """tokens [B, S] integer → logits [B, S, vocab] float32. Runs on the
-    device the params and tokens lie on.
+    """tokens [B, S] integer → logits [B, S, vocab] float32 (under tensor
+    parallelism [B, S, vocab / model], this rank's vocab shard). Runs on
+    the device the params and tokens lie on.
 
     ``lora_dropout`` / ``lora_seed``: adapter-input dropout, active only
     when both are given (and ``lora``); inference passes neither.
@@ -609,14 +671,23 @@ def pre_unembed(x, params: Transformer, cfg: ModelConfig) -> torch.Tensor:
 
 
 def unembed_head(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
-    """The [D, vocab] unembedding matrix (tied or dedicated)."""
-    return params.embed.T if cfg.tie_embeddings else params.lm_head
+    """The [D, vocab] unembedding matrix (tied or dedicated); under
+    tensor parallelism this rank's [D, vocab / model] shard."""
+    if cfg.tie_embeddings:
+        return local_weight(params.embed).T
+    return local_weight(params.lm_head)
+
+
+def head_tp(params: Transformer, cfg: ModelConfig):
+    """The ``model`` axis the head's vocab is sharded over, or None."""
+    return tp_of(params.embed if cfg.tie_embeddings else params.lm_head)
 
 
 def _unembed(x, params: Transformer, cfg: ModelConfig, dtype) -> torch.Tensor:
     """Final norm → (tied) unembedding → logit softcap; float32 logits
-    from compute-dtype operands (``ops/matmul.py``)."""
-    x = pre_unembed(x, params, cfg)
+    from compute-dtype operands (``ops/matmul.py``); under tensor
+    parallelism the logits of this rank's vocab shard."""
+    x = copy_to_model(pre_unembed(x, params, cfg), head_tp(params, cfg))
     lead = x.shape[:-1]
     logits = matmul_f32(x.reshape(-1, x.shape[-1]),
                         unembed_head(params, cfg).to(dtype))

@@ -4,10 +4,13 @@
 ``"xla"`` (the dense-mask path) is handled inline in the model code;
 this module routes the kernel paths, which take mask *inputs*
 (positions, segment ids, causality, window) and never a materialized
-[S, T] mask. The port runs on one device, so there is no mesh and no
-``shard_map``: ``"flash"`` goes straight to the CUDA kernel. The
-context-parallel strategies ``"ring"`` and ``"a2a"`` come with a later
-slice of the port.
+[S, T] mask. JAX wraps the kernel in a ``shard_map`` over the mesh
+(:33-61); in the port every rank calls it on its own tensors, which are
+already its part: its batch rows and, under tensor parallelism, its
+``n_heads / model`` query and ``n_kv_heads / model`` KV heads (the GQA
+group is unchanged), so ``"flash"`` goes straight to the CUDA kernel. The
+context-parallel strategies ``"ring"`` and ``"a2a"`` (JAX's raise over a
+``context`` axis, :49-52) come with a later slice of the port.
 """
 
 from __future__ import annotations

@@ -23,6 +23,17 @@ of the JAX ``custom_vjp`` (:289-311): it saves x, head, targets, weights
 and lse, never the logits; its backward computes dx always and dhead only
 where the head takes a gradient (full fine-tuning, not LoRA).
 
+Over a vocab sharded on ``model`` (JAX :262-284 and its shard_map call
+site :316-392) each rank runs the same three kernels on its head shard
+[D, V / model]: the labels are shifted into the shard's coordinates
+(``parallel/tensor.py::shift_labels``; a label of another shard lands
+outside [0, V / model), negative or past the end, and matches no
+column), the row statistics are merged exactly across the shards
+(``merge_row_stats``: the max, the sum of exponentials, the target
+logit summed), dx, a partial sum over the shard's columns, is
+all-reduced over ``model``, and dhead is the shard's own (FSDP2 sums it
+over the batch ranks).
+
 CUDA tensors launch the kernels; CPU tensors run the plain PyTorch
 versions beside them (``fused_ce_row_stats_reference``,
 ``fused_ce_grads_reference``), and only CPU tensors do. A CUDA tensor the
@@ -283,13 +294,22 @@ fused_ce_dhead.routes = dict.fromkeys(ROUTES, 0)
 class FusedCrossEntropy(torch.autograd.Function):
     """(nll sum, weight sum) of rows x [N, D] under head [D, V]. Saves x,
     head, targets, weights and lse (JAX :295-299); the backward forms dx
-    always and dhead only where the head takes a gradient."""
+    always and dhead only where the head takes a gradient. With ``tp``
+    (a ``parallel/tensor.py::TensorParallel``) head is this rank's vocab
+    shard and targets are global ids: shifted, merged and summed as the
+    module doc says."""
 
     @staticmethod
-    def forward(ctx, x, head, targets, weights, block_v):
+    def forward(ctx, x, head, targets, weights, block_v, tp=None):
+        from gke_ray_train_tpu_torch.parallel.tensor import (
+            merge_row_stats, shift_labels)
+        if tp is not None:
+            targets = shift_labels(targets, tp.rank, head.shape[1])
         lse, tgt = fused_ce_row_stats(x, head, targets)
+        lse, tgt = merge_row_stats(lse, tgt, tp)
         ctx.save_for_backward(x, head, targets, weights, lse)
         ctx.block_v = block_v
+        ctx.tp = tp
         w_sum = torch.sum(weights)
         ctx.mark_non_differentiable(w_sum)
         return torch.sum((lse - tgt) * weights), w_sum
@@ -308,12 +328,16 @@ class FusedCrossEntropy(torch.autograd.Function):
             dx = fused_ce_dx(x, head, targets, wg, lse)
             dhead = (fused_ce_dhead(x, head, targets, wg, lse)
                      if need_dhead else None)
-        return dx, dhead, None, None, None
+        if ctx.tp is not None:
+            # dx contracts over the vocab: a partial sum per shard
+            import torch.distributed as dist
+            dist.all_reduce(dx, group=ctx.tp.group)
+        return dx, dhead, None, None, None, None
 
 
 def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
                         targets: torch.Tensor, weights: torch.Tensor, *,
-                        vocab_axis: Optional[str] = None, mesh=None,
+                        vocab_axis=None, mesh=None,
                         block_v: int = _CHUNK
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(weighted nll sum, weight sum), both fp32 — ``token_nll``
@@ -323,12 +347,28 @@ def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     vocab chunk of the backward kernels (JAX's ``block_v`` vocab tile,
     :248), a multiple of 128; the plain versions ignore it.
 
-    ``vocab_axis`` / ``mesh`` (the JAX sharded-vocab merge, :274-284, and
-    its shard_map call site) raise: meshes are not ported yet."""
-    if vocab_axis is not None or mesh is not None:
-        raise NotImplementedError(
-            "fused cross-entropy over a sharded vocab (vocab_axis / mesh) "
-            "is not ported yet (ROADMAP queue 1, multi-GPU)")
+    The sharded vocab (module doc): ``vocab_axis`` is the
+    ``parallel/tensor.py::TensorParallel`` of the ``model`` axis (JAX's
+    axis name inside a shard_map); ``mesh`` (a
+    ``parallel/mesh.py::build_mesh`` mesh) shards the vocab over its
+    ``model`` axis where that is above 1, as JAX's ``mesh=`` does.
+    ``head`` is then this rank's shard [D, V / model] (a DTensor gives
+    its local part) and ``targets`` hold global ids. The sums are this
+    rank's rows' (the same on every ``model`` peer); JAX's ``mesh=`` also
+    sums them over the batch axes, which the port's train step does once
+    a step."""
+    from gke_ray_train_tpu_torch.parallel.tensor import (
+        TensorParallel, local_weight, tensor_parallel)
+    tp = vocab_axis
+    if mesh is not None:
+        if not hasattr(mesh, "mesh_dim_names"):
+            raise TypeError(f"mesh must be a DeviceMesh from parallel/"
+                            f"mesh.py::build_mesh, not {type(mesh).__name__}")
+        tp = tensor_parallel(mesh)
+    elif tp is not None and not isinstance(tp, TensorParallel):
+        raise TypeError(f"vocab_axis takes the TensorParallel of the model "
+                        f"axis (or pass mesh=), not {tp!r}")
+    head = local_weight(head)
     B, S, D = x.shape
     if tuple(targets.shape) != (B, S) or tuple(weights.shape) != (B, S):
         raise ValueError(f"targets {tuple(targets.shape)} and weights "
@@ -338,4 +378,4 @@ def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
         x.reshape(B * S, D).contiguous(), head.contiguous(),
         targets.reshape(-1).to(device=dev, dtype=torch.int32).contiguous(),
         weights.reshape(-1).to(device=dev, dtype=torch.float32).contiguous(),
-        int(block_v))
+        int(block_v), tp)

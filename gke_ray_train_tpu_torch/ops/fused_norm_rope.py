@@ -2,7 +2,10 @@
 C++ kernels written for Hopper.
 
 Counterpart of ``gke_ray_train_tpu/ops/fused_norm_rope.py`` (plan knob
-``FUSED_OPS`` and the kernel registry). Three kernels of
+``FUSED_OPS`` and the kernel registry). Under tensor parallelism a rank
+calls them on its own tensors: the rms_norm on the whole d_model (never
+sharded), the RoPE on its local heads (JAX's shard_map, :245-253). Three
+kernels of
 ``csrc/fused_norm_rope.cu`` replace the Pallas TPU kernels:
 
 - ``fused_rmsnorm`` replaces ``_rmsnorm_kernel`` (:96, via

@@ -12,7 +12,7 @@ axis        what is sharded over it
 ==========  ========================================================
 ``data``    the batch only (replicas of the sharded model: HSDP)
 ``fsdp``    the batch AND the parameters (FSDP2, ``parallel/sharding.py``)
-``model``   tensor parallelism (not ported: ROADMAP queue 1 item 5)
+``model``   tensor parallelism on dense models (``parallel/tensor.py``)
 ``context`` sequence parallelism (not ported: item 8)
 ``pipe``    pipeline stages (not ported: item 8)
 ==========  ========================================================
@@ -49,7 +49,6 @@ BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
 # the ROADMAP item that ports each axis the port cannot shard over yet
 UNPORTED_AXES = {
-    AXIS_MODEL: "tensor parallelism on `model` (ROADMAP queue 1 item 5)",
     AXIS_CONTEXT: "context parallelism (ROADMAP queue 1 item 8)",
     AXIS_PIPE: "pipeline parallelism (ROADMAP queue 1 item 8)",
 }
@@ -109,8 +108,10 @@ class MeshConfig:
         )
 
     def check_ported(self) -> "MeshConfig":
-        """Raise unless only the batch axes (data, fsdp) exceed 1 and
-        there is one slice; returns ``self``."""
+        """Raise unless only data, fsdp and model exceed 1 and there is
+        one slice; returns ``self``. Whether a model tiles ``model`` is
+        checked where the mesh meets the model config
+        (``plan.py::check_model_on_mesh``)."""
         if self.num_slices > 1:
             raise NotImplementedError(
                 f"NUM_SLICES={self.num_slices}: multi-slice meshes are not "
@@ -120,7 +121,7 @@ class MeshConfig:
             if size > 1:
                 raise NotImplementedError(
                     f"MESH_{axis.upper()}={size}: {what} is not ported yet; "
-                    "the port shards over data and fsdp only")
+                    "the port shards over data, fsdp and model only")
         return self
 
 
@@ -226,3 +227,16 @@ def batch_rank(mesh) -> int:
     order of the JAX package's ``P(("data", "fsdp"))``)."""
     return (mesh[AXIS_DATA].get_local_rank() * mesh[AXIS_FSDP].size()
             + mesh[AXIS_FSDP].get_local_rank())
+
+
+def batch_groups(mesh) -> list:
+    """The process groups of the batch axes above size 1, data first: a
+    sum over them is a sum over every input shard once (the ``model``
+    ranks of one batch rank hold the same rows)."""
+    return [mesh[a].get_group() for a in BATCH_AXES if mesh[a].size() > 1]
+
+
+def model_rank(mesh) -> int:
+    """This rank's index on the ``model`` axis (0 when it is 1): the
+    vocab, head and ffn shard it holds."""
+    return mesh[AXIS_MODEL].get_local_rank()

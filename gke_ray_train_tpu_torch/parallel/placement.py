@@ -7,8 +7,10 @@ step on its own rows and the gradients are summed across ranks, so the
 global batch is the union of the ranks' rows and never exists as one
 tensor: a rank feeds its input pipeline its share of the rows
 (``data/sft.py::sft_epoch_batches(num_hosts=, host_id=)``) and places
-them on its own card (``data/prefetch.py::make_place_batch``). With
-only ``data`` and ``fsdp`` ported, every rank is its own input shard.
+them on its own card (``data/prefetch.py::make_place_batch``). Every
+batch rank (data × fsdp) is its own input shard; the ``model`` ranks of
+one batch rank share its shard (``batch_rank`` leaves ``model`` out), as
+JAX's ``P(("data", "fsdp"))`` replicates the rows over ``model``.
 """
 
 from __future__ import annotations

@@ -1,18 +1,33 @@
-"""Parameter sharding over the ``fsdp`` axis with FSDP2 (the port's
-counterpart of ``gke_ray_train_tpu/models/transformer.py::param_specs``
-and ``parallel/sharding.py``).
+"""Parameter sharding over the ``model`` and ``fsdp`` axes: DTensors for
+tensor parallelism, then FSDP2 (the port's counterpart of
+``gke_ray_train_tpu/models/transformer.py::param_specs`` and
+``parallel/sharding.py``).
 
 :func:`param_specs` is the JAX package's PartitionSpec table over the
 port's per-layer parameter names (no stacked repeat dim, so no ``pipe``
-entry). :func:`shard_model` turns it into FSDP2 placements: each
-``Block`` is one ``fully_shard`` unit and the root holds the embedding,
-final norm and head, every parameter sharded on the dim its spec puts on
-``fsdp``. Two departures, recorded in ROADMAP.md's known divergences:
-FSDP2 shards every parameter it manages, so the norms and biases JAX
-replicates are sharded on dim 0; and where the ``fsdp`` dim does not
-divide by the shard count FSDP2 takes dim 0 (it shards unevenly only
-there). A QLoRA base's NF4 / int8 codes and scales are sharded too: FSDP2
-shards parameters, not buffers, so they become frozen parameters
+entry). :func:`shard_model` turns it into placements, ``model`` first:
+with ``model`` above 1 every parameter whose spec names ``model``
+becomes a DTensor of the mesh's ``model`` submesh, sharded on that dim
+(the output dim of ``wq`` ``wk`` ``wv`` ``w_gate`` ``w_up`` and the
+q/k/v biases, the input dim of ``wo`` and ``w_down``, the vocab of
+``embed`` and ``lm_head``); the rest (the norms) stays a plain tensor,
+the same on every model rank. Then FSDP2 over the ``fsdp`` submesh
+(``data`` × ``fsdp`` for HSDP) shards them all, both from one
+``init_device_mesh``, so a model-sharded parameter ends 2-D (FSDP2
+over TP): each ``Block`` is one ``fully_shard`` unit and the root holds the
+embedding, final norm and head, every parameter sharded on the dim its
+spec puts on ``fsdp``. A ``QTensor``'s codes and scales follow their
+weight's ``model`` dim: the quantization groups run along the input dim,
+so a column-parallel weight shards both on dim 1 and a row-parallel one
+both on dim 0 (its scales ``[D / group, F]``, so ``D / model`` must
+divide by the group; uint4 packs two codes of one input row a byte,
+along the output dim, which a row-parallel cut leaves whole). Two
+departures, recorded in ROADMAP.md's known divergences: FSDP2 shards
+every parameter it manages, so the norms (and the biases off ``model``)
+that JAX replicates are sharded on dim 0; and where the ``fsdp`` dim
+does not divide by the shard count FSDP2 takes dim 0 (it shards unevenly
+only there). A QLoRA base's NF4 / int8 codes and scales are sharded too:
+FSDP2 shards parameters, not buffers, so they become frozen parameters
 (``requires_grad=False``) of their ``QTensor`` first, on the weight's
 fsdp dim; the codes' bytes are held as ``CODE_CONTAINER``, a one-byte
 float dtype, because FSDP2 (torch 2.11) makes each sharded parameter
@@ -32,7 +47,8 @@ from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from gke_ray_train_tpu_torch.parallel.mesh import AXIS_DATA, AXIS_FSDP
+from gke_ray_train_tpu_torch.parallel.mesh import (
+    AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
 
 if TYPE_CHECKING:   # models/ imports this module (qinit)
     from gke_ray_train_tpu_torch.models.config import ModelConfig
@@ -50,27 +66,28 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Spec]:
     leading ``pipe`` dim)."""
     s: Dict[str, Spec] = {
         "attn_norm": (None,),
-        "wq": (AXIS_FSDP, "model"),
-        "wk": (AXIS_FSDP, "model"),
-        "wv": (AXIS_FSDP, "model"),
-        "wo": ("model", AXIS_FSDP),
+        "wq": (AXIS_FSDP, AXIS_MODEL),
+        "wk": (AXIS_FSDP, AXIS_MODEL),
+        "wv": (AXIS_FSDP, AXIS_MODEL),
+        "wo": (AXIS_MODEL, AXIS_FSDP),
         "mlp_norm": (None,),
     }
     if cfg.attn_qkv_bias:
-        s.update(bq=("model",), bk=("model",), bv=("model",))
+        s.update(bq=(AXIS_MODEL,), bk=(AXIS_MODEL,), bv=(AXIS_MODEL,))
     if cfg.n_experts:
         s.update(router=(AXIS_FSDP, None),
-                 w_gate=("model", AXIS_FSDP, None),
-                 w_up=("model", AXIS_FSDP, None),
-                 w_down=("model", None, AXIS_FSDP))
+                 w_gate=(AXIS_MODEL, AXIS_FSDP, None),
+                 w_up=(AXIS_MODEL, AXIS_FSDP, None),
+                 w_down=(AXIS_MODEL, None, AXIS_FSDP))
     else:
-        s.update(w_gate=(AXIS_FSDP, "model"), w_up=(AXIS_FSDP, "model"),
-                 w_down=("model", AXIS_FSDP))
+        s.update(w_gate=(AXIS_FSDP, AXIS_MODEL),
+                 w_up=(AXIS_FSDP, AXIS_MODEL),
+                 w_down=(AXIS_MODEL, AXIS_FSDP))
     if cfg.post_block_norm:
         s.update(attn_post_norm=(None,), mlp_post_norm=(None,))
-    s.update(embed=("model", AXIS_FSDP), final_norm=(None,))
+    s.update(embed=(AXIS_MODEL, AXIS_FSDP), final_norm=(None,))
     if not cfg.tie_embeddings:
-        s["lm_head"] = (AXIS_FSDP, "model")
+        s["lm_head"] = (AXIS_FSDP, AXIS_MODEL)
     return s
 
 
@@ -146,15 +163,58 @@ def _sum_gradients(module: nn.Module) -> None:
         force_sum(True)
 
 
+def _model_dim(cfg: ModelConfig, name: str) -> Optional[int]:
+    """The dim parameter ``name`` is sharded on over ``model``: its
+    spec's ``model`` dim (a ``QTensor``'s codes and scales take their
+    weight's), None where the spec has none."""
+    spec = param_specs(cfg).get(_leaf_key(name))
+    if spec is None or AXIS_MODEL not in spec:
+        return None
+    return spec.index(AXIS_MODEL)
+
+
+def _place_on_model(module: nn.Module, cfg: ModelConfig, mesh) -> None:
+    """Make each parameter of ``module`` whose spec names ``model`` a
+    DTensor of the ``model`` submesh sharded on that dim, in place (each
+    rank keeps its chunk of the full tensor it holds: no collective).
+    Parameters that are already DTensors (a unit sharded before) are
+    left as they are; a dim ``model`` does not divide raises."""
+    from torch.distributed.tensor import DTensor, Shard
+    tp_mesh = mesh[AXIS_MODEL]
+    m, r = tp_mesh.size(), tp_mesh.get_local_rank()
+    for mod_name, mod in module.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            if isinstance(p, DTensor):
+                continue
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            d = _model_dim(cfg, full)
+            if d is None:
+                continue
+            if p.shape[d] % m:
+                raise ValueError(
+                    f"param {full} dim {d} (size {p.shape[d]}) is not "
+                    f"divisible by mesh axes ('{AXIS_MODEL}',) (size {m})")
+            part = p.detach().chunk(m, dim=d)[r].contiguous()
+            mod.register_parameter(pname, nn.Parameter(
+                DTensor.from_local(part, tp_mesh, [Shard(d)],
+                                   run_check=False, shape=p.shape,
+                                   stride=p.stride()),
+                requires_grad=p.requires_grad))
+
+
 def shard_unit(module: nn.Module, cfg: ModelConfig, mesh, *,
                reshard_after_forward: bool = True) -> nn.Module:
-    """``fully_shard`` one unit (a ``Block``, or the root after its
-    blocks) on ``param_specs``' fsdp dims."""
+    """Place one unit (a ``Block``, or the root after its blocks) on
+    ``model`` (when above 1) and ``fully_shard`` it on ``param_specs``'
+    fsdp dims."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
     fm = fsdp_mesh(mesh)
     n = mesh[AXIS_FSDP].size()
     _quant_tensors_as_params(module)
+    if mesh[AXIS_MODEL].size() > 1:
+        check_model_on_mesh(cfg, mesh[AXIS_MODEL].size())
+        _place_on_model(module, cfg, mesh)
     dims = {}
     for name, p in module.named_parameters():
         dims[id(p)] = shard_dim(cfg, name, p.shape, n)
@@ -165,8 +225,28 @@ def shard_unit(module: nn.Module, cfg: ModelConfig, mesh, *,
     return module
 
 
+def check_model_on_mesh(cfg: ModelConfig, model: int) -> None:
+    """Raise where ``cfg`` cannot run at ``model`` ways of tensor
+    parallelism: an MoE model (its expert dim goes on ``model``: expert
+    parallelism, not ported), or heads or a sharded dim that ``model``
+    does not divide (``plan.py::model_findings``)."""
+    if model <= 1:
+        return
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"MESH_MODEL={model} on an MoE model ({cfg.n_experts} experts): "
+            "the JAX package shards the expert dim over `model`, which is "
+            "expert parallelism (ROADMAP queue 1 item 8), not ported yet")
+    from gke_ray_train_tpu_torch.plan import model_findings
+    found = model_findings(cfg, model=model)
+    if found:
+        from gke_ray_train_tpu_torch.plan import PlanError
+        raise PlanError("; ".join(found))
+
+
 def shard_model(params: nn.Module, mesh) -> nn.Module:
-    """Shard a ``Transformer`` over ``mesh``'s fsdp axis in place: each
+    """Shard a ``Transformer`` over ``mesh``'s model and fsdp axes in
+    place (module doc): each
     block is a unit (gathered before its forward and again in the
     backward, freed after each), the root holds the rest. Blocks that are
     already units (:func:`shard_unit` during a sharded init) are left

@@ -227,3 +227,41 @@ class ExecutionPlan:
             raise PlanError(f"decode_buckets={self.decode_buckets!r} "
                             "must name at least one length >= 1")
         return vals
+
+
+def model_findings(cfg, *, model: int) -> list:
+    """Why ``cfg`` (a ``ModelConfig``) cannot tile a ``model`` axis of
+    ``model`` ranks, in the JAX plan's words (``ExecutionPlan.
+    model_findings``): every parameter dim its spec puts on ``model``
+    must divide by it, and so must ``n_heads`` and ``n_kv_heads``. Empty
+    when it tiles; read from the config alone, before any weight is
+    built."""
+    if model <= 1:
+        return []
+    from gke_ray_train_tpu_torch.models.transformer import proj_shapes
+    from gke_ray_train_tpu_torch.parallel.mesh import AXIS_MODEL
+    from gke_ray_train_tpu_torch.parallel.sharding import param_specs
+    hd = cfg.resolved_head_dim
+    shapes = dict(proj_shapes(cfg))
+    shapes.update(bq=(cfg.n_heads * hd,), bk=(cfg.n_kv_heads * hd,),
+                  bv=(cfg.n_kv_heads * hd,),
+                  embed=(cfg.vocab_size, cfg.d_model),
+                  lm_head=(cfg.d_model, cfg.vocab_size))
+    out = []
+    for name, spec in param_specs(cfg).items():
+        shape = shapes.get(name)
+        if shape is None or AXIS_MODEL not in spec:
+            continue
+        d = spec.index(AXIS_MODEL)
+        if shape[d] % model:
+            out.append(
+                f"param {name} dim {d} (size {shape[d]}) is not divisible "
+                f"by mesh axes ('{AXIS_MODEL}',) (size {model})")
+    for field in ("n_heads", "n_kv_heads"):
+        heads = getattr(cfg, field)
+        if heads % model:
+            out.append(
+                f"{field}={heads} is not divisible by the model axis "
+                f"(size {model}) — attention heads cannot tile the "
+                "tensor-parallel axis")
+    return out

@@ -14,8 +14,10 @@ The walk is numpy on the host; ``place_batch`` puts each slice on the
 card (``data/prefetch.py::make_place_batch``; a batch copied on its side
 stream is waited for on the current one), else the eval step does.
 With more than one input shard under a ``torch.distributed`` world
-above one (one rank per shard, ``parallel/placement.py``) the shards'
-sums are all-reduced, so every rank returns the global sums; in one
+above one (one batch rank per shard, ``parallel/placement.py``) the
+shards' sums are all-reduced, so every rank returns the global sums: over
+the mesh's batch axes when the walk is given its ``mesh`` (the ``model``
+ranks of one batch rank walk the same rows), else over the world; in one
 process a walk returns its own shard's sums.
 """
 
@@ -33,7 +35,7 @@ def sharded_eval_sums(state, eval_step: Callable,
                       rows: Dict[str, np.ndarray], *,
                       host_batch: int, in_shards: int = 1,
                       in_shard_id: int = 0,
-                      place_batch: Callable = None) -> tuple:
+                      place_batch: Callable = None, mesh=None) -> tuple:
     """Walk this shard group's partition of ``rows`` and return its
     (nll_sum, weight_sum) floats. Every shard must be called with the
     same ``rows``: the partition is computed from ``in_shard_id``."""
@@ -60,19 +62,21 @@ def sharded_eval_sums(state, eval_step: Callable,
         nll += float(n)
         w += float(ww)
     if in_shards > 1 and world_size() > 1:
-        nll, w = _sum_over_shards(nll, w)
+        nll, w = _sum_over_shards(nll, w, mesh)
     return nll, w
 
 
-def _sum_over_shards(nll: float, w: float) -> tuple:
-    """The shards' sums added in float64 over the world (on the card
-    under NCCL)."""
+def _sum_over_shards(nll: float, w: float, mesh=None) -> tuple:
+    """The shards' sums added in float64 over ``mesh``'s batch axes, or
+    the world without a mesh (on the card under NCCL)."""
     import torch
     import torch.distributed as dist
-    from gke_ray_train_tpu_torch.parallel.mesh import collective_device
+    from gke_ray_train_tpu_torch.parallel.mesh import (
+        batch_groups, collective_device)
     sums = torch.tensor([nll, w], dtype=torch.float64,
                         device=collective_device())
-    dist.all_reduce(sums)
+    for group in (batch_groups(mesh) if mesh is not None else [None]):
+        dist.all_reduce(sums, group=group)
     nll, w = sums.tolist()
     return nll, w
 
@@ -81,9 +85,9 @@ def sharded_eval_loss(state, eval_step: Callable,
                       rows: Dict[str, np.ndarray], *,
                       host_batch: int, in_shards: int = 1,
                       in_shard_id: int = 0,
-                      place_batch: Callable = None) -> float:
+                      place_batch: Callable = None, mesh=None) -> float:
     nll, w = sharded_eval_sums(
         state, eval_step, rows, host_batch=host_batch,
         in_shards=in_shards, in_shard_id=in_shard_id,
-        place_batch=place_batch)
+        place_batch=place_batch, mesh=mesh)
     return nll / max(w, 1.0)

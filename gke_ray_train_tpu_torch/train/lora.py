@@ -6,6 +6,28 @@ trainables of a (Q)LoRA fine-tune, handed to the optimizer, while the
 base model stays frozen. The forward adds ``(alpha / r) * (x A) B`` to
 each targeted projection (``models/transformer.py::_proj``); merging folds
 ``W + (alpha / r) A B`` into the base.
+
+On a mesh the adapters are replicated: every rank holds the whole A and
+B (rank 0's, broadcast; JAX shards them by ``lora_specs``). Under tensor
+parallelism on ``model`` (``parallel/tensor.py``) a rank applies the part
+that meets its weight shard: on a column-parallel projection (wq, wk,
+wv, w_gate, w_up; output columns ``c_r``) ``y_r = s (x A) B[:, c_r]``, on
+a row-parallel one (wo, w_down; input rows ``i_r``) the partial ``s (x_r
+A[i_r]) B``, all-reduced with the base product. Each rank's adapter
+gradient is then a partial sum of the whole, and summing over the model
+ranks gives it exactly:
+
+- column-parallel: ``dB`` is nonzero only in rank r's columns ``c_r``,
+  where it is the whole ``s (x A)^T dy_r``; ``dA = s x^T (dy B^T)`` is
+  ``Σ_r s x^T (dy_r B[:, c_r]^T)``, one term a rank (x, and its dropout
+  mask, are the same on every model rank);
+- row-parallel: ``dA`` is nonzero only in rank r's rows ``i_r``, where
+  it is the whole ``s x_r^T (dy B^T)`` (dy is the same on every model
+  rank); ``dB = s (x A)^T dy`` is ``Σ_r s (x_r A[i_r])^T dy``.
+
+So the train step's one flat all-reduce of the adapter gradients over the
+world (the batch ranks and the model ranks) gives every rank the global
+gradient (``train/step.py``).
 """
 
 from __future__ import annotations

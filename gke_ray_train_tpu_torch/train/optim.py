@@ -80,20 +80,25 @@ def global_norm(grads: Iterable[Tuple[torch.Tensor, torch.Tensor]]
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (optax's
     ``global_norm``), of ``(parameter, local gradient)`` pairs whose
-    parameters may be sharded DTensors: each shard group's sum of squares
-    is all-reduced once; a replicated gradient counts once."""
+    parameters may be sharded DTensors: the sums of squares of the
+    parameters sharded over the same mesh dims are all-reduced once over
+    each of those dims (fsdp, and model for a 2-D parameter), so a
+    replicated gradient, or a parameter's replicated mesh dim (``data``
+    under HSDP, ``model`` for a norm), counts once."""
     plain: List[torch.Tensor] = []
-    by_group: dict = {}
+    by_groups: dict = {}
     for p, g in grads:
         sq = torch.sum(torch.square(g.float()))
-        dims = sharded_dims(p)
-        if dims:
-            by_group.setdefault(dims[0][1], []).append(sq)
+        groups = tuple(group for _, group in sharded_dims(p))
+        if groups:
+            by_groups.setdefault(groups, []).append(sq)
         else:
             plain.append(sq)
     total = sum(plain) if plain else None
-    for group, sqs in by_group.items():
-        part = all_reduce_sum(sum(sqs), group)
+    for groups, sqs in by_groups.items():
+        part = sum(sqs)
+        for group in groups:
+            part = all_reduce_sum(part, group)
         total = part if total is None else total + part
     return torch.sqrt(total)
 

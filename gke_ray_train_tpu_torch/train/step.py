@@ -14,13 +14,19 @@ state, as the JAX step does (:234-240, :278-292). Otherwise logits are
 materialized in fp32 and reduced by ``token_nll``.
 
 On a mesh (``parallel/mesh.py::build_mesh``: ranks over ``data`` ×
-``fsdp``, one card each) the model is sharded with FSDP2
-(``parallel/sharding.py``) and each rank runs the step on its own rows.
-The token NLL and weight sums are all-reduced before the divide, so the
-loss and the gradient scale are the global ones; FSDP2 sums the sharded
-gradients over the ranks once a step (on the last microbatch), and the
-LoRA adapters, replicated on every rank, have their gradients summed in
-one all-reduce. The optimizer reads the global norm over the shards.
+``fsdp`` × ``model``, one card each) the model is sharded over ``model``
+(tensor parallelism, ``parallel/tensor.py``) and with FSDP2
+(``parallel/sharding.py``), and each batch rank runs the step on its own
+rows, which its ``model`` peers share. The token NLL and weight sums are
+all-reduced over the batch axes before the divide (every model rank holds
+the same, merged over the vocab shards), so the loss and the gradient
+scale are the global ones; FSDP2 sums the sharded gradients over the
+batch ranks once a step (on the last microbatch), and the LoRA adapters,
+replicated on every rank, have their gradients summed in one all-reduce
+over the world: each model rank's is a partial sum of the whole
+(``train/lora.py``). The optimizer reads the global norm over the
+shards. With more than one batch rank, a rank's LoRA dropout masks are
+seeded with its batch index too.
 
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
@@ -38,7 +44,7 @@ import torch
 from gke_ray_train_tpu_torch.device import DeviceLike, check_on, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
-    Lora, Transformer, dropout_seed, init_params, torch_dtype,
+    Lora, Transformer, dropout_seed, head_tp, init_params, torch_dtype,
     unembed_head)
 from gke_ray_train_tpu_torch.ops.fused_ce import fused_cross_entropy
 from gke_ray_train_tpu_torch.ops.quant import is_qtensor
@@ -46,6 +52,7 @@ from gke_ray_train_tpu_torch.train.lora import LoraConfig, init_lora
 from gke_ray_train_tpu_torch.train.optim import AdamW, OptimizerSpec
 from gke_ray_train_tpu_torch.parallel.sharding import (
     is_sharded, local, shard_model)
+from gke_ray_train_tpu_torch.parallel.tensor import vocab_parallel_nll
 
 Batch = Dict[str, Any]
 
@@ -70,6 +77,18 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor,
     return torch.sum((lse - tgt) * w), torch.sum(w)
 
 
+def model_nll(logits: torch.Tensor, params: Transformer, cfg: ModelConfig,
+              targets: torch.Tensor, weights: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``token_nll`` of ``forward``'s logits: of the whole vocab, or
+    under tensor parallelism of this rank's vocab shard, merged exactly
+    over the ``model`` axis (``parallel/tensor.py::vocab_parallel_nll``)."""
+    tp = head_tp(params, cfg)
+    if tp is None:
+        return token_nll(logits, targets, weights)
+    return vocab_parallel_nll(logits, targets, weights, tp)
+
+
 def trainable_tensors(params: Transformer, lora: Optional[Lora]
                       ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(name, tensor) of what the optimizer updates: the adapters in
@@ -85,7 +104,7 @@ def trainable_tensors(params: Transformer, lora: Optional[Lora]
 
 def _check_mesh(mesh) -> None:
     """Raise unless ``mesh`` is a ``build_mesh`` mesh whose only axes
-    above 1 are the ported batch axes (data, fsdp)."""
+    above 1 are the ported ones (data, fsdp, model)."""
     if mesh is None:
         return
     from gke_ray_train_tpu_torch.parallel.mesh import mesh_config_of
@@ -107,7 +126,7 @@ def make_train_state(cfg: ModelConfig, optimizer: OptimizerSpec,
     LoRA mode the base is frozen; in full fine-tuning every parameter is
     trainable.
 
-    ``mesh``: the params are sharded over its fsdp axis
+    ``mesh``: the params are sharded over its model and fsdp axes
     (``parallel/sharding.py::shard_model``; params a sharded init already
     sharded stay so), the adapters are the same on every rank (rank 0's,
     broadcast), and the optimizer's state is sharded like its
@@ -130,8 +149,7 @@ def make_train_state(cfg: ModelConfig, optimizer: OptimizerSpec,
     if mesh is not None:
         import torch.distributed as dist
         shard_model(params, mesh)
-        # the batch axes span every rank while only data and fsdp are
-        # ported: the world group
+        # every rank holds the same adapters: the world group
         for _, t in trainable_tensors(None, lora) if lora else ():
             with torch.no_grad():
                 dist.broadcast(t, src=0)
@@ -168,8 +186,13 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
 
     LoRA dropout masks are seeded per (step, microbatch, layer,
     projection), so a resumed run and the recomputation under remat draw
-    the same masks. ``plan.fused_ops`` (``FUSED_OPS``, read from the plan
-    only, as in the JAX step) runs the fused rms_norm / RoPE kernels and,
+    the same masks; on a mesh of more than one batch rank the rank's
+    batch index (``parallel/mesh.py::batch_rank``) joins the seed, and
+    under tensor parallelism the model rank joins a row-parallel
+    projection's (``models/transformer.py::_drop_kw``). One process, and
+    a mesh of one batch rank, keep the seeds of the unmeshed step.
+    ``plan.fused_ops`` (``FUSED_OPS``, read from the plan only, as in the
+    JAX step) runs the fused rms_norm / RoPE kernels and,
     without a logit softcap, the fused cross-entropy. On an MoE model
     each microbatch's loss adds ``cfg.router_aux_coef * router_aux * w``
     (the forward's aux over the microbatch's loss weights, billed per
@@ -185,6 +208,13 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     fused_ops = plan is not None and plan.fused_ops
     _check_mesh(mesh)
     fused_ce = fused_ops and cfg.logit_softcap is None
+    # the batch index a rank's dropout seeds carry (None: one batch rank)
+    seed_rank = None
+    if mesh is not None:
+        from gke_ray_train_tpu_torch.parallel.mesh import (
+            batch_group_size, batch_rank)
+        if batch_group_size(mesh) > 1:
+            seed_rank = batch_rank(mesh)
     if overlap == "manual":
         raise NotImplementedError(
             "OVERLAP=manual (the shard_map microbatch pipeline) is not "
@@ -217,18 +247,23 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
         w_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for m in range(grad_accum):
             micro = {k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
-            seed = (dropout_seed(state.step, m)
-                    if lora_mode and drop > 0.0 else None)
+            seed = None
+            if lora_mode and drop > 0.0:
+                seed = (dropout_seed(state.step, m) if seed_rank is None
+                        else dropout_seed(state.step, m, seed_rank))
 
             def loss_fn(out, p, micro=micro):
                 if fused_ce:
                     # the head of the one param tree: frozen under LoRA,
                     # so the kernel forms no dhead; trained in full
-                    # fine-tuning (a tied head through embed.T)
+                    # fine-tuning (a tied head through embed.T); under
+                    # TP this rank's vocab shard, merged over `model`
                     return fused_cross_entropy(
                         out, unembed_head(p, cfg).to(dtype),
-                        micro["targets"], micro["weights"])
-                return token_nll(out, micro["targets"], micro["weights"])
+                        micro["targets"], micro["weights"],
+                        vocab_axis=head_tp(p, cfg))
+                return model_nll(out, p, cfg, micro["targets"],
+                                 micro["weights"])
             if mesh is not None:
                 # FSDP2 sums the sharded gradients once, on the last one
                 params.set_requires_gradient_sync(m == grad_accum - 1)
@@ -251,7 +286,8 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             nll_sum += nll.detach()
             w_sum += w
         if mesh is not None:
-            nll_sum, w_sum = _sum_over_ranks(nll_sum, w_sum, trainables)
+            nll_sum, w_sum = _sum_over_ranks(nll_sum, w_sum, trainables,
+                                             mesh)
         inv_w = torch.where(w_sum > 0, 1.0 / w_sum,
                             torch.zeros((), device=dev))
         with torch.no_grad():
@@ -285,14 +321,18 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     return train_step
 
 
-def _sum_over_ranks(nll_sum, w_sum, trainables):
-    """The step's global sums over the world: the NLL and weight sums
-    all-reduced in one call, and the replicated trainables' (the
-    adapters') gradients summed in one flat all-reduce; FSDP2 has summed
-    the sharded ones."""
+def _sum_over_ranks(nll_sum, w_sum, trainables, mesh):
+    """The step's global sums: the NLL and weight sums all-reduced over
+    the batch axes (a ``model`` rank holds its batch rank's sums, the
+    same on every peer), and the replicated trainables' (the adapters')
+    gradients summed in one flat all-reduce over the world (over
+    ``model`` each rank's is a partial sum); FSDP2 has summed the
+    sharded ones."""
     import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel.mesh import batch_groups
     sums = torch.stack([nll_sum, w_sum])
-    dist.all_reduce(sums)
+    for group in batch_groups(mesh):
+        dist.all_reduce(sums, group=group)
     grads = [t.grad for t in trainables
              if t.grad is not None and not is_sharded(t)]
     if grads:
@@ -325,8 +365,8 @@ def make_eval_step(cfg: ModelConfig, *, mesh=None,
             segment_ids=b.get("segment_ids"),
             lora=state.lora if lora_cfg is not None else None,
             lora_scale=lora_cfg.scale if lora_cfg else 1.0,
-            loss_fn=lambda logits, p: token_nll(logits, b["targets"],
-                                                b["weights"]))
+            loss_fn=lambda logits, p: model_nll(logits, p, cfg,
+                                                b["targets"], b["weights"]))
         if mesh is not None:
             # a sharded root keeps its gathered weights after a forward,
             # for the backward (shard_model); an eval has none to wait for

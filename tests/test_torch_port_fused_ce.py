@@ -139,9 +139,13 @@ def test_fused_cross_entropy_refuses_what_is_not_ported():
     head = torch.zeros((8, 16))
     t = torch.zeros((1, 4), dtype=torch.int32)
     w = torch.ones((1, 4))
-    for kw in (dict(vocab_axis="model"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="sharded vocab"):
-            tfce.fused_cross_entropy(x, head, t, w, **kw)
+    # a vocab axis that is no TensorParallel (JAX's axis name), and a
+    # mesh that is no DeviceMesh (the sharded vocab itself is ported:
+    # tests/test_torch_port_tp.py)
+    with pytest.raises(TypeError, match="TensorParallel"):
+        tfce.fused_cross_entropy(x, head, t, w, vocab_axis="model")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        tfce.fused_cross_entropy(x, head, t, w, mesh=object())
     with pytest.raises(ValueError, match="targets"):
         tfce.fused_cross_entropy(x, head, t[:, :3], w)
 

@@ -63,20 +63,27 @@ def test_mesh_config_from_dict_matches_jax(cfg):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(model=2), "MESH_MODEL=2.*item 5"),
+    (dict(model=2), "MESH_MODEL=2 on an MoE model.*item 8"),
     (dict(context=2), "MESH_CONTEXT=2.*item 8"),
     (dict(pipe=2), "MESH_PIPE=2.*item 8"),
     (dict(num_slices=2), "NUM_SLICES=2.*item 8")])
 def test_axes_not_ported_raise_naming_their_item(kw, match):
+    """The axes not ported raise at the mesh; ``model`` is ported for
+    dense models, and an MoE model at ``model`` above 1 (expert
+    parallelism) raises where the mesh meets the model config."""
+    mc = tmesh.MeshConfig(**{"fsdp": 1, **kw})
     with pytest.raises(NotImplementedError, match=match):
-        tmesh.MeshConfig(**{"fsdp": 1, **kw}).check_ported()
+        mc.check_ported()
+        tshard.check_model_on_mesh(tcfg.mixtral_8x7b(), mc.model)
     assert tmesh.MeshConfig(data=2, fsdp=4).check_ported().shape == \
         (2, 4, 1, 1, 1)
+    assert tmesh.MeshConfig(fsdp=2, model=2).check_ported().shape == \
+        (1, 2, 2, 1, 1)
 
 
 def test_mesh_keys_of_the_config():
-    """One process ignores the mesh keys (they warn); a world reads them,
-    and the axes not ported raise there."""
+    """One process ignores the mesh keys (they warn); a world reads them
+    (``MESH_MODEL`` too), and the axes not ported raise there."""
     job = {"MESH_DATA": 1, "MESH_FSDP": -1, "MESH_MODEL": 1,
            "NUM_SLICES": 1, "TOPOLOGY": "v5e-16"}
     assert tconfig.mesh_config_from_config(job, 1) is None
@@ -85,8 +92,8 @@ def test_mesh_keys_of_the_config():
         dict(job, MESH_DATA=2), 4).shape == (2, 2, 1, 1, 1)
     assert tconfig.tpu_only_keys(job) == sorted(job)
     assert tconfig.tpu_only_keys(job, world=4) == ["TOPOLOGY"]
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tconfig.mesh_config_from_config(dict(job, MESH_MODEL=2), 4)
+    assert tconfig.mesh_config_from_config(
+        dict(job, MESH_MODEL=2), 4).shape == (1, 2, 2, 1, 1)
     with pytest.raises(NotImplementedError, match="item 8"):
         tconfig.mesh_config_from_config(dict(job, NUM_SLICES=2), 4)
 
