@@ -48,7 +48,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              Llama head (64,128 and 32,064 columns) through the port's
              shift and merge, against the unsharded kernel and the plain
              version, and timed on one shard with its bound and the
-             two-call route on it.
+             two-call route on it. The pre-train entry's shapes are held
+             too: flash forward, dQ and dK/dV at 16 rows of 256, 16
+             heads of 128 (no GQA); rows 4-6 at its char vocab (V 45,
+             under one 128-column tile, on ``mma.sync``) over 4,096 rows
+             of 2,048; row 7 at D 2,048 (the two-pass body).
 4. serve   — Llama-3.1-8B at full width and depth (bf16, random weights
              from a seed) through ``BatchEngine``: 24 requests over the
              256 and 512 buckets; the flash kernel must have run once per
@@ -252,6 +256,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
 20. train_moe_profile (opt-in) — the train_profile route over one step
              of the train_moe job, with its device time by MoE group
              (dequantize, expert GEMMs, dispatch, flash).
+21. pretrain — ``gke_ray_train_tpu_torch/pretrain.py``'s worker through
+             ``rayint/trainer.py::TorchTrainer.fit()`` on the local path
+             (basic_lm at full width: 2,048 d / 16 heads / 8,192 ff, the
+             synthetic corpus's char vocab, seq 256, 16 rows a step, bf16
+             over fp32 masters, FUSED_OPS=1), cut to 8 steps. Run A at
+             full depth (24 layers) with SERVE_AFTER_TRAIN: step p50
+             between synchronizes, tokens/s, MFU, peak memory, the
+             ledger, exact launches (rows 1-8; CE on ``mma.sync`` at V
+             45); the smoke's bf16 completions against bf16 greedy
+             decoding, where a differing token must have lost a near tie
+             (within 4 bf16 ulps of greedy's top logit at the first
+             divergent position; the decode GEMMs take other shapes than
+             greedy's), the same prompts through the engine equal to
+             greedy in float32, and the same weights through a
+             two-replica ``ServeDeployment`` equal to the single engine
+             with both replicas on the board. Then the fault drill at 6 layers
+             (depth cut: the full-depth saves are 19 GB each), a save
+             every 2 steps, under deterministic algorithms (measured
+             first: the embedding's backward repeats bitwise only so):
+             A' uninterrupted, B under ``FAULT_SPEC`` kill at 5 and
+             SIGTERM at 7 with one failure allowed: 3 attempts, 1
+             failure, 1 preemption, status ok, every loss and the last
+             checkpoint (per-tensor digests) bitwise A''s, the retried
+             attempts' peaks within 1 GB of the first's. The free disk
+             is checked first.
+22. pretrain_multi (opt-in) — the four-card host (fewer fails): the
+             entry's worker under torchrun at fsdp 4 with ASYNC_CKPT=1
+             (6 layers, each rank ``chip_smoke.py --pretrain-worker``):
+             an uninterrupted run; a run under ``kill_during_commit`` at
+             step 4 (a 2 s storage delay holds the commit open) that
+             must exit non-zero leaving COMMITTING.4 without
+             COMMITTED.4; its resume, from step 2, every loss bitwise the
+             uninterrupted run's.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -267,6 +304,7 @@ import functools
 import glob
 import itertools
 import json
+import math
 import os
 import re
 import subprocess
@@ -476,6 +514,10 @@ KERNEL_CASES = {
     "llama3_8b_tp2_bf16": dict(B=2, S=1024, T=1024, H=16, K=4, dh=128,
                                dtype="bfloat16"),
     "llama3_70b_tp4_bf16": dict(B=1, S=1024, T=1024, H=16, K=2, dh=128,
+                                dtype="bfloat16"),
+    # the pre-train entry's step: basic_lm (16 heads of 128, no GQA), 16
+    # rows of 256
+    "basic_lm_train_bf16": dict(B=16, S=256, T=256, H=16, K=16, dh=128,
                                 dtype="bfloat16"),
 }
 
@@ -796,20 +838,22 @@ def _time_gemma_attn(dev):
 
 
 # fused rms_norm cases: rows (3 x 37) that no block or row group divides,
-# D of the small tests (the two-pass body), and every width the registers
-# body is built for: Gemma-2 (3,584, not a power of two), Llama (4,096),
-# Llama-2-13B (5,120), 70B (8,192)
+# D of the small tests and of the pre-train entry's basic_lm (2,048; both
+# on the two-pass body), and every width the registers body is built for:
+# Gemma-2 (3,584, not a power of two), Llama (4,096), Llama-2-13B (5,120),
+# 70B (8,192)
 NORM_CASES = [dict(D=D, dtype=dt, scale_plus_one=sp1)
               for dt in ("float32", "bfloat16")
-              for D in (64, 3584, 4096, 5120, 8192)
+              for D in (64, 2048, 3584, 4096, 5120, 8192)
               for sp1 in (False, True)]
 # fused RoPE cases (B, S, H, K, dh): tiny, Gemma-2's training shape,
-# Llama's, and the local heads of Llama-3.1-8B at model 2 and of
-# Llama-3.1-70B at model 4
+# Llama's, the local heads of Llama-3.1-8B at model 2 and of
+# Llama-3.1-70B at model 4, and the pre-train entry's basic_lm step (16
+# rows of 256, 16 heads of 128, no GQA)
 ROPE_CASES = [dict(shape=shp, dtype=dt) for dt in ("float32", "bfloat16")
               for shp in ((1, 128, 4, 2, 32), (1, 4096, 16, 8, 256),
                           (2, 1024, 32, 8, 128), (2, 1024, 16, 4, 128),
-                          (1, 1024, 16, 2, 128))]
+                          (1, 1024, 16, 2, 128), (16, 256, 16, 16, 128))]
 # the train_fused phase's shapes: Gemma-2-9B, one packed row of 4,096
 GEMMA_NORM_SHAPE = (1, 4096, 3584)
 GEMMA_ROPE_SHAPE = (1, 4096, 16, 8, 256)
@@ -1179,7 +1223,11 @@ CE_CASES = ([dict(N=300, D=D, V=V, dtype=dt)
              for V in (1000, 32000, 128256)]
             + [dict(N=130, D=100, V=1001, dtype=dt)
                for dt in ("float32", "bfloat16")]
-            + [dict(N=5, D=64, V=1, dtype="bfloat16")])
+            + [dict(N=5, D=64, V=1, dtype="bfloat16")]
+            # the pre-train entry's char vocab (the synthetic corpus's 45
+            # columns, under one 128-column tile) at its step's rows
+            + [dict(N=4096, D=2048, V=45, dtype=dt)
+               for dt in ("float32", "bfloat16")])
 # the train_fused_ce phase's microbatch: Llama-3.1-8B, 2 x 1,024 rows
 CE_LLAMA_SHAPE = dict(N=2048, D=4096, V=128256, dtype="bfloat16")
 
@@ -5257,6 +5305,645 @@ def phase_entry_moe(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 21 / 22: the pre-train entry through the trainer
+# ---------------------------------------------------------------------------
+
+# pretrain.py::job_config at full width (2,048 d / 24 layers / 16 heads
+# / 8,192 ff, seq 256, 16 rows a step, bf16 over fp32 masters) on the
+# synthetic corpus, cut to this many steps, a log line every step
+PRETRAIN_STEPS = 8
+# the fault drill's depth cut: two kept saves of the 24-layer state (fp32
+# params and two moments, 12 bytes a parameter) would be ~19 GB each
+PRETRAIN_DRILL_LAYERS = 6
+PRETRAIN_DRILL_EVERY = 2
+PRETRAIN_DRILL_SPEC = "kind=kill:step=5;kind=sigterm:step=7"
+# the retried attempts' peak memory against the first attempt's
+PRETRAIN_PEAK_SLACK = 1 << 30
+# a bf16 smoke token that differs from bf16 greedy's must have lost a
+# near tie: greedy's logit for it within this many bf16 ulps (at greedy's
+# top logit) of greedy's top
+BF16_FLIP_ULPS = 4
+PRETRAIN_MULTI_RANKS = 4
+PRETRAIN_MULTI_KILL_STEP = 4
+PRETRAIN_MULTI_TIMEOUT_S = 420
+
+
+def _pretrain_config(root, n_layers=None, **over):
+    from gke_ray_train_tpu_torch import pretrain
+    config = pretrain.job_config(env={})
+    config.update(max_samples=PRETRAIN_STEPS
+                  * config["batch_size_per_device"], log_every=1,
+                  data_dir=os.path.join(root, "data"),
+                  storage_path=os.path.join(root, "runs"))
+    if n_layers is not None:
+        config["n_layers"] = n_layers
+    config.update(over)
+    return config
+
+
+def _pretrain_hooks(rec, sync, ckpt_every=None):
+    """Wrap ``pretrain.make_train_step`` (each step's loss tensor, read
+    after the run, and with ``sync`` its time between synchronizes),
+    ``pretrain.post_train_smoke`` (its completions and inputs) and
+    ``pretrain.run_training`` (with ``ckpt_every``, a save every that
+    many steps; the entry saves once an epoch)."""
+    import torch
+    from gke_ray_train_tpu_torch import pretrain
+    orig = {n: getattr(pretrain, n) for n in (
+        "make_train_step", "post_train_smoke", "run_training")}
+
+    def make_train_step(*a, **kw):
+        step = orig["make_train_step"](*a, **kw)
+
+        def recorded(state, batch):
+            if sync:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            if sync:
+                torch.cuda.synchronize()
+                rec["step_s"].append(time.perf_counter() - t)
+            rec["calls"] += 1
+            rec["losses"][int(state.step)] = m["loss"].detach()
+            return state, m
+        return recorded
+
+    def post_train_smoke(params, cfg, plan, prompts, **kw):
+        out = orig["post_train_smoke"](params, cfg, plan, prompts, **kw)
+        rec["smoke"] = dict(out=out, params=params, cfg=cfg, plan=plan,
+                            prompts=prompts, kw=kw)
+        return out
+    def run_training(*a, **kw):
+        if ckpt_every:
+            kw["ckpt_every"] = ckpt_every
+        return orig["run_training"](*a, **kw)
+    pretrain.make_train_step = make_train_step
+    pretrain.post_train_smoke = post_train_smoke
+    pretrain.run_training = run_training
+    return orig
+
+
+def _pretrain_fit(dev, config, label, spec=None, max_failures=0,
+                  sync=False, ckpt_every=None):
+    """``pretrain.train_loop_per_worker`` through ``TorchTrainer.fit()``
+    on the local path, on the card, with the launch counts at 0 just
+    before and read just after, and ``FAULT_SPEC=spec`` while it runs;
+    each attempt's memory at its start and its peak."""
+    import gc
+    import torch
+    from gke_ray_train_tpu_torch import pretrain
+    from gke_ray_train_tpu_torch.rayint import (
+        FailureConfig, RunConfig, TorchTrainer)
+    from gke_ray_train_tpu_torch.testing import faults
+    rec = dict(losses={}, step_s=[], calls=0, smoke=None, attempts=[])
+
+    def worker(cfg):
+        torch.cuda.synchronize(dev)
+        att = {"start_bytes": torch.cuda.memory_allocated(dev)}
+        rec["attempts"].append(att)
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            return pretrain.train_loop_per_worker(cfg, device=dev)
+        finally:
+            att["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    orig = _pretrain_hooks(rec, sync, ckpt_every)
+    faults.reset_fired()
+    faults.reset_pool()
+    if spec:
+        os.environ["FAULT_SPEC"] = spec
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        result = TorchTrainer(
+            worker, train_loop_config=config,
+            run_config=RunConfig(
+                name=f"pretrain-{label}", retry_backoff_s=0.0,
+                failure_config=FailureConfig(max_failures=max_failures)),
+            use_ray=False).fit()
+    finally:
+        wall = time.perf_counter() - t0
+        os.environ.pop("FAULT_SPEC", None)
+        for name, fn in orig.items():
+            setattr(pretrain, name, fn)
+        faults.reset_fired()
+    torch.cuda.synchronize(dev)
+    rec.update(label=label, wall_s=wall, result=result,
+               launches=_launch_counts(),
+               failures=sum(e["status"] == "failed"
+                            for e in result.attempt_log))
+    return rec
+
+
+def _ckpt_digests(run_dir):
+    """{key: sha256 of the bytes} of the latest checkpoint of
+    ``run_dir``, read one step to the CPU, and that step."""
+    import hashlib
+    import torch
+    from gke_ray_train_tpu_torch.ckpt import CheckpointManager
+    mgr = CheckpointManager(run_dir, score_attribute=None)
+    step = mgr.latest_step()
+    out = {}
+    for head, v in mgr.restore_raw(step).items():
+        for k, x in (v.items() if isinstance(v, dict) else [(None, v)]):
+            key = head if k is None else f"{head}/{k}"
+            if torch.is_tensor(x):
+                out[key] = hashlib.sha256(
+                    x.contiguous().view(torch.uint8).numpy()).hexdigest()
+            else:
+                out[key] = repr(x)
+    return step, out
+
+
+def _pretrain_disk(root, cfg_full, cfg_cut):
+    """Free bytes where the phase writes against what it needs: run A's
+    one save (12 bytes a parameter) or a drill run's two kept saves of
+    the cut depth, one run directory at a time."""
+    import shutil
+    need = max(12 * cfg_full.param_count(),
+               2 * 12 * cfg_cut.param_count()) + (1 << 30)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise SystemExit(
+            f"pretrain phase: {free / 1e9:.2f} GB free under {root}, the "
+            f"checkpoints need {need / 1e9:.2f} GB")
+    return {"root": root, "free_bytes": free, "need_bytes": need}
+
+
+def _pretrain_serve(dev, smoke, problems):
+    """The smoke's prompts on the trained weights against sequential
+    greedy decoding, then the same weights through a two-replica
+    ``ServeDeployment``: its completions must be the single engine's, and
+    its board must hold both replicas' iterations.
+
+    The smoke's bf16 completions are held against bf16 greedy: the
+    engine's decode step ([max_batch, 1]) and greedy's ([1, 1]) take
+    GEMMs of other shapes, so a near-tied pair of logits may flip. At
+    each mismatch the first divergent position is read in greedy's own
+    logits, and the engine's token must lie within ``BF16_FLIP_ULPS``
+    bf16 ulps (at greedy's top logit) of greedy's; greedy's closest
+    top-1 / top-2 gap over each completion is reported. The same prompts
+    then go through the engine and ``greedy_generate_cached`` in float32
+    (TF32 off), which must agree token for token."""
+    import torch
+    from gke_ray_train_tpu_torch.models import greedy_generate_cached
+    from gke_ray_train_tpu_torch.models import kvcache
+    from gke_ray_train_tpu_torch.rayint import ServeDeployment
+    from gke_ray_train_tpu_torch.serve import (
+        BatchEngine, Request, form_prompt_buffer)
+    comps, stats = smoke["out"]
+    params, cfg, plan = smoke["params"], smoke["cfg"], smoke["plan"]
+    prompts = {c.rid: np.asarray(smoke["prompts"][int(c.rid[len("smoke"):])],
+                                 np.int32) for c in comps}
+
+    def greedy(c, model_cfg):
+        """greedy's buffer and the float32 logits of each of its
+        ``forward_step`` calls (the prefill's [T, V], then one [1, V] a
+        decode step), and the prompt's length."""
+        buf, plen = form_prompt_buffer(prompts[c.rid], c.bucket)
+        seen, orig = [], kvcache.forward_step
+
+        def logged(*a, **kw):
+            logits, cache = orig(*a, **kw)
+            seen.append(logits[0].float())
+            return logits, cache
+        kvcache.forward_step = logged
+        try:
+            ref = greedy_generate_cached(
+                params, buf, [plen], model_cfg,
+                max_new_tokens=c.length - c.prompt_len, device=dev)
+        finally:
+            kvcache.forward_step = orig
+        return ref[0].cpu().numpy(), seen, plen
+
+    def bf16_ulp(x):
+        return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+    def greedy_mismatches(completions, model_cfg, margins=None,
+                          closest=None):
+        out = []
+        for c in completions:
+            ref, seen, plen = greedy(c, model_cfg)
+            # the logits that chose each generated position: the
+            # prefill's at the prompt's last token, then one a decode step
+            chose = [seen[0][plen - 1]] + [x[0] for x in seen[1:]]
+            chose = chose[:c.length - plen]
+            if closest is not None:
+                top = [lv.topk(2).values for lv in chose]
+                closest[c.rid] = min(float(t[0] - t[1]) / bf16_ulp(float(
+                    t[0])) for t in top) if top else None
+            if np.array_equal(ref, c.tokens):
+                continue
+            out.append(c.rid)
+            if margins is None:
+                continue
+            n = min(len(ref), len(c.tokens))
+            diff = np.flatnonzero(ref[:n] != c.tokens[:n])
+            j = int(diff[0]) if len(diff) else None
+            m = {"rid": c.rid, "pos": j, "prompt_len": plen}
+            if j is not None and plen <= j < plen + len(chose):
+                lv = chose[j - plen]
+                want, got = int(ref[j]), int(c.tokens[j])
+                top = lv.topk(2).values
+                ulp = bf16_ulp(float(top[0]))
+                gap = float(lv[want] - lv[got])
+                m.update(greedy_token=want, engine_token=got,
+                         logit_top1=float(top[0]),
+                         gap_top2=float(top[0] - top[1]),
+                         gap_engine_token=gap, bf16_ulp=ulp,
+                         gap_ulps=gap / ulp)
+            margins.append(m)
+        return out
+    bf16_margins, bf16_closest = [], {}
+    bf16_mismatched = greedy_mismatches(comps, cfg, bf16_margins,
+                                        bf16_closest)
+    wide = [m for m in bf16_margins
+            if m.get("gap_ulps") is None or m["gap_ulps"] > BF16_FLIP_ULPS]
+    fp32 = dataclasses.replace(cfg, dtype="float32")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        fp32_comps = BatchEngine(params, fp32, plan=plan,
+                                 device=dev).run_until_drained([
+            Request(rid=c.rid, token_ids=prompts[c.rid],
+                    max_new_tokens=c.length - c.prompt_len)
+            for c in comps])
+        mismatched = greedy_mismatches(fp32_comps, fp32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    dep = ServeDeployment(
+        lambda: BatchEngine(params, cfg, plan=plan, device=dev),
+        num_replicas=2, use_ray=False)
+    dep.start(warm=False)
+    try:
+        got = dep.serve([{"rid": c.rid, "token_ids": prompts[c.rid],
+                          "max_new_tokens": smoke["kw"].get(
+                              "max_new_tokens", 32)} for c in comps])
+        board = dep.board_snapshot()
+    finally:
+        dep.shutdown()
+    single = {c.rid: c.tokens.tolist() for c in comps}
+    differ = [p["rid"] for p in got if p["tokens"] != single[p["rid"]]]
+    if mismatched or len(fp32_comps) != len(comps):
+        problems.append(f"fp32 engine completions {mismatched} differ from "
+                        "sequential greedy decoding")
+    if wide:
+        problems.append(f"bf16 engine completions differ from greedy "
+                        f"beyond {BF16_FLIP_ULPS} bf16 ulps of a near tie: "
+                        f"{wide}")
+    if differ or len(got) != len(comps):
+        problems.append(f"deployment completions {differ} differ from the "
+                        f"single engine's ({len(got)} of {len(comps)})")
+    if sorted(board) != [0, 1] or any(v["step"] < 1 for v in board.values()):
+        problems.append(f"deployment board {board}")
+    return {"requests": len(comps), "generated": [
+        c.length - c.prompt_len for c in comps],
+        "greedy_equal_fp32": not mismatched, "mismatched_fp32": mismatched,
+        "greedy_equal_bf16": not bf16_mismatched,
+        "mismatched_bf16": bf16_mismatched, "bf16_margins": bf16_margins,
+        "bf16_greedy_closest_top2_ulps": bf16_closest,
+        "bf16_flip_ulps": BF16_FLIP_ULPS,
+        "deployment_equal": not differ, "board": board,
+        "smoke_stats": {k: stats.get(k) for k in (
+            "prefills", "generated_tokens", "wall_s", "batch_occupancy",
+            "p50_token_latency_s")}}
+
+
+def _embedding_determinism(dev, cfg, rows, seq):
+    """``F.embedding``'s backward at the pre-train step's shape (the
+    char vocab, ``rows`` x ``seq`` tokens, an fp32 table under a bf16
+    cast), five times each under the default algorithms and under
+    ``torch.use_deterministic_algorithms``: whether the table's gradient
+    repeats bitwise, and by how much it moves when it does not."""
+    import torch
+    import torch.nn.functional as F
+    g = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(cfg.vocab_size, cfg.d_model, device=dev,
+                        requires_grad=True)
+    idx = torch.randint(0, cfg.vocab_size, (rows, seq), device=dev,
+                        generator=g)
+    up = torch.randn(rows, seq, cfg.d_model, device=dev,
+                     generator=g).to(torch.bfloat16)
+    out = {}
+    prev = torch.are_deterministic_algorithms_enabled()
+    try:
+        for name, det in (("default", False), ("deterministic", True)):
+            torch.use_deterministic_algorithms(det, warn_only=True)
+            grads = []
+            for _ in range(5):
+                table.grad = None
+                F.embedding(idx, table).to(torch.bfloat16).backward(up)
+                grads.append(table.grad.clone())
+            out[name] = {
+                "bitwise": all(torch.equal(grads[0], x) for x in grads[1:]),
+                "max_abs_diff": max(float((grads[0] - x).abs().max())
+                                    for x in grads[1:])}
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    return out
+
+
+def _pretrain_launches(cfg, rec, prefills=0):
+    per = expected_launches(cfg, 1, True, full_ft=True)
+    return {k: rec["calls"] * v + (cfg.n_layers * prefills
+                                   if k == "flash_fwd" else 0)
+            for k, v in per.items()}
+
+
+def phase_pretrain(dev):
+    """``gke_ray_train_tpu_torch/pretrain.py``'s worker through
+    ``TorchTrainer.fit()`` on the card (module doc, 21): run A at full
+    width and depth with SERVE_AFTER_TRAIN, then the fault drill at the
+    cut depth, A' uninterrupted against B under ``PRETRAIN_DRILL_SPEC``
+    with one failure allowed."""
+    import shutil
+    import tempfile
+    import torch
+    from gke_ray_train_tpu_torch.models import basic_lm
+    from gke_ray_train_tpu_torch.train.metrics import (
+        peak_flops_per_device, train_flops_per_token)
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    os.environ["HF_DATASETS_OFFLINE"] = "1"
+    prev_fused = os.environ.get("FUSED_OPS")
+    os.environ["FUSED_OPS"] = "1"
+    root = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
+    problems = []
+    try:
+        config = _pretrain_config(root, SERVE_AFTER_TRAIN=True)
+        # the char vocab is the corpus's: sized here for the disk check
+        # with the widest vocab a byte corpus could give
+        full = basic_lm(256, d_model=config["d_model"],
+                        n_layers=config["n_layers"],
+                        n_heads=config["n_heads"], d_ff=config["d_ff"])
+        cut = dataclasses.replace(full, n_layers=PRETRAIN_DRILL_LAYERS)
+        disk = _pretrain_disk(root, full, cut)
+        a = _pretrain_fit(dev, config, "A", sync=True)
+        res = a["result"]
+        if res.error or res.attempts != 1:
+            raise SystemExit(f"pretrain run A: {res.status} after "
+                             f"{res.attempts} attempt(s): {res.error}")
+        smoke = a.pop("smoke")
+        cfg = smoke["cfg"] if smoke else None
+        if cfg is None:
+            raise SystemExit("pretrain run A: SERVE_AFTER_TRAIN never ran")
+        serve = _pretrain_serve(dev, smoke, problems)
+        del smoke
+        seq, rows = config["dataset_seq_len"], config["batch_size_per_device"]
+        step_s = a["step_s"][1:]
+        p50 = sorted(step_s)[len(step_s) // 2]
+        tokens = seq * rows
+        peak = peak_flops_per_device(torch.cuda.get_device_name(dev))
+        want = _pretrain_launches(cfg, a,
+                                  serve["smoke_stats"]["prefills"] or 0)
+        if a["launches"] != want:
+            problems.append(f"A: launches {a['launches']} != {want}")
+        losses_a = {s: float(v) for s, v in sorted(a["losses"].items())}
+        if sorted(losses_a) != list(range(1, PRETRAIN_STEPS + 1)) or \
+                not all(np.isfinite(list(losses_a.values()))):
+            problems.append(f"A: losses {losses_a}")
+        m = res.metrics
+        line_a = {
+            "phase": "pretrain", "run": "A", "nvidia_smi": nvidia_smi_line(),
+            "model": cfg.name, "params": cfg.param_count(),
+            "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+            "vocab": cfg.vocab_size, "seq": seq, "rows": rows,
+            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+            "step_s": a["step_s"], "step_s_p50": p50,
+            "tokens_per_s": tokens / p50,
+            "mfu": train_flops_per_token(cfg, seq) * tokens / p50 / peak,
+            "peak_flops": peak,
+            "meter": {k: m.get(k) for k in (
+                "tokens_per_sec_per_chip", "mfu", "compile_s",
+                "restart_to_first_step_s", "loss", "grad_norm",
+                "learning_rate", "step")},
+            "losses": losses_a,
+            "peak_mem_bytes": a["attempts"][0]["peak_bytes"],
+            "goodput": res.goodput, "wall_s": a["wall_s"],
+            "launches": a["launches"], "expected_launches": want,
+            "serve": serve}
+        emit(line_a)
+        shutil.rmtree(os.path.join(config["storage_path"]),
+                      ignore_errors=True)
+        del a
+        # the fault drill, under deterministic algorithms: by default the
+        # embedding's backward sums its rows in no fixed order, so two
+        # uninterrupted runs already differ in the fp32 table
+        embed_det = _embedding_determinism(dev, cfg, rows, seq)
+        drill = {}
+        digests = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for label, spec, budget in (("A'", None, 0),
+                                    ("B", PRETRAIN_DRILL_SPEC, 1)):
+            dconfig = _pretrain_config(
+                root, n_layers=PRETRAIN_DRILL_LAYERS,
+                run_name=f"drill_{len(drill)}")
+            run = _pretrain_fit(dev, dconfig, label, spec=spec,
+                                max_failures=budget,
+                                ckpt_every=PRETRAIN_DRILL_EVERY)
+            run_dir = os.path.join(dconfig["storage_path"],
+                                   dconfig["run_name"])
+            digests[label] = _ckpt_digests(run_dir)
+            shutil.rmtree(run_dir, ignore_errors=True)
+            want = _pretrain_launches(cut, run)
+            if run["launches"] != want:
+                problems.append(f"{label}: launches {run['launches']} != "
+                                f"{want}")
+            drill[label] = run
+            r = run["result"]
+            emit({"phase": "pretrain", "run": label,
+                  "n_layers": PRETRAIN_DRILL_LAYERS,
+                  "ckpt_every": PRETRAIN_DRILL_EVERY, "fault_spec": spec,
+                  "max_failures": budget, "status": r.status,
+                  "error": r.error, "attempts": r.attempts,
+                  "failures": run["failures"],
+                  "preemptions": r.preemptions,
+                  "attempt_log": [{k: v for k, v in e.items()
+                                   if k != "goodput"}
+                                  for e in r.attempt_log],
+                  "goodput": r.goodput,
+                  "attempt_memory": run["attempts"],
+                  "steps_trained": run["calls"],
+                  "losses": {s: float(v) for s, v in
+                             sorted(run["losses"].items())},
+                  "checkpoint_step": digests[label][0],
+                  "wall_s": run["wall_s"], "launches": run["launches"]})
+        torch.use_deterministic_algorithms(False)
+        ref, b = drill["A'"], drill["B"]
+        r = b["result"]
+        if (r.status, r.attempts, b["failures"], r.preemptions) != \
+                ("ok", 3, 1, 1):
+            problems.append(f"B: status {r.status}, attempts {r.attempts}, "
+                            f"failures {b['failures']}, preemptions "
+                            f"{r.preemptions} (want ok / 3 / 1 / 1)")
+        if sorted(ref["losses"]) != list(range(1, PRETRAIN_STEPS + 1)) or \
+                sorted(b["losses"]) != sorted(ref["losses"]):
+            problems.append(f"drill steps A' {sorted(ref['losses'])} B "
+                            f"{sorted(b['losses'])}")
+        unequal = [s for s in ref["losses"] if s in b["losses"] and
+                   not torch.equal(ref["losses"][s], b["losses"][s])]
+        if unequal:
+            problems.append(f"B's losses at steps {unequal} are not A''s")
+        (sa, da), (sb, db) = digests["A'"], digests["B"]
+        differ = sorted(k for k in da if da[k] != db.get(k))
+        if sa != PRETRAIN_STEPS or sb != PRETRAIN_STEPS or differ \
+                or set(da) != set(db):
+            problems.append(f"last checkpoints: steps {sa} / {sb}, "
+                            f"{len(differ)} entries differ: {differ[:4]}")
+        peaks = [x["peak_bytes"] for x in b["attempts"]]
+        over = [p - peaks[0] for p in peaks[1:]]
+        if len(peaks) != 3 or any(d > PRETRAIN_PEAK_SLACK for d in over):
+            problems.append(f"B's attempt peaks {peaks}: retries over the "
+                            f"first by {over} bytes")
+        emit({"phase": "pretrain", "ok": not problems, "problems": problems,
+              "nvidia_smi": nvidia_smi_line(), "disk": disk,
+              "embedding_backward": embed_det,
+              "drill": {"spec": PRETRAIN_DRILL_SPEC,
+                        "n_layers": PRETRAIN_DRILL_LAYERS,
+                        "deterministic_algorithms": True,
+                        "bitwise_losses": not unequal,
+                        "checkpoint_entries": len(da),
+                        "checkpoint_entries_differ": differ,
+                        "attempt_peaks": peaks,
+                        "retry_peak_over_first": over}})
+        if problems:
+            raise SystemExit("pretrain phase failed: " + "; ".join(problems))
+        counts = {}
+        for run in [line_a] + [drill[k] for k in drill]:
+            for k, n in run["launches"].items():
+                counts[k] = counts.get(k, 0) + n
+        return {k: n for k, n in counts.items() if n}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if prev_fused is None:
+            os.environ.pop("FUSED_OPS", None)
+        else:
+            os.environ["FUSED_OPS"] = prev_fused
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _pretrain_worker(config_path, out_path):
+    """One rank of pretrain_multi, started by torchrun (its env): the
+    entry's worker through ``TorchTrainer.fit()`` (one in-process worker
+    a rank, no retry), each step's loss recorded; writes
+    ``<out_path>.<rank>`` and exits 1 on an error ``Result``."""
+    import torch
+    from gke_ray_train_tpu_torch.rayint import TorchTrainer
+    with open(config_path) as f:
+        config = json.load(f)
+    # the embedding's backward repeats bitwise only so (phase 21)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rec = dict(losses={}, step_s=[], calls=0, smoke=None)
+    _pretrain_hooks(rec, sync=False, ckpt_every=PRETRAIN_DRILL_EVERY)
+    from gke_ray_train_tpu_torch import pretrain
+    result = TorchTrainer(pretrain.train_loop_per_worker,
+                          train_loop_config=config, use_ray=False).fit()
+    rank = int(os.environ["RANK"])
+    with open(out_path + f".{rank}", "w") as f:
+        json.dump({"rank": rank, "status": result.status,
+                   "error": result.error, "attempts": result.attempts,
+                   "resumed_step": result.attempt_log[0].get(
+                       "resumed_step"),
+                   "losses": {s: float(v).hex()
+                              for s, v in sorted(rec["losses"].items())}},
+                  f)
+    if result.error:
+        raise SystemExit(1)
+
+
+def phase_pretrain_multi(dev):
+    """The entry under torchrun on the four-card host (module doc, 22):
+    at fsdp 4 with ASYNC_CKPT=1, an uninterrupted run, then a run killed
+    during the commit of step ``PRETRAIN_MULTI_KILL_STEP`` (it must exit
+    non-zero and leave COMMITTING without COMMITTED), then its resume:
+    from the previous committed step, every loss bitwise the
+    uninterrupted run's."""
+    import shutil
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    if n < PRETRAIN_MULTI_RANKS:
+        raise SystemExit(f"pretrain_multi needs {PRETRAIN_MULTI_RANKS} "
+                         f"cards, this host has {n}")
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    root = tempfile.mkdtemp(prefix="chip_smoke_pretrain_multi_")
+    problems = []
+    lines = {}
+    try:
+        env = dict(os.environ, FUSED_OPS="1", ASYNC_CKPT="1",
+                   PREEMPT_SYNC_EVERY="1", CKPT_STORAGE_DELAY_S="2")
+        rows = PRETRAIN_STEPS * 16 * PRETRAIN_MULTI_RANKS
+        for label, run_name, spec in (
+                ("U", "u", None),
+                ("K", "k", f"kind=kill_during_commit:step="
+                           f"{PRETRAIN_MULTI_KILL_STEP}"),
+                ("R", "k", None)):
+            config = _pretrain_config(
+                root, n_layers=PRETRAIN_DRILL_LAYERS, run_name=run_name,
+                max_samples=rows, MESH_FSDP=PRETRAIN_MULTI_RANKS)
+            cfg_path = os.path.join(root, f"{label}.json")
+            with open(cfg_path, "w") as f:
+                json.dump(config, f)
+            out = os.path.join(root, f"{label}.rank")
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--nnodes", "1", "--nproc-per-node",
+                   str(PRETRAIN_MULTI_RANKS), "--master-addr", "127.0.0.1",
+                   "--master-port", str(_free_port()),
+                   os.path.abspath(__file__), "--pretrain-worker", cfg_path,
+                   out]
+            run_env = dict(env, **({"FAULT_SPEC": spec} if spec else {}))
+            log_path = os.path.join(root, f"{label}.log")
+            t0 = time.perf_counter()
+            with open(log_path, "w") as log:
+                proc = subprocess.Popen(cmd, env=run_env, cwd=HERE,
+                                        stdout=log, stderr=subprocess.STDOUT)
+                hung, rcs = _wait_all([proc], PRETRAIN_MULTI_TIMEOUT_S)
+            ranks = _read_ranks(out, PRETRAIN_MULTI_RANKS)
+            run_dir = os.path.join(config["storage_path"], run_name)
+            markers = sorted(os.path.basename(p) for p in glob.glob(
+                os.path.join(run_dir, "COMMITT*")))
+            line = {"phase": "pretrain_multi", "run": label,
+                    "fault_spec": spec, "exit_code": rcs[0],
+                    "hung": bool(hung), "wall_s": time.perf_counter() - t0,
+                    "markers": markers, "ranks": ranks}
+            if hung or (rcs[0] == 0) != (spec is None) or (
+                    spec is None and None in ranks):
+                with open(log_path) as f:
+                    line["log_tail"] = f.read()[-6000:]
+                problems.append(f"{label}: exit code {rcs[0]}, hung "
+                                f"{bool(hung)}")
+            emit(line)
+            lines[label] = line
+        k = PRETRAIN_MULTI_KILL_STEP
+        prev = k - PRETRAIN_DRILL_EVERY
+        if f"COMMITTING.{k}" not in lines["K"]["markers"] or \
+                f"COMMITTED.{k}" in lines["K"]["markers"]:
+            problems.append(f"K left markers {lines['K']['markers']}")
+        u = lines["U"]["ranks"][0] or {}
+        for r in lines["R"]["ranks"]:
+            r = r or {}
+            if r.get("resumed_step") != prev:
+                problems.append(f"R resumed from {r.get('resumed_step')}, "
+                                f"not {prev}")
+            diff = [s for s, v in r.get("losses", {}).items()
+                    if u.get("losses", {}).get(s) != v]
+            if diff or sorted(r.get("losses", {}), key=int) != [
+                    str(s) for s in range(prev + 1, PRETRAIN_STEPS + 1)]:
+                problems.append(f"R rank {r.get('rank')}: losses at "
+                                f"{diff} differ from U's, or steps "
+                                f"{sorted(r.get('losses', {}), key=int)}")
+        emit({"phase": "pretrain_multi", "ok": not problems,
+              "problems": problems, "nvidia_smi": nvidia_smi_line(),
+              "ranks": PRETRAIN_MULTI_RANKS,
+              "n_layers": PRETRAIN_DRILL_LAYERS,
+              "kill_during_commit_step": k})
+        if problems:
+            raise SystemExit("pretrain_multi failed: " + "; ".join(problems))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
@@ -5265,11 +5952,12 @@ PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train_profile", "entry", "train_moe", "train_moe_parity",
           "serve_moe", "entry_moe", "profile", "train_fused_profile",
           "train_fused_ce_profile", "train_moe_profile", "entry_full",
-          "train_mesh_multi", "train_tp_multi")
+          "train_mesh_multi", "train_tp_multi", "pretrain",
+          "pretrain_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
-                 "train_tp_multi")
+                 "train_tp_multi", "pretrain_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -5364,14 +6052,19 @@ def main(argv=None) -> int:
     ap.add_argument("--tp-worker", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--tp-multi-worker", metavar="OUT",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--pretrain-worker", nargs=2, metavar=("CONFIG", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
                "tp_multi_worker": _tp_multi_worker}
-    if args.entry_worker or any(getattr(args, k) for k in workers):
+    if args.entry_worker or args.pretrain_worker or any(
+            getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
         sys.path.insert(0, HERE)
         if args.entry_worker:
             _entry_worker(*args.entry_worker)
+        if args.pretrain_worker:
+            _pretrain_worker(*args.pretrain_worker)
         for key, fn in workers.items():
             if getattr(args, key):
                 fn(getattr(args, key))
@@ -5455,6 +6148,8 @@ def main(argv=None) -> int:
     add(run("entry_full", phase_entry_full))
     run("train_mesh_multi", phase_train_mesh_multi)
     add(run("train_tp_multi", phase_train_tp_multi))
+    add(run("pretrain", phase_pretrain))
+    run("pretrain_multi", phase_pretrain_multi)
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -46,8 +46,18 @@ step saved at world N restores at world M, or into the plain tensors of
 one process (:meth:`CheckpointManager.restore_resharded`). Rank 0 alone
 writes the markers, the metrics, the rename and ``topology.json`` (the
 saving world's size, so a restore can say it resharded), between
-barriers. Async commit is one process's: it raises at a world above
-one.
+barriers.
+
+Async commit across ranks (the JAX manager's multi-host async save): the
+snapshot of a rank's shards is ``dcp``'s CPU staging of its flat state
+(DTensors keep their placements around CPU local shards), and each
+rank's committer thread writes them through ``dcp.save`` over a gloo
+group of its own, so its collectives never meet the training's on the
+default group. The committers meet twice a commit in a MAX all-reduce
+of the local tear flags (before the write and after it), so every rank
+tears or commits the same step; rank 0 writes ``COMMITTED`` only after
+the save returned, and ``dcp.save`` returns on rank 0 only once every
+rank's files are written and fsync'd and their results gathered.
 """
 
 from __future__ import annotations
@@ -76,10 +86,10 @@ METRICS_FILE = "metrics.json"
 TOPOLOGY_NOTE = "topology.json"
 
 
-def _barrier() -> None:
+def _barrier(group=None) -> None:
     if world_size() > 1:
         import torch.distributed as dist
-        dist.barrier()
+        dist.barrier(group=group)
 
 
 def _env_flag(name: str, default: bool = False) -> bool:
@@ -192,6 +202,18 @@ def _host_snapshot(flat: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _staged_snapshot(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """A rank's snapshot at a world above one: ``dcp``'s CPU staging of
+    the flat state (a DTensor stays one, around a CPU copy of its local
+    shard), then one wait for the card."""
+    from torch.distributed.checkpoint.staging import BlockingAsyncStager
+    out = BlockingAsyncStager().stage(flat)
+    if any(torch.is_tensor(v) and v.device.type == "cuda"
+           for v in flat.values()):
+        torch.cuda.synchronize()
+    return out
+
+
 def _dcp_call(name: str, *args, collective: bool = True, **kwargs):
     """``dcp.save`` / ``dcp.load``: over the world's ranks when a world
     above one is up and ``collective``, else in this process. dcp raises
@@ -233,14 +255,13 @@ class CheckpointManager:
         self.async_commit = bool(async_commit)
         self.world = world_size()
         self.is_writer = True
+        # the committers' own group across ranks (module doc)
+        self._commit_group = None
         if self.world > 1:
             import torch.distributed as dist
             self.is_writer = dist.get_rank() == 0
             if self.async_commit:
-                raise NotImplementedError(
-                    f"async commit (ASYNC_CKPT) across {self.world} ranks "
-                    "is not ported yet (ROADMAP queue 1 item 5); save "
-                    "synchronously")
+                self._commit_group = dist.new_group(backend="gloo")
         if commit_timeout_s is None:
             commit_timeout_s = float(
                 os.environ.get("CKPT_COMMIT_TIMEOUT_S", "120"))
@@ -374,13 +395,21 @@ class CheckpointManager:
         """Async-commit recovery sweep: every COMMITTING-without-
         COMMITTED step never existed; quarantine it (or drop the orphan
         marker when the death came before any step data)."""
+        # every rank reads the markers before rank 0 changes any, so the
+        # ranks agree on what to quarantine (each quarantine is a barrier)
         pattern = os.path.join(self.directory, _WAL_OPEN + ".*")
+        found = []
         for path in sorted(glob.glob(pattern)):
             try:
                 step = int(os.path.basename(path).split(".", 1)[1])
             except (IndexError, ValueError):
                 continue
-            if os.path.exists(self._marker_path(_WAL_DONE, step)):
+            found.append((step,
+                          os.path.exists(self._marker_path(_WAL_DONE, step)),
+                          os.path.isdir(self._step_dir(step))))
+        _barrier()
+        for step, committed, has_dir in found:
+            if committed:
                 # the death came between COMMITTED and the cleanup
                 self._remove_marker(_WAL_OPEN, step)
                 continue
@@ -389,7 +418,7 @@ class CheckpointManager:
                 "commit record — the previous attempt died mid-commit; "
                 "treating the step as never saved and falling back to "
                 "the last committed one", step)
-            if os.path.isdir(self._step_dir(step)):
+            if has_dir:
                 self._quarantine(step)
             else:
                 self._remove_marker(_WAL_OPEN, step)
@@ -413,10 +442,12 @@ class CheckpointManager:
                       reverse=self.score_mode == "min")
 
     def _write_step(self, step: int, flat: Dict[str, Any],
-                    metrics: dict) -> None:
+                    metrics: dict, group=None) -> None:
         """orbax's save of one step: ``dcp.save`` into ``<step>.tmp``,
         the metrics beside it when a score ranks the steps, one rename
-        into place, then the step joins the cache and retention runs."""
+        into place, then the step joins the cache and retention runs.
+        ``group``: the process group of the save's collectives (default:
+        the world's)."""
         if step in self.all_steps():
             raise FileExistsError(f"checkpoint step {step} already exists "
                                   f"in {self.directory}")
@@ -424,8 +455,11 @@ class CheckpointManager:
         tmp = final + ".tmp"
         if self.is_writer:
             shutil.rmtree(tmp, ignore_errors=True)
-        _barrier()
-        _dcp_call("save", flat, checkpoint_id=tmp)
+        _barrier(group)
+        if group is None:
+            _dcp_call("save", flat, checkpoint_id=tmp)
+        else:
+            _dcp_call("save", flat, checkpoint_id=tmp, process_group=group)
         kept = metrics if self.score_attribute is not None else None
         if self.is_writer:
             if kept is not None:
@@ -438,7 +472,7 @@ class CheckpointManager:
             os.replace(tmp, final)
             self._fsync_dir()
             self._write_topology_note(step)
-        _barrier()
+        _barrier(group)
         self._checkpoints.append((step, kept))
         self._retain()
 
@@ -500,7 +534,10 @@ class CheckpointManager:
             return False
         if not force and not self._should_save(step):
             return False
-        host = _host_snapshot(flat_state(state))
+        if self._commit_group is not None:
+            host = _staged_snapshot(flat_state(state))
+        else:
+            host = _host_snapshot(flat_state(state))
         with self._commit_lock:
             self._ensure_committer()
             self._commit_queue.append((step, host, metrics))
@@ -550,12 +587,10 @@ class CheckpointManager:
         self._write_marker(_WAL_OPEN, step)
         if self.storage_delay_s:
             time.sleep(self.storage_delay_s)
-        with self._commit_lock:
-            aborted = self._abort_step == step
+        aborted = self._agreed_abort(step)
         if not aborted:
-            self._write_step(step, host, metrics)
-            with self._commit_lock:
-                aborted = self._abort_step == step
+            self._write_step(step, host, metrics, group=self._commit_group)
+            aborted = self._agreed_abort(step)
         if aborted:
             # tear_mid_commit: the kill lands before COMMITTED
             logger.warning("commit of step %d torn mid-flight", step)
@@ -563,10 +598,23 @@ class CheckpointManager:
                                     "commit_s": time.perf_counter() - t0})
             return
         self._mark_committed(step)
+        _barrier(self._commit_group)
         self.commit_log.append({"step": step, "status": "ok",
                                 "commit_s": time.perf_counter() - t0})
         logger.info("checkpoint committed at step %d (metrics=%s)", step,
                     metrics)
+
+    def _agreed_abort(self, step: int) -> bool:
+        """Whether ``step``'s commit is torn: this rank's flag, and across
+        ranks any rank's (a MAX all-reduce on the committers' group)."""
+        with self._commit_lock:
+            aborted = self._abort_step == step
+        if self._commit_group is None:
+            return aborted
+        import torch.distributed as dist
+        flag = torch.tensor([int(aborted)], dtype=torch.int32)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._commit_group)
+        return bool(flag.item())
 
     def tear_mid_commit(self) -> int:
         """Drill hook for a kill during a commit: freeze the in-flight
@@ -578,6 +626,8 @@ class CheckpointManager:
                 "tear_mid_commit requires an async-commit manager "
                 "(ASYNC_CKPT=1); the sync save path has no commit "
                 "window to kill inside")
+        if self._commit_group is not None:
+            return self._tear_across_ranks()
         with self._commit_lock:
             if self._commit_queue:
                 step = int(self._commit_queue[-1][0])
@@ -611,6 +661,38 @@ class CheckpointManager:
             os.makedirs(d, exist_ok=True)
             with open(os.path.join(d, "_PARTIAL"), "wb") as f:
                 f.write(b"\x00" * 64)
+        self.last_torn_step = step
+        logger.warning("checkpoint commit of step %d torn", step)
+        return step
+
+    def _tear_across_ranks(self) -> int:
+        """``tear_mid_commit`` at a world above one: whether the newest
+        step is still queued or in flight differs from rank to rank, so
+        each rank marks it torn and lets its committer reach it; the
+        committers' MAX all-reduce then tears it on every rank alike
+        (before the write, leaving COMMITTING without data, or after it,
+        leaving COMMITTING beside the step)."""
+        with self._commit_lock:
+            pending = [int(q[0]) for q in self._commit_queue]
+            if self._committing_now is not None:
+                pending.append(int(self._committing_now))
+            if not pending:
+                raise RuntimeError(
+                    "kill_during_commit fired with no in-flight commit; "
+                    "schedule it on a step the checkpoint cadence "
+                    "actually saves")
+            step = max(pending)
+            self._abort_step = step
+            deadline = time.monotonic() + self.commit_timeout_s
+            while self._committing_now == step or any(
+                    int(q[0]) == step for q in self._commit_queue):
+                if time.monotonic() > deadline:  # pragma: no cover
+                    raise CheckpointCommitError(
+                        f"committer did not tear step {step} within "
+                        f"{self.commit_timeout_s}s")
+                self._commit_lock.wait(timeout=0.05)
+            self._stop = True
+            self._commit_lock.notify_all()
         self.last_torn_step = step
         logger.warning("checkpoint commit of step %d torn", step)
         return step

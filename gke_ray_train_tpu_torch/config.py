@@ -6,12 +6,13 @@ is either honoured (in :data:`KNOWN_KEYS`) or warned about, never
 silently ignored. The same key sets as the JAX package, so a config
 audits alike in both; on top of that, the keys that only mean something
 on a TPU mesh (:data:`TPU_ONLY_KEYS`: mesh axes, topology, XLA overlap,
-the compile cache and AOT sidecar, autotune, elastic re-formation) warn
-by name, because the port ignores them. The mesh keys are the exception
-under a ``torch.distributed`` world above one: there ``MESH_DATA`` /
-``MESH_FSDP`` shape the mesh (:func:`mesh_config_from_config`) and the
-axes not ported yet raise; on one card they warn and are ignored, as
-before.
+the compile cache and AOT sidecar, autotune) warn by name, because the
+port ignores them. ``ELASTIC`` and ``MIN_DEVICES`` are the port's own
+(``rayint/elastic.py``). The mesh keys are the exception under a
+``torch.distributed`` world above one: there ``MESH_DATA`` /
+``MESH_FSDP`` shape the mesh (``rayint/elastic.py::maybe_replan``) and
+the axes not ported yet raise (``MeshConfig.check_ported``); on one
+card they warn and are ignored, as before.
 
 The learning-rate schedules are plain functions of the step count, equal
 to optax's at every step; the optimizers are the port's
@@ -21,6 +22,7 @@ to optax's at every step; the optimizers are the port's
 from __future__ import annotations
 
 import logging
+import os
 from typing import Callable, List
 
 from gke_ray_train_tpu_torch.train.optim import (
@@ -94,8 +96,7 @@ KNOWN_KEYS = frozenset({
 TPU_ONLY_KEYS = frozenset({
     "COMPILE_CACHE", "COMPILE_CACHE_DIR", "AOT_TRAIN_STEP", "TOPOLOGY",
     "OVERLAP", "AUTOTUNE", "AUTOTUNE_INGEST", "AUTOTUNE_DIR",
-    "AUTOTUNE_BUDGET", "AUTOTUNE_DRIFT_BAND", "ELASTIC", "MIN_DEVICES",
-    "NUM_SLICES", "DCN_SYNC", "DCN_COMPRESS", "BUDGET_PRESET",
+    "AUTOTUNE_BUDGET", "AUTOTUNE_DRIFT_BAND", "NUM_SLICES", "DCN_SYNC", "DCN_COMPRESS", "BUDGET_PRESET",
 })
 TPU_ONLY_PREFIXES = ("MESH_", "PIPE_")
 # the mesh keys a world above one process reads (parallel/mesh.py)
@@ -111,15 +112,19 @@ def tpu_only_keys(config: dict, world: int = 1) -> List[str]:
                   and not (world > 1 and k in MESH_KEYS))
 
 
-def mesh_config_from_config(config: dict, world: int):
-    """The ``parallel/mesh.py::MeshConfig`` of ``config`` resolved over
-    ``world`` ranks and checked (``MESH_CONTEXT`` / ``MESH_PIPE`` or
-    ``NUM_SLICES`` above 1 raise, naming their ROADMAP item); None for
-    one process, whose runs ignore the mesh keys."""
-    if world <= 1:
-        return None
-    from gke_ray_train_tpu_torch.parallel.mesh import MeshConfig
-    return MeshConfig.from_dict(config).resolve(world).check_ported()
+def checkpoint_knobs_from_config(config: dict) -> dict:
+    """The entries' ``CheckpointManager`` knobs, config first, then the
+    environment: ``ASYNC_CKPT``, ``CKPT_COMMIT_TIMEOUT_S`` and
+    ``PEER_REPLICATION`` (which the manager refuses, ROADMAP queue 1
+    item 8). "0", "false", "no" and "" are off."""
+    def flag(key):
+        return str(config.get(key, os.environ.get(key, "0"))).strip() \
+            .lower() not in ("", "0", "false", "no")
+    return {"async_commit": flag("ASYNC_CKPT"),
+            "commit_timeout_s": float(config.get(
+                "CKPT_COMMIT_TIMEOUT_S",
+                os.environ.get("CKPT_COMMIT_TIMEOUT_S", "120"))),
+            "peer": True if flag("PEER_REPLICATION") else None}
 
 
 def audit_config(config: dict, *, known=KNOWN_KEYS,

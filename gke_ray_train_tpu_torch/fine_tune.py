@@ -9,10 +9,13 @@ its ``__main__``).
 
 ``main`` reads the flat UPPER_CASE config named by ``FINE_TUNE_CONFIG``
 (default ``ray-jobs/fine_tune_config.json``), runs
-``train_loop_per_worker(config)`` in this process with the port's train
-context (``rayint/context.py``; Ray itself is ROADMAP queue 1 item 6),
-and prints one JSON line, ``{"metric": "flagship_final", ...}``, as the
-last line of stdout; it exits 1 on failure. The worker keeps the JAX
+``train_loop_per_worker(config)`` through
+``rayint/trainer.py::TorchTrainer.fit()`` (one in-process worker, a rank
+of torchrun's world each; ``MAX_FAILURES``, ``MAX_PREEMPTIONS``,
+``WORKER_TIMEOUT_S`` and ``HEARTBEAT_TIMEOUT_S`` set its budgets and
+watchdogs, as in the JAX entry), and prints one JSON line, ``{"metric":
+"flagship_final", ...}``, as the last line of stdout; it exits 1 on an
+error ``Result``. The worker keeps the JAX
 entry's names, config keys and order of steps: audit, plan and
 tokenizer; the model config; the weights (``PRETRAINED_CHECKPOINT_DIR``
 streamed and quantized on load, else random weights from seed 0 with a
@@ -40,8 +43,7 @@ with the ``model_config.json`` sidecar and the tokenizer from rank 0) for ``ckpt
 layout. Not ported yet, each raising where the config asks for it: peer
 replication, the ``context`` / ``pipe`` mesh axes and an MoE model at
 ``MESH_MODEL`` above 1 (ROADMAP queue 1 item 8), and at a world above
-one ``INFERENCE`` / ``SERVE_AFTER_TRAIN`` and async checkpoint commit
-(item 5).
+one ``INFERENCE`` / ``SERVE_AFTER_TRAIN`` (item 5).
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ from gke_ray_train_tpu_torch.ckpt import (
 from gke_ray_train_tpu_torch.ckpt.convert import (
     TOKENIZER_SUBDIR, save_export, write_sidecar)
 from gke_ray_train_tpu_torch.config import (
-    audit_config, cadence_from_config, mesh_config_from_config,
+    audit_config, cadence_from_config, checkpoint_knobs_from_config,
     optimizer_from_config, quant_kind_from_config, schedule_from_config)
 from gke_ray_train_tpu_torch.data import (
     ByteTokenizer, downsample, format_gretel_sql_example, load_hf_tokenizer,
@@ -71,17 +73,17 @@ from gke_ray_train_tpu_torch.inference import run_inference_comparison
 from gke_ray_train_tpu_torch.models import (
     init_params, init_quantized_params, preset_for_model_id, tiny)
 from gke_ray_train_tpu_torch.parallel.mesh import (
-    build_mesh, distributed_init)
+    MeshConfig, build_mesh, distributed_init)
 from gke_ray_train_tpu_torch.parallel.placement import (
     host_batch_size, input_shard_layout)
 from gke_ray_train_tpu_torch.parallel.sharding import check_model_on_mesh
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.rayint import get_context
+from gke_ray_train_tpu_torch.rayint.elastic import maybe_replan
 from gke_ray_train_tpu_torch.serve import post_train_smoke
 from gke_ray_train_tpu_torch.train import (
     LoraConfig, ThroughputMeter, make_eval_step, make_train_state,
     make_train_step, sharded_eval_loss)
-from gke_ray_train_tpu_torch.train import preempt
 from gke_ray_train_tpu_torch.train.loop import run_training
 from gke_ray_train_tpu_torch.train.profiling import (
     apply_debug_flags, profiler_from_config)
@@ -91,13 +93,6 @@ logger = logging.getLogger("fine_tune")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEFAULT_CONFIG = os.path.join(REPO, "ray-jobs", "fine_tune_config.json")
-
-
-def _flag(config: dict, key: str) -> bool:
-    """A boolean knob, config first, then the environment ("0", "false",
-    "no" and "" are off)."""
-    return str(config.get(key, os.environ.get(key, "0"))).strip().lower() \
-        not in ("", "0", "false", "no")
 
 
 def _hub_offline() -> bool:
@@ -137,8 +132,18 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     plan = ExecutionPlan.resolve(config)
     apply_debug_flags(config)
     # the mesh axes not ported yet raise here, before any work (whether
-    # the model tiles `model` is checked once its config is known)
-    mesh_cfg = mesh_config_from_config(config, world)
+    # the model tiles `model` is checked once its config is known); after
+    # an elastic pool change the declared mesh re-forms on the survivors,
+    # the global batch kept (rayint/elastic.py)
+    mesh_cfg = None
+    if world > 1:
+        mesh_cfg, per_device = maybe_replan(
+            MeshConfig.from_dict(config), plan.per_device_batch,
+            world=world, config=config, log=logger)
+        mesh_cfg.check_ported()
+        plan = dataclasses.replace(plan, per_device_batch=per_device)
+        # the attempt runs under the re-formed plan
+        ctx.plan_fingerprint = plan.fingerprint()
     mesh = build_mesh(mesh_cfg, device_type=dev.type) if world > 1 else None
     if mesh is not None:
         for key in ("INFERENCE", "SERVE_AFTER_TRAIN"):
@@ -277,13 +282,9 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     if cadence["save_enabled"]:
         # recency retention, keep 2: this manager exists to resume, and
         # the corrupt-checkpoint fallback needs an earlier step
-        mgr = CheckpointManager(
-            sft_dir, max_to_keep=2, score_attribute=None,
-            async_commit=_flag(config, "ASYNC_CKPT"),
-            commit_timeout_s=float(config.get(
-                "CKPT_COMMIT_TIMEOUT_S",
-                os.environ.get("CKPT_COMMIT_TIMEOUT_S", "120"))),
-            peer=True if _flag(config, "PEER_REPLICATION") else None)
+        mgr = CheckpointManager(sft_dir, max_to_keep=2,
+                                score_attribute=None,
+                                **checkpoint_knobs_from_config(config))
 
     group_by_length = bool(config.get("GROUP_BY_LENGTH", False))
     if group_by_length and plan.packing:
@@ -436,10 +437,12 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
 
 
 def main(argv=None) -> int:
-    """Run the worker on the config named by ``argv[0]`` (the command
-    line's first argument), else by ``FINE_TUNE_CONFIG``, else the
-    default; under torchrun every rank runs it and only rank 0 prints
-    the last line."""
+    """Run the worker through ``TorchTrainer.fit()`` on the config named
+    by ``argv[0]`` (the command line's first argument), else by
+    ``FINE_TUNE_CONFIG``, else the default; under torchrun every rank
+    runs it and only rank 0 prints the last line."""
+    from gke_ray_train_tpu_torch.rayint import (
+        RunConfig, ScalingConfig, TorchTrainer)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
     args = list(argv or ())
@@ -451,25 +454,28 @@ def main(argv=None) -> int:
     except (OSError, json.JSONDecodeError) as e:
         logger.error("failed to load %s: %s", path, e)
         return 1
-    # the attempt's SIGTERM handler, as the JAX trainer installs it
-    preempt.install()
     try:
-        metrics = train_loop_per_worker(config)
-    except preempt.Preempted as e:
-        logger.error("%s; run again to resume from the checkpoint", e)
-        return 1
-    except Exception:  # noqa: BLE001 - the process boundary reports it
-        logger.exception("training failed")
-        return 1
+        result = TorchTrainer(
+            train_loop_per_worker, train_loop_config=config,
+            scaling_config=ScalingConfig.from_env(),
+            run_config=RunConfig.from_env("llm-fine-tune"),
+            # torchrun's ranks are each one in-process worker
+            use_ray=False if "RANK" in os.environ else None).fit()
     finally:
-        preempt.uninstall()
         _leave_group()
+    if result.error:
+        logger.error("training %s after %d attempt(s) (%d preemption(s)):"
+                     " %s", result.status, result.attempts,
+                     result.preemptions, result.error)
+        return 1
+    metrics = result.metrics
     logger.info("final metrics: %s", metrics)
     if not get_context().is_host0():
         return 0
     # one machine-readable line, last on stdout (logging goes to stderr)
-    print(json.dumps({"metric": "flagship_final", "attempts": 1,
-                      "preemptions": 0, **{
+    print(json.dumps({"metric": "flagship_final",
+                      "attempts": result.attempts,
+                      "preemptions": result.preemptions, **{
                           k: v for k, v in (metrics or {}).items()
                           if isinstance(v, (int, float))}}), flush=True)
     return 0

@@ -265,3 +265,76 @@ def model_findings(cfg, *, model: int) -> list:
                 f"(size {model}) — attention heads cannot tile the "
                 "tensor-parallel axis")
     return out
+
+
+# ---------------------------------------------------------------------------
+# elastic replan: re-resolve the mesh against a changed pool of ranks
+# ---------------------------------------------------------------------------
+
+def replan(mesh, n_devices: int, *, chips: int, per_device_batch: int,
+           model_cfg=None, preserve_global_batch: bool = True):
+    """The mesh and per-device batch for ``n_devices`` surviving ranks
+    (counterpart of ``gke_ray_train_tpu/plan.py::replan``, whose plan
+    carries the mesh axes and its topology's chip count; here the
+    declared ``parallel/mesh.py::MeshConfig``, the pool ``chips`` it was
+    declared for and the per-device batch). Returns ``(MeshConfig,
+    per_device_batch)``.
+
+    The JAX package's rules: the structural axes (model, context, pipe)
+    are never reflowed, and a pool that cannot tile them raises
+    :class:`PlanError`; data and fsdp reflow, preferring the assignment
+    closest to the declared data:fsdp ratio (ties: larger fsdp); whole-
+    slice evictions keep ``num_slices`` in proportion, anything else
+    collapses to one slice; the global batch is kept when it divides
+    evenly over the new data-parallel width. With ``model_cfg`` each
+    candidate must also tile the model (:func:`model_findings`). A pool
+    equal to ``chips`` returns the declared mesh resolved."""
+    import math
+
+    if n_devices < 1:
+        raise PlanError(f"replan: n_devices={n_devices} must be >= 1")
+    try:
+        base = mesh.resolve(chips)
+    except ValueError as e:
+        raise PlanError("replan: the declared plan does not tile its "
+                        f"own topology: {e}") from None
+    if n_devices == chips:
+        return base, per_device_batch
+    structural = base.model * base.context * base.pipe
+    if n_devices % structural:
+        raise PlanError(
+            f"replan: {n_devices} surviving devices cannot tile the "
+            f"structural axes (model={base.model} x "
+            f"context={base.context} x pipe={base.pipe} = "
+            f"{structural}); structural axes are never reflowed — only "
+            "data/fsdp")
+    remaining = n_devices // structural
+    global_rows = per_device_batch * base.data * base.fsdp
+    ratio0 = math.log(base.data / base.fsdp)
+    candidates = sorted(
+        ((d, remaining // d) for d in range(1, remaining + 1)
+         if remaining % d == 0),
+        key=lambda df: (abs(math.log(df[0] / df[1]) - ratio0), -df[1]))
+    if base.num_slices > 1 and (base.num_slices * n_devices) % chips == 0:
+        surviving_slices = max(base.num_slices * n_devices // chips, 1)
+    else:
+        surviving_slices = 1
+    rejections: list = []
+    for data, fsdp in candidates:
+        slices = surviving_slices if data % surviving_slices == 0 else 1
+        pdb = per_device_batch
+        if preserve_global_batch and global_rows % (data * fsdp) == 0:
+            pdb = max(global_rows // (data * fsdp), 1)
+        cand = dataclasses.replace(base, data=data, fsdp=fsdp,
+                                   num_slices=slices)
+        findings = (model_findings(model_cfg, model=cand.model)
+                    if model_cfg is not None else [])
+        if not findings:
+            return cand, pdb
+        rejections.extend(f"data={data} fsdp={fsdp}: {m}"
+                          for m in findings[:2])
+    raise PlanError(
+        f"replan: no feasible data/fsdp assignment on {n_devices} "
+        f"devices (structural axes model={base.model} "
+        f"context={base.context} pipe={base.pipe} kept): "
+        + "; ".join(rejections[:6]))

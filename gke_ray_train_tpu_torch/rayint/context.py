@@ -6,8 +6,8 @@ relies on, for one process or a rank of a ``torch.distributed`` world
 step it resumed from (:meth:`TrainContext.note_resume`) and its goodput
 ledger (:meth:`TrainContext.note_goodput`) here.
 
-Stdlib only. The trainer, supervisor and elastic modules that read it
-are not ported yet (ROADMAP queue 1 item 6).
+Stdlib only. The trainer (``trainer.py``) wires its heartbeat sink and
+reads what the loop recorded here.
 """
 
 from __future__ import annotations

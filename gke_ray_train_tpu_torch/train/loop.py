@@ -24,9 +24,9 @@ object with ``restore_if_available`` / ``save`` / ``wait`` /
 every rank exits a preemption at the same boundary: every
 ``PREEMPT_SYNC_EVERY`` boundaries the local SIGTERM flags meet in a MAX
 all-reduce (:func:`agree_preempt`), and off-cycle boundaries never
-exit. Not ported yet, each named in ROADMAP.md: the ``FAULT_SPEC``
-injector (item 6: an injector passed in is called; the variable set with
-none raises) and the telemetry hooks (item 9).
+exit. ``FAULT_SPEC`` fires its faults after each completed step
+(``testing/faults.py``). Not ported yet: the telemetry hooks (ROADMAP
+queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -138,8 +138,9 @@ def run_training(state: TrainState,
     heartbeat_fn(step, done=False) -> per-step liveness report, after
     every completed step, and with done=True at loop exit.
     fault_injector: fault hook called once per completed step
-    (``bind_ckpt``, ``on_step``). None with ``FAULT_SPEC`` set raises
-    ``NotImplementedError``: the injector is not ported yet.
+    (``bind_ckpt``, ``on_step``); None = ``FAULT_SPEC``'s
+    (``testing/faults.py::FaultInjector.from_env``, bound to the
+    checkpoint manager), or none when it is unset.
     guards: runtime guards (``analysis/guards.py``); None = from env.
     ``KERNELCHECK=1`` runs ``analysis/kernelcheck.py::quick_verify`` on
     the state's device before anything trains.
@@ -168,11 +169,9 @@ def run_training(state: TrainState,
     save_view = (ckpt_view[0] if ckpt_view else (lambda st: st))
     load_view = (ckpt_view[1] if ckpt_view else (lambda st, v: v))
     if fault_injector is None:
-        if os.environ.get("FAULT_SPEC", "").strip():
-            raise NotImplementedError(
-                "FAULT_SPEC is set, but the fault injector is not ported "
-                "yet (ROADMAP queue 1 item 6); pass fault_injector= or "
-                "unset FAULT_SPEC")
+        # FAULT_SPEC drills (testing/faults.py): None when it is unset
+        from gke_ray_train_tpu_torch.testing.faults import FaultInjector
+        fault_injector = FaultInjector.from_env(ckpt_manager=ckpt_manager)
     elif ckpt_manager is not None:
         fault_injector.bind_ckpt(ckpt_manager)
     resumed_step = None

@@ -355,4 +355,83 @@ def scenario_agree(out: str) -> None:
         json.dump(res, f)
 
 
-SCENARIOS = {"train": scenario_train, "agree": scenario_agree}
+def scenario_pretrain(out: str) -> None:
+    """The pre-train entry's worker through ``TorchTrainer.fit()`` (one
+    in-process worker a rank), on the job of ``<out>/job.json``:
+    {"label", "config", "env" (set first: FAULT_SPEC, ...),
+    "max_failures", "max_preemptions", "elastic", "ckpt_every" (a save
+    every that many steps, passed to ``run_training``)}; with
+    "worker_env" the rank is instead one worker of the trainer's Ray
+    path, an attempt that ``rayint/trainer.py::_run_worker`` starts with
+    that env (the pool notice of an elastic attempt). Writes
+    ``<out>/<label>_<rank>.json``:
+    the Result, every step's loss (hex) and rows this rank fed, and each
+    checkpoint manager's commit log."""
+    import functools
+    from gke_ray_train_tpu_torch import pretrain
+    from gke_ray_train_tpu_torch.rayint import (
+        FailureConfig, RunConfig, TorchTrainer)
+    with open(os.path.join(out, "job.json")) as f:
+        job = json.load(f)
+    os.environ.update(job.get("env", {}))
+    rank = _rank()
+    rec = {"losses": {}, "rows": {}, "managers": []}
+    orig_step, orig_mgr = pretrain.make_train_step, pretrain.CheckpointManager
+    orig_run = pretrain.run_training
+
+    def make_train_step(*a, **kw):
+        step = orig_step(*a, **kw)
+
+        def recorded(st, batch):
+            st, m = step(st, batch)
+            rec["losses"][int(st.step)] = float(m["loss"]).hex()
+            rec["rows"][int(st.step)] = int(batch["inputs"].shape[0])
+            return st, m
+        return recorded
+
+    class Manager(orig_mgr):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            rec["managers"].append(self)
+    pretrain.make_train_step, pretrain.CheckpointManager = \
+        make_train_step, Manager
+    if job.get("ckpt_every"):
+        pretrain.run_training = functools.partial(
+            orig_run, ckpt_every=job["ckpt_every"])
+    fn = functools.partial(pretrain.train_loop_per_worker, device="cpu")
+    try:
+        if "worker_env" in job:
+            from gke_ray_train_tpu_torch.rayint.trainer import (
+                Result, _run_worker)
+            got = _run_worker(fn, job["config"], job["worker_env"])
+            res = Result(metrics=got["metrics"], attempt_log=[
+                {"status": "ok", "resumed_step": got["resumed_step"]}])
+        else:
+            res = TorchTrainer(
+                fn, train_loop_config=job["config"],
+                run_config=RunConfig(
+                    elastic=job.get("elastic"), retry_backoff_s=0.0,
+                    failure_config=FailureConfig(
+                        max_failures=job.get("max_failures", 0),
+                        max_preemptions=job.get("max_preemptions", 8))),
+                use_ray=False).fit()
+    finally:
+        pretrain.make_train_step, pretrain.CheckpointManager = \
+            orig_step, orig_mgr
+        pretrain.run_training = orig_run
+    res_out = {"status": res.status, "error": res.error,
+               "attempts": res.attempts, "preemptions": res.preemptions,
+               "log": [{k: v for k, v in e.items() if k != "goodput"}
+                       for e in res.attempt_log],
+               "losses": rec["losses"], "rows": rec["rows"],
+               "commits": [{"async": m.async_commit,
+                            "own_group": m._commit_group is not None,
+                            "log": m.commit_log,
+                            "resharded": m.last_restore_resharded}
+                           for m in rec["managers"]]}
+    with open(os.path.join(out, f"{job['label']}_{rank}.json"), "w") as f:
+        json.dump(res_out, f)
+
+
+SCENARIOS = {"train": scenario_train, "agree": scenario_agree,
+             "pretrain": scenario_pretrain}

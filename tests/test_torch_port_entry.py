@@ -89,7 +89,8 @@ def test_audit_warns_unknown_keys_and_nested_quant(caplog):
             jconfig.audit_config(config)
     text = caplog.text
     assert "BOGUS" in text and "USE_NESTED_QUANT" in text
-    assert "AUTOTUNE" in text and "ELASTIC" in text
+    # AUTOTUNE is the TPU's; ELASTIC the port honours (rayint/elastic.py)
+    assert "AUTOTUNE" in text and "ELASTIC" not in text
 
 
 @pytest.mark.parametrize("kind", ["cosine", "linear", "constant",

@@ -58,7 +58,10 @@ def test_every_module_imports_with_jax_blocked():
               "train.profiling", "ckpt", "ckpt.manager", "ckpt.hf_io",
               "fine_tune", "serve.adapters", "ops.lora_batched",
               "inference", "parallel", "parallel.mesh",
-              "parallel.sharding", "parallel.placement", "ckpt.convert"):
+              "parallel.sharding", "parallel.placement", "ckpt.convert",
+              "testing", "testing.faults", "rayint", "rayint.trainer",
+              "rayint.supervisor", "rayint.elastic", "rayint.serving",
+              "pretrain", "plan"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -171,3 +174,29 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(monkeypatch):
     BatchEngine(model, cfg, plan=plan, device="cpu")
     with pytest.raises(ValueError, match="lies on"):
         BatchEngine(model, cfg, plan=plan, device="meta")
+
+
+def test_trainer_and_pretrain_entry_default_to_cuda(monkeypatch, tmp_path):
+    """The pre-train worker, and the trainer running it, need a card
+    unless asked for the CPU; the testing and rayint modules import no
+    torch of their own at module level beyond what the package needs."""
+    import functools
+    from gke_ray_train_tpu_torch import pretrain
+    from gke_ray_train_tpu_torch.rayint import TorchTrainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    config = {"d_model": 32, "n_layers": 1, "n_heads": 2, "d_ff": 64,
+              "dataset_seq_len": 16, "model_max_seq_len": 32,
+              "batch_size_per_device": 2, "max_samples": 4,
+              "dtype": "float32", "prefetch_batches": 0,
+              "data_dir": str(tmp_path / "data"),
+              "storage_path": str(tmp_path / "runs")}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pretrain.train_loop_per_worker(config)
+    res = TorchTrainer(pretrain.train_loop_per_worker,
+                       train_loop_config=config, use_ray=False).fit()
+    assert res.status == "failed" and "device='cpu'" in res.error
+    res = TorchTrainer(functools.partial(pretrain.train_loop_per_worker,
+                                         device="cpu"),
+                       train_loop_config=config, use_ray=False).fit()
+    assert res.error is None and res.metrics["step"] == 2

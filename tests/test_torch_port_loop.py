@@ -16,8 +16,8 @@ epoch / step and the metric keys exactly.
 The host arithmetic (goodput ledger, meter, cadence, guard parsing, plan
 knobs) is held bitwise against JAX's; the loop's behaviour (preemption,
 resume fast-forward with an in-memory checkpoint double, the eval walk,
-TensorBoard events, the profiler window, KERNELCHECK, FAULT_SPEC, the
-multi-card refusals) mirrors the JAX package's tests.
+TensorBoard events, the profiler window, KERNELCHECK, the multi-card
+refusals; FAULT_SPEC is tests/test_torch_port_faults.py's) mirrors the JAX package's tests.
 """
 
 import copy
@@ -595,28 +595,6 @@ def test_guards_on_cpu_and_the_multi_card_refusals(monkeypatch):
 
 
 # -- the rest of the loop's hooks --------------------------------------------
-
-def test_fault_spec_without_an_injector_raises(monkeypatch):
-    state, step, batches, calls = _tiny_port()
-    monkeypatch.setenv("FAULT_SPEC", "crash@2")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tloop.run_training(state, step, batches, epochs=1)
-    assert calls[0] == 0
-
-    class Injector:
-        def __init__(self):
-            self.bound, self.steps = None, []
-
-        def bind_ckpt(self, mgr):
-            self.bound = mgr
-
-        def on_step(self, s):
-            self.steps.append(s)
-    inj, mgr = Injector(), _port_ckpt()
-    tloop.run_training(state, step, batches, epochs=1, fault_injector=inj,
-                       ckpt_manager=mgr)
-    assert inj.bound is mgr and inj.steps == [1, 2, 3, 4]
-
 
 def test_kernelcheck_knob_runs_quick_verify_with_a_log(monkeypatch):
     seen = []

@@ -81,21 +81,28 @@ def test_axes_not_ported_raise_naming_their_item(kw, match):
         (1, 2, 2, 1, 1)
 
 
-def test_mesh_keys_of_the_config():
+def test_mesh_keys_of_the_config(monkeypatch):
     """One process ignores the mesh keys (they warn); a world reads them
-    (``MESH_MODEL`` too), and the axes not ported raise there."""
+    (``MESH_MODEL`` too) through the entries' ``maybe_replan``, and the
+    axes not ported raise there."""
+    from gke_ray_train_tpu_torch.rayint.elastic import POOL_ENV, maybe_replan
+    monkeypatch.delenv(POOL_ENV, raising=False)
+
+    def mesh_of(config, world):
+        mc, pdb = maybe_replan(tmesh.MeshConfig.from_dict(config), 2,
+                               world=world, config=config)
+        assert pdb == 2
+        return mc.check_ported()
     job = {"MESH_DATA": 1, "MESH_FSDP": -1, "MESH_MODEL": 1,
            "NUM_SLICES": 1, "TOPOLOGY": "v5e-16"}
-    assert tconfig.mesh_config_from_config(job, 1) is None
-    assert tconfig.mesh_config_from_config(job, 4).shape == (1, 4, 1, 1, 1)
-    assert tconfig.mesh_config_from_config(
-        dict(job, MESH_DATA=2), 4).shape == (2, 2, 1, 1, 1)
+    assert mesh_of(job, 1).shape == (1, 1, 1, 1, 1)
+    assert mesh_of(job, 4).shape == (1, 4, 1, 1, 1)
+    assert mesh_of(dict(job, MESH_DATA=2), 4).shape == (2, 2, 1, 1, 1)
     assert tconfig.tpu_only_keys(job) == sorted(job)
     assert tconfig.tpu_only_keys(job, world=4) == ["TOPOLOGY"]
-    assert tconfig.mesh_config_from_config(
-        dict(job, MESH_MODEL=2), 4).shape == (1, 2, 2, 1, 1)
+    assert mesh_of(dict(job, MESH_MODEL=2), 4).shape == (1, 2, 2, 1, 1)
     with pytest.raises(NotImplementedError, match="item 8"):
-        tconfig.mesh_config_from_config(dict(job, NUM_SLICES=2), 4)
+        mesh_of(dict(job, NUM_SLICES=2), 4)
 
 
 @pytest.mark.parametrize("n_ranks", [2, 4])
