@@ -52,7 +52,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              too: flash forward, dQ and dK/dV at 16 rows of 256, 16
              heads of 128 (no GQA); rows 4-6 at its char vocab (V 45,
              under one 128-column tile, on ``mma.sync``) over 4,096 rows
-             of 2,048; row 7 at D 2,048 (the two-pass body).
+             of 2,048; row 7 at D 2,048 (the two-pass body). Context
+             parallelism's situations of the flash kernels (``ring_cases``:
+             a rank's queries against a K/V shard wholly in the past,
+             wholly in the future, whose out, lse and dQ / dK / dV must be
+             exactly 0 / NEG_INF / 0, straddling packed documents, and
+             with the ring's external lse and dvec) at Gemma-2's heads on
+             2,048 tokens and Llama's on 1,024, bf16 and fp32; the a2a
+             call on 8 of 16 heads over 4,096 tokens; RoPE at positions
+             2,048 onwards.
 4. serve   — Llama-3.1-8B at full width and depth (bf16, random weights
              from a seed) through ``BatchEngine``: 24 requests over the
              256 and 512 buckets; the flash kernel must have run once per
@@ -163,6 +171,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              1 steps at LORA_DROPOUT 0.1 whose first column-parallel masks
              agree across the ranks and row-parallel masks differ; the
              job in fp32 (TF32 off) at 2 layers within 1e-3.
+11f. train_cp — context parallelism on one card: the Gemma-2 4k job
+             (ray-jobs/fine_tune_config_gemma2_4k.json, FUSED_OPS=1) at
+             full width and depth, one 4,096-token row a step, in this
+             process, then as two ranks of this card over gloo at fsdp 1
+             x context 2 (the ring / all-to-all transport staged through
+             host memory): under a2a and ring, 1 + 3 steps, each rank's
+             losses and grad_norms within 1e-2 of this process's, the
+             launches per step (flash C times a layer under ring), each
+             rank's peak; at the job's LORA_DROPOUT every projection's
+             first mask differs across the context ranks; the job in fp32
+             (TF32 off) at 2 layers under both within 1e-3.
 12. kernelcheck — run right after the kernels phase: the port's kernel
              sweep (``analysis/kernelcheck.py`` over
              ``ops/registry.py``) on the card: every registered case
@@ -179,8 +198,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 14. entry — ``gke_ray_train_tpu_torch/fine_tune.py``'s worker, as
              ``python -m gke_ray_train_tpu_torch.fine_tune`` runs it, on
-             ray-jobs/fine_tune_config_offline_8b.json at full width and
-             depth (Llama-3.1-8B, random NF4 base from seed 0, r 64,
+             ray-jobs/fine_tune_config_offline_8b.json at full width, 8
+             of its 32 layers (Llama-3.1-8B, random NF4 base from seed 0,
+             r 64,
              dropout 0, 2 x 4 microbatches of 1,024, synthetic SQL rows),
              cut to 8 steps with a save and an eval of 16 rows every 4:
              run A uninterrupted; run B (ASYNC_CKPT=1) preempted after
@@ -199,7 +219,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              between step returns, eval pauses, the ledger, restore /
              save / commit seconds, checkpoint bytes, peak memory,
              launches, the comparison and the smoke) and one for the
-             export (seconds, bytes, shards, read-back).
+             export (seconds, bytes, shards, read-back). Then the Gemma-2
+             4k config through the same worker at 4 layers with its own
+             ATTN_IMPL a2a (the flash path on one card): finite losses,
+             the launches of a flash model, the export written.
 15. train_moe — the train phase's loop on Mixtral-8x7B QLoRA at full
              width and depth (8 experts top 2) with
              ray-jobs/fine_tune_config_mixtral.json's settings (NF4 with
@@ -281,6 +304,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              checkpoint (per-tensor digests) bitwise A''s, the retried
              attempts' peaks within 1 GB of the first's. The free disk
              is checked first.
+21b. train_cp_multi (opt-in) — the four-card host (fewer fails): the
+             Gemma-2 4k job at full width and depth, its 4 rows a step as
+             one-row microbatches, on one card, then one rank a card over
+             NCCL at fsdp 2 x context 2 under a2a and ring: every step
+             within 1e-2 of one card, per card p50, tokens/s and peak; the
+             state saved after the a2a run and read back at world 1, equal
+             by digest.
 22. pretrain_multi (opt-in) — the four-card host (fewer fails): the
              entry's worker under torchrun at fsdp 4 with ASYNC_CKPT=1
              (6 layers, each rank ``chip_smoke.py --pretrain-worker``):
@@ -802,6 +832,147 @@ def _time_train_shape(dev):
     return runs
 
 
+# context parallelism's situations of the flash kernels (ops/
+# ring_attention.py): one rank's queries against a visiting K/V shard of
+# the same rows, Gemma-2-9B's heads (16 / 8 of 256, softcap 50) at
+# train_cp's shard of 2,048 tokens and Llama-3.1-8B's (32 / 8 of 128) at
+# 1,024, bf16 and fp32
+RING_SHAPES = {"gemma2_9b": dict(S=2048, H=16, K=8, dh=256, softcap=50.0),
+               "llama3_8b": dict(S=1024, H=32, K=8, dh=128)}
+# the a2a strategy's one call: the whole sequence on 8 of 16 query and 4
+# of 8 KV heads (context 2), the packed row of the train_fused phase
+GEMMA_A2A_CASE = dict(GEMMA_ATTN_SHAPE, H=8, K=4)
+
+
+def _ring_inputs(shape, dtype, packed, dev, seed):
+    """Two token shards of one sequence of ``2 S`` tokens: (q, k, v) per
+    shard and the global positions / segment ids. Packed: documents of
+    300-900 tokens restarting their positions, the one at the boundary
+    straddling it, a padded tail of segment 0."""
+    import torch
+    S, H, K, dh = (shape[x] for x in ("S", "H", "K", "dh"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    dt = getattr(torch, dtype)
+
+    def rnd(*shp):
+        return torch.randn(shp, generator=g, device=dev).to(dt)
+    qs = [rnd(1, S, H, dh) for _ in range(2)]
+    ks = [rnd(1, S, K, dh) for _ in range(2)]
+    vs = [rnd(1, S, K, dh) for _ in range(2)]
+    pos = np.arange(2 * S, dtype=np.int32)
+    seg = np.ones(2 * S, np.int32)
+    if packed:
+        rng = np.random.default_rng(seed)
+        t, doc = 0, 1
+        while t < 2 * S - 64:
+            n = min(int(rng.integers(300, 901)), 2 * S - 64 - t)
+            if t < S < t + n:
+                n = max(n, S - t + 200)       # straddles the boundary
+            n = min(n, 2 * S - 64 - t)
+            seg[t:t + n] = doc
+            pos[t:t + n] = np.arange(n)
+            t, doc = t + n, doc + 1
+        seg[t:] = 0
+    pos = torch.as_tensor(pos, device=dev)[None]
+    seg = torch.as_tensor(seg, device=dev)[None]
+    return qs, ks, vs, pos, seg
+
+
+def _ring_case(name, shape, dtype, dev, seed):
+    """Each situation of rank 1's queries (shard 1) or rank 0's (shard 0)
+    against one K/V shard, the kernels against their plain versions:
+    ``past`` (every kv position before every query: interior tiles; the
+    backward from this launch's lse), ``future`` (every kv position
+    after: out 0, lse NEG_INF, dQ, dK and dV exactly 0, given the lse
+    and dvec of the rank's own launch), ``straddling`` (packed documents
+    across the boundary) and ``external_lse`` (unpacked); the last two's
+    dQ and dK/dV from the ring's final lse and dvec = rowsum(dO * O) of
+    the output merged with the rank's own shard."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.flash_attention import (
+        _forward, flash_attention_bwd_reference, flash_attention_reference,
+        flash_bwd_dkv, flash_bwd_dq)
+    from gke_ray_train_tpu_torch.ops.ring_attention import merge
+    S = shape["S"]
+    kw = dict(causal=True, sliding_window=shape.get("window"),
+              scale=shape["dh"] ** -0.5, logit_softcap=shape.get("softcap"))
+    rows = []
+
+    def half(t, i):
+        return t[:, i * S:(i + 1) * S].contiguous()
+
+    def hold(situation, qi, ki, packed):
+        qs, ks, vs, pos, seg = _ring_inputs(shape, dtype, packed, dev, seed)
+        if not packed:
+            seg = torch.ones_like(seg)
+        q, k, v = qs[qi], ks[ki], vs[ki]
+        m = (half(pos, qi), half(pos, ki), half(seg, qi), half(seg, ki))
+        # the rank's own shard first: its lse and output
+        own_out, own_lse = _forward(q, ks[qi], vs[qi], m[0], m[0], m[2],
+                                    m[2], kw)
+        out, lse = _forward(q, k, v, *m, kw)
+        ref_out, ref_lse = flash_attention_reference(q, k, v, *m, **kw)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed + 7)
+        do = torch.randn(q.shape, generator=g, device=dev).to(q.dtype)
+        if situation == "future":
+            # the rank's own lse and output stand for the ring's
+            fin_out, fin_lse = own_out, own_lse
+        elif situation == "past":
+            # this launch's own lse and output
+            fin_out, fin_lse = out, lse
+        else:
+            o, fin_lse = merge(own_out.float(), own_lse, out.float(), lse)
+            fin_out = o.to(q.dtype)
+        dvec = torch.sum(do.float() * fin_out.float(), dim=-1).transpose(
+            1, 2).contiguous()
+        args = (q, k, v, do, fin_lse, dvec) + m
+        dq = flash_bwd_dq(*args, **kw)
+        dk, dv = flash_bwd_dkv(*args, **kw)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_reference(q, k, v, fin_out, fin_lse, do,
+                                            *m, **kw)
+        row = {"case": f"{name}_{situation}_{dtype}", "dtype": dtype,
+               "q_shard": qi, "kv_shard": ki, "ok": True}
+        tol, btol = TOL[dtype], BWD_TOL[dtype]
+        row["max_abs_err_out"] = float((out.float() - ref_out.float())
+                                       .abs().max())
+        row["max_abs_err_lse"] = float((lse - ref_lse).abs().max())
+        row["ok"] = (row["max_abs_err_out"] <= tol["out"]
+                     and row["max_abs_err_lse"] <= tol["lse"])
+        for nm, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            err, scale = _rel_err(got, want)
+            row[f"max_abs_err_{nm}"] = err
+            row["ok"] = (row["ok"] and err <= btol * scale
+                         and bool(torch.isfinite(got.float()).all()))
+        if situation == "future":
+            row["dead_exact"] = (
+                float(out.float().abs().max()) == 0.0
+                and bool((lse == -2.0e38).all())
+                and all(float(t.float().abs().max()) == 0.0
+                        for t in (dq, dk, dv)))
+            row["ok"] = row["ok"] and row["dead_exact"]
+        rows.append(row)
+    hold("past", 1, 0, False)
+    hold("future", 0, 1, False)
+    hold("straddling", 1, 0, True)
+    hold("external_lse", 1, 0, False)
+    return rows
+
+
+def _check_ring_cases(dev):
+    """``_ring_case`` at RING_SHAPES in bf16 and fp32, and the a2a call
+    (GEMMA_A2A_CASE) forward and backward against their plain versions."""
+    rows = []
+    for i, (name, shape) in enumerate(RING_SHAPES.items()):
+        for dtype in ("bfloat16", "float32"):
+            rows += _ring_case(name, shape, dtype, dev, seed=40 + i)
+    a2a = _check_case("gemma2_9b_a2a_4096", GEMMA_A2A_CASE, dev)[0]
+    a2a_bwd = _check_bwd_case("gemma2_9b_a2a_4096", GEMMA_A2A_CASE, dev)
+    return rows + [a2a, a2a_bwd]
+
+
 def _time_gemma_attn(dev):
     """Device ms of the three kernels at the train_fused phase's attention
     (the global layers' case of GEMMA_ATTN_CASES; the sliding layers'
@@ -854,6 +1025,10 @@ ROPE_CASES = [dict(shape=shp, dtype=dt) for dt in ("float32", "bfloat16")
               for shp in ((1, 128, 4, 2, 32), (1, 4096, 16, 8, 256),
                           (2, 1024, 32, 8, 128), (2, 1024, 16, 4, 128),
                           (1, 1024, 16, 2, 128), (16, 256, 16, 16, 128))]
+# and context rank 1's shard of the Gemma-2 row at context 2 (train_cp):
+# 2,048 tokens at positions 2,048 onwards
+ROPE_CASES += [dict(shape=(1, 2048, 16, 8, 256), dtype=dt, offset=2048)
+               for dt in ("float32", "bfloat16")]
 # the train_fused phase's shapes: Gemma-2-9B, one packed row of 4,096
 GEMMA_NORM_SHAPE = (1, 4096, 3584)
 GEMMA_ROPE_SHAPE = (1, 4096, 16, 8, 256)
@@ -920,7 +1095,11 @@ def _check_fused_cases(dev):
         B, S, H, K, dh = c["shape"]
         q = torch.randn((B, S, H, dh), generator=g, device=dev).to(dt)
         k = torch.randn((B, S, K, dh), generator=g, device=dev).to(dt)
-        pos = _packed_rope_positions(B, S, dev, g)
+        if c.get("offset"):
+            pos = (c["offset"] + torch.arange(
+                S, dtype=torch.int32, device=dev)).repeat(B, 1)
+        else:
+            pos = _packed_rope_positions(B, S, dev, g)
         f = _rope_freqs(dh, dev)
         oq, ok = fused_rope_qk(q, k, pos, f)
         bq, bk = fused_rope_qk(oq, ok, pos, -f)      # the backward launch
@@ -1623,10 +1802,13 @@ def phase_kernels(dev):
     ce_rows = _check_ce_cases(dev)
     ce = _time_ce_llama_shape(dev)
     ce_shards = _time_ce_vocab_shards(dev)
+    ring_rows = _check_ring_cases(dev)
     ok = all(r["ok"] for r in rows + bwd_rows + fused_rows + norm_rope_rows
-             + ce_rows + list(fused.values()) + list(norm_rope.values())
-             + list(ce.values()) + list(ce_shards.values()) + [llama_norm])
+             + ce_rows + ring_rows + list(fused.values())
+             + list(norm_rope.values()) + list(ce.values())
+             + list(ce_shards.values()) + [llama_norm])
     emit({"phase": "kernels", "ok": ok, "cases": rows, "bwd_cases": bwd_rows,
+          "ring_cases": ring_rows,
           "fused_cases": fused_rows, "norm_rope_cases": norm_rope_rows,
           "ce_cases": ce_rows, "timings": timings, "train_shape": train,
           "gemma_train_shape": fused, "gemma_attn_shape": gemma_attn,
@@ -2446,7 +2628,7 @@ def _module_bytes(module):
 
 
 def expected_launches(cfg, grad_accum: int, fused_ops: bool,
-                      full_ft: bool = False) -> dict:
+                      full_ft: bool = False, ring: int = 1) -> dict:
     """Kernel launches of one train step: under remat each block's
     forward runs twice (forward and recomputation), its backward once.
     Per layer and microbatch: flash forward once a forward, dQ and dK/dV
@@ -2456,12 +2638,15 @@ def expected_launches(cfg, grad_accum: int, fused_ops: bool,
     on a config without a logit softcap: the cross-entropy's row
     statistics and dx once (each entry walks every vocab chunk), dhead
     once in full fine-tuning (the head is frozen under LoRA). The
-    per-head rms_norm + RoPE never: no model family calls it."""
+    per-head rms_norm + RoPE never: no model family calls it. Under
+    ring attention over ``ring`` context ranks each flash kernel runs
+    once a visiting shard: ``ring`` times."""
     runs = 2 if cfg.remat else 1
     lm = cfg.n_layers * grad_accum
     norms = 4 if cfg.post_block_norm else 2
     ce = grad_accum if fused_ops and cfg.logit_softcap is None else 0
-    return {"flash_fwd": runs * lm, "flash_bwd_dq": lm, "flash_bwd_dkv": lm,
+    return {"flash_fwd": runs * lm * ring, "flash_bwd_dq": lm * ring,
+            "flash_bwd_dkv": lm * ring,
             "fused_rmsnorm": norms * runs * lm if fused_ops else 0,
             "fused_rope_qk": (runs + 1) * lm if fused_ops else 0,
             "fused_rmsnorm_rope": 0,
@@ -3783,9 +3968,12 @@ def _llama_cfg(config, n_layers, dtype="bfloat16", param_dtype="bfloat16"):
         max_seq_len=int(ft["MAX_SEQ_LENGTH"]), n_layers=n_layers)
 
 
-def _mask_digest(mask):
+def _digest(t):
+    """The first 16 hex digits of the sha256 of a tensor's bytes."""
     import hashlib
-    return hashlib.sha256(mask.cpu().numpy().tobytes()).hexdigest()[:16]
+    import torch
+    return hashlib.sha256(t.detach().cpu().contiguous().view(-1).view(
+        torch.uint8).numpy().tobytes()).hexdigest()[:16]
 
 
 def _first_masks(run):
@@ -3794,7 +3982,7 @@ def _first_masks(run):
     from gke_ray_train_tpu_torch.models import transformer as tr
     masks = {}
     tr.dropout_hook = lambda name, m: masks.setdefault(
-        name, {"digest": _mask_digest(m), "shape": list(m.shape),
+        name, {"digest": _digest(m), "shape": list(m.shape),
                "kept": float(m.float().mean())})
     try:
         out = run()
@@ -3837,18 +4025,26 @@ def _tp_probe(dev, mesh):
 
 
 def _tp_rank_run(dev, cfg, mesh, dropout, steps, config=None, rows=None,
-                 one_row=False, plan=None):
+                 one_row=False, plan=None, keep=None):
     """One training run of a rank (or of one card without ``mesh``):
     the job of ``config`` (default the train_mesh job) at ``cfg``,
     ``steps`` timed steps after a warm-up, the launch counts set to 0
     just before the timed steps and read just after; ``rows`` (count,
     index) keeps this batch rank's rows ``index::count`` of every batch;
-    ``one_row``: each row its own microbatch."""
+    ``one_row``: each row its own microbatch; on a mesh whose
+    ``context`` exceeds 1 each batch is placed context-sharded (this
+    rank's tokens of its rows) and the flash launches are expected once
+    a visiting shard under ``ring``; ``keep`` is handed the trained
+    state before the run lets it go."""
     import torch
+    from gke_ray_train_tpu_torch.data import make_place_batch
+    from gke_ray_train_tpu_torch.parallel.mesh import context_size
     job = _fine_tune_setup(dev, cfg, steps + 1, config=config, mesh=mesh,
                            ft_over={"LORA_DROPOUT": dropout},
                            transfer_guard=None,
                            **(plan or {"fused_ops": True}))
+    if context_size(mesh) > 1:
+        job["place"] = make_place_batch(dev, mesh=mesh)
     global_rows = job["batch_rows"]
     if rows is not None:
         job["batches"] = [{k: v[rows[1]::rows[0]] for k, v in b.items()}
@@ -3876,8 +4072,12 @@ def _tp_rank_run(dev, cfg, mesh, dropout, steps, config=None, rows=None,
              base_bytes=job["base_bytes"], grad_accum=grad_accum,
              want_launches=expected_launches(
                  job["cfg"], grad_accum, job["plan"].fused_ops,
-                 full_ft=job["lcfg"] is None),
+                 full_ft=job["lcfg"] is None,
+                 ring=(context_size(mesh) if job["cfg"].attn_impl == "ring"
+                       else 1)),
              n_layers=job["cfg"].n_layers)
+    if keep is not None:
+        keep(job["state"])
     del job
     _release()
     return r, launches
@@ -4197,6 +4397,377 @@ def phase_train_tp_multi(dev):
                 launches[k] = launches.get(k, 0) + v
         return launches
     return None
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: ring and all-to-all attention over `context`
+# ---------------------------------------------------------------------------
+
+CP_CONTEXT = 2
+CP_IMPLS = ("a2a", "ring")
+# train_cp's cut of the Gemma-2 4k job: one 4,096-token row a step (the
+# job's 4 microbatches cut to 1 for the run's time); width and depth as
+# shipped
+CP_PLAN = {"fused_ops": True, "grad_accum": 1}
+CP_FP32_LAYERS = 2
+CP_TIMEOUT_S = 600
+# the collectives the context path makes on the card's tensors as they
+# are, probed before the job (the ring's send / recv and the all-to-all
+# stage through host memory under gloo, ops/ring_attention.py::
+# TRANSPORT): the token sums over context, the adapters' all-reduce and
+# broadcast over the world, FSDP2's all-gather on the fsdp group
+CP_PROBE = ("all_reduce_sum_f32_context", "broadcast_f32_world",
+            "all_gather_into_tensor_fsdp")
+# train_cp_multi on the four-card host: the job's own layout cut to four
+# cards, fsdp 2 x context 2, at full width and depth, one-row
+# microbatches (the job's 4 rows a step)
+CP_MULTI_MESH = dict(fsdp=2, context=2)
+CP_MULTI_PLAN = {"fused_ops": True}
+CP_MULTI_TIMEOUT_S = 1200
+
+
+def _gemma_cfg(impl, n_layers=42, dtype="bfloat16"):
+    """Gemma-2-9B of the 4k job at full width, ``n_layers`` deep, remat
+    on, at ``impl`` attention."""
+    return dataclasses.replace(
+        _llama_cfg(GEMMA2_CONFIG, n_layers, dtype=dtype, param_dtype=dtype),
+        attn_impl=impl)
+
+
+def _cp_probe(dev, mesh):
+    """Each collective of ``CP_PROBE`` once on this card's tensors:
+    {name: "ok" or the error}."""
+    import torch
+    import torch.distributed as dist
+    ctx, fsdp = mesh["context"].get_group(), mesh["fsdp"].get_group()
+    n = mesh["fsdp"].size()
+    calls = {
+        "all_reduce_sum_f32_context": lambda: dist.all_reduce(
+            torch.ones(64, device=dev), group=ctx),
+        "broadcast_f32_world": lambda: dist.broadcast(
+            torch.ones(64, device=dev), src=0),
+        "all_gather_into_tensor_fsdp": lambda: dist.all_gather_into_tensor(
+            torch.empty(64 * n, dtype=torch.uint8, device=dev),
+            torch.ones(64, dtype=torch.uint8, device=dev), group=fsdp)}
+    out = {}
+    for name in CP_PROBE:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the probe reports it
+            out[name] = f"{type(e).__name__}: {e}"[:400]
+    return out
+
+
+def _cp_run(dev, cfg, mesh, dropout=0.0, steps=MESH_STEPS, plan=None,
+            **kw):
+    """``_tp_rank_run`` of the Gemma-2 4k job (``plan``, default
+    ``CP_PLAN``), context-sharded on a mesh; with the transport the ring /
+    all-to-all last used."""
+    from gke_ray_train_tpu_torch.ops.ring_attention import TRANSPORT
+    TRANSPORT["last"] = None
+    r, launches = _tp_rank_run(dev, cfg, mesh, dropout, steps,
+                               config=GEMMA2_CONFIG, plan=plan or CP_PLAN,
+                               **kw)
+    r["transport"] = TRANSPORT["last"]
+    return r, launches
+
+
+def _cp_worker(out_path):
+    """One of train_cp's two ranks on the one card (env: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
+    tensors, the fsdp 1 x context 2 mesh, the collectives probed
+    (``CP_PROBE``); if they run,
+    the Gemma-2 4k job under each of ``CP_IMPLS`` (1 + 3 steps, dropout
+    0), at the job's LORA_DROPOUT under a2a (``CP_FP32_LAYERS`` layers,
+    1 + 1 steps, the digests of the first masks), then in fp32 at
+    ``CP_FP32_LAYERS`` layers."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1, context=CP_CONTEXT),
+                          device_type="cuda")
+        rec["context_rank"] = mesh["context"].get_local_rank()
+        rec["probe"] = _cp_probe(dev, mesh)
+        if all(v == "ok" for v in rec["probe"].values()):
+            rec["launches"] = {}
+            for impl in CP_IMPLS:
+                torch.cuda.reset_peak_memory_stats()
+                rec[impl], launches = _cp_run(dev, _gemma_cfg(impl), mesh)
+                for k, v in launches.items():
+                    rec["launches"][k] = rec["launches"].get(k, 0) + v
+            with open(GEMMA2_CONFIG) as f:
+                drop = float(json.load(f)["LORA_DROPOUT"])
+            # the masks at the width of the step, two layers deep
+            (rec["dropout_run"], _), rec["masks"] = _first_masks(
+                lambda: _cp_run(dev, _gemma_cfg("a2a", CP_FP32_LAYERS),
+                                mesh, drop, 1))
+            with _tf32_off():
+                for impl in CP_IMPLS:
+                    rec[f"fp32_{impl}"], _ = _cp_run(
+                        dev, _gemma_cfg(impl, CP_FP32_LAYERS, "float32"),
+                        mesh)
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_train_cp(dev):
+    """Context parallelism on the one-card host: the Gemma-2 4k job
+    (ray-jobs/fine_tune_config_gemma2_4k.json: Gemma-2-9B QLoRA at full
+    width and depth, one packed 4,096-token row a step of ``CP_PLAN``,
+    FUSED_OPS=1) first in this process (a2a without a context axis is
+    the flash path), then as two ranks of this card at fsdp 1 x context
+    2 over gloo (``_cp_worker``), whose collectives are probed first.
+    Where those the path makes run: under a2a (as shipped) and under
+    ring, both ranks' losses and grad_norms of 1 + 3 steps within
+    MESH_MULTI_RTOL of this process's; per step the launches (flash once
+    a layer and forward under a2a on 8 of 16 query heads over the whole
+    row, C times under ring on the rank's 2,048 tokens); at the job's
+    LORA_DROPOUT every projection's first mask differs between the
+    context ranks; then the job in fp32 (TF32 off) at ``CP_FP32_LAYERS``
+    layers under both, within MESH_LOSS_RTOL of this process's. Each
+    rank's peak memory beside the card's name and power limit; the
+    ranks' ring / all-to-all transport is host-staged under gloo (its
+    times say nothing of a context-parallel step's speed: NCCL's path is
+    train_cp_multi's)."""
+    import tempfile
+    ref, _ = _cp_run(dev, _gemma_cfg("a2a"), None)
+    with _tf32_off():
+        ref32, _ = _cp_run(dev, _gemma_cfg("a2a", CP_FP32_LAYERS, "float32"),
+                           None)
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_cp_"), "rank")
+    hung, rcs, ranks = _spawn_ranks("--cp-worker", out, CP_CONTEXT,
+                                    [0] * CP_CONTEXT, CP_TIMEOUT_S)
+    cfg = _gemma_cfg("a2a")
+    problems, line = [], {"phase": "train_cp", "nvidia_smi":
+                          nvidia_smi_line(), "model": cfg.name,
+                          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+                          "seq": cfg.max_seq_len, "mesh": {
+                              "data": 1, "fsdp": 1,
+                              "context": CP_CONTEXT},
+                          "impls": list(CP_IMPLS), "plan": CP_PLAN,
+                          "cut": "GRADIENT_ACCUMULATION_STEPS 4 -> 1 (one "
+                          "4,096-token row a step); width and depth as "
+                          "shipped",
+                          "backend": "gloo", "ranks_on_one_card": CP_CONTEXT,
+                          "one_process": ref, "one_process_fp32": ref32}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    probe = ranks[0].get("probe", {}) if ranks and ranks[0] else {}
+    line["probe"] = probe
+    missing = {k: v for k, v in probe.items() if v != "ok"}
+    if not problems and missing:
+        problems.append("gloo misses " + ", ".join(sorted(missing)))
+    launches = None
+    if not problems:
+        line["ranks"] = ranks
+        gaps = {}
+        for r in ranks:
+            g = gaps[r["rank"]] = {}
+            for impl in CP_IMPLS:
+                run = r[impl]
+                g[impl] = _hold_streams(f"rank {r['rank']} {impl}", run, ref,
+                                        MESH_MULTI_RTOL, problems)
+                g[f"fp32_{impl}"] = _hold_streams(
+                    f"rank {r['rank']} fp32 {impl}", r[f"fp32_{impl}"],
+                    ref32, MESH_LOSS_RTOL, problems)
+                for key in (impl, f"fp32_{impl}"):
+                    got = r[key]
+                    if got["launches_per_step"] != got["want_launches"]:
+                        problems.append(
+                            f"rank {r['rank']} {key} launches per step "
+                            f"{got['launches_per_step']} != "
+                            f"{got['want_launches']}")
+                    if got["transport"] != "host":
+                        problems.append(f"rank {r['rank']} {key}: transport "
+                                        f"{got['transport']}")
+            if not all(np.isfinite(r["dropout_run"]["losses"])):
+                problems.append(f"rank {r['rank']}: dropout run losses "
+                                f"{r['dropout_run']['losses']}")
+        m0, m1 = ranks[0]["masks"], ranks[1]["masks"]
+        differ = {k: m0[k]["digest"] != m1[k]["digest"]
+                  and m0[k]["shape"] == m1[k]["shape"] for k in m0}
+        if len(differ) != 7 or not all(differ.values()):
+            problems.append(f"masks across context ranks: {differ}")
+        line.update(rel_gaps=gaps, tol_rel={"bf16": MESH_MULTI_RTOL,
+                                            "fp32": MESH_LOSS_RTOL},
+                    masks_differ=differ,
+                    transport="host: gloo's send / recv abort on a CUDA "
+                    "pointer (writev: Bad address)",
+                    peak_mem_bytes={r["rank"]: {
+                        impl: r[impl]["peak_mem_bytes"] for impl in CP_IMPLS}
+                        for r in ranks},
+                    p50_ratio={impl: [r[impl]["step_s_p50"]
+                                      / ref["step_s_p50"] for r in ranks]
+                               for impl in CP_IMPLS})
+        launches = {}
+        for r in ranks:
+            for k, n in r["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_cp phase failed: " + "; ".join(problems))
+    return launches
+
+
+def _cp_multi_worker(out_path):
+    """One rank of train_cp_multi (NCCL, one card a rank): the Gemma-2 4k
+    job on ``CP_MULTI_MESH`` at full width and depth, one-row
+    microbatches of the rank's batch rows, under each of ``CP_IMPLS``;
+    after the a2a run its state saved (``<out>.ckpt``) with the digests
+    of its adapters and of one block's NF4 codes whole."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.ckpt import CheckpointManager
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    from gke_ray_train_tpu_torch.parallel.placement import (
+        input_shard_layout)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world, "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev)}
+    saved = {}
+
+    def keep_state(job_state):
+        saved["state"] = job_state
+    try:
+        mesh = build_mesh(MeshConfig(**CP_MULTI_MESH))
+        rec["context_rank"] = mesh["context"].get_local_rank()
+        rows = input_shard_layout(mesh)
+        rec["launches"] = {}
+        for impl in CP_IMPLS:
+            torch.cuda.reset_peak_memory_stats()
+            r, launches = _cp_run(dev, _gemma_cfg(impl), mesh,
+                                  plan=CP_MULTI_PLAN, rows=rows,
+                                  one_row=True,
+                                  keep=keep_state if impl == "a2a" else None)
+            r["tokens_per_s_per_card"] = r["tokens"] / r["step_s_p50"] / world
+            rec[impl] = r
+            for k, v in launches.items():
+                rec["launches"][k] = rec["launches"].get(k, 0) + v
+            if impl == "a2a":
+                st = saved.pop("state")
+                mgr = CheckpointManager(out_path + ".ckpt",
+                                        score_attribute=None)
+                t = time.perf_counter()
+                mgr.save(st.step, st, force=True)
+                mgr.close()
+                rec["save_s"] = time.perf_counter() - t
+                rec["digests"] = {
+                    f"lora/{i}.{p}.{ab}": _digest(layer[p][ab])
+                    for i, layer in enumerate(st.lora) for p in layer
+                    for ab in ("a", "b")}
+                codes = st.params.blocks[0].wq.codes
+                rec["digests"]["params/blocks.0.wq.codes"] = _digest(
+                    codes.full_tensor())
+                del st
+                _release()
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_train_cp_multi(dev):
+    """Opt-in, the four-card host (fewer than 4 cards fails). The Gemma-2
+    4k job's own layout (fsdp 8 x context 2) cut to four cards: fsdp 2 x
+    context 2 over NCCL, Gemma-2-9B at full width and depth, the job's 4
+    rows a step as one-row microbatches, under a2a and ring, each rank's
+    losses and grad_norms of 1 + 3 steps within MESH_MULTI_RTOL of this
+    card's unmeshed run of the same rows; per card p50, tokens/s and
+    peak memory beside the card's name and power limit. After the a2a
+    run the ranks save their state (the NF4 base replicated over context
+    and sharded over fsdp, the adapters); one process reads it back
+    (``restore_raw``, at world 1): every adapter and block 0's wq codes
+    equal what the ranks held, by digest."""
+    import shutil
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    emit({"phase": "train_cp_multi_devices", "ok": n >= 4,
+          "device_count": n, "nvidia_smi": nvidia_smi_line()})
+    if n < 4:
+        raise SystemExit(f"train_cp_multi needs 4 cards; this host has {n}")
+    ref, _ = _cp_run(dev, _gemma_cfg("a2a"), None, plan=CP_MULTI_PLAN,
+                     one_row=True)
+    ref["tokens_per_s"] = ref["tokens"] / ref["step_s_p50"]
+    _release()
+    root = tempfile.mkdtemp(prefix="chip_smoke_cp_multi_")
+    try:
+        out = os.path.join(root, "rank")
+        hung, rcs, ranks = _spawn_ranks("--cp-multi-worker", out, 4,
+                                        list(range(4)), CP_MULTI_TIMEOUT_S)
+        problems, gaps = [], {}
+        line = {"phase": "train_cp_multi", "nvidia_smi": nvidia_smi_line(),
+                "world": 4, "mesh": CP_MULTI_MESH, "impls": list(CP_IMPLS),
+                "one_card": ref, "cut": "the job's fsdp 8 x context 2 on "
+                "four cards: fsdp 2 x context 2; one-row microbatches, "
+                "1 + 3 steps"}
+        if hung or any(rcs) or None in ranks:
+            problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        else:
+            for r in ranks:
+                gaps[r["rank"]] = {impl: _hold_streams(
+                    f"rank {r['rank']} {impl}", r[impl], ref,
+                    MESH_MULTI_RTOL, problems) for impl in CP_IMPLS}
+                for impl in CP_IMPLS:
+                    run = r[impl]
+                    if run["launches_per_step"] != run["want_launches"]:
+                        problems.append(f"rank {r['rank']} {impl} launches "
+                                        f"{run['launches_per_step']} != "
+                                        f"{run['want_launches']}")
+                    if run["transport"] != "direct":
+                        problems.append(f"rank {r['rank']} {impl}: "
+                                        f"transport {run['transport']}")
+            from gke_ray_train_tpu_torch.ckpt import CheckpointManager
+            mgr = CheckpointManager(out + ".ckpt", score_attribute=None)
+            t = time.perf_counter()
+            raw = mgr.restore_raw()
+            restore_s = time.perf_counter() - t
+            mgr.close()
+            got = {}
+            for i, layer in enumerate(raw["lora"]):
+                for p, ab in layer.items():
+                    for k, v in ab.items():
+                        got[f"lora/{i}.{p}.{k}"] = _digest(v)
+            got["params/blocks.0.wq.codes"] = _digest(
+                raw["params"]["blocks.0.wq.codes"])
+            want = ranks[0]["digests"]
+            differ = sorted(k for k in want if got.get(k) != want[k])
+            if differ or any(r["digests"] != want for r in ranks):
+                problems.append(f"restored at world 1: {len(differ)} "
+                                f"entries differ {differ[:4]}")
+            line["restore"] = {"entries_held": len(want),
+                               "differ": differ, "restore_s": restore_s,
+                               "save_s": [r["save_s"] for r in ranks]}
+        line.update(ranks=ranks, rel_gaps=gaps, tol_rel=MESH_MULTI_RTOL,
+                    ok=not problems, problems=problems)
+        emit(line)
+        if problems:
+            raise SystemExit("train_cp_multi phase failed: "
+                             + "; ".join(problems))
+        launches = {}
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------
@@ -4627,6 +5198,9 @@ ENTRY_CONFIG = os.path.join(HERE, "ray-jobs",
 ENTRY_CUT = {"NUM_TRAIN_SAMPLES": 64, "NUM_EVAL_SAMPLES": 16,
              "SAVE_STEPS_SFT": 4, "EVAL_STEPS_SFT": 4, "LOGGING_STEPS": 2,
              "REPORT_TO": "tensorboard"}
+# and in depth: the three runs at this many of the job's 32 layers (the
+# default run's time limit; entry_full runs the job at full depth)
+ENTRY_LAYERS = 8
 # run B is preempted after this step and run C resumes from it
 ENTRY_PREEMPT_AFTER = 5
 # run A also compares base and tuned answers and serves the tuned adapter
@@ -5082,14 +5656,67 @@ def _entry_readback(export_dir, cfg, lcfg, view, dev):
                             if "tokenizer" in f)}
 
 
+# the Gemma-2 4k job through the entry on one card, with its own
+# ATTN_IMPL a2a (the flash path without a context axis): cut as ENTRY_CUT
+# cuts the Llama job, and in depth (a merged export of 4 layers)
+GEMMA_ENTRY_LAYERS = 4
+GEMMA_ENTRY_CUT = dict(ENTRY_CUT, SAVE_STEPS_SFT=1, EVAL_STEPS_SFT=1,
+                       LOGGING_STEPS=1)
+
+
+def _entry_gemma(dev, root):
+    """``fine_tune.py``'s worker on ray-jobs/fine_tune_config_gemma2_4k.
+    json, ``GEMMA_ENTRY_CUT`` and ``GEMMA_ENTRY_LAYERS`` deep, with the
+    config's ATTN_IMPL (``a2a``, no override): the model the entry built
+    must carry it, every step and eval batch launch the flash kernels as
+    a step of that model does, the losses be finite and the export be
+    written. Returns (line, launches)."""
+    from gke_ray_train_tpu_torch import fine_tune as ft
+    config = _entry_config(os.path.join(root, "gemma"), path=GEMMA2_CONFIG,
+                           cut=GEMMA_ENTRY_CUT)
+    cfg, lcfg, plan = _entry_setup(config, dev, n_layers=GEMMA_ENTRY_LAYERS)
+    seen = []
+    orig = ft.make_train_step
+
+    def make_train_step(mcfg, *a, **kw):
+        seen.append(mcfg.attn_impl)
+        return orig(mcfg, *a, **kw)
+    ft.make_train_step = make_train_step
+    try:
+        with _depth_cut(GEMMA_ENTRY_LAYERS):
+            run = _entry_run(dev, config, "gemma")
+    finally:
+        ft.make_train_step = orig
+    want = _entry_launch_check(cfg, plan, run,
+                               int(config["NUM_EVAL_SAMPLES"]))
+    line = _entry_line("entry_gemma", run, cfg, plan, want)
+    problems = []
+    if seen != [config["ATTN_IMPL"]] or seen != ["a2a"]:
+        problems.append(f"the entry built attn_impl {seen}")
+    if line["launches"] != want:
+        problems.append(f"launches {line['launches']} != {want}")
+    if not run["losses"] or not all(np.isfinite(v)
+                                    for v in run["losses"].values()):
+        problems.append(f"losses {run['losses']}")
+    if not (run["export"] or {}).get("bytes"):
+        problems.append(f"export {run['export']}")
+    line.update(ok=not problems, problems=problems, attn_impl=seen,
+                config=os.path.relpath(GEMMA2_CONFIG, HERE),
+                cut=GEMMA_ENTRY_CUT, export={
+                    k: (run["export"] or {}).get(k)
+                    for k in ("seconds", "bytes")})
+    return line, {k: run["launches"][k] for k, n in want.items() if n}
+
+
 def phase_entry(dev):
     """``python -m gke_ray_train_tpu_torch.fine_tune``'s worker on the card:
-    ray-jobs/fine_tune_config_offline_8b.json at full width and depth
-    (Llama-3.1-8B, bf16, random NF4 base from seed 0, LoRA r 64 / alpha
-    16 / dropout 0, 2 x 4 microbatches of 1,024 on synthetic SQL rows),
-    cut to ``ENTRY_CUT`` (8 steps, a save and an eval of 16 rows every 4),
-    written under a temporary directory. Three runs: A uninterrupted; B
-    in a fresh directory with ASYNC_CKPT=1, preempted after step
+    ray-jobs/fine_tune_config_offline_8b.json at full width, cut in depth
+    to ``ENTRY_LAYERS`` layers (Llama-3.1-8B, bf16, random NF4 base from
+    seed 0, LoRA r 64 / alpha 16 / dropout 0, 2 x 4 microbatches of 1,024
+    on synthetic SQL rows), cut to ``ENTRY_CUT`` (8 steps, a save and an
+    eval of 16 rows every 4), written under a temporary directory.
+    Three runs: A uninterrupted; B in a fresh directory with
+    ASYNC_CKPT=1, preempted after step
     ``ENTRY_PREEMPT_AFTER`` (SIGTERM, forced save, ``Preempted``); C
     resuming B's directory (restore, fast-forward, steps 6-8). C's losses
     of steps 6-8 and its last checkpoint's adapters and moments are held
@@ -5105,38 +5732,40 @@ def phase_entry(dev):
     root = tempfile.mkdtemp(prefix="chip_smoke_entry_")
     try:
         ca = _entry_config(os.path.join(root, "a"))
-        cfg, lcfg, plan = _entry_setup(ca, dev)
+        cfg, lcfg, plan = _entry_setup(ca, dev, n_layers=ENTRY_LAYERS)
         disk = _entry_disk(root, cfg, lcfg, runs=2)
         n_eval = int(ca["NUM_EVAL_SAMPLES"])
         problems = []
         lines = {}
         runs = {}
         ca.update(ENTRY_SERVE)
-        for label, config, kw in (
-                ("A", ca, {}),
-                ("B", _entry_config(os.path.join(root, "b"), ASYNC_CKPT=1),
-                 {"preempt_after": ENTRY_PREEMPT_AFTER}),
-                ("C", _entry_config(os.path.join(root, "b")), {})):
-            run = _entry_run(dev, config, label, **kw)
-            want = _entry_launch_check(cfg, plan, run, n_eval)
-            line = _entry_line("entry", run, cfg, plan, want)
-            emit(line)
-            lines[label], runs[label] = line, run
-            if line["launches"] != want:
-                problems.append(f"{label}: launches {line['launches']} != "
-                                f"{want}")
-            if not all(np.isfinite(v) for v in run["losses"].values()):
-                problems.append(f"{label}: non-finite loss")
-            if label == "A":
-                problems += _entry_serve_problems(run, config)
-                adapters_a, flat_a = _entry_adapters(
-                    run["checkpoint"]["dir"], run["checkpoint"]["latest"],
-                    cfg, lcfg, dev)
-                export = dict(run["export"])
-                export["readback"] = _entry_readback(
-                    export["dir"], cfg, lcfg, adapters_a, dev)
-                del adapters_a
-                shutil.rmtree(export["dir"])
+        with _depth_cut(ENTRY_LAYERS):
+            for label, config, kw in (
+                    ("A", ca, {}),
+                    ("B", _entry_config(os.path.join(root, "b"),
+                                        ASYNC_CKPT=1),
+                     {"preempt_after": ENTRY_PREEMPT_AFTER}),
+                    ("C", _entry_config(os.path.join(root, "b")), {})):
+                run = _entry_run(dev, config, label, **kw)
+                want = _entry_launch_check(cfg, plan, run, n_eval)
+                line = _entry_line("entry", run, cfg, plan, want)
+                emit(line)
+                lines[label], runs[label] = line, run
+                if line["launches"] != want:
+                    problems.append(f"{label}: launches "
+                                    f"{line['launches']} != {want}")
+                if not all(np.isfinite(v) for v in run["losses"].values()):
+                    problems.append(f"{label}: non-finite loss")
+                if label == "A":
+                    problems += _entry_serve_problems(run, config)
+                    adapters_a, flat_a = _entry_adapters(
+                        run["checkpoint"]["dir"],
+                        run["checkpoint"]["latest"], cfg, lcfg, dev)
+                    export = dict(run["export"])
+                    export["readback"] = _entry_readback(
+                        export["dir"], cfg, lcfg, adapters_a, dev)
+                    del adapters_a
+                    shutil.rmtree(export["dir"])
         a, b, c = runs["A"], runs["B"], runs["C"]
         steps = sorted(a["losses"])
         if steps != list(range(1, 9)) or sorted(b["losses"]) != list(
@@ -5181,6 +5810,9 @@ def phase_entry(dev):
               "seconds": export["seconds"], "bytes": export["bytes"],
               "shards": len(export["shards"]), "readback": rb,
               "disk": disk})
+        gemma, gemma_launches = _entry_gemma(dev, root)
+        emit(gemma)
+        problems += [f"gemma: {p}" for p in gemma["problems"]]
         emit({"phase": "entry", "ok": not problems, "problems": problems,
               "resumed_vs_uninterrupted": {
                   "loss_rel_diff": rel, "bitwise_losses": all(
@@ -5192,8 +5824,12 @@ def phase_entry(dev):
               "preempt_after": ENTRY_PREEMPT_AFTER})
         if problems:
             raise SystemExit("entry phase failed: " + "; ".join(problems))
-        return {k: sum(runs[r]["launches"][k] for r in runs)
-                for k, n in lines["A"]["expected_launches"].items() if n}
+        launches = {k: sum(runs[r]["launches"][k] for r in runs)
+                    for k, n in lines["A"]["expected_launches"].items()
+                    if n}
+        for k, n in gemma_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        return launches
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -5948,16 +6584,16 @@ def phase_pretrain_multi(dev):
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
           "train_fused_ce", "train_fused_ce_parity", "train_mesh",
-          "train_mesh_parity", "train_remat_dots", "train_tp",
+          "train_mesh_parity", "train_remat_dots", "train_tp", "train_cp",
           "train_profile", "entry", "train_moe", "train_moe_parity",
           "serve_moe", "entry_moe", "profile", "train_fused_profile",
           "train_fused_ce_profile", "train_moe_profile", "entry_full",
           "train_mesh_multi", "train_tp_multi", "pretrain",
-          "pretrain_multi")
+          "pretrain_multi", "train_cp_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
-                 "train_tp_multi", "pretrain_multi")
+                 "train_tp_multi", "pretrain_multi", "train_cp_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -6050,13 +6686,17 @@ def main(argv=None) -> int:
     ap.add_argument("--entry-worker", nargs=2, metavar=("CONFIG", "OUT"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--tp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--cp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--cp-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--tp-multi-worker", metavar="OUT",
                     help=argparse.SUPPRESS)
     ap.add_argument("--pretrain-worker", nargs=2, metavar=("CONFIG", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
-               "tp_multi_worker": _tp_multi_worker}
+               "tp_multi_worker": _tp_multi_worker, "cp_worker": _cp_worker,
+               "cp_multi_worker": _cp_multi_worker}
     if args.entry_worker or args.pretrain_worker or any(
             getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
@@ -6134,6 +6774,7 @@ def main(argv=None) -> int:
     add(run("train_mesh_parity", phase_train_mesh_parity))
     add(run("train_remat_dots", phase_train_remat_dots))
     add(run("train_tp", phase_train_tp))
+    add(run("train_cp", phase_train_cp))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -6150,6 +6791,7 @@ def main(argv=None) -> int:
     add(run("train_tp_multi", phase_train_tp_multi))
     add(run("pretrain", phase_pretrain))
     run("pretrain_multi", phase_pretrain_multi)
+    add(run("train_cp_multi", phase_train_cp_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -297,7 +297,7 @@ class PlacedBatch(dict):
         return self
 
 
-def make_place_batch(device: DeviceLike = None
+def make_place_batch(device: DeviceLike = None, *, mesh=None
                      ) -> Callable[[Dict[str, np.ndarray]],
                                    Dict[str, torch.Tensor]]:
     """The ``place_fn`` that puts a numpy batch on ``device`` (default
@@ -307,8 +307,17 @@ def make_place_batch(device: DeviceLike = None
     ``device="cpu"``: CPU tensors holding a copy of each array, and no
     CUDA call. On a rank of a process group the batch is this rank's
     rows (``parallel/placement.py``) and ``device`` None is the rank's
-    own card, ``cuda:LOCAL_RANK``."""
+    own card, ``cuda:LOCAL_RANK``. On a ``mesh`` whose ``context`` axis
+    exceeds 1 (JAX's ``context_sharded`` placement) each batch is first
+    cut to this context rank's ``S / C`` tokens of its token-aligned keys
+    (``parallel/placement.py::context_slice``)."""
+    from gke_ray_train_tpu_torch.parallel.mesh import context_size
     dev = resolve_device(device)
+    if context_size(mesh) > 1:
+        from gke_ray_train_tpu_torch.parallel.placement import (
+            context_slice)
+        inner = make_place_batch(dev)
+        return lambda batch: inner(context_slice(batch, mesh))
     if dev.type == "cpu":
         def place_cpu(batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             return {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}

@@ -32,18 +32,24 @@ batching engine, a LoRA run's adapter through an ``AdapterPool``
 Under a ``torch.distributed`` world above one (torchrun or Ray Train's
 rendezvous env; ``parallel/mesh.py::distributed_init``: NCCL, one rank
 per card, gloo only with ``device="cpu"``) the worker builds the mesh
-from ``MESH_DATA`` / ``MESH_FSDP`` / ``MESH_MODEL`` (a model that cannot
-tile ``model`` raises before any weight is built), shards the model over
-``model`` (tensor parallelism) and with FSDP2, feeds each batch rank its
-share of every global batch (``PER_DEVICE_TRAIN_BATCH_SIZE × data × fsdp
-× GRADIENT_ACCUMULATION_STEPS`` rows; the ``model`` peers of a batch
-rank feed the same rows), meters tokens/s and MFU per card over the
-world, and exports through the checkpoint manager (``<final dir>_dcp``,
-with the ``model_config.json`` sidecar and the tokenizer from rank 0) for ``ckpt/convert.py`` to turn into the HF
-layout. Not ported yet, each raising where the config asks for it: peer
-replication, the ``context`` / ``pipe`` mesh axes and an MoE model at
-``MESH_MODEL`` above 1 (ROADMAP queue 1 item 8), and at a world above
-one ``INFERENCE`` / ``SERVE_AFTER_TRAIN`` (item 5).
+from ``MESH_DATA`` / ``MESH_FSDP`` / ``MESH_MODEL`` / ``MESH_CONTEXT``
+(a model that cannot tile ``model``, or a length or ``ATTN_IMPL`` that
+cannot run sharded over ``context``, raises before any weight is built),
+shards the model over ``model`` (tensor parallelism) and with FSDP2
+(replicated over ``context``), feeds each batch rank its share of every
+global batch (``PER_DEVICE_TRAIN_BATCH_SIZE × data × fsdp ×
+GRADIENT_ACCUMULATION_STEPS`` rows; the ``model`` peers of a batch rank
+feed the same rows, and its ``context`` peers each their ``S / C``
+tokens of them, for the train steps and the eval alike), meters tokens/s
+and MFU per card over the world, and exports through the checkpoint
+manager (``<final dir>_dcp``, with the ``model_config.json`` sidecar and
+the tokenizer from rank 0) for ``ckpt/convert.py`` to turn into the HF
+layout. On one card the mesh keys are ignored (they warn), and
+``ATTN_IMPL`` ``a2a`` / ``ring`` runs the flash kernels. Not ported yet,
+each raising where the config asks for it: peer replication, the
+``pipe`` mesh axis and an MoE model at ``MESH_MODEL`` above 1 (ROADMAP
+queue 1 item 8), and at a world above one ``INFERENCE`` /
+``SERVE_AFTER_TRAIN`` (item 5).
 """
 
 from __future__ import annotations
@@ -77,7 +83,8 @@ from gke_ray_train_tpu_torch.parallel.mesh import (
 from gke_ray_train_tpu_torch.parallel.placement import (
     host_batch_size, input_shard_layout)
 from gke_ray_train_tpu_torch.parallel.sharding import check_model_on_mesh
-from gke_ray_train_tpu_torch.plan import ExecutionPlan
+from gke_ray_train_tpu_torch.plan import (
+    ExecutionPlan, PlanError, context_findings)
 from gke_ray_train_tpu_torch.rayint import get_context
 from gke_ray_train_tpu_torch.rayint.elastic import maybe_replan
 from gke_ray_train_tpu_torch.serve import post_train_smoke
@@ -186,9 +193,14 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
             attn_impl=config.get("ATTN_IMPL", "auto"),
             remat_policy=config.get("REMAT_POLICY", "full"))
     if mesh_cfg is not None:
-        # a model that cannot tile the model axis raises here, before
-        # any weight is built
+        # a model that cannot tile the model axis, or sequences that
+        # cannot shard over the context axis, raise here, before any
+        # weight is built
         check_model_on_mesh(cfg, mesh_cfg.model)
+        found = context_findings(cfg, context=mesh_cfg.context,
+                                 max_seq_len=plan.max_seq_len)
+        if found:
+            raise PlanError("; ".join(found))
 
     # ---- weights ------------------------------------------------------
     # a local HF directory, else random weights (the hub download,
@@ -298,7 +310,9 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
                                      host_id=in_shard_id, epoch=epoch,
                                      group_by_length=group_by_length)
 
-    place = make_place_batch(dev)
+    # the built mesh decides, as in the JAX entry: each context rank
+    # keeps its S / C tokens of the rows, for the train and eval batches
+    place = make_place_batch(dev, mesh=mesh)
 
     def eval_fn(st):
         return {"eval_loss": sharded_eval_loss(

@@ -393,7 +393,8 @@ def _mlp(x, lp: Block, cfg: ModelConfig, dtype, lora_p=None,
 def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
           positions, mask, window, segment_ids, lora_p=None,
           lora_scale: float = 1.0, drop_rate: float = 0.0,
-          drop_seed: Optional[int] = None, fused_ops: bool = False):
+          drop_seed: Optional[int] = None, fused_ops: bool = False,
+          mesh=None):
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     tp = tp_of(lp.wq)
@@ -420,15 +421,16 @@ def _attn(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
             q_positions=positions, kv_positions=positions,
             q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
             causal=True, sliding_window=window, scale=cfg.attn_scale,
-            logit_softcap=cfg.attn_softcap)
+            logit_softcap=cfg.attn_softcap, mesh=mesh)
     return reduce_from_model(proj(out.reshape(B, S, -1), "wo"), tp)
 
 
 def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
            positions, masks, segment_ids, lo, lora_scale: float,
            drop_rate: float, drop_seed: Optional[int], fused_ops: bool,
-           token_weights: Optional[torch.Tensor] = None):
-    """One decoder layer: ``(x, the layer's router aux or None)``."""
+           token_weights: Optional[torch.Tensor] = None, mesh=None):
+    """One decoder layer: ``(x, the layer's router aux or None)``;
+    ``mesh`` carries the ``context`` axis to the attention."""
     def norm(h, scale):
         return _rms_norm(h, scale, eps=cfg.norm_eps,
                          scale_plus_one=cfg.norm_scale_plus_one,
@@ -437,7 +439,8 @@ def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
     h = _attn(h, lp, cfg, impl, dtype, rope, positions, masks[lp.kind],
               cfg.sliding_window if lp.kind == "sliding" else None,
               segment_ids, lora_p=lo, lora_scale=lora_scale,
-              drop_rate=drop_rate, drop_seed=drop_seed, fused_ops=fused_ops)
+              drop_rate=drop_rate, drop_seed=drop_seed, fused_ops=fused_ops,
+              mesh=mesh)
     if cfg.post_block_norm:
         h = norm(h, lp.attn_post_norm)
     x = x + h
@@ -462,13 +465,17 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
                     lora_dropout: float = 0.0,
                     lora_seed: Optional[int] = None,
                     fused_ops: bool = False,
-                    token_weights: Optional[torch.Tensor] = None):
+                    token_weights: Optional[torch.Tensor] = None,
+                    mesh=None):
     """Run ``blocks`` (a sequence of ``Block``) over the residual stream
     ``x``: ``(x, the summed router aux of the layers)``, the aux None on a
     dense model. ``lora``, when given, holds one adapter dict per block.
     ``fused_ops``: the norms and the q/k RoPE through the fused kernels;
     under remat their Functions run again in the recomputation.
-    ``token_weights``: the MoE router aux's weights.
+    ``token_weights``: the MoE router aux's weights. ``mesh``: its
+    ``context`` axis shards the sequence (the ring and all-to-all
+    attention's collectives run inside each block, and again in its
+    recomputation under remat).
 
     With ``cfg.remat`` and autograd recording, each repeat of the block
     pattern is one ``torch.utils.checkpoint`` region (non-reentrant): its
@@ -495,7 +502,7 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
                              lora[i] if lora is not None else None,
                              lora_scale, lora_dropout,
                              dropout_seed(lora_seed, i) if drop else None,
-                             fused_ops, token_weights)
+                             fused_ops, token_weights, mesh)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -537,10 +544,23 @@ def dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def resolve_seq_impl(cfg: ModelConfig, S: int, device: torch.device) -> str:
+def resolve_seq_impl(cfg: ModelConfig, S: int, device: torch.device,
+                     context: int = 1) -> str:
     """The attention impl a sequence of length S actually runs on
-    ``device``: ``"auto"`` resolved, then the S % 128 dense fallback."""
+    ``device``: ``"auto"`` resolved, then the S % 128 dense fallback.
+    Sharded over a ``context`` above 1 (S the shard's length) only the
+    context-parallel impls run: ``"auto"`` (which resolves to the flash
+    kernel on CUDA, as JAX's does on a TPU), ``"flash"`` and the dense
+    ``"xla"`` (its mask is built from the shard's positions alone)
+    raise, and there is no dense fallback."""
     impl = cfg.resolved_attn_impl(device)
+    if context > 1:
+        if impl not in ("ring", "a2a"):
+            raise ValueError(
+                f"attn_impl={cfg.attn_impl!r} on a mesh with "
+                f"context={context} would drop attention across the "
+                "sequence shards; use attn_impl='ring' or 'a2a'")
+        return impl
     if impl == "flash" and S % 128 != 0:
         _warn_flash_fallback(S)
         impl = "xla"
@@ -607,7 +627,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             return_pre_unembed: bool = False,
             with_aux: bool = False,
             token_weights: Optional[torch.Tensor] = None,
-            loss_fn: Optional[Callable] = None):
+            loss_fn: Optional[Callable] = None,
+            mesh=None):
     """tokens [B, S] integer → logits [B, S, vocab] float32 (under tensor
     parallelism [B, S, vocab / model], this rank's vocab shard). Runs on
     the device the params and tokens lie on.
@@ -627,17 +648,28 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``loss_fn``: when given, ``forward`` returns ``loss_fn(out, params)``
     (``out`` the logits or the pre-unembed state, as asked; with
     ``with_aux`` paired with the aux), so a loss that reads the head runs
-    while a sharded root holds it gathered (``train/step.py``)."""
+    while a sharded root holds it gathered (``train/step.py``).
+    ``mesh``: a ``parallel/mesh.py::build_mesh`` mesh; where its
+    ``context`` axis C exceeds 1, ``tokens`` (and positions, segment
+    ids, weights) are this rank's ``S / C`` tokens of each row, the
+    attention runs ``"ring"`` or ``"a2a"`` across the context ranks
+    (``resolve_seq_impl``), and absent positions are the rank's slice
+    ``c * S / C + arange(S / C)`` of the global ``arange(S)``, as JAX
+    shards it."""
+    from gke_ray_train_tpu_torch.parallel.mesh import (
+        context_rank, context_size)
     B, S = tokens.shape
     dev = params.embed.device
     check_on(tokens, dev, "tokens")
     dtype = torch_dtype(cfg.dtype)
+    C = context_size(mesh)
     if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
+        off = context_rank(mesh) * S
+        positions = torch.arange(off, off + S, dtype=torch.int32,
                                  device=dev).expand(B, S)
     x = embed_tokens(params, tokens, cfg, dtype)
     x, rope = position_inputs(cfg, x, positions)
-    impl = resolve_seq_impl(cfg, S, dev)
+    impl = resolve_seq_impl(cfg, S, dev, C)
     # dense masks are shared by every layer of one kind; the kernel
     # paths build theirs in-kernel
     masks = {kind: None for kind in set(cfg.block_pattern)}
@@ -651,7 +683,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
         x, params.blocks, cfg, impl, dtype, rope, positions, masks,
         segment_ids, lora=lora, lora_scale=lora_scale,
         lora_dropout=lora_dropout, lora_seed=lora_seed, fused_ops=fused_ops,
-        token_weights=token_weights)
+        token_weights=token_weights, mesh=mesh)
     if return_pre_unembed:
         out = pre_unembed(x, params, cfg)
     else:

@@ -353,10 +353,14 @@ def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
     ``parallel/mesh.py::build_mesh`` mesh) shards the vocab over its
     ``model`` axis where that is above 1, as JAX's ``mesh=`` does.
     ``head`` is then this rank's shard [D, V / model] (a DTensor gives
-    its local part) and ``targets`` hold global ids. The sums are this
-    rank's rows' (the same on every ``model`` peer); JAX's ``mesh=`` also
-    sums them over the batch axes, which the port's train step does once
-    a step."""
+    its local part) and ``targets`` hold global ids. With ``vocab_axis``
+    the sums are this rank's rows' (the same on every ``model`` peer: the
+    port's train step sums them over the batch axes and ``context`` once
+    a step); with ``mesh`` they are summed over the batch axes and
+    ``context`` here (``parallel/mesh.py::token_groups``), as JAX's
+    ``mesh=`` sums them over ``(*BATCH_AXES, AXIS_CONTEXT)`` (:321-324):
+    every rank returns the global sums, whose gradient is each rank's
+    own."""
     from gke_ray_train_tpu_torch.parallel.tensor import (
         TensorParallel, local_weight, tensor_parallel)
     tp = vocab_axis
@@ -374,8 +378,14 @@ def fused_cross_entropy(x: torch.Tensor, head: torch.Tensor,
         raise ValueError(f"targets {tuple(targets.shape)} and weights "
                          f"{tuple(weights.shape)} are not [{B}, {S}]")
     dev = x.device
-    return FusedCrossEntropy.apply(
+    nll, w = FusedCrossEntropy.apply(
         x.reshape(B * S, D).contiguous(), head.contiguous(),
         targets.reshape(-1).to(device=dev, dtype=torch.int32).contiguous(),
         weights.reshape(-1).to(device=dev, dtype=torch.float32).contiguous(),
         int(block_v), tp)
+    if mesh is not None:
+        from gke_ray_train_tpu_torch.parallel.mesh import token_groups
+        from gke_ray_train_tpu_torch.parallel.tensor import reduce_over
+        for group in token_groups(mesh):
+            nll, w = reduce_over(nll, group), reduce_over(w, group)
+    return nll, w

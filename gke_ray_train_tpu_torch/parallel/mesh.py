@@ -13,7 +13,8 @@ axis        what is sharded over it
 ``data``    the batch only (replicas of the sharded model: HSDP)
 ``fsdp``    the batch AND the parameters (FSDP2, ``parallel/sharding.py``)
 ``model``   tensor parallelism on dense models (``parallel/tensor.py``)
-``context`` sequence parallelism (not ported: item 8)
+``context`` the sequence (ring and all-to-all attention,
+            ``ops/ring_attention.py``, ``ops/a2a_attention.py``)
 ``pipe``    pipeline stages (not ported: item 8)
 ==========  ========================================================
 
@@ -49,7 +50,6 @@ BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
 # the ROADMAP item that ports each axis the port cannot shard over yet
 UNPORTED_AXES = {
-    AXIS_CONTEXT: "context parallelism (ROADMAP queue 1 item 8)",
     AXIS_PIPE: "pipeline parallelism (ROADMAP queue 1 item 8)",
 }
 
@@ -108,9 +108,9 @@ class MeshConfig:
         )
 
     def check_ported(self) -> "MeshConfig":
-        """Raise unless only data, fsdp and model exceed 1 and there is
-        one slice; returns ``self``. Whether a model tiles ``model`` is
-        checked where the mesh meets the model config
+        """Raise unless only data, fsdp, model and context exceed 1 and
+        there is one slice; returns ``self``. Whether a model tiles
+        ``model`` is checked where the mesh meets the model config
         (``plan.py::check_model_on_mesh``)."""
         if self.num_slices > 1:
             raise NotImplementedError(
@@ -121,7 +121,8 @@ class MeshConfig:
             if size > 1:
                 raise NotImplementedError(
                     f"MESH_{axis.upper()}={size}: {what} is not ported yet; "
-                    "the port shards over data, fsdp and model only")
+                    "the port shards over data, fsdp, model and context "
+                    "only")
         return self
 
 
@@ -234,6 +235,37 @@ def batch_groups(mesh) -> list:
     sum over them is a sum over every input shard once (the ``model``
     ranks of one batch rank hold the same rows)."""
     return [mesh[a].get_group() for a in BATCH_AXES if mesh[a].size() > 1]
+
+
+def context_size(mesh) -> int:
+    """Ranks on the ``context`` axis (1 without a mesh): the shards one
+    sequence is cut into."""
+    return 1 if mesh is None else mesh[AXIS_CONTEXT].size()
+
+
+def context_rank(mesh) -> int:
+    """This rank's index on the ``context`` axis (0 when it is 1): it
+    holds tokens ``[rank * S / C, (rank + 1) * S / C)`` of every row."""
+    return 0 if mesh is None else mesh[AXIS_CONTEXT].get_local_rank()
+
+
+def context_group(mesh):
+    """The process group of this rank's ``context`` peers (the same batch
+    rows and heads, the other shards of the sequence); None when the
+    axis is 1."""
+    if context_size(mesh) <= 1:
+        return None
+    return mesh[AXIS_CONTEXT].get_group()
+
+
+def token_groups(mesh) -> list:
+    """:func:`batch_groups` and the ``context`` group when it is above
+    1: a sum over them is a sum over every token of the global batch
+    once (JAX's ``(*BATCH_AXES, AXIS_CONTEXT)``)."""
+    groups = batch_groups(mesh)
+    if context_size(mesh) > 1:
+        groups.append(context_group(mesh))
+    return groups
 
 
 def model_rank(mesh) -> int:

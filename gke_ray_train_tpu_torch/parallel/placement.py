@@ -11,18 +11,30 @@ them on its own card (``data/prefetch.py::make_place_batch``). Every
 batch rank (data × fsdp) is its own input shard; the ``model`` ranks of
 one batch rank share its shard (``batch_rank`` leaves ``model`` out), as
 JAX's ``P(("data", "fsdp"))`` replicates the rows over ``model``.
+
+Over ``context`` (JAX's ``context_sharded`` placement, :32-33, :70-104:
+``P(BATCH_AXES, "context")`` on the token-aligned keys) the context ranks
+of one batch rank take the same rows, and each keeps its contiguous
+``S / C`` tokens of them (:func:`context_slice`). The targets are
+shifted on the host, so no token's loss crosses a shard boundary; a batch
+without positions gets them from the model, which gives context rank c
+the positions ``c * S / C + arange(S / C)``
+(``models/transformer.py::forward``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from gke_ray_train_tpu_torch.device import DeviceLike
 from gke_ray_train_tpu_torch.parallel.mesh import (
-    batch_group_size, batch_rank)
+    batch_group_size, batch_rank, context_rank, context_size)
+
+# the keys laid out along the sequence (JAX's ``_SEQ_KEYS``)
+SEQ_KEYS = ("inputs", "targets", "weights", "segment_ids", "positions")
 
 
 def input_shard_layout(mesh=None) -> Tuple[int, int]:
@@ -45,6 +57,27 @@ def host_batch_size(global_batch: int, *, num_shards: int) -> int:
             "shards — pick PER_DEVICE_TRAIN_BATCH_SIZE * mesh data axes "
             "so every host group contributes the same number of rows")
     return global_batch // n
+
+
+def context_slice(batch: Mapping[str, np.ndarray], mesh
+                  ) -> Dict[str, np.ndarray]:
+    """This context rank's contiguous ``S / C`` tokens of the
+    token-aligned keys (:data:`SEQ_KEYS`) of its rows; the batch as it is
+    where ``context`` is 1. Raises where C does not divide S."""
+    C = context_size(mesh)
+    if C == 1:
+        return dict(batch)
+    c = context_rank(mesh)
+    out = {}
+    for k, v in batch.items():
+        if k in SEQ_KEYS:
+            S = v.shape[1]
+            if S % C:
+                raise ValueError(f"{k}: sequence length {S} not divisible "
+                                 f"by the context axis (size {C})")
+            v = v[:, c * (S // C):(c + 1) * (S // C)]
+        out[k] = v
+    return out
 
 
 def place_batch(batch: Dict[str, np.ndarray], device: DeviceLike = None

@@ -35,8 +35,9 @@ able to take a gradient, which an integer tensor cannot
 (``QTensor.code_tensor`` reads them back).
 
 Gradients are summed over the batch ranks, not averaged (the train step
-divides by the global token weight), and a ``data`` axis above 1 makes
-the units HSDP: replicated over ``data``, sharded over ``fsdp``.
+divides by the global token weight), and a ``data`` or ``context`` axis
+above 1 makes the units HSDP: replicated over ``data`` × ``context``,
+sharded over ``fsdp`` (:func:`fsdp_mesh`).
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ import torch
 from torch import nn
 
 from gke_ray_train_tpu_torch.parallel.mesh import (
-    AXIS_DATA, AXIS_FSDP, AXIS_MODEL)
+    AXIS_CONTEXT, AXIS_DATA, AXIS_FSDP, AXIS_MODEL, AXIS_PIPE)
 
 if TYPE_CHECKING:   # models/ imports this module (qinit)
     from gke_ray_train_tpu_torch.models.config import ModelConfig
@@ -114,11 +115,51 @@ def shard_dim(cfg: ModelConfig, name: str, shape: torch.Size,
 
 
 def fsdp_mesh(mesh):
-    """The mesh FSDP2 runs on: ``fsdp`` alone, or (``data``, ``fsdp``)
-    for HSDP when ``data`` exceeds 1."""
+    """The mesh FSDP2 runs on: ``fsdp`` alone, or HSDP (a replicate dim,
+    then ``fsdp``) where ``data`` × ``context`` exceeds 1: (``data``,
+    ``fsdp``) without context, else the ``data`` × ``context`` ranks
+    flattened into one replicate dim. Parameters are replicated over
+    ``context`` (each context rank holds the same weights, and its
+    tokens give a part of every gradient), so FSDP2 sums their gradients
+    over it as over ``data``."""
+    if mesh[AXIS_CONTEXT].size() > 1:
+        return _context_hsdp_mesh(mesh)
     if mesh[AXIS_DATA].size() > 1:
         return mesh[AXIS_DATA, AXIS_FSDP]
     return mesh[AXIS_FSDP]
+
+
+def _context_hsdp_mesh(mesh):
+    """The (``replicate``, ``fsdp``) mesh whose replicate dim is
+    ``data`` × ``context`` (data-major), made once per mesh: a process
+    group for each replicate set (every rank makes every group, in one
+    order), this rank's with the mesh's own ``fsdp`` group as a 2-D
+    ``DeviceMesh`` (``DeviceMesh.from_group``: no slicing, whose rules
+    differ across torch releases). It is kept on the mesh object, so it
+    goes with the mesh."""
+    hsdp = getattr(mesh, "_context_hsdp", None)
+    if hsdp is None:
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from gke_ray_train_tpu_torch.parallel.mesh import MESH_AXES
+        order = [MESH_AXES.index(a) for a in (
+            AXIS_MODEL, AXIS_PIPE, AXIS_FSDP, AXIS_DATA, AXIS_CONTEXT)]
+        ranks = mesh.mesh.permute(*order)    # [model, pipe, fsdp, data, ctx]
+        me = dist.get_rank()
+        mine = None
+        for row in ranks.reshape(-1, ranks.shape[3] * ranks.shape[4]
+                                 ).tolist():
+            group = dist.new_group(row)
+            if me in row:
+                mine = group
+        m = mesh[AXIS_MODEL].get_local_rank()
+        p = mesh[AXIS_PIPE].get_local_rank()
+        grid = ranks[m, p].reshape(ranks.shape[2], -1).T   # [data*ctx, fsdp]
+        hsdp = DeviceMesh.from_group(
+            [mine, mesh[AXIS_FSDP].get_group()], mesh.device_type,
+            mesh=grid.contiguous(), mesh_dim_names=("replicate", AXIS_FSDP))
+        mesh._context_hsdp = hsdp
+    return hsdp
 
 
 def _quant_tensors_as_params(module: nn.Module) -> None:

@@ -145,7 +145,14 @@ def reduce_from_model(x: torch.Tensor, tp: Optional[TensorParallel]
                       ) -> torch.Tensor:
     """The sum over the group of the shards' partial ``x``, replicated;
     ``x`` itself without TP."""
-    return x if tp is None else _ReduceFromModel.apply(x, tp.group)
+    return x if tp is None else reduce_over(x, tp.group)
+
+
+def reduce_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (all-reduce forward), whose
+    gradient is passed on as it is: each rank's part of a sum every rank
+    then holds."""
+    return _ReduceFromModel.apply(x, group)
 
 
 def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:

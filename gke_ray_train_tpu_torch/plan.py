@@ -267,6 +267,36 @@ def model_findings(cfg, *, model: int) -> list:
     return out
 
 
+def context_findings(cfg, *, context: int, max_seq_len: int) -> list:
+    """Why ``cfg`` cannot run sequences of ``max_seq_len`` tokens sharded
+    over a ``context`` axis of ``context`` ranks; empty when it can (or
+    ``context`` is 1). JAX's finding (:693): the axis must divide the
+    length. The port's own: each shard's ``max_seq_len / context`` tokens
+    must be a multiple of 128 for the flash kernels, since the dense
+    fallback of an unaligned length (``models/transformer.py::
+    resolve_seq_impl``) is not available at a context above 1; and
+    ``attn_impl`` must be ``"ring"`` or ``"a2a"`` (``"auto"`` resolves
+    to the flash kernel, which would drop attention across the
+    shards)."""
+    if context <= 1:
+        return []
+    out = []
+    if max_seq_len % context:
+        out.append(f"max_seq_len={max_seq_len} is not divisible by the "
+                   f"context axis (size {context})")
+    elif (max_seq_len // context) % 128:
+        out.append(
+            f"max_seq_len={max_seq_len} over the context axis (size "
+            f"{context}) gives shards of {max_seq_len // context} tokens, "
+            "not a multiple of 128: the flash kernels need one, and the "
+            "dense fallback is not available at context > 1")
+    if cfg.attn_impl not in ("ring", "a2a"):
+        out.append(f"attn_impl={cfg.attn_impl!r} at context={context} "
+                   "would drop attention across the sequence shards; set "
+                   "ATTN_IMPL to 'ring' or 'a2a'")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # elastic replan: re-resolve the mesh against a changed pool of ranks
 # ---------------------------------------------------------------------------

@@ -23,7 +23,9 @@ prepares the corpus (``prepare_wikitext2`` with its synthetic fallback;
 the files are kept, so a retried attempt and the other ranks read the
 same corpus) and a ``torch.distributed`` barrier stands in for
 ``sync_global_devices``. Under a world above one the mesh comes from
-``MESH_DATA`` / ``MESH_FSDP`` (FSDP2), re-formed on the survivors after
+``MESH_DATA`` / ``MESH_FSDP`` (FSDP2; ``MESH_CONTEXT`` cuts each row
+into the context ranks' token shards, as JAX's
+``pretrain_llm_ray.py:210`` places them), re-formed on the survivors after
 an elastic pool change (``rayint/elastic.py``), and the restore
 reshards. ``PEER_REPLICATION`` raises (ROADMAP queue 1 item 8);
 ``SERVE_AFTER_TRAIN`` serves on one card, warns and skips beyond one
@@ -170,7 +172,7 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
             state, step_fn, lambda e: batches.iter_epoch(e),
             epochs=epochs,
             guards=plan.runtime_guards(),
-            place_batch=make_place_batch(dev),
+            place_batch=make_place_batch(dev, mesh=mesh),
             prefetch=plan.prefetch,
             log_every=int(config.get("log_every", 20)),
             meter=meter, ckpt_manager=mgr,

@@ -16,9 +16,10 @@ stream is waited for on the current one), else the eval step does.
 With more than one input shard under a ``torch.distributed`` world
 above one (one batch rank per shard, ``parallel/placement.py``) the
 shards' sums are all-reduced, so every rank returns the global sums: over
-the mesh's batch axes when the walk is given its ``mesh`` (the ``model``
-ranks of one batch rank walk the same rows), else over the world; in one
-process a walk returns its own shard's sums.
+the mesh's batch axes and ``context`` when the walk is given its
+``mesh`` (the ``model`` ranks of one batch rank walk the same rows; its
+``context`` ranks the same rows, each its own tokens of them), else over
+the world; in one process a walk returns its own shard's sums.
 """
 
 from __future__ import annotations
@@ -61,21 +62,22 @@ def sharded_eval_sums(state, eval_step: Callable,
         n, ww = eval_step(state, b)
         nll += float(n)
         w += float(ww)
-    if in_shards > 1 and world_size() > 1:
+    from gke_ray_train_tpu_torch.parallel.mesh import context_size
+    if (in_shards > 1 or context_size(mesh) > 1) and world_size() > 1:
         nll, w = _sum_over_shards(nll, w, mesh)
     return nll, w
 
 
 def _sum_over_shards(nll: float, w: float, mesh=None) -> tuple:
-    """The shards' sums added in float64 over ``mesh``'s batch axes, or
-    the world without a mesh (on the card under NCCL)."""
+    """The shards' sums added in float64 over ``mesh``'s batch axes and
+    ``context``, or the world without a mesh (on the card under NCCL)."""
     import torch
     import torch.distributed as dist
     from gke_ray_train_tpu_torch.parallel.mesh import (
-        batch_groups, collective_device)
+        collective_device, token_groups)
     sums = torch.tensor([nll, w], dtype=torch.float64,
                         device=collective_device())
-    for group in (batch_groups(mesh) if mesh is not None else [None]):
+    for group in (token_groups(mesh) if mesh is not None else [None]):
         dist.all_reduce(sums, group=group)
     nll, w = sums.tolist()
     return nll, w

@@ -14,19 +14,25 @@ state, as the JAX step does (:234-240, :278-292). Otherwise logits are
 materialized in fp32 and reduced by ``token_nll``.
 
 On a mesh (``parallel/mesh.py::build_mesh``: ranks over ``data`` ×
-``fsdp`` × ``model``, one card each) the model is sharded over ``model``
-(tensor parallelism, ``parallel/tensor.py``) and with FSDP2
-(``parallel/sharding.py``), and each batch rank runs the step on its own
-rows, which its ``model`` peers share. The token NLL and weight sums are
-all-reduced over the batch axes before the divide (every model rank holds
-the same, merged over the vocab shards), so the loss and the gradient
-scale are the global ones; FSDP2 sums the sharded gradients over the
-batch ranks once a step (on the last microbatch), and the LoRA adapters,
-replicated on every rank, have their gradients summed in one all-reduce
-over the world: each model rank's is a partial sum of the whole
-(``train/lora.py``). The optimizer reads the global norm over the
-shards. With more than one batch rank, a rank's LoRA dropout masks are
-seeded with its batch index too.
+``fsdp`` × ``model`` × ``context``, one card each) the model is sharded
+over ``model`` (tensor parallelism, ``parallel/tensor.py``) and with
+FSDP2 (``parallel/sharding.py``; replicated over ``context``), and each
+batch rank runs the step on its own rows, which its ``model`` peers
+share; over ``context`` each rank holds its ``S / C`` tokens of those
+rows and the attention runs across the context ranks (``ATTN_IMPL``
+``ring`` or ``a2a``). The token NLL and weight sums are all-reduced over
+the batch axes and ``context`` before the divide
+(``parallel/mesh.py::token_groups``; every model rank holds the same,
+merged over the vocab shards), so the loss and the gradient scale are
+the global ones; FSDP2 sums the sharded gradients over the batch and
+context ranks once a step (on the last microbatch), and the LoRA
+adapters, replicated on every rank, have their gradients summed in one
+all-reduce over the world: each model or context rank's is a partial sum
+of the whole (``train/lora.py``). The optimizer reads the global norm
+over the shards. With more than one batch or context rank, a rank's
+LoRA dropout masks are seeded with its batch index, and its context
+index where ``context`` exceeds 1: JAX draws one mask over the global
+microbatch, whose tokens these ranks split.
 
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
@@ -104,7 +110,7 @@ def trainable_tensors(params: Transformer, lora: Optional[Lora]
 
 def _check_mesh(mesh) -> None:
     """Raise unless ``mesh`` is a ``build_mesh`` mesh whose only axes
-    above 1 are the ported ones (data, fsdp, model)."""
+    above 1 are the ported ones (data, fsdp, model, context)."""
     if mesh is None:
         return
     from gke_ray_train_tpu_torch.parallel.mesh import mesh_config_of
@@ -187,10 +193,13 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     LoRA dropout masks are seeded per (step, microbatch, layer,
     projection), so a resumed run and the recomputation under remat draw
     the same masks; on a mesh of more than one batch rank the rank's
-    batch index (``parallel/mesh.py::batch_rank``) joins the seed, and
-    under tensor parallelism the model rank joins a row-parallel
-    projection's (``models/transformer.py::_drop_kw``). One process, and
-    a mesh of one batch rank, keep the seeds of the unmeshed step.
+    batch index (``parallel/mesh.py::batch_rank``) joins the seed, at a
+    ``context`` above 1 the batch index and the context index
+    (``context_rank``) do, and under tensor parallelism the model rank
+    joins a row-parallel projection's
+    (``models/transformer.py::_drop_kw``). One process, and a mesh of one
+    batch rank and one context rank, keep the seeds of the unmeshed
+    step.
     ``plan.fused_ops`` (``FUSED_OPS``, read from the plan only, as in the
     JAX step) runs the fused rms_norm / RoPE kernels and,
     without a logit softcap, the fused cross-entropy. On an MoE model
@@ -201,20 +210,24 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     ``NotImplementedError``.
 
     ``mesh``: the state is sharded over it (``make_train_state(mesh=)``)
-    and ``batch`` is this rank's rows; ``loss`` and ``tokens`` are the
-    global ones (module doc)."""
+    and ``batch`` is this rank's rows (at a ``context`` above 1 its
+    tokens of them, ``parallel/placement.py``); ``loss`` and ``tokens``
+    are the global ones (module doc)."""
     if grad_accum is _UNSET:
         grad_accum = plan.grad_accum if plan is not None else 1
     fused_ops = plan is not None and plan.fused_ops
     _check_mesh(mesh)
     fused_ce = fused_ops and cfg.logit_softcap is None
-    # the batch index a rank's dropout seeds carry (None: one batch rank)
-    seed_rank = None
+    # the batch (and context) index a rank's dropout seeds carry (empty:
+    # one batch rank and one context rank)
+    seed_rank = ()
     if mesh is not None:
         from gke_ray_train_tpu_torch.parallel.mesh import (
-            batch_group_size, batch_rank)
-        if batch_group_size(mesh) > 1:
-            seed_rank = batch_rank(mesh)
+            batch_group_size, batch_rank, context_rank, context_size)
+        if batch_group_size(mesh) > 1 or context_size(mesh) > 1:
+            seed_rank = (batch_rank(mesh),)
+        if context_size(mesh) > 1:
+            seed_rank += (context_rank(mesh),)
     if overlap == "manual":
         raise NotImplementedError(
             "OVERLAP=manual (the shard_map microbatch pipeline) is not "
@@ -249,8 +262,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             micro = {k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
             seed = None
             if lora_mode and drop > 0.0:
-                seed = (dropout_seed(state.step, m) if seed_rank is None
-                        else dropout_seed(state.step, m, seed_rank))
+                seed = dropout_seed(state.step, m, *seed_rank)
 
             def loss_fn(out, p, micro=micro):
                 if fused_ce:
@@ -278,7 +290,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                 lora_dropout=drop, lora_seed=seed, fused_ops=fused_ops,
                 return_pre_unembed=fused_ce, with_aux=moe,
                 token_weights=micro["weights"] if moe else None,
-                loss_fn=loss_fn)
+                loss_fn=loss_fn, mesh=mesh)
             (nll, w), aux = out if moe else (out, None)
             if moe:
                 nll = nll + cfg.router_aux_coef * aux["router_aux"] * w
@@ -323,15 +335,15 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
 
 def _sum_over_ranks(nll_sum, w_sum, trainables, mesh):
     """The step's global sums: the NLL and weight sums all-reduced over
-    the batch axes (a ``model`` rank holds its batch rank's sums, the
-    same on every peer), and the replicated trainables' (the adapters')
-    gradients summed in one flat all-reduce over the world (over
-    ``model`` each rank's is a partial sum); FSDP2 has summed the
-    sharded ones."""
+    the batch axes and ``context`` (a ``model`` rank holds its batch
+    rank's sums, the same on every peer; a context rank its tokens'),
+    and the replicated trainables' (the adapters') gradients summed in
+    one flat all-reduce over the world (over ``model`` and ``context``
+    each rank's is a partial sum); FSDP2 has summed the sharded ones."""
     import torch.distributed as dist
-    from gke_ray_train_tpu_torch.parallel.mesh import batch_groups
+    from gke_ray_train_tpu_torch.parallel.mesh import token_groups
     sums = torch.stack([nll_sum, w_sum])
-    for group in batch_groups(mesh):
+    for group in token_groups(mesh):
         dist.all_reduce(sums, group=group)
     grads = [t.grad for t in trainables
              if t.grad is not None and not is_sharded(t)]
@@ -351,8 +363,9 @@ def make_eval_step(cfg: ModelConfig, *, mesh=None,
     """``(state, batch) -> (nll_sum, weight_sum)``: callers sum across
     batches, then divide (the exact eval loss). NLL only: an MoE model's
     router aux is a training term, as in the JAX eval step. On a
-    ``mesh`` the sums are this rank's rows'
-    (``train/evaluate.py::sharded_eval_sums`` all-reduces them)."""
+    ``mesh`` the sums are this rank's rows' (at a ``context`` above 1 its
+    tokens'; ``train/evaluate.py::sharded_eval_sums`` all-reduces
+    them)."""
     _check_mesh(mesh)
     dev = resolve_device(device)
 
@@ -366,7 +379,8 @@ def make_eval_step(cfg: ModelConfig, *, mesh=None,
             lora=state.lora if lora_cfg is not None else None,
             lora_scale=lora_cfg.scale if lora_cfg else 1.0,
             loss_fn=lambda logits, p: model_nll(logits, p, cfg,
-                                                b["targets"], b["weights"]))
+                                                b["targets"], b["weights"]),
+            mesh=mesh)
         if mesh is not None:
             # a sharded root keeps its gathered weights after a forward,
             # for the backward (shard_model); an eval has none to wait for

@@ -61,7 +61,8 @@ def test_every_module_imports_with_jax_blocked():
               "parallel.sharding", "parallel.placement", "ckpt.convert",
               "testing", "testing.faults", "rayint", "rayint.trainer",
               "rayint.supervisor", "rayint.elastic", "rayint.serving",
-              "pretrain", "plan"):
+              "pretrain", "plan", "ops.ring_attention",
+              "ops.a2a_attention", "ops.dispatch"):
         assert f"gke_ray_train_tpu_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -185,6 +186,10 @@ def test_trainer_and_pretrain_entry_default_to_cuda(monkeypatch, tmp_path):
     from gke_ray_train_tpu_torch.rayint import TorchTrainer
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    # one process of rank 0, whatever rank an earlier test in this
+    # interpreter left in the environment
+    for name in ("RANK", "PROCESS_ID", "WORLD_SIZE", "NUM_PROCESSES"):
+        monkeypatch.delenv(name, raising=False)
     config = {"d_model": 32, "n_layers": 1, "n_heads": 2, "d_ff": 64,
               "dataset_seq_len": 16, "model_max_seq_len": 32,
               "batch_size_per_device": 2, "max_samples": 4,

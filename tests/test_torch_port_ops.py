@@ -218,6 +218,14 @@ def test_flash_wrapper_rejects_what_it_cannot_take():
 
 @pytest.mark.parametrize("impl", ["ring", "a2a"])
 def test_context_parallel_impls_raise(impl):
-    q = torch.zeros((1, 128, 4, 32))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        attention_dispatch(impl, q, q, q)
+    """Without a mesh the ring raises ``ValueError``, as JAX's does;
+    ``a2a`` has nothing to redistribute and is the flash path, bitwise
+    (JAX ``ops/dispatch.py:110-118``)."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 128, 4, 32), generator=g)
+    if impl == "ring":
+        with pytest.raises(ValueError, match="needs a mesh"):
+            attention_dispatch(impl, q, q, q)
+    else:
+        assert torch.equal(attention_dispatch(impl, q, q, q),
+                           attention_dispatch("flash", q, q, q))

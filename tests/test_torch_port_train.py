@@ -276,9 +276,10 @@ def test_trainable_names_drive_the_decay_mask():
 
 def test_train_step_refuses_what_is_not_ported():
     """Manual overlap still raises; a mesh must be a DeviceMesh, and one
-    with an axis other than data / fsdp / model above 1 raises naming its
-    ROADMAP item; ``remat_policy="dots"`` (which raised before it was
-    ported) now trains, to the numbers of ``"full"``."""
+    with an axis other than data / fsdp / model / context above 1 (the
+    pipe; context came with its port) raises naming its ROADMAP item;
+    ``remat_policy="dots"`` (which raised before it was ported) now
+    trains, to the numbers of ``"full"``."""
     _, tc = _cfgs()
     spec = make_optimizer(0.1)
     with pytest.raises(NotImplementedError, match="OVERLAP"):
@@ -286,13 +287,13 @@ def test_train_step_refuses_what_is_not_ported():
     with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(tc, spec, device="cpu", mesh=object())
 
-    class CPMesh:                   # data 1 x fsdp 1 x context 2
+    class PPMesh:                   # data 1 x fsdp 1 x pipe 2
         mesh_dim_names = ("data", "fsdp", "model", "context", "pipe")
 
         def size(self, i):
-            return (1, 1, 1, 2, 1)[i]
-    with pytest.raises(NotImplementedError, match="CONTEXT=2.*item 8"):
-        make_train_step(tc, spec, device="cpu", mesh=CPMesh())
+            return (1, 1, 1, 1, 2)[i]
+    with pytest.raises(NotImplementedError, match="PIPE=2.*item 8"):
+        make_train_step(tc, spec, device="cpu", mesh=PPMesh())
     losses = {}
     for policy in ("full", "dots"):
         cfg = dataclasses.replace(tc, remat=True, remat_policy=policy)
