@@ -182,6 +182,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
              rank's peak; at the job's LORA_DROPOUT every projection's
              first mask differs across the context ranks; the job in fp32
              (TF32 off) at 2 layers under both within 1e-3.
+11g. serve_mesh — serving on a sharded model, on one card: Llama-3.1-8B
+             at full width, 4 layers, an NF4 base from seed 0 with an
+             r-64 adapter on the seven projections (as the entry serves
+             a QLoRA run); four prompts of 100-400 tokens in a 512
+             bucket, 32 new tokens each, through
+             ``greedy_generate_cached`` and through ``post_train_smoke``
+             with every prompt tagged with the adapter, and the generate
+             in fp32 at 2 layers (TF32 off): first in this process, then
+             as two ranks of this card over gloo (``--serve-mesh-worker``)
+             at model 2 (all three runs) and at fsdp 2 (the bf16
+             generate, cut to 2 new tokens: a gloo step gathers 5.1 GB
+             through host memory in about 4.5 s), each after the
+             collectives its decode makes are
+             probed. Each rank against this process: the prefill's
+             last-position logits (under TP the ranks' vocab shards side
+             by side) within 5e-2 of the logits' scale, their largest
+             |logit|, in bf16 (each rank sums the row-parallel partials
+             in bf16; the line prints how far bf16 alone moves them in
+             one process) and 1e-4 in fp32; the bf16 tokens equal up to
+             each row's first position where this process's top-2 margin
+             is under 1e-2 of the scale or that noise (the line prints
+             it), the fp32 tokens all equal, the ranks'
+             tokens equal, row 1's launches exact (4 for the generate, 16
+             for the smoke's four prefills) on 16 of 32 query and 4 of 8
+             KV heads at model 2; per rank the per-token decode p50,
+             tokens/s and peak memory, and at fsdp 2 the bytes gathered a
+             decode step (from the shapes). The model-2 case must run;
+             where gloo lacks a collective of the fsdp case the line says
+             which and the case runs in serve_mesh_multi only.
 12. kernelcheck — run right after the kernels phase: the port's kernel
              sweep (``analysis/kernelcheck.py`` over
              ``ops/registry.py``) on the card: every registered case
@@ -319,6 +348,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              must exit non-zero leaving COMMITTING.4 without
              COMMITTED.4; its resume, from step 2, every loss bitwise the
              uninterrupted run's.
+22b. serve_mesh_multi (opt-in) — the four-card host (fewer fails),
+             NCCL: the 70B layout (ray-jobs/fine_tune_config_70b.json's
+             model) at fsdp 1 x model 4, 8 of 80 layers in bf16, serve_mesh's
+             prompts through the generate on one card (about 18 GB) and
+             then one rank a card (``--serve-multi-worker``), held as
+             serve_mesh holds its bf16 generate, each rank's per-token p50
+             and tokens/s beside the card's; serve_mesh's model at fsdp 4
+             likewise, with the bytes gathered a decode step; the
+             fine-tune entry on the
+             offline_8b job cut as the entry phase cuts it, with INFERENCE
+             and SERVE_AFTER_TRAIN, on this card and then under torchrun at
+             fsdp 4 (``--serve-entry-worker``): exit 0, the comparison and
+             the smoke written once, by rank 0, the base answers the
+             card's; the pre-train entry at fsdp 4 (6 layers) with
+             SERVE_AFTER_TRAIN: exit 0, the smoke's stats on rank 0 alone.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -6481,7 +6525,10 @@ def _pretrain_worker(config_path, out_path):
                    "resumed_step": result.attempt_log[0].get(
                        "resumed_step"),
                    "losses": {s: float(v).hex()
-                              for s, v in sorted(rec["losses"].items())}},
+                              for s, v in sorted(rec["losses"].items())},
+                   # what post_train_smoke returned here (rank 0's stats)
+                   "smoke": (rec["smoke"]["out"][1] if rec["smoke"]
+                             and rec["smoke"]["out"] else None)},
                   f)
     if result.error:
         raise SystemExit(1)
@@ -6580,6 +6627,735 @@ def phase_pretrain_multi(dev):
 
 
 # ---------------------------------------------------------------------------
+# serving across ranks: the decode path on a model sharded as trained
+# ---------------------------------------------------------------------------
+
+# serve_mesh: the 8B job's model (NF4 base from seed 0, an r-64 adapter on
+# the seven projections, as the entry serves a QLoRA run) at full width
+# cut to 4 layers; fp32 at 2; four prompts of 100-400 tokens in a 512
+# bucket, 32 new tokens each
+SERVE_MESH_LAYERS = 4
+SERVE_MESH_FP32_LAYERS = 2
+SERVE_MESH_PLENS = (100, 200, 300, 400)
+SERVE_MESH_BUCKET = 512
+SERVE_MESH_NEW = 32
+# the prefill's last-position logits against one process, in units of
+# the one-process logits' scale (their largest |logit|): fp32, and bf16,
+# where each rank sums the row-parallel partials in bf16 as JAX's GSPMD
+# does (on an H100: 0.020 of the scale at model 2 and 4 layers, 0.034 at
+# model 4 and 8 layers of the 70B; the same prompts prefilled one at a
+# time against all four at once move the 8B's logits by 0.018 of it in
+# one process, ``_prefill_noise``)
+SERVE_MESH_LOGITS_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
+# bf16: the top-2 margin, in units of that scale or of the one-process
+# noise where that is more, under which one process's pick is a near tie
+SERVE_MESH_MARGIN = 1e-2
+SERVE_MESH_CASES = {"model2": dict(fsdp=1, model=2), "fsdp2": dict(fsdp=2)}
+# what each case runs on the one card, with its new tokens: the model-2
+# case the generate and the smoke in bf16 and the generate in fp32; the
+# fsdp-2 case the bf16 generate cut to 2 new tokens (each step gathers
+# the 2.1 GB root twice and the blocks through gloo's host-staged pair,
+# 4.6 s a step; serve_mesh_multi decodes 32 at fsdp 4 over NCCL)
+SERVE_MESH_RUNS = {"model2": {"generate": 32, "smoke": 32, "fp32": 32},
+                   "fsdp2": {"generate": 2}}
+SERVE_MESH_TIMEOUT_S = 600
+# the collectives of each case on the card's tensors: the model group's
+# sums (the row-parallel outputs, the vocab-sharded lookup) and the pick's
+# max and min, the world's broadcast of the picked tokens, FSDP2's
+# all-gather on the fsdp group
+SERVE_MESH_PROBE = {"all_reduce_sum_bf16_model": ("model2",),
+                    "all_reduce_max_f32_model": ("model2",),
+                    "all_reduce_min_i64_model": ("model2",),
+                    "broadcast_i32_world": ("model2", "fsdp2"),
+                    "all_gather_into_tensor_fsdp": ("fsdp2",)}
+# serve_mesh_multi: the 70B layout at fsdp 1 x model 4, 8 of 80 layers
+SERVE_70B_LAYERS = 8
+SERVE_MULTI_TIMEOUT_S = 900
+SERVE_MULTI_PRETRAIN_LAYERS = 6
+
+
+def _serve_probe(dev, mesh, case):
+    """The collectives of ``SERVE_MESH_PROBE`` ``case`` makes, once each
+    on this card's tensors: {name: "ok" or the error}."""
+    import torch
+    import torch.distributed as dist
+    calls = {
+        "all_reduce_sum_bf16_model": lambda: dist.all_reduce(
+            torch.ones(64, dtype=torch.bfloat16, device=dev),
+            group=mesh["model"].get_group()),
+        "all_reduce_max_f32_model": lambda: dist.all_reduce(
+            torch.ones(64, device=dev), op=dist.ReduceOp.MAX,
+            group=mesh["model"].get_group()),
+        "all_reduce_min_i64_model": lambda: dist.all_reduce(
+            torch.ones(64, dtype=torch.int64, device=dev),
+            op=dist.ReduceOp.MIN, group=mesh["model"].get_group()),
+        "broadcast_i32_world": lambda: dist.broadcast(
+            torch.ones(64, dtype=torch.int32, device=dev), src=0),
+        "all_gather_into_tensor_fsdp": lambda: dist.all_gather_into_tensor(
+            torch.empty(64 * mesh["fsdp"].size(), dtype=torch.uint8,
+                        device=dev),
+            torch.ones(64, dtype=torch.uint8, device=dev),
+            group=mesh["fsdp"].get_group())}
+    out = {}
+    for name, cases in SERVE_MESH_PROBE.items():
+        if case not in cases:
+            continue
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the probe reports it
+            out[name] = f"{type(e).__name__}: {e}"[:400]
+    return out
+
+
+def _serve_prompts(vocab):
+    """The four prompts, right-padded in one bucket-wide buffer, and
+    their lengths."""
+    rng = np.random.default_rng(23)
+    buf = np.zeros((len(SERVE_MESH_PLENS), SERVE_MESH_BUCKET), np.int32)
+    for i, n in enumerate(SERVE_MESH_PLENS):
+        buf[i, :n] = rng.integers(1, vocab, n)
+    return buf, np.asarray(SERVE_MESH_PLENS, np.int32)
+
+
+def _serve_model(cfg, dev, mesh, quant=True):
+    """(the served model, its adapter or None): with ``quant`` the NF4
+    base from seed 0 and an r-64 adapter (``_tenant_adapters``), else
+    the full-precision model from seed 0; sharded over ``mesh`` when
+    given."""
+    from gke_ray_train_tpu_torch.models import (
+        init_params, init_quantized_params)
+    from gke_ray_train_tpu_torch.parallel.sharding import shard_model
+    if quant:
+        params = init_quantized_params(cfg, seed=0, kind="nf4", device=dev,
+                                       mesh=mesh)
+    else:
+        params = init_params(cfg, seed=0, device=dev)
+    if mesh is not None:
+        shard_model(params, mesh)
+    return params, (_tenant_adapters(cfg, dev, 7) if quant else None)
+
+
+@contextlib.contextmanager
+def _serve_watch(rec):
+    """While entered, into ``rec``: the first picks' logits (the
+    prefill's at each prompt's last position: one pick of all rows, or
+    the engine's one a prompt; a vocab shard under TP), each pick's
+    top-2 margin where its logits span the vocab, each decode
+    step's seconds (one ``forward_step`` of T = 1 between synchronizes)
+    and the (query, KV) heads of each flash call."""
+    from gke_ray_train_tpu_torch.device import synchronize
+    from gke_ray_train_tpu_torch.models import kvcache
+    from gke_ray_train_tpu_torch.ops import dispatch
+    from gke_ray_train_tpu_torch.serve import engine
+    orig = (kvcache.greedy_pick, kvcache.forward_step,
+            dispatch.attention_dispatch)
+    rec.update(picks=[], margins=[], step_s=[], heads=[])
+
+    def pick(logits, params, cfg):
+        if len(rec["picks"]) < len(SERVE_MESH_PLENS):
+            rec["picks"].append(logits.detach().float().cpu())
+        if logits.shape[-1] == cfg.vocab_size:
+            top = logits.detach().float().topk(2, dim=-1).values
+            rec["margins"].append((top[..., 0] - top[..., 1]).cpu())
+        return orig[0](logits, params, cfg)
+
+    def step(params, tokens, cfg, cache, lens, **kw):
+        if tokens.shape[1] != 1:
+            return orig[1](params, tokens, cfg, cache, lens, **kw)
+        synchronize(tokens.device)
+        t = time.perf_counter()
+        out = orig[1](params, tokens, cfg, cache, lens, **kw)
+        synchronize(tokens.device)
+        rec["step_s"].append(time.perf_counter() - t)
+        return out
+
+    def attend(impl, q, k, *a, **kw):
+        rec["heads"].append((int(q.shape[2]), int(k.shape[2])))
+        return orig[2](impl, q, k, *a, **kw)
+    kvcache.greedy_pick = engine.greedy_pick = pick
+    kvcache.forward_step = engine.forward_step = step
+    dispatch.attention_dispatch = attend
+    try:
+        yield rec
+    finally:
+        kvcache.greedy_pick = engine.greedy_pick = orig[0]
+        kvcache.forward_step = engine.forward_step = orig[1]
+        dispatch.attention_dispatch = orig[2]
+
+
+def _serve_timed(dev, fn):
+    """``fn()`` from launch counts at 0 and a fresh peak, watched:
+    (its result, the record)."""
+    import torch
+    from gke_ray_train_tpu_torch.device import synchronize
+    from gke_ray_train_tpu_torch.ops.flash_attention import flash_attention
+    synchronize(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with _serve_watch({}) as rec:
+        out = fn()
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+    steps = sorted(rec["step_s"])
+    rec.update(wall_s=wall, flash_launches=flash_attention.launches,
+               step_s_p50=steps[len(steps) // 2] if steps else None,
+               decode_steps=len(steps),
+               peak_mem_bytes=(torch.cuda.max_memory_allocated(dev)
+                               if dev.type == "cuda" else 0),
+               heads=sorted(set(rec["heads"])))
+    return out, rec
+
+
+def _serve_runs(dev, cfg, mesh, runs, quant=True):
+    """``runs`` ({kind: new tokens}) of serve_mesh on this rank (or the
+    one card without ``mesh``): "generate" (``greedy_generate_cached``
+    over the four prompts with the adapter), "smoke" (``post_train_smoke``
+    of the same prompts, each tagged with the adapter) and "fp32" (the
+    generate at ``SERVE_MESH_FP32_LAYERS`` layers in float32, TF32 off).
+    Each: the generated tokens a row and the watch's record (the
+    prefill's logits: "prefill", rows stacked)."""
+    import torch
+    from gke_ray_train_tpu_torch.models.kvcache import (
+        greedy_generate_cached)
+    from gke_ray_train_tpu_torch.plan import ExecutionPlan
+    from gke_ray_train_tpu_torch.serve import post_train_smoke
+    buf, plen = _serve_prompts(cfg.vocab_size)
+    scale = TENANT_ALPHA / TENANT_RANK
+    out = {}
+
+    def generate(params, lora, c, new):
+        toks = greedy_generate_cached(
+            params, buf, plen, c, max_new_tokens=new, lora=lora,
+            lora_scale=scale, device=dev).cpu().numpy()
+        return [toks[i, n:n + new].tolist() for i, n in enumerate(plen)]
+
+    def prefill(rec, kind):
+        # the generate's first pick holds every row; the engine's first
+        # picks one prompt each
+        picks = rec.pop("picks")
+        return picks[0] if kind != "smoke" else torch.cat(picks)
+    if "generate" in runs or "smoke" in runs:
+        params, lora = _serve_model(cfg, dev, mesh, quant)
+        if mesh is None:
+            out["unit_bytes"] = {
+                "block": _module_nbytes(params.blocks[0]),
+                "root": sum(t.numel() * t.element_size() for t in (
+                    params.embed, params.final_norm, params.lm_head)
+                    if t is not None)}
+        if "generate" in runs:
+            toks, rec = _serve_timed(dev, lambda: generate(
+                params, lora, cfg, runs["generate"]))
+            out["generate"] = dict(rec, tokens=toks,
+                                   prefill=prefill(rec, "generate"))
+            if mesh is None:
+                out["noise"] = _prefill_noise(
+                    params, lora, scale, cfg, dev, buf, plen,
+                    out["generate"])
+        if "smoke" in runs:
+            plan = ExecutionPlan.from_kwargs(
+                max_batch=len(plen), decode_buckets=str(SERVE_MESH_BUCKET))
+            res, rec = _serve_timed(dev, lambda: post_train_smoke(
+                params, cfg, plan, [buf[i, :n] for i, n in enumerate(plen)],
+                lora=lora, lora_scale=scale,
+                adapter_ids=["tuned"] * len(plen),
+                max_new_tokens=runs["smoke"], device=dev))
+            out["smoke"] = dict(rec, returned=res is not None,
+                                prefill=prefill(rec, "smoke"))
+            if res is not None:
+                comps, stats = res
+                out["smoke"].update(
+                    tokens=[c.generated.tolist() for c in comps],
+                    stats={k: v for k, v in stats.items()
+                           if isinstance(v, (int, float))})
+        del params, lora
+        _release()
+    if "fp32" in runs:
+        c32 = dataclasses.replace(cfg, n_layers=SERVE_MESH_FP32_LAYERS,
+                                  dtype="float32", param_dtype="float32")
+        with _tf32_off():
+            params, lora = _serve_model(c32, dev, mesh, quant)
+            toks, rec = _serve_timed(dev, lambda: generate(
+                params, lora, c32, runs["fp32"]))
+        out["fp32"] = dict(rec, tokens=toks, prefill=prefill(rec, "fp32"))
+        del params, lora
+        _release()
+    return out
+
+
+def _prefill_noise(params, lora, scale, cfg, dev, buf, plen, gen):
+    """What bf16 alone moves this process's prefill logits: each prompt
+    prefilled on its own (batch 1) against the generate's prefill of all
+    four (batch 4), same weights and width, max |difference| at each
+    prompt's last position; beside the generate's first picks' top-2
+    margins."""
+    import torch
+    from gke_ray_train_tpu_torch.models.kvcache import (
+        forward_step, init_cache)
+    rows = []
+    with torch.no_grad():
+        for i, n in enumerate(plen):
+            cache = init_cache(cfg, 1, buf.shape[1], device=dev)
+            lg, _ = forward_step(
+                params, torch.as_tensor(buf[i:i + 1], device=dev), cfg,
+                cache, torch.zeros(1, dtype=torch.int32, device=dev),
+                lora=lora, lora_scale=scale)
+            rows.append(lg[0, int(n) - 1].float().cpu())
+    return {"batch1_vs_batch4_prefill_max_abs": float(
+        (torch.stack(rows) - gen["prefill"]).abs().max()),
+        "first_pick_margins": [float(m) for m in gen["margins"][0]]}
+
+
+def _near_tie_cut(margins, n_rows, margin, engine=False):
+    """Each row's first generated position whose one-process pick had a
+    top-2 margin under ``margin`` (``SERVE_MESH_NEW`` where none had):
+    the picks in call order, ``greedy_generate_cached``'s one [rows] a
+    step, or the engine's prefills of one row each (in admission order)
+    and then its decode steps over every slot (slot i request i)."""
+    per_row = [[] for _ in range(n_rows)]
+    calls = list(margins)
+    if engine:
+        for i in range(n_rows):
+            per_row[i].append(float(calls[i].reshape(-1)[0]))
+        calls = calls[n_rows:]
+    for m in calls:
+        for i in range(n_rows):
+            per_row[i].append(float(m.reshape(-1)[i]))
+    cut = []
+    for row in per_row:
+        low = [p for p, m in enumerate(row[:SERVE_MESH_NEW]) if m < margin]
+        cut.append(low[0] if low else SERVE_MESH_NEW)
+    return cut
+
+
+def _serve_hold(name, got, want, new, problems, margin=None,
+                engine=False):
+    """``got``'s ``new`` tokens a row against the first ``new`` of
+    ``want``'s (one process's; greedy decoding is prefix-consistent):
+    all equal without a ``margin``, else up to each row's first near tie
+    of ``want``; a problem otherwise. Returns each row's cut."""
+    rows = len(want["tokens"])
+    cut = ([SERVE_MESH_NEW] * rows if margin is None
+           else _near_tie_cut(want["margins"], rows, margin, engine))
+    cut = [min(c, new) for c in cut]
+    for i, (g, w) in enumerate(zip(got["tokens"], want["tokens"])):
+        if len(g) != new or g[:cut[i]] != w[:cut[i]]:
+            problems.append(f"{name}: row {i} tokens differ before its "
+                            f"near tie at {cut[i]}: {g[:8]} against "
+                            f"{w[:8]}")
+    return cut
+
+
+def _serve_gathered_bytes(units, n_layers, n):
+    """Bytes one rank receives by FSDP2 all-gathers in a decode step
+    (one ``forward_step``) at fsdp ``n``, reckoned from the unsharded
+    model's ``units`` bytes: the root (embedding, final norm, head) is
+    gathered around the embedding and again around the head, each block
+    once; a rank receives (n - 1) / n of each."""
+    whole = 2 * units["root"] + n_layers * units["block"]
+    return dict(units, whole=whole, per_rank=int(whole * (n - 1) / n))
+
+
+def _serve_mesh_worker(out_path):
+    """One of serve_mesh's two ranks on the one card (env: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
+    tensors; for each of ``SERVE_MESH_CASES`` the mesh, the collectives
+    its decode makes probed, and where they run its
+    ``SERVE_MESH_RUNS``; writes ``<out_path>.<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(), "probe": {},
+           "runs": {}}
+    try:
+        cfg = _llama_cfg(FINE_TUNE_CONFIG, SERVE_MESH_LAYERS)
+        for case, axes in SERVE_MESH_CASES.items():
+            mesh = build_mesh(MeshConfig(**axes), device_type="cuda")
+            rec["probe"][case] = probe = _serve_probe(dev, mesh, case)
+            if all(v == "ok" for v in probe.values()):
+                rec["runs"][case] = _serve_runs(dev, cfg, mesh,
+                                                SERVE_MESH_RUNS[case])
+    finally:
+        torch.save(rec, out_path + f".{rank}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _serve_ranks(flag, out, n, local_ranks, timeout):
+    """``n`` ranks of this script with ``flag out`` (``_spawn_ranks``):
+    (hung, exit codes, what each rank saved or None)."""
+    import torch
+    hung, rcs, _ = _spawn_ranks(flag, out, n, local_ranks, timeout)
+    ranks = []
+    for rank in range(n):
+        path = out + f".{rank}.pt"
+        ranks.append(torch.load(path, weights_only=False)
+                     if os.path.exists(path) else None)
+    return hung, rcs, ranks
+
+
+def _serve_summary(run):
+    """A run's numbers for the line (no tensors): tokens/s where the run
+    returned its tokens."""
+    out = {k: run[k] for k in ("wall_s", "step_s_p50", "decode_steps",
+                               "flash_launches", "peak_mem_bytes", "heads")
+           if k in run}
+    if run.get("tokens"):
+        gen = sum(len(t) for t in run["tokens"])
+        # over the call (the prefill and a first call's set-up in it),
+        # and in the steady decode: the rows over the per-token p50
+        out.update(generated_tokens=gen, tokens_per_s=gen / run["wall_s"])
+        if run.get("step_s_p50"):
+            out["decode_tokens_per_s"] = len(run["tokens"]) / run[
+                "step_s_p50"]
+    return out
+
+
+def _serve_hold_ranks(one, ranks, case, problems, cfg, model, runs_new):
+    """A case's ranks against one process, for each kind of
+    ``runs_new`` ({kind: new tokens}): the prefill's last-position logits
+    (under TP the ranks' vocab shards side by side) within
+    ``SERVE_MESH_LOGITS_TOL`` of the one-process logits' scale (their
+    largest |logit|); in bf16 the tokens up to each row's first pick
+    whose one-process top-2 margin is under ``SERVE_MESH_MARGIN`` of
+    that scale or the one-process bf16 noise (``one["noise"]``),
+    whichever is more, in fp32 every token; the ranks' tokens equal; row
+    1's launches and heads. Returns the case's line."""
+    import torch
+    line = {}
+    runs = [r["runs"][case] for r in ranks]
+    layers = {"generate": cfg.n_layers, "smoke": cfg.n_layers,
+              "fp32": SERVE_MESH_FP32_LAYERS}
+    prefills = {"generate": 1, "smoke": len(SERVE_MESH_PLENS), "fp32": 1}
+    heads = [(cfg.n_heads // model, cfg.n_kv_heads // model)]
+    for kind, new in runs_new.items():
+        want = one[kind]
+        entry = {"new_tokens": new,
+                 "ranks": [_serve_summary(r[kind]) for r in runs],
+                 "one_process": _serve_summary(want)}
+        shards = [r[kind]["prefill"] for r in runs]
+        logits = torch.cat(shards, dim=-1) if model > 1 else shards[0]
+        scale = float(want["prefill"].abs().max())
+        noise = one["noise"]["batch1_vs_batch4_prefill_max_abs"]
+        err = float((logits - want["prefill"]).abs().max())
+        bf16 = kind != "fp32"
+        tol = SERVE_MESH_LOGITS_TOL["bfloat16" if bf16 else "float32"]
+        margin = max(SERVE_MESH_MARGIN * scale, noise)
+        entry.update(prefill_max_abs_err=err, logit_scale=scale,
+                     prefill_rel_err=err / scale, prefill_tol_rel=tol)
+        if bf16:
+            entry["near_tie_margin"] = margin
+        if not err <= tol * scale:
+            problems.append(f"{case} {kind} prefill logits off by {err}, "
+                            f"over {tol} of their scale {scale}")
+        if kind == "smoke" and [r[kind]["returned"] for r in runs] != [
+                True] + [False] * (len(runs) - 1):
+            problems.append(f"{case} smoke returned on "
+                            f"{[r[kind]['returned'] for r in runs]}")
+        held = [r[kind] for r in runs if r[kind].get("tokens")]
+        for i, r in enumerate(held):
+            entry["near_tie_cut"] = _serve_hold(
+                f"{case} {kind} rank {i}", r, want, new, problems,
+                margin=margin if bf16 else None,
+                engine=kind == "smoke")
+            if r["tokens"] != held[0]["tokens"]:
+                problems.append(f"{case} {kind}: ranks' tokens differ")
+        want_launches = layers[kind] * prefills[kind]
+        for i, r in enumerate(runs):
+            if r[kind]["flash_launches"] != want_launches:
+                problems.append(f"{case} {kind} rank {i}: flash launches "
+                                f"{r[kind]['flash_launches']} != "
+                                f"{want_launches}")
+            if [tuple(h) for h in r[kind]["heads"]] != heads:
+                problems.append(f"{case} {kind} rank {i}: flash on heads "
+                                f"{r[kind]['heads']}, want {heads}")
+        entry["want_flash_launches"] = want_launches
+        line[kind] = entry
+    return line
+
+
+def phase_serve_mesh(dev):
+    """Serving on a sharded model, two ranks of the one card over gloo
+    (module doc, 11g): this process's one-process runs first, then the
+    ranks (``_serve_mesh_worker``) at model 2 and at fsdp 2, each case
+    after its collectives are probed; the model-2 case must run, the
+    fsdp-2 case is reported as not run where gloo lacks a collective it
+    makes. Returns the ranks' flash launches."""
+    import tempfile
+    import torch
+    cfg = _llama_cfg(FINE_TUNE_CONFIG, SERVE_MESH_LAYERS)
+    # this process runs what the model-2 case runs; the fsdp-2 case's 2
+    # tokens are the first 2 of its 32
+    one = _serve_runs(dev, cfg, None, SERVE_MESH_RUNS["model2"])
+    torch.cuda.empty_cache()
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_serve_mesh_"),
+                       "rank")
+    hung, rcs, ranks = _serve_ranks("--serve-mesh-worker", out, 2, [0, 0],
+                                    SERVE_MESH_TIMEOUT_S)
+    problems = []
+    line = {"phase": "serve_mesh", "nvidia_smi": nvidia_smi_line(),
+            "model": cfg.name, "n_layers": cfg.n_layers,
+            "fp32_layers": SERVE_MESH_FP32_LAYERS,
+            "prompts": list(SERVE_MESH_PLENS), "bucket": SERVE_MESH_BUCKET,
+            "new_tokens": SERVE_MESH_NEW, "base": "nf4",
+            "one_process_noise": one["noise"],
+            "adapter_rank": TENANT_RANK, "backend": "gloo",
+            "ranks_on_one_card": 2,
+            "tol": {"prefill_logits_of_scale": SERVE_MESH_LOGITS_TOL,
+                    "near_tie_margin_of_scale": SERVE_MESH_MARGIN}}
+    launches = 0
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+    else:
+        line["probe"] = ranks[0]["probe"]
+        for case, axes in SERVE_MESH_CASES.items():
+            missing = sorted(k for k, v in ranks[0]["probe"][case].items()
+                             if v != "ok")
+            if missing:
+                line[case] = ("not run: gloo misses " + ", ".join(missing)
+                              + "; the case runs in serve_mesh_multi")
+                if case == "model2":
+                    problems.append(line[case])
+                continue
+            line[case] = _serve_hold_ranks(one, ranks, case, problems, cfg,
+                                           axes.get("model", 1),
+                                           SERVE_MESH_RUNS[case])
+            # the bf16 path's launches (the fp32 run is a parity check)
+            launches += sum(r["runs"][case][k]["flash_launches"]
+                            for r in ranks for k in ("generate", "smoke")
+                            if k in r["runs"][case])
+        if "fsdp2" in ranks[0]["runs"]:
+            line["fsdp2_gathered_bytes_per_decode_step"] = \
+                _serve_gathered_bytes(one["unit_bytes"], cfg.n_layers, 2)
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("serve_mesh phase failed: " + "; ".join(problems))
+    return {"flash_fwd": launches}
+
+
+class _JsonWrites:
+    """While entered, the names of the files ``json.dump`` writes in this
+    process."""
+
+    def __enter__(self):
+        self.names, self._orig = [], json.dump
+
+        def dump(obj, fp, *a, **kw):
+            self.names.append(os.path.basename(getattr(fp, "name", "")))
+            return self._orig(obj, fp, *a, **kw)
+        json.dump = dump
+        return self
+
+    def __exit__(self, *exc):
+        json.dump = self._orig
+
+
+def _serve_entry_worker(config_path, out_path):
+    """One rank of serve_mesh_multi's entry run, started by torchrun
+    (its env): ``fine_tune.train_loop_per_worker`` on the job of
+    ``config_path`` at ``ENTRY_LAYERS`` layers, the files it writes
+    recorded; writes ``<out_path>.<rank>``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch import fine_tune as ft
+    with open(config_path) as f:
+        config = json.load(f)
+    t0 = time.perf_counter()
+    with _depth_cut(ENTRY_LAYERS), _JsonWrites() as w:
+        metrics = ft.train_loop_per_worker(config)
+    rank = dist.get_rank()
+    rec = {"rank": rank, "world": dist.get_world_size(), "wrote": w.names,
+           "wall_s": time.perf_counter() - t0,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "metrics": {k: v for k, v in (metrics or {}).items()
+                       if isinstance(v, (int, float))}}
+    with open(out_path + f".{rank}", "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _serve_multi_worker(out_path):
+    """One rank of serve_mesh_multi (NCCL, one card a rank): the 70B
+    layout at fsdp 1 x model N, ``SERVE_70B_LAYERS`` layers in bf16, and
+    serve_mesh's model at fsdp N, each the generate of serve_mesh's
+    prompts; writes ``<out_path>.<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world, "runs": {}}
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1, model=world))
+        cfg = _llama_cfg(FT_70B_CONFIG, SERVE_70B_LAYERS)
+        rec["runs"]["70b"] = _serve_runs(
+            dev, cfg, mesh, {"generate": SERVE_MESH_NEW}, quant=False)
+        _release()
+        rec["runs"]["fsdp"] = _serve_runs(
+            dev, _llama_cfg(FINE_TUNE_CONFIG, SERVE_MESH_LAYERS),
+            build_mesh(MeshConfig(fsdp=world)), {"generate": SERVE_MESH_NEW})
+    finally:
+        torch.save(rec, out_path + f".{rank}.pt")
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _serve_torchrun(root, label, n, flag, config, timeout):
+    """``flag config`` of this script under torchrun on ``n`` cards:
+    (exit code, hung, what each rank wrote, the log's tail)."""
+    cfg_path = os.path.join(root, f"{label}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    out = os.path.join(root, f"{label}.rank")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
+           "--master-port", str(_free_port()), os.path.abspath(__file__),
+           flag, cfg_path, out]
+    log_path = os.path.join(root, f"{label}.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, env=dict(os.environ, HF_HUB_OFFLINE="1"),
+                                cwd=HERE, stdout=log,
+                                stderr=subprocess.STDOUT)
+        hung, rcs = _wait_all([proc], timeout)
+    with open(log_path) as f:
+        tail = f.read()[-6000:]
+    return rcs[0], bool(hung), _read_ranks(out, n), tail
+
+
+def _serve_multi_entry(dev, root, n, problems):
+    """The entry (offline_8b cut as the entry phase cuts it, with
+    INFERENCE and SERVE_AFTER_TRAIN) on this card, then under torchrun at
+    fsdp ``n``: exit 0, the comparison and the smoke written once, by
+    rank 0, the base answers this card's."""
+    from gke_ray_train_tpu_torch import fine_tune as ft
+
+    def base_answers(run_root):
+        with open(os.path.join(run_root, "inference_comparison.json")) as f:
+            return [r["base_model_answer"] for r in json.load(f)]
+    one_root = os.path.join(root, "one")
+    t0 = time.perf_counter()
+    with _depth_cut(ENTRY_LAYERS):
+        ft.train_loop_per_worker(_entry_config(one_root, **ENTRY_SERVE),
+                                 device=dev)
+    line = {"one_card_wall_s": time.perf_counter() - t0}
+    _release()
+    multi_root = os.path.join(root, "multi")
+    config = _entry_config(multi_root, **ENTRY_SERVE, MESH_FSDP=n)
+    t0 = time.perf_counter()
+    rc, hung, ranks, tail = _serve_torchrun(
+        root, "entry", n, "--serve-entry-worker", config,
+        SERVE_MULTI_TIMEOUT_S)
+    line.update(exit_code=rc, wall_s=time.perf_counter() - t0, ranks=ranks,
+                n_layers=ENTRY_LAYERS)
+    if rc or hung or None in ranks:
+        line["log_tail"] = tail
+        problems.append(f"entry at fsdp {n}: exit code {rc}, hung {hung}")
+        return line
+    for name in ("inference_comparison.json", "serve_smoke.json"):
+        counts = [r["wrote"].count(name) for r in ranks]
+        if counts != [1] + [0] * (n - 1):
+            problems.append(f"entry at fsdp {n}: {name} written {counts}")
+    got, want = base_answers(multi_root), base_answers(one_root)
+    line["base_answers_equal"] = got == want
+    if got != want:
+        problems.append(f"entry at fsdp {n}: base answers differ from one "
+                        "card's")
+    return line
+
+
+def _serve_multi_pretrain(root, n, problems):
+    """The pre-train entry under torchrun at fsdp ``n`` with
+    SERVE_AFTER_TRAIN (``SERVE_MULTI_PRETRAIN_LAYERS`` layers): exit 0,
+    the smoke's stats on rank 0 alone."""
+    config = _pretrain_config(
+        root, n_layers=SERVE_MULTI_PRETRAIN_LAYERS, run_name="serve",
+        max_samples=PRETRAIN_STEPS * 16 * n, MESH_FSDP=n,
+        SERVE_AFTER_TRAIN=True)
+    t0 = time.perf_counter()
+    rc, hung, ranks, tail = _serve_torchrun(
+        root, "pretrain", n, "--pretrain-worker", config,
+        SERVE_MULTI_TIMEOUT_S)
+    line = {"exit_code": rc, "wall_s": time.perf_counter() - t0,
+            "n_layers": SERVE_MULTI_PRETRAIN_LAYERS,
+            "smoke": [r and r.get("smoke") for r in ranks]}
+    if rc or hung or None in ranks:
+        line["log_tail"] = tail
+        problems.append(f"pretrain at fsdp {n}: exit code {rc}, hung "
+                        f"{hung}")
+    elif not (ranks[0]["smoke"] and ranks[0]["smoke"]["generated_tokens"]
+              and all(r["smoke"] is None for r in ranks[1:])):
+        problems.append(f"pretrain at fsdp {n}: smoke {line['smoke']}")
+    return line
+
+
+def phase_serve_mesh_multi(dev):
+    """Opt-in, the four-card host (fewer fails): serving across cards
+    over NCCL (module doc, 22b). The 70B layout at fsdp 1 x model 4,
+    ``SERVE_70B_LAYERS`` of 80 layers in bf16, and serve_mesh's model at
+    fsdp 4, each on this card and then a rank a card
+    (``_serve_multi_worker``), held as serve_mesh holds its bf16
+    generate; the fine-tune entry at fsdp 4 and the pre-train entry at
+    fsdp 4, each with its serving switches, under torchrun."""
+    import shutil
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"serve_mesh_multi needs 4 cards; this host has {n}")
+    os.environ["HF_HUB_OFFLINE"] = "1"
+    problems = []
+    cfg = _llama_cfg(FT_70B_CONFIG, SERVE_70B_LAYERS)
+    one = _serve_runs(dev, cfg, None, {"generate": SERVE_MESH_NEW},
+                      quant=False)
+    _release()
+    cfg8 = _llama_cfg(FINE_TUNE_CONFIG, SERVE_MESH_LAYERS)
+    one8 = _serve_runs(dev, cfg8, None, {"generate": SERVE_MESH_NEW})
+    _release()
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_multi_")
+    line = {"phase": "serve_mesh_multi", "nvidia_smi": nvidia_smi_line(),
+            "world": n, "backend": "nccl"}
+    try:
+        out = os.path.join(root, "rank")
+        hung, rcs, ranks = _serve_ranks("--serve-multi-worker", out, n,
+                                        list(range(n)),
+                                        SERVE_MULTI_TIMEOUT_S)
+        if hung or any(rcs) or None in ranks:
+            problems.append(f"70B ranks hung {hung}, exit codes {rcs}")
+        else:
+            line["70b"] = dict(_serve_hold_ranks(
+                one, ranks, "70b", problems, cfg, n,
+                {"generate": SERVE_MESH_NEW}),
+                n_layers=SERVE_70B_LAYERS, mesh={"fsdp": 1, "model": n})
+            line["fsdp"] = dict(_serve_hold_ranks(
+                one8, ranks, "fsdp", problems, cfg8, 1,
+                {"generate": SERVE_MESH_NEW}),
+                n_layers=SERVE_MESH_LAYERS, mesh={"fsdp": n},
+                gathered_bytes_per_decode_step=_serve_gathered_bytes(
+                    one8["unit_bytes"], cfg8.n_layers, n))
+        line["entry"] = _serve_multi_entry(dev, root, n, problems)
+        line["pretrain"] = _serve_multi_pretrain(root, n, problems)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("serve_mesh_multi phase failed: "
+                         + "; ".join(problems))
+    return {"flash_fwd": sum(run["generate"]["flash_launches"]
+                             for r in ranks for run in r["runs"].values())}
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
@@ -6589,11 +7365,13 @@ PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_moe", "entry_moe", "profile", "train_fused_profile",
           "train_fused_ce_profile", "train_moe_profile", "entry_full",
           "train_mesh_multi", "train_tp_multi", "pretrain",
-          "pretrain_multi", "train_cp_multi")
+          "pretrain_multi", "train_cp_multi", "serve_mesh",
+          "serve_mesh_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
-                 "train_tp_multi", "pretrain_multi", "train_cp_multi")
+                 "train_tp_multi", "pretrain_multi", "train_cp_multi",
+                 "serve_mesh_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -6693,18 +7471,28 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--pretrain-worker", nargs=2, metavar=("CONFIG", "OUT"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--serve-mesh-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--serve-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--serve-entry-worker", nargs=2,
+                    metavar=("CONFIG", "OUT"), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
                "tp_multi_worker": _tp_multi_worker, "cp_worker": _cp_worker,
-               "cp_multi_worker": _cp_multi_worker}
-    if args.entry_worker or args.pretrain_worker or any(
-            getattr(args, k) for k in workers):
+               "cp_multi_worker": _cp_multi_worker,
+               "serve_mesh_worker": _serve_mesh_worker,
+               "serve_multi_worker": _serve_multi_worker}
+    if args.entry_worker or args.pretrain_worker or \
+            args.serve_entry_worker or any(getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
         sys.path.insert(0, HERE)
         if args.entry_worker:
             _entry_worker(*args.entry_worker)
         if args.pretrain_worker:
             _pretrain_worker(*args.pretrain_worker)
+        if args.serve_entry_worker:
+            _serve_entry_worker(*args.serve_entry_worker)
         for key, fn in workers.items():
             if getattr(args, key):
                 fn(getattr(args, key))
@@ -6775,6 +7563,7 @@ def main(argv=None) -> int:
     add(run("train_remat_dots", phase_train_remat_dots))
     add(run("train_tp", phase_train_tp))
     add(run("train_cp", phase_train_cp))
+    add(run("serve_mesh", phase_serve_mesh))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -6792,6 +7581,7 @@ def main(argv=None) -> int:
     add(run("pretrain", phase_pretrain))
     run("pretrain_multi", phase_pretrain_multi)
     add(run("train_cp_multi", phase_train_cp_multi))
+    add(run("serve_mesh_multi", phase_serve_mesh_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -45,11 +45,14 @@ and MFU per card over the world, and exports through the checkpoint
 manager (``<final dir>_dcp``, with the ``model_config.json`` sidecar and
 the tokenizer from rank 0) for ``ckpt/convert.py`` to turn into the HF
 layout. On one card the mesh keys are ignored (they warn), and
-``ATTN_IMPL`` ``a2a`` / ``ring`` runs the flash kernels. Not ported yet,
-each raising where the config asks for it: peer replication, the
-``pipe`` mesh axis and an MoE model at ``MESH_MODEL`` above 1 (ROADMAP
-queue 1 item 8), and at a world above one ``INFERENCE`` /
-``SERVE_AFTER_TRAIN`` (item 5).
+``ATTN_IMPL`` ``a2a`` / ``ring`` runs the flash kernels. ``INFERENCE``
+and ``SERVE_AFTER_TRAIN`` run on the sharded model, every rank entering
+the generate and the engine, rank 0 writing the files (a full
+fine-tune's base is read back through :func:`load_pretrained`, sharded
+as at the start); ``SERVE_AFTER_TRAIN`` warns and skips on more than
+one node, as JAX's does. Not ported yet, each raising where the config
+asks for it: peer replication, the ``pipe`` mesh axis and an MoE model
+at ``MESH_MODEL`` above 1 (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -82,7 +85,8 @@ from gke_ray_train_tpu_torch.parallel.mesh import (
     MeshConfig, build_mesh, distributed_init)
 from gke_ray_train_tpu_torch.parallel.placement import (
     host_batch_size, input_shard_layout)
-from gke_ray_train_tpu_torch.parallel.sharding import check_model_on_mesh
+from gke_ray_train_tpu_torch.parallel.sharding import (
+    check_model_on_mesh, shard_model, shard_unit)
 from gke_ray_train_tpu_torch.plan import (
     ExecutionPlan, PlanError, context_findings)
 from gke_ray_train_tpu_torch.rayint import get_context
@@ -126,6 +130,27 @@ def _sql_datasets(config: dict, n_train: int, n_eval: int):
             synthetic_sql_rows(max(n_eval, 16), seed=1))
 
 
+def load_pretrained(ckpt_dir: str, cfg, *, quantize=None,
+                    device: DeviceLike = None, mesh=None):
+    """The HF model in ``ckpt_dir``: on one card read onto it; on a
+    ``mesh`` a full-precision model is read into host memory and placed
+    one unit at a time (each block moved to the card and sharded, then
+    the root's own tensors moved; ``shard_model`` shards the root), so
+    no card holds the whole model. A quantized (QLoRA) base is read onto
+    the card, quantized on load."""
+    if mesh is None or quantize is not None:
+        return load_hf_checkpoint(ckpt_dir, cfg, quantize=quantize,
+                                  device=device)
+    params = load_hf_checkpoint(ckpt_dir, cfg, device="cpu")
+    for blk in params.blocks:
+        shard_unit(blk.to(device), cfg, mesh)
+    for name in ("embed", "final_norm", "lm_head"):
+        p = getattr(params, name)
+        if p is not None:
+            p.data = p.data.to(device)
+    return params
+
+
 def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     """The worker: trains, checkpoints and resumes, exports; returns the
     loop's last metrics. Runs on ``device`` (default ``cuda``, which must
@@ -152,13 +177,6 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         # the attempt runs under the re-formed plan
         ctx.plan_fingerprint = plan.fingerprint()
     mesh = build_mesh(mesh_cfg, device_type=dev.type) if world > 1 else None
-    if mesh is not None:
-        for key in ("INFERENCE", "SERVE_AFTER_TRAIN"):
-            if str(config.get(key, os.environ.get(key, "0"))).strip() \
-                    .lower() in ("1", "true"):
-                raise NotImplementedError(
-                    f"{key} across {world} ranks is not ported yet "
-                    "(ROADMAP queue 1 item 5); run it on one card")
     smoke = bool(config.get("SMOKE_TEST", False))
     logger.info("worker on %s (world %d%s); plan %s", dev, world,
                 f", mesh {mesh_cfg.shape}" if mesh_cfg else "",
@@ -212,8 +230,8 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     if have_local:
         # a QLoRA base quantizes during the stream, one projection (one
         # expert of a bank) on the card at a time
-        params = load_hf_checkpoint(str(ckpt_dir), cfg, quantize=load_quant,
-                                    device=dev)
+        params = load_pretrained(str(ckpt_dir), cfg, quantize=load_quant,
+                                 device=dev, mesh=mesh)
         logger.info("loaded pretrained weights from %s%s", ckpt_dir,
                     f" (quantized {load_quant} on load)" if load_quant
                     else "")
@@ -394,7 +412,12 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         if use_lora:
             base_params = tuned_params = state.params
         elif have_local:
-            base_params = load_hf_checkpoint(str(ckpt_dir), cfg, device=dev)
+            # the base as the start loaded it: on a mesh sharded as the
+            # tuned weights are, never whole on one card
+            base_params = load_pretrained(str(ckpt_dir), cfg, device=dev,
+                                          mesh=mesh)
+            if mesh is not None:
+                shard_model(base_params, mesh)
             tuned_params = state.params
         else:
             if ctx.is_host0():
@@ -410,7 +433,7 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
             output_path=os.path.join(out_base, "inference_comparison.json"),
             row_filter=(lambda r: r.get("sql_complexity")
                         == "window functions"),
-            is_host0=ctx.is_host0(),
+            mesh=mesh, is_host0=ctx.is_host0(),
             tuned_lora=state.lora if use_lora else None,
             lora_scale=lora_cfg.scale if use_lora else 1.0, device=dev)
 
@@ -419,7 +442,17 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     # documented disable value "0" must disable)
     serve_flag = config.get("SERVE_AFTER_TRAIN",
                             os.environ.get("SERVE_AFTER_TRAIN", "0"))
-    if str(serve_flag).strip().lower() in ("1", "true"):
+    serve = str(serve_flag).strip().lower() in ("1", "true")
+    if serve and world > int(os.environ.get("LOCAL_WORLD_SIZE", world)):
+        # JAX's rule: the engine's host-side scheduler runs on one node
+        # (a multi-node job serves through rayint/serving.py replicas)
+        logger.warning("SERVE_AFTER_TRAIN is single-node only (deploy "
+                       "rayint/serving.py replicas to serve across nodes);"
+                       " skipping")
+        serve = False
+    if serve:
+        # on a mesh every rank serves (the smoke is collective); rank 0
+        # writes
         eos = ([int(tokenizer.eos_token_id)]
                if getattr(tokenizer, "eos_token_id", None) is not None
                else [])

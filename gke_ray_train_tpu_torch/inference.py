@@ -9,9 +9,11 @@ with prompts bucketed to 128-multiples by the serving engine's helpers
 (``serve/bucketing.py``), so the two paths cannot drift and the prefill
 takes the flash kernel.
 
-One card: the JAX package's mesh path (weights sharded over a mesh,
-every host entering the generate) waits for ROADMAP queue 1 item 5, and
-a ``mesh=`` argument raises.
+On a mesh (``mesh=``, the ``parallel/mesh.py::build_mesh`` mesh the
+weights are sharded over) the comparison is collective, as the JAX
+package's is: every rank enters every generate with the same prompt and
+gets the same tokens (``models/kvcache.py``), and ``is_host0`` gates
+only the log and the JSON.
 """
 
 from __future__ import annotations
@@ -43,19 +45,24 @@ def clear_generate_cache() -> int:
     return 0
 
 
-def _no_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "generation over a mesh of cards is not ported yet (ROADMAP "
-            "queue 1 item 5); pass mesh=None")
+def _check_mesh(mesh: Any) -> None:
+    """A ``mesh=`` must be a ``DeviceMesh`` (or None)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh= takes the torch DeviceMesh the weights are sharded "
+            f"over (parallel/mesh.py::build_mesh), not "
+            f"{type(mesh).__name__}")
 
 
 def generate_answer(params: Params, cfg: ModelConfig, tokenizer,
                     prompt_text: str, *, max_new_tokens: int = 300,
                     lora: Optional[Lora] = None, lora_scale: float = 1.0,
                     mesh: Any = None, device: DeviceLike = None) -> str:
-    """Greedy answer to one prompt on ``device`` (default ``cuda``)."""
-    _no_mesh(mesh)
+    """Greedy answer to one prompt on ``device`` (default ``cuda``); on a
+    ``mesh`` every rank calls it with the same prompt and gets the same
+    answer."""
+    _check_mesh(mesh)
     ids = np.asarray(
         tokenizer(prompt_text, add_special_tokens=False)["input_ids"],
         np.int32)
@@ -99,8 +106,10 @@ def run_inference_comparison(
     answers) of the first ``num_samples`` rows that pass ``row_filter``;
     written as JSON to ``output_path`` when given. ``tuned_lora``: the
     tuned model is ``tuned_params`` plus these adapters applied at decode
-    time — (Q)LoRA runs never build a merged copy of the base."""
-    _no_mesh(mesh)
+    time — (Q)LoRA runs never build a merged copy of the base. On a
+    ``mesh`` every rank calls it with the same rows (module doc) and
+    gets the same records."""
+    _check_mesh(mesh)
     if row_filter is not None:
         test_rows = [r for r in test_rows if row_filter(r)]
     test_rows = test_rows[:num_samples]
@@ -114,11 +123,11 @@ def run_inference_comparison(
             "reference_answer": msgs["assistant"],
             "base_model_answer": generate_answer(
                 base_params, cfg, tokenizer, prompt,
-                max_new_tokens=max_new_tokens, device=device),
+                max_new_tokens=max_new_tokens, mesh=mesh, device=device),
             "finetuned_model_answer": generate_answer(
                 tuned_params, cfg, tokenizer, prompt,
                 max_new_tokens=max_new_tokens, lora=tuned_lora,
-                lora_scale=lora_scale, device=device),
+                lora_scale=lora_scale, mesh=mesh, device=device),
         }
         if is_host0:
             logger.info("sample %d\n  Q: %s\n  base: %s\n  tuned: %s", i,

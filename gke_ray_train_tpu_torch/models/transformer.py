@@ -159,10 +159,14 @@ class Block(nn.Module):
             self.register_parameter(
                 name, _param(D, **kw) if cfg.post_block_norm else None)
 
-    def forward(self, x, *args, **kwargs):
+    def forward(self, x, *args, layer_fn: Optional[Callable] = None,
+                **kwargs):
         """The layer over ``x`` (``_layer``'s arguments after its
-        ``lp``): ``(x, the layer's router aux or None)``."""
-        return _layer(x, self, *args, **kwargs)
+        ``lp``): ``(x, the layer's router aux or None)``. ``layer_fn``
+        runs in ``_layer``'s place with the same leading ``(x, lp)`` (the
+        KV-cache decode's layer), so it too runs while a sharded block
+        holds its weights gathered."""
+        return (layer_fn or _layer)(x, self, *args, **kwargs)
 
 
 class Transformer(nn.Module):
@@ -185,10 +189,13 @@ class Transformer(nn.Module):
             else _param(cfg.d_model, cfg.vocab_size, **kw))
 
     def forward(self, tokens: torch.Tensor,
-                cfg: Optional[ModelConfig] = None, **kw):
+                cfg: Optional[ModelConfig] = None, *,
+                step_fn: Optional[Callable] = None, **kw):
         """:func:`forward` of this model (``cfg`` defaults to the one it
-        was built with)."""
-        return forward(self, tokens, cfg or self.cfg, **kw)
+        was built with); with ``step_fn``, ``step_fn(self, tokens, cfg,
+        **kw)`` in its place (the KV-cache decode's embedding and head),
+        run while a sharded root holds its weights gathered."""
+        return (step_fn or forward)(self, tokens, cfg or self.cfg, **kw)
 
 
 Params = Transformer
@@ -326,9 +333,11 @@ def _lora_entry(lora_p, name, tp=None):
     ab = lora_p[name]
     if tp is None:
         return ab
+    # dims from the end: a served pool's per-row adapters lead with the
+    # batch ([B, d_in, r] / [B, r, d_out])
     if name in ROW_PARALLEL:
-        return {"a": ab["a"].chunk(tp.size, dim=0)[tp.rank], "b": ab["b"]}
-    return {"a": ab["a"], "b": ab["b"].chunk(tp.size, dim=1)[tp.rank]}
+        return {"a": ab["a"].chunk(tp.size, dim=-2)[tp.rank], "b": ab["b"]}
+    return {"a": ab["a"], "b": ab["b"].chunk(tp.size, dim=-1)[tp.rank]}
 
 
 def _drop_kw(name: str, drop_rate: float, drop_seed: Optional[int],

@@ -19,6 +19,11 @@ per layer instead (``gather_pool`` on one layer's pool, called by
 ``models/kvcache.py::forward_step``): the same values, with 1 / n_layers
 of the transient, at the cost of one gather launch per leaf and layer.
 
+On a model sharded over ``model`` the pool stays whole on every rank;
+after the gather ``models/transformer.py::_lora_entry`` takes each row's
+B columns of a column-parallel projection or A rows of a row-parallel
+one, so the partial product joins the base's before the all-reduce.
+
 JAX computes this as two einsums outside any Pallas kernel, so the port
 runs two ``torch.bmm``; there is no kernel of its own to write. Serving
 is forward-only: the registry entry is value-only.

@@ -303,6 +303,16 @@ def shard_model(params: nn.Module, mesh) -> nn.Module:
     return params
 
 
+def release_root(params: nn.Module) -> None:
+    """Free a sharded root's gathered weights after a forward that has
+    no backward to keep them for (an eval, a decode step): FSDP2 leaves
+    the root gathered after its forward (``shard_model``). Nothing for
+    an unsharded model."""
+    from torch.distributed.fsdp import FSDPModule
+    if isinstance(params, FSDPModule):
+        params.reshard()
+
+
 # ---------------------------------------------------------------------------
 # local views of sharded tensors, and the reductions over their shards
 # ---------------------------------------------------------------------------

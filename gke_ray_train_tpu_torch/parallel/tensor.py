@@ -26,8 +26,10 @@ vocab range, zeros the rest, one all-reduce) and the exact merge of the
 row statistics (:func:`merge_row_stats`: ``lse = m + log Σ_r exp(lse_r -
 m)`` with ``m`` the max over the shards, the target logit summed, since
 it lives in exactly one shard), shared by the fused cross-entropy
-(``ops/fused_ce.py``) and the unfused loss (:func:`vocab_parallel_nll`).
-Logits are never all-gathered over the vocab.
+(``ops/fused_ce.py``) and the unfused loss (:func:`vocab_parallel_nll`),
+and the decode's greedy pick over the shards
+(:func:`vocab_parallel_argmax`). Logits are never all-gathered over the
+vocab.
 """
 
 from __future__ import annotations
@@ -71,16 +73,22 @@ def _dtensor_of(w):
 
 def tp_of(w) -> Optional[TensorParallel]:
     """The ``model`` axis ``w`` (a weight or a ``QTensor``) is sharded
-    over, read from its placement; None for a plain tensor, or a DTensor
-    of another mesh."""
+    over, read from its placement whether its unit is gathered (a
+    DTensor of the ``model`` submesh) or not (the last dim of FSDP2's
+    (fsdp, model) mesh), without slicing the mesh; None for a plain
+    tensor, a DTensor of a mesh without ``model``, or ``model`` 1."""
     t = _dtensor_of(w)
     if t is None:
         return None
     mesh = t.device_mesh
-    if mesh.mesh_dim_names != (AXIS_MODEL,):
+    names = mesh.mesh_dim_names or ()
+    if AXIS_MODEL not in names:
         return None
-    return TensorParallel(group=mesh.get_group(0), size=mesh.size(),
-                          rank=mesh.get_local_rank())
+    d = names.index(AXIS_MODEL)
+    if mesh.size(d) <= 1:
+        return None
+    return TensorParallel(group=mesh.get_group(d), size=mesh.size(d),
+                          rank=mesh.get_local_rank(d))
 
 
 def local_weight(w):
@@ -209,6 +217,26 @@ def vocab_parallel_embedding(ids: torch.Tensor, table: torch.Tensor,
                                          table).to(dtype)
     rows = rows.masked_fill(off[..., None], 0)
     return reduce_from_model(rows, tp)
+
+
+def vocab_parallel_argmax(logits: torch.Tensor,
+                          tp: Optional[TensorParallel]) -> torch.Tensor:
+    """The global vocab id of the largest logit of each row, where the
+    last dim of ``logits`` is this rank's vocab shard (GSPMD's argmax
+    over a sharded vocab in JAX): each shard's max and the global id of
+    its first occurrence, the max all-reduced over the group, then the
+    least id among the shards that hold it, so ties go to the lowest id
+    as ``torch.argmax``'s do. Two all-reduces of one value a row; the
+    logits are never gathered. ``torch.argmax`` itself without TP."""
+    if tp is None:
+        return torch.argmax(logits, dim=-1)
+    import torch.distributed as dist
+    m, idx = torch.max(logits.float(), dim=-1)
+    gid = idx + tp.rank * logits.shape[-1]
+    top = all_reduce_max(m, tp.group)
+    cand = torch.where(m == top, gid, torch.full_like(gid, torch.iinfo(
+        gid.dtype).max))
+    return _all_reduce(cand, tp.group, dist.ReduceOp.MIN)
 
 
 def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor,

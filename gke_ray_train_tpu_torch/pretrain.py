@@ -28,8 +28,9 @@ into the context ranks' token shards, as JAX's
 ``pretrain_llm_ray.py:210`` places them), re-formed on the survivors after
 an elastic pool change (``rayint/elastic.py``), and the restore
 reshards. ``PEER_REPLICATION`` raises (ROADMAP queue 1 item 8);
-``SERVE_AFTER_TRAIN`` serves on one card, warns and skips beyond one
-node, as JAX does, and raises at a world above one on one node (item 5).
+``SERVE_AFTER_TRAIN`` serves the trained model as it is sharded, every
+rank of one node entering the engine, and warns and skips beyond one
+node, as JAX does.
 """
 
 from __future__ import annotations
@@ -193,13 +194,11 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         if world > local_world:
             logger.warning("SERVE_AFTER_TRAIN is single-node only; "
                            "skipping")
-        elif world > 1:
-            raise NotImplementedError(
-                f"SERVE_AFTER_TRAIN across {world} ranks is not ported "
-                "yet (ROADMAP queue 1 item 5); run it on one card")
         else:
             # a few sliding-window prefixes of the corpus; pre-training
-            # trains the full weights, so there is no adapter to tag
+            # trains the full weights, so there is no adapter to tag. On
+            # a mesh every rank serves the sharded model (collective);
+            # rank 0 gets the stats
             prompts = [ids[i * 257:i * 257 + 48] for i in range(4)]
             out = post_train_smoke(state.params, cfg, plan, prompts,
                                    max_new_tokens=48, device=dev)

@@ -22,6 +22,9 @@ Iteration-level scheduling over length buckets:
   draft model proposes ``spec_k`` tokens, one target forward verifies
   them, and greedy acceptance commits the longest agreeing prefix.
 - Weights optionally serve quantized (``SERVE_QUANT``: int8 / nf4).
+- On a model sharded across ranks every rank runs the same engine over
+  the same requests; the picked tokens are agreed across the world, so
+  the host-side scheduler decides alike on every rank (``BatchEngine``).
 
 Sequential-equivalence contract: the per-slot update rule is exactly
 ``greedy_generate_cached``'s loop body, masked attention contributes
@@ -52,9 +55,10 @@ from gke_ray_train_tpu_torch.device import (
     DeviceLike, check_on, resolve_device, synchronize)
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.kvcache import (
-    forward_step, init_cache, insert_cache_slot)
+    forward_step, greedy_pick, init_cache, insert_cache_slot, model_shards)
 from gke_ray_train_tpu_torch.models.transformer import Lora, Params
 from gke_ray_train_tpu_torch.ops.quant import quantize_for_serving
+from gke_ray_train_tpu_torch.parallel.sharding import is_sharded
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.serve.adapters import (
     AdapterPool, AdapterPoolPinned)
@@ -109,15 +113,17 @@ class Completion:
 
 def init_serve_state(cfg: ModelConfig, batch: int, width: int, *,
                      device: torch.device, multi_lora: bool = False,
-                     draft_cfg: Optional[ModelConfig] = None
-                     ) -> Dict[str, Any]:
+                     draft_cfg: Optional[ModelConfig] = None,
+                     model: int = 1) -> Dict[str, Any]:
     """Zeroed per-bucket batch state: token buffer, per-slot cursors and
     the pooled KV cache. ``active`` starts all-False — empty slots run
     the decode step as masked no-ops until admission fills them.
 
     ``multi_lora`` adds the per-slot adapter index ``aslot`` [B] (slot 0
     = the reserved zero adapter); ``draft_cfg`` adds the draft model's
-    own KV pool ``dcache`` for speculative decoding."""
+    own KV pool ``dcache`` for speculative decoding. ``model``: the
+    ways the served weights are split over tensor parallelism (the cache
+    holds this rank's KV heads)."""
     def ints():
         return torch.zeros((batch,), dtype=torch.int32, device=device)
     state = {
@@ -126,7 +132,7 @@ def init_serve_state(cfg: ModelConfig, batch: int, width: int, *,
         "stop": ints(),
         "active": torch.zeros((batch,), dtype=torch.bool, device=device),
         "cur": ints(),
-        "cache": init_cache(cfg, batch, width, device=device),
+        "cache": init_cache(cfg, batch, width, device=device, model=model),
     }
     if multi_lora:
         state["aslot"] = ints()
@@ -159,14 +165,14 @@ def make_prefill_fn(cfg: ModelConfig, *, lora_scale: float = 1.0,
     def target_prefill(params, prompt, prompt_len, lora):
         B, L = prompt.shape
         dev = prompt.device
-        cache = init_cache(cfg, B, L, device=dev)
+        cache = init_cache(cfg, B, L, device=dev, model=model_shards(params))
         logits, cache = forward_step(
             params, prompt, cfg, cache,
             torch.zeros((B,), dtype=torch.int32, device=dev),
             lora=lora, lora_scale=lora_scale)
         idx = (prompt_len - 1).clamp(0, L - 1).long()
         rows = torch.arange(B, device=dev)
-        first = torch.argmax(logits[rows, idx], dim=-1).to(torch.int32)
+        first = greedy_pick(logits[rows, idx], params, cfg)
         return first, cache
 
     if draft_cfg is None:
@@ -196,8 +202,9 @@ def make_decode_fn(cfg: ModelConfig, eos_ids: Sequence[int], *,
     """``decode_step(params, state, lora) -> state`` — one iteration for
     the whole slot batch, updating ``state`` in place. The per-slot rule
     is exactly ``greedy_generate_cached``'s loop body (write the pending
-    token, forward one position, argmax, advance), with the loop-count
-    bound expressed as the per-slot absolute ``stop`` position.
+    token, forward one position, the greedy pick, advance), with the
+    loop-count bound expressed as the per-slot absolute ``stop``
+    position.
 
     ``pool=True`` (multi-tenant): ``lora`` is the stacked adapter pool
     and the state carries per-slot ``aslot`` indices, so one step decodes
@@ -217,7 +224,7 @@ def make_decode_fn(cfg: ModelConfig, eos_ids: Sequence[int], *,
         logits, _ = forward_step(params, cur[:, None], cfg, state["cache"],
                                  lens, lora=_resolve_lora(state, lora, pool),
                                  lora_scale=lora_scale)
-        next_tok = torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+        next_tok = greedy_pick(logits[:, 0, :], params, cfg)
         now_eos = torch.any(cur[:, None] == eos[None, :], dim=-1)
         new_lens = torch.where(~active | (lens >= L), lens, lens + 1)
         active &= ~now_eos & (new_lens < stop)
@@ -369,6 +376,19 @@ class _BucketRuntime:
         return sum(s is not None for s in self.slots)
 
 
+def _check_sharded_plan(plan: ExecutionPlan) -> None:
+    """Raise where the plan asks a sharded model for what only one card
+    serves yet: a draft model, or quantized weights (``quantize_for_
+    serving`` would quantize each rank's shards)."""
+    for key, on in (("SPEC_DRAFT", plan.spec_draft != "none"),
+                    ("SERVE_QUANT", plan.serve_quant != "none")):
+        if on:
+            raise NotImplementedError(
+                f"{key} on a model sharded across ranks is not ported yet "
+                "(ROADMAP queue 1 item 5, speculative and quantized "
+                "serving on a sharded model); serve it on one card")
+
+
 class BatchEngine:
     """The in-process continuous-batching engine.
 
@@ -378,7 +398,15 @@ class BatchEngine:
     as ``lora`` (``interop.lora_from_numpy``), or a multi-tenant
     ``adapters=AdapterPool`` — not both. ``plan.spec_draft`` "self"
     drafts with the served weights themselves, "distilled" with
-    ``draft=(draft_params, draft_cfg)``."""
+    ``draft=(draft_params, draft_cfg)``.
+
+    On a model sharded across ranks (FSDP2 and / or ``model``) every
+    rank runs its own engine over the same requests: the decode steps
+    are collective, and since the picked tokens are agreed across the
+    world (``models/kvcache.py::greedy_pick``) the host-side scheduler
+    admits, refills and retires identically on every rank. The adapter
+    pool is whole on every rank. ``SPEC_DRAFT`` and ``SERVE_QUANT``
+    raise there."""
 
     _PREFIX_MEMO_MAX = 64
 
@@ -394,7 +422,11 @@ class BatchEngine:
         check_on(params.embed, self.device, "params")
         self.plan = plan if plan is not None else serve_plan()
         self.cfg = cfg
+        if is_sharded(params.embed):
+            _check_sharded_plan(self.plan)
         self.params = quantize_for_serving(params, self.plan.serve_quant)
+        # this rank's share of the KV heads (tensor parallelism)
+        self._kv_model = model_shards(params)
         if adapters is not None and lora is not None:
             raise ValueError(
                 "pass either a single lora= adapter or a multi-tenant "
@@ -475,7 +507,8 @@ class BatchEngine:
         return init_serve_state(
             self.cfg, self.max_batch, width, device=self.device,
             multi_lora=self._pool_mode,
-            draft_cfg=self._draft[1] if self._draft else None)
+            draft_cfg=self._draft[1] if self._draft else None,
+            model=self._kv_model)
 
     def _decode_lora_arg(self) -> Any:
         """The ``lora`` argument of every decode call: the pool's stacked
@@ -798,7 +831,13 @@ def post_train_smoke(params: Params, cfg: ModelConfig, plan: ExecutionPlan,
     multi-tenant path runs end to end. Returns (completions, stats), or
     None with a loud warning when no declared bucket fits the model, no
     prompt is usable, or serving fails: a smoke must degrade, not kill a
-    finished training run."""
+    finished training run.
+
+    On a model sharded across ranks the smoke is collective: every rank
+    calls it with the same prompts and runs the engine (``BatchEngine``
+    doc); rank 0 returns (completions, stats), the others None. There a
+    failure is raised, not degraded: a rank that gave up alone would
+    leave its peers waiting in a collective."""
     usable = [b for b in plan.bucket_list() if b <= cfg.max_seq_len]
     if not usable:
         logger.warning(
@@ -817,6 +856,7 @@ def post_train_smoke(params: Params, cfg: ModelConfig, plan: ExecutionPlan,
     tags: List[Optional[str]] = list(adapter_ids or [])
     tags += [None] * (len(prompts) - len(tags))
     lora_kw: Dict[str, Any] = {"lora": lora, "lora_scale": lora_scale}
+    sharded = is_sharded(params.embed)
     t0 = time.perf_counter()
     try:
         if lora is not None and any(t is not None for t in tags):
@@ -835,9 +875,15 @@ def post_train_smoke(params: Params, cfg: ModelConfig, plan: ExecutionPlan,
                     max_new_tokens=max_new_tokens, adapter_id=tags[i])
             for i, p in enumerate(prompts)])
     except Exception:  # noqa: BLE001 - the degrade contract above
+        if sharded:
+            raise
         logger.warning("SERVE_AFTER_TRAIN failed; training output is "
                        "unaffected", exc_info=True)
         return None
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            return None
     stats = engine.stats()
     stats["wall_s"] = round(time.perf_counter() - t0, 3)
     stats["generated_tokens"] = int(

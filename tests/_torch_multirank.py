@@ -30,6 +30,19 @@ h.run_scenario({name!r}, {out!r})
 """
 
 
+# a rank's rendezvous env (torchrun's, and JAX's COORDINATOR_ADDRESS /
+# NUM_PROCESSES / PROCESS_ID): another test of the same worker process may
+# leave it behind, and a one-process test clears it
+RENDEZVOUS_ENV = ("NUM_PROCESSES", "COORDINATOR_ADDRESS", "PROCESS_ID",
+                  "RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE",
+                  "MASTER_ADDR", "MASTER_PORT")
+
+
+def clear_rendezvous(monkeypatch) -> None:
+    for key in RENDEZVOUS_ENV:
+        monkeypatch.delenv(key, raising=False)
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -56,6 +56,7 @@ from gke_ray_train_tpu_torch.ckpt import hf_io as thf
 from gke_ray_train_tpu_torch.rayint import get_context
 from gke_ray_train_tpu_torch.train import metrics as tmetrics
 from gke_ray_train_tpu_torch.train import preempt
+from tests import _torch_multirank as mr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "ray-jobs", "*.json")))
@@ -241,6 +242,7 @@ def hf_dir(tmp_path_factory):
 @pytest.fixture
 def offline(monkeypatch):
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
+    mr.clear_rendezvous(monkeypatch)
     for k in ("ASYNC_CKPT", "PEER_REPLICATION", "FAULT_SPEC", "KERNELCHECK",
               "SERVE_AFTER_TRAIN", "TRANSFER_GUARD"):
         monkeypatch.delenv(k, raising=False)

@@ -3,7 +3,9 @@
 tiny dims on the CPU: the same weights (JAX's, carried over as numpy),
 the same byte tokenizer vocabulary and the same SQL rows give the same
 answers, token for token, with and without adapters, and the same JSON
-file. A mesh raises, naming the roadmap item.
+file. A ``mesh=`` runs (on a world-1 gloo mesh, the same answers); one
+that is not a ``DeviceMesh`` raises a clear error. Meshes of several
+ranks are in ``tests/test_torch_port_serve_mesh.py``.
 """
 
 import json
@@ -104,11 +106,34 @@ def test_run_inference_comparison_matches_jax(setup, tmp_path):
 
 @pytest.mark.parametrize("fn", ["generate_answer", "run_inference_comparison"])
 def test_mesh_raises_naming_the_roadmap(setup, fn):
+    """``mesh=`` now runs: on a world-1 gloo mesh the same answers as
+    without one; a ``mesh=`` that is not a ``DeviceMesh`` raises,
+    naming what it takes."""
+    import socket
+
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
     jc, jp, jl, tc, tp, tl, scale = setup
-    args = {"generate_answer": (tp, tc, ByteTokenizer(), "q"),
-            "run_inference_comparison": (tp, tp, tc, ByteTokenizer(), [])}
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        getattr(tinf, fn)(*args[fn], mesh=object(), device="cpu")
+    rows = synthetic_sql_rows(6, seed=2)
+    args = {"generate_answer": (tp, tc, ByteTokenizer(), PROMPTS[0]),
+            "run_inference_comparison": (tp, tp, tc, ByteTokenizer(), rows)}
+    kw = dict(max_new_tokens=8, device="cpu")
+    if fn == "run_inference_comparison":
+        kw.update(num_samples=1, tuned_lora=tl, lora_scale=scale)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        getattr(tinf, fn)(*args[fn], mesh=object(), **kw)
+    want = getattr(tinf, fn)(*args[fn], **kw)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1), device_type="cpu")
+        got = getattr(tinf, fn)(*args[fn], mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()
+    assert got == want and want
 
 
 def test_clear_generate_cache_drops_nothing():

@@ -37,12 +37,14 @@ from gke_ray_train_tpu_torch.rayint import (
     FailureConfig, RunConfig, TorchTrainer)
 from gke_ray_train_tpu_torch.testing import faults
 from gke_ray_train_tpu_torch.train import preempt
+from tests import _torch_multirank as mr
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
+    mr.clear_rendezvous(monkeypatch)
     monkeypatch.delenv("FAULT_SPEC", raising=False)
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
     monkeypatch.setenv("COMPILE_CACHE", "0")
