@@ -68,7 +68,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. parity  — the same widths in float32 at 4 layers: flash-path prefill
              logits against the dense path, and every engine completion
              token-identical to the sequential ``greedy_generate_cached``.
-5b. serve_tenants — the serve phase's model and 24 requests through an
+5b. serve_tenants — the serve phase's model cut to 8 of its 32 layers
+             and its 24 requests through an
              ``AdapterPool`` of 2 slots with a loader over three random
              r-64 tenants (alpha 16, the seven projections), tagged in
              turn None, t0, t1, t2: all complete; a miss, an eviction and
@@ -141,7 +142,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              kernels, QLoRA and full fine-tuning (where dhead launches and
              the lm_head trains, held alike on both sides by the
              trained-tensor check); dx and dhead on the fp32 body.
-11b. train_mesh — the train_fused_ce job on a world-1 NCCL group's
+11b. train_mesh — the train_fused_ce job at 8 of its 32 layers on a
+             world-1 NCCL group's
              data 1 x fsdp 1 mesh (``parallel/``): every weight a DTensor
              sharded by FSDP2, the NF4 codes and scales too; one warm-up
              and 3 timed steps through ``run_training``, the per-step
@@ -154,10 +156,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ``"full"``, within 1e-6; ``OPTIM=adafactor`` through the
              kernels against its plain run, finite and moving.
 11d. train_remat_dots — Llama-3.1-8B QLoRA (FUSED_OPS=1) at full width
-             and depth: 1 + 3 steps with ``"dots"`` against ``"full"``
-             (p50, peak, losses), and OPTIM=adafactor against AdamW (p50,
-             the optimizer state's bytes), both of these steps under
-             TRANSFER_GUARD=disallow.
+             and 8 of its 32 layers: 1 + 3 steps with ``"dots"`` against
+             ``"full"`` (p50, peak, losses), and OPTIM=adafactor against
+             AdamW (p50, the optimizer state's bytes), both of these steps
+             under TRANSFER_GUARD=disallow.
 11e. train_tp — tensor parallelism on one card: the train_mesh job at
              full width cut to 4 layers, in this process, then as two
              ranks of this card over gloo at model 2 x fsdp 1 (gloo's
@@ -173,7 +175,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              job in fp32 (TF32 off) at 2 layers within 1e-3.
 11f. train_cp — context parallelism on one card: the Gemma-2 4k job
              (ray-jobs/fine_tune_config_gemma2_4k.json, FUSED_OPS=1) at
-             full width and depth, one 4,096-token row a step, in this
+             full width and 8 of its 42 layers, one 4,096-token row a
+             step, in this
              process, then as two ranks of this card over gloo at fsdp 1
              x context 2 (the ring / all-to-all transport staged through
              host memory): under a2a and ring, 1 + 3 steps, each rank's
@@ -253,7 +256,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ATTN_IMPL a2a (the flash path on one card): finite losses,
              the launches of a flash model, the export written.
 15. train_moe — the train phase's loop on Mixtral-8x7B QLoRA at full
-             width and depth (8 experts top 2) with
+             width and 8 of its 32 layers (8 experts top 2) with
              ray-jobs/fine_tune_config_mixtral.json's settings (NF4 with
              QUANT_STORE=uint4, drawn and quantized one expert slice at a
              time; r 64 on attention only, dropout 0.05; 1 x 8
@@ -261,7 +264,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              TRANSFER_GUARD=disallow: one warm-up and 2 timed steps, one
              eval of 8 rows. Finite loss, grad_norm, eval_loss and router
              aux; the adapters change, the routers and a bank do not; per
-             step the flash forward 2 x 32 x 8 times, dQ and dK/dV 32 x 8.
+             step the flash forward 2 x 8 x 8 times, dQ and dK/dV 8 x 8.
              The line adds the base's bytes on the card and the routing
              (router aux, dropped (token, slot) share) read from every
              ``moe_mlp`` call.
@@ -313,7 +316,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (basic_lm at full width: 2,048 d / 16 heads / 8,192 ff, the
              synthetic corpus's char vocab, seq 256, 16 rows a step, bf16
              over fp32 masters, FUSED_OPS=1), cut to 8 steps. Run A at
-             full depth (24 layers) with SERVE_AFTER_TRAIN: step p50
+             8 of the job's 24 layers (its one save at 24 would write
+             19 GB) with SERVE_AFTER_TRAIN: step p50
              between synchronizes, tokens/s, MFU, peak memory, the
              ledger, exact launches (rows 1-8; CE on ``mma.sync`` at V
              45); the smoke's bf16 completions against bf16 greedy
@@ -323,7 +327,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              greedy's), the same prompts through the engine equal to
              greedy in float32, and the same weights through a
              two-replica ``ServeDeployment`` equal to the single engine
-             with both replicas on the board. Then the fault drill at 6 layers
+             with both replicas on the board. Then the fault drill at 2 layers
              (depth cut: the full-depth saves are 19 GB each), a save
              every 2 steps, under deterministic algorithms (measured
              first: the embedding's backward repeats bitwise only so):
@@ -2075,6 +2079,8 @@ TENANT_TAGS = (None,) + TENANTS
 TENANT_SLOTS = 2
 SPEC_K = 4
 SUBRUN_REQUESTS = 8
+# serve_tenants' depth cut of Llama-3.1-8B's 32 layers (full width)
+SERVE_TENANT_LAYERS = 8
 
 
 def _tenant_adapters(cfg, dev, seed, rank=TENANT_RANK, b_std=0.02):
@@ -2177,17 +2183,18 @@ def _module_nbytes(module):
 
 
 def phase_serve_tenants(dev, cfg=None):
-    """Llama-3.1-8B at full width and depth (bf16, random weights from
-    seed 0, ``max_seq_len`` 512) through ``BatchEngine`` with an
-    ``AdapterPool`` of ``TENANT_SLOTS`` slots and a loader over three
-    random r-64 tenants on the seven projections (alpha 16): the serve
-    phase's 24 requests (seed 1234), tagged in turn None, t0, t1, t2.
-    Gates: every request completes within its budget and the vocab;
-    a miss, an eviction and a pinned retry happen; the flash forward runs
-    once per layer per prefill; the None-tagged completions are bitwise a
-    no-pool engine's. Printed: t0's rows' token agreement with a single
-    ``lora=`` engine (bf16 bmm against a 2-D product rounds apart), and,
-    with the pool and tenants released, two sub-runs on
+    """Llama-3.1-8B at full width and ``SERVE_TENANT_LAYERS`` deep (bf16,
+    random weights from seed 0, ``max_seq_len`` 512) through
+    ``BatchEngine`` with an ``AdapterPool`` of ``TENANT_SLOTS`` slots and
+    a loader over three random r-64 tenants on the seven projections
+    (alpha 16): the serve phase's 24 requests (seed 1234), tagged in
+    turn None, t0, t1, t2. Gates: every request completes within its
+    budget and the vocab; a miss, an eviction and a pinned retry happen;
+    the flash forward runs once per layer per prefill; the None-tagged
+    completions are bitwise a no-pool engine's. Printed: t0's rows' token
+    agreement with a single ``lora=`` engine (bf16 bmm against a 2-D
+    product rounds apart), and, with the pool and tenants released, two
+    sub-runs on
     ``SUBRUN_REQUESTS`` requests beside a plain one: ``SPEC_DRAFT=self``
     (``SPEC_K`` 4: acceptance share, tokens/s) and ``SERVE_QUANT=nf4``
     (the quantized base's bytes, tokens/s, peak memory, with the bf16
@@ -2199,7 +2206,7 @@ def phase_serve_tenants(dev, cfg=None):
     from gke_ray_train_tpu_torch.serve import BatchEngine
     cfg = cfg or dataclasses.replace(
         llama3_8b(param_dtype="bfloat16", dtype="bfloat16", remat=False),
-        max_seq_len=512)
+        max_seq_len=512, n_layers=SERVE_TENANT_LAYERS)
     model = init_params(cfg, seed=0, device=dev)
     tenants = {t: _tenant_adapters(cfg, dev, seed=100 + i)
                for i, t in enumerate(TENANTS)}
@@ -3313,6 +3320,8 @@ def phase_train_fused_ce_profile(dev, cfg=None):
 # ---------------------------------------------------------------------------
 
 MESH_STEPS = 3                  # after the warm-up: 4 steps a run
+MESH_LAYERS = 8                 # train_mesh's depth cut of the 32
+DOTS_LAYERS = 8                 # train_remat_dots' depth cut of the 32
 MESH_LOSS_RTOL = 1e-3           # meshed against unmeshed, bf16
 MESH_PARITY_RTOL = 1e-6         # fp32, TF32 off
 DOTS_STEPS = 3
@@ -3354,10 +3363,12 @@ def _sharded_report(params):
 
 def _mesh_run(dev, mesh, steps=MESH_STEPS):
     """The train_fused_ce job (Llama-3.1-8B QLoRA, FUSED_OPS=1, the job's
-    rows) through ``_drive``, sharded on ``mesh`` or not; guard off on
-    both sides so they run the same code around the step."""
+    rows) at ``MESH_LAYERS`` layers through ``_drive``, sharded on
+    ``mesh`` or not; guard off on both sides so they run the same code
+    around the step."""
     import torch
-    job = _fine_tune_setup(dev, None, steps + 1, mesh=mesh, fused_ops=True,
+    job = _fine_tune_setup(dev, _llama_cfg(FINE_TUNE_CONFIG, MESH_LAYERS),
+                           steps + 1, mesh=mesh, fused_ops=True,
                            transfer_guard=None)
     sharded = _sharded_report(job["state"].params) if mesh is not None \
         else (False, {})
@@ -3382,13 +3393,14 @@ def _mesh_run(dev, mesh, steps=MESH_STEPS):
 
 def phase_train_mesh(dev):
     """The Llama-3.1-8B QLoRA job with FUSED_OPS=1 (train_fused_ce's) at
-    full width and depth on a world-1 NCCL group's data 1 x fsdp 1 mesh:
-    every weight a DTensor, sharded by FSDP2 (``parallel/sharding.py``),
-    one warm-up and 3 timed steps through ``run_training``; per step the
-    kernels launch as in the unmeshed run (flash forward 256, dQ and
-    dK/dV 128, CE row statistics and dx 4, rms_norm 512, RoPE 384), and
-    the losses stay within 1e-3 of an unmeshed run of the same seed and
-    rows, run first in this phase. Both runs' p50 and peak memory."""
+    full width and ``MESH_LAYERS`` deep on a world-1 NCCL group's data 1
+    x fsdp 1 mesh: every weight a DTensor, sharded by FSDP2
+    (``parallel/sharding.py``), one warm-up and 3 timed steps through
+    ``run_training``; per step the kernels launch as in the unmeshed run
+    (flash forward 8 a layer, dQ and dK/dV 4 a layer, CE row statistics
+    and dx 4, rms_norm 16 and RoPE 12 a layer), and the losses stay
+    within 1e-3 of an unmeshed run of the same seed and rows, run first
+    in this phase. Both runs' p50 and peak memory."""
     plain, want, cfg = _mesh_run(dev, None)
     with _world1_mesh(dev) as mesh:
         meshed, _, _ = _mesh_run(dev, mesh)
@@ -3524,8 +3536,8 @@ def _timed_steps(dev, job, steps, guard=None):
 
 
 def phase_train_remat_dots(dev, steps: int = DOTS_STEPS):
-    """Llama-3.1-8B QLoRA at full width and depth (the train_fused_ce
-    job, one NF4 base for every run): 1 + 3 steps with
+    """Llama-3.1-8B QLoRA at full width and ``DOTS_LAYERS`` deep (the
+    train_fused_ce job, one NF4 base for every run): 1 + 3 steps with
     ``remat_policy="dots"`` against 1 + 3 with ``"full"`` (p50, peak
     memory, losses), then ``OPTIM=adafactor`` against AdamW under
     ``"full"`` (p50, peak, the optimizer state's bytes), these two under
@@ -3553,7 +3565,7 @@ def phase_train_remat_dots(dev, steps: int = DOTS_STEPS):
                 preset_for_model_id(ft["MODEL_ID"], dtype="bfloat16",
                                     param_dtype="bfloat16", remat=True,
                                     remat_policy=policy),
-                max_seq_len=int(ft["MAX_SEQ_LENGTH"]))
+                max_seq_len=int(ft["MAX_SEQ_LENGTH"]), n_layers=DOTS_LAYERS)
         job = _fine_tune_setup(dev, cfg, steps + 1, params=base,
                                optim=optim, fused_ops=True,
                                transfer_guard=None)
@@ -3799,26 +3811,30 @@ def _multi_reference(dev):
     return r
 
 
-def _multi_entry(n, extra=None):
-    """The entry under torchrun on ``n`` cards (module doc, 19b), the
-    config's keys ``extra`` replaced (``MESH_MODEL``: the global batch
-    spans the n / model batch ranks); then its sharded export converted
-    here. Returns (line, problems)."""
+def _multi_entry(n, extra=None, path=None):
+    """The entry under torchrun on ``n`` cards (module doc, 19b) on the
+    job of ``path``, the config's keys ``extra`` replaced
+    (``MESH_MODEL``: the global batch spans the n / model batch ranks);
+    then its sharded export converted here (an MoE model's expert
+    tensors among the names it must hold). ``path`` defaults to
+    ``ENTRY_CONFIG``. Returns (line, problems)."""
     import tempfile
     import numpy as np
     from safetensors import safe_open
     from gke_ray_train_tpu_torch.ckpt.convert import convert
-    from gke_ray_train_tpu_torch.ckpt.hf_io import _hf_layer_names
+    from gke_ray_train_tpu_torch.ckpt.hf_io import (
+        _hf_expert_names, _hf_layer_names)
     os.environ["HF_HUB_OFFLINE"] = "1"
     root = tempfile.mkdtemp(prefix="chip_smoke_mesh_entry_")
-    with open(ENTRY_CONFIG) as f:
+    path = path or ENTRY_CONFIG
+    with open(path) as f:
         job = json.load(f)
     extra = dict(extra or {})
     batch_ranks = n // int(extra.get("MESH_MODEL", 1))
     rows = (int(job["PER_DEVICE_TRAIN_BATCH_SIZE"]) * batch_ranks
             * int(job["GRADIENT_ACCUMULATION_STEPS"]))
     config = _entry_config(
-        os.path.join(root, "run"), path=ENTRY_CONFIG, cut=dict(
+        os.path.join(root, "run"), path=path, cut=dict(
             MESH_MULTI_ENTRY_CUT, **extra,
             NUM_TRAIN_SAMPLES=rows * MESH_MULTI_ENTRY_STEPS))
     cfg, lcfg, _ = _entry_setup(config, None, MESH_MULTI_ENTRY_LAYERS)
@@ -3876,6 +3892,8 @@ def _multi_entry(n, extra=None):
         want["lm_head.weight"] = (cfg.vocab_size, cfg.d_model)
     names = {n for i in range(cfg.n_layers)
              for n in _hf_layer_names(cfg, i).values()}
+    names |= {n for i in range(cfg.n_layers) for e in range(cfg.n_experts)
+              for n in _hf_expert_names(i, e).values()}
     got, bad = {}, []
     for path in sorted(glob.glob(os.path.join(hf_dir, "*.safetensors"))):
         with safe_open(path, "pt") as f:
@@ -4206,15 +4224,17 @@ def _gaps(got, want):
     return [abs(a - b) / abs(b) for a, b in zip(got, want)]
 
 
-def _hold_streams(name, got, want, tol, problems):
+def _hold_streams(name, got, want, tol, problems,
+                  held=("losses", "grad_norms")):
     """Every step's loss and grad_norm of ``got`` against ``want``'s,
-    relative: the gaps; a problem where one is off or not finite."""
+    relative: the gaps; a problem where one is not finite or, for the
+    streams in ``held``, off."""
     gaps = {}
     for key in ("losses", "grad_norms"):
         g = _gaps(got[key], want[key])
         gaps[key] = g
         if not (len(g) == len(want[key]) and all(np.isfinite(got[key]))
-                and max(g) <= tol):
+                and (key not in held or max(g) <= tol)):
             problems.append(f"{name}: {key} {got[key]} against {want[key]}")
     return gaps
 
@@ -4450,9 +4470,10 @@ def phase_train_tp_multi(dev):
 CP_CONTEXT = 2
 CP_IMPLS = ("a2a", "ring")
 # train_cp's cut of the Gemma-2 4k job: one 4,096-token row a step (the
-# job's 4 microbatches cut to 1 for the run's time); width and depth as
-# shipped
+# job's 4 microbatches cut to 1 for the run's time) at full width,
+# CP_LAYERS of its 42 layers deep (train_cp_multi runs all 42)
 CP_PLAN = {"fused_ops": True, "grad_accum": 1}
+CP_LAYERS = 8
 CP_FP32_LAYERS = 2
 CP_TIMEOUT_S = 600
 # the collectives the context path makes on the card's tensors as they
@@ -4545,7 +4566,8 @@ def _cp_worker(out_path):
             rec["launches"] = {}
             for impl in CP_IMPLS:
                 torch.cuda.reset_peak_memory_stats()
-                rec[impl], launches = _cp_run(dev, _gemma_cfg(impl), mesh)
+                rec[impl], launches = _cp_run(
+                    dev, _gemma_cfg(impl, CP_LAYERS), mesh)
                 for k, v in launches.items():
                     rec["launches"][k] = rec["launches"].get(k, 0) + v
             with open(GEMMA2_CONFIG) as f:
@@ -4586,14 +4608,14 @@ def phase_train_cp(dev):
     times say nothing of a context-parallel step's speed: NCCL's path is
     train_cp_multi's)."""
     import tempfile
-    ref, _ = _cp_run(dev, _gemma_cfg("a2a"), None)
+    ref, _ = _cp_run(dev, _gemma_cfg("a2a", CP_LAYERS), None)
     with _tf32_off():
         ref32, _ = _cp_run(dev, _gemma_cfg("a2a", CP_FP32_LAYERS, "float32"),
                            None)
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_cp_"), "rank")
     hung, rcs, ranks = _spawn_ranks("--cp-worker", out, CP_CONTEXT,
                                     [0] * CP_CONTEXT, CP_TIMEOUT_S)
-    cfg = _gemma_cfg("a2a")
+    cfg = _gemma_cfg("a2a", CP_LAYERS)
     problems, line = [], {"phase": "train_cp", "nvidia_smi":
                           nvidia_smi_line(), "model": cfg.name,
                           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -4602,8 +4624,8 @@ def phase_train_cp(dev):
                               "context": CP_CONTEXT},
                           "impls": list(CP_IMPLS), "plan": CP_PLAN,
                           "cut": "GRADIENT_ACCUMULATION_STEPS 4 -> 1 (one "
-                          "4,096-token row a step); width and depth as "
-                          "shipped",
+                          f"4,096-token row a step); {CP_LAYERS} of 42 "
+                          "layers at full width",
                           "backend": "gloo", "ranks_on_one_card": CP_CONTEXT,
                           "one_process": ref, "one_process_fp32": ref32}
     if hung or any(rcs) or None in ranks:
@@ -4825,6 +4847,9 @@ MIXTRAL_CONFIG = os.path.join(HERE, "ray-jobs",
 # held-out rows after step 3
 MOE_STEPS = 2
 MOE_EVAL_ROWS = 8
+# and its depth: 8 of the 32 layers at full width (one card holds all
+# 32: train_ep_multi's one-card reference and train_moe_profile run them)
+MOE_LAYERS = 8
 # the NF4 store of the MoE train phases: two codes a byte (base 26.7 GB
 # in place of 49.9 GB with int8 codes)
 MOE_STORE = "uint4"
@@ -4867,11 +4892,12 @@ class _MoeProbe:
                                        device=self.dev)
 
         def probed(x, router_w, w_gate, w_up, w_down, cfg, dtype,
-                   weights=None):
+                   weights=None, mesh=None):
             y, aux = orig(x, router_w, w_gate, w_up, w_down, cfg, dtype,
-                          weights=weights)
+                          weights=weights, mesh=mesh)
             with torch.no_grad():
-                r = moe.route(x, router_w, cfg)
+                r = moe.route(x, router_w, cfg,
+                              context=moe.context_group(mesh))
                 real = (torch.ones_like(r.keep) if weights is None else
                         (weights > 0)[..., None].expand_as(r.keep))
                 sums[0] += r.keep.sum()
@@ -5003,8 +5029,8 @@ def _moe_groups(events):
 
 
 def phase_train_moe(dev, cfg=None, steps: int = MOE_STEPS):
-    """Mixtral-8x7B QLoRA at full width and depth (32 layers, d_model
-    4,096, 8 experts top 2, d_ff 14,336, vocab 32,000) with
+    """Mixtral-8x7B QLoRA at full width (d_model 4,096, 8 experts top 2,
+    d_ff 14,336, vocab 32,000), ``MOE_LAYERS`` of its 32 layers, with
     ray-jobs/fine_tune_config_mixtral.json's settings through
     ``run_training`` (the train phase's ``_drive``): NF4 base from seed 0
     with ``QUANT_STORE=uint4``, quantized one expert slice at a time, LoRA
@@ -5013,11 +5039,13 @@ def phase_train_moe(dev, cfg=None, steps: int = MOE_STEPS):
     cosine, clip 0.3, on the offline SQL rows through the prefetcher,
     under TRANSFER_GUARD=disallow. One warm-up and ``steps`` timed steps,
     an eval pass of ``MOE_EVAL_ROWS`` held-out rows after step 3; per
-    step the flash forward 2 x 32 x 8 times, dQ and dK/dV 32 x 8. The
-    job's v5e-16 mesh (MESH_FSDP 4, MESH_MODEL 4) becomes one card."""
+    step the flash forward 2 x n_layers x 8 times, dQ and dK/dV
+    n_layers x 8. The job's v5e-16 mesh (MESH_FSDP 4, MESH_MODEL 4)
+    becomes one card."""
     with _quant_store(MOE_STORE):
-        return phase_train(dev, cfg, steps, config=MIXTRAL_CONFIG,
-                           phase="train_moe", n_eval=MOE_EVAL_ROWS)
+        return phase_train(dev, cfg or _mixtral_cfg(MOE_LAYERS), steps,
+                           config=MIXTRAL_CONFIG, phase="train_moe",
+                           n_eval=MOE_EVAL_ROWS)
 
 
 def phase_train_moe_profile(dev, cfg=None):
@@ -5180,6 +5208,485 @@ def phase_serve_moe(dev, cfg=None):
 # ---------------------------------------------------------------------------
 # optional phase: profile (not run by default)
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# expert parallelism: Mixtral's experts over `model`
+# ---------------------------------------------------------------------------
+
+# train_ep: the Mixtral job (train_moe's model, NF4 uint4, the job's LoRA
+# r 64 on attention, the offline SQL rows) at full width cut to 4 layers,
+# first in this process, then as two ranks of this card at fsdp 1 x
+# model 2 over gloo: 4 experts a rank, attention on 16 of 32 query and 4
+# of 8 KV heads; its bf16 streams within MESH_MULTI_RTOL of one process,
+# the same job in fp32 (TF32 off) at EP_PARITY_LAYERS within
+# MESH_LOSS_RTOL, then a cached greedy decode in fp32 whose tokens equal
+# one process's
+EP_LAYERS = 4
+EP_PARITY_LAYERS = 2
+EP_MODEL = 2
+# the job's grad-accum 8 cut to 2, 1 + 2 steps: a gloo microbatch makes
+# ~50 host-staged collectives on one card
+EP_STEPS = 2
+EP_PLAN = {"fused_ops": True, "grad_accum": 2}
+EP_TIMEOUT_S = 600
+# the fp32 decode: two prompts of these lengths in a 512 bucket
+EP_DECODE = {"plens": (100, 300), "bucket": 512, "new": 16}
+# train_ep_multi on the four-card host: the job at full depth on fsdp 1 x
+# model 4 (2 experts a rank) against one card at full depth, and fsdp 2 x
+# model 2 at 8 layers against one card at 8, each in bf16 with the job's
+# grad-accum 8 (the timed runs) and in fp32 (TF32 off) with grad-accum 2
+# (the held runs); the entry under torchrun at MESH_MODEL 4 (the
+# config's own layout is fsdp 4 x model 4 on 16 chips), 4 layers.
+# {run: (mesh, layers or None for the full 32, dtype)}
+EP_MULTI_RUNS = {"model4": (dict(fsdp=1, model=4), None, "bfloat16"),
+                 "model4_fp32": (dict(fsdp=1, model=4), None, "float32"),
+                 "fsdp2_model2": (dict(fsdp=2, model=2), 8, "bfloat16"),
+                 "fsdp2_model2_fp32": (dict(fsdp=2, model=2), 8,
+                                       "float32")}
+EP_MULTI_PLAN = {"bfloat16": {"fused_ops": True},
+                 "float32": {"fused_ops": True, "grad_accum": 2}}
+# the run whose ranks take the one card's routing decisions (``_routing``)
+EP_MULTI_FORCED = "model4_fp32"
+EP_MULTI_TIMEOUT_S = 1500
+EP_MULTI_ENTRY = {"MESH_FSDP": 1, "MESH_MODEL": 4}
+
+
+def _mixtral_cfg(n_layers=None, dtype="bfloat16"):
+    """The Mixtral job's MODEL_ID preset at full width (``n_layers``
+    deep, or its 32), remat on, at the job's MAX_SEQ_LENGTH."""
+    return _llama_cfg(MIXTRAL_CONFIG, n_layers or 32, dtype=dtype,
+                      param_dtype=dtype)
+
+
+@contextlib.contextmanager
+def _flash_heads(rec):
+    """While entered, the (query, KV) heads of each attention call of
+    the train path into ``rec["heads"]`` (as a set)."""
+    from gke_ray_train_tpu_torch.ops import dispatch
+    orig = dispatch.attention_dispatch
+    rec["heads"] = set()
+
+    def attend(impl, q, k, *a, **kw):
+        rec["heads"].add((int(q.shape[2]), int(k.shape[2])))
+        return orig(impl, q, k, *a, **kw)
+    dispatch.attention_dispatch = attend
+    try:
+        yield rec
+    finally:
+        dispatch.attention_dispatch = orig
+        rec["heads"] = sorted(rec["heads"])
+
+
+def _ep_run(dev, cfg, mesh, steps=EP_STEPS, plan=None, rows=None):
+    """``_tp_rank_run`` of the Mixtral job (uint4 codes, dropout 0) at
+    ``cfg``: its record, launches, the heads each flash call ran on and
+    the experts a rank holds of each bank (the local leading dim).
+    ``rows`` (count, index): this batch rank's rows, each its own
+    microbatch."""
+    from gke_ray_train_tpu_torch.parallel.sharding import local
+    held = {}
+
+    def keep(state):
+        blk = state.params.blocks[0]
+        held.update({k: int(local(getattr(blk, k).codes).shape[0])
+                     for k in ("w_gate", "w_up", "w_down")})
+    with _quant_store(MOE_STORE), _flash_heads({}) as rec:
+        r, launches = _tp_rank_run(dev, cfg, mesh, 0.0, steps,
+                                   config=MIXTRAL_CONFIG,
+                                   plan=plan or EP_PLAN, rows=rows,
+                                   one_row=rows is not None, keep=keep)
+    r.update(heads=rec["heads"], experts_held=held)
+    return r, launches
+
+
+def _ep_prompts(vocab):
+    r = np.random.default_rng(23)
+    buf = np.zeros((len(EP_DECODE["plens"]), EP_DECODE["bucket"]), np.int32)
+    for i, n in enumerate(EP_DECODE["plens"]):
+        buf[i, :n] = r.integers(1, vocab, n)
+    return buf
+
+
+def _ep_decode(dev, cfg, mesh):
+    """fp32 (TF32 off): a cached greedy decode of ``EP_DECODE`` on the
+    Mixtral base from seed 0 (uint4 codes), sharded over ``mesh`` when
+    given: the tokens written after each prompt, the seconds."""
+    import torch
+    from gke_ray_train_tpu_torch.models import init_quantized_params
+    from gke_ray_train_tpu_torch.models.kvcache import (
+        greedy_generate_cached)
+    from gke_ray_train_tpu_torch.parallel.sharding import shard_model
+    with _quant_store(MOE_STORE), _tf32_off():
+        params = init_quantized_params(cfg, seed=0, device=dev, mesh=mesh)
+        if mesh is not None:
+            params = shard_model(params, mesh)
+        prompt = torch.as_tensor(_ep_prompts(cfg.vocab_size), device=dev)
+        plen = torch.as_tensor(EP_DECODE["plens"], dtype=torch.int32,
+                               device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = greedy_generate_cached(params, prompt, plen, cfg,
+                                     max_new_tokens=EP_DECODE["new"],
+                                     device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    new = [out[i, n:n + EP_DECODE["new"]].tolist()
+           for i, n in enumerate(EP_DECODE["plens"])]
+    del params
+    _release()
+    return {"tokens": new, "seconds": wall}
+
+
+def _ep_allreduce_bytes(cfg, mb_rows, seq, grad_accum):
+    """Bytes a rank all-reduces over ``model`` in a train step, from the
+    shapes, per microbatch: each layer's attention output (the
+    row-parallel partial sums, in the compute dtype) and its MoE output
+    (the experts' partial combine, fp32) in the forward and again in the
+    recomputation under remat; in the backward the gradients of the
+    attention input and of the dispatched MoE input (compute dtype) and
+    of the per-slot gates; the embedding's rows and the fused loss's dx,
+    and its row statistics (3 fp32 a token)."""
+    import torch
+    es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    tok = mb_rows * seq
+    runs = 2 if cfg.remat else 1
+    per_layer = tok * (cfg.d_model * (runs * es + runs * 4 + 2 * es)
+                       + cfg.expert_top_k * es)
+    return grad_accum * (per_layer * cfg.n_layers
+                         + 2 * tok * cfg.d_model * es + 3 * 4 * tok)
+
+
+def _ep_buffer_bytes(cfg, seq=4096):
+    """A rank's MoE buffers for one row of ``seq`` tokens, from the
+    shapes (``ops/moe.py``), in the compute dtype: the dispatched input
+    ``[E / model, 1, C, d_model]`` and the gate and up products ``[E /
+    model, 1, C, d_ff]`` each, at model 1 and 2; C is the whole row's
+    capacity whatever the context size (a context rank's tokens take
+    their global positions), where routing each shard on its own took
+    ``expert_capacity(cfg, seq / context)``."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.moe import expert_capacity
+    es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    C = expert_capacity(cfg, seq)
+    out = {"seq": seq, "capacity": C, "shard_capacity": {
+        c: expert_capacity(cfg, seq // c) for c in (2, 4)}}
+    for m in (1, EP_MODEL):
+        n = cfg.n_experts // m
+        out[f"model{m}"] = {"input": n * C * cfg.d_model * es,
+                            "gate_up_each": n * C * cfg.d_ff * es}
+    return out
+
+
+def _ep_worker(out_path):
+    """One of train_ep's two ranks on the one card (env: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
+    tensors, the fsdp 1 x model 2 mesh, the collectives probed
+    (``TP_PROBE``); where those the path makes run, the Mixtral job at
+    ``EP_LAYERS`` layers (1 + ``EP_STEPS`` steps), at
+    ``EP_PARITY_LAYERS`` in fp32, and the fp32 decode."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1, model=EP_MODEL),
+                          device_type="cuda")
+        rec["probe"] = _tp_probe(dev, mesh)
+        if all(rec["probe"][k] == "ok" for k, need in TP_PROBE.items()
+               if need):
+            torch.cuda.reset_peak_memory_stats()
+            rec["run"], rec["launches"] = _ep_run(
+                dev, _mixtral_cfg(EP_LAYERS), mesh)
+            cfg32 = _mixtral_cfg(EP_PARITY_LAYERS, dtype="float32")
+            with _tf32_off():
+                rec["fp32_run"], _ = _ep_run(dev, cfg32, mesh)
+            rec["decode"] = _ep_decode(dev, cfg32, mesh)
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _ep_hold(name, run, cfg, model, problems):
+    """A rank's run: launches per step as one process's (rows 1-3 on
+    this rank's heads), the heads and the experts it holds."""
+    heads = [(cfg.n_heads // model, cfg.n_kv_heads // model)]
+    if run["launches_per_step"] != run["want_launches"]:
+        problems.append(f"{name} launches per step "
+                        f"{run['launches_per_step']} != "
+                        f"{run['want_launches']}")
+    if [tuple(h) for h in run["heads"]] != heads:
+        problems.append(f"{name} flash heads {run['heads']} != {heads}")
+    if set(run["experts_held"].values()) != {cfg.n_experts // model}:
+        problems.append(f"{name} experts held {run['experts_held']}")
+
+
+def phase_train_ep(dev):
+    """Expert parallelism on the one-card host: the Mixtral job
+    (ray-jobs/fine_tune_config_mixtral.json: NF4 uint4 base, LoRA r 64 on
+    attention, the offline SQL rows; FUSED_OPS=1, grad-accum cut to 2)
+    at full width cut to ``EP_LAYERS`` layers, first in this process,
+    then as two ranks of this card at fsdp 1 x model 2 over gloo
+    (``_ep_worker``), whose collectives are probed first. Where they
+    run: each rank holds 4 of 8 experts of every bank; both ranks'
+    losses and grad_norms of 1 + 2 steps within MESH_MULTI_RTOL of this
+    process's; per step the launches of the one-process step, flash on
+    16 of 32 query and 4 of 8 KV heads; then the job in fp32 (TF32 off)
+    at 2 layers within MESH_LOSS_RTOL; then a cached greedy decode of
+    two prompts in fp32 whose tokens equal one process's. The line
+    carries a rank's p50, peak memory and the bytes it all-reduces a
+    step (from the shapes)."""
+    import tempfile
+    cfg = _mixtral_cfg(EP_LAYERS)
+    cfg32 = _mixtral_cfg(EP_PARITY_LAYERS, dtype="float32")
+    ref, _ = _ep_run(dev, cfg, None)
+    with _tf32_off():
+        ref32, _ = _ep_run(dev, cfg32, None)
+    ref_decode = _ep_decode(dev, cfg32, None)
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ep_"), "rank")
+    hung, rcs, ranks = _spawn_ranks("--ep-worker", out, EP_MODEL,
+                                    [0] * EP_MODEL, EP_TIMEOUT_S)
+    problems, line = [], {"phase": "train_ep", "nvidia_smi":
+                          nvidia_smi_line(), "model": cfg.name,
+                          "n_layers": cfg.n_layers, "mesh": {
+                              "data": 1, "fsdp": 1, "model": EP_MODEL},
+                          "backend": "gloo", "ranks_on_one_card": EP_MODEL,
+                          "quant_store": MOE_STORE,
+                          "cut": f"{EP_LAYERS} of 32 layers (fp32 at "
+                          f"{EP_PARITY_LAYERS}), grad-accum 2 of 8, 1 + "
+                          f"{EP_STEPS} steps", "one_process": ref,
+                          "one_process_fp32": ref32,
+                          "one_process_decode": ref_decode}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    probe = ranks[0].get("probe", {}) if ranks[0] else {}
+    missing = {k: v for k, v in probe.items()
+               if v != "ok" and TP_PROBE[k]}
+    line["probe"] = probe
+    launches = None
+    if not problems and missing:
+        problems.append("gloo misses " + ", ".join(sorted(missing)))
+    elif not problems:
+        line["ranks"] = ranks
+        gaps = {}
+        for r in ranks:
+            name = f"rank {r['rank']}"
+            gaps[r["rank"]] = {
+                "bf16": _hold_streams(name, r["run"], ref, MESH_MULTI_RTOL,
+                                      problems),
+                "fp32": _hold_streams(name + " fp32", r["fp32_run"], ref32,
+                                      MESH_LOSS_RTOL, problems)}
+            _ep_hold(name, r["run"], cfg, EP_MODEL, problems)
+            _ep_hold(name + " fp32", r["fp32_run"], cfg32, EP_MODEL,
+                     problems)
+            if r["decode"]["tokens"] != ref_decode["tokens"]:
+                problems.append(f"{name} fp32 decode tokens "
+                                f"{r['decode']['tokens']} != "
+                                f"{ref_decode['tokens']}")
+        mb = int(ref["tokens"] // ref["grad_accum"] // cfg.max_seq_len)
+        line.update(rel_gaps=gaps, tol_rel={"bf16": MESH_MULTI_RTOL,
+                                            "fp32": MESH_LOSS_RTOL},
+                    allreduce_bytes_per_step=_ep_allreduce_bytes(
+                        cfg, mb, cfg.max_seq_len, ref["grad_accum"]),
+                    expert_buffer_bytes=_ep_buffer_bytes(cfg),
+                    p50_ratio=[r["run"]["step_s_p50"] / ref["step_s_p50"]
+                               for r in ranks])
+        launches = {}
+        for r in ranks:
+            for k, n in r["launches"].items():
+                if n:
+                    launches[k] = launches.get(k, 0) + n
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_ep phase failed: " + "; ".join(problems))
+    return launches
+
+
+@contextlib.contextmanager
+def _routing(record=None, forced=None, flips=None):
+    """While entered, each ``ops.moe.route`` call, in call order: with
+    ``record`` (a list) its decisions (expert, position, keep) appended,
+    copied to the host; with ``forced`` (such a list from another run)
+    its decisions replaced by the recorded ones (the gates taken from
+    this call's router probabilities at the recorded experts and
+    renormalised, the aux its own) and, into ``flips``, the count of
+    (token, slot) assignments this call would have decided otherwise. A
+    run held against another under the same routing compares the
+    dispatch, experts and combine free of top-k flips: at random weights
+    the router's top 2 of 8 sit near ties, and the rounding of sums
+    taken in another order moves a token to another expert."""
+    import torch
+    from gke_ray_train_tpu_torch.ops import moe
+    if record is None and forced is None:
+        yield
+        return
+    orig = moe.route
+    calls = []
+
+    def route(x, router_w, cfg, weights=None, context=None):
+        r = orig(x, router_w, cfg, weights, context=context)
+        i = len(calls)
+        calls.append(i)
+        if record is not None:
+            record.append(tuple(t.cpu() for t in (r.expert, r.pos, r.keep)))
+            return r
+        e, p, k = (t.to(x.device) for t in forced[i])
+        flips.append(((e != r.expert) | (k != r.keep)).sum())
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        gate = torch.gather(probs, -1, e)
+        return moe.Routing(gate / torch.sum(gate, dim=-1, keepdim=True),
+                           e, p, k, r.aux)
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
+def _ep_multi_run(dev, layers, dtype, mesh=None, rows=None, **routing):
+    """One run of ``EP_MULTI_RUNS`` (fp32 with TF32 off), under
+    ``_routing(**routing)``."""
+    with contextlib.ExitStack() as stack:
+        if dtype == "float32":
+            stack.enter_context(_tf32_off())
+        stack.enter_context(_routing(**routing))
+        return _ep_run(dev, _mixtral_cfg(layers, dtype), mesh,
+                       plan=EP_MULTI_PLAN[dtype], rows=rows)
+
+
+def _ep_multi_worker(out_path):
+    """One rank of train_ep_multi (NCCL, one card a rank): the Mixtral
+    job of each of ``EP_MULTI_RUNS``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    from gke_ray_train_tpu_torch.parallel.placement import (
+        input_shard_layout)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world,
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        for key, (kw, layers, dtype) in EP_MULTI_RUNS.items():
+            mesh = build_mesh(MeshConfig(**kw))
+            torch.cuda.reset_peak_memory_stats()
+            rows = input_shard_layout(mesh)
+            routing = {}
+            if key == EP_MULTI_FORCED:
+                routing = dict(forced=torch.load(out_path + ".routing.pt"),
+                               flips=[])
+            r, launches = _ep_multi_run(dev, layers, dtype, mesh,
+                                        rows if rows[0] > 1 else None,
+                                        **routing)
+            if routing:
+                per = len(routing["flips"]) // (EP_STEPS + 1)
+                r["routing_flips_per_step"] = [
+                    int(sum(routing["flips"][i:i + per]))
+                    for i in range(0, len(routing["flips"]), per)]
+            r["tokens_per_s_per_card"] = r["tokens"] / r["step_s_p50"] / world
+            r["allreduce_bytes_per_step"] = _ep_allreduce_bytes(
+                _mixtral_cfg(layers, dtype), 1, 1024, r["grad_accum"])
+            rec[key] = r
+            rec.setdefault("launches", {})[key] = launches
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_train_ep_multi(dev):
+    """Opt-in, the four-card host (fewer than 4 cards fails). One card
+    first: the Mixtral job (FUSED_OPS=1) at full depth and at 8 layers,
+    in bf16 with the job's grad-accum 8 and in fp32 (TF32 off) with
+    grad-accum 2. Then one rank a card over NCCL (``_ep_multi_worker``):
+    fsdp 1 x model 4 at full depth (2 experts a rank, flash on 8 of 32 /
+    2 of 8 heads) and fsdp 2 x model 2 at 8 layers, each in both dtypes:
+    fp32 each step's loss and grad_norm within MESH_LOSS_RTOL of the one
+    card's, at full depth under the one card's routing decisions
+    (``_routing``: the ranks count the assignments they would have
+    decided otherwise, reported as ``routing_flips_per_step``); bf16 each
+    loss within MESH_MULTI_RTOL, its grad_norm gap reported, not held
+    (at random weights the router's top 2 of 8 sit near ties, and the
+    rounding of the row-parallel attention sums moves tokens between
+    experts: on H100s the bf16 gap grew with depth, 0.8% at 4 layers,
+    1.8% at 8, 6% at 32); per card p50, tokens/s, peak memory and the
+    bytes
+    all-reduced a step. Last the entry under torchrun on the Mixtral job
+    at MESH_FSDP 1 x MESH_MODEL 4, 4 layers, uint4 (``_multi_entry``):
+    every rank exits 0 and the sharded export, each bank written by the
+    ranks that hold its experts, converts to finite tensors."""
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    emit({"phase": "train_ep_multi_devices", "ok": n >= 4,
+          "device_count": n, "nvidia_smi": nvidia_smi_line()})
+    if n < 4:
+        raise SystemExit(f"train_ep_multi needs 4 cards; this host has {n}")
+    refs, record = {}, []
+    for key, (_, layers, dtype) in EP_MULTI_RUNS.items():
+        torch.cuda.reset_peak_memory_stats()
+        refs[key], _ = _ep_multi_run(
+            dev, layers, dtype,
+            record=record if key == EP_MULTI_FORCED else None)
+    torch.cuda.empty_cache()
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ep_multi_"),
+                       "rank")
+    torch.save(record, out + ".routing.pt")
+    hung, rcs, ranks = _spawn_ranks("--ep-multi-worker", out, n,
+                                    list(range(n)), EP_MULTI_TIMEOUT_S)
+    problems, gaps = [], {}
+    line = {"phase": "train_ep_multi", "nvidia_smi": nvidia_smi_line(),
+            "world": n, "one_card": refs, "quant_store": MOE_STORE,
+            "cut": {"model4": "full depth, 1 + 2 steps (fp32: grad-accum "
+                    "2)", "fsdp2_model2": "8 of 32 layers, 1 + 2 steps",
+                    "entry": "MESH_FSDP 1 x MESH_MODEL 4 (the config's "
+                    "fsdp 4 x model 4 needs 16 cards), 4 layers"}}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+    else:
+        for r in ranks:
+            name = f"rank {r['rank']}"
+            gaps[r["rank"]] = {}
+            for k, (kw, layers, dtype) in EP_MULTI_RUNS.items():
+                # fp32 holds both streams; bf16 the losses, its grad_norm
+                # gap reported (module doc of phase_train_ep_multi)
+                fp32 = dtype == "float32"
+                gaps[r["rank"]][k] = _hold_streams(
+                    f"{name} {k}", r[k], refs[k],
+                    MESH_LOSS_RTOL if fp32 else MESH_MULTI_RTOL, problems,
+                    held=("losses", "grad_norms") if fp32 else ("losses",))
+                _ep_hold(f"{name} {k}", r[k], _mixtral_cfg(layers, dtype),
+                         kw["model"], problems)
+    line.update(ranks=ranks, rel_gaps=gaps,
+                tol_rel={"bfloat16": MESH_MULTI_RTOL,
+                         "float32": MESH_LOSS_RTOL})
+    with _quant_store(MOE_STORE):
+        entry, entry_problems = _multi_entry(n, EP_MULTI_ENTRY,
+                                             path=MIXTRAL_CONFIG)
+    problems += entry_problems
+    line.update(entry=entry, ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_ep_multi phase failed: "
+                         + "; ".join(problems))
+    launches = {}
+    for r in ranks:
+        for per in r["launches"].values():
+            for k, v in per.items():
+                if v:
+                    launches[k] = launches.get(k, 0) + v
+    return launches
+
 
 def phase_profile(dev, steps: int = 10):
     """Where a decode iteration's time goes at the serve phase's model:
@@ -5992,9 +6499,13 @@ def phase_entry_moe(dev):
 # / 8,192 ff, seq 256, 16 rows a step, bf16 over fp32 masters) on the
 # synthetic corpus, cut to this many steps, a log line every step
 PRETRAIN_STEPS = 8
-# the fault drill's depth cut: two kept saves of the 24-layer state (fp32
-# params and two moments, 12 bytes a parameter) would be ~19 GB each
-PRETRAIN_DRILL_LAYERS = 6
+# run A's depth cut: its one save of the 24-layer state (fp32 params and
+# two moments, 12 bytes a parameter) would write ~19 GB
+PRETRAIN_LAYERS = 8
+# the fault drill's: a save every 2 steps, two of them kept
+PRETRAIN_DRILL_LAYERS = 2
+# pretrain_multi's runs (fsdp 4: a rank writes a quarter of each save)
+PRETRAIN_MULTI_LAYERS = 6
 PRETRAIN_DRILL_EVERY = 2
 PRETRAIN_DRILL_SPEC = "kind=kill:step=5;kind=sigterm:step=7"
 # the retried attempts' peak memory against the first attempt's
@@ -6334,9 +6845,9 @@ def _pretrain_launches(cfg, rec, prefills=0):
 def phase_pretrain(dev):
     """``gke_ray_train_tpu_torch/pretrain.py``'s worker through
     ``TorchTrainer.fit()`` on the card (module doc, 21): run A at full
-    width and depth with SERVE_AFTER_TRAIN, then the fault drill at the
-    cut depth, A' uninterrupted against B under ``PRETRAIN_DRILL_SPEC``
-    with one failure allowed."""
+    width and ``PRETRAIN_LAYERS`` deep with SERVE_AFTER_TRAIN, then the
+    fault drill at ``PRETRAIN_DRILL_LAYERS``, A' uninterrupted against B
+    under ``PRETRAIN_DRILL_SPEC`` with one failure allowed."""
     import shutil
     import tempfile
     import torch
@@ -6350,7 +6861,8 @@ def phase_pretrain(dev):
     root = tempfile.mkdtemp(prefix="chip_smoke_pretrain_")
     problems = []
     try:
-        config = _pretrain_config(root, SERVE_AFTER_TRAIN=True)
+        config = _pretrain_config(root, n_layers=PRETRAIN_LAYERS,
+                                  SERVE_AFTER_TRAIN=True)
         # the char vocab is the corpus's: sized here for the disk check
         # with the widest vocab a byte corpus could give
         full = basic_lm(256, d_model=config["d_model"],
@@ -6562,7 +7074,7 @@ def phase_pretrain_multi(dev):
                            f"{PRETRAIN_MULTI_KILL_STEP}"),
                 ("R", "k", None)):
             config = _pretrain_config(
-                root, n_layers=PRETRAIN_DRILL_LAYERS, run_name=run_name,
+                root, n_layers=PRETRAIN_MULTI_LAYERS, run_name=run_name,
                 max_samples=rows, MESH_FSDP=PRETRAIN_MULTI_RANKS)
             cfg_path = os.path.join(root, f"{label}.json")
             with open(cfg_path, "w") as f:
@@ -6618,7 +7130,7 @@ def phase_pretrain_multi(dev):
         emit({"phase": "pretrain_multi", "ok": not problems,
               "problems": problems, "nvidia_smi": nvidia_smi_line(),
               "ranks": PRETRAIN_MULTI_RANKS,
-              "n_layers": PRETRAIN_DRILL_LAYERS,
+              "n_layers": PRETRAIN_MULTI_LAYERS,
               "kill_during_commit_step": k})
         if problems:
             raise SystemExit("pretrain_multi failed: " + "; ".join(problems))
@@ -7366,12 +7878,12 @@ PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train_fused_ce_profile", "train_moe_profile", "entry_full",
           "train_mesh_multi", "train_tp_multi", "pretrain",
           "pretrain_multi", "train_cp_multi", "serve_mesh",
-          "serve_mesh_multi")
+          "serve_mesh_multi", "train_ep", "train_ep_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
                  "train_tp_multi", "pretrain_multi", "train_cp_multi",
-                 "serve_mesh_multi")
+                 "serve_mesh_multi", "train_ep_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -7477,12 +7989,16 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--serve-entry-worker", nargs=2,
                     metavar=("CONFIG", "OUT"), help=argparse.SUPPRESS)
+    ap.add_argument("--ep-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--ep-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
                "tp_multi_worker": _tp_multi_worker, "cp_worker": _cp_worker,
                "cp_multi_worker": _cp_multi_worker,
                "serve_mesh_worker": _serve_mesh_worker,
-               "serve_multi_worker": _serve_multi_worker}
+               "serve_multi_worker": _serve_multi_worker,
+               "ep_worker": _ep_worker, "ep_multi_worker": _ep_multi_worker}
     if args.entry_worker or args.pretrain_worker or \
             args.serve_entry_worker or any(getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
@@ -7564,6 +8080,7 @@ def main(argv=None) -> int:
     add(run("train_tp", phase_train_tp))
     add(run("train_cp", phase_train_cp))
     add(run("serve_mesh", phase_serve_mesh))
+    add(run("train_ep", phase_train_ep))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -7582,6 +8099,7 @@ def main(argv=None) -> int:
     run("pretrain_multi", phase_pretrain_multi)
     add(run("train_cp_multi", phase_train_cp_multi))
     add(run("serve_mesh_multi", phase_serve_mesh_multi))
+    add(run("train_ep_multi", phase_train_ep_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -14,8 +14,9 @@ at a time:
         [--step N] [--dtype bfloat16] [--model-config path.json]
 
 The export holds per-layer tensors (``blocks.<i>.<key>``, an expert bank
-whole), each as ``save_hf_checkpoint`` holds it before its cast (a QLoRA
-projection dequantized and merged in fp32), and the converter writes
+whole, written in parts by the ranks that hold its experts), each as
+``save_hf_checkpoint`` holds it before its cast (a QLoRA projection
+dequantized and merged in fp32), and the converter writes
 them in ``save_hf_checkpoint``'s order: the converted directory equals a
 one-card export of the same weights bitwise.
 """
@@ -78,31 +79,64 @@ def _whole(w):
 
 
 def export_tensors(params, cfg, *, lora=None, lora_scale: float = 1.0
-                   ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(key, tensor) of the merged model, one unit gathered at a time
-    (over ``model`` too: every rank then holds each tensor whole):
+                   ) -> Iterator[Tuple[str, torch.Tensor, object]]:
+    """(key, tensor, experts) of the merged model, one unit gathered at a
+    time (over ``model`` too: every rank then holds each tensor whole):
     ``embed``, ``final_norm``, ``lm_head``, then ``blocks.<i>.<key>`` in
-    the HF writer's order (an MoE bank dequantized whole)."""
+    the HF writer's order (an MoE bank dequantized). ``experts`` is None
+    for a whole tensor; for a bank sharded over ``model`` (expert
+    parallelism) the tensor is this rank's experts only and ``experts``
+    the axis (``parallel/tensor.py::TensorParallel``): a bank is never
+    gathered over ``model``."""
     from gke_ray_train_tpu_torch.ckpt.hf_io import (
         _EXPERT_HF, _hf_layer_names, merged_weight)
     from gke_ray_train_tpu_torch.ops.quant import dequantize, is_qtensor
+    from gke_ray_train_tpu_torch.parallel.tensor import local_weight, tp_of
     with _gathered(params):
-        yield "embed", _whole(params.embed)
-        yield "final_norm", params.final_norm
+        yield "embed", _whole(params.embed), None
+        yield "final_norm", params.final_norm, None
         if params.lm_head is not None:
-            yield "lm_head", _whole(params.lm_head)
+            yield "lm_head", _whole(params.lm_head), None
     for i, blk in enumerate(params.blocks):
         adapters = lora[i] if lora is not None else {}
         with _gathered(blk):
             for key in _hf_layer_names(cfg, i):
                 yield f"blocks.{i}.{key}", merged_weight(
                     _whole(getattr(blk, key)), adapters.get(key),
-                    lora_scale)
+                    lora_scale), None
             for key in _EXPERT_HF if cfg.n_experts else ():
                 bank = getattr(blk, key)
+                experts, bank = tp_of(bank), local_weight(bank)
                 yield f"blocks.{i}.{key}", (
                     dequantize(bank, torch.float32) if is_qtensor(bank)
-                    else bank)
+                    else bank), experts
+
+
+def _expert_mesh(experts):
+    """The host mesh a bank sharded over ``model`` is saved on: (model,
+    the rest), each row the world ranks of one model rank in rank order
+    (every rank enters: the model ranks are gathered)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, experts.rank)
+    grid = [[w for w, m in enumerate(ranks) if m == r]
+            for r in range(experts.size)]
+    return DeviceMesh("cpu", torch.tensor(grid),
+                      mesh_dim_names=("model", "rest"))
+
+
+def _expert_part(t: torch.Tensor, mesh, shape) -> torch.Tensor:
+    """This rank's experts ``t`` as its block of the bank of global
+    ``shape`` on the (model, rest) host mesh: its own experts (dim 0 over
+    model), cut on dim 1 over the rest, in host memory."""
+    from torch.distributed.tensor import DTensor, Shard
+    n, j = mesh.size(1), mesh.get_local_rank(1)
+    part = torch.chunk(t, n, dim=1)[j].to("cpu", copy=True)
+    return DTensor.from_local(part, mesh, [Shard(0), Shard(1)],
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
 
 
 @torch.no_grad()
@@ -113,7 +147,9 @@ def save_export(params, cfg, export_dir: str, step: int, *, lora=None,
     Every rank calls it: across ranks each tensor, whole on every rank
     once its unit is gathered over fsdp and model, is cut into the
     world's row blocks (a DTensor sharded on dim 0 over a host mesh), so
-    each rank writes its part; in one process the tensors are saved
+    each rank writes its part; an expert bank sharded over ``model`` is
+    not gathered over it: each rank writes a part of its own experts (a
+    host mesh of model × the rest). In one process the tensors are saved
     whole.
     What is saved is copied to host memory as each unit is gathered, so
     the card holds one gathered unit at a time. Returns ``{"tensors": n,
@@ -122,7 +158,7 @@ def save_export(params, cfg, export_dir: str, step: int, *, lora=None,
     from gke_ray_train_tpu_torch.ckpt.manager import CheckpointManager
     world = dist.get_world_size() if (dist.is_available()
                                       and dist.is_initialized()) else 1
-    mesh = None
+    mesh = emesh = None
     if world > 1:
         from torch.distributed.device_mesh import init_device_mesh
         # a host mesh over the world's group: the parts stay in host
@@ -131,10 +167,15 @@ def save_export(params, cfg, export_dir: str, step: int, *, lora=None,
         mesh = init_device_mesh("cpu", (world,))
     flat: Dict[str, torch.Tensor] = {}
     nbytes = 0
-    for key, t in export_tensors(params, cfg, lora=lora,
-                                 lora_scale=lora_scale):
+    for key, t, experts in export_tensors(params, cfg, lora=lora,
+                                          lora_scale=lora_scale):
         t = t.detach()
-        if mesh is not None:
+        if experts is not None:
+            emesh = emesh or _expert_mesh(experts)
+            t = _expert_part(t, emesh, (experts.size * t.shape[0],)
+                             + tuple(t.shape[1:]))
+            nbytes += t.to_local().numel() * t.to_local().element_size()
+        elif mesh is not None:
             from torch.distributed.tensor import DTensor, Shard
             part = torch.chunk(t, world, dim=0)[dist.get_rank()].to(
                 "cpu", copy=True)

@@ -50,9 +50,10 @@ and ``SERVE_AFTER_TRAIN`` run on the sharded model, every rank entering
 the generate and the engine, rank 0 writing the files (a full
 fine-tune's base is read back through :func:`load_pretrained`, sharded
 as at the start); ``SERVE_AFTER_TRAIN`` warns and skips on more than
-one node, as JAX's does. Not ported yet, each raising where the config
-asks for it: peer replication, the ``pipe`` mesh axis and an MoE model
-at ``MESH_MODEL`` above 1 (ROADMAP queue 1 item 8).
+one node, as JAX's does. An MoE model at ``MESH_MODEL`` above 1 shards
+its experts over ``model`` (expert parallelism, ``ops/moe.py``). Not
+ported yet, each raising where the config asks for it: peer replication
+and the ``pipe`` mesh axis (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -16,7 +16,13 @@ give the same weights, JAX ``qinit.py``'s sharding-invariant contract)
 and shards each block over ``fsdp`` as soon as its projections are
 quantized (``parallel/sharding.py::shard_unit``), so a rank keeps its
 shard of each block, and of the full-precision weights only the one
-projection being quantized.
+projection being quantized. Where ``model`` exceeds 1 an expert bank is
+sharded on its expert dim (expert parallelism): a rank still draws every
+expert in order, so the generator's stream and each expert's draw are
+those of one process, but rounds and quantizes only its own ``E /
+model`` experts, whose codes and scales become its shard of the bank
+(``parallel/sharding.py::place_local_experts``): bitwise one process's
+slices.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from gke_ray_train_tpu_torch.models.transformer import (
     Transformer, init_std, proj_shapes, torch_dtype)
 from gke_ray_train_tpu_torch.ops.quant import (
     DEFAULT_GROUP, QUANT_TARGETS, quantize_stacked, quantize_tensor)
-from gke_ray_train_tpu_torch.parallel.sharding import shard_unit
+from gke_ray_train_tpu_torch.parallel.mesh import AXIS_MODEL
+from gke_ray_train_tpu_torch.parallel.sharding import (
+    place_local_experts, shard_unit)
 
 
 @torch.no_grad()
@@ -70,6 +78,18 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
         if p is not None:
             p.fill_(0.0 if cfg.norm_scale_plus_one else 1.0)
 
+    # this rank's experts [first, first + n_local) of each bank under EP
+    n_local, first = cfg.n_experts, 0
+    if mesh is not None and mesh[AXIS_MODEL].size() > 1 and cfg.n_experts:
+        n_local = cfg.n_experts // mesh[AXIS_MODEL].size()
+        first = mesh[AXIS_MODEL].get_local_rank() * n_local
+
+    def expert_slices(shape, std: float):
+        for e in range(shape[0]):
+            w = draw(shape[1:], std)
+            if first <= e < first + n_local:
+                yield w.to(torch.bfloat16)
+
     model.embed.copy_(draw(model.embed.shape, 0.02))
     for blk in model.blocks:
         for p in (blk.attn_norm, blk.mlp_norm, blk.attn_post_norm,
@@ -84,8 +104,9 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
                 getattr(blk, name).copy_(draw(shape, std))
             elif len(shape) == 3:
                 setattr(blk, name, quantize_stacked(
-                    (draw(shape[1:], std).to(torch.bfloat16)
-                     for _ in range(shape[0])), kind, group))
+                    expert_slices(shape, std), kind, group))
+                if n_local < cfg.n_experts:
+                    place_local_experts(getattr(blk, name), mesh, shape[0])
             else:
                 setattr(blk, name, quantize_tensor(
                     draw(shape, std).to(torch.bfloat16), kind, group))

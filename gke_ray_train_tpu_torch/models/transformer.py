@@ -44,7 +44,10 @@ whose partial ``x_r A_r B`` joins the partial base product before the
 all-reduce (exact: the sum is linear). The embedding and the head are
 sharded on the vocab: the lookup is ``vocab_parallel_embedding``, and
 the logits (or, through the fused loss, the row statistics) are this
-rank's vocab shard.
+rank's vocab shard. On an MoE model ``model`` shards the expert banks on
+their expert dim (expert parallelism): a rank runs its ``E / model``
+experts on every token routed to them (``ops/moe.py``), beside the
+tensor-parallel attention.
 """
 
 from __future__ import annotations
@@ -456,10 +459,12 @@ def _layer(x, lp: Block, cfg: ModelConfig, impl: str, dtype, rope,
     h = norm(x, lp.mlp_norm)
     aux = None
     if cfg.n_experts:
-        # no adapter and no dropout on the routed expert bank, as in JAX
+        # no adapter and no dropout on the routed expert bank, as in JAX;
+        # under EP this rank's experts, over context the whole row's
+        # capacity and positions (ops/moe.py)
         from gke_ray_train_tpu_torch.ops import moe
         h, aux = moe.moe_mlp(h, lp.router, lp.w_gate, lp.w_up, lp.w_down,
-                             cfg, dtype, weights=token_weights)
+                             cfg, dtype, weights=token_weights, mesh=mesh)
     else:
         h = _mlp(h, lp, cfg, dtype, lora_p=lo, lora_scale=lora_scale,
                  drop_rate=drop_rate, drop_seed=drop_seed)

@@ -21,7 +21,11 @@ weight's ``model`` dim: the quantization groups run along the input dim,
 so a column-parallel weight shards both on dim 1 and a row-parallel one
 both on dim 0 (its scales ``[D / group, F]``, so ``D / model`` must
 divide by the group; uint4 packs two codes of one input row a byte,
-along the output dim, which a row-parallel cut leaves whole). Two
+along the output dim, which a row-parallel cut leaves whole). An MoE
+model's expert banks (``[E, d_in, d_out]``) shard on the expert dim over
+``model`` (expert parallelism), their codes and scales with them, and
+over ``fsdp`` on the bank's own ``fsdp`` dim; the router stays whole on
+every model rank, as JAX's ``P("fsdp", None)`` has it. Two
 departures, recorded in ROADMAP.md's known divergences: FSDP2 shards
 every parameter it manages, so the norms (and the biases off ``model``)
 that JAX replicates are sharded on dim 0; and where the ``fsdp`` dim
@@ -123,43 +127,60 @@ def fsdp_mesh(mesh):
     tokens give a part of every gradient), so FSDP2 sums their gradients
     over it as over ``data``."""
     if mesh[AXIS_CONTEXT].size() > 1:
-        return _context_hsdp_mesh(mesh)
+        root = _context_root(mesh)
+        return root if root.ndim == 2 else root["replicate", AXIS_FSDP]
     if mesh[AXIS_DATA].size() > 1:
         return mesh[AXIS_DATA, AXIS_FSDP]
     return mesh[AXIS_FSDP]
 
 
-def _context_hsdp_mesh(mesh):
+def model_mesh(mesh):
+    """The ``model`` submesh parameters sharded over ``model`` are
+    DTensors of: ``mesh``'s, or where ``context`` exceeds 1 the ``model``
+    dim of the mesh :func:`fsdp_mesh` slices (FSDP2 over TP takes both
+    meshes from one root)."""
+    if mesh[AXIS_CONTEXT].size() > 1 and mesh[AXIS_MODEL].size() > 1:
+        return _context_root(mesh)[AXIS_MODEL]
+    return mesh[AXIS_MODEL]
+
+
+def _context_root(mesh):
     """The (``replicate``, ``fsdp``) mesh whose replicate dim is
-    ``data`` × ``context`` (data-major), made once per mesh: a process
-    group for each replicate set (every rank makes every group, in one
-    order), this rank's with the mesh's own ``fsdp`` group as a 2-D
-    ``DeviceMesh`` (``DeviceMesh.from_group``: no slicing, whose rules
-    differ across torch releases). It is kept on the mesh object, so it
-    goes with the mesh."""
-    hsdp = getattr(mesh, "_context_hsdp", None)
-    if hsdp is None:
+    ``data`` × ``context`` (data-major), with a ``model`` dim after them
+    where ``model`` exceeds 1, made once per mesh: a process group for
+    each replicate set (every rank makes every group, in one order),
+    this rank's with the mesh's own ``fsdp`` (and ``model``) groups as a
+    ``DeviceMesh`` (``DeviceMesh.from_group``: torch 2.11's
+    ``DeviceMesh`` refuses to slice data × context). It is kept on the
+    mesh object, so it goes with the mesh."""
+    root = getattr(mesh, "_context_hsdp", None)
+    if root is None:
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
         from gke_ray_train_tpu_torch.parallel.mesh import MESH_AXES
         order = [MESH_AXES.index(a) for a in (
-            AXIS_MODEL, AXIS_PIPE, AXIS_FSDP, AXIS_DATA, AXIS_CONTEXT)]
-        ranks = mesh.mesh.permute(*order)    # [model, pipe, fsdp, data, ctx]
+            AXIS_PIPE, AXIS_DATA, AXIS_CONTEXT, AXIS_FSDP, AXIS_MODEL)]
+        ranks = mesh.mesh.permute(*order)    # [pipe, data, ctx, fsdp, model]
+        grid = ranks[mesh[AXIS_PIPE].get_local_rank()].reshape(
+            -1, ranks.shape[3], ranks.shape[4])  # [data*ctx, fsdp, model]
         me = dist.get_rank()
         mine = None
-        for row in ranks.reshape(-1, ranks.shape[3] * ranks.shape[4]
-                                 ).tolist():
+        for row in grid.permute(1, 2, 0).reshape(-1, grid.shape[0]).tolist():
             group = dist.new_group(row)
             if me in row:
                 mine = group
-        m = mesh[AXIS_MODEL].get_local_rank()
-        p = mesh[AXIS_PIPE].get_local_rank()
-        grid = ranks[m, p].reshape(ranks.shape[2], -1).T   # [data*ctx, fsdp]
-        hsdp = DeviceMesh.from_group(
-            [mine, mesh[AXIS_FSDP].get_group()], mesh.device_type,
-            mesh=grid.contiguous(), mesh_dim_names=("replicate", AXIS_FSDP))
-        mesh._context_hsdp = hsdp
-    return hsdp
+        groups = [mine, mesh[AXIS_FSDP].get_group()]
+        names = ("replicate", AXIS_FSDP)
+        if grid.shape[2] > 1:
+            groups.append(mesh[AXIS_MODEL].get_group())
+            names += (AXIS_MODEL,)
+        else:
+            grid = grid[..., 0]
+        root = DeviceMesh.from_group(groups, mesh.device_type,
+                                     mesh=grid.contiguous(),
+                                     mesh_dim_names=names)
+        mesh._context_hsdp = root
+    return root
 
 
 def _quant_tensors_as_params(module: nn.Module) -> None:
@@ -221,7 +242,7 @@ def _place_on_model(module: nn.Module, cfg: ModelConfig, mesh) -> None:
     Parameters that are already DTensors (a unit sharded before) are
     left as they are; a dim ``model`` does not divide raises."""
     from torch.distributed.tensor import DTensor, Shard
-    tp_mesh = mesh[AXIS_MODEL]
+    tp_mesh = model_mesh(mesh)
     m, r = tp_mesh.size(), tp_mesh.get_local_rank()
     for mod_name, mod in module.named_modules():
         for pname, p in list(mod.named_parameters(recurse=False)):
@@ -267,22 +288,37 @@ def shard_unit(module: nn.Module, cfg: ModelConfig, mesh, *,
 
 
 def check_model_on_mesh(cfg: ModelConfig, model: int) -> None:
-    """Raise where ``cfg`` cannot run at ``model`` ways of tensor
-    parallelism: an MoE model (its expert dim goes on ``model``: expert
-    parallelism, not ported), or heads or a sharded dim that ``model``
-    does not divide (``plan.py::model_findings``)."""
+    """Raise where ``cfg`` cannot run at ``model`` ways of tensor (and,
+    on an MoE model, expert) parallelism: heads, experts or a sharded
+    dim that ``model`` does not divide (``plan.py::model_findings``)."""
     if model <= 1:
         return
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"MESH_MODEL={model} on an MoE model ({cfg.n_experts} experts): "
-            "the JAX package shards the expert dim over `model`, which is "
-            "expert parallelism (ROADMAP queue 1 item 8), not ported yet")
     from gke_ray_train_tpu_torch.plan import model_findings
     found = model_findings(cfg, model=model)
     if found:
         from gke_ray_train_tpu_torch.plan import PlanError
         raise PlanError("; ".join(found))
+
+
+def place_local_experts(qt, mesh, n_experts: int) -> None:
+    """Make a ``QTensor`` that holds only this rank's experts of a bank
+    (``[n_experts / model, ...]``, made so by a sharded init) the frozen
+    DTensor parameters ``_place_on_model`` would have cut from the whole
+    bank: its codes (as :data:`CODE_CONTAINER`) and scales sharded on
+    dim 0 of the ``model`` submesh, of ``n_experts`` experts in all."""
+    from torch.distributed.tensor import DTensor, Shard
+    tp_mesh = model_mesh(mesh)
+    for key in ("codes", "scales"):
+        t = qt._buffers.pop(key)
+        if key == "codes":
+            t = t.view(CODE_CONTAINER)
+        t = t.contiguous()
+        # a contiguous bank's strides do not depend on its leading dim
+        qt.register_parameter(key, nn.Parameter(
+            DTensor.from_local(t, tp_mesh, [Shard(0)], run_check=False,
+                               shape=(n_experts,) + tuple(t.shape[1:]),
+                               stride=t.stride()),
+            requires_grad=False))
 
 
 def shard_model(params: nn.Module, mesh) -> nn.Module:

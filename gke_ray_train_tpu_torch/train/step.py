@@ -206,7 +206,10 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     each microbatch's loss adds ``cfg.router_aux_coef * router_aux * w``
     (the forward's aux over the microbatch's loss weights, billed per
     token so the divide by the total weight gives ce_mean + coef *
-    aux_mean), as the JAX step does (:293-296). Manual overlap raises
+    aux_mean), as the JAX step does (:293-296); under expert parallelism
+    every model rank routes the same tokens and holds the same aux, so
+    the sums over the batch axes (never over ``model``) count it once.
+    Manual overlap raises
     ``NotImplementedError``.
 
     ``mesh``: the state is sharded over it (``make_train_state(mesh=)``)

@@ -12,6 +12,7 @@ the inputs are drawn so that no two router probabilities tie.
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -40,6 +41,7 @@ from gke_ray_train_tpu_torch.serve import (
 from gke_ray_train_tpu_torch.train import (
     LoraConfig, make_optimizer, make_train_state, make_train_step,
     warmup_cosine_schedule)
+from tests import _torch_ep as ep
 
 Y_RTOL = 1e-5
 AUX_ATOL = 1e-6
@@ -413,3 +415,106 @@ def test_full_precision_init_has_the_moe_tree():
     assert float(m.blocks[0].w_down.std()) < float(m.blocks[0].w_up.std())
     assert dataclasses.replace(tc, n_experts=0).param_count() < \
         tc.param_count()
+
+
+# -- the sequence sharded over a context axis -----------------------------
+
+def _lean_cfgs(**kw):
+    """The tiny Mixtral at d_model 64 and capacity_factor 1.25 (Mixtral's),
+    where the lean inputs overflow an expert."""
+    return _model_cfgs(capacity_factor=1.25, max_seq_len=64, **kw)
+
+
+def test_route_positions_on_shards_are_the_whole_rows():
+    """``slot_positions`` of each half of a row, given the lower half's
+    counts and the row's totals (what a context rank gathers), equal
+    ``route`` over the whole row; routing each half on its own keeps
+    other tokens (its own capacity and cumsum): the fault the context
+    ranks' gather repairs."""
+    _, tc = _lean_cfgs()
+    inp = ep.lean_moe_inputs(9, B=2, S=64, D=64, F=128, E=4)
+    x, router = torch.from_numpy(inp["x"]), torch.from_numpy(inp["router"])
+    whole = tmoe.route(x, router, tc)
+    halves = [whole.expert[:, :32], whole.expert[:, 32:]]
+    counts = [tmoe.slot_counts(e, 4) for e in halves]
+    total = counts[0] + counts[1]
+    pos = torch.cat([
+        tmoe.slot_positions(halves[0], 4, torch.zeros_like(total), total),
+        tmoe.slot_positions(halves[1], 4, counts[0], total)], dim=1)
+    assert torch.equal(pos, whole.pos)
+    alone = torch.cat([tmoe.route(x[:, :32], router, tc).keep,
+                       tmoe.route(x[:, 32:], router, tc).keep], dim=1)
+    assert not bool(whole.keep.all())
+    assert int((alone != whole.keep).sum()) >= 16
+
+
+@pytest.fixture(scope="module")
+def cp_world(tmp_path_factory):
+    """fsdp 1 × context 2 over gloo (``tests/_torch_ep.py`` scenario
+    ``cp_moe``): ``moe_mlp`` and ``route`` on the lean input's halves and
+    the lean model's forward with ring attention; one process and JAX's
+    context-2 mesh (dense attention) on the whole rows meanwhile."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    from gke_ray_train_tpu.parallel import mesh as jmesh
+    from gke_ray_train_tpu.parallel.sharding import tree_shardings
+    from tests import _torch_multirank as mr
+    out = str(tmp_path_factory.mktemp("cp_moe"))
+    jc, tc = _lean_cfgs()
+    _, rc = _lean_cfgs(attn_impl="ring")
+    lean = ep.lean_moe_inputs(9, B=2, S=64, D=64, F=128, E=4)
+    tokens, weights = ep.lean_tokens(5, 2, 64, V)
+    jtree = ep.lean_tree(jax.tree.map(
+        np.asarray, jtr.init_params(jc, jax.random.key(4))))
+    params = interop.params_from_numpy(jtree, tc, device="cpu")
+    torch.save({"cfg": tc.to_dict(), "ring_cfg": rc.to_dict(),
+                "lean_params": params.state_dict(),
+                "lean": dict(lean, tokens=tokens, weights=weights)},
+               os.path.join(out, "inputs.pt"))
+    procs = ep.start("cp_moe", out, n=2)
+    t = {k: torch.from_numpy(v) for k, v in lean.items()}
+    banks = (t["w_gate"], t["w_up"], t["w_down"])
+    one = {"y": tmoe.moe_mlp(t["x"], t["router"], *banks, tc,
+                             torch.float32)[0],
+           "route": tmoe.route(t["x"], t["router"], tc),
+           "aux": [float(tmoe.route(h, t["router"], tc).aux)
+                   for h in t["x"].chunk(2, dim=1)],
+           "logits": ttr.forward(params, torch.from_numpy(tokens), tc)}
+    mesh = jmesh.build_mesh(jmesh.MeshConfig(data=1, fsdp=1, model=1,
+                                             context=2), jax.devices()[:2])
+    xs = jax.device_put(jnp.asarray(lean["x"]),
+                        NamedSharding(mesh, P(None, "context", None)))
+    jy, _ = jax.jit(lambda x: jmoe.moe_mlp(
+        x, *(jnp.asarray(lean[k]) for k in ("router", "w_gate", "w_up",
+                                            "w_down")), jc, jnp.float32))(xs)
+    jp = jax.device_put(jax.tree.map(jnp.asarray, jtree),
+                        tree_shardings(mesh, jtr.param_specs(jc)))
+    jl = jax.jit(lambda p, x: jtr.forward(p, x, jc, mesh=mesh))(
+        jp, jnp.asarray(tokens))
+    mr.wait(procs, timeout=300)
+    ranks = [torch.load(os.path.join(out, f"cp_moe_{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    ranks.sort(key=lambda r: r["ranks"]["context"])
+    return dict(ranks=ranks, one=one, jax={"y": np.asarray(jy),
+                                          "logits": np.asarray(jl)})
+
+
+def test_context2_moe_matches_one_process_and_jax_mesh(cp_world):
+    """fsdp 1 × context 2, fp32, on an input whose halves overflow unlike
+    the whole row: the ranks' ``moe_mlp`` outputs put together equal one
+    process's and JAX's on its context-2 mesh within 1e-5, their keep
+    masks and positions the whole row's; each rank's aux is its half's
+    mean (the documented divergence); the model's logits through ring
+    attention equal one process's and JAX's mesh's."""
+    ranks, one, jx = cp_world["ranks"], cp_world["one"], cp_world["jax"]
+    y = torch.cat([r["y"] for r in ranks], dim=1).numpy()
+    assert _rel(y, one["y"].detach().numpy()) <= Y_RTOL
+    assert _rel(y, jx["y"]) <= Y_RTOL
+    keep = torch.cat([r["keep"] for r in ranks], dim=1)
+    assert torch.equal(keep, one["route"].keep)
+    assert torch.equal(torch.cat([r["pos"] for r in ranks], dim=1),
+                       one["route"].pos)
+    for r, aux in zip(ranks, one["aux"]):
+        assert abs(r["aux"] - aux) <= AUX_ATOL
+    logits = torch.cat([r["forward"]["logits"] for r in ranks], dim=1)
+    assert _rel(logits.numpy(), one["logits"].detach().numpy()) <= Y_RTOL
+    assert _rel(logits.numpy(), jx["logits"]) <= Y_RTOL

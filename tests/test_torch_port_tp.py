@@ -442,8 +442,9 @@ def test_sharded_eval_sums_at_fsdp2_model2(worlds):
 def test_model_that_cannot_tile_raises_before_weights(monkeypatch):
     """Heads (or a sharded dim) that ``model`` does not divide raise in
     JAX's words, from the config alone: ``fine_tune``'s worker raises
-    before it builds any weight; an MoE model at ``model`` 2 names item
-    8."""
+    before it builds any weight; an MoE model tiles ``model`` 2 (its
+    experts sharded over it) and raises where ``model`` does not divide
+    its experts."""
     jc, tc = jcfg.tiny(vocab_size=V), tcfg.tiny(vocab_size=V)
     want = jplan.ExecutionPlan(fsdp=1, model=4).model_findings(jc,
                                                                 n_chips=4)
@@ -454,8 +455,12 @@ def test_model_that_cannot_tile_raises_before_weights(monkeypatch):
                        model=4))
     with pytest.raises(PlanError, match="n_kv_heads=2 is not divisible"):
         tshard.check_model_on_mesh(tc, 4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tshard.check_model_on_mesh(tcfg.tiny(n_experts=4), 2)
+    # an MoE model shards its experts over model (expert parallelism):
+    # it tiles where model divides the experts, and raises where not
+    tshard.check_model_on_mesh(tcfg.tiny(n_experts=4), 2)
+    with pytest.raises(PlanError, match="w_gate dim 0 \\(size 4\\)"):
+        tshard.check_model_on_mesh(tcfg.tiny(n_experts=4, n_heads=8,
+                                             n_kv_heads=8), 8)
 
     from gke_ray_train_tpu_torch import fine_tune
     built = []
