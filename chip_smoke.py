@@ -3700,7 +3700,8 @@ def _mesh_worker(out_path):
 def _entry_worker(config_path, out_path):
     """One rank of train_mesh_multi's entry run, started by torchrun
     (its env): ``fine_tune.train_loop_per_worker`` on the job of
-    ``config_path`` cut to ``MESH_MULTI_ENTRY_LAYERS`` layers; each eval
+    ``config_path`` cut to ``MESH_MULTI_ENTRY_LAYERS`` layers (or the
+    ``ENTRY_WORKER_LAYERS`` the phase sets in its env); each eval
     loss read from ``sharded_eval_loss``, the training's peak memory and
     the export's seconds and peak read around ``save_export``."""
     import torch
@@ -3731,7 +3732,8 @@ def _entry_worker(config_path, out_path):
     ft.save_export, ft.sharded_eval_loss = save_export, sharded_eval_loss
     t0 = time.perf_counter()
     try:
-        with _depth_cut(MESH_MULTI_ENTRY_LAYERS):
+        with _depth_cut(int(os.environ.get("ENTRY_WORKER_LAYERS",
+                                           MESH_MULTI_ENTRY_LAYERS))):
             metrics = ft.train_loop_per_worker(config)
     finally:
         ft.save_export, ft.sharded_eval_loss = orig, orig_eval
@@ -3811,13 +3813,14 @@ def _multi_reference(dev):
     return r
 
 
-def _multi_entry(n, extra=None, path=None):
+def _multi_entry(n, extra=None, path=None, layers=None):
     """The entry under torchrun on ``n`` cards (module doc, 19b) on the
     job of ``path``, the config's keys ``extra`` replaced
     (``MESH_MODEL``: the global batch spans the n / model batch ranks);
     then its sharded export converted here (an MoE model's expert
     tensors among the names it must hold). ``path`` defaults to
-    ``ENTRY_CONFIG``. Returns (line, problems)."""
+    ``ENTRY_CONFIG``; ``layers`` the depth (default
+    ``MESH_MULTI_ENTRY_LAYERS``). Returns (line, problems)."""
     import tempfile
     import numpy as np
     from safetensors import safe_open
@@ -3830,14 +3833,18 @@ def _multi_entry(n, extra=None, path=None):
     with open(path) as f:
         job = json.load(f)
     extra = dict(extra or {})
-    batch_ranks = n // int(extra.get("MESH_MODEL", 1))
-    rows = (int(job["PER_DEVICE_TRAIN_BATCH_SIZE"]) * batch_ranks
-            * int(job["GRADIENT_ACCUMULATION_STEPS"]))
+    batch_ranks = n // (int(extra.get("MESH_MODEL", 1))
+                        * int(extra.get("MESH_PIPE", 1)))
+    rows = (int(extra.get("PER_DEVICE_TRAIN_BATCH_SIZE",
+                          job["PER_DEVICE_TRAIN_BATCH_SIZE"])) * batch_ranks
+            * int(extra.get("GRADIENT_ACCUMULATION_STEPS",
+                            job["GRADIENT_ACCUMULATION_STEPS"])))
     config = _entry_config(
         os.path.join(root, "run"), path=path, cut=dict(
             MESH_MULTI_ENTRY_CUT, **extra,
             NUM_TRAIN_SAMPLES=rows * MESH_MULTI_ENTRY_STEPS))
-    cfg, lcfg, _ = _entry_setup(config, None, MESH_MULTI_ENTRY_LAYERS)
+    cfg, lcfg, _ = _entry_setup(config, None,
+                                layers or MESH_MULTI_ENTRY_LAYERS)
     disk = _entry_disk(root, cfg, lcfg, 1)
     cfg_path = os.path.join(root, "config.json")
     with open(cfg_path, "w") as f:
@@ -3848,7 +3855,8 @@ def _multi_entry(n, extra=None, path=None):
            "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
            "--master-port", str(_free_port()), os.path.abspath(__file__),
            "--entry-worker", cfg_path, out]
-    env = dict(os.environ, PREEMPT_SYNC_EVERY="1")
+    env = dict(os.environ, PREEMPT_SYNC_EVERY="1",
+               ENTRY_WORKER_LAYERS=str(layers or MESH_MULTI_ENTRY_LAYERS))
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(cmd, env=env, cwd=HERE, stdout=log,
@@ -3985,6 +3993,8 @@ def phase_train_mesh_multi(dev):
 # off) at TP_PARITY_LAYERS layers within MESH_LOSS_RTOL
 TP_LAYERS = 4
 TP_PARITY_LAYERS = 2
+# 1 + 2 steps a run (train_mesh's 1 + 3 cut for the pipeline phase's time)
+TP_STEPS = 2
 TP_MODEL = 2
 TP_TIMEOUT_S = 420
 # the second run's LORA_DROPOUT: fine_tune_config.json's own
@@ -4087,7 +4097,7 @@ def _tp_probe(dev, mesh):
 
 
 def _tp_rank_run(dev, cfg, mesh, dropout, steps, config=None, rows=None,
-                 one_row=False, plan=None, keep=None):
+                 one_row=False, plan=None, keep=None, ft_over=None):
     """One training run of a rank (or of one card without ``mesh``):
     the job of ``config`` (default the train_mesh job) at ``cfg``,
     ``steps`` timed steps after a warm-up, the launch counts set to 0
@@ -4097,12 +4107,14 @@ def _tp_rank_run(dev, cfg, mesh, dropout, steps, config=None, rows=None,
     ``context`` exceeds 1 each batch is placed context-sharded (this
     rank's tokens of its rows) and the flash launches are expected once
     a visiting shard under ``ring``; ``keep`` is handed the trained
-    state before the run lets it go."""
+    state before the run lets it go; ``ft_over``: more of the job's keys
+    replaced."""
     import torch
     from gke_ray_train_tpu_torch.data import make_place_batch
     from gke_ray_train_tpu_torch.parallel.mesh import context_size
     job = _fine_tune_setup(dev, cfg, steps + 1, config=config, mesh=mesh,
-                           ft_over={"LORA_DROPOUT": dropout},
+                           ft_over={"LORA_DROPOUT": dropout,
+                                    **(ft_over or {})},
                            transfer_guard=None,
                            **(plan or {"fused_ops": True}))
     if context_size(mesh) > 1:
@@ -4170,7 +4182,8 @@ def _tp_worker(out_path):
     WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
     tensors, the model 2 x fsdp 1 mesh, the collectives probed
     (``TP_PROBE``); if those the path makes run, the train_mesh job at ``TP_LAYERS`` layers
-    (dropout 0, 1 + 3 steps), then at LORA_DROPOUT ``TP_DROPOUT`` (1 + 1
+    (dropout 0, 1 + ``TP_STEPS`` steps), then at LORA_DROPOUT
+    ``TP_DROPOUT`` (1 + 1
     steps) with the digests of the first masks drawn."""
     import torch
     import torch.distributed as dist
@@ -4189,12 +4202,12 @@ def _tp_worker(out_path):
                if need):
             cfg = _llama_cfg(FINE_TUNE_CONFIG, TP_LAYERS)
             rec["run"], rec["launches"] = _tp_rank_run(
-                dev, cfg, mesh, 0.0, MESH_STEPS)
+                dev, cfg, mesh, 0.0, TP_STEPS)
             (rec["dropout_run"], _), rec["masks"] = _first_masks(
                 lambda: _tp_rank_run(dev, cfg, mesh, TP_DROPOUT, 1))
             with _tf32_off():
                 rec["fp32_run"], _ = _tp_rank_run(
-                    dev, _tp_fp32_cfg(), mesh, 0.0, MESH_STEPS)
+                    dev, _tp_fp32_cfg(), mesh, 0.0, TP_STEPS)
     finally:
         with open(out_path + f".{rank}", "w") as f:
             json.dump(rec, f)
@@ -4245,21 +4258,21 @@ def phase_train_tp(dev):
     to 4 layers, first in this process, then as two ranks of this card
     at model 2 x fsdp 1 over gloo (``_tp_worker``), whose collectives are
     probed first. Where they run: both ranks' losses and grad_norms of 1
-    + 3 steps within MESH_MULTI_RTOL of this process's, per step the
+    + 2 steps within MESH_MULTI_RTOL of this process's, per step the
     launches of the unmeshed step (flash on 16 of 32 query heads, the
     cross-entropy on a 64,128-column vocab shard, all on wgmma); then at
     LORA_DROPOUT 0.1 finite losses, the first masks of the column-parallel
     projections equal across the ranks and of the row-parallel ones
-    different; then the job in fp32 (TF32 off) at 2 layers, 1 + 3 steps,
+    different; then the job in fp32 (TF32 off) at 2 layers, 1 + 2 steps,
     within MESH_LOSS_RTOL of this process's. Where a collective is missing on gloo the line says which,
     and the phase holds the kernels at these inputs alone (the kernels
     phase's local-head and vocab-shard cases); the TP path then runs on
     the four-card host only (train_tp_multi)."""
     import tempfile
     cfg = _llama_cfg(FINE_TUNE_CONFIG, TP_LAYERS)
-    ref, _ = _tp_rank_run(dev, cfg, None, 0.0, MESH_STEPS)
+    ref, _ = _tp_rank_run(dev, cfg, None, 0.0, TP_STEPS)
     with _tf32_off():
-        ref32, _ = _tp_rank_run(dev, _tp_fp32_cfg(), None, 0.0, MESH_STEPS)
+        ref32, _ = _tp_rank_run(dev, _tp_fp32_cfg(), None, 0.0, TP_STEPS)
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_"), "rank")
     hung, rcs, ranks = _spawn_ranks("--tp-worker", out, TP_MODEL,
                                     [0] * TP_MODEL, TP_TIMEOUT_S)
@@ -5688,6 +5701,364 @@ def phase_train_ep_multi(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism: Llama's layers over `pipe`
+# ---------------------------------------------------------------------------
+
+# train_pp: the offline_8b job (Llama-3.1-8B QLoRA, NF4, LoRA r 64,
+# LORA_DROPOUT 0 as a pipelined mesh requires, the offline SQL rows;
+# FUSED_OPS=1) at full width cut to 4 of 32 layers, first in this
+# process, then as two ranks of this card at pipe 2 over gloo (2 pipe
+# microbatches in each of the job's 4 grad-accum microbatches: one a
+# hop); its bf16 streams within MESH_MULTI_RTOL of one process; the job in
+# fp32 (TF32 off) at 2 layers with the grad-accum folded into the pipe
+# microbatches (GRADIENT_ACCUMULATION_STEPS 1, PIPE_MICROBATCHES 8 of one
+# row) within PP_PARITY_RTOL of one process at grad-accum 8 of the same
+# rows (the same microbatches in the same order), and within
+# MESH_LOSS_RTOL of one process at the job's grad-accum 4 of two rows
+PP_LAYERS = 4
+PP_PARITY_LAYERS = 2
+PP_PIPE = 2
+PP_STEPS = 2
+PP_TIMEOUT_S = 600
+PP_PARITY_RTOL = 1e-6
+PP_FT = {"QUANT_KIND": "nf4", "LORA_DROPOUT": 0.0}
+PP_PLAN = {"fused_ops": True}
+# the folded fp32 runs: {run: (plan, the job's keys replaced)}
+PP_FOLD = {"pipe": ({"fused_ops": True, "grad_accum": 1,
+                     "pipe_microbatches": 8},
+                    {"PER_DEVICE_TRAIN_BATCH_SIZE": 8}),
+           "one_row": ({"fused_ops": True, "grad_accum": 8},
+                       {"PER_DEVICE_TRAIN_BATCH_SIZE": 1}),
+           "job": ({"fused_ops": True}, {})}
+# train_pp_multi on the four-card host: (a) ray-jobs/fine_tune_config_70b
+# .json as QLoRA (NF4, r 64, dropout 0) at pipe 4, full depth (20 of its
+# 80 layers a card), 8 pipe microbatches of one row (grad-accum folded),
+# and in fp32 at 8 layers against one card; (b) the offline_8b job at
+# pipe 2 x fsdp 2, 8 layers, against one card; (c) the entry under
+# torchrun at MESH_PIPE 4 on offline_8b at 8 layers
+PP_70B_FT = {"USE_QLORA": True, "QUANT_KIND": "nf4", "LORA_DROPOUT": 0.0,
+             "PER_DEVICE_TRAIN_BATCH_SIZE": 8,
+             "GRADIENT_ACCUMULATION_STEPS": 1}
+PP_70B_PLAN = {"fused_ops": True, "grad_accum": 1, "pipe_microbatches": 8}
+PP_70B_PARITY_LAYERS = 8
+PP_70B_PARITY_RTOL = 1e-5
+PP_MULTI_8B_LAYERS = 8
+# (b): 8 rows a step, 4 a batch rank, grad-accum 2 of 2 rows, 2 pipe
+# microbatches of one row
+PP_MULTI_8B_PLAN = {"fused_ops": True, "grad_accum": 2}
+PP_MULTI_8B_FT = {"PER_DEVICE_TRAIN_BATCH_SIZE": 4}
+PP_MULTI_ENTRY = {"MESH_PIPE": 4, "MESH_FSDP": 1,
+                  "PER_DEVICE_TRAIN_BATCH_SIZE": 8,
+                  "GRADIENT_ACCUMULATION_STEPS": 1, "PIPE_MICROBATCHES": 8}
+PP_MULTI_ENTRY_LAYERS = 8
+PP_MULTI_TIMEOUT_S = 1500
+
+
+def _pp_run(dev, cfg, mesh, plan, ft_over=None, config=None, rows=None,
+            steps=PP_STEPS):
+    """``_tp_rank_run`` of the pipe jobs: its record and launches, the
+    layers this rank holds and, on a pipelined mesh, the launches one
+    stage makes a step (``expected_launches`` of its layers at grad-accum
+    x pipe microbatches; the cross-entropy's on the last stage only), the
+    ticks and stage passes of its schedule and the bytes it sends to and
+    receives from its neighbours a step, from the shapes (the [Bm, S, D]
+    activations forward, their gradients back)."""
+    import torch
+    from gke_ray_train_tpu_torch.models.pipeline import schedule_of
+    from gke_ray_train_tpu_torch.models.transformer import layer_ids
+    from gke_ray_train_tpu_torch.parallel.mesh import pipe_size
+    held = {}
+
+    def keep(state):
+        held["layers"] = list(layer_ids(state.params))
+    r, launches = _tp_rank_run(dev, cfg, mesh, 0.0, steps,
+                               config=config or ENTRY_CONFIG,
+                               plan=plan, keep=keep, rows=rows,
+                               ft_over=dict(PP_FT, **(ft_over or {})))
+    r["layers"] = held["layers"]
+    P = pipe_size(mesh)
+    if P > 1:
+        M = plan.get("pipe_microbatches") or cfg.pipe_virtual * P
+        sch = schedule_of(cfg, mesh, M)
+        accum = r["grad_accum"]
+        want = expected_launches(
+            dataclasses.replace(cfg, n_layers=len(held["layers"])),
+            accum * M, plan.get("fused_ops", False))
+        if sch.rank != P - 1:
+            for k in ("fused_ce_row_stats", "fused_ce_dx", "fused_ce_dhead"):
+                want[k] = 0
+        rows_local = r["tokens"] // cfg.max_seq_len // (
+            rows[0] if rows else 1)
+        es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+        r.update(want_launches=want, ticks=sch.ticks, passes=sch.passes,
+                 pipe_microbatches=M,
+                 stage_bytes_per_step=2 * rows_local * cfg.max_seq_len
+                 * cfg.d_model * es)
+    return r, launches
+
+
+def _pp_layers(cfg, rank, pipe):
+    from gke_ray_train_tpu_torch.models.pipeline import stage_layers
+    return stage_layers(cfg, pipe, cfg.pipe_virtual, rank)
+
+
+def _pp_worker(out_path):
+    """One of train_pp's two ranks on the one card (env: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
+    tensors, the pipe 2 mesh; the job at ``PP_LAYERS`` (1 + ``PP_STEPS``
+    steps), then folded in fp32 at ``PP_PARITY_LAYERS``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1, pipe=PP_PIPE),
+                          device_type="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        rec["run"], rec["launches"] = _pp_run(
+            dev, _llama_cfg(ENTRY_CONFIG, PP_LAYERS), mesh, PP_PLAN)
+        plan, over = PP_FOLD["pipe"]
+        with _tf32_off():
+            rec["fp32_run"], _ = _pp_run(
+                dev, _llama_cfg(ENTRY_CONFIG, PP_PARITY_LAYERS, "float32",
+                                "float32"), mesh, plan, over)
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _pp_hold(name, run, cfg, rank, pipe, problems):
+    """A stage's run: its layers, its launches a step, the ticks."""
+    layers = _pp_layers(cfg, rank, pipe)
+    if run["layers"] != layers:
+        problems.append(f"{name} holds layers {run['layers']} != {layers}")
+    if run["launches_per_step"] != run["want_launches"]:
+        problems.append(f"{name} launches per step "
+                        f"{run['launches_per_step']} != "
+                        f"{run['want_launches']}")
+    want_ticks = run["pipe_microbatches"] + cfg.pipe_virtual * pipe - 1
+    if run["ticks"] != want_ticks:
+        problems.append(f"{name} ticks {run['ticks']} != {want_ticks}")
+
+
+def phase_train_pp(dev):
+    """Pipeline parallelism on the one-card host: the offline_8b job
+    (Llama-3.1-8B QLoRA, NF4, LoRA r 64, dropout 0, FUSED_OPS=1, the
+    offline SQL rows) at full width cut to ``PP_LAYERS`` layers, first in
+    this process, then as two ranks of this card at pipe 2 over gloo
+    (``_pp_worker``; each rank holds 2 of the 4 layers, the activations
+    between them staged through host memory). Both ranks' losses and
+    grad_norms of 1 + 2 steps within MESH_MULTI_RTOL of this process's;
+    per step a rank's launches are its stage's (rows 1-3, 7 and 8 of
+    half the layers at twice the microbatches, rows 4-5 on the last
+    stage only), in M + P - 1 ticks. Then fp32 (TF32 off) at 2 layers,
+    the grad-accum folded into 8 pipe microbatches of one row, within
+    PP_PARITY_RTOL of one process at grad-accum 8 of the same rows, and
+    within MESH_LOSS_RTOL of one process at the job's grad-accum 4. The
+    line carries a rank's p50 against one process's, its peak memory,
+    its layers, the ticks and the bytes a stage sends and receives a
+    step (from the shapes)."""
+    import tempfile
+    cfg = _llama_cfg(ENTRY_CONFIG, PP_LAYERS)
+    cfg32 = _llama_cfg(ENTRY_CONFIG, PP_PARITY_LAYERS, "float32", "float32")
+    ref, _ = _pp_run(dev, cfg, None, PP_PLAN)
+    ref32 = {}
+    with _tf32_off():
+        for key in ("one_row", "job"):
+            plan, over = PP_FOLD[key]
+            ref32[key], _ = _pp_run(dev, cfg32, None, plan, over)
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pp_"), "rank")
+    hung, rcs, ranks = _spawn_ranks("--pp-worker", out, PP_PIPE,
+                                    [0] * PP_PIPE, PP_TIMEOUT_S)
+    problems, line = [], {
+        "phase": "train_pp", "nvidia_smi": nvidia_smi_line(),
+        "model": cfg.name, "n_layers": cfg.n_layers,
+        "mesh": {"data": 1, "fsdp": 1, "pipe": PP_PIPE}, "backend": "gloo",
+        "ranks_on_one_card": PP_PIPE,
+        "cut": f"{PP_LAYERS} of 32 layers (fp32 at {PP_PARITY_LAYERS}), "
+               f"1 + {PP_STEPS} steps", "one_process": ref,
+        "one_process_fp32": ref32}
+    launches = None
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    else:
+        line["ranks"] = ranks
+        gaps = {}
+        for r in ranks:
+            name = f"rank {r['rank']}"
+            gaps[r["rank"]] = {
+                "bf16": _hold_streams(name, r["run"], ref, MESH_MULTI_RTOL,
+                                      problems),
+                "fp32_one_row": _hold_streams(
+                    name + " fp32", r["fp32_run"], ref32["one_row"],
+                    PP_PARITY_RTOL, problems),
+                "fp32_job": _hold_streams(
+                    name + " fp32 against grad-accum 4", r["fp32_run"],
+                    ref32["job"], MESH_LOSS_RTOL, problems)}
+            _pp_hold(name, r["run"], cfg, r["rank"], PP_PIPE, problems)
+            _pp_hold(name + " fp32", r["fp32_run"], cfg32, r["rank"],
+                     PP_PIPE, problems)
+        line.update(
+            rel_gaps=gaps, tol_rel={"bf16": MESH_MULTI_RTOL,
+                                    "fp32_one_row": PP_PARITY_RTOL,
+                                    "fp32_job": MESH_LOSS_RTOL},
+            p50_ratio=[r["run"]["step_s_p50"] / ref["step_s_p50"]
+                       for r in ranks],
+            peak_mem_bytes=[r["run"]["peak_mem_bytes"] for r in ranks],
+            layers=[r["run"]["layers"] for r in ranks],
+            ticks=ranks[0]["run"]["ticks"],
+            stage_bytes_per_step=ranks[0]["run"]["stage_bytes_per_step"],
+            launches_per_rank=[r["launches"] for r in ranks])
+        launches = {}
+        for r in ranks:
+            for k, n in r["launches"].items():
+                if n:
+                    launches[k] = launches.get(k, 0) + n
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_pp phase failed: " + "; ".join(problems))
+    return launches
+
+
+def _pp_multi_worker(out_path):
+    """One rank of train_pp_multi (NCCL, one card a rank): the 70B
+    QLoRA at pipe 4, full depth, then in fp32 at 8 layers; the 8B job at
+    pipe 2 x fsdp 2, 8 layers."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    from gke_ray_train_tpu_torch.parallel.placement import (
+        input_shard_layout)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world,
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=1, pipe=world))
+        torch.cuda.reset_peak_memory_stats()
+        rec["70b"], rec["launches"] = _pp_run(
+            dev, _llama_cfg(FT_70B_CONFIG, 80), mesh, PP_70B_PLAN,
+            PP_70B_FT, config=FT_70B_CONFIG)
+        with _tf32_off():
+            rec["70b_fp32"], _ = _pp_run(
+                dev, _llama_cfg(FT_70B_CONFIG, PP_70B_PARITY_LAYERS,
+                                "float32", "float32"), mesh, PP_70B_PLAN,
+                PP_70B_FT, config=FT_70B_CONFIG)
+        mesh = build_mesh(MeshConfig(fsdp=2, pipe=2))
+        torch.cuda.reset_peak_memory_stats()
+        rec["8b_fsdp2"], _ = _pp_run(
+            dev, _llama_cfg(ENTRY_CONFIG, PP_MULTI_8B_LAYERS), mesh,
+            PP_MULTI_8B_PLAN, PP_MULTI_8B_FT, rows=input_shard_layout(mesh))
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_train_pp_multi(dev):
+    """Opt-in, the four-card host (fewer than 4 cards fails). One card
+    first: the 70B job as QLoRA (NF4, r 64, dropout 0; FUSED_OPS=1) in
+    fp32 (TF32 off) at 8 layers as 8 one-row microbatches, and the 8B
+    job at 8 layers. Then one rank a card over NCCL (``_pp_multi_worker``):
+    (a) the 70B at pipe 4 and full depth, 20 layers a card, 8 pipe
+    microbatches of one row (grad-accum folded): a rank's p50, peak and
+    base bytes; whether one card holds the full-depth QLoRA 70B is
+    reckoned from the stages' bytes; the fp32 run at 8 layers within
+    PP_70B_PARITY_RTOL of the one card's; (b) the 8B job at pipe 2 x
+    fsdp 2, 8 layers, within MESH_MULTI_RTOL of the one card's; (c) the
+    entry under torchrun at MESH_PIPE 4 on offline_8b at 8 layers
+    (``_multi_entry``): every rank exits 0, the ranks agree, and the
+    sharded export, each layer written by its stage, converts to finite
+    tensors."""
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    emit({"phase": "train_pp_multi_devices", "ok": n >= 4,
+          "device_count": n, "nvidia_smi": nvidia_smi_line()})
+    if n < 4:
+        raise SystemExit(f"train_pp_multi needs 4 cards; this host has {n}")
+    refs = {}
+    with _tf32_off():
+        refs["70b_fp32"], _ = _pp_run(
+            dev, _llama_cfg(FT_70B_CONFIG, PP_70B_PARITY_LAYERS, "float32",
+                            "float32"), None,
+            dict(PP_70B_PLAN, grad_accum=8, pipe_microbatches=0),
+            dict(PP_70B_FT, PER_DEVICE_TRAIN_BATCH_SIZE=1),
+            config=FT_70B_CONFIG)
+    refs["8b_fsdp2"], _ = _pp_run(
+        dev, _llama_cfg(ENTRY_CONFIG, PP_MULTI_8B_LAYERS), None,
+        PP_MULTI_8B_PLAN, PP_MULTI_8B_FT)
+    torch.cuda.empty_cache()
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pp_multi_"),
+                       "rank")
+    hung, rcs, ranks = _spawn_ranks("--pp-multi-worker", out, n,
+                                    list(range(n)), PP_MULTI_TIMEOUT_S)
+    problems, gaps = [], {}
+    line = {"phase": "train_pp_multi", "nvidia_smi": nvidia_smi_line(),
+            "world": n, "one_card": refs,
+            "cut": {"70b": "full depth (20 of 80 layers a card), 1 + 2 "
+                    "steps; fp32 at 8 layers", "8b_fsdp2": "8 of 32 "
+                    "layers, grad-accum 2 of 4", "entry": "offline_8b at "
+                    f"{PP_MULTI_ENTRY_LAYERS} layers"}}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+    else:
+        for r in ranks:
+            name = f"rank {r['rank']}"
+            gaps[r["rank"]] = {
+                "70b_fp32": _hold_streams(f"{name} 70b fp32", r["70b_fp32"],
+                                          refs["70b_fp32"],
+                                          PP_70B_PARITY_RTOL, problems),
+                "8b_fsdp2": _hold_streams(f"{name} 8b fsdp2", r["8b_fsdp2"],
+                                          refs["8b_fsdp2"], MESH_MULTI_RTOL,
+                                          problems)}
+            for k in ("70b", "70b_fp32"):
+                cfg = _llama_cfg(FT_70B_CONFIG, r[k]["n_layers"])
+                _pp_hold(f"{name} {k}", r[k], cfg, r["rank"], n, problems)
+            if not all(np.isfinite(r["70b"]["losses"])):
+                problems.append(f"{name} 70b losses {r['70b']['losses']}")
+        held = [r["70b"]["held_before_bytes"] for r in ranks]
+        line.update(
+            ranks=ranks, rel_gaps=gaps,
+            tol_rel={"70b_fp32": PP_70B_PARITY_RTOL,
+                     "8b_fsdp2": MESH_MULTI_RTOL},
+            p50_70b=[r["70b"]["step_s_p50"] for r in ranks],
+            peak_70b=[r["70b"]["peak_mem_bytes"] for r in ranks],
+            base_bytes_70b=[r["70b"]["base_bytes"] for r in ranks],
+            one_card_full_depth={
+                "held_bytes_all_stages": sum(held),
+                "card_bytes": torch.cuda.get_device_properties(
+                    0).total_memory,
+                "fits": sum(held) < torch.cuda.get_device_properties(
+                    0).total_memory})
+    entry, entry_problems = _multi_entry(n, PP_MULTI_ENTRY,
+                                         layers=PP_MULTI_ENTRY_LAYERS)
+    problems += entry_problems
+    line.update(entry=entry, ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_pp_multi phase failed: "
+                         + "; ".join(problems))
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def phase_profile(dev, steps: int = 10):
     """Where a decode iteration's time goes at the serve phase's model:
     torch.profiler over ``steps`` pure-decode iterations of a full batch
@@ -5751,7 +6122,7 @@ ENTRY_CUT = {"NUM_TRAIN_SAMPLES": 64, "NUM_EVAL_SAMPLES": 16,
              "REPORT_TO": "tensorboard"}
 # and in depth: the three runs at this many of the job's 32 layers (the
 # default run's time limit; entry_full runs the job at full depth)
-ENTRY_LAYERS = 8
+ENTRY_LAYERS = 4
 # run B is preempted after this step and run C resumes from it
 ENTRY_PREEMPT_AFTER = 5
 # run A also compares base and tuned answers and serves the tuned adapter
@@ -7878,12 +8249,13 @@ PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train_fused_ce_profile", "train_moe_profile", "entry_full",
           "train_mesh_multi", "train_tp_multi", "pretrain",
           "pretrain_multi", "train_cp_multi", "serve_mesh",
-          "serve_mesh_multi", "train_ep", "train_ep_multi")
+          "serve_mesh_multi", "train_ep", "train_ep_multi", "train_pp",
+          "train_pp_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
                  "train_tp_multi", "pretrain_multi", "train_cp_multi",
-                 "serve_mesh_multi", "train_ep_multi")
+                 "serve_mesh_multi", "train_ep_multi", "train_pp_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -7992,13 +8364,17 @@ def main(argv=None) -> int:
     ap.add_argument("--ep-worker", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--ep-multi-worker", metavar="OUT",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--pp-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--pp-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
                "tp_multi_worker": _tp_multi_worker, "cp_worker": _cp_worker,
                "cp_multi_worker": _cp_multi_worker,
                "serve_mesh_worker": _serve_mesh_worker,
                "serve_multi_worker": _serve_multi_worker,
-               "ep_worker": _ep_worker, "ep_multi_worker": _ep_multi_worker}
+               "ep_worker": _ep_worker, "ep_multi_worker": _ep_multi_worker,
+               "pp_worker": _pp_worker, "pp_multi_worker": _pp_multi_worker}
     if args.entry_worker or args.pretrain_worker or \
             args.serve_entry_worker or any(getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
@@ -8081,6 +8457,7 @@ def main(argv=None) -> int:
     add(run("train_cp", phase_train_cp))
     add(run("serve_mesh", phase_serve_mesh))
     add(run("train_ep", phase_train_ep))
+    add(run("train_pp", phase_train_pp))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -8100,6 +8477,7 @@ def main(argv=None) -> int:
     add(run("train_cp_multi", phase_train_cp_multi))
     add(run("serve_mesh_multi", phase_serve_mesh_multi))
     add(run("train_ep_multi", phase_train_ep_multi))
+    add(run("train_pp_multi", phase_train_pp_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -184,26 +184,73 @@ def step_identity_text(step_fn, state, batch=None) -> str:
     ``step_identity`` (its settings, set by ``train/step.py``), every
     tensor of the state (the model's parameters and buffers, the
     adapters) by name, shape, dtype and placement, the batch's keys,
-    shapes and dtypes, and the kernel sources' digest."""
+    shapes and dtypes, and the kernel sources' digest. A pipeline stage,
+    which holds its own layers only, lists the whole model's layers by
+    their global names (:func:`_stage_lines`), so every stage of a
+    healthy run hashes the same text."""
     lines = ["step " + json.dumps(getattr(step_fn, "step_identity", None),
                                   sort_keys=True, default=str)]
     params = getattr(state, "params", None)
-    if params is not None:
-        for name, t in params.named_parameters():
-            lines.append(_tensor_line("param " + name, t))
-        for name, t in params.named_buffers():
-            lines.append(_tensor_line("buffer " + name, t))
-    for i, layer in enumerate(getattr(state, "lora", None) or ()):
-        for target in sorted(layer):
-            for k in sorted(layer[target]):
-                lines.append(_tensor_line(f"lora {i}.{target}.{k}",
-                                          layer[target][k]))
+    stage = _stage_layers(params) if params is not None else None
+    if stage is not None:
+        lines += _stage_lines(params, stage, state)
+    else:
+        if params is not None:
+            for name, t in params.named_parameters():
+                lines.append(_tensor_line("param " + name, t))
+            for name, t in params.named_buffers():
+                lines.append(_tensor_line("buffer " + name, t))
+        for i, layer in enumerate(getattr(state, "lora", None) or ()):
+            for target in sorted(layer):
+                for k in sorted(layer[target]):
+                    lines.append(_tensor_line(f"lora {i}.{target}.{k}",
+                                              layer[target][k]))
     for k in sorted(batch or {}):
         v = batch[k]
         lines.append(f"batch {k} {tuple(v.shape)} "
                      f"{str(v.dtype).replace('torch.', '')}")
     lines.append("kernels " + kernel_sources_digest())
     return "\n".join(lines)
+
+
+def _stage_layers(params):
+    """A pipeline stage's global layer indices, None for a whole model."""
+    return getattr(params.blocks, "layer_ids", None)
+
+
+def _stage_lines(params, stage, state) -> list:
+    """The lines of a pipeline stage's model as the whole model's: the
+    root's tensors, then every layer of the model by its global name,
+    each drawn from this stage's block (and adapters) at the same
+    position of the block pattern. The stages of a healthy run give the
+    same text; a stage whose layers differ in kind, shape, dtype or
+    placement from another's does not."""
+    cfg = params.cfg
+    n_pat = len(cfg.block_pattern)
+    lines = []
+    for name, t in params.named_parameters():
+        if not name.startswith("blocks."):
+            lines.append(_tensor_line("param " + name, t))
+    for name, t in params.named_buffers():
+        if not name.startswith("blocks."):
+            lines.append(_tensor_line("buffer " + name, t))
+    template = {}
+    lora = getattr(state, "lora", None)
+    for pos, (i, blk) in enumerate(zip(stage, params.blocks)):
+        template.setdefault(i % n_pat,
+                            (blk, lora[pos] if lora is not None else None))
+    for i in range(cfg.n_layers):
+        blk, layer = template[i % n_pat]
+        lines.append(f"block {i} {blk.kind}")
+        for name, t in blk.named_parameters():
+            lines.append(_tensor_line(f"param blocks.{i}.{name}", t))
+        for name, t in blk.named_buffers():
+            lines.append(_tensor_line(f"buffer blocks.{i}.{name}", t))
+        for target in sorted(layer or ()):
+            for k in sorted(layer[target]):
+                lines.append(_tensor_line(f"lora {i}.{target}.{k}",
+                                          layer[target][k]))
+    return lines
 
 
 def _all_gather(value):

@@ -14,7 +14,8 @@ at a time:
         [--step N] [--dtype bfloat16] [--model-config path.json]
 
 The export holds per-layer tensors (``blocks.<i>.<key>``, an expert bank
-whole, written in parts by the ranks that hold its experts), each as
+whole, written in parts by the ranks that hold its experts, a layer of a
+pipelined model by the ranks of its stage), each as
 ``save_hf_checkpoint`` holds it before its cast (a QLoRA projection
 dequantized and merged in fp32), and the converter writes
 them in ``save_hf_checkpoint``'s order: the converted directory equals a
@@ -87,9 +88,11 @@ def export_tensors(params, cfg, *, lora=None, lora_scale: float = 1.0
     for a whole tensor; for a bank sharded over ``model`` (expert
     parallelism) the tensor is this rank's experts only and ``experts``
     the axis (``parallel/tensor.py::TensorParallel``): a bank is never
-    gathered over ``model``."""
+    gathered over ``model``. A pipeline stage yields its own layers,
+    under their global indices."""
     from gke_ray_train_tpu_torch.ckpt.hf_io import (
         _EXPERT_HF, _hf_layer_names, merged_weight)
+    from gke_ray_train_tpu_torch.models.transformer import layer_ids
     from gke_ray_train_tpu_torch.ops.quant import dequantize, is_qtensor
     from gke_ray_train_tpu_torch.parallel.tensor import local_weight, tp_of
     with _gathered(params):
@@ -97,8 +100,8 @@ def export_tensors(params, cfg, *, lora=None, lora_scale: float = 1.0
         yield "final_norm", params.final_norm, None
         if params.lm_head is not None:
             yield "lm_head", _whole(params.lm_head), None
-    for i, blk in enumerate(params.blocks):
-        adapters = lora[i] if lora is not None else {}
+    for pos, (i, blk) in enumerate(zip(layer_ids(params), params.blocks)):
+        adapters = lora[pos] if lora is not None else {}
         with _gathered(blk):
             for key in _hf_layer_names(cfg, i):
                 yield f"blocks.{i}.{key}", merged_weight(
@@ -126,6 +129,22 @@ def _expert_mesh(experts):
                       mesh_dim_names=("model", "rest"))
 
 
+def _stage_mesh(layers):
+    """The host mesh a pipeline stage's layers are saved on: the ranks
+    that hold ``layers``, this rank's stage (the row of a stage × the
+    rest mesh, the stages ordered by their first layer; every rank
+    enters)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    stages = [None] * dist.get_world_size()
+    dist.all_gather_object(stages, tuple(layers))
+    grid = [[w for w, s in enumerate(stages) if s == stage]
+            for stage in sorted(set(stages))]
+    mesh = DeviceMesh("cpu", torch.tensor(grid),
+                      mesh_dim_names=("stage", "rest"))
+    return mesh["rest"]
+
+
 def _expert_part(t: torch.Tensor, mesh, shape) -> torch.Tensor:
     """This rank's experts ``t`` as its block of the bank of global
     ``shape`` on the (model, rest) host mesh: its own experts (dim 0 over
@@ -149,8 +168,10 @@ def save_export(params, cfg, export_dir: str, step: int, *, lora=None,
     world's row blocks (a DTensor sharded on dim 0 over a host mesh), so
     each rank writes its part; an expert bank sharded over ``model`` is
     not gathered over it: each rank writes a part of its own experts (a
-    host mesh of model × the rest). In one process the tensors are saved
-    whole.
+    host mesh of model × the rest). On a pipelined mesh a layer's tensors
+    exist on its stage's ranks only, and are cut into those ranks' row
+    blocks (:func:`_stage_mesh`), so each layer is written by the ranks
+    that hold it. In one process the tensors are saved whole.
     What is saved is copied to host memory as each unit is gathered, so
     the card holds one gathered unit at a time. Returns ``{"tensors": n,
     "bytes": local bytes}``."""
@@ -158,13 +179,15 @@ def save_export(params, cfg, export_dir: str, step: int, *, lora=None,
     from gke_ray_train_tpu_torch.ckpt.manager import CheckpointManager
     world = dist.get_world_size() if (dist.is_available()
                                       and dist.is_initialized()) else 1
-    mesh = emesh = None
+    mesh = emesh = smesh = None
     if world > 1:
         from torch.distributed.device_mesh import init_device_mesh
         # a host mesh over the world's group: the parts stay in host
         # memory (no collective runs on them; the save's own exchange of
         # plans goes through the group's backend)
         mesh = init_device_mesh("cpu", (world,))
+        if getattr(params.blocks, "layer_ids", None) is not None:
+            smesh = _stage_mesh(params.blocks.layer_ids)
     flat: Dict[str, torch.Tensor] = {}
     nbytes = 0
     for key, t, experts in export_tensors(params, cfg, lora=lora,
@@ -177,9 +200,11 @@ def save_export(params, cfg, export_dir: str, step: int, *, lora=None,
             nbytes += t.to_local().numel() * t.to_local().element_size()
         elif mesh is not None:
             from torch.distributed.tensor import DTensor, Shard
-            part = torch.chunk(t, world, dim=0)[dist.get_rank()].to(
+            on = (smesh if smesh is not None and key.startswith("blocks.")
+                  else mesh)
+            part = torch.chunk(t, on.size(), dim=0)[on.get_local_rank()].to(
                 "cpu", copy=True)
-            t = DTensor.from_local(part, mesh, [Shard(0)], run_check=False,
+            t = DTensor.from_local(part, on, [Shard(0)], run_check=False,
                                    shape=t.shape, stride=t.contiguous()
                                    .stride())
             nbytes += part.numel() * part.element_size()

@@ -40,7 +40,7 @@ import torch
 from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
-    Lora, Transformer, torch_dtype)
+    Lora, Transformer, layer_ids, torch_dtype)
 from gke_ray_train_tpu_torch.ops.quant import (
     DEFAULT_GROUP, QUANT_KINDS, QUANT_TARGETS, dequantize, is_qtensor,
     quantize_stacked, quantize_tensor)
@@ -215,7 +215,8 @@ def _maybe_t(t: torch.Tensor, key: str) -> torch.Tensor:
 def load_hf_checkpoint(model_dir: str, cfg: ModelConfig, *,
                        quantize: Optional[str] = None,
                        device: DeviceLike = None,
-                       dtype: Optional[torch.dtype] = None) -> Transformer:
+                       dtype: Optional[torch.dtype] = None,
+                       layers=None) -> Transformer:
     """A ``Transformer`` on ``device`` (default ``cuda``) holding the HF
     model in ``model_dir``, in ``dtype`` (default ``cfg.param_dtype``).
 
@@ -223,7 +224,8 @@ def load_hf_checkpoint(model_dir: str, cfg: ModelConfig, *,
     quantized on the device as it is read (the JAX package's
     ``load_quantized``: the same codes and scales), an expert bank one
     (layer, expert) slice at a time; norms, router, embedding and head
-    stay in ``dtype``."""
+    stay in ``dtype``. ``layers``: read only these global layers (a
+    pipeline stage's, ``models/pipeline.py::stage_layers``)."""
     if quantize is not None and quantize not in QUANT_KINDS:
         raise ValueError(f"quantize={quantize!r} not in {QUANT_KINDS}")
     dev = resolve_device(device)
@@ -231,8 +233,9 @@ def load_hf_checkpoint(model_dir: str, cfg: ModelConfig, *,
     targets = QUANT_TARGETS if quantize else ()
     reader = ShardedReader(model_dir)
     try:
-        model = Transformer(cfg, device=dev, dtype=pdt, quantized=targets)
-        for i, blk in enumerate(model.blocks):
+        model = Transformer(cfg, device=dev, dtype=pdt, quantized=targets,
+                            layers=layers)
+        for i, blk in zip(layer_ids(model), model.blocks):
             for key, tname in _hf_layer_names(cfg, i).items():
                 w = _maybe_t(reader.get_tensor(tname), key)
                 if key in targets:

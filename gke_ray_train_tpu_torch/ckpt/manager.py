@@ -43,7 +43,9 @@ a sharded state (DTensors: the params and optimizer state of a model
 sharded with FSDP2) and one copy of what is replicated (the adapters),
 and reads a step back into whatever placement the template has, so a
 step saved at world N restores at world M, or into the plain tensors of
-one process (:meth:`CheckpointManager.restore_resharded`). Rank 0 alone
+one process (:meth:`CheckpointManager.restore_resharded`); a pipeline
+stage saves its own layers (and adapters) under their global names, so
+a step saved over ``pipe`` restores at world 1 and back. Rank 0 alone
 writes the markers, the metrics, the rename and ``topology.json`` (the
 saving world's size, so a restore can say it resharded), between
 barriers.
@@ -135,7 +137,10 @@ def flat_state(state: Any) -> Dict[str, Any]:
                         k[:-len(".codes")]).code_dtype)
                 out[f"params/{k}"] = v.detach()
         if state.lora is not None:
-            for i, layer in enumerate(state.lora):
+            # a pipeline stage's adapters under their global layers
+            from gke_ray_train_tpu_torch.models.transformer import (
+                lora_layer_ids)
+            for i, layer in zip(lora_layer_ids(state.lora), state.lora):
                 for t, ab in layer.items():
                     for k, v in ab.items():
                         out[f"lora/{i}.{t}.{k}"] = v.detach()
@@ -616,11 +621,35 @@ class CheckpointManager:
         dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self._commit_group)
         return bool(flag.item())
 
-    def tear_mid_commit(self) -> int:
+    def wait_until_committing(self, step: int,
+                              timeout: Optional[float] = None) -> bool:
+        """Block until the committer holds ``step`` (it left the queue
+        and its commit began); False at once when ``step`` is neither
+        queued nor in flight, and after ``timeout`` (default the commit
+        timeout). The commit drill waits here so the kill lands inside
+        the commit, not on a queue the committer has yet to reach."""
+        deadline = time.monotonic() + (self.commit_timeout_s
+                                       if timeout is None else timeout)
+        with self._commit_lock:
+            while self._committing_now != step:
+                queued = any(int(q[0]) == step for q in self._commit_queue)
+                if not queued or time.monotonic() > deadline:
+                    return False
+                self._commit_lock.wait(timeout=0.05)
+        return True
+
+    def tear_mid_commit(self, partial: bool = False) -> int:
         """Drill hook for a kill during a commit: freeze the in-flight
         commit in its mid-commit state (COMMITTING, no COMMITTED), purge
         anything else queued, and return the torn step. The manager is
-        dead afterwards (further saves return False)."""
+        dead afterwards (further saves return False). ``partial``: where
+        the kill lands on a commit that has not serialized yet, whether
+        still queued or held by the committer before its write, leave the
+        marker and a torn partial step directory, one state whichever way
+        the race went (the ``FAULT_SPEC`` drill); without it a held
+        commit torn before its write leaves its marker only, as the JAX
+        manager's does. One process only: across ranks the committers
+        agree where to tear."""
         if not self.async_commit:
             raise RuntimeError(
                 "tear_mid_commit requires an async-commit manager "
@@ -653,7 +682,8 @@ class CheckpointManager:
                     "kill_during_commit fired with no in-flight commit; "
                     "schedule it on a step the checkpoint cadence "
                     "actually saves")
-        if not in_flight:
+        if not in_flight or (partial
+                             and not os.path.isdir(self._step_dir(step))):
             # the kill landed between the write-ahead record and the
             # serialize: marker + a torn partial step directory
             self._write_marker(_WAL_OPEN, step)

@@ -99,14 +99,16 @@ TPU_ONLY_KEYS = frozenset({
     "AUTOTUNE_BUDGET", "AUTOTUNE_DRIFT_BAND", "NUM_SLICES", "DCN_SYNC", "DCN_COMPRESS", "BUDGET_PRESET",
 })
 TPU_ONLY_PREFIXES = ("MESH_", "PIPE_")
-# the mesh keys a world above one process reads (parallel/mesh.py)
+# the mesh keys a world above one process reads (parallel/mesh.py), and
+# the pipeline's (models/pipeline.py, through plan.py)
 MESH_KEYS = frozenset({"MESH_DATA", "MESH_FSDP", "MESH_MODEL",
-                       "MESH_CONTEXT", "MESH_PIPE", "NUM_SLICES"})
+                       "MESH_CONTEXT", "MESH_PIPE", "NUM_SLICES",
+                       "PIPE_MICROBATCHES", "PIPE_VIRTUAL_STAGES"})
 
 
 def tpu_only_keys(config: dict, world: int = 1) -> List[str]:
     """The keys of ``config`` that only a TPU mesh or XLA reads; at a
-    ``world`` above 1 the mesh keys are the port's too."""
+    ``world`` above 1 the mesh and pipeline keys are the port's too."""
     return sorted(k for k in config
                   if (k in TPU_ONLY_KEYS or k.startswith(TPU_ONLY_PREFIXES))
                   and not (world > 1 and k in MESH_KEYS))

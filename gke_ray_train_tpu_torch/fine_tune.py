@@ -51,9 +51,14 @@ the generate and the engine, rank 0 writing the files (a full
 fine-tune's base is read back through :func:`load_pretrained`, sharded
 as at the start); ``SERVE_AFTER_TRAIN`` warns and skips on more than
 one node, as JAX's does. An MoE model at ``MESH_MODEL`` above 1 shards
-its experts over ``model`` (expert parallelism, ``ops/moe.py``). Not
-ported yet, each raising where the config asks for it: peer replication
-and the ``pipe`` mesh axis (ROADMAP queue 1 item 8).
+its experts over ``model`` (expert parallelism, ``ops/moe.py``). At
+``MESH_PIPE`` above 1 each rank holds its stage's layers and the train
+step runs the pipeline (``models/pipeline.py``; ``PIPE_MICROBATCHES``
+pipe microbatches in each grad-accum microbatch, ``PIPE_VIRTUAL_STAGES``
+groups a stage, as JAX's job reads them); the export is written by the
+ranks that hold each layer. ``INFERENCE`` and ``SERVE_AFTER_TRAIN`` on a
+pipelined model raise before any work: decode across pipe stages is not
+ported (ROADMAP queue 1 item 8), and neither is peer replication.
 """
 
 from __future__ import annotations
@@ -89,7 +94,7 @@ from gke_ray_train_tpu_torch.parallel.placement import (
 from gke_ray_train_tpu_torch.parallel.sharding import (
     check_model_on_mesh, shard_model, shard_unit)
 from gke_ray_train_tpu_torch.plan import (
-    ExecutionPlan, PlanError, context_findings)
+    ExecutionPlan, PlanError, context_findings, model_findings)
 from gke_ray_train_tpu_torch.rayint import get_context
 from gke_ray_train_tpu_torch.rayint.elastic import maybe_replan
 from gke_ray_train_tpu_torch.serve import post_train_smoke
@@ -138,11 +143,14 @@ def load_pretrained(ckpt_dir: str, cfg, *, quantize=None,
     one unit at a time (each block moved to the card and sharded, then
     the root's own tensors moved; ``shard_model`` shards the root), so
     no card holds the whole model. A quantized (QLoRA) base is read onto
-    the card, quantized on load."""
+    the card, quantized on load. On a pipelined mesh only this rank's
+    stage's layers are read."""
+    from gke_ray_train_tpu_torch.models.pipeline import mesh_stage
+    stage = mesh_stage(cfg, mesh)
     if mesh is None or quantize is not None:
         return load_hf_checkpoint(ckpt_dir, cfg, quantize=quantize,
-                                  device=device)
-    params = load_hf_checkpoint(ckpt_dir, cfg, device="cpu")
+                                  device=device, layers=stage)
+    params = load_hf_checkpoint(ckpt_dir, cfg, device="cpu", layers=stage)
     for blk in params.blocks:
         shard_unit(blk.to(device), cfg, mesh)
     for name in ("embed", "final_norm", "lm_head"):
@@ -150,6 +158,24 @@ def load_pretrained(ckpt_dir: str, cfg, *, quantize=None,
         if p is not None:
             p.data = p.data.to(device)
     return params
+
+
+def check_pipe_serving(config: dict) -> None:
+    """Raise where a config asks a pipelined model to serve
+    (``INFERENCE``, ``SERVE_AFTER_TRAIN``): decode across pipe stages is
+    not ported (ROADMAP queue 1 item 8). JAX's decode has no pipe
+    schedule either."""
+    serve = str(config.get("SERVE_AFTER_TRAIN", os.environ.get(
+        "SERVE_AFTER_TRAIN", "0"))).strip().lower() in ("1", "true")
+    asked = [k for k, on in (("INFERENCE",
+                              bool(config.get("INFERENCE", False))),
+                             ("SERVE_AFTER_TRAIN", serve)) if on]
+    if asked:
+        raise NotImplementedError(
+            f"{' and '.join(asked)} on a pipelined model (MESH_PIPE > 1): "
+            "decode across pipe stages is not ported yet (ROADMAP queue 1 "
+            "item 8, decode across pipe stages); train at MESH_PIPE > 1 "
+            "and serve the export")
 
 
 def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
@@ -178,6 +204,9 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         # the attempt runs under the re-formed plan
         ctx.plan_fingerprint = plan.fingerprint()
     mesh = build_mesh(mesh_cfg, device_type=dev.type) if world > 1 else None
+    pipe = mesh_cfg.pipe if mesh_cfg is not None else 1
+    if pipe > 1:
+        check_pipe_serving(config)
     smoke = bool(config.get("SMOKE_TEST", False))
     logger.info("worker on %s (world %d%s); plan %s", dev, world,
                 f", mesh {mesh_cfg.shape}" if mesh_cfg else "",
@@ -205,17 +234,25 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
                    max_seq_len=max_seq,
                    dtype=config.get("TRAIN_DTYPE", "float32"),
                    param_dtype=config.get("PARAM_DTYPE", "float32"),
-                   attn_impl=config.get("ATTN_IMPL", "auto"), n_layers=2)
+                   attn_impl=config.get("ATTN_IMPL", "auto"),
+                   # deep enough for the pipeline's stages
+                   n_layers=max(2, pipe * plan.pipe_virtual_stages))
     else:
         cfg = preset_for_model_id(
             model_id, dtype=train_dtype, param_dtype=param_dtype,
             attn_impl=config.get("ATTN_IMPL", "auto"),
             remat_policy=config.get("REMAT_POLICY", "full"))
+    if "PIPE_VIRTUAL_STAGES" in config:
+        cfg = dataclasses.replace(cfg, pipe_virtual=plan.pipe_virtual_stages)
     if mesh_cfg is not None:
-        # a model that cannot tile the model axis, or sequences that
-        # cannot shard over the context axis, raise here, before any
+        # a model that cannot tile the model or pipe axis, or sequences
+        # that cannot shard over the context axis, raise here, before any
         # weight is built
         check_model_on_mesh(cfg, mesh_cfg.model)
+        found = model_findings(cfg, model=1, pipe=pipe,
+                               virtual=cfg.pipe_virtual)
+        if found:
+            raise PlanError("; ".join(found))
         found = context_findings(cfg, context=mesh_cfg.context,
                                  max_seq_len=plan.max_seq_len)
         if found:
@@ -249,7 +286,7 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
             params = init_quantized_params(cfg, seed=0, kind=load_quant,
                                            device=dev, mesh=mesh)
         else:
-            params = init_params(cfg, seed=0, device=dev)
+            params = init_params(cfg, seed=0, device=dev, mesh=mesh)
 
     # ---- dataset ------------------------------------------------------
     n_train = int(config.get("NUM_TRAIN_SAMPLES", 1000))

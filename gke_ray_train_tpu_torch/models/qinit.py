@@ -22,7 +22,10 @@ expert in order, so the generator's stream and each expert's draw are
 those of one process, but rounds and quantizes only its own ``E /
 model`` experts, whose codes and scales become its shard of the bank
 (``parallel/sharding.py::place_local_experts``): bitwise one process's
-slices.
+slices. On a pipelined mesh a rank makes only its stage's blocks
+(``models/pipeline.py::stage_layers``) and draws the other stages'
+layers without keeping them, so a stage's blocks are one process's,
+bitwise, and a 70B stage never holds another stage's layers.
 """
 
 from __future__ import annotations
@@ -62,10 +65,13 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
 
     ``mesh``: each block is sharded over its fsdp axis once made (the
     root is left for ``make_train_state(mesh=)`` to shard)."""
+    from gke_ray_train_tpu_torch.models.pipeline import mesh_stage
+    from gke_ray_train_tpu_torch.models.transformer import layer_ids
     dev = resolve_device(device)
     pdt = torch_dtype(cfg.param_dtype)
     targets = tuple(targets)
-    model = Transformer(cfg, device=dev, dtype=pdt, quantized=targets)
+    model = Transformer(cfg, device=dev, dtype=pdt, quantized=targets,
+                        layers=mesh_stage(cfg, mesh))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
@@ -91,7 +97,18 @@ def init_quantized_params(cfg: ModelConfig, seed: int = 0, *,
                 yield w.to(torch.bfloat16)
 
     model.embed.copy_(draw(model.embed.shape, 0.02))
-    for blk in model.blocks:
+    held = dict(zip(layer_ids(model), model.blocks))
+    for i in range(cfg.n_layers):
+        blk = held.get(i)
+        if blk is None:
+            # another stage's layer: the same draws, none kept
+            for name, shape in proj_shapes(cfg).items():
+                if name in targets and len(shape) == 3:
+                    for _ in range(shape[0]):
+                        draw(shape[1:], 0.0)
+                else:
+                    draw(shape, 0.0)
+            continue
         for p in (blk.attn_norm, blk.mlp_norm, blk.attn_post_norm,
                   blk.mlp_post_norm):
             norm_(p)

@@ -27,8 +27,14 @@ norm and head inside ``Transformer.__call__`` (a caller's loss through
 ``forward``'s ``loss_fn``), so a model sharded with FSDP2
 (``parallel/sharding.py``) gathers each unit's weights around its
 forward and again in its backward (under remat, inside the
-recomputation too). The pipeline path of the JAX ``forward`` belongs to
-a later slice.
+recomputation too). On a mesh whose ``pipe`` axis exceeds 1 a rank's
+model holds only its stage's blocks (:class:`StageBlocks`, registered
+under their global layer indices, so parameter names are the whole
+model's), and ``forward`` runs the pipeline's ticks across the stages
+(``models/pipeline.py``) without autograd, the last stage's output
+broadcast so every stage runs the final norm and head, as JAX runs them
+replicated; the train step drives the pipelined backward itself
+(``train/step.py``).
 
 Under tensor parallelism (``model`` above 1, ``parallel/tensor.py``) a
 gathered unit's sharded weights are DTensors of the ``model`` submesh;
@@ -172,20 +178,75 @@ class Block(nn.Module):
         return (layer_fn or _layer)(x, self, *args, **kwargs)
 
 
+class StageBlocks(nn.Module):
+    """A pipeline stage's blocks (``models/pipeline.py::stage_layers``),
+    each registered under its global layer index, so ``named_parameters``
+    and ``state_dict`` name them as the whole model does
+    (``blocks.<i>.…``). Iterates, counts and indexes (by position, an int
+    or a slice) as the list of the stage's blocks; ``layer_ids`` are
+    their global indices, ascending."""
+
+    def __init__(self, blocks: Dict[int, "Block"]):
+        super().__init__()
+        for i in sorted(blocks):
+            self.add_module(str(i), blocks[i])
+        self.layer_ids = tuple(sorted(blocks))
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self) -> int:
+        return len(self._modules)
+
+    def __getitem__(self, idx):
+        return list(self._modules.values())[idx]
+
+
+class StageLora(list):
+    """A pipeline stage's adapters: one dict a layer of the stage, in
+    order, with ``layer_ids`` their global layer indices."""
+
+    def __init__(self, layers, ids):
+        super().__init__(layers)
+        self.layer_ids = tuple(ids)
+
+
+def lora_layer_ids(lora) -> tuple:
+    """The global layer of each adapter dict of ``lora``: a stage's
+    (:class:`StageLora`), else ``0 .. len - 1``."""
+    ids = getattr(lora, "layer_ids", None)
+    return tuple(range(len(lora))) if ids is None else ids
+
+
+def layer_ids(params) -> tuple:
+    """The global layer index of each of ``params.blocks``: a stage's
+    (:class:`StageBlocks`), else ``0 .. n_layers - 1``."""
+    ids = getattr(params.blocks, "layer_ids", None)
+    return tuple(range(len(params.blocks))) if ids is None else ids
+
+
 class Transformer(nn.Module):
     """Embedding, ``n_layers`` Blocks, final norm and (untied) head;
-    ``quantized`` as for ``Block``."""
+    ``quantized`` as for ``Block``. ``layers``: the global indices of the
+    blocks to hold (a pipeline stage's, :class:`StageBlocks`); default
+    every layer."""
 
     def __init__(self, cfg: ModelConfig, *, device: torch.device,
-                 dtype: torch.dtype, quantized: Collection[str] = ()):
+                 dtype: torch.dtype, quantized: Collection[str] = (),
+                 layers: Optional[Collection[int]] = None):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.embed = _param(cfg.vocab_size, cfg.d_model, **kw)
         pattern = cfg.block_pattern
-        self.blocks = nn.ModuleList(
-            Block(cfg, pattern[i % len(pattern)], quantized=quantized, **kw)
-            for i in range(cfg.n_layers))
+
+        def block(i):
+            return Block(cfg, pattern[i % len(pattern)], quantized=quantized,
+                         **kw)
+        if layers is None:
+            self.blocks = nn.ModuleList(block(i) for i in range(cfg.n_layers))
+        else:
+            self.blocks = StageBlocks({i: block(i) for i in layers})
         self.final_norm = _param(cfg.d_model, **kw)
         self.register_parameter(
             "lm_head", None if cfg.tie_embeddings
@@ -208,9 +269,22 @@ Params = Transformer
 # init
 # ---------------------------------------------------------------------------
 
+def to_stage(params: Transformer, layers: Collection[int]) -> Transformer:
+    """Keep only the blocks of global indices ``layers`` (a pipeline
+    stage's), in place, the others dropped; returns ``params``."""
+    keep = set(layers)
+    ids = layer_ids(params)
+    params.blocks = StageBlocks({i: blk for i, blk in zip(ids, params.blocks)
+                                 if i in keep})
+    if set(params.blocks.layer_ids) != keep:
+        raise ValueError(f"the model holds layers {sorted(ids)}, not all "
+                         f"of the stage's {sorted(keep)}")
+    return params
+
+
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed: int = 0, *,
-                device: DeviceLike = None) -> Transformer:
+                device: DeviceLike = None, mesh=None) -> Transformer:
     """A randomly initialized model on ``device`` (default ``cuda``).
 
     Truncated-normal (±3 std) init drawn from a ``torch.Generator`` on the
@@ -218,23 +292,37 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     matrices (wo, w_down) are scaled by 1/sqrt(2*n_layers), as in the
     JAX package; an MoE router draws at std 0.02. The draws are not
     JAX's: tests carry JAX's params over with
-    ``interop.params_from_numpy`` instead."""
+    ``interop.params_from_numpy`` instead. ``mesh``: on a pipelined mesh
+    only this rank's stage's blocks are made; every layer is drawn in
+    order all the same, so a stage holds one process's values bitwise."""
+    from gke_ray_train_tpu_torch.models.pipeline import mesh_stage
     dev = resolve_device(device)
-    model = Transformer(cfg, device=dev, dtype=torch_dtype(cfg.param_dtype))
+    stage = mesh_stage(cfg, mesh)
+    model = Transformer(cfg, device=dev, dtype=torch_dtype(cfg.param_dtype),
+                        layers=stage)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
-    def normal_(p: torch.Tensor, std: float) -> None:
-        tmp = torch.empty(p.shape, dtype=torch.float32, device=dev)
+    def normal_(p, std: float, shape=None) -> None:
+        tmp = torch.empty(p.shape if shape is None else shape,
+                          dtype=torch.float32, device=dev)
         nn.init.trunc_normal_(tmp, 0.0, 1.0, -3.0, 3.0, generator=gen)
-        p.copy_(tmp.mul_(std))
+        if p is not None:
+            p.copy_(tmp.mul_(std))
 
     def norm_(p: Optional[torch.Tensor]) -> None:
         if p is not None:
             p.fill_(0.0 if cfg.norm_scale_plus_one else 1.0)
 
     normal_(model.embed, 0.02)
-    for blk in model.blocks:
+    held = dict(zip(layer_ids(model), model.blocks))
+    for i in range(cfg.n_layers):
+        blk = held.get(i)
+        if blk is None:
+            # another stage's layer: its draws only
+            for name, shape in proj_shapes(cfg).items():
+                normal_(None, 0.0, shape)
+            continue
         norm_(blk.attn_norm)
         norm_(blk.mlp_norm)
         for b in (blk.bq, blk.bk, blk.bv):
@@ -622,12 +710,93 @@ def position_inputs(cfg: ModelConfig, x: torch.Tensor,
             x.device)
         idx = positions.long().clamp(0, cfg.max_seq_len - 1)
         return x + table.to(x.dtype)[idx], None
-    rope = _device_table(
+    return x, rope_table(cfg, x.device)
+
+
+def rope_table(cfg: ModelConfig, device: torch.device
+               ) -> Optional[torch.Tensor]:
+    """RoPE inverse frequencies on ``device`` (None for sinusoidal
+    positions, which the embedding adds)."""
+    if cfg.positional == "sinusoidal":
+        return None
+    return _device_table(
         ("rope", cfg.resolved_head_dim, cfg.rope_theta, cfg.rope_scaling),
         lambda: rope_frequencies(cfg.resolved_head_dim, theta=cfg.rope_theta,
                                  llama3_scaling=cfg.rope_scaling),
-        x.device)
-    return x, rope
+        device)
+
+
+def _masks(cfg: ModelConfig, impl: str, positions, segment_ids) -> dict:
+    """Dense masks of each block kind, shared by every layer of one kind
+    (the xla impl); None for the kernel paths, which build theirs
+    in-kernel."""
+    masks = {kind: None for kind in set(cfg.block_pattern)}
+    if impl == "xla":
+        for kind in masks:
+            masks[kind] = make_attention_mask(
+                positions, positions, segment_ids, segment_ids, causal=True,
+                sliding_window=(cfg.sliding_window if kind == "sliding"
+                                else None))
+    return masks
+
+
+def _default_positions(B: int, S: int, mesh, device) -> torch.Tensor:
+    """``arange(S)``, at a ``context`` above 1 this rank's slice
+    ``c * S + arange(S)`` of the global positions (S the shard's)."""
+    from gke_ray_train_tpu_torch.parallel.mesh import context_rank
+    off = context_rank(mesh) * S
+    return torch.arange(off, off + S, dtype=torch.int32,
+                        device=device).expand(B, S)
+
+
+def pipeline_forward(params: Transformer, tokens: torch.Tensor,
+                     cfg: ModelConfig, *, mesh,
+                     positions: Optional[torch.Tensor] = None,
+                     segment_ids: Optional[torch.Tensor] = None,
+                     lora: Optional[Lora] = None, lora_scale: float = 1.0,
+                     lora_dropout: float = 0.0,
+                     lora_seed: Optional[int] = None,
+                     fused_ops: bool = False,
+                     token_weights: Optional[torch.Tensor] = None,
+                     microbatches: Optional[int] = None,
+                     head: Optional[Callable] = None):
+    """The forward ticks of a pipelined mesh (``models/pipeline.py::
+    run_forward``) over ``tokens`` [B, S], this rank's rows, cut into
+    ``microbatches`` (default one a hop, ``pipe_virtual × pipe``): the
+    first stage embeds each microbatch, every stage runs its blocks, the
+    last calls ``head(m, y)`` on each microbatch's output. Returns the
+    ``Run``. Raises on LoRA dropout, as JAX does."""
+    from gke_ray_train_tpu_torch.models import pipeline as pl
+    B, S = tokens.shape
+    M = pl.check_run(cfg, mesh, microbatches, B, dropout=(
+        lora is not None and lora_seed is not None and lora_dropout > 0.0))
+    dev = params.embed.device
+    check_on(tokens, dev, "tokens")
+    dtype = torch_dtype(cfg.dtype)
+    sch = pl.schedule_of(cfg, mesh, M)
+    if positions is None:
+        positions = _default_positions(B, S, mesh, dev)
+    impl = pl.resolve_impl(cfg, mesh, S, dev)
+    Bm = B // M
+    micro = []
+    for m in range(M):
+        rows = slice(m * Bm, (m + 1) * Bm)
+        pos = positions[rows]
+        seg = segment_ids[rows] if segment_ids is not None else None
+        micro.append({"positions": pos, "segment_ids": seg,
+                      "masks": _masks(cfg, impl, pos, seg),
+                      "weights": (token_weights[rows]
+                                  if token_weights is not None else None)})
+    inputs = None
+    if sch.rank == 0:
+        inputs = [position_inputs(cfg, embed_tokens(
+            params, tokens[m * Bm:(m + 1) * Bm], cfg, dtype),
+            micro[m]["positions"])[0] for m in range(M)]
+    return pl.run_forward(
+        params.blocks, cfg, mesh, schedule=sch, micro=micro, inputs=inputs,
+        shape=(Bm, S, cfg.d_model), dtype=dtype, device=dev, impl=impl,
+        rope=rope_table(cfg, dev), lora=lora, lora_scale=lora_scale,
+        fused_ops=fused_ops, head=head)
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -642,7 +811,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             with_aux: bool = False,
             token_weights: Optional[torch.Tensor] = None,
             loss_fn: Optional[Callable] = None,
-            mesh=None):
+            mesh=None, pipe_microbatches: Optional[int] = None):
     """tokens [B, S] integer → logits [B, S, vocab] float32 (under tensor
     parallelism [B, S, vocab / model], this rank's vocab shard). Runs on
     the device the params and tokens lie on.
@@ -669,35 +838,51 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     attention runs ``"ring"`` or ``"a2a"`` across the context ranks
     (``resolve_seq_impl``), and absent positions are the rank's slice
     ``c * S / C + arange(S / C)`` of the global ``arange(S)``, as JAX
-    shards it."""
+    shards it. Where its ``pipe`` axis exceeds 1 the block stack runs as
+    ``pipe_microbatches`` microbatches (default one a hop) through the
+    stages (:func:`pipeline_forward`), without autograd, and the result
+    is the same on every stage; the router aux is JAX's pipelined one
+    (``models/pipeline.py``)."""
     from gke_ray_train_tpu_torch.parallel.mesh import (
-        context_rank, context_size)
+        context_size, pipe_group, pipe_size)
     B, S = tokens.shape
     dev = params.embed.device
     check_on(tokens, dev, "tokens")
     dtype = torch_dtype(cfg.dtype)
     C = context_size(mesh)
-    if positions is None:
-        off = context_rank(mesh) * S
-        positions = torch.arange(off, off + S, dtype=torch.int32,
-                                 device=dev).expand(B, S)
-    x = embed_tokens(params, tokens, cfg, dtype)
-    x, rope = position_inputs(cfg, x, positions)
-    impl = resolve_seq_impl(cfg, S, dev, C)
-    # dense masks are shared by every layer of one kind; the kernel
-    # paths build theirs in-kernel
-    masks = {kind: None for kind in set(cfg.block_pattern)}
-    if impl == "xla":
-        for kind in masks:
-            masks[kind] = make_attention_mask(
-                positions, positions, segment_ids, segment_ids, causal=True,
-                sliding_window=(cfg.sliding_window if kind == "sliding"
-                                else None))
-    x, aux = run_block_stack(
-        x, params.blocks, cfg, impl, dtype, rope, positions, masks,
-        segment_ids, lora=lora, lora_scale=lora_scale,
-        lora_dropout=lora_dropout, lora_seed=lora_seed, fused_ops=fused_ops,
-        token_weights=token_weights, mesh=mesh)
+    if pipe_size(mesh) > 1:
+        # the pipelined block stack, the last stage's output broadcast so
+        # every stage runs the tail below
+        import torch.distributed as dist
+        from gke_ray_train_tpu_torch.models import pipeline as pl
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the pipelined forward runs without autograd; training "
+                "drives the pipeline's backward through train/step.py")
+        run = pipeline_forward(
+            params, tokens, cfg, mesh=mesh, positions=positions,
+            segment_ids=segment_ids, lora=lora, lora_scale=lora_scale,
+            lora_dropout=lora_dropout, lora_seed=lora_seed,
+            fused_ops=fused_ops, token_weights=token_weights,
+            microbatches=pipe_microbatches)
+        x = pl.gather_outputs(run, mesh, (B, S, cfg.d_model), dtype, dev)
+        aux = None
+        if cfg.n_experts:
+            aux = pl.stage_aux(run, dev)
+            dist.all_reduce(aux, group=pipe_group(mesh))
+            aux = aux / run.schedule.microbatches
+    else:
+        if positions is None:
+            positions = _default_positions(B, S, mesh, dev)
+        x = embed_tokens(params, tokens, cfg, dtype)
+        x, rope = position_inputs(cfg, x, positions)
+        impl = resolve_seq_impl(cfg, S, dev, C)
+        x, aux = run_block_stack(
+            x, params.blocks, cfg, impl, dtype, rope, positions,
+            _masks(cfg, impl, positions, segment_ids), segment_ids,
+            lora=lora, lora_scale=lora_scale, lora_dropout=lora_dropout,
+            lora_seed=lora_seed, fused_ops=fused_ops,
+            token_weights=token_weights, mesh=mesh)
     if return_pre_unembed:
         out = pre_unembed(x, params, cfg)
     else:

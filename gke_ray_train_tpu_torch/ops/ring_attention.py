@@ -27,7 +27,8 @@ against rank 1's K/V under causality) is dead in every tile: the forward
 gives out 0 and lse NEG_INF there, which the merge weighs 0, and the
 backward kernels write zeros.
 
-The transport (:func:`rotate`) is one ``batch_isend_irecv`` over the
+The transport (:func:`rotate`, on :func:`send_recv`, which the pipeline
+stages share, ``models/pipeline.py``) is one ``batch_isend_irecv`` over the
 context group: send to ``(c + 1) % C``, receive from ``(c - 1) % C``.
 Under gloo (several ranks of one card) CUDA tensors are staged through
 page-locked host memory (:data:`TRANSPORT` reports which). Every
@@ -81,6 +82,38 @@ def _from_host(h: torch.Tensor, device) -> torch.Tensor:
     return h.to(device, non_blocking=True)
 
 
+def send_recv(sends: List[torch.Tensor], dst: int,
+              recv_like: List[torch.Tensor], src: int,
+              group) -> List[torch.Tensor]:
+    """One ``batch_isend_irecv`` over ``group``: ``sends`` to group rank
+    ``dst``, and one tensor shaped as each of ``recv_like`` (dtype and
+    device too) from group rank ``src``, returned; either list may be
+    empty. Under gloo CUDA tensors are staged through page-locked host
+    memory. The ``i``-th send meets the peer's ``i``-th receive."""
+    import torch.distributed as dist
+    ref = (sends or recv_like or [None])[0]
+    if ref is None:
+        return []
+    host = _staged(group, ref)
+    sends = [x.detach().contiguous() for x in sends]
+    if host and sends:
+        sends = _to_host(sends)
+    recvs = [_host_like(x) if host else torch.empty(
+        x.shape, dtype=x.dtype, device=x.device) for x in recv_like]
+    to = dist.get_global_rank(group, dst)
+    frm = dist.get_global_rank(group, src)
+    ops = [dist.P2POp(dist.isend, x, to, group, tag=i)
+           for i, x in enumerate(sends)]
+    ops += [dist.P2POp(dist.irecv, x, frm, group, tag=i)
+            for i, x in enumerate(recvs)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    TRANSPORT["last"] = "host" if host else "direct"
+    if host:
+        recvs = [_from_host(r, x.device) for r, x in zip(recvs, recv_like)]
+    return recvs
+
+
 def rotate(xs: List[torch.Tensor], group) -> List[torch.Tensor]:
     """Each tensor of ``xs`` one hop around the ring of ``group``: this
     rank's goes to the next context rank, and the previous one's is
@@ -88,23 +121,7 @@ def rotate(xs: List[torch.Tensor], group) -> List[torch.Tensor]:
     import torch.distributed as dist
     C = dist.get_world_size(group)
     c = dist.get_rank(group)
-    dst = dist.get_global_rank(group, (c + 1) % C)
-    src = dist.get_global_rank(group, (c - 1) % C)
-    host = _staged(group, xs[0])
-    sends = [x.detach().contiguous() for x in xs]
-    if host:
-        sends = _to_host(sends)
-    recvs = [_host_like(x) if host else torch.empty_like(x) for x in sends]
-    ops = [dist.P2POp(dist.isend, x, dst, group, tag=i)
-           for i, x in enumerate(sends)]
-    ops += [dist.P2POp(dist.irecv, x, src, group, tag=i)
-            for i, x in enumerate(recvs)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    TRANSPORT["last"] = "host" if host else "direct"
-    if host:
-        recvs = [_from_host(r, x.device) for r, x in zip(recvs, xs)]
-    return recvs
+    return send_recv(xs, (c + 1) % C, xs, (c - 1) % C, group)
 
 
 def merge(o_acc: torch.Tensor, lse_acc: torch.Tensor, o_i: torch.Tensor,

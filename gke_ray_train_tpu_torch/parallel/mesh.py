@@ -15,8 +15,12 @@ axis        what is sharded over it
 ``model``   tensor parallelism on dense models (``parallel/tensor.py``)
 ``context`` the sequence (ring and all-to-all attention,
             ``ops/ring_attention.py``, ``ops/a2a_attention.py``)
-``pipe``    pipeline stages (not ported: item 8)
+``pipe``    the depth: pipeline stages, each rank its layers
+            (``models/pipeline.py``)
 ==========  ========================================================
+
+``pipe`` composes with ``data``, ``fsdp`` and ``context``; with
+``model`` above 1 it raises (ROADMAP queue 1 item 8).
 
 :func:`distributed_init` reads the rendezvous that torchrun and Ray Train
 set (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
@@ -49,9 +53,8 @@ MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL, AXIS_CONTEXT, AXIS_PIPE)
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
 # the ROADMAP item that ports each axis the port cannot shard over yet
-UNPORTED_AXES = {
-    AXIS_PIPE: "pipeline parallelism (ROADMAP queue 1 item 8)",
-}
+# (every axis is ported; multi-slice meshes are not, ``check_ported``)
+UNPORTED_AXES: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,10 +111,12 @@ class MeshConfig:
         )
 
     def check_ported(self) -> "MeshConfig":
-        """Raise unless only data, fsdp, model and context exceed 1 and
-        there is one slice; returns ``self``. Whether a model tiles
-        ``model`` is checked where the mesh meets the model config
-        (``plan.py::check_model_on_mesh``)."""
+        """Raise on a layout the port cannot run: more than one slice,
+        or ``pipe`` and ``model`` both above 1; returns ``self``.
+        Whether a model tiles ``model`` is checked where the mesh meets
+        the model config (``plan.py::check_model_on_mesh``), whether it
+        tiles ``pipe`` where the pipeline meets it
+        (``models/pipeline.py::check_stages``)."""
         if self.num_slices > 1:
             raise NotImplementedError(
                 f"NUM_SLICES={self.num_slices}: multi-slice meshes are not "
@@ -123,6 +128,11 @@ class MeshConfig:
                     f"MESH_{axis.upper()}={size}: {what} is not ported yet; "
                     "the port shards over data, fsdp, model and context "
                     "only")
+        if self.pipe > 1 and self.model > 1:
+            raise NotImplementedError(
+                f"MESH_PIPE={self.pipe} with MESH_MODEL={self.model}: "
+                "pipeline stages over tensor or expert parallelism are "
+                "not ported yet (ROADMAP queue 1 item 8, pipe x model)")
         return self
 
 
@@ -272,3 +282,40 @@ def model_rank(mesh) -> int:
     """This rank's index on the ``model`` axis (0 when it is 1): the
     vocab, head and ffn shard it holds."""
     return mesh[AXIS_MODEL].get_local_rank()
+
+
+def pipe_size(mesh) -> int:
+    """Ranks on the ``pipe`` axis (1 without a mesh): the stages the
+    layers are split over."""
+    return 1 if mesh is None else mesh[AXIS_PIPE].size()
+
+
+def pipe_rank(mesh) -> int:
+    """This rank's stage on the ``pipe`` axis (0 when it is 1)."""
+    return 0 if mesh is None else mesh[AXIS_PIPE].get_local_rank()
+
+
+def pipe_group(mesh):
+    """The process group of this rank's ``pipe`` peers (the same rows,
+    the other stages of the model); None when the axis is 1."""
+    if pipe_size(mesh) <= 1:
+        return None
+    return mesh[AXIS_PIPE].get_group()
+
+
+def stage_group(mesh):
+    """The process group of the ranks that hold this rank's stage: every
+    rank of its ``pipe`` coordinate (over data, fsdp, model and
+    context); the default group when ``pipe`` is 1. Made once per mesh,
+    every rank making every stage's group in stage order, and kept on
+    the mesh object."""
+    if pipe_size(mesh) <= 1:
+        return None
+    groups = getattr(mesh, "_stage_groups", None)
+    if groups is None:
+        import torch.distributed as dist
+        ranks = mesh.mesh.movedim(MESH_AXES.index(AXIS_PIPE), 0)
+        groups = [dist.new_group(row.reshape(-1).tolist())
+                  for row in ranks]
+        mesh._stage_groups = groups
+    return groups[pipe_rank(mesh)]

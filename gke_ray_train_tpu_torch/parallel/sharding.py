@@ -38,6 +38,13 @@ float dtype, because FSDP2 (torch 2.11) makes each sharded parameter
 able to take a gradient, which an integer tensor cannot
 (``QTensor.code_tensor`` reads them back).
 
+Over ``pipe`` each rank holds its stage's blocks only
+(``models/pipeline.py::stage_layers``), each an FSDP2 unit on the
+stage's own fsdp (or HSDP) submesh, and the root (embedding, final norm,
+head) replicated over ``pipe``: each stage's root is the same, sharded
+alike over its fsdp ranks, and the train step sums its gradients over
+the pipe group.
+
 Gradients are summed over the batch ranks, not averaged (the train step
 divides by the global token weight), and a ``data`` or ``context`` axis
 above 1 makes the units HSDP: replicated over ``data`` × ``context``,
@@ -161,14 +168,19 @@ def _context_root(mesh):
         order = [MESH_AXES.index(a) for a in (
             AXIS_PIPE, AXIS_DATA, AXIS_CONTEXT, AXIS_FSDP, AXIS_MODEL)]
         ranks = mesh.mesh.permute(*order)    # [pipe, data, ctx, fsdp, model]
-        grid = ranks[mesh[AXIS_PIPE].get_local_rank()].reshape(
-            -1, ranks.shape[3], ranks.shape[4])  # [data*ctx, fsdp, model]
         me = dist.get_rank()
         mine = None
-        for row in grid.permute(1, 2, 0).reshape(-1, grid.shape[0]).tolist():
-            group = dist.new_group(row)
-            if me in row:
-                mine = group
+        # every stage's groups, in one order on every rank
+        for stage in ranks:
+            grid = stage.reshape(-1, ranks.shape[3], ranks.shape[4])
+            for row in grid.permute(1, 2, 0).reshape(
+                    -1, grid.shape[0]).tolist():
+                group = dist.new_group(row)
+                if me in row:
+                    mine = group
+        # [data*ctx, fsdp, model] of this rank's stage
+        grid = ranks[mesh[AXIS_PIPE].get_local_rank()].reshape(
+            -1, ranks.shape[3], ranks.shape[4])
         groups = [mine, mesh[AXIS_FSDP].get_group()]
         names = ("replicate", AXIS_FSDP)
         if grid.shape[2] > 1:
@@ -323,13 +335,21 @@ def place_local_experts(qt, mesh, n_experts: int) -> None:
 
 def shard_model(params: nn.Module, mesh) -> nn.Module:
     """Shard a ``Transformer`` over ``mesh``'s model and fsdp axes in
-    place (module doc): each
+    place (module doc; on a pipelined mesh a model holding every layer
+    first drops the other stages' blocks): each
     block is a unit (gathered before its forward and again in the
     backward, freed after each), the root holds the rest. Blocks that are
     already units (:func:`shard_unit` during a sharded init) are left
     as they are. Returns ``params``."""
     from torch.distributed.fsdp import FSDPModule
+    from gke_ray_train_tpu_torch.models.pipeline import mesh_stage
+    from gke_ray_train_tpu_torch.models.transformer import (
+        layer_ids, to_stage)
     cfg = params.cfg
+    stage = mesh_stage(cfg, mesh)
+    if stage is not None and list(layer_ids(params)) != stage:
+        # a pipeline stage keeps its own layers only
+        to_stage(params, stage)
     for blk in params.blocks:
         if not isinstance(blk, FSDPModule):
             shard_unit(blk, cfg, mesh)

@@ -2,7 +2,7 @@
 part, ``grad_accum``, the input pipeline and the runtime guards of
 ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Fifteen knobs, read from the same environment / config keys as the JAX
+Seventeen knobs, read from the same environment / config keys as the JAX
 package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
 (whole-prompt prefill reuse), ``SERVE_QUANT`` (the served weights'
@@ -10,7 +10,10 @@ encoding), ``MAX_ADAPTERS`` (tenant slots of the adapter pool),
 ``SPEC_DRAFT`` / ``SPEC_K`` (speculative decoding),
 ``PER_DEVICE_TRAIN_BATCH_SIZE``,
 ``MAX_SEQ_LENGTH`` and ``PACKING`` (the train batch's shape),
-``GRADIENT_ACCUMULATION_STEPS`` (microbatches per optimizer step), ``FUSED_OPS`` (the train step's
+``GRADIENT_ACCUMULATION_STEPS`` (microbatches per optimizer step),
+``PIPE_MICROBATCHES`` / ``PIPE_VIRTUAL_STAGES`` (the pipeline's
+microbatches in each of them, 0 for one a hop, and its groups a stage,
+``models/pipeline.py``), ``FUSED_OPS`` (the train step's
 fused rms_norm / q-k RoPE kernels, and the fused cross-entropy where the
 config has no logit softcap), ``PREFETCH_BATCHES`` (the loop's prefetch
 depth), ``TRANSFER_GUARD`` and ``DIVERGENCE_GUARD`` (the loop's runtime
@@ -41,6 +44,8 @@ CONFIG_KEYS: Dict[str, str] = {
     "spec_k": "SPEC_K",
     "per_device_batch": "PER_DEVICE_TRAIN_BATCH_SIZE",
     "grad_accum": "GRADIENT_ACCUMULATION_STEPS",
+    "pipe_microbatches": "PIPE_MICROBATCHES",
+    "pipe_virtual_stages": "PIPE_VIRTUAL_STAGES",
     "max_seq_len": "MAX_SEQ_LENGTH",
     "packing": "PACKING",
     "fused_ops": "FUSED_OPS",
@@ -69,7 +74,8 @@ OPERATIONAL_FIELDS = ("prefetch", "transfer_guard", "divergence_guard")
 def _coerce(field: str, value: Any) -> Any:
     """One coercion for env strings, JSON values and python kwargs."""
     if field in ("max_batch", "per_device_batch", "grad_accum",
-                 "max_seq_len", "prefetch", "max_adapters", "spec_k"):
+                 "max_seq_len", "prefetch", "max_adapters", "spec_k",
+                 "pipe_microbatches", "pipe_virtual_stages"):
         try:
             return int(value)
         except (TypeError, ValueError):
@@ -138,6 +144,11 @@ class ExecutionPlan:
     packing: bool = False
     # microbatches accumulated per optimizer step (train/step.py)
     grad_accum: int = 1
+    # on a pipelined mesh: the pipe microbatches of each of them (0 = one
+    # a hop, pipe_virtual_stages x pipe) and the groups a stage holds
+    # (models/pipeline.py)
+    pipe_microbatches: int = 0
+    pipe_virtual_stages: int = 1
     # the train step's rms_norms and q/k RoPE through the fused kernels
     # (ops/fused_norm_rope.py) and, where the config has no logit
     # softcap, its loss through the fused cross-entropy (ops/fused_ce.py)
@@ -153,12 +164,14 @@ class ExecutionPlan:
         if self.max_batch < 1:
             raise PlanError(f"max_batch={self.max_batch} must be >= 1")
         for field in ("per_device_batch", "grad_accum", "max_seq_len",
-                      "max_adapters", "spec_k"):
+                      "pipe_virtual_stages", "max_adapters", "spec_k"):
             if getattr(self, field) < 1:
                 raise PlanError(f"{field}={getattr(self, field)} must be "
                                 ">= 1")
-        if self.prefetch < 0:
-            raise PlanError(f"prefetch={self.prefetch} must be >= 0")
+        for field in ("prefetch", "pipe_microbatches"):
+            if getattr(self, field) < 0:
+                raise PlanError(f"{field}={getattr(self, field)} must be "
+                                ">= 0")
         if self.transfer_guard not in _TRANSFER_GUARD_MODES:
             raise PlanError(
                 f"transfer_guard={self.transfer_guard!r} not in "
@@ -229,15 +242,23 @@ class ExecutionPlan:
         return vals
 
 
-def model_findings(cfg, *, model: int) -> list:
+def model_findings(cfg, *, model: int, pipe: int = 1,
+                   virtual: int = 1) -> list:
     """Why ``cfg`` (a ``ModelConfig``) cannot tile a ``model`` axis of
-    ``model`` ranks, in the JAX plan's words (``ExecutionPlan.
+    ``model`` ranks, or a ``pipe`` axis of ``pipe`` stages at ``virtual``
+    groups a stage, in the JAX plan's words (``ExecutionPlan.
     model_findings``): every parameter dim its spec puts on ``model``
-    must divide by it, and so must ``n_heads`` and ``n_kv_heads``. Empty
+    must divide by it, and so must ``n_heads`` and ``n_kv_heads``; the
+    repeats of the block pattern must divide by ``pipe × virtual``. Empty
     when it tiles; read from the config alone, before any weight is
     built."""
+    out = []
+    if pipe > 1 and cfg.n_repeats % (pipe * virtual):
+        out.append(
+            f"n_repeats={cfg.n_repeats} is not divisible by pipe axis x "
+            f"virtual stages ({pipe} x {virtual})")
     if model <= 1:
-        return []
+        return out
     from gke_ray_train_tpu_torch.models.transformer import proj_shapes
     from gke_ray_train_tpu_torch.parallel.mesh import AXIS_MODEL
     from gke_ray_train_tpu_torch.parallel.sharding import param_specs
@@ -247,7 +268,6 @@ def model_findings(cfg, *, model: int) -> list:
                   bv=(cfg.n_kv_heads * hd,),
                   embed=(cfg.vocab_size, cfg.d_model),
                   lm_head=(cfg.d_model, cfg.vocab_size))
-    out = []
     for name, spec in param_specs(cfg).items():
         shape = shapes.get(name)
         if shape is None or AXIS_MODEL not in spec:
@@ -357,7 +377,8 @@ def replan(mesh, n_devices: int, *, chips: int, per_device_batch: int,
             pdb = max(global_rows // (data * fsdp), 1)
         cand = dataclasses.replace(base, data=data, fsdp=fsdp,
                                    num_slices=slices)
-        findings = (model_findings(model_cfg, model=cand.model)
+        findings = (model_findings(model_cfg, model=cand.model,
+                                   pipe=cand.pipe)
                     if model_cfg is not None else [])
         if not findings:
             return cand, pdb

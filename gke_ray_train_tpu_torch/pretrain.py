@@ -30,7 +30,10 @@ an elastic pool change (``rayint/elastic.py``), and the restore
 reshards. ``PEER_REPLICATION`` raises (ROADMAP queue 1 item 8);
 ``SERVE_AFTER_TRAIN`` serves the trained model as it is sharded, every
 rank of one node entering the engine, and warns and skips beyond one
-node, as JAX does.
+node, as JAX does. ``MESH_PIPE`` above 1 trains the pipeline
+(``models/pipeline.py``; ``PIPE_MICROBATCHES`` / ``PIPE_VIRTUAL_STAGES``
+from the config), and ``SERVE_AFTER_TRAIN`` there raises: decode across
+pipe stages is not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -81,6 +84,8 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     # the env supplies the guard and kernel knobs, the config the batch
     # shape, as in the JAX entry
     plan = ExecutionPlan.resolve(
+        {k: config[k] for k in ("PIPE_MICROBATCHES", "PIPE_VIRTUAL_STAGES")
+         if k in config},
         per_device_batch=int(config.get("batch_size_per_device", 16)),
         max_seq_len=seq_len,
         prefetch=int(config.get("prefetch_batches",
@@ -94,6 +99,9 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     if world > 1:
         mesh_cfg.check_ported()
         mesh = build_mesh(mesh_cfg, device_type=dev.type)
+        if mesh_cfg.pipe > 1:
+            from gke_ray_train_tpu_torch.fine_tune import check_pipe_serving
+            check_pipe_serving(config)
     # the attempt ran under this plan, not the trainer's resolution of a
     # config without the plan keys
     ctx.plan_fingerprint = plan.fingerprint()
@@ -131,6 +139,7 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         max_seq_len=max(seq_len, int(config.get("model_max_seq_len", 1024))),
         dtype=config.get("dtype", "bfloat16"),
         remat_policy=config.get("remat_policy", "full"),
+        pipe_virtual=plan.pipe_virtual_stages,
     )
 
     global_batch = per_device_batch * mesh_cfg.data * mesh_cfg.fsdp

@@ -326,7 +326,11 @@ class FaultInjector:
                 "async-commit checkpoint manager (ASYNC_CKPT=1) — the "
                 "sync save path has no background commit window to "
                 "kill inside")
-        torn = mgr.tear_mid_commit()
+        # the kill lands inside the commit of the step just saved, and
+        # leaves one state on disk whichever way the race with the
+        # committer went (ckpt/manager.py::tear_mid_commit)
+        mgr.wait_until_committing(step)
+        torn = mgr.tear_mid_commit(partial=True)
         raise InjectedKill(
             f"injected kill during commit of step {torn} "
             f"(fired at step {step}, rank {self.rank})")

@@ -19,7 +19,11 @@ shards' sums are all-reduced, so every rank returns the global sums: over
 the mesh's batch axes and ``context`` when the walk is given its
 ``mesh`` (the ``model`` ranks of one batch rank walk the same rows; its
 ``context`` ranks the same rows, each its own tokens of them), else over
-the world; in one process a walk returns its own shard's sums.
+the world; in one process a walk returns its own shard's sums. On a
+pipelined mesh the eval step runs the pipeline's forward ticks and every
+stage computes the sums of the last stage's output
+(``models/transformer.py::forward``), so the ``pipe`` ranks of a batch
+rank hold the same sums and are not summed over.
 """
 
 from __future__ import annotations

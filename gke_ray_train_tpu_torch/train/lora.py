@@ -27,13 +27,16 @@ ranks gives it exactly:
 
 So the train step's one flat all-reduce of the adapter gradients over the
 world (the batch ranks and the model ranks) gives every rank the global
-gradient (``train/step.py``).
+gradient (``train/step.py``). On a pipelined mesh a rank's adapters are
+those of its stage's layers only (``init_lora(layers=)``), and the
+all-reduce runs over the ranks of its stage
+(``parallel/mesh.py::stage_group``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Collection, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,7 +44,7 @@ from torch import nn
 from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig, PROJ_TARGETS
 from gke_ray_train_tpu_torch.models.transformer import (
-    Lora, Transformer, proj_shapes)
+    Lora, StageLora, Transformer, proj_shapes)
 from gke_ray_train_tpu_torch.ops.quant import dequantize, is_qtensor
 
 # every projection matrix, as the reference's LORA_TARGET_MODULES
@@ -82,18 +85,23 @@ def _effective_targets(cfg: ModelConfig, lora_cfg: LoraConfig):
 
 
 def init_lora(cfg: ModelConfig, lora_cfg: LoraConfig, seed: int = 1, *,
-              device: DeviceLike = None) -> Lora:
+              device: DeviceLike = None,
+              layers: Optional[Collection[int]] = None) -> Lora:
     """A ~ N(0, 1/r), B = 0 — the adapters start as the identity — on
     ``device`` (default ``cuda``), drawn from a ``torch.Generator``
     seeded with ``seed``. Always fp32: they are the only trained
-    parameters, and bf16 masters would drop updates below ~value/256."""
+    parameters, and bf16 masters would drop updates below ~value/256.
+    ``layers``: keep only these global layers' adapters (a pipeline
+    stage's, a ``StageLora``); every layer is drawn in order all the
+    same, so they are one process's."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     shapes = proj_shapes(cfg)       # the JAX package's _target_shapes
     targets = _effective_targets(cfg, lora_cfg)
     out = []
-    for _ in range(cfg.n_layers):
+    keep = set(range(cfg.n_layers) if layers is None else layers)
+    for i in range(cfg.n_layers):
         layer = {}
         for t in targets:
             d_in, d_out = shapes[t]
@@ -103,8 +111,9 @@ def init_lora(cfg: ModelConfig, lora_cfg: LoraConfig, seed: int = 1, *,
                             dtype=torch.float32)
             layer[t] = {"a": a.requires_grad_(True),
                         "b": b.requires_grad_(True)}
-        out.append(layer)
-    return out
+        if i in keep:
+            out.append(layer)
+    return out if layers is None else StageLora(out, sorted(keep))
 
 
 @torch.no_grad()

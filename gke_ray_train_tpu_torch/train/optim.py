@@ -76,7 +76,8 @@ def default_weight_decay_mask(name: str, p: torch.Tensor) -> bool:
     return name.rsplit(".", 1)[-1] not in _NO_DECAY_KEYS and p.dim() >= 2
 
 
-def global_norm(grads: Iterable[Tuple[torch.Tensor, torch.Tensor]]
+def global_norm(grads: Iterable[Tuple[torch.Tensor, torch.Tensor]],
+                stage: Optional[Tuple[object, set]] = None
                 ) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32 (optax's
     ``global_norm``), of ``(parameter, local gradient)`` pairs whose
@@ -84,7 +85,27 @@ def global_norm(grads: Iterable[Tuple[torch.Tensor, torch.Tensor]]
     parameters sharded over the same mesh dims are all-reduced once over
     each of those dims (fsdp, and model for a 2-D parameter), so a
     replicated gradient, or a parameter's replicated mesh dim (``data``
-    under HSDP, ``model`` for a norm), counts once."""
+    under HSDP, ``model`` for a norm), counts once. ``stage``: on a
+    pipelined mesh ``(pipe group, ids of the stage's own parameters)``:
+    the stages hold disjoint layers, so their squares are summed over the
+    pipe group once, while the root's, the same on every stage, count
+    once."""
+    grads = list(grads)
+    if stage is None:
+        return torch.sqrt(_sum_squares(grads))
+    group, own = stage
+    total = all_reduce_sum(
+        _sum_squares([pg for pg in grads if id(pg[0]) in own]), group)
+    rest = [pg for pg in grads if id(pg[0]) not in own]
+    if rest:
+        total = total + _sum_squares(rest)
+    return torch.sqrt(total)
+
+
+def _sum_squares(grads: List[Tuple[torch.Tensor, torch.Tensor]]
+                 ) -> torch.Tensor:
+    """The global sum of squares of :func:`global_norm`'s pairs (at least
+    one pair)."""
     plain: List[torch.Tensor] = []
     by_groups: dict = {}
     for p, g in grads:
@@ -100,7 +121,7 @@ def global_norm(grads: Iterable[Tuple[torch.Tensor, torch.Tensor]]
         for group in groups:
             part = all_reduce_sum(part, group)
         total = part if total is None else total + part
-    return torch.sqrt(total)
+    return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,6 +185,9 @@ class ClippedOptimizer(torch.optim.Optimizer):
         self.spec = spec
         self.count = 0
         self.last_grad_norm: Optional[torch.Tensor] = None
+        # (pipe group, ids of the stage's own parameters) on a pipelined
+        # mesh (train/step.py::make_train_state), for the global norm
+        self.stage_norm: Optional[Tuple[object, set]] = None
         for g in self.param_groups:
             for p in g["params"]:
                 self.state[p] = self._init_state(p)
@@ -189,7 +213,7 @@ class ClippedOptimizer(torch.optim.Optimizer):
         grads = {p: (local(p.grad) if p.grad is not None
                      else torch.zeros_like(local(p)))
                  for p in params}
-        norm = global_norm(grads.items())
+        norm = global_norm(grads.items(), self.stage_norm)
         self.last_grad_norm = norm
         if spec.clip_norm is not None:
             # optax: select(norm < max_norm, g, g / norm * max_norm)

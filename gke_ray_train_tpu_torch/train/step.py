@@ -34,6 +34,21 @@ LoRA dropout masks are seeded with its batch index, and its context
 index where ``context`` exceeds 1: JAX draws one mask over the global
 microbatch, whose tokens these ranks split.
 
+Over ``pipe`` (``models/pipeline.py``) a rank holds its stage's layers
+and its adapters; each grad-accum microbatch (JAX's order: grad-accum
+outside, pipe microbatches inside) runs the pipeline's forward ticks
+inside one call of the sharded root (``pipeline_forward``; the first
+stage embeds, the last applies the final norm, head and loss to each
+pipe microbatch) and then its backward ticks. The loss is the last
+stage's token-weighted sum, the weight sum comes from the batch (every
+pipe rank of a batch rank loads the same rows), the root's gradients are
+summed over the pipe group (with tied embeddings the lookup's and the
+head's), the adapters' over the ranks of the stage, and the global norm
+sums each stage's squares once (``train/optim.py``). FSDP2 reduces once
+a step, in each rank's last backward call. An MoE slot's router aux
+enters its loss as JAX's pipelined aux does (the coefficient times the
+microbatch weight over ``M·n_layers``).
+
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
 JAX signature; the step count is a Python int.
@@ -50,12 +65,14 @@ import torch
 from gke_ray_train_tpu_torch.device import DeviceLike, check_on, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
-    Lora, Transformer, dropout_seed, head_tp, init_params, torch_dtype,
+    Lora, Transformer, _unembed, dropout_seed, head_tp, init_params,
+    lora_layer_ids, pipeline_forward, pre_unembed, torch_dtype,
     unembed_head)
 from gke_ray_train_tpu_torch.ops.fused_ce import fused_cross_entropy
 from gke_ray_train_tpu_torch.ops.quant import is_qtensor
 from gke_ray_train_tpu_torch.train.lora import LoraConfig, init_lora
 from gke_ray_train_tpu_torch.train.optim import AdamW, OptimizerSpec
+from gke_ray_train_tpu_torch.parallel.mesh import pipe_size
 from gke_ray_train_tpu_torch.parallel.sharding import (
     is_sharded, local, shard_model)
 from gke_ray_train_tpu_torch.parallel.tensor import vocab_parallel_nll
@@ -98,19 +115,20 @@ def model_nll(logits: torch.Tensor, params: Transformer, cfg: ModelConfig,
 def trainable_tensors(params: Transformer, lora: Optional[Lora]
                       ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(name, tensor) of what the optimizer updates: the adapters in
-    LoRA mode (``blocks.<i>.<target>.<a|b>``), else every parameter."""
+    LoRA mode (``blocks.<i>.<target>.<a|b>``, ``i`` the global layer: a
+    pipeline stage's adapters are its layers'), else every parameter."""
     if lora is None:
         yield from params.named_parameters()
         return
-    for i, layer in enumerate(lora):
+    for i, layer in zip(lora_layer_ids(lora), lora):
         for t, ab in layer.items():
             for k, v in ab.items():
                 yield f"blocks.{i}.{t}.{k}", v
 
 
 def _check_mesh(mesh) -> None:
-    """Raise unless ``mesh`` is a ``build_mesh`` mesh whose only axes
-    above 1 are the ported ones (data, fsdp, model, context)."""
+    """Raise unless ``mesh`` is a ``build_mesh`` mesh of a layout the
+    port runs (``MeshConfig.check_ported``)."""
     if mesh is None:
         return
     from gke_ray_train_tpu_torch.parallel.mesh import mesh_config_of
@@ -136,16 +154,20 @@ def make_train_state(cfg: ModelConfig, optimizer: OptimizerSpec,
     (``parallel/sharding.py::shard_model``; params a sharded init already
     sharded stay so), the adapters are the same on every rank (rank 0's,
     broadcast), and the optimizer's state is sharded like its
-    parameters."""
+    parameters. On a pipelined mesh a rank keeps its stage's layers and
+    their adapters (broadcast over the stage's ranks), and the optimizer
+    sums the stages' squares for its global norm."""
+    from gke_ray_train_tpu_torch.models.pipeline import mesh_stage
     _check_mesh(mesh)
     dev = resolve_device(device)
+    stage = mesh_stage(cfg, mesh)
     if params is None:
-        params = init_params(cfg, seed, device=dev)
+        params = init_params(cfg, seed, device=dev, mesh=mesh)
     check_on(params.embed, dev, "params")
     lora = None
     if lora_cfg is not None:
         params.requires_grad_(False)
-        lora = init_lora(cfg, lora_cfg, seed + 1, device=dev)
+        lora = init_lora(cfg, lora_cfg, seed + 1, device=dev, layers=stage)
     else:
         if any(is_qtensor(m) for m in params.modules()):
             raise ValueError("full fine-tuning needs full-precision "
@@ -154,12 +176,21 @@ def make_train_state(cfg: ModelConfig, optimizer: OptimizerSpec,
         params.requires_grad_(True)
     if mesh is not None:
         import torch.distributed as dist
+        from gke_ray_train_tpu_torch.parallel.mesh import stage_group
         shard_model(params, mesh)
-        # every rank holds the same adapters: the world group
+        # every rank of a stage (the world without pipe) holds the same
+        # adapters
+        group = stage_group(mesh)
+        src = 0 if group is None else dist.get_global_rank(group, 0)
         for _, t in trainable_tensors(None, lora) if lora else ():
             with torch.no_grad():
-                dist.broadcast(t, src=0)
+                dist.broadcast(t, src=src, group=group)
     opt = optimizer.build(trainable_tensors(params, lora))
+    if stage is not None:
+        from gke_ray_train_tpu_torch.parallel.mesh import pipe_group
+        own = {id(t) for name, t in trainable_tensors(params, lora)
+               if name.startswith("blocks.")}
+        opt.stage_norm = (pipe_group(mesh), own)
     return TrainState(params=params, lora=lora, opt_state=opt, step=0)
 
 
@@ -177,6 +208,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                     grad_accum: Any = _UNSET,
                     schedule: Optional[Callable[[int], float]] = None,
                     plan=None, overlap: str = "off",
+                    pipe_microbatches: Any = _UNSET,
                     device: DeviceLike = None
                     ) -> Callable[[TrainState, Batch], tuple]:
     """``(state, batch) -> (state, metrics)``.
@@ -215,9 +247,14 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     ``mesh``: the state is sharded over it (``make_train_state(mesh=)``)
     and ``batch`` is this rank's rows (at a ``context`` above 1 its
     tokens of them, ``parallel/placement.py``); ``loss`` and ``tokens``
-    are the global ones (module doc)."""
+    are the global ones (module doc). ``pipe_microbatches``: the pipe
+    microbatches of each grad-accum microbatch on a pipelined mesh
+    (default ``plan.pipe_microbatches``; 0 or None: one a hop,
+    ``pipe_virtual × pipe``)."""
     if grad_accum is _UNSET:
         grad_accum = plan.grad_accum if plan is not None else 1
+    if pipe_microbatches is _UNSET:
+        pipe_microbatches = plan.pipe_microbatches if plan is not None else 0
     fused_ops = plan is not None and plan.fused_ops
     _check_mesh(mesh)
     fused_ce = fused_ops and cfg.logit_softcap is None
@@ -240,6 +277,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     drop = lora_cfg.dropout if lora_mode else 0.0
     dtype = torch_dtype(cfg.dtype)
     moe = cfg.n_experts > 0
+    piped = pipe_size(mesh) > 1
 
     def train_step(state: TrainState, batch: Batch):
         if state.opt_state.spec is not optimizer:
@@ -279,6 +317,15 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                         vocab_axis=head_tp(p, cfg))
                 return model_nll(out, p, cfg, micro["targets"],
                                  micro["weights"])
+            if piped:
+                nll, w = _pipe_microbatch(
+                    params, micro, cfg, mesh, state.lora,
+                    lora_cfg.scale if lora_mode else 1.0, drop, seed,
+                    fused_ops, fused_ce, dtype, pipe_microbatches or None,
+                    loss_fn, last=m == grad_accum - 1)
+                nll_sum += nll
+                w_sum += w
+                continue
             if mesh is not None:
                 # FSDP2 sums the sharded gradients once, on the last one
                 params.set_requires_gradient_sync(m == grad_accum - 1)
@@ -301,8 +348,10 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             nll_sum += nll.detach()
             w_sum += w
         if mesh is not None:
+            root = ([t for n, t in trainable_tensors(params, state.lora)
+                     if not n.startswith("blocks.")] if piped else ())
             nll_sum, w_sum = _sum_over_ranks(nll_sum, w_sum, trainables,
-                                             mesh)
+                                             mesh, root)
         inv_w = torch.where(w_sum > 0, 1.0 / w_sum,
                             torch.zeros((), device=dev))
         with torch.no_grad():
@@ -332,32 +381,109 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
         "grad_accum": grad_accum, "fused_ops": fused_ops,
         "lora": dataclasses.asdict(lora_cfg) if lora_mode else None,
         "mesh": list(mesh.mesh.shape) if mesh is not None else None,
+        "pipe_microbatches": pipe_microbatches if piped else None,
     }
     return train_step
 
 
-def _sum_over_ranks(nll_sum, w_sum, trainables, mesh):
+def _pipe_microbatch(params, micro, cfg, mesh, lora, lora_scale, drop,
+                     seed, fused_ops, fused_ce, dtype, microbatches,
+                     loss_fn, *, last: bool):
+    """One grad-accum microbatch on a pipelined mesh: the forward ticks
+    inside one call of the sharded root (the head's loss of each pipe
+    microbatch on the last stage), then the backward ticks. FSDP2 keeps
+    the gradients unreduced (and the root gathered) until this rank's
+    last backward call of the step. Returns this rank's (NLL and aux
+    sum, weight sum): the NLL is the last stage's, the aux each stage's
+    own slots'; the weights are the batch's, the same on every stage."""
+    from gke_ray_train_tpu_torch.models import pipeline as pl
+    # the gates first, while the root is still sharded
+    pl.check_run(cfg, mesh, microbatches, micro["inputs"].shape[0],
+                 dropout=lora is not None and seed is not None and drop > 0)
+    params.set_requires_gradient_sync(False)
+    params.set_reshard_after_backward(False, recurse=False)
+
+    def head(m, y):
+        out = (pre_unembed(y, params, cfg) if fused_ce
+               else _unembed(y, params, cfg, dtype))
+        rows = slice(m * y.shape[0], (m + 1) * y.shape[0])
+        return loss_fn(out, params, {k: v[rows] for k, v in micro.items()})
+    run = params(micro["inputs"], cfg, step_fn=pipeline_forward,
+                 positions=micro.get("positions"),
+                 segment_ids=micro.get("segment_ids"), lora=lora,
+                 lora_scale=lora_scale, lora_dropout=drop, lora_seed=seed,
+                 fused_ops=fused_ops,
+                 token_weights=micro["weights"] if cfg.n_experts else None,
+                 mesh=mesh, microbatches=microbatches, head=head)
+    M = run.schedule.microbatches
+    Bm = micro["inputs"].shape[0] // M
+    w = sum(micro["weights"][m * Bm:(m + 1) * Bm].float().sum()
+            for m in range(M))
+    nll = sum((nll_m.detach() for nll_m, _ in run.heads.values()),
+              torch.zeros((), dtype=torch.float32, device=w.device))
+    aux_scale = None
+    if cfg.n_experts:
+        # JAX's pipelined aux: the mean over microbatches of the layers'
+        # sum, over n_layers, billed per token of the microbatch
+        aux_scale = w * (cfg.router_aux_coef / (M * cfg.n_layers))
+        nll = nll + pl.stage_aux(run, w.device).detach() * aux_scale
+
+    def before_last():
+        if last:
+            params.set_requires_gradient_sync(True)
+            params.set_reshard_after_backward(True, recurse=False)
+    pl.run_backward(run, mesh, loss=lambda m: run.heads[m][0],
+                    aux_scale=aux_scale, before_last=before_last)
+    if last:
+        # a root this stage never ran backward through (a middle stage)
+        # is still gathered: free it
+        params.reshard()
+    return nll, w
+
+
+def _sum_over_ranks(nll_sum, w_sum, trainables, mesh, root=()):
     """The step's global sums: the NLL and weight sums all-reduced over
     the batch axes and ``context`` (a ``model`` rank holds its batch
     rank's sums, the same on every peer; a context rank its tokens'),
     and the replicated trainables' (the adapters') gradients summed in
     one flat all-reduce over the world (over ``model`` and ``context``
-    each rank's is a partial sum); FSDP2 has summed the sharded ones."""
+    each rank's is a partial sum); FSDP2 has summed the sharded ones.
+    On a pipelined mesh the NLL (the last stage's, and each stage's aux)
+    is first summed over the pipe group, the adapters' gradients over
+    the stage's ranks only, and the root's (each stage's part: the
+    lookup's on the first, the head's on the last) over the pipe
+    group (``root``: the root's trainables)."""
     import torch.distributed as dist
-    from gke_ray_train_tpu_torch.parallel.mesh import token_groups
+    from gke_ray_train_tpu_torch.parallel.mesh import (
+        pipe_group, stage_group, token_groups)
+    piped = pipe_group(mesh) is not None
+    if piped:
+        dist.all_reduce(nll_sum, group=pipe_group(mesh))
     sums = torch.stack([nll_sum, w_sum])
     for group in token_groups(mesh):
         dist.all_reduce(sums, group=group)
-    grads = [t.grad for t in trainables
-             if t.grad is not None and not is_sharded(t)]
-    if grads:
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        off = 0
-        for g in grads:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
+    _flat_all_reduce([t.grad for t in trainables
+                      if t.grad is not None and not is_sharded(t)],
+                     stage_group(mesh))
+    if piped:
+        for t in root:
+            if t.grad is None:
+                t.grad = torch.zeros_like(t)
+        _flat_all_reduce([local(t.grad) for t in root], pipe_group(mesh))
     return sums[0], sums[1]
+
+
+def _flat_all_reduce(grads, group) -> None:
+    """Sum ``grads`` over ``group`` in one flat all-reduce, in place."""
+    import torch.distributed as dist
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()
 
 
 def make_eval_step(cfg: ModelConfig, *, mesh=None,
@@ -368,7 +494,8 @@ def make_eval_step(cfg: ModelConfig, *, mesh=None,
     router aux is a training term, as in the JAX eval step. On a
     ``mesh`` the sums are this rank's rows' (at a ``context`` above 1 its
     tokens'; ``train/evaluate.py::sharded_eval_sums`` all-reduces
-    them)."""
+    them); on a pipelined mesh every stage's, through the pipelined
+    forward (one microbatch a hop)."""
     _check_mesh(mesh)
     dev = resolve_device(device)
 

@@ -323,6 +323,83 @@ def test_kill_during_commit_resumes_from_the_previous_step(
     assert os.path.isdir(os.path.join(d, "4.corrupt"))
 
 
+def _tree(root):
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def _tear_drill(d, branch, monkeypatch):
+    """Save steps 2 and 4 on an async manager and tear step 4 with the
+    kill landing in ``branch``: "queued" (the committer still busy with
+    step 2, step 4 in the queue) or "in_flight" (the committer holds step
+    4, inside its storage wait, before it serializes). Returns the torn
+    step and the files on disk."""
+    import threading
+    st, _, _ = _setup()
+    release = threading.Event()
+    if branch == "queued":
+        commit_one = CheckpointManager._commit_one
+
+        def held(self, step, host, metrics):
+            if step == 2:
+                release.wait(30)
+            return commit_one(self, step, host, metrics)
+        monkeypatch.setattr(CheckpointManager, "_commit_one", held)
+    mgr = CheckpointManager(d, max_to_keep=4, score_attribute=None,
+                            async_commit=True,
+                            storage_delay_s=0.5 if branch == "in_flight"
+                            else 0.0)
+    mgr.save(2, st)
+    if branch == "in_flight":
+        mgr.wait()
+    mgr.save(4, st)
+    if branch == "in_flight":
+        assert mgr.wait_until_committing(4, timeout=30)
+    else:
+        assert not mgr.wait_until_committing(4, timeout=0.2)
+        assert mgr._committing_now == 2
+    torn = mgr.tear_mid_commit(partial=True)
+    release.set()
+    mgr._committer.join(30)
+    assert not mgr._committer.is_alive()
+    return torn, _tree(d)
+
+
+def test_kill_during_commit_leaves_one_state_from_either_branch(
+        tmp_path, monkeypatch):
+    """The commit drill's two races forced one at a time: the kill with
+    step 4 still queued, and the kill while the committer holds step 4
+    before it serializes. Both leave the same files (COMMITTING.4 beside
+    a torn ``4/_PARTIAL``, step 2 committed), and a resume quarantines
+    step 4 as ``4.corrupt`` and restores step 2 in both."""
+    trees = {}
+    for branch in ("queued", "in_flight"):
+        d = str(tmp_path / branch)
+        torn, trees[branch] = _tear_drill(d, branch, monkeypatch)
+        monkeypatch.undo()
+        assert torn == 4
+        assert "COMMITTING.4" in trees[branch], branch
+        assert "COMMITTED.4" not in trees[branch], branch
+        assert os.path.join("4", "_PARTIAL") in trees[branch], branch
+        assert "COMMITTED.2" in trees[branch], branch
+        st, _, _ = _setup()
+        mgr = CheckpointManager(d, max_to_keep=4, score_attribute=None,
+                                async_commit=True)
+        _, resumed = mgr.restore_if_available(st)
+        mgr.close()
+        assert resumed == 2, branch
+        assert os.path.isdir(os.path.join(d, "4.corrupt")), branch
+    assert trees["queued"].keys() == trees["in_flight"].keys()
+    for name in ("COMMITTING.4", os.path.join("4", "_PARTIAL")):
+        assert trees["queued"][name] == trees["in_flight"][name], name
+
+
 def test_kill_during_commit_needs_an_async_manager(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "c"), score_attribute=None)
     inj = faults.FaultInjector(

@@ -276,8 +276,8 @@ def test_trainable_names_drive_the_decay_mask():
 
 def test_train_step_refuses_what_is_not_ported():
     """Manual overlap still raises; a mesh must be a DeviceMesh, and one
-    with an axis other than data / fsdp / model / context above 1 (the
-    pipe; context came with its port) raises naming its ROADMAP item;
+    of a layout not ported (pipe over model; context and pipe alone came
+    with their ports) raises naming its ROADMAP item;
     ``remat_policy="dots"`` (which raised before it was ported) now
     trains, to the numbers of ``"full"``."""
     _, tc = _cfgs()
@@ -287,11 +287,11 @@ def test_train_step_refuses_what_is_not_ported():
     with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(tc, spec, device="cpu", mesh=object())
 
-    class PPMesh:                   # data 1 x fsdp 1 x pipe 2
+    class PPMesh:                   # data 1 x fsdp 1 x model 2 x pipe 2
         mesh_dim_names = ("data", "fsdp", "model", "context", "pipe")
 
         def size(self, i):
-            return (1, 1, 1, 1, 2)[i]
+            return (1, 1, 2, 1, 2)[i]
     with pytest.raises(NotImplementedError, match="PIPE=2.*item 8"):
         make_train_step(tc, spec, device="cpu", mesh=PPMesh())
     losses = {}
