@@ -194,11 +194,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              with every prompt tagged with the adapter, and the generate
              in fp32 at 2 layers (TF32 off): first in this process, then
              as two ranks of this card over gloo (``--serve-mesh-worker``)
-             at model 2 (all three runs) and at fsdp 2 (the bf16
-             generate, cut to 2 new tokens: a gloo step gathers 5.1 GB
-             through host memory in about 4.5 s), each after the
-             collectives its decode makes are
-             probed. Each rank against this process: the prefill's
+             at model 2 (all three runs), at fsdp 2 (the bf16
+             generate, cut to 1 new token: a gloo step gathers 5.1 GB
+             through host memory in about 4.5 s) and at pipe 2 (the bf16
+             and fp32 generates, each rank 2 of the 4 layers, a token
+             handed from stage to stage through host memory, the logits
+             on the last stage only), each after the collectives its
+             decode makes are probed. Each rank against this process: the prefill's
              last-position logits (under TP the ranks' vocab shards side
              by side) within 5e-2 of the logits' scale, their largest
              |logit|, in bf16 (each rank sums the row-parallel partials
@@ -209,9 +211,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              it), the fp32 tokens all equal, the ranks'
              tokens equal, row 1's launches exact (4 for the generate, 16
              for the smoke's four prefills) on 16 of 32 query and 4 of 8
-             KV heads at model 2; per rank the per-token decode p50,
+             KV heads at model 2, a stage's layers' at pipe 2; per rank
+             the per-token decode p50 (and its ratio to this process's),
              tokens/s and peak memory, and at fsdp 2 the bytes gathered a
-             decode step (from the shapes). The model-2 case must run;
+             decode step (from the shapes). The model-2 and pipe-2 cases
+             must run;
              where gloo lacks a collective of the fsdp case the line says
              which and the case runs in serve_mesh_multi only.
 12. kernelcheck — run right after the kernels phase: the port's kernel
@@ -277,7 +281,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              requests over the 256 and 512 buckets, every completion
              equal to sequential greedy, flash once per layer per prefill.
 18. entry_moe — the entry's worker on the Mixtral job at full width,
-             depth cut to 4 layers (the full export is 93.4 GB), 4 steps
+             depth cut to 2 layers (the full export is 93.4 GB), 4 steps
              with a save and an eval of 8 rows every 2; ``df`` of the
              output directory first; the merged export read back
              quantized, bitwise.
@@ -358,7 +362,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              prompts through the generate on one card (about 18 GB) and
              then one rank a card (``--serve-multi-worker``), held as
              serve_mesh holds its bf16 generate, each rank's per-token p50
-             and tokens/s beside the card's; serve_mesh's model at fsdp 4
+             and tokens/s beside the card's; the same model decoding at
+             pipe 4 (2 layers a card), likewise, each rank's p50 beside
+             its model-4 p50; serve_mesh's model at fsdp 4
              likewise, with the bytes gathered a decode step; the
              fine-tune entry on the
              offline_8b job cut as the entry phase cuts it, with INFERENCE
@@ -3813,14 +3819,16 @@ def _multi_reference(dev):
     return r
 
 
-def _multi_entry(n, extra=None, path=None, layers=None):
+def _multi_entry(n, extra=None, path=None, layers=None, expect_files=()):
     """The entry under torchrun on ``n`` cards (module doc, 19b) on the
     job of ``path``, the config's keys ``extra`` replaced
     (``MESH_MODEL``: the global batch spans the n / model batch ranks);
     then its sharded export converted here (an MoE model's expert
     tensors among the names it must hold). ``path`` defaults to
     ``ENTRY_CONFIG``; ``layers`` the depth (default
-    ``MESH_MULTI_ENTRY_LAYERS``). Returns (line, problems)."""
+    ``MESH_MULTI_ENTRY_LAYERS``); ``expect_files``: names the run must
+    have written under its output dir (``INFERENCE``'s comparison,
+    ``SERVE_AFTER_TRAIN``'s smoke). Returns (line, problems)."""
     import tempfile
     import numpy as np
     from safetensors import safe_open
@@ -3877,6 +3885,10 @@ def _multi_entry(n, extra=None, path=None, layers=None):
                         f"{rcs[0]}, ranks written "
                         f"{[r is not None for r in ranks]}")
         return line, problems
+    line["wrote"] = {name: os.path.exists(os.path.join(
+        config["OUTPUT_DIR_BASE"], name)) for name in expect_files}
+    if not all(line["wrote"].values()):
+        problems.append(f"torchrun entry: files written {line['wrote']}")
     ms = [r["metrics"] for r in ranks]
     streams = {"loss": [[m.get("loss")] for m in ms],
                "eval_loss": [r["evals"] for r in ranks]}
@@ -3993,8 +4005,11 @@ def phase_train_mesh_multi(dev):
 # off) at TP_PARITY_LAYERS layers within MESH_LOSS_RTOL
 TP_LAYERS = 4
 TP_PARITY_LAYERS = 2
-# 1 + 2 steps a run (train_mesh's 1 + 3 cut for the pipeline phase's time)
+# 1 + 2 steps a run (train_mesh's 1 + 3 cut for the pipeline phase's time);
+# the fp32 run 1 + 1 (cut for train_pp's pipe x model world, which also
+# holds the TP step in fp32)
 TP_STEPS = 2
+TP_FP32_STEPS = 1
 TP_MODEL = 2
 TP_TIMEOUT_S = 420
 # the second run's LORA_DROPOUT: fine_tune_config.json's own
@@ -4207,7 +4222,7 @@ def _tp_worker(out_path):
                 lambda: _tp_rank_run(dev, cfg, mesh, TP_DROPOUT, 1))
             with _tf32_off():
                 rec["fp32_run"], _ = _tp_rank_run(
-                    dev, _tp_fp32_cfg(), mesh, 0.0, TP_STEPS)
+                    dev, _tp_fp32_cfg(), mesh, 0.0, TP_FP32_STEPS)
     finally:
         with open(out_path + f".{rank}", "w") as f:
             json.dump(rec, f)
@@ -4263,7 +4278,7 @@ def phase_train_tp(dev):
     cross-entropy on a 64,128-column vocab shard, all on wgmma); then at
     LORA_DROPOUT 0.1 finite losses, the first masks of the column-parallel
     projections equal across the ranks and of the row-parallel ones
-    different; then the job in fp32 (TF32 off) at 2 layers, 1 + 2 steps,
+    different; then the job in fp32 (TF32 off) at 2 layers, 1 + 1 steps,
     within MESH_LOSS_RTOL of this process's. Where a collective is missing on gloo the line says which,
     and the phase holds the kernels at these inputs alone (the kernels
     phase's local-head and vocab-shard cases); the TP path then runs on
@@ -4272,7 +4287,8 @@ def phase_train_tp(dev):
     cfg = _llama_cfg(FINE_TUNE_CONFIG, TP_LAYERS)
     ref, _ = _tp_rank_run(dev, cfg, None, 0.0, TP_STEPS)
     with _tf32_off():
-        ref32, _ = _tp_rank_run(dev, _tp_fp32_cfg(), None, 0.0, TP_STEPS)
+        ref32, _ = _tp_rank_run(dev, _tp_fp32_cfg(), None, 0.0,
+                                TP_FP32_STEPS)
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_tp_"), "rank")
     hung, rcs, ranks = _spawn_ranks("--tp-worker", out, TP_MODEL,
                                     [0] * TP_MODEL, TP_TIMEOUT_S)
@@ -5290,25 +5306,30 @@ def _flash_heads(rec):
         rec["heads"] = sorted(rec["heads"])
 
 
-def _ep_run(dev, cfg, mesh, steps=EP_STEPS, plan=None, rows=None):
+def _ep_run(dev, cfg, mesh, steps=EP_STEPS, plan=None, rows=None,
+            ft_over=None):
     """``_tp_rank_run`` of the Mixtral job (uint4 codes, dropout 0) at
     ``cfg``: its record, launches, the heads each flash call ran on and
     the experts a rank holds of each bank (the local leading dim).
     ``rows`` (count, index): this batch rank's rows, each its own
-    microbatch."""
+    microbatch; ``ft_over``: more of the job's keys replaced. The record
+    also names the layers the rank holds."""
+    from gke_ray_train_tpu_torch.models.transformer import layer_ids
     from gke_ray_train_tpu_torch.parallel.sharding import local
-    held = {}
+    held, layers = {}, []
 
     def keep(state):
         blk = state.params.blocks[0]
         held.update({k: int(local(getattr(blk, k).codes).shape[0])
                      for k in ("w_gate", "w_up", "w_down")})
+        layers.extend(layer_ids(state.params))
     with _quant_store(MOE_STORE), _flash_heads({}) as rec:
         r, launches = _tp_rank_run(dev, cfg, mesh, 0.0, steps,
                                    config=MIXTRAL_CONFIG,
                                    plan=plan or EP_PLAN, rows=rows,
-                                   one_row=rows is not None, keep=keep)
-    r.update(heads=rec["heads"], experts_held=held)
+                                   one_row=rows is not None, keep=keep,
+                                   ft_over=ft_over)
+    r.update(heads=rec["heads"], experts_held=held, layers=layers)
     return r, launches
 
 
@@ -5564,6 +5585,49 @@ def _routing(record=None, forced=None, flips=None):
         moe.route = orig
 
 
+@contextlib.contextmanager
+def _routing_by_layer(record=None, forced=None, flips=None):
+    """``_routing`` keyed by layer and microbatch instead of call order:
+    a decision is stored under (its router's digest, whether it is a
+    recomputation in the backward, its count among such calls of that
+    router), so a pipeline stage, which runs a layer's microbatches
+    forward in one tick loop and recomputes them in the backward's, finds
+    the decisions one card made for the same layer and microbatch
+    (``record`` / ``forced``: dicts). The router is frozen and whole on
+    every rank (QLoRA adapts attention only)."""
+    import hashlib
+    import torch
+    from gke_ray_train_tpu_torch.ops import moe
+    if record is None and forced is None:
+        yield
+        return
+    orig = moe.route
+    counts = {}
+
+    def route(x, router_w, cfg, weights=None, context=None):
+        r = orig(x, router_w, cfg, weights, context=context)
+        # a copy: numpy's view would pin the parameter's storage
+        w = router_w.detach().to("cpu", torch.float32, copy=True).numpy()
+        kind = torch._C._current_graph_task_id() != -1
+        base = (hashlib.sha1(w.tobytes()).hexdigest(), kind)
+        key = base + (counts.get(base, 0),)
+        counts[base] = key[2] + 1
+        if record is not None:
+            record[key] = tuple(t.cpu() for t in (r.expert, r.pos, r.keep))
+            return r
+        e, p, k = (t.to(x.device) for t in forced[key])
+        flips.append(((e != r.expert) | (k != r.keep)).sum())
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        gate = torch.gather(probs, -1, e)
+        return moe.Routing(gate / torch.sum(gate, dim=-1, keepdim=True),
+                           e, p, k, r.aux)
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = orig
+
+
 def _ep_multi_run(dev, layers, dtype, mesh=None, rows=None, **routing):
     """One run of ``EP_MULTI_RUNS`` (fp32 with TF32 off), under
     ``_routing(**routing)``."""
@@ -5715,11 +5779,18 @@ def phase_train_ep_multi(dev):
 # microbatches (GRADIENT_ACCUMULATION_STEPS 1, PIPE_MICROBATCHES 8 of one
 # row) within PP_PARITY_RTOL of one process at grad-accum 8 of the same
 # rows (the same microbatches in the same order), and within
-# MESH_LOSS_RTOL of one process at the job's grad-accum 4 of two rows
+# MESH_LOSS_RTOL of one process at the job's grad-accum 4 of two rows;
+# then the same two runs as four ranks of this card at pipe 2 x model 2
+# (tensor parallelism inside each stage: 16 of 32 query heads and half
+# the vocab a rank), the fp32 run within MESH_LOSS_RTOL of both (the
+# row-parallel sums add in another order, as in train_tp)
 PP_LAYERS = 4
 PP_PARITY_LAYERS = 2
 PP_PIPE = 2
+PP_TP_MODEL = 2
 PP_STEPS = 2
+# the fp32 runs 1 + 1 steps (cut for the pipe x model world's time)
+PP_FP32_STEPS = 1
 PP_TIMEOUT_S = 600
 PP_PARITY_RTOL = 1e-6
 PP_FT = {"QUANT_KIND": "nf4", "LORA_DROPOUT": 0.0}
@@ -5753,6 +5824,34 @@ PP_MULTI_ENTRY = {"MESH_PIPE": 4, "MESH_FSDP": 1,
                   "GRADIENT_ACCUMULATION_STEPS": 1, "PIPE_MICROBATCHES": 8}
 PP_MULTI_ENTRY_LAYERS = 8
 PP_MULTI_TIMEOUT_S = 1500
+# and at pipe 2 x model 2 (tensor and expert parallelism inside each
+# stage): (d) the 70B QLoRA at full depth (40 of 80 layers a stage, half
+# of each a card), fp32 at 8 layers against one card within
+# MESH_LOSS_RTOL; (e) the entry under torchrun at MESH_PIPE 2 x
+# MESH_MODEL 2 with INFERENCE and SERVE_AFTER_TRAIN.
+# train_pp_moe_multi on the four-card host: the Mixtral job (uint4 base,
+# LoRA r 64 on attention, 8 one-row pipe microbatches, grad-accum folded)
+# at pipe 2 x model 2, at full depth in bf16 and at
+# ``PP_MOE_FP32_LAYERS`` in fp32, each under the one card's routing
+# decisions by layer and microbatch (``_routing_by_layer``): bf16 losses
+# within MESH_MULTI_RTOL of the one card's 8 one-row microbatches (the
+# grad_norm gap reported, as train_ep_multi holds bf16), fp32 both
+# streams within MESH_LOSS_RTOL
+PP_TP_MULTI = dict(fsdp=1, model=2, pipe=2)
+PP_MOE_FT = {"PER_DEVICE_TRAIN_BATCH_SIZE": 8,
+             "GRADIENT_ACCUMULATION_STEPS": 1}
+PP_MOE_PLAN = {"fused_ops": True, "grad_accum": 1, "pipe_microbatches": 8}
+PP_MOE_ONE_CARD = ({"fused_ops": True, "grad_accum": 8},
+                   {"PER_DEVICE_TRAIN_BATCH_SIZE": 1})
+PP_MOE_FP32_LAYERS = 8
+PP_MOE_TIMEOUT_S = 900
+PP_TP_MULTI_ENTRY = {"MESH_PIPE": 2, "MESH_MODEL": 2, "MESH_FSDP": 1,
+                     "PER_DEVICE_TRAIN_BATCH_SIZE": 8,
+                     "GRADIENT_ACCUMULATION_STEPS": 1,
+                     "PIPE_MICROBATCHES": 8, "INFERENCE": True,
+                     "SERVE_AFTER_TRAIN": True,
+                     "NUM_EVAL_SAMPLES_INFERENCE": 2,
+                     "MAX_NEW_GENERATION_TOKENS_INFERENCE": 32}
 
 
 def _pp_run(dev, cfg, mesh, plan, ft_over=None, config=None, rows=None,
@@ -5765,7 +5864,6 @@ def _pp_run(dev, cfg, mesh, plan, ft_over=None, config=None, rows=None,
     receives from its neighbours a step, from the shapes (the [Bm, S, D]
     activations forward, their gradients back)."""
     import torch
-    from gke_ray_train_tpu_torch.models.pipeline import schedule_of
     from gke_ray_train_tpu_torch.models.transformer import layer_ids
     from gke_ray_train_tpu_torch.parallel.mesh import pipe_size
     held = {}
@@ -5777,22 +5875,11 @@ def _pp_run(dev, cfg, mesh, plan, ft_over=None, config=None, rows=None,
                                plan=plan, keep=keep, rows=rows,
                                ft_over=dict(PP_FT, **(ft_over or {})))
     r["layers"] = held["layers"]
-    P = pipe_size(mesh)
-    if P > 1:
-        M = plan.get("pipe_microbatches") or cfg.pipe_virtual * P
-        sch = schedule_of(cfg, mesh, M)
-        accum = r["grad_accum"]
-        want = expected_launches(
-            dataclasses.replace(cfg, n_layers=len(held["layers"])),
-            accum * M, plan.get("fused_ops", False))
-        if sch.rank != P - 1:
-            for k in ("fused_ce_row_stats", "fused_ce_dx", "fused_ce_dhead"):
-                want[k] = 0
+    if pipe_size(mesh) > 1:
         rows_local = r["tokens"] // cfg.max_seq_len // (
             rows[0] if rows else 1)
         es = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-        r.update(want_launches=want, ticks=sch.ticks, passes=sch.passes,
-                 pipe_microbatches=M,
+        r.update(_stage_launches(r, cfg, mesh, plan),
                  stage_bytes_per_step=2 * rows_local * cfg.max_seq_len
                  * cfg.d_model * es)
     return r, launches
@@ -5804,13 +5891,15 @@ def _pp_layers(cfg, rank, pipe):
 
 
 def _pp_worker(out_path):
-    """One of train_pp's two ranks on the one card (env: RANK,
-    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
-    tensors, the pipe 2 mesh; the job at ``PP_LAYERS`` (1 + ``PP_STEPS``
-    steps), then folded in fp32 at ``PP_PARITY_LAYERS``."""
+    """One of train_pp's ranks on the one card (env: RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT): a gloo group with the card's tensors, the
+    pipe 2 mesh (two ranks) or pipe 2 x model 2 (four); the job at
+    ``PP_LAYERS`` (1 + ``PP_STEPS`` steps), then folded in fp32 at
+    ``PP_PARITY_LAYERS``."""
     import torch
     import torch.distributed as dist
-    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, model_rank, pipe_rank)
     torch.cuda.set_device(0)
     dev = torch.device("cuda", 0)
     dist.init_process_group("gloo", init_method="env://")
@@ -5818,8 +5907,10 @@ def _pp_worker(out_path):
     rec = {"rank": rank, "backend": dist.get_backend(),
            "device_name": torch.cuda.get_device_name(dev)}
     try:
-        mesh = build_mesh(MeshConfig(fsdp=1, pipe=PP_PIPE),
-                          device_type="cuda")
+        mesh = build_mesh(MeshConfig(
+            fsdp=1, model=dist.get_world_size() // PP_PIPE, pipe=PP_PIPE),
+            device_type="cuda")
+        rec.update(pipe_rank=pipe_rank(mesh), model_rank=model_rank(mesh))
         torch.cuda.reset_peak_memory_stats()
         rec["run"], rec["launches"] = _pp_run(
             dev, _llama_cfg(ENTRY_CONFIG, PP_LAYERS), mesh, PP_PLAN)
@@ -5827,7 +5918,8 @@ def _pp_worker(out_path):
         with _tf32_off():
             rec["fp32_run"], _ = _pp_run(
                 dev, _llama_cfg(ENTRY_CONFIG, PP_PARITY_LAYERS, "float32",
-                                "float32"), mesh, plan, over)
+                                "float32"), mesh, plan, over,
+                steps=PP_FP32_STEPS)
     finally:
         with open(out_path + f".{rank}", "w") as f:
             json.dump(rec, f)
@@ -5865,7 +5957,11 @@ def phase_train_pp(dev):
     within MESH_LOSS_RTOL of one process at the job's grad-accum 4. The
     line carries a rank's p50 against one process's, its peak memory,
     its layers, the ticks and the bytes a stage sends and receives a
-    step (from the shapes)."""
+    step (from the shapes). Then the same two runs as four ranks of this
+    card at pipe 2 x model 2 (``pipe_tp``): each rank its stage's 2
+    layers at 16 of 32 query heads, rows 4-5 on a V/2 shard on the last
+    stage only; bf16 within MESH_MULTI_RTOL, fp32 within MESH_LOSS_RTOL
+    of one process."""
     import tempfile
     cfg = _llama_cfg(ENTRY_CONFIG, PP_LAYERS)
     cfg32 = _llama_cfg(ENTRY_CONFIG, PP_PARITY_LAYERS, "float32", "float32")
@@ -5874,7 +5970,8 @@ def phase_train_pp(dev):
     with _tf32_off():
         for key in ("one_row", "job"):
             plan, over = PP_FOLD[key]
-            ref32[key], _ = _pp_run(dev, cfg32, None, plan, over)
+            ref32[key], _ = _pp_run(dev, cfg32, None, plan, over,
+                                    steps=PP_FP32_STEPS)
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pp_"), "rank")
     hung, rcs, ranks = _spawn_ranks("--pp-worker", out, PP_PIPE,
                                     [0] * PP_PIPE, PP_TIMEOUT_S)
@@ -5884,7 +5981,8 @@ def phase_train_pp(dev):
         "mesh": {"data": 1, "fsdp": 1, "pipe": PP_PIPE}, "backend": "gloo",
         "ranks_on_one_card": PP_PIPE,
         "cut": f"{PP_LAYERS} of 32 layers (fp32 at {PP_PARITY_LAYERS}), "
-               f"1 + {PP_STEPS} steps", "one_process": ref,
+               f"1 + {PP_STEPS} steps (fp32 1 + {PP_FP32_STEPS})",
+        "one_process": ref,
         "one_process_fp32": ref32}
     launches = None
     if hung or any(rcs) or None in ranks:
@@ -5904,8 +6002,8 @@ def phase_train_pp(dev):
                 "fp32_job": _hold_streams(
                     name + " fp32 against grad-accum 4", r["fp32_run"],
                     ref32["job"], MESH_LOSS_RTOL, problems)}
-            _pp_hold(name, r["run"], cfg, r["rank"], PP_PIPE, problems)
-            _pp_hold(name + " fp32", r["fp32_run"], cfg32, r["rank"],
+            _pp_hold(name, r["run"], cfg, r["pipe_rank"], PP_PIPE, problems)
+            _pp_hold(name + " fp32", r["fp32_run"], cfg32, r["pipe_rank"],
                      PP_PIPE, problems)
         line.update(
             rel_gaps=gaps, tol_rel={"bf16": MESH_MULTI_RTOL,
@@ -5923,6 +6021,11 @@ def phase_train_pp(dev):
             for k, n in r["launches"].items():
                 if n:
                     launches[k] = launches.get(k, 0) + n
+    line["pipe_tp"], tp_launches = _pp_tp_world(cfg, cfg32, ref, ref32,
+                                                problems)
+    if launches is not None:
+        for k, n in tp_launches.items():
+            launches[k] = launches.get(k, 0) + n
     line.update(ok=not problems, problems=problems)
     emit(line)
     if problems:
@@ -5930,14 +6033,102 @@ def phase_train_pp(dev):
     return launches
 
 
+def _pp_tp_world(cfg, cfg32, ref, ref32, problems):
+    """train_pp's pipe 2 x model 2 world: four ranks of this card over
+    gloo (``_pp_worker`` at a world of four), held to this process's
+    runs; (its part of the line, its launches)."""
+    import tempfile
+    n = PP_PIPE * PP_TP_MODEL
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pp_tp_"), "rank")
+    t0 = time.perf_counter()
+    hung, rcs, ranks = _spawn_ranks("--pp-worker", out, n, [0] * n,
+                                    PP_TIMEOUT_S)
+    line = {"mesh": {"data": 1, "fsdp": 1, "model": PP_TP_MODEL,
+                     "pipe": PP_PIPE}, "ranks_on_one_card": n,
+            "wall_s": time.perf_counter() - t0}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"pipe_tp ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+        return line, {}
+    gaps, launches = {}, {}
+    heads = (cfg.n_heads // PP_TP_MODEL, cfg.n_kv_heads // PP_TP_MODEL)
+    for r in ranks:
+        name = f"pipe_tp rank {r['rank']}"
+        gaps[r["rank"]] = {
+            "bf16": _hold_streams(name, r["run"], ref, MESH_MULTI_RTOL,
+                                  problems),
+            "fp32_one_row": _hold_streams(
+                name + " fp32", r["fp32_run"], ref32["one_row"],
+                MESH_LOSS_RTOL, problems),
+            "fp32_job": _hold_streams(
+                name + " fp32 against grad-accum 4", r["fp32_run"],
+                ref32["job"], MESH_LOSS_RTOL, problems)}
+        _pp_hold(name, r["run"], cfg, r["pipe_rank"], PP_PIPE, problems)
+        _pp_hold(name + " fp32", r["fp32_run"], cfg32, r["pipe_rank"],
+                 PP_PIPE, problems)
+        for k, v in r["launches"].items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+    line.update(
+        ranks=ranks, rel_gaps=gaps,
+        tol_rel={"bf16": MESH_MULTI_RTOL, "fp32": MESH_LOSS_RTOL},
+        heads_a_rank=heads, vocab_a_rank=cfg.vocab_size // PP_TP_MODEL,
+        p50_ratio=[r["run"]["step_s_p50"] / ref["step_s_p50"]
+                   for r in ranks],
+        step_s_p50=[r["run"]["step_s_p50"] for r in ranks],
+        peak_mem_bytes=[r["run"]["peak_mem_bytes"] for r in ranks],
+        layers=[r["run"]["layers"] for r in ranks],
+        launches_per_rank=[r["launches"] for r in ranks])
+    return line, launches
+
+
+def _pp_moe_run(dev, layers, dtype, mesh=None, **routing):
+    """The Mixtral job of train_pp_moe_multi at ``layers`` in ``dtype``
+    (fp32 with TF32 off) under ``_routing_by_layer(**routing)``: on the
+    pipelined ``mesh`` 8 one-row pipe microbatches a step, the launches
+    a stage makes a step; one card its 8 one-row microbatches."""
+    plan, over = ((PP_MOE_PLAN, PP_MOE_FT) if mesh is not None
+                  else PP_MOE_ONE_CARD)
+    cfg = _mixtral_cfg(layers, dtype)
+    with contextlib.ExitStack() as stack:
+        if dtype == "float32":
+            stack.enter_context(_tf32_off())
+        stack.enter_context(_routing_by_layer(**routing))
+        r, launches = _ep_run(dev, cfg, mesh, plan=plan, ft_over=over)
+    if mesh is not None:
+        r.update(_stage_launches(r, cfg, mesh, plan))
+    return r, launches
+
+
+def _stage_launches(r, cfg, mesh, plan):
+    """What a pipeline stage of ``mesh`` holding ``r["layers"]`` launches
+    a step (``expected_launches`` of its layers at grad-accum x pipe
+    microbatches; the cross-entropy's on the last stage only), its
+    schedule's ticks and stage passes (``_pp_hold`` reads them)."""
+    from gke_ray_train_tpu_torch.models.pipeline import schedule_of
+    from gke_ray_train_tpu_torch.parallel.mesh import pipe_size
+    P = pipe_size(mesh)
+    M = plan.get("pipe_microbatches") or cfg.pipe_virtual * P
+    sch = schedule_of(cfg, mesh, M)
+    want = expected_launches(
+        dataclasses.replace(cfg, n_layers=len(r["layers"])),
+        r["grad_accum"] * M, plan.get("fused_ops", False))
+    if sch.rank != P - 1:
+        for k in ("fused_ce_row_stats", "fused_ce_dx", "fused_ce_dhead"):
+            want[k] = 0
+    return {"want_launches": want, "ticks": sch.ticks, "passes": sch.passes,
+            "pipe_microbatches": M}
+
+
 def _pp_multi_worker(out_path):
     """One rank of train_pp_multi (NCCL, one card a rank): the 70B
     QLoRA at pipe 4, full depth, then in fp32 at 8 layers; the 8B job at
-    pipe 2 x fsdp 2, 8 layers."""
+    pipe 2 x fsdp 2, 8 layers; then the 70B at pipe 2 x model 2 (full
+    depth, fp32 at 8 layers)."""
     import torch
     import torch.distributed as dist
     from gke_ray_train_tpu_torch.parallel import (
-        MeshConfig, build_mesh, distributed_init)
+        MeshConfig, build_mesh, distributed_init, model_rank, pipe_rank)
     from gke_ray_train_tpu_torch.parallel.placement import (
         input_shard_layout)
     dev = distributed_init()
@@ -5960,6 +6151,17 @@ def _pp_multi_worker(out_path):
         rec["8b_fsdp2"], _ = _pp_run(
             dev, _llama_cfg(ENTRY_CONFIG, PP_MULTI_8B_LAYERS), mesh,
             PP_MULTI_8B_PLAN, PP_MULTI_8B_FT, rows=input_shard_layout(mesh))
+        mesh = build_mesh(MeshConfig(**PP_TP_MULTI))
+        rec.update(pipe_rank=pipe_rank(mesh), model_rank=model_rank(mesh))
+        torch.cuda.reset_peak_memory_stats()
+        rec["70b_tp"], rec["launches_tp"] = _pp_run(
+            dev, _llama_cfg(FT_70B_CONFIG, 80), mesh, PP_70B_PLAN,
+            PP_70B_FT, config=FT_70B_CONFIG)
+        with _tf32_off():
+            rec["70b_tp_fp32"], _ = _pp_run(
+                dev, _llama_cfg(FT_70B_CONFIG, PP_70B_PARITY_LAYERS,
+                                "float32", "float32"), mesh, PP_70B_PLAN,
+                PP_70B_FT, config=FT_70B_CONFIG)
     finally:
         with open(out_path + f".{rank}", "w") as f:
             json.dump(rec, f)
@@ -5981,7 +6183,13 @@ def phase_train_pp_multi(dev):
     entry under torchrun at MESH_PIPE 4 on offline_8b at 8 layers
     (``_multi_entry``): every rank exits 0, the ranks agree, and the
     sharded export, each layer written by its stage, converts to finite
-    tensors."""
+    tensors. Then at pipe 2 x model 2 (tensor parallelism inside each
+    stage): (d) the 70B QLoRA at full depth (40 layers a stage, half of
+    each a card), its p50, peak and base bytes, and in fp32 at 8 layers
+    within MESH_LOSS_RTOL of the one card's; (e) the entry under
+    torchrun at MESH_PIPE 2 x MESH_MODEL 2 with INFERENCE and
+    SERVE_AFTER_TRAIN: exit 0, the comparison and the smoke written.
+    Expert parallelism inside a stage is ``train_pp_moe_multi``."""
     import tempfile
     import torch
     n = torch.cuda.device_count()
@@ -6011,6 +6219,9 @@ def phase_train_pp_multi(dev):
             "cut": {"70b": "full depth (20 of 80 layers a card), 1 + 2 "
                     "steps; fp32 at 8 layers", "8b_fsdp2": "8 of 32 "
                     "layers, grad-accum 2 of 4", "entry": "offline_8b at "
+                    f"{PP_MULTI_ENTRY_LAYERS} layers", "70b_tp": "full "
+                    "depth, 1 + 2 steps; fp32 at 8 layers",
+                    "entry_pipe_tp": "offline_8b at "
                     f"{PP_MULTI_ENTRY_LAYERS} layers"}}
     if hung or any(rcs) or None in ranks:
         problems.append(f"ranks hung {hung}, exit codes {rcs}")
@@ -6029,6 +6240,17 @@ def phase_train_pp_multi(dev):
                 _pp_hold(f"{name} {k}", r[k], cfg, r["rank"], n, problems)
             if not all(np.isfinite(r["70b"]["losses"])):
                 problems.append(f"{name} 70b losses {r['70b']['losses']}")
+            # pipe 2 x model 2 in fp32: both streams
+            gaps[r["rank"]]["tp_70b_fp32"] = _hold_streams(
+                f"{name} 70b pipe x model fp32", r["70b_tp_fp32"],
+                refs["70b_fp32"], MESH_LOSS_RTOL, problems)
+            for k in ("70b_tp", "70b_tp_fp32"):
+                cfg = _llama_cfg(FT_70B_CONFIG, r[k]["n_layers"])
+                _pp_hold(f"{name} {k}", r[k], cfg, r["pipe_rank"], 2,
+                         problems)
+            if not all(np.isfinite(r["70b_tp"]["losses"])):
+                problems.append(f"{name} 70b pipe x model losses "
+                                f"{r['70b_tp']['losses']}")
         held = [r["70b"]["held_before_bytes"] for r in ranks]
         line.update(
             ranks=ranks, rel_gaps=gaps,
@@ -6042,20 +6264,146 @@ def phase_train_pp_multi(dev):
                 "card_bytes": torch.cuda.get_device_properties(
                     0).total_memory,
                 "fits": sum(held) < torch.cuda.get_device_properties(
-                    0).total_memory})
+                    0).total_memory},
+            pipe_tp={
+                "mesh": PP_TP_MULTI,
+                "p50_70b": [r["70b_tp"]["step_s_p50"] for r in ranks],
+                "peak_70b": [r["70b_tp"]["peak_mem_bytes"] for r in ranks],
+                "base_bytes_70b": [r["70b_tp"]["base_bytes"]
+                                   for r in ranks]})
     entry, entry_problems = _multi_entry(n, PP_MULTI_ENTRY,
                                          layers=PP_MULTI_ENTRY_LAYERS)
     problems += entry_problems
-    line.update(entry=entry, ok=not problems, problems=problems)
+    entry_tp, entry_problems = _multi_entry(
+        n, PP_TP_MULTI_ENTRY, layers=PP_MULTI_ENTRY_LAYERS,
+        expect_files=("inference_comparison.json", "serve_smoke.json"))
+    problems += entry_problems
+    line.update(entry=entry, entry_pipe_tp=entry_tp, ok=not problems,
+                problems=problems)
     emit(line)
     if problems:
         raise SystemExit("train_pp_multi phase failed: "
                          + "; ".join(problems))
     launches = {}
     for r in ranks:
-        for k, v in r["launches"].items():
-            if v:
-                launches[k] = launches.get(k, 0) + v
+        for per in (r["launches"], r["launches_tp"]):
+            for k, v in per.items():
+                if v:
+                    launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _pp_moe_multi_worker(out_path):
+    """One rank of train_pp_moe_multi (NCCL, one card a rank): the
+    Mixtral job at pipe 2 x model 2, at full depth in bf16 and at
+    ``PP_MOE_FP32_LAYERS`` in fp32, each under the one card's routing
+    (``<out_path>.routing_<dtype>.pt``)."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init, model_rank, pipe_rank)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world,
+           "device_name": torch.cuda.get_device_name(dev)}
+    try:
+        mesh = build_mesh(MeshConfig(**PP_TP_MULTI))
+        rec.update(pipe_rank=pipe_rank(mesh), model_rank=model_rank(mesh))
+        for key, layers, dtype in (("bf16", None, "bfloat16"),
+                                   ("fp32", PP_MOE_FP32_LAYERS, "float32")):
+            torch.cuda.reset_peak_memory_stats()
+            flips = []
+            rec[key], launches = _pp_moe_run(
+                dev, layers, dtype, mesh, flips=flips,
+                forced=torch.load(out_path + f".routing_{dtype}.pt"))
+            rec[key]["routing_flips"] = int(sum(flips))
+            rec.setdefault("launches", {})[key] = launches
+            _release()
+    finally:
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_train_pp_moe_multi(dev):
+    """Opt-in, the four-card host (fewer than 4 cards fails): expert
+    parallelism inside the pipeline stages. One card first: the Mixtral
+    job (uint4 base, LoRA r 64, FUSED_OPS=1) as 8 one-row microbatches a
+    step at full depth in bf16 and at ``PP_MOE_FP32_LAYERS`` in fp32
+    (TF32 off), each recording its routing decisions by layer and
+    microbatch (``_routing_by_layer``). Then one rank a card over NCCL
+    at pipe 2 x model 2 (``_pp_moe_multi_worker``), 8 one-row pipe
+    microbatches a step (grad-accum folded), under those decisions: each
+    rank holds its stage's layers and 4 of 8 experts of each bank, flash
+    on 16 of 32 query heads, its stage's launches; bf16 losses within
+    MESH_MULTI_RTOL of the one card's (the grad_norm gap reported), fp32
+    both streams within MESH_LOSS_RTOL; the assignments a rank would
+    have decided otherwise (``routing_flips``), a rank's p50 and peak
+    against one card's. (At random weights the router's top 2 of 8 sit
+    near ties: unforced, the bf16 run at full depth drifted 1.6% from
+    one card's loss at step 3 on four H100s.)"""
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    emit({"phase": "train_pp_moe_multi_devices", "ok": n >= 4,
+          "device_count": n, "nvidia_smi": nvidia_smi_line()})
+    if n < 4:
+        raise SystemExit(f"train_pp_moe_multi needs 4 cards; this host has "
+                         f"{n}")
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_pp_moe_multi_"),
+                       "rank")
+    refs = {}
+    for key, layers, dtype in (("bf16", None, "bfloat16"),
+                               ("fp32", PP_MOE_FP32_LAYERS, "float32")):
+        torch.cuda.reset_peak_memory_stats()
+        record = {}
+        refs[key], _ = _pp_moe_run(dev, layers, dtype, record=record)
+        torch.save(record, out + f".routing_{dtype}.pt")
+        _release()
+    hung, rcs, ranks = _spawn_ranks("--pp-moe-multi-worker", out, n,
+                                    list(range(n)), PP_MOE_TIMEOUT_S)
+    problems, gaps = [], {}
+    line = {"phase": "train_pp_moe_multi", "nvidia_smi": nvidia_smi_line(),
+            "world": n, "mesh": PP_TP_MULTI, "one_card": refs,
+            "quant_store": MOE_STORE,
+            "cut": {"bf16": "full depth, 1 + 2 steps", "fp32":
+                    f"{PP_MOE_FP32_LAYERS} of 32 layers, 1 + 2 steps"}}
+    launches = {}
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+    else:
+        for r in ranks:
+            name = f"rank {r['rank']}"
+            gaps[r["rank"]] = {
+                "bf16": _hold_streams(f"{name} bf16", r["bf16"], refs["bf16"],
+                                      MESH_MULTI_RTOL, problems,
+                                      held=("losses",)),
+                "fp32": _hold_streams(f"{name} fp32", r["fp32"], refs["fp32"],
+                                      MESH_LOSS_RTOL, problems)}
+            for key, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+                cfg = _mixtral_cfg(r[key]["n_layers"], dtype)
+                _pp_hold(f"{name} {key}", r[key], cfg, r["pipe_rank"], 2,
+                         problems)
+                _ep_hold(f"{name} {key}", r[key], cfg, 2, problems)
+            for per in r["launches"].values():
+                for k, v in per.items():
+                    if v:
+                        launches[k] = launches.get(k, 0) + v
+        line.update(
+            rel_gaps=gaps, tol_rel={"bf16": MESH_MULTI_RTOL,
+                                    "fp32": MESH_LOSS_RTOL},
+            p50=[r["bf16"]["step_s_p50"] for r in ranks],
+            p50_one_card=refs["bf16"]["step_s_p50"],
+            peak_mem_bytes=[r["bf16"]["peak_mem_bytes"] for r in ranks],
+            routing_flips={k: [r[k]["routing_flips"] for r in ranks]
+                           for k in ("bf16", "fp32")},
+            ranks=ranks)
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_pp_moe_multi phase failed: "
+                         + "; ".join(problems))
     return launches
 
 
@@ -6792,7 +7140,9 @@ def phase_entry_full(dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
-MOE_ENTRY_LAYERS = 4
+# 4 -> 2 layers: cut for the pipe x model and pipelined-decode cases'
+# time (train_pp, serve_mesh)
+MOE_ENTRY_LAYERS = 2
 # entry_moe's cut of the Mixtral job (1,000 rows, ~125 steps, an eval of
 # 200 rows and a save every 50): 4 steps of 8 rows, a save and an eval of
 # 8 rows every 2, a log line every 2
@@ -6804,7 +7154,7 @@ MOE_ENTRY_CUT = {"NUM_TRAIN_SAMPLES": 32, "NUM_EVAL_SAMPLES": 8,
 def phase_entry_moe(dev):
     """``fine_tune.py``'s worker on ray-jobs/fine_tune_config_mixtral.json
     at full width with the depth cut to ``MOE_ENTRY_LAYERS`` layers (the
-    merged bf16 export of the full depth is 93.4 GB; at 4 layers about 12
+    merged bf16 export of the full depth is 93.4 GB; at 2 layers about 7
     GB) and ``MOE_ENTRY_CUT`` (4 steps, a save and an eval of 8 rows every
     2), ``QUANT_STORE=uint4``, written under a temporary directory whose
     free disk (``df``) is printed first. The launches must be the
@@ -7533,24 +7883,30 @@ SERVE_MESH_LOGITS_TOL = {"bfloat16": 5e-2, "float32": 1e-4}
 # bf16: the top-2 margin, in units of that scale or of the one-process
 # noise where that is more, under which one process's pick is a near tie
 SERVE_MESH_MARGIN = 1e-2
-SERVE_MESH_CASES = {"model2": dict(fsdp=1, model=2), "fsdp2": dict(fsdp=2)}
+SERVE_MESH_CASES = {"model2": dict(fsdp=1, model=2), "fsdp2": dict(fsdp=2),
+                    "pipe2": dict(fsdp=1, pipe=2)}
 # what each case runs on the one card, with its new tokens: the model-2
 # case the generate and the smoke in bf16 and the generate in fp32; the
 # fsdp-2 case the bf16 generate cut to 2 new tokens (each step gathers
 # the 2.1 GB root twice and the blocks through gloo's host-staged pair,
-# 4.6 s a step; serve_mesh_multi decodes 32 at fsdp 4 over NCCL)
+# 4.6 s a step; serve_mesh_multi decodes 32 at fsdp 4 over NCCL); the
+# pipe-2 case (each rank 2 of the 4 layers, the activations handed from
+# stage to stage through host memory) the bf16 and fp32 generates
 SERVE_MESH_RUNS = {"model2": {"generate": 32, "smoke": 32, "fp32": 32},
-                   "fsdp2": {"generate": 2}}
+                   "fsdp2": {"generate": 1},
+                   "pipe2": {"generate": 32, "fp32": 32}}
 SERVE_MESH_TIMEOUT_S = 600
 # the collectives of each case on the card's tensors: the model group's
 # sums (the row-parallel outputs, the vocab-sharded lookup) and the pick's
 # max and min, the world's broadcast of the picked tokens, FSDP2's
-# all-gather on the fsdp group
+# all-gather on the fsdp group, a stage's hand-over to the next
 SERVE_MESH_PROBE = {"all_reduce_sum_bf16_model": ("model2",),
                     "all_reduce_max_f32_model": ("model2",),
                     "all_reduce_min_i64_model": ("model2",),
-                    "broadcast_i32_world": ("model2", "fsdp2"),
-                    "all_gather_into_tensor_fsdp": ("fsdp2",)}
+                    "broadcast_i32_world": ("model2", "fsdp2", "pipe2"),
+                    "all_gather_into_tensor_fsdp": ("fsdp2",),
+                    "send_recv_bf16_pipe": ("pipe2",)}
+
 # serve_mesh_multi: the 70B layout at fsdp 1 x model 4, 8 of 80 layers
 SERVE_70B_LAYERS = 8
 SERVE_MULTI_TIMEOUT_S = 900
@@ -7578,7 +7934,8 @@ def _serve_probe(dev, mesh, case):
             torch.empty(64 * mesh["fsdp"].size(), dtype=torch.uint8,
                         device=dev),
             torch.ones(64, dtype=torch.uint8, device=dev),
-            group=mesh["fsdp"].get_group())}
+            group=mesh["fsdp"].get_group()),
+        "send_recv_bf16_pipe": lambda: _probe_hand_over(dev, mesh)}
     out = {}
     for name, cases in SERVE_MESH_PROBE.items():
         if case not in cases:
@@ -7590,6 +7947,22 @@ def _serve_probe(dev, mesh, case):
         except Exception as e:  # noqa: BLE001 - the probe reports it
             out[name] = f"{type(e).__name__}: {e}"[:400]
     return out
+
+
+def _probe_hand_over(dev, mesh):
+    """One stage-to-stage hand-over of the decode on this card's tensors
+    (``ops/ring_attention.py::send_recv`` over the pipe group: rank 0 of
+    the pipe sends, the next receives) and its value checked."""
+    import torch
+    from gke_ray_train_tpu_torch.ops.ring_attention import send_recv
+    group, p = mesh["pipe"].get_group(), mesh["pipe"].get_local_rank()
+    x = torch.full((4, 1, 64), 3.0, dtype=torch.bfloat16, device=dev)
+    if p == 0:
+        send_recv([x], 1, [], 1, group)
+    elif p == 1:
+        got = send_recv([], 0, [x], 0, group)[0]
+        if not torch.equal(got, x):
+            raise RuntimeError("the hand-over changed the activations")
 
 
 def _serve_prompts(vocab):
@@ -7901,16 +8274,19 @@ def _serve_summary(run):
     return out
 
 
-def _serve_hold_ranks(one, ranks, case, problems, cfg, model, runs_new):
+def _serve_hold_ranks(one, ranks, case, problems, cfg, model, runs_new,
+                      pipe=1):
     """A case's ranks against one process, for each kind of
     ``runs_new`` ({kind: new tokens}): the prefill's last-position logits
-    (under TP the ranks' vocab shards side by side) within
+    (under TP the ranks' vocab shards side by side; over ``pipe`` the
+    last stage's, the others holding none) within
     ``SERVE_MESH_LOGITS_TOL`` of the one-process logits' scale (their
     largest |logit|); in bf16 the tokens up to each row's first pick
     whose one-process top-2 margin is under ``SERVE_MESH_MARGIN`` of
     that scale or the one-process bf16 noise (``one["noise"]``),
     whichever is more, in fp32 every token; the ranks' tokens equal; row
-    1's launches and heads. Returns the case's line."""
+    1's launches (a stage's layers') and heads; a rank's per-token p50
+    against one process's. Returns the case's line."""
     import torch
     line = {}
     runs = [r["runs"][case] for r in ranks]
@@ -7923,7 +8299,9 @@ def _serve_hold_ranks(one, ranks, case, problems, cfg, model, runs_new):
         entry = {"new_tokens": new,
                  "ranks": [_serve_summary(r[kind]) for r in runs],
                  "one_process": _serve_summary(want)}
-        shards = [r[kind]["prefill"] for r in runs]
+        # the stages without the head hold no vocab shard
+        shards = [r[kind]["prefill"] for r in runs
+                  if r[kind]["prefill"].shape[-1]]
         logits = torch.cat(shards, dim=-1) if model > 1 else shards[0]
         scale = float(want["prefill"].abs().max())
         noise = one["noise"]["batch1_vs_batch4_prefill_max_abs"]
@@ -7933,6 +8311,9 @@ def _serve_hold_ranks(one, ranks, case, problems, cfg, model, runs_new):
         margin = max(SERVE_MESH_MARGIN * scale, noise)
         entry.update(prefill_max_abs_err=err, logit_scale=scale,
                      prefill_rel_err=err / scale, prefill_tol_rel=tol)
+        if want.get("step_s_p50"):
+            entry["p50_ratio"] = [r[kind]["step_s_p50"] / want["step_s_p50"]
+                                  for r in runs]
         if bf16:
             entry["near_tie_margin"] = margin
         if not err <= tol * scale:
@@ -7950,7 +8331,7 @@ def _serve_hold_ranks(one, ranks, case, problems, cfg, model, runs_new):
                 engine=kind == "smoke")
             if r["tokens"] != held[0]["tokens"]:
                 problems.append(f"{case} {kind}: ranks' tokens differ")
-        want_launches = layers[kind] * prefills[kind]
+        want_launches = layers[kind] // pipe * prefills[kind]
         for i, r in enumerate(runs):
             if r[kind]["flash_launches"] != want_launches:
                 problems.append(f"{case} {kind} rank {i}: flash launches "
@@ -7967,10 +8348,11 @@ def _serve_hold_ranks(one, ranks, case, problems, cfg, model, runs_new):
 def phase_serve_mesh(dev):
     """Serving on a sharded model, two ranks of the one card over gloo
     (module doc, 11g): this process's one-process runs first, then the
-    ranks (``_serve_mesh_worker``) at model 2 and at fsdp 2, each case
-    after its collectives are probed; the model-2 case must run, the
-    fsdp-2 case is reported as not run where gloo lacks a collective it
-    makes. Returns the ranks' flash launches."""
+    ranks (``_serve_mesh_worker``) at model 2, at fsdp 2 and at pipe 2
+    (decode across the stages: each rank 2 of the 4 layers), each case
+    after its collectives are probed; the model-2 and pipe-2 cases must
+    run, the fsdp-2 case is reported as not run where gloo lacks a
+    collective it makes. Returns the ranks' flash launches."""
     import tempfile
     import torch
     cfg = _llama_cfg(FINE_TUNE_CONFIG, SERVE_MESH_LAYERS)
@@ -8004,12 +8386,13 @@ def phase_serve_mesh(dev):
             if missing:
                 line[case] = ("not run: gloo misses " + ", ".join(missing)
                               + "; the case runs in serve_mesh_multi")
-                if case == "model2":
+                if case != "fsdp2":
                     problems.append(line[case])
                 continue
             line[case] = _serve_hold_ranks(one, ranks, case, problems, cfg,
                                            axes.get("model", 1),
-                                           SERVE_MESH_RUNS[case])
+                                           SERVE_MESH_RUNS[case],
+                                           pipe=axes.get("pipe", 1))
             # the bf16 path's launches (the fp32 run is a parity check)
             launches += sum(r["runs"][case][k]["flash_launches"]
                             for r in ranks for k in ("generate", "smoke")
@@ -8068,9 +8451,10 @@ def _serve_entry_worker(config_path, out_path):
 
 def _serve_multi_worker(out_path):
     """One rank of serve_mesh_multi (NCCL, one card a rank): the 70B
-    layout at fsdp 1 x model N, ``SERVE_70B_LAYERS`` layers in bf16, and
-    serve_mesh's model at fsdp N, each the generate of serve_mesh's
-    prompts; writes ``<out_path>.<rank>.pt``."""
+    layout at fsdp 1 x model N, ``SERVE_70B_LAYERS`` layers in bf16, the
+    same model at pipe N (decode across the stages), and serve_mesh's
+    model at fsdp N, each the generate of serve_mesh's prompts; writes
+    ``<out_path>.<rank>.pt``."""
     import torch
     import torch.distributed as dist
     from gke_ray_train_tpu_torch.parallel import (
@@ -8083,6 +8467,10 @@ def _serve_multi_worker(out_path):
         cfg = _llama_cfg(FT_70B_CONFIG, SERVE_70B_LAYERS)
         rec["runs"]["70b"] = _serve_runs(
             dev, cfg, mesh, {"generate": SERVE_MESH_NEW}, quant=False)
+        _release()
+        rec["runs"]["70b_pipe"] = _serve_runs(
+            dev, cfg, build_mesh(MeshConfig(fsdp=1, pipe=world)),
+            {"generate": SERVE_MESH_NEW}, quant=False)
         _release()
         rec["runs"]["fsdp"] = _serve_runs(
             dev, _llama_cfg(FINE_TUNE_CONFIG, SERVE_MESH_LAYERS),
@@ -8184,10 +8572,11 @@ def _serve_multi_pretrain(root, n, problems):
 def phase_serve_mesh_multi(dev):
     """Opt-in, the four-card host (fewer fails): serving across cards
     over NCCL (module doc, 22b). The 70B layout at fsdp 1 x model 4,
-    ``SERVE_70B_LAYERS`` of 80 layers in bf16, and serve_mesh's model at
-    fsdp 4, each on this card and then a rank a card
-    (``_serve_multi_worker``), held as serve_mesh holds its bf16
-    generate; the fine-tune entry at fsdp 4 and the pre-train entry at
+    ``SERVE_70B_LAYERS`` of 80 layers in bf16, the same model decoding
+    across 4 pipe stages (2 layers a card; a rank's per-token p50 beside
+    model 4's), and serve_mesh's model at fsdp 4, each on this card and
+    then a rank a card (``_serve_multi_worker``), held as serve_mesh
+    holds its bf16 generate; the fine-tune entry at fsdp 4 and the pre-train entry at
     fsdp 4, each with its serving switches, under torchrun."""
     import shutil
     import tempfile
@@ -8219,6 +8608,14 @@ def phase_serve_mesh_multi(dev):
                 one, ranks, "70b", problems, cfg, n,
                 {"generate": SERVE_MESH_NEW}),
                 n_layers=SERVE_70B_LAYERS, mesh={"fsdp": 1, "model": n})
+            line["70b_pipe"] = dict(_serve_hold_ranks(
+                one, ranks, "70b_pipe", problems, cfg, 1,
+                {"generate": SERVE_MESH_NEW}, pipe=n),
+                n_layers=SERVE_70B_LAYERS, mesh={"fsdp": 1, "pipe": n},
+                p50_against_model=[
+                    r["runs"]["70b_pipe"]["generate"]["step_s_p50"]
+                    / r["runs"]["70b"]["generate"]["step_s_p50"]
+                    for r in ranks])
             line["fsdp"] = dict(_serve_hold_ranks(
                 one8, ranks, "fsdp", problems, cfg8, 1,
                 {"generate": SERVE_MESH_NEW}),
@@ -8250,12 +8647,13 @@ PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train_mesh_multi", "train_tp_multi", "pretrain",
           "pretrain_multi", "train_cp_multi", "serve_mesh",
           "serve_mesh_multi", "train_ep", "train_ep_multi", "train_pp",
-          "train_pp_multi")
+          "train_pp_multi", "train_pp_moe_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
                  "train_tp_multi", "pretrain_multi", "train_cp_multi",
-                 "serve_mesh_multi", "train_ep_multi", "train_pp_multi")
+                 "serve_mesh_multi", "train_ep_multi", "train_pp_multi",
+                 "train_pp_moe_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -8367,6 +8765,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pp-worker", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--pp-multi-worker", metavar="OUT",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--pp-moe-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
                "tp_multi_worker": _tp_multi_worker, "cp_worker": _cp_worker,
@@ -8374,7 +8774,8 @@ def main(argv=None) -> int:
                "serve_mesh_worker": _serve_mesh_worker,
                "serve_multi_worker": _serve_multi_worker,
                "ep_worker": _ep_worker, "ep_multi_worker": _ep_multi_worker,
-               "pp_worker": _pp_worker, "pp_multi_worker": _pp_multi_worker}
+               "pp_worker": _pp_worker, "pp_multi_worker": _pp_multi_worker,
+               "pp_moe_multi_worker": _pp_moe_multi_worker}
     if args.entry_worker or args.pretrain_worker or \
             args.serve_entry_worker or any(getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
@@ -8478,6 +8879,7 @@ def main(argv=None) -> int:
     add(run("serve_mesh_multi", phase_serve_mesh_multi))
     add(run("train_ep_multi", phase_train_ep_multi))
     add(run("train_pp_multi", phase_train_pp_multi))
+    add(run("train_pp_moe_multi", phase_train_pp_moe_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

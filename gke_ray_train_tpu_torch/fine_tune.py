@@ -55,10 +55,11 @@ its experts over ``model`` (expert parallelism, ``ops/moe.py``). At
 ``MESH_PIPE`` above 1 each rank holds its stage's layers and the train
 step runs the pipeline (``models/pipeline.py``; ``PIPE_MICROBATCHES``
 pipe microbatches in each grad-accum microbatch, ``PIPE_VIRTUAL_STAGES``
-groups a stage, as JAX's job reads them); the export is written by the
-ranks that hold each layer. ``INFERENCE`` and ``SERVE_AFTER_TRAIN`` on a
-pipelined model raise before any work: decode across pipe stages is not
-ported (ROADMAP queue 1 item 8), and neither is peer replication.
+groups a stage, as JAX's job reads them), at any ``MESH_MODEL`` inside
+a stage; the export is written by the ranks that hold each layer, and
+``INFERENCE`` and ``SERVE_AFTER_TRAIN`` decode across the stages
+(``models/kvcache.py``). Peer replication is not ported (ROADMAP queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -160,24 +161,6 @@ def load_pretrained(ckpt_dir: str, cfg, *, quantize=None,
     return params
 
 
-def check_pipe_serving(config: dict) -> None:
-    """Raise where a config asks a pipelined model to serve
-    (``INFERENCE``, ``SERVE_AFTER_TRAIN``): decode across pipe stages is
-    not ported (ROADMAP queue 1 item 8). JAX's decode has no pipe
-    schedule either."""
-    serve = str(config.get("SERVE_AFTER_TRAIN", os.environ.get(
-        "SERVE_AFTER_TRAIN", "0"))).strip().lower() in ("1", "true")
-    asked = [k for k, on in (("INFERENCE",
-                              bool(config.get("INFERENCE", False))),
-                             ("SERVE_AFTER_TRAIN", serve)) if on]
-    if asked:
-        raise NotImplementedError(
-            f"{' and '.join(asked)} on a pipelined model (MESH_PIPE > 1): "
-            "decode across pipe stages is not ported yet (ROADMAP queue 1 "
-            "item 8, decode across pipe stages); train at MESH_PIPE > 1 "
-            "and serve the export")
-
-
 def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     """The worker: trains, checkpoints and resumes, exports; returns the
     loop's last metrics. Runs on ``device`` (default ``cuda``, which must
@@ -205,8 +188,6 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
         ctx.plan_fingerprint = plan.fingerprint()
     mesh = build_mesh(mesh_cfg, device_type=dev.type) if world > 1 else None
     pipe = mesh_cfg.pipe if mesh_cfg is not None else 1
-    if pipe > 1:
-        check_pipe_serving(config)
     smoke = bool(config.get("SMOKE_TEST", False))
     logger.info("worker on %s (world %d%s); plan %s", dev, world,
                 f", mesh {mesh_cfg.shape}" if mesh_cfg else "",

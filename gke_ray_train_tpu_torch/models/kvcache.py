@@ -21,13 +21,20 @@
   model`` KV heads (so the flash prefill runs on the local heads), the
   greedy pick is an argmax over the sharded vocab, and the picked tokens
   are agreed across the world, so every rank stops at the same step.
+- On a pipelined mesh (``pipe`` above 1) a rank holds its stage's
+  layers and caches those only; a step visits the stages one after
+  another (JAX's decode has no pipe schedule either: GSPMD runs it on
+  the pipe-sharded stack): the first stage embeds, each hop runs its
+  layers and sends ``[B, T, D]`` to the next (``models/pipeline.py::
+  run_hops``), the last applies the final norm and head, takes the
+  argmax, and its tokens are broadcast to the world.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Any, Dict, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,7 +43,8 @@ from gke_ray_train_tpu_torch.device import DeviceLike, check_on, resolve_device
 from gke_ray_train_tpu_torch.models.config import ModelConfig
 from gke_ray_train_tpu_torch.models.transformer import (
     Lora, Params, _lora_entry, _mlp, _proj, _unembed, embed_tokens,
-    head_tp, position_inputs, torch_dtype)
+    head_tp, layer_ids, lora_of_layers, position_inputs, rope_table,
+    torch_dtype)
 from gke_ray_train_tpu_torch.ops.attention import (
     dot_product_attention, make_attention_mask)
 from gke_ray_train_tpu_torch.ops.norms import rms_norm
@@ -49,18 +57,21 @@ Cache = Dict[str, torch.Tensor]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: DeviceLike = None, model: int = 1) -> Cache:
+               device: DeviceLike = None, model: int = 1,
+               layers: Optional[int] = None) -> Cache:
     """Zeroed cache in the compute dtype: ``{"k", "v"}`` of
-    [n_layers, batch, max_len, n_kv_heads / model, head_dim]; ``model``
+    [layers, batch, max_len, n_kv_heads / model, head_dim]; ``model``
     the ways the served weights are split over tensor parallelism
-    (:func:`model_shards`), each rank caching its own KV heads."""
+    (:func:`model_shards`), each rank caching its own KV heads;
+    ``layers`` the blocks the model holds (default ``n_layers``; a
+    pipeline stage's, ``len(params.blocks)``), in their order."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     if cfg.n_kv_heads % model:
         raise ValueError(f"n_kv_heads={cfg.n_kv_heads} does not split "
                          f"over model={model}")
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads // model,
-             cfg.resolved_head_dim)
+    shape = (cfg.n_layers if layers is None else layers, batch, max_len,
+             cfg.n_kv_heads // model, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
@@ -127,6 +138,28 @@ def _head(params: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """The root's part after the blocks: the logits (under TP of this
     rank's vocab shard)."""
     return _unembed(x, params, cfg, dtype)
+
+
+def _stage_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                step: "_Step", layer: Callable, mesh) -> torch.Tensor:
+    """A pipeline stage's part of one ``forward_step``, run inside one
+    call of the root (``models/pipeline.py::run_hops``): the first stage
+    embeds, every stage runs its hops' layers, the last applies the
+    final norm and the head. The logits on the last stage; an empty
+    ``[B, T, 0]`` elsewhere (a stage that holds no vocab shard)."""
+    from gke_ray_train_tpu_torch.models import pipeline as pl
+    from gke_ray_train_tpu_torch.parallel.mesh import pipe_rank, pipe_size
+    B, T = tokens.shape
+    dev = tokens.device
+    x = None
+    if pipe_rank(mesh) == 0:
+        x = _embed(params, tokens, cfg, positions=step.positions,
+                   dtype=step.dtype)[0]
+    like = torch.empty((B, T, cfg.d_model), dtype=step.dtype, device=dev)
+    x = pl.run_hops(cfg, mesh, x, like, len(params.blocks), layer)
+    if pipe_rank(mesh) == pipe_size(mesh) - 1:
+        return _head(params, x, cfg, dtype=step.dtype)
+    return torch.empty((B, T, 0), dtype=torch.float32, device=dev)
 
 
 def _through_root(params: Params, fn, x, cfg: ModelConfig, **kw):
@@ -217,10 +250,22 @@ def forward_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     Each layer runs through ``Block.__call__`` and the embedding and
     head through the root's, so a model sharded with FSDP2 gathers one
     unit's weights around its use and frees them after (no second whole
-    copy of the model); every rank of its mesh must make the same call."""
+    copy of the model); every rank of its mesh must make the same call.
+
+    On a pipeline stage (``models/pipeline.py::stage_mesh``) the cache
+    holds the stage's layers, the step is one trip through the stages
+    (:func:`_stage_step`) and the logits are the last stage's: the
+    other stages return ``[B, T, 0]``, and :func:`greedy_pick` agrees
+    the tokens from the last stage."""
+    from gke_ray_train_tpu_torch.models.pipeline import stage_mesh
     pool = aslot = None
     if isinstance(lora, dict) and "aslot" in lora:
         pool, aslot, lora = lora["blocks"], lora["aslot"], None
+    # the adapters of the layers the model holds (a pipeline stage's)
+    if pool is not None:
+        pool = lora_of_layers(pool, layer_ids(params))
+    if lora is not None:
+        lora = lora_of_layers(lora, layer_ids(params))
     B, T = tokens.shape
     dev = params.embed.device
     check_on(tokens, dev, "tokens")
@@ -229,8 +274,11 @@ def forward_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
 
     positions = lens.to(torch.int32)[:, None] + torch.arange(
         T, dtype=torch.int32, device=dev)[None, :]
-    x, rope = _through_root(params, _embed, tokens, cfg,
-                            positions=positions, dtype=dtype)
+    mesh = stage_mesh(params)
+    rope = rope_table(cfg, dev)
+    if mesh is None:
+        x = _through_root(params, _embed, tokens, cfg,
+                          positions=positions, dtype=dtype)[0]
 
     kv_positions = torch.arange(max_len, dtype=torch.int32,
                                 device=dev).expand(B, max_len)
@@ -253,14 +301,19 @@ def forward_step(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
                  positions=positions, kv_positions=kv_positions, rope=rope,
                  masks=masks, use_flash=use_flash, lora_scale=lora_scale)
 
-    for i, blk in enumerate(params.blocks):
+    def layer(x, i):
         if pool is not None:
             from gke_ray_train_tpu_torch.ops.lora_batched import gather_pool
             lo = gather_pool(pool[i], aslot)
         else:
             lo = lora[i] if lora is not None else None
-        x = blk(x, lo, step, i, layer_fn=_decode_layer)
+        return params.blocks[i](x, lo, step, i, layer_fn=_decode_layer)
 
+    if mesh is not None:
+        return _through_root(params, _stage_step, tokens, cfg, step=step,
+                             layer=layer, mesh=mesh), cache
+    for i in range(len(params.blocks)):
+        x = layer(x, i)
     return _through_root(params, _head, x, cfg, dtype=dtype), cache
 
 
@@ -278,13 +331,25 @@ def greedy_pick(logits: torch.Tensor, params: Params,
     (``parallel/tensor.py::vocab_parallel_argmax``); on a sharded model
     then agreed across the world (rank 0's broadcast), so every rank
     writes, stops and admits on the same tokens and no rank leaves a
-    loop its peers are still in."""
-    tok = vocab_parallel_argmax(logits, head_tp(params, cfg)).to(
-        torch.int32)
+    loop its peers are still in. On a pipeline stage only the last
+    stage has logits: it takes the argmax (over its model group) and
+    its first rank's tokens are broadcast to the world
+    (``models/pipeline.py::token_source``); the other stages' logits
+    are the empty ``[..., 0]`` of :func:`forward_step`."""
+    from gke_ray_train_tpu_torch.models import pipeline as pl
+    from gke_ray_train_tpu_torch.parallel.mesh import pipe_rank, pipe_size
+    mesh = pl.stage_mesh(params)
+    if pipe_rank(mesh) == pipe_size(mesh) - 1:
+        tok = vocab_parallel_argmax(logits, head_tp(params, cfg)).to(
+            torch.int32)
+    else:
+        tok = torch.empty(logits.shape[:-1], dtype=torch.int32,
+                          device=logits.device)
     if is_sharded(params.embed):
         import torch.distributed as dist
         if dist.get_world_size() > 1:
-            dist.broadcast(tok, src=0)
+            dist.broadcast(tok, src=0 if mesh is None
+                           else pl.token_source(mesh))
     return tok
 
 
@@ -326,7 +391,8 @@ def greedy_generate_cached(params: Params, prompt, prompt_len,
         Lp = min(L, ((Lp + 127) // 128) * 128)
     eos = torch.tensor(list(eos_ids) or [-1], dtype=torch.int32, device=dev)
 
-    cache = init_cache(cfg, B, L, device=dev, model=model_shards(params))
+    cache = init_cache(cfg, B, L, device=dev, model=model_shards(params),
+                       layers=len(params.blocks))
     logits, cache = forward_step(
         params, prompt[:, :Lp].contiguous(), cfg, cache,
         torch.zeros((B,), dtype=torch.int32, device=dev),

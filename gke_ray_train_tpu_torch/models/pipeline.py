@@ -30,6 +30,20 @@ The port runs stage processes instead:
   over the slot and sends the input gradient back. Microbatch 0 goes
   back first, so a layer's gradients add up in one process's order.
 
+Under tensor or expert parallelism inside a stage (``model`` above 1) a
+block's output is whole on every model rank, so each model rank sends
+it to its counterpart on the next stage (the pipe group joins the ranks
+of one ``model`` coordinate), and the input gradient it sends back is
+whole too: the gradient of the column-parallel projections' input is
+summed over ``model`` (``copy_to_model``) before the norm and the
+residual add it up. The model
+group's all-reduces run inside a slot and the pipe exchange between
+ticks, so every rank of a stage makes them in one order.
+
+A decode step (``models/kvcache.py``) runs the same hops without a
+schedule (:func:`run_hops`): the first stage embeds, each hop's rank
+runs its layers and sends ``[B, T, D]`` on, the last applies the head.
+
 Unlike JAX the port computes nothing in the warm-up and drain ticks: a
 rank idles there (ROADMAP "Known divergences"); the tick count is JAX's,
 and a rank makes ``M·v`` stage passes a step. The MoE router aux of a
@@ -342,6 +356,58 @@ def run_backward(run: Run, mesh, *, loss: Callable,
             torch.autograd.backward(tensors, grads)
             if h > 0:
                 outgoing.append(x_in.grad)
+
+
+def stage_mesh(params):
+    """The pipelined mesh ``params`` (a ``Transformer``) holds one stage
+    of, as ``parallel/sharding.py::shard_model`` recorded it; None for a
+    model that holds every layer."""
+    return getattr(params.blocks, "mesh", None)
+
+
+def token_source(mesh) -> int:
+    """The global rank a decode's picked tokens are agreed from on a
+    pipelined mesh: the last stage's first rank (coordinate 0 on every
+    other axis), which holds the logits."""
+    from gke_ray_train_tpu_torch.parallel.mesh import AXIS_PIPE, MESH_AXES
+    ranks = mesh.mesh.movedim(MESH_AXES.index(AXIS_PIPE), 0)
+    return int(ranks[-1].reshape(-1)[0])
+
+
+def run_hops(cfg: ModelConfig, mesh, x: Optional[torch.Tensor],
+             like: torch.Tensor, n_blocks: int,
+             layer: Callable) -> Optional[torch.Tensor]:
+    """One decode step's trip through the stages, without a schedule
+    (JAX's decode has none): ``v·P`` hops in layer order, hop ``h`` on
+    pipe rank ``h % P`` running its group ``h // P`` of the stage's
+    ``n_blocks`` blocks (``layer(x, i)`` for each stage-local index
+    ``i`` in order), its output handed to the next hop's rank in one
+    ``send_recv`` over the pipe group (each ``model`` rank to its
+    counterpart: under tensor parallelism a block's output is whole on
+    every model rank). ``x`` is the embedded input on the first stage
+    (None elsewhere) and ``like`` an empty ``[B, T, D]`` of the
+    activations. Returns the last hop's output on the last stage, None
+    on the others."""
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.ops.ring_attention import send_recv
+    from gke_ray_train_tpu_torch.parallel.mesh import pipe_group
+    group = pipe_group(mesh)
+    _warm(mesh, group)
+    P, p = dist.get_world_size(group), dist.get_rank(group)
+    v = cfg.pipe_virtual
+    per = n_blocks // v
+    for h in range(v * P):
+        src, dst = (h - 1) % P, h % P
+        if h and p == src:
+            send_recv([x], dst, [], dst, group)
+            x = None
+        elif h and p == dst:
+            x = send_recv([], src, [like], src, group)[0]
+        if p == dst:
+            j = h // P
+            for i in range(j * per, (j + 1) * per):
+                x = layer(x, i)
+    return x if p == P - 1 else None
 
 
 def gather_outputs(run: Run, mesh, shape: tuple, dtype: torch.dtype,

@@ -184,13 +184,18 @@ class StageBlocks(nn.Module):
     and ``state_dict`` name them as the whole model does
     (``blocks.<i>.…``). Iterates, counts and indexes (by position, an int
     or a slice) as the list of the stage's blocks; ``layer_ids`` are
-    their global indices, ascending."""
+    their global indices, ascending, and ``mesh`` the pipelined mesh
+    once the stage is sharded."""
 
     def __init__(self, blocks: Dict[int, "Block"]):
         super().__init__()
         for i in sorted(blocks):
             self.add_module(str(i), blocks[i])
         self.layer_ids = tuple(sorted(blocks))
+        # the pipelined mesh the stage is sharded over
+        # (``parallel/sharding.py::shard_model``), None before: the
+        # decode reads its stages from here
+        self.mesh = None
 
     def __iter__(self):
         return iter(self._modules.values())
@@ -216,6 +221,22 @@ def lora_layer_ids(lora) -> tuple:
     (:class:`StageLora`), else ``0 .. len - 1``."""
     ids = getattr(lora, "layer_ids", None)
     return tuple(range(len(lora))) if ids is None else ids
+
+
+def lora_of_layers(lora, ids) -> list:
+    """``lora``'s adapter dicts of the global layers ``ids``, in order:
+    ``lora`` itself where it holds exactly those, else its entries of
+    them (a whole model's adapters served by a pipeline stage); raises
+    where it lacks one."""
+    have = lora_layer_ids(lora)
+    if tuple(have) == tuple(ids):
+        return lora
+    at = {i: n for n, i in enumerate(have)}
+    missing = [i for i in ids if i not in at]
+    if missing:
+        raise ValueError(f"the adapters hold layers {list(have)}, not "
+                         f"all of {list(ids)}")
+    return StageLora([lora[at[i]] for i in ids], ids)
 
 
 def layer_ids(params) -> tuple:

@@ -19,8 +19,8 @@ axis        what is sharded over it
             (``models/pipeline.py``)
 ==========  ========================================================
 
-``pipe`` composes with ``data``, ``fsdp`` and ``context``; with
-``model`` above 1 it raises (ROADMAP queue 1 item 8).
+``pipe`` composes with every other axis: a stage's blocks are sharded
+over its own ``data``, ``fsdp``, ``model`` and ``context`` ranks.
 
 :func:`distributed_init` reads the rendezvous that torchrun and Ray Train
 set (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
@@ -111,8 +111,8 @@ class MeshConfig:
         )
 
     def check_ported(self) -> "MeshConfig":
-        """Raise on a layout the port cannot run: more than one slice,
-        or ``pipe`` and ``model`` both above 1; returns ``self``.
+        """Raise on a layout the port cannot run (more than one slice);
+        returns ``self``.
         Whether a model tiles ``model`` is checked where the mesh meets
         the model config (``plan.py::check_model_on_mesh``), whether it
         tiles ``pipe`` where the pipeline meets it
@@ -128,11 +128,6 @@ class MeshConfig:
                     f"MESH_{axis.upper()}={size}: {what} is not ported yet; "
                     "the port shards over data, fsdp, model and context "
                     "only")
-        if self.pipe > 1 and self.model > 1:
-            raise NotImplementedError(
-                f"MESH_PIPE={self.pipe} with MESH_MODEL={self.model}: "
-                "pipeline stages over tensor or expert parallelism are "
-                "not ported yet (ROADMAP queue 1 item 8, pipe x model)")
         return self
 
 
@@ -296,8 +291,10 @@ def pipe_rank(mesh) -> int:
 
 
 def pipe_group(mesh):
-    """The process group of this rank's ``pipe`` peers (the same rows,
-    the other stages of the model); None when the axis is 1."""
+    """The process group of this rank's ``pipe`` peers (the same rows
+    and the same ``model`` shard, the other stages of the model: a model
+    rank's activations go to its own counterpart on the next stage);
+    None when the axis is 1."""
     if pipe_size(mesh) <= 1:
         return None
     return mesh[AXIS_PIPE].get_group()

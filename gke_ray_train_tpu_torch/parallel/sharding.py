@@ -39,11 +39,16 @@ able to take a gradient, which an integer tensor cannot
 (``QTensor.code_tensor`` reads them back).
 
 Over ``pipe`` each rank holds its stage's blocks only
-(``models/pipeline.py::stage_layers``), each an FSDP2 unit on the
-stage's own fsdp (or HSDP) submesh, and the root (embedding, final norm,
-head) replicated over ``pipe``: each stage's root is the same, sharded
-alike over its fsdp ranks, and the train step sums its gradients over
-the pipe group.
+(``models/pipeline.py::stage_layers``), each placed as above inside the
+stage: DTensors of the stage's ``model`` submesh first (its heads, ffn
+columns or experts), then an FSDP2 unit on the stage's own fsdp (or
+HSDP) submesh, both slices of the one mesh (at ``context`` above 1 of
+:func:`_context_root`, which makes every stage's groups). The root
+(embedding, final norm, head) is replicated over ``pipe``: each stage's
+root is the same, vocab-sharded alike over its ``model`` ranks and
+sharded alike over its fsdp ranks, and the train step sums its
+gradients over the pipe group, which joins the ranks of one ``model``
+coordinate (one shard).
 
 Gradients are summed over the batch ranks, not averaged (the train step
 divides by the global token weight), and a ``data`` or ``context`` axis
@@ -350,6 +355,9 @@ def shard_model(params: nn.Module, mesh) -> nn.Module:
     if stage is not None and list(layer_ids(params)) != stage:
         # a pipeline stage keeps its own layers only
         to_stage(params, stage)
+    if stage is not None:
+        # where the decode finds its stages (models/kvcache.py)
+        params.blocks.mesh = mesh
     for blk in params.blocks:
         if not isinstance(blk, FSDPModule):
             shard_unit(blk, cfg, mesh)

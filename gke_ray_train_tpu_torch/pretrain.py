@@ -32,8 +32,8 @@ reshards. ``PEER_REPLICATION`` raises (ROADMAP queue 1 item 8);
 rank of one node entering the engine, and warns and skips beyond one
 node, as JAX does. ``MESH_PIPE`` above 1 trains the pipeline
 (``models/pipeline.py``; ``PIPE_MICROBATCHES`` / ``PIPE_VIRTUAL_STAGES``
-from the config), and ``SERVE_AFTER_TRAIN`` there raises: decode across
-pipe stages is not ported (ROADMAP queue 1 item 8).
+from the config), and ``SERVE_AFTER_TRAIN`` there decodes across the
+stages (``models/kvcache.py``).
 """
 
 from __future__ import annotations
@@ -99,9 +99,6 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     if world > 1:
         mesh_cfg.check_ported()
         mesh = build_mesh(mesh_cfg, device_type=dev.type)
-        if mesh_cfg.pipe > 1:
-            from gke_ray_train_tpu_torch.fine_tune import check_pipe_serving
-            check_pipe_serving(config)
     # the attempt ran under this plan, not the trainer's resolution of a
     # config without the plan keys
     ctx.plan_fingerprint = plan.fingerprint()

@@ -16,6 +16,10 @@ since adding an exact-zero delta cannot change an argmax.
 Pinning: the engine ``acquire``s a tenant at admission and ``release``s
 it at retirement; eviction takes only an unpinned slot, so a tenant's
 weights are never overwritten while one of its requests decodes.
+
+A pool holds the layers of its template: a pipeline stage's adapters
+(``StageLora``) give a pool of the stage's layers, a whole model's give
+every layer, of which a stage's decode reads its own.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from gke_ray_train_tpu_torch.device import DeviceLike, resolve_device
-from gke_ray_train_tpu_torch.models.transformer import Lora
+from gke_ray_train_tpu_torch.models.transformer import (
+    Lora, StageLora, lora_layer_ids)
 
 logger = logging.getLogger(__name__)
 
@@ -56,7 +61,8 @@ class AdapterPool:
     :func:`adapter_from_checkpoint`); without one an unknown id raises
     ``KeyError``. ``template`` is any single adapter of the right shapes
     (the just-trained ``state.lora``, ``train.lora.init_lora``'s): only
-    its shapes, dtypes and device are read."""
+    its shapes, dtypes and device are read; ``blocks`` holds the
+    template's layers."""
 
     def __init__(self, template: Lora, *, max_adapters: int,
                  loader: Optional[Callable[[str], Lora]] = None):
@@ -65,7 +71,8 @@ class AdapterPool:
         self.max_adapters = int(max_adapters)
         self.n_slots = self.max_adapters + 1   # + the zero slot 0
         # slot 0 stays all-zero forever (the base tenant)
-        self.blocks = _stack_template(template, self.n_slots)
+        self.blocks = StageLora(_stack_template(template, self.n_slots),
+                                lora_layer_ids(template))
         self._loader = loader
         self._slots: "OrderedDict[str, int]" = OrderedDict()  # LRU order
         self._free = list(range(1, self.n_slots))

@@ -114,7 +114,8 @@ class Completion:
 def init_serve_state(cfg: ModelConfig, batch: int, width: int, *,
                      device: torch.device, multi_lora: bool = False,
                      draft_cfg: Optional[ModelConfig] = None,
-                     model: int = 1) -> Dict[str, Any]:
+                     model: int = 1,
+                     layers: Optional[int] = None) -> Dict[str, Any]:
     """Zeroed per-bucket batch state: token buffer, per-slot cursors and
     the pooled KV cache. ``active`` starts all-False — empty slots run
     the decode step as masked no-ops until admission fills them.
@@ -123,7 +124,8 @@ def init_serve_state(cfg: ModelConfig, batch: int, width: int, *,
     = the reserved zero adapter); ``draft_cfg`` adds the draft model's
     own KV pool ``dcache`` for speculative decoding. ``model``: the
     ways the served weights are split over tensor parallelism (the cache
-    holds this rank's KV heads)."""
+    holds this rank's KV heads); ``layers``: the blocks the served model
+    holds (a pipeline stage's; default every layer)."""
     def ints():
         return torch.zeros((batch,), dtype=torch.int32, device=device)
     state = {
@@ -132,7 +134,8 @@ def init_serve_state(cfg: ModelConfig, batch: int, width: int, *,
         "stop": ints(),
         "active": torch.zeros((batch,), dtype=torch.bool, device=device),
         "cur": ints(),
-        "cache": init_cache(cfg, batch, width, device=device, model=model),
+        "cache": init_cache(cfg, batch, width, device=device, model=model,
+                            layers=layers),
     }
     if multi_lora:
         state["aslot"] = ints()
@@ -165,7 +168,8 @@ def make_prefill_fn(cfg: ModelConfig, *, lora_scale: float = 1.0,
     def target_prefill(params, prompt, prompt_len, lora):
         B, L = prompt.shape
         dev = prompt.device
-        cache = init_cache(cfg, B, L, device=dev, model=model_shards(params))
+        cache = init_cache(cfg, B, L, device=dev, model=model_shards(params),
+                           layers=len(params.blocks))
         logits, cache = forward_step(
             params, prompt, cfg, cache,
             torch.zeros((B,), dtype=torch.int32, device=dev),
@@ -425,8 +429,10 @@ class BatchEngine:
         if is_sharded(params.embed):
             _check_sharded_plan(self.plan)
         self.params = quantize_for_serving(params, self.plan.serve_quant)
-        # this rank's share of the KV heads (tensor parallelism)
+        # this rank's share of the KV heads (tensor parallelism) and of
+        # the layers (a pipeline stage)
         self._kv_model = model_shards(params)
+        self._kv_layers = len(params.blocks)
         if adapters is not None and lora is not None:
             raise ValueError(
                 "pass either a single lora= adapter or a multi-tenant "
@@ -508,7 +514,7 @@ class BatchEngine:
             self.cfg, self.max_batch, width, device=self.device,
             multi_lora=self._pool_mode,
             draft_cfg=self._draft[1] if self._draft else None,
-            model=self._kv_model)
+            model=self._kv_model, layers=self._kv_layers)
 
     def _decode_lora_arg(self) -> Any:
         """The ``lora`` argument of every decode call: the pool's stacked

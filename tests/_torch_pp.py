@@ -9,11 +9,18 @@ starts its own.
   Llama at virtual 2; the stage's layers of a sharded quantized init; a
   save of the trained full-FT state, the world-1 save restored, the
   sharded export of the QLoRA start; the divergence guard, healthy and
-  diverged; the error gates; the fine-tune entry at ``MESH_PIPE`` 2, run
-  twice (the second resumes from the first's saves for a second epoch).
+  diverged; the error gates; the refusals of a pipelined engine; the
+  fine-tune entry at ``MESH_PIPE`` 2, run twice (the second resumes from
+  the first's saves for a second epoch).
 - ``pp4`` (4 ranks): pipe 2 x fsdp 2, pipe 2 x data 2 (forward, QLoRA
   and full fine-tuning), then pipe 2 x context 2 with ring and a2a
   attention at virtual 1 and 2 (forward and QLoRA).
+- ``pptp4`` (4 ranks, ``tests/test_torch_port_pipe_tp.py``): pipe 2 x
+  model 2 — the tiny Llama's forward, 3 QLoRA and 3 full fine-tuning
+  steps, the Gemma-2's forward and 3 full fine-tuning steps, the
+  Mixtral's forward and the experts a rank holds; a save of the trained
+  full-FT state, the world-1 save restored, the sharded export of the
+  QLoRA start, the sharded quantized init, the dropout gate.
 
 Each rank reads ``<out>/inputs.pt`` and writes ``<out>/<scenario>_<rank>
 .pt``; the parent test compares. The scenarios import torch and the port
@@ -322,6 +329,9 @@ def scenario_pp2(out: str) -> dict:
                 lora=st.lora, lora_scale=lcfg.scale)
     if rank == 0:
         write_sidecar(qcfg, os.path.join(out, "export_pp2"))
+    # what an engine on the pipelined model still refuses
+    import _torch_serve_mesh
+    res["refusals"] = _torch_serve_mesh._refusals(st.params, qcfg)
     # a sharded quantized init: the stage's blocks only, one process's
     qcfg = _cfg(inputs["llama_qlora"])
     q = init_quantized_params(qcfg, seed=5, group=inputs["group"],
@@ -374,4 +384,86 @@ def scenario_pp4(out: str) -> dict:
     return res
 
 
-SCENARIOS = {"pp2": scenario_pp2, "pp4": scenario_pp4}
+def held_experts(params) -> dict:
+    """{layer: the experts of its ``w_gate`` this rank holds (the local
+    part's leading dim)} of an MoE model."""
+    from gke_ray_train_tpu_torch.models.transformer import layer_ids
+    from gke_ray_train_tpu_torch.parallel.sharding import local
+    return {i: local(blk.w_gate).shape[0]
+            for i, blk in zip(layer_ids(params), params.blocks)}
+
+
+def scenario_pptp4(out: str) -> dict:
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.ckpt import CheckpointManager
+    from gke_ray_train_tpu_torch.ckpt.convert import (
+        save_export, write_sidecar)
+    from gke_ray_train_tpu_torch.models import init_quantized_params
+    from gke_ray_train_tpu_torch.parallel import model_rank
+    from gke_ray_train_tpu_torch.parallel.sharding import as_dtype, local
+    from gke_ray_train_tpu_torch.train import make_train_step
+    inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
+    rank = dist.get_rank()
+    mesh = _mesh(fsdp=1, model=2, pipe=2)
+    fwd = inputs["fwd"]
+    res = {"ranks": dict(_ranks(mesh), model=model_rank(mesh))}
+
+    def save(st):
+        mgr = CheckpointManager(os.path.join(out, "ckpt_pptp"),
+                                score_attribute=None)
+        mgr.save(st.step, st, force=True)
+        mgr.close()
+        res["full_saved"] = mr.full_state(st)
+    res["forward"] = forward(inputs["llama_full"], mesh, fwd["inputs"])
+    res["llama_qlora"] = train(inputs["llama_qlora"], mesh)
+    res["llama_full"] = train(inputs["llama_full"], mesh, keep=save)
+    res["gemma"] = {"forward": forward(inputs["gemma_full"], mesh,
+                                       fwd["inputs"]),
+                    "train": train(inputs["gemma_full"], mesh)}
+    st = build_state(inputs["moe_full"], mesh)[0]
+    res["moe"] = {"forward": forward(inputs["moe_full"], mesh,
+                                     fwd["inputs"]),
+                  "experts": held_experts(st.params)}
+    # the world-1 save restored into the stages' shards
+    template = build_state(inputs["llama_full"], mesh)[0]
+    mgr = CheckpointManager(os.path.join(out, "ckpt_w1"),
+                            score_attribute=None)
+    mgr.restore_resharded(template)
+    res["resharded"] = tuple(mgr.last_restore_resharded)
+    res["full_restored"] = mr.full_state(template)
+    mgr.close()
+    # the sharded export of the QLoRA start
+    st, _, qcfg, lcfg = build_state(inputs["llama_qlora"], mesh)
+    save_export(st.params, qcfg, os.path.join(out, "export_pptp"), 0,
+                lora=st.lora, lora_scale=lcfg.scale)
+    if rank == 0:
+        write_sidecar(qcfg, os.path.join(out, "export_pptp"))
+    # the sharded quantized init: whole tensors and this rank's parts
+    q = init_quantized_params(_cfg(inputs["llama_qlora"]), seed=5,
+                              group=inputs["group"], device="cpu",
+                              mesh=mesh)
+    named = list(q.named_parameters()) + list(q.named_buffers())
+    res["qinit"] = {k: mr._whole(as_dtype(t, torch.int8)
+                                 if k.endswith(".codes") else t)
+                    for k, t in named}
+    res["qinit_local"] = {k: local(as_dtype(t, torch.int8)
+                                   if k.endswith(".codes") else t).clone()
+                          for k, t in named}
+    # LoRA dropout on the pipelined mesh
+    state, _, cfg, lcfg = build_state(inputs["llama_qlora"], mesh)
+    fn = make_train_step(cfg, state.opt_state.spec, device="cpu", mesh=mesh,
+                         lora_cfg=dataclasses.replace(lcfg, dropout=0.1),
+                         pipe_microbatches=2)
+    try:
+        fn(state, {k: v[:4] for k, v in
+                   inputs["llama_qlora"]["batches"][0].items()})
+        res["dropout"] = None
+    except NotImplementedError as e:
+        res["dropout"] = str(e)
+    return res
+
+
+SCENARIOS = {"pp2": scenario_pp2, "pp4": scenario_pp4,
+             "pptp4": scenario_pptp4}

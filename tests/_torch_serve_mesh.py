@@ -9,6 +9,11 @@ started and awaited as ``tests/_torch_multirank.py`` starts its own
   ``LOCAL_WORLD_SIZE`` below the world).
 - ``serve4`` (4 ranks): the decode cases at fsdp 2 × model 2, data 2 ×
   fsdp 2 and fsdp 2 × context 2.
+- ``servepp2`` (2 ranks, ``tests/test_torch_port_serve_pipe.py``): the
+  decode cases at pipe 2 (virtual 1 and 2) with each stage's cache, the
+  adapter-pool engine and its smoke at pipe 2, the refusals, then both
+  entries at ``MESH_PIPE`` 2 with ``INFERENCE`` / ``SERVE_AFTER_TRAIN``.
+- ``servepp4`` (4 ranks): the decode cases at pipe 2 × model 2.
 
 Each rank reads ``<out>/inputs.pt`` and writes ``<out>/<scenario>_<rank>
 .pt``; the parent test compares. :func:`run_decode` is what a rank runs
@@ -87,19 +92,23 @@ def prefill_width(L: int, max_new: int) -> int:
     return Lp
 
 
-def run_decode(params, cfg, case: dict) -> dict:
+def run_decode(params, cfg, case: dict, keep_cache: bool = False) -> dict:
     """The prefill's logits, the first pick, the next step's logits (of
-    this rank's vocab shard under TP), the cache's KV heads, and the
-    tokens ``greedy_generate_cached`` returns."""
+    this rank's vocab shard under TP; empty on a pipeline stage without
+    the head), the cache's KV heads, and the tokens
+    ``greedy_generate_cached`` returns; with ``keep_cache`` the cache
+    after the first step, by global layer."""
     import torch
     from gke_ray_train_tpu_torch.models.kvcache import (
         forward_step, greedy_generate_cached, greedy_pick, init_cache,
         model_shards)
+    from gke_ray_train_tpu_torch.models.transformer import layer_ids
     prompt = torch.as_tensor(case["prompt"])
     plen = torch.as_tensor(case["plen"])
     B, L = prompt.shape
     Lp = prefill_width(L, case["max_new"])
-    cache = init_cache(cfg, B, L, device="cpu", model=model_shards(params))
+    cache = init_cache(cfg, B, L, device="cpu", model=model_shards(params),
+                       layers=len(params.blocks))
     with torch.no_grad():
         pre, cache = forward_step(params, prompt[:, :Lp].contiguous(), cfg,
                                   cache, torch.zeros(B, dtype=torch.int32))
@@ -109,8 +118,12 @@ def run_decode(params, cfg, case: dict) -> dict:
     tokens = greedy_generate_cached(params, prompt, plen, cfg,
                                     max_new_tokens=case["max_new"],
                                     device="cpu")
-    return {"prefill": pre, "first": first, "decode": dec[:, 0],
-            "tokens": tokens, "kv_heads": cache["k"].shape[3]}
+    out = {"prefill": pre, "first": first, "decode": dec[:, 0],
+           "tokens": tokens, "kv_heads": cache["k"].shape[3]}
+    if keep_cache:
+        out["cache"] = {i: (cache["k"][n].clone(), cache["v"][n].clone())
+                        for n, i in enumerate(layer_ids(params))}
+    return out
 
 
 def _mesh(**kw):
@@ -118,21 +131,28 @@ def _mesh(**kw):
     return build_mesh(MeshConfig(**kw), device_type="cpu")
 
 
-def _decode_cases(inputs: dict, shape: str, kw: dict) -> dict:
-    from gke_ray_train_tpu_torch.parallel import model_rank
+def _decode_cases(inputs: dict, shape: str, kw: dict,
+                  virtual: int = 1) -> dict:
+    import dataclasses
+    from gke_ray_train_tpu_torch.parallel import model_rank, pipe_rank
     from gke_ray_train_tpu_torch.parallel.sharding import shard_model
     mesh = _mesh(**kw)
-    res = {"model_rank": model_rank(mesh)}
+    res = {"model_rank": model_rank(mesh), "pipe_rank": pipe_rank(mesh)}
     for name in inputs["meshes"][shape]:
         params, cfg = model_of(inputs["cases"][name])
+        if virtual > 1:
+            cfg = params.cfg = dataclasses.replace(cfg, pipe_virtual=virtual)
         shard_model(params, mesh)
-        res[name] = run_decode(params, cfg, inputs["cases"][name])
+        res[name] = run_decode(params, cfg, inputs["cases"][name],
+                               keep_cache=kw.get("pipe", 1) > 1)
     return res
 
 
 def run_engine(params, cfg, job: dict) -> dict:
     """The adapter-pool engine over ``job``'s tagged requests: every
-    completion's tokens and the stats (None off rank 0 for the smoke)."""
+    completion's tokens and the stats (None off rank 0 for the smoke).
+    On a pipeline stage the pool of the whole model's tenants holds every
+    layer, of which the stage's decode reads its own."""
     from gke_ray_train_tpu_torch.plan import ExecutionPlan
     from gke_ray_train_tpu_torch.serve import (
         AdapterPool, BatchEngine, Request, post_train_smoke)
@@ -278,4 +298,32 @@ def scenario_serve4(out: str) -> dict:
             for shape, kw in inputs["world4"].items()}
 
 
-SCENARIOS = {"serve2": scenario_serve2, "serve4": scenario_serve4}
+def scenario_servepp2(out: str) -> dict:
+    import torch
+    from gke_ray_train_tpu_torch.models.transformer import layer_ids
+    from gke_ray_train_tpu_torch.parallel.sharding import shard_model
+    inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
+    kw = dict(fsdp=1, pipe=2)
+    res = {"pipe2": _decode_cases(inputs, "pipe2", kw),
+           "pipe2_v2": _decode_cases(inputs, "pipe2_v2", kw, virtual=2)}
+    params, cfg = model_of(inputs["cases"]["llama"])
+    shard_model(params, _mesh(**kw))
+    res["layers"] = list(layer_ids(params))
+    res["engine"] = run_engine(params, cfg, inputs["engine"])
+    res["refusals"] = _refusals(params, cfg)
+    del params
+    res["fine_tune"] = run_fine_tune(inputs["fine_tune"])
+    res["pretrain"] = run_pretrain(inputs["pretrain"],
+                                   {"DECODE_BUCKETS": "128"})
+    return res
+
+
+def scenario_servepp4(out: str) -> dict:
+    import torch
+    inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
+    return {"pipe2_model2": _decode_cases(inputs, "pipe2_model2",
+                                          dict(fsdp=1, model=2, pipe=2))}
+
+
+SCENARIOS = {"serve2": scenario_serve2, "serve4": scenario_serve4,
+             "servepp2": scenario_servepp2, "servepp4": scenario_servepp4}

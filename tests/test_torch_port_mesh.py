@@ -65,14 +65,14 @@ def test_mesh_config_from_dict_matches_jax(cfg):
 @pytest.mark.parametrize("kw,match", [
     (dict(model=2), None),
     (dict(context=2), None),
-    (dict(pipe=2, model=2), "MESH_PIPE=2.*item 8"),
+    (dict(pipe=2, model=2), None),
     (dict(num_slices=2), "NUM_SLICES=2.*item 8")])
 def test_axes_not_ported_raise_naming_their_item(kw, match):
-    """The layouts not ported raise at the mesh (slices, and ``pipe``
-    over ``model``); ``model`` is ported, for an MoE model too (expert
-    parallelism: Mixtral's experts over ``model`` pass where the mesh
-    meets the model config), and so are ``context`` and ``pipe`` alone
-    (``match`` None: the checks pass)."""
+    """The layouts not ported raise at the mesh (slices); ``model`` is
+    ported, for an MoE model too (expert parallelism: Mixtral's experts
+    over ``model`` pass where the mesh meets the model config), and so
+    are ``context``, and ``pipe`` over ``model`` (``match`` None: the
+    checks pass)."""
     mc = tmesh.MeshConfig(**{"fsdp": 1, **kw})
     if match is None:
         assert mc.check_ported() is mc

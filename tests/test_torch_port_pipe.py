@@ -19,8 +19,9 @@ the head's gradients summed over the pipe group), a tiny Mixtral's
 router aux (JAX's pipelined aux exactly, the unpipelined one at JAX's
 own ``rtol=1e-2``), the tick pin, the error gates in JAX's words, a
 checkpoint across pipe 2 and world 1 both ways, the sharded export, the
-stage's quantized init, the divergence guard, and the plan and config
-surface against JAX's ``plan.py``.
+stage's quantized init, the divergence guard, the plan and config
+surface against JAX's ``plan.py``, and what the mesh check and a
+pipelined engine still refuse.
 """
 
 import dataclasses
@@ -615,19 +616,22 @@ def test_plan_and_config_surface_match_jax():
     assert tconfig.tpu_only_keys(keys, world=2) == []
 
 
-def test_pipe_over_model_and_serving_raise_naming_item_8():
-    """Pipe over ``model`` (TP, EP) raises at the mesh, and a pipelined
-    model asked to serve raises before any work, each naming ROADMAP
-    item 8."""
-    from gke_ray_train_tpu_torch.fine_tune import check_pipe_serving
-    with pytest.raises(NotImplementedError, match="MESH_PIPE=2.*item 8"):
-        tmesh.MeshConfig(fsdp=1, model=2, pipe=2).check_ported()
+def test_pipe_over_model_ports_and_the_rest_raise_naming_their_items(
+        worlds):
+    """Pipe over ``model`` (TP, EP) passes the mesh check; more than one
+    slice still raises there, naming ROADMAP item 8; a pipelined model
+    serves, but ``SPEC_DRAFT`` / ``SERVE_QUANT`` on it raise, naming
+    item 5 (on both stages of the pipe 2 world)."""
+    cfg = tmesh.MeshConfig(fsdp=1, model=2, pipe=2).check_ported()
+    assert (cfg.model, cfg.pipe) == (2, 2)
     assert tmesh.MeshConfig(fsdp=2, pipe=2).check_ported().pipe == 2
-    for config in ({"INFERENCE": True}, {"SERVE_AFTER_TRAIN": "1"}):
-        with pytest.raises(NotImplementedError,
-                           match="decode across pipe stages"):
-            check_pipe_serving(config)
-    check_pipe_serving({"INFERENCE": False, "SERVE_AFTER_TRAIN": "0"})
+    with pytest.raises(NotImplementedError, match="NUM_SLICES=2.*item 8"):
+        tmesh.MeshConfig(fsdp=1, model=2, pipe=2,
+                         num_slices=2).check_ported()
+    for r in worlds["res"]["pp2"]:
+        for key in ("SPEC_DRAFT", "SERVE_QUANT"):
+            msg = r["refusals"][key]
+            assert msg and key in msg and "item 5" in msg, msg
 
 
 def test_entry_at_pipe2_trains_resumes_and_exports(worlds, tmp_path):

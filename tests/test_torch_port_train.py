@@ -275,11 +275,13 @@ def test_trainable_names_drive_the_decay_mask():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    """Manual overlap still raises; a mesh must be a DeviceMesh, and one
-    of a layout not ported (pipe over model; context and pipe alone came
-    with their ports) raises naming its ROADMAP item;
+    """Manual overlap still raises; a mesh must be a DeviceMesh, and
+    every layout a mesh can carry is ported (context and pipe came with
+    their ports, pipe over model with the next: its double passes the
+    mesh check; multi-slice raises at ``MeshConfig``);
     ``remat_policy="dots"`` (which raised before it was ported) now
     trains, to the numbers of ``"full"``."""
+    from gke_ray_train_tpu_torch.train.step import _check_mesh
     _, tc = _cfgs()
     spec = make_optimizer(0.1)
     with pytest.raises(NotImplementedError, match="OVERLAP"):
@@ -292,8 +294,7 @@ def test_train_step_refuses_what_is_not_ported():
 
         def size(self, i):
             return (1, 1, 2, 1, 2)[i]
-    with pytest.raises(NotImplementedError, match="PIPE=2.*item 8"):
-        make_train_step(tc, spec, device="cpu", mesh=PPMesh())
+    _check_mesh(PPMesh())
     losses = {}
     for policy in ("full", "dots"):
         cfg = dataclasses.replace(tc, remat=True, remat_policy=policy)
