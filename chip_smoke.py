@@ -234,8 +234,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 14. entry — ``gke_ray_train_tpu_torch/fine_tune.py``'s worker, as
              ``python -m gke_ray_train_tpu_torch.fine_tune`` runs it, on
-             ray-jobs/fine_tune_config_offline_8b.json at full width, 8
-             of its 32 layers (Llama-3.1-8B, random NF4 base from seed 0,
+             ray-jobs/fine_tune_config_offline_8b.json at full width,
+             ``ENTRY_LAYERS`` (2) of its 32 layers (Llama-3.1-8B, random
+             NF4 base from seed 0,
              r 64,
              dropout 0, 2 x 4 microbatches of 1,024, synthetic SQL rows),
              cut to 8 steps with a save and an eval of 16 rows every 4:
@@ -320,7 +321,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (basic_lm at full width: 2,048 d / 16 heads / 8,192 ff, the
              synthetic corpus's char vocab, seq 256, 16 rows a step, bf16
              over fp32 masters, FUSED_OPS=1), cut to 8 steps. Run A at
-             8 of the job's 24 layers (its one save at 24 would write
+             4 of the job's 24 layers (its one save at 24 would write
              19 GB) with SERVE_AFTER_TRAIN: step p50
              between synchronizes, tokens/s, MFU, peak memory, the
              ledger, exact launches (rows 1-8; CE on ``mma.sync`` at V
@@ -373,6 +374,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the smoke written once, by rank 0, the base answers the
              card's; the pre-train entry at fsdp 4 (6 layers) with
              SERVE_AFTER_TRAIN: exit 0, the smoke's stats on rank 0 alone.
+22c. train_overlap — ``OVERLAP`` on one card: two gloo ranks of this
+             card at fsdp 2 (``--ov-worker``; CUDA tensors staged through
+             page-locked host memory), Llama-3.1-8B full fine-tuning at
+             full width cut to 2 layers, bf16, FUSED_OPS=1, remat full,
+             1 + 1 steps under each of off, xla (FSDP2's explicit
+             prefetch) and manual (``train/overlap.py``'s hand-placed
+             gathers): xla's losses and grad norms bitwise off's,
+             manual's within 1e-2 of off's; every mode's launches of rows
+             1-8 the full fine-tuning step's; manual's gathered bytes a
+             step equal to those reckoned from the shapes (the root once,
+             each block in its forward and in its recomputation) and its
+             peak at most two layers' gathered weights over off's; fp32
+             (TF32 off) at 2 layers, one step, manual bitwise off. Each
+             mode's step p50, peak and gathered bytes a rank.
+22d. train_overlap_multi (opt-in) — the four-card host (fewer fails),
+             NCCL, one rank a card (``--ov-multi-worker``): at fsdp 4 and
+             at data 2 x fsdp 2, the same job at 4 layers and 8 rows a
+             step under each mode within 1e-2 of one card's (xla bitwise
+             off's), then at full depth, the modes alternated, 1 + 3
+             steps a run: each mode's step p50 and spread, tokens/s and
+             peak a card, and from one profiled step the NCCL
+             all-gather and reduce-scatter ms and the part of it no
+             compute kernel ran beside; off and manual once more with
+             deterministic algorithms off.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -398,6 +423,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# when this process started running the script (a spawned rank reports
+# its start-up and its work apart)
+_T0 = time.perf_counter()
 
 H100_BYTES_PER_S = 3.35e12          # HBM3, NVIDIA data sheet (SXM)
 H100_BF16_FLOPS = 989e12            # dense tensor-core bf16
@@ -2580,12 +2608,19 @@ def _sft_rows(ft, seq, split="train", n_eval=EVAL_ROWS):
     least 64 drawn; eval: seed 1, ``n_eval`` of at least 16, as the
     job draws them), rendered by the fallback chat template and tokenized
     by bytes (``ByteTokenizer``) to ``seq + 1`` tokens, prompt weight 0,
-    each padded to a row of ``seq``."""
+    each padded to a row of ``seq``. Made once a (count, length, split)
+    in a run (~3 s for the job's 1,000 rows) and handed out as copies."""
+    n, least, seed = ((int(ft["NUM_TRAIN_SAMPLES"]), 64, 0)
+                      if split == "train" else (n_eval, 16, 1))
+    return {k: v.copy() for k, v in _sft_rows_made(n, least, seed,
+                                                    seq).items()}
+
+
+@functools.lru_cache(maxsize=None)
+def _sft_rows_made(n, least, seed, seq):
     from gke_ray_train_tpu_torch.data import (
         ByteTokenizer, downsample, format_gretel_sql_example, pad_sft_rows,
         synthetic_sql_rows, tokenize_sft_example)
-    n, least, seed = ((int(ft["NUM_TRAIN_SAMPLES"]), 64, 0)
-                      if split == "train" else (n_eval, 16, 1))
     rows = downsample(synthetic_sql_rows(max(n, least), seed=seed), n)
     tok = ByteTokenizer()
     return pad_sft_rows([tokenize_sft_example(
@@ -3439,9 +3474,10 @@ def phase_train_mesh(dev):
     return meshed["launches"]
 
 
-def phase_train_mesh_parity(dev, cfg=None, steps: int = 3):
+def phase_train_mesh_parity(dev, cfg=None, steps: int = 2):
     """fp32 (TF32 off), Llama-3.1-8B at full width and 4 layers, flash
-    and FUSED_OPS=1, QLoRA and full fine-tuning, 3 steps each: on a
+    and FUSED_OPS=1, QLoRA and full fine-tuning, 2 steps each (3 until
+    train_overlap's time was paid for): on a
     world-1 NCCL mesh against unmeshed, and ``remat_policy="dots"``
     against ``"full"``, each within 1e-6 (streams and the trained
     tensors' change); then ``OPTIM=adafactor`` (QLoRA: the unfactored
@@ -3535,7 +3571,7 @@ def _timed_steps(dev, job, steps, guard=None):
         norms.append(float(m["grad_norm"]))
     return {"losses": losses, "grad_norms": norms, "step_s": times,
             "transfer_guard": guard or "off",
-            "step_s_p50": sorted(times)[len(times) // 2],
+            "step_s_p50": sorted(times)[len(times) // 2] if times else None,
             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
             "held_before_bytes": held,
             "opt_state_bytes": _opt_state_bytes(state.opt_state)}
@@ -4005,10 +4041,10 @@ def phase_train_mesh_multi(dev):
 # off) at TP_PARITY_LAYERS layers within MESH_LOSS_RTOL
 TP_LAYERS = 4
 TP_PARITY_LAYERS = 2
-# 1 + 2 steps a run (train_mesh's 1 + 3 cut for the pipeline phase's time);
-# the fp32 run 1 + 1 (cut for train_pp's pipe x model world, which also
-# holds the TP step in fp32)
-TP_STEPS = 2
+# 1 + 1 steps a run (train_mesh's 1 + 3 cut to 1 + 2 for the pipeline
+# phase's time, to 1 + 1 for train_overlap's); the fp32 run 1 + 1 (cut for
+# train_pp's pipe x model world, which also holds the TP step in fp32)
+TP_STEPS = 1
 TP_FP32_STEPS = 1
 TP_MODEL = 2
 TP_TIMEOUT_S = 420
@@ -4504,6 +4540,9 @@ CP_IMPLS = ("a2a", "ring")
 CP_PLAN = {"fused_ops": True, "grad_accum": 1}
 CP_LAYERS = 8
 CP_FP32_LAYERS = 2
+# train_cp's runs, one process and ranks, bf16 and fp32: 1 + 1 steps (1 + 3
+# until train_overlap's time was paid for)
+CP_STEPS = 1
 CP_TIMEOUT_S = 600
 # the collectives the context path makes on the card's tensors as they
 # are, probed before the job (the ring's send / recv and the all-to-all
@@ -4573,7 +4612,8 @@ def _cp_worker(out_path):
     WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
     tensors, the fsdp 1 x context 2 mesh, the collectives probed
     (``CP_PROBE``); if they run,
-    the Gemma-2 4k job under each of ``CP_IMPLS`` (1 + 3 steps, dropout
+    the Gemma-2 4k job under each of ``CP_IMPLS`` (1 + ``CP_STEPS``
+    steps, dropout
     0), at the job's LORA_DROPOUT under a2a (``CP_FP32_LAYERS`` layers,
     1 + 1 steps, the digests of the first masks), then in fp32 at
     ``CP_FP32_LAYERS`` layers."""
@@ -4596,7 +4636,7 @@ def _cp_worker(out_path):
             for impl in CP_IMPLS:
                 torch.cuda.reset_peak_memory_stats()
                 rec[impl], launches = _cp_run(
-                    dev, _gemma_cfg(impl, CP_LAYERS), mesh)
+                    dev, _gemma_cfg(impl, CP_LAYERS), mesh, steps=CP_STEPS)
                 for k, v in launches.items():
                     rec["launches"][k] = rec["launches"].get(k, 0) + v
             with open(GEMMA2_CONFIG) as f:
@@ -4609,7 +4649,7 @@ def _cp_worker(out_path):
                 for impl in CP_IMPLS:
                     rec[f"fp32_{impl}"], _ = _cp_run(
                         dev, _gemma_cfg(impl, CP_FP32_LAYERS, "float32"),
-                        mesh)
+                        mesh, steps=CP_STEPS)
     finally:
         with open(out_path + f".{rank}", "w") as f:
             json.dump(rec, f)
@@ -4625,7 +4665,7 @@ def phase_train_cp(dev):
     the flash path), then as two ranks of this card at fsdp 1 x context
     2 over gloo (``_cp_worker``), whose collectives are probed first.
     Where those the path makes run: under a2a (as shipped) and under
-    ring, both ranks' losses and grad_norms of 1 + 3 steps within
+    ring, both ranks' losses and grad_norms of 1 + ``CP_STEPS`` steps within
     MESH_MULTI_RTOL of this process's; per step the launches (flash once
     a layer and forward under a2a on 8 of 16 query heads over the whole
     row, C times under ring on the rank's 2,048 tokens); at the job's
@@ -4637,10 +4677,10 @@ def phase_train_cp(dev):
     times say nothing of a context-parallel step's speed: NCCL's path is
     train_cp_multi's)."""
     import tempfile
-    ref, _ = _cp_run(dev, _gemma_cfg("a2a", CP_LAYERS), None)
+    ref, _ = _cp_run(dev, _gemma_cfg("a2a", CP_LAYERS), None, steps=CP_STEPS)
     with _tf32_off():
         ref32, _ = _cp_run(dev, _gemma_cfg("a2a", CP_FP32_LAYERS, "float32"),
-                           None)
+                           None, steps=CP_STEPS)
     out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_cp_"), "rank")
     hung, rcs, ranks = _spawn_ranks("--cp-worker", out, CP_CONTEXT,
                                     [0] * CP_CONTEXT, CP_TIMEOUT_S)
@@ -5253,9 +5293,9 @@ def phase_serve_moe(dev, cfg=None):
 EP_LAYERS = 4
 EP_PARITY_LAYERS = 2
 EP_MODEL = 2
-# the job's grad-accum 8 cut to 2, 1 + 2 steps: a gloo microbatch makes
-# ~50 host-staged collectives on one card
-EP_STEPS = 2
+# the job's grad-accum 8 cut to 2, 1 + 1 steps (1 + 2 until train_overlap
+# came): a gloo microbatch makes ~50 host-staged collectives on one card
+EP_STEPS = 1
 EP_PLAN = {"fused_ops": True, "grad_accum": 2}
 EP_TIMEOUT_S = 600
 # the fp32 decode: two prompts of these lengths in a 512 bucket
@@ -5788,7 +5828,8 @@ PP_LAYERS = 4
 PP_PARITY_LAYERS = 2
 PP_PIPE = 2
 PP_TP_MODEL = 2
-PP_STEPS = 2
+# 1 + 1 steps (1 + 2 until train_overlap came)
+PP_STEPS = 1
 # the fp32 runs 1 + 1 steps (cut for the pipe x model world's time)
 PP_FP32_STEPS = 1
 PP_TIMEOUT_S = 600
@@ -6469,8 +6510,9 @@ ENTRY_CUT = {"NUM_TRAIN_SAMPLES": 64, "NUM_EVAL_SAMPLES": 16,
              "SAVE_STEPS_SFT": 4, "EVAL_STEPS_SFT": 4, "LOGGING_STEPS": 2,
              "REPORT_TO": "tensorboard"}
 # and in depth: the three runs at this many of the job's 32 layers (the
-# default run's time limit; entry_full runs the job at full depth)
-ENTRY_LAYERS = 4
+# default run's time limit, 4 until train_overlap came; entry_full runs
+# the job at full depth)
+ENTRY_LAYERS = 2
 # run B is preempted after this step and run C resumes from it
 ENTRY_PREEMPT_AFTER = 5
 # run A also compares base and tuned answers and serves the tuned adapter
@@ -7221,8 +7263,9 @@ def phase_entry_moe(dev):
 # synthetic corpus, cut to this many steps, a log line every step
 PRETRAIN_STEPS = 8
 # run A's depth cut: its one save of the 24-layer state (fp32 params and
-# two moments, 12 bytes a parameter) would write ~19 GB
-PRETRAIN_LAYERS = 8
+# two moments, 12 bytes a parameter) would write ~19 GB; 8 until
+# train_overlap came
+PRETRAIN_LAYERS = 4
 # the fault drill's: a save every 2 steps, two of them kept
 PRETRAIN_DRILL_LAYERS = 2
 # pretrain_multi's runs (fsdp 4: a rank writes a quarter of each save)
@@ -8636,6 +8679,504 @@ def phase_serve_mesh_multi(dev):
 
 
 # ---------------------------------------------------------------------------
+# OVERLAP: FSDP2's explicit prefetch (xla) and the hand-placed,
+# double-buffered fsdp gathers of train/overlap.py (manual)
+# ---------------------------------------------------------------------------
+
+# the slice's path: full fine-tuning of Llama-3.1-8B at full width (the
+# 70B job's full-FT mode on the 8B model), FUSED_OPS=1, remat full,
+# dropout off, one microbatch of the job's 2 rows a step
+OV_FT = {"USE_QLORA": False, "LORA_DROPOUT": 0.0}
+OV_PLAN = {"fused_ops": True, "grad_accum": 1}
+OV_MODES = ("off", "xla", "manual")
+# train_overlap: two gloo ranks of one card at fsdp 2, 2 of 32 layers,
+# bf16 weights, 1 + 1 steps a mode; fp32 at 2 layers, off and manual, one
+# step each (its loss and the grad norm over every reduced gradient)
+OV_LAYERS = 2
+OV_STEPS = 1
+OV_FP32_LAYERS = 2
+OV_FP32_STEPS = 0
+OV_TIMEOUT_S = 420
+# train_overlap_multi: one rank a card over NCCL, full depth at each mesh
+# (bf16 weights and AdamW: 8.03 G params x 12 B = 96 GB of state over 4
+# cards), 1 + 3 steps a run, the modes alternated (off, xla, manual,
+# manual, xla, off: the p50 of each mode's 6 timed steps, its first run
+# profiled one more step); one card's run and the meshes at
+# OV_MULTI_REF_LAYERS for the loss gate
+OV_MULTI_MESHES = {"fsdp4": dict(fsdp=4), "hsdp": dict(data=2, fsdp=2)}
+# the global batch: 8 rows, 2 a batch rank
+OV_MULTI_FT = {"PER_DEVICE_TRAIN_BATCH_SIZE": 8}
+OV_MULTI_LAYERS = 32
+OV_MULTI_REF_LAYERS = 4
+OV_MULTI_STEPS = 3
+OV_MULTI_TIMEOUT_S = 1500
+
+
+def _gather_tally():
+    """Count the bytes of every all-gather into one tensor
+    (``dist.all_gather_into_tensor``, which FSDP2 and the manual path
+    call, and ``all_gather_single`` where torch has it), each call once,
+    in this process: the tally dict, installed once."""
+    import torch.distributed as dist
+    tally = getattr(dist, "_chip_smoke_tally", None)
+    if tally is not None:
+        return tally
+    tally = dist._chip_smoke_tally = {"bytes": 0, "calls": 0, "depth": 0}
+
+    def counting(orig):
+        def counted(*a, **kw):
+            out = kw.get("output_tensor", a[0] if a else None)
+            if tally["depth"] == 0:
+                tally["bytes"] += out.numel() * out.element_size()
+                tally["calls"] += 1
+            tally["depth"] += 1
+            try:
+                return orig(*a, **kw)
+            finally:
+                tally["depth"] -= 1
+        return counted
+    for name in ("all_gather_into_tensor", "all_gather_single"):
+        if hasattr(dist, name):
+            setattr(dist, name, counting(getattr(dist, name)))
+    return tally
+
+
+def _ov_bytes(cfg):
+    """(a block's, the root's) gathered bytes in the param dtype, from
+    the shapes: the projections and the two norms; the embedding, the
+    head and the final norm."""
+    import torch
+    from gke_ray_train_tpu_torch.models.transformer import proj_shapes
+    es = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    block = sum(math.prod(s) for s in proj_shapes(cfg).values()) \
+        + 2 * cfg.d_model
+    root = (1 if cfg.tie_embeddings else 2) * cfg.vocab_size * cfg.d_model \
+        + cfg.d_model
+    return block * es, root * es
+
+
+def _ov_run(dev, cfg, mesh, mode, steps, rows=None, ft_over=None,
+            profile=False):
+    """One mode's run of the slice's job on ``mesh`` (or one card):
+    ``steps`` timed steps after a warm-up, the launch counts, the gather
+    tally and the manual path's own tally set to 0 just before the timed
+    steps and read just after (with ``steps`` 0, the warm-up step alone
+    and no counts); ``rows`` (count, index) keeps this batch
+    rank's rows ``index::count`` of every batch; ``ft_over``: job keys
+    over ``OV_FT``; ``profile``: one more step under torch.profiler, its
+    NCCL collectives' ms (:func:`_exposed_collective_ms`)."""
+    from gke_ray_train_tpu_torch.train import overlap as tov
+    t0 = time.perf_counter()
+    job = _fine_tune_setup(dev, cfg, steps + 1 + profile, mesh=mesh,
+                           ft_over=dict(OV_FT, **(ft_over or {})),
+                           transfer_guard=None, overlap=mode, **OV_PLAN)
+    global_rows = job["batch_rows"]
+    if rows is not None:
+        job["batches"] = [{k: v[rows[1]::rows[0]] for k, v in b.items()}
+                          for b in job["batches"]]
+    tally = _gather_tally()
+    calls = {"n": 0}
+    fn = job["step_fn"]
+
+    def step(state, b):
+        if calls["n"] == 1:
+            _reset_launch_counts()
+            tov.reset_counts()
+            tally.update(bytes=0, calls=0)
+        calls["n"] += 1
+        return fn(state, b)
+    job["step_fn"] = step
+    r = _timed_steps(dev, job, steps)
+    launches = _launch_counts()
+    counted = dict(tally, manual=dict(tov.COUNTS))
+    if profile:
+        import torch
+        from torch.profiler import ProfilerActivity, profile as tprofile
+        b = job["place"](job["batches"][steps + 1])
+        b = b.wait() if hasattr(b, "wait") else b
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            fn(job["state"], b)
+            torch.cuda.synchronize()
+        r["profile"] = _exposed_collective_ms(prof)
+        del prof
+    block, root = _ov_bytes(job["cfg"])
+
+    def per_step(v):
+        # with no timed step the counts were never set to 0
+        return v / steps if steps else None
+    r.update(mode=mode, n_layers=job["cfg"].n_layers,
+             launches_per_step={k: per_step(v) for k, v in launches.items()},
+             want_launches=expected_launches(job["cfg"], 1, True,
+                                             full_ft=True),
+             gathered_bytes_per_step=per_step(counted["bytes"]),
+             gathers_per_step=per_step(counted["calls"]),
+             manual_counts={k: per_step(v)
+                            for k, v in counted["manual"].items()},
+             reckoned_bytes_per_step=root + 2 * job["cfg"].n_layers * block,
+             layer_bytes=block, root_bytes=root,
+             tokens=global_rows * job["seq"], init_s=job["init_s"],
+             wall_s=time.perf_counter() - t0)
+    del job
+    _release()
+    return r, launches
+
+
+def _ov_worker(out_path):
+    """One of train_overlap's two ranks on the one card (env: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
+    tensors, fsdp 2; deterministic algorithms on (the embedding's
+    backward), so two modes that compute alike compute bit for bit. The
+    job at ``OV_LAYERS`` under each of ``OV_MODES`` (bf16 weights, 1 +
+    ``OV_STEPS`` steps), then in fp32 (TF32 off) at ``OV_FP32_LAYERS``
+    under off and manual."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import MeshConfig, build_mesh
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev), "runs": {},
+           "fp32": {}, "since_start_s": time.perf_counter() - _T0}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=dist.get_world_size()),
+                          device_type="cuda")
+        cfg = _llama_cfg(FINE_TUNE_CONFIG, OV_LAYERS)
+        for mode in OV_MODES:
+            rec["runs"][mode], launches = _ov_run(dev, cfg, mesh, mode,
+                                                  OV_STEPS)
+            if mode == "manual":
+                rec["launches"] = launches
+        cfg32 = _llama_cfg(FINE_TUNE_CONFIG, OV_FP32_LAYERS, "float32",
+                           "float32")
+        with _tf32_off():
+            for mode in ("off", "manual"):
+                rec["fp32"][mode], _ = _ov_run(dev, cfg32, mesh, mode,
+                                               OV_FP32_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        rec["done_s"] = time.perf_counter() - _T0
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _ov_hold(name, runs, problems, rtol=MESH_MULTI_RTOL):
+    """One rank's modes against its own ``off``: ``xla`` bit for bit,
+    ``manual`` within ``rtol``; the launches of every mode the off
+    step's, which are the full fine-tuning step's; manual's gathered
+    bytes those reckoned from the shapes, the root once and each block
+    twice (forward and recomputation), and its own tally the same;
+    manual's peak at most two layers' gathered weights over off's.
+    Returns the relative gaps of manual."""
+    off = runs["off"]
+    for key in ("losses", "grad_norms"):
+        if "xla" in runs and runs["xla"][key] != off[key]:
+            problems.append(f"{name}: xla {key} {runs['xla'][key]} are not "
+                            f"off's {off[key]} bit for bit")
+    gaps = _hold_streams(f"{name} manual", runs["manual"], off, rtol,
+                         problems)
+    for mode, run in runs.items():
+        if run["launches_per_step"] != off["want_launches"]:
+            problems.append(f"{name} {mode}: launches per step "
+                            f"{run['launches_per_step']} != "
+                            f"{off['want_launches']}")
+    man = runs["manual"]
+    # the manual path's own tally; dist's all-gathers count it too where
+    # the transport is one (NCCL; under gloo's host staging the gather is
+    # an all-reduce, which they do not count)
+    if man["manual_counts"]["gather_bytes"] != man[
+            "reckoned_bytes_per_step"] or man["gathered_bytes_per_step"] \
+            not in (0, man["reckoned_bytes_per_step"]):
+        problems.append(f"{name} manual: gathered "
+                        f"{man['gathered_bytes_per_step']} B a step (its "
+                        f"tally {man['manual_counts']}), reckoned "
+                        f"{man['reckoned_bytes_per_step']}")
+    over = man["peak_mem_bytes"] - off["peak_mem_bytes"]
+    if over > 2 * man["layer_bytes"]:
+        problems.append(f"{name} manual: peak {man['peak_mem_bytes']} B is "
+                        f"{over} over off's, more than two layers' "
+                        f"{2 * man['layer_bytes']}")
+    return gaps
+
+
+def _ov_summary(runs):
+    """What the line prints of each mode: step p50, peak, gathered bytes
+    (counted by dist's all-gathers, the manual path's own tally, and
+    reckoned) and the gathers a step."""
+    return {mode: {k: run[k] for k in (
+        "step_s_p50", "step_s", "peak_mem_bytes", "held_before_bytes",
+        "gathered_bytes_per_step", "gathers_per_step", "manual_counts",
+        "reckoned_bytes_per_step", "losses", "grad_norms", "init_s",
+        "wall_s")}
+        for mode, run in runs.items()}
+
+
+def phase_train_overlap(dev):
+    """``OVERLAP`` on the one-card host: two ranks of this card over gloo
+    at fsdp 2 (``_ov_worker``; CUDA tensors staged through page-locked
+    host memory), Llama-3.1-8B full fine-tuning at full width cut to
+    ``OV_LAYERS`` layers, bf16, FUSED_OPS=1, remat full, the job's rows,
+    1 + ``OV_STEPS`` steps under each of off, xla and manual. Gates per
+    rank (``_ov_hold``): xla's losses and grad norms equal off's bit for
+    bit, manual's within MESH_MULTI_RTOL; every mode launches rows 1-8 as
+    the full fine-tuning step does; manual gathers the bytes reckoned
+    from the shapes (and its own tally agrees) and peaks at most two
+    layers' gathered weights over off; fp32 (TF32 off) at
+    ``OV_FP32_LAYERS`` layers, manual's losses and grad norms are off's
+    bit for bit. The line prints each mode's step p50, peak and
+    gathered bytes a step, off's and xla's counted beside manual's."""
+    import tempfile
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ov_"), "rank")
+    n = 2
+    hung, rcs, ranks = _spawn_ranks("--ov-worker", out, n, [0] * n,
+                                    OV_TIMEOUT_S)
+    problems = []
+    line = {"phase": "train_overlap", "nvidia_smi": nvidia_smi_line(),
+            "model": "llama3-8b", "mesh": {"data": 1, "fsdp": n},
+            "backend": "gloo", "ranks_on_one_card": n,
+            "cut": f"{OV_LAYERS} of 32 layers, full fine-tuning, bf16, 1 + "
+                   f"{OV_STEPS} steps a mode; fp32 at {OV_FP32_LAYERS} "
+                   f"layers, 1 + {OV_FP32_STEPS} steps, off and manual"}
+    launches = None
+    if hung or any(rcs) or None in ranks or not all(
+            r.get("launches") for r in ranks):
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    else:
+        gaps = {}
+        for r in ranks:
+            name = f"rank {r['rank']}"
+            gaps[r["rank"]] = _ov_hold(name, r["runs"], problems)
+            f32 = r["fp32"]
+            for key in ("losses", "grad_norms"):
+                if f32["manual"][key] != f32["off"][key]:
+                    problems.append(f"{name} fp32: manual {key} "
+                                    f"{f32['manual'][key]} are not off's "
+                                    f"{f32['off'][key]} bit for bit")
+        line.update(
+            rel_gaps=gaps, tol_rel=MESH_MULTI_RTOL,
+            modes={r["rank"]: _ov_summary(r["runs"]) for r in ranks},
+            fp32={r["rank"]: _ov_summary(r["fp32"]) for r in ranks},
+            manual_bitwise_bf16=[
+                r["runs"]["manual"]["losses"] == r["runs"]["off"]["losses"]
+                for r in ranks],
+            launches_per_step={r["rank"]: {
+                m: run["launches_per_step"] for m, run in r["runs"].items()}
+                for r in ranks},
+            layer_bytes=ranks[0]["runs"]["off"]["layer_bytes"],
+            root_bytes=ranks[0]["runs"]["off"]["root_bytes"],
+            rank_start_s=[r["since_start_s"] for r in ranks],
+            rank_done_s=[r["done_s"] for r in ranks])
+        launches = {}
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_overlap phase failed: " + "; ".join(problems))
+    return launches
+
+
+def _exposed_collective_ms(prof):
+    """From a torch.profiler trace: the NCCL all-gather and
+    reduce-scatter kernels' device ms, and the part of it no compute
+    kernel ran beside (the union of the non-NCCL kernels' intervals
+    subtracted). None where the trace holds no device kernels."""
+    from torch.autograd import DeviceType
+    comm, compute = [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        name = e.name.lower()
+        if "nccl" in name:
+            if "allgather" in name or "reducescatter" in name:
+                comm.append(span)
+        else:
+            compute.append(span)
+    if not comm and not compute:
+        return None
+    merged = []
+    for s, t in sorted(compute):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], t)
+        else:
+            merged.append([s, t])
+    total = exposed = 0.0
+    for s, t in comm:
+        total += t - s
+        covered = sum(max(0.0, min(t, b) - max(s, a)) for a, b in merged)
+        exposed += (t - s) - covered
+    return {"collective_ms": total / 1e3, "exposed_ms": exposed / 1e3,
+            "collective_kernels": len(comm)}
+
+
+def _ov_multi_worker(out_path):
+    """One rank of train_overlap_multi (NCCL, one card a rank): at each
+    of ``OV_MULTI_MESHES``, the job at ``OV_MULTI_REF_LAYERS`` under each
+    mode (held against one card), then at ``OV_MULTI_LAYERS`` the modes
+    alternated, each with one profiled step after its timed ones, then
+    off and manual with deterministic algorithms off."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    from gke_ray_train_tpu_torch.parallel.placement import (
+        input_shard_layout)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world,
+           "device_name": torch.cuda.get_device_name(dev)}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for key, kw in OV_MULTI_MESHES.items():
+            mesh = build_mesh(MeshConfig(**kw))
+            rows = input_shard_layout(mesh)
+            ref = _llama_cfg(FINE_TUNE_CONFIG, OV_MULTI_REF_LAYERS)
+            rec[key] = {"ref": {m: _ov_run(dev, ref, mesh, m, OV_STEPS,
+                                           rows=rows, ft_over=OV_MULTI_FT)[0]
+                                for m in OV_MODES}}
+            cfg = _llama_cfg(FINE_TUNE_CONFIG, OV_MULTI_LAYERS)
+            full = {}
+            for m in OV_MODES + tuple(reversed(OV_MODES)):
+                r, launches = _ov_run(dev, cfg, mesh, m, OV_MULTI_STEPS,
+                                      rows=rows, ft_over=OV_MULTI_FT,
+                                      profile=m not in full)
+                if m in full:
+                    full[m]["step_s"] += r["step_s"]
+                    full[m]["peak_mem_bytes"] = max(
+                        full[m]["peak_mem_bytes"], r["peak_mem_bytes"])
+                else:
+                    full[m] = r
+                if m == "manual":
+                    rec["launches"] = launches
+            for m, r in full.items():
+                ts = sorted(r["step_s"])
+                r["step_s_p50"] = ts[len(ts) // 2]
+                r["tokens_per_s_per_card"] = r["tokens"] / r[
+                    "step_s_p50"] / world
+            rec[key]["full"] = full
+            # off and manual once more with deterministic algorithms off:
+            # what the gates' determinism costs each mode
+            torch.use_deterministic_algorithms(False)
+            try:
+                rec[key]["nondeterministic"] = {
+                    m: {k: v for k, v in _ov_run(
+                        dev, cfg, mesh, m, OV_MULTI_STEPS, rows=rows,
+                        ft_over=OV_MULTI_FT)[0].items()
+                        if k in ("step_s", "step_s_p50", "losses")}
+                    for m in ("off", "manual")}
+            finally:
+                torch.use_deterministic_algorithms(True, warn_only=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def phase_train_overlap_multi(dev):
+    """Opt-in, the four-card host (fewer than 4 cards fails): OVERLAP
+    over NCCL, one rank a card (``_ov_multi_worker``), at fsdp 4 and at
+    data 2 x fsdp 2, each rank its rows of the job's batches. One card
+    first: the job at ``OV_MULTI_REF_LAYERS`` layers under off. At each
+    mesh: the same depth under each mode, every step's loss within
+    MESH_MULTI_RTOL of one card's and xla's bitwise off's; then full
+    depth (``OV_MULTI_LAYERS``), 1 + ``OV_MULTI_STEPS`` steps a run, the
+    modes alternated: a rank's step p50 with its spread, tokens/s a
+    card, peak a card, and from one profiled step a mode the NCCL
+    all-gather and reduce-scatter ms and the part no compute kernel ran
+    beside ("exposed collective ms"); then off and manual once more, 1 +
+    ``OV_MULTI_STEPS`` steps, with deterministic algorithms off (the
+    gates need them on: the embedding's backward)."""
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    emit({"phase": "train_overlap_multi_devices", "ok": n >= 4,
+          "device_count": n, "nvidia_smi": nvidia_smi_line()})
+    if n < 4:
+        raise SystemExit(f"train_overlap_multi needs 4 cards; this host "
+                         f"has {n}")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one, _ = _ov_run(dev, _llama_cfg(FINE_TUNE_CONFIG,
+                                         OV_MULTI_REF_LAYERS), None, "off",
+                         OV_STEPS, ft_over=OV_MULTI_FT)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_ov_multi_"),
+                       "rank")
+    hung, rcs, ranks = _spawn_ranks("--ov-multi-worker", out, n,
+                                    list(range(n)), OV_MULTI_TIMEOUT_S)
+    problems = []
+    line = {"phase": "train_overlap_multi", "nvidia_smi": nvidia_smi_line(),
+            "world": n, "backend": "nccl", "one_card": _ov_summary(
+                {"off": one}),
+            "cut": f"the loss gate at {OV_MULTI_REF_LAYERS} of 32 layers "
+                   f"(what one card holds with AdamW), 1 + {OV_STEPS} "
+                   f"steps; timings at {OV_MULTI_LAYERS} layers, 1 + "
+                   f"{OV_MULTI_STEPS} steps a run, two runs a mode"}
+    launches = None
+    if hung or any(rcs) or None in ranks or not all(
+            r.get("launches") for r in ranks):
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    else:
+        for key in OV_MULTI_MESHES:
+            per = {}
+            for r in ranks:
+                name = f"rank {r['rank']} {key}"
+                ref = r[key]["ref"]
+                for m, run in ref.items():
+                    _hold_streams(f"{name} {m} vs one card", run, one,
+                                  MESH_MULTI_RTOL, problems)
+                for k2 in ("losses", "grad_norms"):
+                    if ref["xla"][k2] != ref["off"][k2]:
+                        problems.append(f"{name}: xla {k2} are not off's "
+                                        "bit for bit")
+                full = r[key]["full"]
+                per[r["rank"]] = {m: {
+                    "step_s_p50": run["step_s_p50"],
+                    "step_s": run["step_s"],
+                    "tokens_per_s_per_card": run["tokens_per_s_per_card"],
+                    "peak_mem_bytes": run["peak_mem_bytes"],
+                    "held_before_bytes": run["held_before_bytes"],
+                    "gathered_bytes_per_step":
+                        run["gathered_bytes_per_step"],
+                    "reckoned_bytes_per_step":
+                        run["reckoned_bytes_per_step"],
+                    "losses": run["losses"], "profile": run["profile"]}
+                    for m, run in full.items()}
+                per[r["rank"]]["ref_losses"] = {
+                    m: run["losses"] for m, run in ref.items()}
+                per[r["rank"]]["full_losses_bitwise_off"] = {
+                    m: run["losses"] == full["off"]["losses"]
+                    for m, run in full.items()}
+                per[r["rank"]]["nondeterministic"] = r[key][
+                    "nondeterministic"]
+            line[key] = dict(per, mesh=OV_MULTI_MESHES[key],
+                             n_layers=OV_MULTI_LAYERS)
+        launches = {}
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    line.update(tol_rel=MESH_MULTI_RTOL, ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_overlap_multi phase failed: "
+                         + "; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
@@ -8647,13 +9188,14 @@ PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "train_mesh_multi", "train_tp_multi", "pretrain",
           "pretrain_multi", "train_cp_multi", "serve_mesh",
           "serve_mesh_multi", "train_ep", "train_ep_multi", "train_pp",
-          "train_pp_multi", "train_pp_moe_multi")
+          "train_pp_multi", "train_pp_moe_multi", "train_overlap",
+          "train_overlap_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
                  "train_tp_multi", "pretrain_multi", "train_cp_multi",
                  "serve_mesh_multi", "train_ep_multi", "train_pp_multi",
-                 "train_pp_moe_multi")
+                 "train_pp_moe_multi", "train_overlap_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -8767,6 +9309,9 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--pp-moe-multi-worker", metavar="OUT",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--ov-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--ov-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
                "tp_multi_worker": _tp_multi_worker, "cp_worker": _cp_worker,
@@ -8775,7 +9320,8 @@ def main(argv=None) -> int:
                "serve_multi_worker": _serve_multi_worker,
                "ep_worker": _ep_worker, "ep_multi_worker": _ep_multi_worker,
                "pp_worker": _pp_worker, "pp_multi_worker": _pp_multi_worker,
-               "pp_moe_multi_worker": _pp_moe_multi_worker}
+               "pp_moe_multi_worker": _pp_moe_multi_worker,
+               "ov_worker": _ov_worker, "ov_multi_worker": _ov_multi_worker}
     if args.entry_worker or args.pretrain_worker or \
             args.serve_entry_worker or any(getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
@@ -8859,6 +9405,7 @@ def main(argv=None) -> int:
     add(run("serve_mesh", phase_serve_mesh))
     add(run("train_ep", phase_train_ep))
     add(run("train_pp", phase_train_pp))
+    add(run("train_overlap", phase_train_overlap))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -8880,6 +9427,7 @@ def main(argv=None) -> int:
     add(run("train_ep_multi", phase_train_ep_multi))
     add(run("train_pp_multi", phase_train_pp_multi))
     add(run("train_pp_moe_multi", phase_train_pp_moe_multi))
+    add(run("train_overlap_multi", phase_train_overlap_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

@@ -5,14 +5,16 @@ A job config is a flat UPPER_CASE JSON (``ray-jobs/*.json``). Every key
 is either honoured (in :data:`KNOWN_KEYS`) or warned about, never
 silently ignored. The same key sets as the JAX package, so a config
 audits alike in both; on top of that, the keys that only mean something
-on a TPU mesh (:data:`TPU_ONLY_KEYS`: mesh axes, topology, XLA overlap,
-the compile cache and AOT sidecar, autotune) warn by name, because the
-port ignores them. ``ELASTIC`` and ``MIN_DEVICES`` are the port's own
-(``rayint/elastic.py``). The mesh keys are the exception under a
+on a TPU mesh (:data:`TPU_ONLY_KEYS`: mesh axes, topology, the compile
+cache and AOT sidecar, autotune) warn by name, because the port ignores
+them. ``OVERLAP`` is the port's: the plan reads it (``plan.py``; ``xla``
+is FSDP2's explicit prefetch, ``manual`` the hand-placed gathers of
+``train/overlap.py``). ``ELASTIC`` and ``MIN_DEVICES`` are the port's
+own (``rayint/elastic.py``). The mesh keys are the exception under a
 ``torch.distributed`` world above one: there ``MESH_DATA`` /
 ``MESH_FSDP`` shape the mesh (``rayint/elastic.py::maybe_replan``) and
-the axes not ported yet raise (``MeshConfig.check_ported``); on one
-card they warn and are ignored, as before.
+the axes not ported yet raise (``MeshConfig.check_ported``); on one card
+they warn and are ignored, as before.
 
 The learning-rate schedules are plain functions of the step count, equal
 to optax's at every step; the optimizers are the port's
@@ -95,7 +97,7 @@ KNOWN_KEYS = frozenset({
 # ignores; each present one warns by name
 TPU_ONLY_KEYS = frozenset({
     "COMPILE_CACHE", "COMPILE_CACHE_DIR", "AOT_TRAIN_STEP", "TOPOLOGY",
-    "OVERLAP", "AUTOTUNE", "AUTOTUNE_INGEST", "AUTOTUNE_DIR",
+    "AUTOTUNE", "AUTOTUNE_INGEST", "AUTOTUNE_DIR",
     "AUTOTUNE_BUDGET", "AUTOTUNE_DRIFT_BAND", "NUM_SLICES", "DCN_SYNC", "DCN_COMPRESS", "BUDGET_PRESET",
 })
 TPU_ONLY_PREFIXES = ("MESH_", "PIPE_")

@@ -58,8 +58,13 @@ pipe microbatches in each grad-accum microbatch, ``PIPE_VIRTUAL_STAGES``
 groups a stage, as JAX's job reads them), at any ``MESH_MODEL`` inside
 a stage; the export is written by the ranks that hold each layer, and
 ``INFERENCE`` and ``SERVE_AFTER_TRAIN`` decode across the stages
-(``models/kvcache.py``). Peer replication is not ported (ROADMAP queue 1
-item 8).
+(``models/kvcache.py``). ``OVERLAP`` (every shipped config sets
+``xla``) is the plan's: ``xla`` registers FSDP2's explicit prefetch,
+``manual`` trains through the hand-placed gathers of
+``train/overlap.py`` and raises, before any weight is built, on a
+``model`` / ``context`` / ``pipe`` axis above 1 (``PlanError``, the JAX
+plan's words), without a mesh, under LoRA or on an MoE model. Peer
+replication is not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ from gke_ray_train_tpu_torch.plan import (
     ExecutionPlan, PlanError, context_findings, model_findings)
 from gke_ray_train_tpu_torch.rayint import get_context
 from gke_ray_train_tpu_torch.rayint.elastic import maybe_replan
+from gke_ray_train_tpu_torch.train.overlap import check_manual_support
 from gke_ray_train_tpu_torch.serve import post_train_smoke
 from gke_ray_train_tpu_torch.train import (
     LoraConfig, ThroughputMeter, make_eval_step, make_train_state,
@@ -183,6 +189,9 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
             MeshConfig.from_dict(config), plan.per_device_batch,
             world=world, config=config, log=logger)
         mesh_cfg.check_ported()
+        # OVERLAP=manual on a model, context or pipe axis raises here,
+        # in the JAX plan's words
+        plan.check_mesh(mesh_cfg, world)
         plan = dataclasses.replace(plan, per_device_batch=per_device)
         # the attempt runs under the re-formed plan
         ctx.plan_fingerprint = plan.fingerprint()
@@ -238,6 +247,9 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
                                  max_seq_len=plan.max_seq_len)
         if found:
             raise PlanError("; ".join(found))
+    if plan.overlap == "manual":
+        # no mesh, LoRA or MoE: refused before any weight is built
+        check_manual_support(cfg, mesh, lora=use_lora)
 
     # ---- weights ------------------------------------------------------
     # a local HF directory, else random weights (the hub download,

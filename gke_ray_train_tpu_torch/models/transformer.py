@@ -26,15 +26,17 @@ Every layer runs through ``Block.__call__`` and the embedding, final
 norm and head inside ``Transformer.__call__`` (a caller's loss through
 ``forward``'s ``loss_fn``), so a model sharded with FSDP2
 (``parallel/sharding.py``) gathers each unit's weights around its
-forward and again in its backward (under remat, inside the
-recomputation too). On a mesh whose ``pipe`` axis exceeds 1 a rank's
-model holds only its stage's blocks (:class:`StageBlocks`, registered
-under their global layer indices, so parameter names are the whole
-model's), and ``forward`` runs the pipeline's ticks across the stages
-(``models/pipeline.py``) without autograd, the last stage's output
-broadcast so every stage runs the final norm and head, as JAX runs them
-replicated; the train step drives the pipelined backward itself
-(``train/step.py``).
+forward and again in its backward (under remat, inside the recomputation
+too). The one exception is ``OVERLAP=manual`` (``train/overlap.py``),
+which gathers the weights itself and runs the same ``_layer`` on them
+through :class:`Gathered` views. On a mesh whose ``pipe`` axis exceeds 1
+a rank's model holds only its stage's blocks (:class:`StageBlocks`,
+registered under their global layer indices, so parameter names are the
+whole model's), and ``forward`` runs the pipeline's ticks across the
+stages (``models/pipeline.py``) without autograd, the last stage's
+output broadcast so every stage runs the final norm and head, as JAX
+runs them replicated; the train step drives the pipelined backward
+itself (``train/step.py``).
 
 Under tensor parallelism (``model`` above 1, ``parallel/tensor.py``) a
 gathered unit's sharded weights are DTensors of the ``model`` submesh;
@@ -176,6 +178,25 @@ class Block(nn.Module):
         KV-cache decode's layer), so it too runs while a sharded block
         holds its weights gathered."""
         return (layer_fn or _layer)(x, self, *args, **kwargs)
+
+
+class Gathered:
+    """One unit's tensors held outside its module, by the attribute names
+    the module registers them under: a ``Block``'s (with its ``kind``),
+    or the root's ``embed`` / ``final_norm`` / ``lm_head`` with the
+    ``blocks`` they run. ``_layer`` and :func:`forward` read it as they
+    read a ``Block`` or a ``Transformer``, so the manual overlap
+    (``train/overlap.py``) runs the one layer math on weights it gathered
+    itself, and no FSDP2 hook gathers them again. ``tensors`` maps each
+    registered name to its tensor; a name the module registers as None
+    stays None."""
+
+    def __init__(self, module: nn.Module, tensors: Dict[str, torch.Tensor]):
+        self.kind = getattr(module, "kind", None)
+        for name, p in module._parameters.items():
+            setattr(self, name, None if p is None else tensors[name])
+        if isinstance(module, Transformer):
+            self.blocks = module.blocks
 
 
 class StageBlocks(nn.Module):
@@ -589,7 +610,7 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
                     lora_seed: Optional[int] = None,
                     fused_ops: bool = False,
                     token_weights: Optional[torch.Tensor] = None,
-                    mesh=None):
+                    mesh=None, layer_call: Optional[Callable] = None):
     """Run ``blocks`` (a sequence of ``Block``) over the residual stream
     ``x``: ``(x, the summed router aux of the layers)``, the aux None on a
     dense model. ``lora``, when given, holds one adapter dict per block.
@@ -605,7 +626,14 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
     activations are recomputed in the backward instead of kept; on an
     MoE model the aux rides through it with x. LoRA dropout is active
     when ``lora``, ``lora_dropout`` > 0 and ``lora_seed`` are all given;
-    layer ``i`` seeds its masks from ``(lora_seed, i)``."""
+    layer ``i`` seeds its masks from ``(lora_seed, i)``.
+
+    ``layer_call``: ``layer_call(i, x, *args)`` in place of
+    ``blocks[i](x, *args)`` (``args`` as ``Block.forward`` takes them
+    after ``x``), inside the same remat regions: the manual overlap runs
+    ``_layer`` on the layer's weights it gathered itself there
+    (``train/overlap.py``), and under remat gathers them again in the
+    recomputation."""
     drop = (lora is not None and lora_dropout > 0.0
             and lora_seed is not None)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -619,13 +647,17 @@ def run_block_stack(x, blocks, cfg: ModelConfig, impl: str, dtype, rope,
 
     def repeat(x, aux, first):
         for i in range(first, min(first + P, len(blocks))):
-            # through Block.__call__: a sharded block gathers its weights
-            x, a = blocks[i](x, cfg, impl, dtype, rope, positions,
-                             masks, segment_ids,
-                             lora[i] if lora is not None else None,
-                             lora_scale, lora_dropout,
-                             dropout_seed(lora_seed, i) if drop else None,
-                             fused_ops, token_weights, mesh)
+            args = (cfg, impl, dtype, rope, positions, masks, segment_ids,
+                    lora[i] if lora is not None else None, lora_scale,
+                    lora_dropout,
+                    dropout_seed(lora_seed, i) if drop else None,
+                    fused_ops, token_weights, mesh)
+            if layer_call is not None:
+                x, a = layer_call(i, x, *args)
+            else:
+                # through Block.__call__: a sharded block gathers its
+                # weights
+                x, a = blocks[i](x, *args)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -832,7 +864,8 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             with_aux: bool = False,
             token_weights: Optional[torch.Tensor] = None,
             loss_fn: Optional[Callable] = None,
-            mesh=None, pipe_microbatches: Optional[int] = None):
+            mesh=None, pipe_microbatches: Optional[int] = None,
+            layer_call: Optional[Callable] = None):
     """tokens [B, S] integer → logits [B, S, vocab] float32 (under tensor
     parallelism [B, S, vocab / model], this rank's vocab shard). Runs on
     the device the params and tokens lie on.
@@ -863,7 +896,9 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     ``pipe_microbatches`` microbatches (default one a hop) through the
     stages (:func:`pipeline_forward`), without autograd, and the result
     is the same on every stage; the router aux is JAX's pipelined one
-    (``models/pipeline.py``)."""
+    (``models/pipeline.py``). ``layer_call``: each layer through it
+    (:func:`run_block_stack`), ``params`` then a :class:`Gathered` root
+    (the manual overlap's, ``train/overlap.py``)."""
     from gke_ray_train_tpu_torch.parallel.mesh import (
         context_size, pipe_group, pipe_size)
     B, S = tokens.shape
@@ -903,7 +938,7 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             _masks(cfg, impl, positions, segment_ids), segment_ids,
             lora=lora, lora_scale=lora_scale, lora_dropout=lora_dropout,
             lora_seed=lora_seed, fused_ops=fused_ops,
-            token_weights=token_weights, mesh=mesh)
+            token_weights=token_weights, mesh=mesh, layer_call=layer_call)
     if return_pre_unembed:
         out = pre_unembed(x, params, cfg)
     else:

@@ -367,6 +367,24 @@ def shard_model(params: nn.Module, mesh) -> nn.Module:
     return params
 
 
+def set_prefetch(params: nn.Module) -> None:
+    """``OVERLAP=xla``, the port's counterpart of JAX's latency-hiding
+    scheduler flags (registered by the train step's first call):
+    FSDP2's explicit prefetch over a sharded ``Transformer``'s units in
+    layer order (a pipeline stage's blocks,
+    ``StageBlocks``, in theirs). The root's forward gathers the first
+    block, each block's forward the next one's and each block's backward
+    the one before, so a unit's all-gather is in flight while the unit
+    before it (after it, in the backward) computes. It moves when a
+    gather is issued, never what is computed: the numbers are ``off``'s."""
+    blocks = list(params.blocks)
+    if blocks:
+        params.set_modules_to_forward_prefetch(blocks[:1])
+    for i, blk in enumerate(blocks):
+        blk.set_modules_to_forward_prefetch(blocks[i + 1:i + 2])
+        blk.set_modules_to_backward_prefetch(blocks[max(i - 1, 0):i])
+
+
 def release_root(params: nn.Module) -> None:
     """Free a sharded root's gathered weights after a forward that has
     no backward to keep them for (an eval, a decode step): FSDP2 leaves

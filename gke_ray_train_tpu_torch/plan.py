@@ -2,7 +2,7 @@
 part, ``grad_accum``, the input pipeline and the runtime guards of
 ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Seventeen knobs, read from the same environment / config keys as the JAX
+Twenty knobs, read from the same environment / config keys as the JAX
 package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
 (whole-prompt prefill reuse), ``SERVE_QUANT`` (the served weights'
@@ -15,9 +15,17 @@ encoding), ``MAX_ADAPTERS`` (tenant slots of the adapter pool),
 microbatches in each of them, 0 for one a hop, and its groups a stage,
 ``models/pipeline.py``), ``FUSED_OPS`` (the train step's
 fused rms_norm / q-k RoPE kernels, and the fused cross-entropy where the
-config has no logit softcap), ``PREFETCH_BATCHES`` (the loop's prefetch
-depth), ``TRANSFER_GUARD`` and ``DIVERGENCE_GUARD`` (the loop's runtime
-guards, ``analysis/guards.py``). The last three are operational: they
+config has no logit softcap), ``OVERLAP`` (how the train step's fsdp
+gathers meet its compute: ``off``, ``xla`` FSDP2's explicit prefetch,
+``parallel/sharding.py``, or ``manual`` the hand-placed double-buffered
+gathers of ``train/overlap.py``; :meth:`ExecutionPlan.check_mesh` refuses
+``manual`` on a mesh with ``model``, ``context`` or ``pipe`` above 1, in
+the JAX plan's words), ``DCN_SYNC`` / ``DCN_COMPRESS`` (read so that
+their unported arms raise: the hierarchical cross-slice sums are ROADMAP
+queue 1 item 8's ``parallel/hierarchical.py``), ``PREFETCH_BATCHES``
+(the loop's prefetch depth), ``TRANSFER_GUARD`` and
+``DIVERGENCE_GUARD`` (the loop's runtime guards,
+``analysis/guards.py``). The last three are operational: they
 change no result, so :meth:`ExecutionPlan.fingerprint` leaves them out.
 """
 
@@ -49,6 +57,9 @@ CONFIG_KEYS: Dict[str, str] = {
     "max_seq_len": "MAX_SEQ_LENGTH",
     "packing": "PACKING",
     "fused_ops": "FUSED_OPS",
+    "overlap": "OVERLAP",
+    "dcn_sync": "DCN_SYNC",
+    "dcn_compress": "DCN_COMPRESS",
     "prefetch": "PREFETCH_BATCHES",
     "transfer_guard": "TRANSFER_GUARD",
     "divergence_guard": "DIVERGENCE_GUARD",
@@ -57,6 +68,14 @@ CONFIG_KEYS: Dict[str, str] = {
 _TRANSFER_GUARD_MODES = (None, "log", "disallow")
 
 SPEC_DRAFT_MODES = ("none", "self", "distilled")
+
+# how the train step's fsdp gathers meet its compute (JAX plan.py:69)
+OVERLAP_MODES = ("off", "xla", "manual")
+
+# the cross-slice gradient sums and their compression (JAX plan.py:73-74);
+# only the first arm of each runs in the port
+DCN_SYNC_MODES = ("flat", "hier")
+DCN_COMPRESS_MODES = ("none", "bf16")
 
 
 def _serve_quant_kinds() -> Tuple[str, ...]:
@@ -85,11 +104,19 @@ def _coerce(field: str, value: Any) -> Any:
         if v in ("", "0", "off", "false", "allow", None):
             return None
         return v
-    if field in ("serve_quant", "spec_draft"):
+    if field in ("serve_quant", "spec_draft", "dcn_compress"):
         # "", "0", "false" and "off" spell the disabled arm (the env
         # dialect needs one: ``env SPEC_DRAFT= python ...``)
         v = str(value).strip().lower()
         return "none" if v in ("", "0", "false", "no", "off") else v
+    if field == "overlap":
+        # "", "0", "false" and "no" mean the plain step (JAX's dialect:
+        # ``env OVERLAP= python ...``)
+        v = str(value).strip().lower()
+        return "off" if v in ("", "0", "false", "no") else v
+    if field == "dcn_sync":
+        v = str(value).strip().lower()
+        return "flat" if v in ("", "0", "false", "no", "off") else v
     if field in ("prefix_cache", "packing", "fused_ops",
                  "divergence_guard"):
         if isinstance(value, (bool, int, float)):
@@ -153,6 +180,17 @@ class ExecutionPlan:
     # (ops/fused_norm_rope.py) and, where the config has no logit
     # softcap, its loss through the fused cross-entropy (ops/fused_ce.py)
     fused_ops: bool = False
+    # how the train step's fsdp gathers meet its compute: "off" (FSDP2's
+    # own schedule), "xla" (FSDP2's explicit prefetch of the next block
+    # in the forward and the previous one in the backward,
+    # parallel/sharding.py; the numbers are off's) or "manual" (the
+    # hand-placed double-buffered gathers of train/overlap.py, data /
+    # fsdp meshes only: check_mesh)
+    overlap: str = "off"
+    # the cross-slice gradient sums: read so that "hier" and "bf16"
+    # raise (ROADMAP queue 1 item 8, parallel/hierarchical.py)
+    dcn_sync: str = "flat"
+    dcn_compress: str = "none"
     # queue depth of the loop's asynchronous input pipeline
     # (data/prefetch.py); 0 = synchronous
     prefetch: int = 2
@@ -183,6 +221,46 @@ class ExecutionPlan:
         if self.spec_draft not in SPEC_DRAFT_MODES:
             raise PlanError(f"spec_draft={self.spec_draft!r} not in "
                             f"{SPEC_DRAFT_MODES}")
+        if self.overlap not in OVERLAP_MODES:
+            raise PlanError(f"overlap={self.overlap!r} not in "
+                            f"{OVERLAP_MODES}")
+        if self.dcn_sync not in DCN_SYNC_MODES:
+            raise PlanError(f"dcn_sync={self.dcn_sync!r} not in "
+                            f"{DCN_SYNC_MODES}")
+        if self.dcn_compress not in DCN_COMPRESS_MODES:
+            raise PlanError(f"dcn_compress={self.dcn_compress!r} not in "
+                            f"{DCN_COMPRESS_MODES}")
+        if self.dcn_sync != "flat" or self.dcn_compress != "none":
+            raise NotImplementedError(
+                f"DCN_SYNC={self.dcn_sync} / DCN_COMPRESS="
+                f"{self.dcn_compress}: the hierarchical and compressed "
+                "cross-slice gradient sums are not ported yet (ROADMAP "
+                "queue 1 item 8, parallel/hierarchical.py)")
+
+    def check_mesh(self, mesh, n_devices: int) -> "ExecutionPlan":
+        """Raise :class:`PlanError` where ``overlap`` cannot run on
+        ``mesh`` (a ``parallel/mesh.py::MeshConfig``) over ``n_devices``
+        ranks, in the JAX plan's words (its :367-389): ``manual`` places
+        the fsdp gathers by hand and needs ``model``, ``context`` and
+        ``pipe`` of 1. A ``-1`` fill is resolved against ``n_devices``
+        first, so a fill that resolves to 1 is a data / fsdp mesh; one
+        that cannot be resolved keeps its raw value and is refused.
+        Returns ``self``."""
+        if self.overlap != "manual":
+            return self
+        try:
+            mesh = mesh.resolve(n_devices)
+        except ValueError:
+            pass
+        for axis in ("model", "context", "pipe"):
+            size = getattr(mesh, axis)
+            if size != 1:
+                raise PlanError(
+                    f"overlap='manual' supports data/fsdp meshes "
+                    f"only; {axis}={size} — use "
+                    "overlap='xla' (latency-hiding scheduler) on "
+                    "structural-axis topologies")
+        return self
 
     @classmethod
     def from_config(cls, config: Mapping[str, Any]) -> "ExecutionPlan":

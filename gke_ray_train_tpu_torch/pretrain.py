@@ -33,7 +33,8 @@ rank of one node entering the engine, and warns and skips beyond one
 node, as JAX does. ``MESH_PIPE`` above 1 trains the pipeline
 (``models/pipeline.py``; ``PIPE_MICROBATCHES`` / ``PIPE_VIRTUAL_STAGES``
 from the config), and ``SERVE_AFTER_TRAIN`` there decodes across the
-stages (``models/kvcache.py``).
+stages (``models/kvcache.py``). ``OVERLAP`` (config or environment) is
+read as the fine-tune entry reads it (``train/overlap.py``).
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     # the env supplies the guard and kernel knobs, the config the batch
     # shape, as in the JAX entry
     plan = ExecutionPlan.resolve(
-        {k: config[k] for k in ("PIPE_MICROBATCHES", "PIPE_VIRTUAL_STAGES")
+        {k: config[k] for k in ("PIPE_MICROBATCHES", "PIPE_VIRTUAL_STAGES",
+                                "OVERLAP")
          if k in config},
         per_device_batch=int(config.get("batch_size_per_device", 16)),
         max_seq_len=seq_len,
@@ -98,6 +100,7 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     mesh = None
     if world > 1:
         mesh_cfg.check_ported()
+        plan.check_mesh(mesh_cfg, world)
         mesh = build_mesh(mesh_cfg, device_type=dev.type)
     # the attempt ran under this plan, not the trainer's resolution of a
     # config without the plan keys

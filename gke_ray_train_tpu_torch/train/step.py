@@ -4,8 +4,7 @@ One optimizer step: the batch is split into ``grad_accum`` microbatches
 run in sequence; each microbatch's summed token NLL is back-propagated,
 its gradients accumulating in ``.grad``; the sum is then divided by the
 total token weight (the exact mean: ``nll_sum / w_sum``, gradients times
-``1 / w_sum``), and the optimizer clips and updates. This is the JAX
-step's single-device case without manual overlap. ``FUSED_OPS`` routes
+``1 / w_sum``), and the optimizer clips and updates. ``FUSED_OPS`` routes
 the blocks' rms_norms and q/k RoPE through the fused kernels
 (``ops/fused_norm_rope.py``) and, on a config without a logit softcap
 (the cap applies to logits the kernel never forms), the loss through the
@@ -49,6 +48,13 @@ a step, in each rank's last backward call. An MoE slot's router aux
 enters its loss as JAX's pipelined aux does (the coefficient times the
 microbatch weight over ``M·n_layers``).
 
+``OVERLAP`` (``plan.overlap``, JAX :232): ``xla`` registers FSDP2's
+explicit prefetch on the sharded model (``parallel/sharding.py::
+set_prefetch``) and computes what ``off`` computes; ``manual`` runs each
+microbatch's forward and backward through ``train/overlap.py``'s
+hand-placed, double-buffered fsdp gathers (data / fsdp meshes, dense
+blocks, full fine-tuning), its gradients reduced as FSDP2 reduces them.
+
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
 JAX signature; the step count is a Python int.
@@ -74,7 +80,7 @@ from gke_ray_train_tpu_torch.train.lora import LoraConfig, init_lora
 from gke_ray_train_tpu_torch.train.optim import AdamW, OptimizerSpec
 from gke_ray_train_tpu_torch.parallel.mesh import pipe_size
 from gke_ray_train_tpu_torch.parallel.sharding import (
-    is_sharded, local, shard_model)
+    is_sharded, local, set_prefetch, shard_model)
 from gke_ray_train_tpu_torch.parallel.tensor import vocab_parallel_nll
 
 Batch = Dict[str, Any]
@@ -241,8 +247,13 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     aux_mean), as the JAX step does (:293-296); under expert parallelism
     every model rank routes the same tokens and holds the same aux, so
     the sums over the batch axes (never over ``model``) count it once.
-    Manual overlap raises
-    ``NotImplementedError``.
+    ``overlap`` (``"off"``, ``"xla"`` or ``"manual"``; ``plan.overlap``
+    wins where a plan is given, as the JAX step reads it from the plan
+    alone): ``"xla"`` has FSDP2 prefetch the next block's gather in the
+    forward and the previous one's in the backward; ``"manual"`` runs each
+    microbatch through ``train/overlap.py::make_manual_grad_fn`` and
+    raises ``ManualOverlapUnsupported`` where that path cannot run (no
+    mesh, ``model`` / ``context`` / ``pipe`` above 1, LoRA, MoE).
 
     ``mesh``: the state is sharded over it (``make_train_state(mesh=)``)
     and ``batch`` is this rank's rows (at a ``context`` above 1 its
@@ -256,6 +267,11 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     if pipe_microbatches is _UNSET:
         pipe_microbatches = plan.pipe_microbatches if plan is not None else 0
     fused_ops = plan is not None and plan.fused_ops
+    if plan is not None:
+        overlap = plan.overlap
+    from gke_ray_train_tpu_torch.plan import OVERLAP_MODES
+    if overlap not in OVERLAP_MODES:
+        raise ValueError(f"overlap={overlap!r} not in {OVERLAP_MODES}")
     _check_mesh(mesh)
     fused_ce = fused_ops and cfg.logit_softcap is None
     # the batch (and context) index a rank's dropout seeds carry (empty:
@@ -268,12 +284,16 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             seed_rank = (batch_rank(mesh),)
         if context_size(mesh) > 1:
             seed_rank += (context_rank(mesh),)
-    if overlap == "manual":
-        raise NotImplementedError(
-            "OVERLAP=manual (the shard_map microbatch pipeline) is not "
-            "ported yet (ROADMAP queue 1, long context and parallelism)")
     dev = resolve_device(device)
     lora_mode = lora_cfg is not None
+    manual = None
+    if overlap == "manual":
+        from gke_ray_train_tpu_torch.train.overlap import (
+            check_manual_support, make_manual_grad_fn)
+        check_manual_support(cfg, mesh, lora=lora_mode)
+        manual = make_manual_grad_fn(cfg, mesh, fused_ops=fused_ops,
+                                     use_fused_ce=fused_ce)
+    prefetch = overlap == "xla" and mesh is not None
     drop = lora_cfg.dropout if lora_mode else 0.0
     dtype = torch_dtype(cfg.dtype)
     moe = cfg.n_experts > 0
@@ -288,6 +308,9 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
         if mesh is not None and not is_sharded(params.embed):
             raise ValueError("a meshed step needs the state "
                              "make_train_state(mesh=) shards")
+        if prefetch and not getattr(params, "_prefetch_set", False):
+            set_prefetch(params)
+            params._prefetch_set = True
         trainables = [t for _, t in trainable_tensors(params, state.lora)]
         b = _as_device(batch, dev)
         B = b["inputs"].shape[0]
@@ -323,6 +346,12 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                     lora_cfg.scale if lora_mode else 1.0, drop, seed,
                     fused_ops, fused_ce, dtype, pipe_microbatches or None,
                     loss_fn, last=m == grad_accum - 1)
+                nll_sum += nll
+                w_sum += w
+                continue
+            if manual is not None:
+                nll, w = manual(params, micro, loss_fn,
+                                last=m == grad_accum - 1)
                 nll_sum += nll
                 w_sum += w
                 continue
@@ -379,6 +408,7 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                       for f in dataclasses.fields(optimizer)
                       if not callable(getattr(optimizer, f.name))},
         "grad_accum": grad_accum, "fused_ops": fused_ops,
+        "overlap": overlap,
         "lora": dataclasses.asdict(lora_cfg) if lora_mode else None,
         "mesh": list(mesh.mesh.shape) if mesh is not None else None,
         "pipe_microbatches": pipe_microbatches if piped else None,

@@ -38,6 +38,21 @@ RENDEZVOUS_ENV = ("NUM_PROCESSES", "COORDINATOR_ADDRESS", "PROCESS_ID",
                   "MASTER_ADDR", "MASTER_PORT")
 
 
+def one_torch_thread():
+    """The body of a module-scoped autouse fixture: torch's CPU ops on one
+    thread for the module's tests, the count restored after. Under
+    pytest-xdist (six workers on eight cores) torch's default of one
+    OpenMP thread per core has every worker's pool spin against the
+    others: a tiny model's entry run takes ~110 s instead of ~11."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def clear_rendezvous(monkeypatch) -> None:
     for key in RENDEZVOUS_ENV:
         monkeypatch.delenv(key, raising=False)

@@ -18,6 +18,13 @@ from gke_ray_train_tpu.ckpt import load_hf_checkpoint, save_hf_checkpoint
 from gke_ray_train_tpu.models import (
     forward, gemma2_9b, init_params, llama3_8b, mistral_7b,
     mixtral_8x7b, qwen2_7b)
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 transformers = pytest.importorskip("transformers")
 torch = pytest.importorskip("torch")

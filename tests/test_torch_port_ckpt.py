@@ -43,6 +43,13 @@ from gke_ray_train_tpu_torch.train import (
     LoraConfig, make_optimizer, make_train_state, make_train_step,
     make_sgd, preempt)
 from gke_ray_train_tpu_torch.train.loop import run_training
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 CFG = tiny(vocab_size=64, d_model=32, n_layers=1, n_heads=2, n_kv_heads=2,
            d_ff=64)

@@ -16,8 +16,15 @@ kill-during-commit drill, on a gloo world of two ranks through
 import json
 import os
 
+import pytest
+
 from tests import _torch_multirank as mr
 from tests.test_torch_port_elastic import _job, _read
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
 
 
 def test_kill_during_commit_across_two_ranks_resumes_bitwise(tmp_path):

@@ -11,6 +11,13 @@ from gke_ray_train_tpu.models import config as jcfg
 from gke_ray_train_tpu.train import metrics as jmetrics
 from gke_ray_train_tpu_torch.models import config as tcfg
 from gke_ray_train_tpu_torch.train import metrics as tmetrics
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 PRESETS = ("llama2_7b", "llama2_13b", "llama2_70b", "llama3_8b",
            "llama3_70b", "mistral_7b", "mixtral_8x7b", "qwen2_7b",

@@ -67,6 +67,12 @@ from tests import _torch_cp as cp
 from tests import _torch_multirank as mr
 from tests import _torch_tp as tp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 V, S, B, ACCUM, STEPS = 256, 128, 8, 2, 3
 LR, TOTAL, GROUP = 1e-3, 10, 32

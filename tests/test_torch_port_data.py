@@ -30,6 +30,13 @@ from gke_ray_train_tpu_torch.data import tokenizer as ttok
 from gke_ray_train_tpu_torch.data.prefetch import (
     PlacedBatch, Prefetcher, SyncBatchSource, make_batch_source,
     make_place_batch)
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 TEXT = "SELECT name, SUM(value) FROM users GROUP BY name; -- é ü 字"
 

@@ -29,6 +29,11 @@ from gke_ray_train_tpu_torch.rayint import elastic
 from tests import _torch_multirank as mr
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 def _jax(data, fsdp, model, chips, n, pdb):
     try:
         plan = jplan.ExecutionPlan(data=data, fsdp=fsdp, model=model,

@@ -58,6 +58,12 @@ from gke_ray_train_tpu_torch.train import metrics as tmetrics
 from gke_ray_train_tpu_torch.train import preempt
 from tests import _torch_multirank as mr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "ray-jobs", "*.json")))
 
@@ -78,8 +84,34 @@ def test_repo_configs_audit_clean_and_tpu_keys_warn(path, caplog):
     for k in tpu:
         assert any(k in r.getMessage() for r in caplog.records), k
     if "offline_8b" in path:
+        # OVERLAP is the port's since train/overlap.py: read, not warned
         assert tpu == ["AOT_TRAIN_STEP", "COMPILE_CACHE_DIR", "MESH_DATA",
-                       "MESH_FSDP", "OVERLAP", "TOPOLOGY"]
+                       "MESH_FSDP", "TOPOLOGY"]
+    assert "OVERLAP" not in tpu
+    assert not any("OVERLAP" in r.getMessage() for r in caplog.records)
+
+
+def test_entry_hands_the_plan_overlap_and_does_not_warn(
+        tmp_path, monkeypatch, offline, caplog):
+    """The shipped configs' ``OVERLAP: xla`` reaches the plan the entry
+    hands ``make_train_step`` (whose first step on a mesh registers
+    FSDP2's prefetch), and no warning names it; the run stops at the
+    step's construction."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def make_train_step(*a, plan=None, **kw):
+        seen["plan"] = plan
+        raise Built()
+    monkeypatch.setattr(fine_tune, "make_train_step", make_train_step)
+    with caplog.at_level(logging.WARNING, logger="gke_ray_train_tpu_torch"):
+        with pytest.raises(Built):
+            fine_tune.train_loop_per_worker(
+                _smoke_config(tmp_path, OVERLAP="xla"), device="cpu")
+    assert seen["plan"].overlap == "xla"
+    assert "OVERLAP" not in caplog.text
 
 
 def test_audit_warns_unknown_keys_and_nested_quant(caplog):

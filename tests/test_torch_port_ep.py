@@ -48,6 +48,12 @@ from tests import _torch_ep as ep
 from tests import _torch_multirank as mr
 from tests import _torch_tp as tp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 V, S, B, ACCUM, STEPS, E = 256, 64, 8, 2, 3, 4
 LR, TOTAL, GROUP = 1e-3, 10, 32
 PORT_TOL = 1e-6         # ranks against one process

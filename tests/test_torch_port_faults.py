@@ -41,6 +41,12 @@ from gke_ray_train_tpu_torch.testing import faults
 from gke_ray_train_tpu_torch.train import (
     make_optimizer, make_train_state, make_train_step, preempt)
 from gke_ray_train_tpu_torch.train.loop import run_training
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
 
 
 @pytest.fixture(autouse=True)

@@ -22,6 +22,13 @@ import torch
 from gke_ray_train_tpu.ops import flash_attention as jflash
 from gke_ray_train_tpu_torch.models import config as tcfg
 from gke_ray_train_tpu_torch.ops import flash_attention as tflash
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 GRAD_TOL = 5e-5
 

@@ -35,6 +35,13 @@ from gke_ray_train_tpu_torch.train import (
     LoraConfig, make_optimizer, make_train_state, make_train_step,
     warmup_cosine_schedule)
 from gke_ray_train_tpu_torch.train.step import trainable_tensors
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 VALUE_RTOL = 1e-5
 GRAD_RTOL = 1e-5

@@ -40,6 +40,12 @@ from gke_ray_train_tpu_torch.ckpt import hf_io as thf
 from gke_ray_train_tpu_torch.models import config as tcfg
 from gke_ray_train_tpu_torch.models import forward, init_quantized_params
 from gke_ray_train_tpu_torch.train import LoraConfig, init_lora, merge_lora
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
 
 
 def _np(tree):

@@ -24,6 +24,13 @@ from gke_ray_train_tpu_torch import inference as tinf
 from gke_ray_train_tpu_torch.data import ByteTokenizer
 from gke_ray_train_tpu_torch.interop import lora_from_numpy, params_from_numpy
 from gke_ray_train_tpu_torch.models import config as tcfg
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 V, SEQ = 260, 256
 

@@ -66,6 +66,13 @@ from gke_ray_train_tpu_torch.train import profiling as tprof
 from gke_ray_train_tpu_torch.train import tb as ttb
 from gke_ray_train_tpu_torch.train.step import (
     TrainState, trainable_tensors)
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 STREAM_RTOL = 1e-5
 PARAM_ATOL = 2e-6

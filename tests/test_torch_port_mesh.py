@@ -24,6 +24,13 @@ from gke_ray_train_tpu_torch.parallel import placement as tplace
 from gke_ray_train_tpu_torch.parallel import sharding as tshard
 from gke_ray_train_tpu_torch.train import (
     make_optimizer, make_train_state, make_train_step)
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 RESOLVE_CASES = [
     (dict(), 8), (dict(data=2), 8), (dict(data=2, fsdp=2, model=2), 8),

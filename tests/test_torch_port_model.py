@@ -27,6 +27,13 @@ from gke_ray_train_tpu_torch.models import config as tcfg
 from gke_ray_train_tpu_torch.models import decode as tdecode
 from gke_ray_train_tpu_torch.models import kvcache as tkv
 from gke_ray_train_tpu_torch.models import transformer as ttr
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 LOGITS_TOL = 1e-4
 CACHE_TOL = 1e-5

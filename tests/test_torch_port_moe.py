@@ -42,6 +42,13 @@ from gke_ray_train_tpu_torch.train import (
     LoraConfig, make_optimizer, make_train_state, make_train_step,
     warmup_cosine_schedule)
 from tests import _torch_ep as ep
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 Y_RTOL = 1e-5
 AUX_ATOL = 1e-6
@@ -457,7 +464,6 @@ def cp_world(tmp_path_factory):
     from jax.sharding import NamedSharding, PartitionSpec as P
     from gke_ray_train_tpu.parallel import mesh as jmesh
     from gke_ray_train_tpu.parallel.sharding import tree_shardings
-    from tests import _torch_multirank as mr
     out = str(tmp_path_factory.mktemp("cp_moe"))
     jc, tc = _lean_cfgs()
     _, rc = _lean_cfgs(attn_impl="ring")

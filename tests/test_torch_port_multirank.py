@@ -43,6 +43,12 @@ from gke_ray_train_tpu_torch.ckpt.convert import convert
 from gke_ray_train_tpu_torch.models import config as tcfg
 from tests import _torch_multirank as mr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 V, S, B, ACCUM, STEPS = 256, 64, 8, 4, 3
 LR, TOTAL, GROUP = 1e-3, 10, 32
 PORT_RTOL, PORT_ATOL = 1e-6, 1e-6       # 2 ranks against one process

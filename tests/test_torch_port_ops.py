@@ -24,6 +24,13 @@ from gke_ray_train_tpu_torch.ops import flash_attention as tflash
 from gke_ray_train_tpu_torch.ops import norms as tnorms
 from gke_ray_train_tpu_torch.ops import rope as trope
 from gke_ray_train_tpu_torch.ops.dispatch import attention_dispatch
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 ELEMENTWISE_TOL = 1e-6
 FLASH_TOL = 1e-5

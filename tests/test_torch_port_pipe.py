@@ -54,6 +54,12 @@ from gke_ray_train_tpu_torch.plan import ExecutionPlan, PlanError, model_finding
 from tests import _torch_multirank as mr
 from tests import _torch_pp as pp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 V, S, B, ACCUM, M, STEPS = 256, 32, 8, 2, 2, 3
 LR, TOTAL, GROUP = 1e-3, 10, 32
 PORT_TOL = 1e-6         # ranks against one process

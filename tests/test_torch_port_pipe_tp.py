@@ -39,6 +39,12 @@ from tests.test_torch_port_pipe import (
     GROUP, JAX_TOL, LLAMA, MOE, PORT_TOL, STEPS, _batch, _case, _close,
     _hold, _jax_forward, _jax_mesh, _jax_train, _merged, _np)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 MESH = dict(model=2, pipe=2)
 
 

@@ -39,6 +39,12 @@ from gke_ray_train_tpu_torch.testing import faults
 from gke_ray_train_tpu_torch.train import preempt
 from tests import _torch_multirank as mr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -24,6 +24,12 @@ from gke_ray_train_tpu.train import optim as joptim
 from gke_ray_train_tpu_torch.models.config import PROJ_TARGETS
 from gke_ray_train_tpu_torch.ops import quant as tquant
 from gke_ray_train_tpu_torch.train import optim as toptim
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
 
 
 @pytest.mark.parametrize("kind", ["nf4", "int8"])

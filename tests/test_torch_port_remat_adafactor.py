@@ -39,6 +39,13 @@ from gke_ray_train_tpu_torch.train import (
     warmup_cosine_schedule)
 from gke_ray_train_tpu_torch.train.optim import factored_dims
 from gke_ray_train_tpu_torch.train.step import token_nll
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 V, S, B = 256, 64, 2
 

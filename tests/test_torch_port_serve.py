@@ -28,6 +28,13 @@ from gke_ray_train_tpu_torch.models import kvcache as tkv
 from gke_ray_train_tpu_torch.plan import ExecutionPlan
 from gke_ray_train_tpu_torch.serve import (
     BatchEngine, Request, form_prompt_buffer)
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 EOS = 5
 V = 97

@@ -40,6 +40,12 @@ from gke_ray_train_tpu_torch.train import LoraConfig, init_lora
 from tests import _torch_multirank as mr
 from tests import _torch_serve_mesh as sm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 V, L, MAX_NEW = 256, 256, 16
 PLEN = (40, 97)
 TOL = 1e-5                      # logits: ranks against one process, JAX

@@ -38,6 +38,12 @@ from tests.test_torch_port_serve_mesh import (
     FT_INFER, MAX_NEW, PLEN, _cfgs as _cfgs2,
     _engine_job, _jax_mesh_run, _jax_params, _prompt)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 TOL = 1e-5
 # the 4-layer models of this file
 LAYERS = 4

@@ -55,6 +55,13 @@ from gke_ray_train_tpu_torch.plan import ExecutionPlan, PlanError
 from gke_ray_train_tpu_torch.serve import (
     AdapterPool, AdapterPoolPinned, BatchEngine, Request,
     adapter_from_checkpoint, form_prompt_buffer, post_train_smoke)
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 EOS = 5
 V = 97

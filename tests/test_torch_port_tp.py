@@ -49,6 +49,12 @@ from gke_ray_train_tpu_torch.plan import PlanError, model_findings
 from tests import _torch_multirank as mr
 from tests import _torch_tp as tp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
+
 V, S, B, ACCUM, STEPS = 256, 64, 8, 2, 3
 LR, TOTAL, GROUP = 1e-3, 10, 32
 PORT_RTOL, PORT_ATOL = 1e-6, 1e-6       # ranks against one process

@@ -38,6 +38,13 @@ from gke_ray_train_tpu_torch.train import (
     LoraConfig, make_eval_step, make_optimizer, make_train_state,
     make_train_step, merge_lora, warmup_cosine_schedule)
 from gke_ray_train_tpu_torch.train.step import token_nll, trainable_tensors
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 STREAM_RTOL = 1e-5
 PARAM_ATOL = 2e-6
@@ -275,7 +282,10 @@ def test_trainable_names_drive_the_decay_mask():
 
 
 def test_train_step_refuses_what_is_not_ported():
-    """Manual overlap still raises; a mesh must be a DeviceMesh, and
+    """Manual overlap without a mesh raises ``ManualOverlapUnsupported``
+    in JAX's words (it was ``NotImplementedError`` until the manual path
+    was ported, ``tests/test_torch_port_overlap.py``); a mesh must be a
+    DeviceMesh, and
     every layout a mesh can carry is ported (context and pipe came with
     their ports, pipe over model with the next: its double passes the
     mesh check; multi-slice raises at ``MeshConfig``);
@@ -284,8 +294,14 @@ def test_train_step_refuses_what_is_not_ported():
     from gke_ray_train_tpu_torch.train.step import _check_mesh
     _, tc = _cfgs()
     spec = make_optimizer(0.1)
-    with pytest.raises(NotImplementedError, match="OVERLAP"):
+    from gke_ray_train_tpu.train.overlap import check_manual_support
+    from gke_ray_train_tpu_torch.train.overlap import (
+        ManualOverlapUnsupported)
+    with pytest.raises(ValueError) as jax_err:
+        check_manual_support(None, None)
+    with pytest.raises(ManualOverlapUnsupported) as err:
         make_train_step(tc, spec, device="cpu", overlap="manual")
+    assert str(err.value) == str(jax_err.value)
     with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(tc, spec, device="cpu", mesh=object())
 

@@ -23,6 +23,13 @@ from gke_ray_train_tpu_torch.models import config as tcfg
 from gke_ray_train_tpu_torch.models import transformer as ttr
 from gke_ray_train_tpu_torch.models.qinit import init_quantized_params
 from gke_ray_train_tpu_torch.ops import quant as tquant
+from tests import _torch_multirank as mr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    yield from mr.one_torch_thread()
+
 
 SHAPES = {"matrix": (128, 64), "bank": (4, 128, 64)}
 
