@@ -161,7 +161,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              AdamW (p50, the optimizer state's bytes), both of these steps
              under TRANSFER_GUARD=disallow.
 11e. train_tp — tensor parallelism on one card: the train_mesh job at
-             full width cut to 4 layers, in this process, then as two
+             full width cut to 2 layers, in this process, then as two
              ranks of this card over gloo at model 2 x fsdp 1 (gloo's
              collectives on the card's tensors probed first; where one
              the path makes is missing the line says so and the phase
@@ -398,6 +398,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
              all-gather and reduce-scatter ms and the part of it no
              compute kernel ran beside; off and manual once more with
              deterministic algorithms off.
+22e. train_hier — multi-slice training on one card: four gloo ranks of
+             this card (``--hier-worker``) at data 2 x fsdp 2 over two
+             emulated slices, each running the pre-train entry's worker
+             through ``TorchTrainer.fit()`` at full width cut to 2 of 24
+             layers, OVERLAP=manual, FUSED_OPS=1, bf16 over fp32
+             parameters, 1 + 1 steps under DCN_SYNC flat, hier and hier +
+             DCN_COMPRESS=bf16: hier's losses and grad norms bitwise
+             flat's, bf16's within 1e-2 of hier's and not bitwise; rows
+             1-8 launched as the pre-train step does; the cross-slice
+             bytes a step (the manual path's tally) as reckoned from the
+             shapes, hier's at most (1/2 + 0.01) of flat's. Each arm's
+             step p50, peak and bytes a rank.
+22f. train_hier_multi (opt-in) — the four-card host (fewer fails),
+             NCCL, two slices of two cards at data 2 x fsdp 2: (a) the
+             fine-tune job's full fine-tuning of Llama-3.1-8B at full
+             depth (``--hier-multi-worker``; fp32 parameters, bf16
+             compute, OPTIM=adafactor, FUSED_OPS=1, 8 rows a step), the
+             arms alternated, 1 + 3 steps a run: hier bitwise flat, bf16
+             within 1e-2 of hier, the cross-slice bytes as reckoned; each
+             arm's step p50 and spread, tokens/s and peak a card; (b) the
+             slice_evict drill through the pre-train entry
+             (``--hier-drill-worker``, fp32, 2 layers, DCN_SYNC=hier):
+             slice 1 evicted at step 2, a shrink to 2 cards recorded, the
+             next attempt on one slice under the downgraded flat plan,
+             its losses within 1e-5 of an uninterrupted run's. No number
+             of either is a cross-node time.
 
 The second-to-last line is the ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -4033,13 +4059,14 @@ def phase_train_mesh_multi(dev):
 # the tensor-parallel slice: the model axis (DTensor), HSDP, the 70B layout
 # ---------------------------------------------------------------------------
 
-# train_tp: the train_mesh job cut to 4 layers, as two ranks of one card
+# train_tp: the train_mesh job cut to 2 layers (4 until train_hier came),
+# as two ranks of one card
 # at model 2 x fsdp 1 over gloo (NCCL takes one rank a card); its bf16
 # streams against one process within MESH_MULTI_RTOL (the bound of bf16
 # runs whose sums are cut across ranks: each rank's partial products are
 # rounded to bf16 before they are summed), and the same job in fp32 (TF32
 # off) at TP_PARITY_LAYERS layers within MESH_LOSS_RTOL
-TP_LAYERS = 4
+TP_LAYERS = 2
 TP_PARITY_LAYERS = 2
 # 1 + 1 steps a run (train_mesh's 1 + 3 cut to 1 + 2 for the pipeline
 # phase's time, to 1 + 1 for train_overlap's); the fp32 run 1 + 1 (cut for
@@ -5824,7 +5851,8 @@ def phase_train_ep_multi(dev):
 # (tensor parallelism inside each stage: 16 of 32 query heads and half
 # the vocab a rank), the fp32 run within MESH_LOSS_RTOL of both (the
 # row-parallel sums add in another order, as in train_tp)
-PP_LAYERS = 4
+# the bf16 job's depth: 2 layers, one a stage (4 until train_hier came)
+PP_LAYERS = 2
 PP_PARITY_LAYERS = 2
 PP_PIPE = 2
 PP_TP_MODEL = 2
@@ -5987,7 +6015,7 @@ def phase_train_pp(dev):
     (Llama-3.1-8B QLoRA, NF4, LoRA r 64, dropout 0, FUSED_OPS=1, the
     offline SQL rows) at full width cut to ``PP_LAYERS`` layers, first in
     this process, then as two ranks of this card at pipe 2 over gloo
-    (``_pp_worker``; each rank holds 2 of the 4 layers, the activations
+    (``_pp_worker``; each rank holds 1 of the 2 layers, the activations
     between them staged through host memory). Both ranks' losses and
     grad_norms of 1 + 2 steps within MESH_MULTI_RTOL of this process's;
     per step a rank's launches are its stage's (rows 1-3, 7 and 8 of
@@ -8756,7 +8784,7 @@ def _ov_bytes(cfg):
 
 
 def _ov_run(dev, cfg, mesh, mode, steps, rows=None, ft_over=None,
-            profile=False):
+            profile=False, optim="adamw", plan_over=None):
     """One mode's run of the slice's job on ``mesh`` (or one card):
     ``steps`` timed steps after a warm-up, the launch counts, the gather
     tally and the manual path's own tally set to 0 just before the timed
@@ -8764,12 +8792,14 @@ def _ov_run(dev, cfg, mesh, mode, steps, rows=None, ft_over=None,
     and no counts); ``rows`` (count, index) keeps this batch
     rank's rows ``index::count`` of every batch; ``ft_over``: job keys
     over ``OV_FT``; ``profile``: one more step under torch.profiler, its
-    NCCL collectives' ms (:func:`_exposed_collective_ms`)."""
+    NCCL collectives' ms (:func:`_exposed_collective_ms`); ``optim`` the
+    job's OPTIM; ``plan_over``: plan fields over ``OV_PLAN``."""
     from gke_ray_train_tpu_torch.train import overlap as tov
     t0 = time.perf_counter()
     job = _fine_tune_setup(dev, cfg, steps + 1 + profile, mesh=mesh,
                            ft_over=dict(OV_FT, **(ft_over or {})),
-                           transfer_guard=None, overlap=mode, **OV_PLAN)
+                           optim=optim, transfer_guard=None, overlap=mode,
+                           **dict(OV_PLAN, **(plan_over or {})))
     global_rows = job["batch_rows"]
     if rows is not None:
         job["batches"] = [{k: v[rows[1]::rows[0]] for k, v in b.items()}
@@ -9177,6 +9207,583 @@ def phase_train_overlap_multi(dev):
 
 
 # ---------------------------------------------------------------------------
+# phases 22e / 22f: multi-slice training (NUM_SLICES, DCN_SYNC, DCN_COMPRESS)
+# ---------------------------------------------------------------------------
+
+# train_hier: the pre-train entry (pretrain.py::job_config: basic_lm at full
+# width, 256-token rows, 16 a rank, bf16 over fp32 parameters) cut to this
+# many of its 24 layers, four gloo ranks of one card at data 2 x fsdp 2 over
+# two emulated slices, OVERLAP=manual, FUSED_OPS=1, 1 + 1 steps an arm
+HIER_ARMS = {"flat": ("flat", "none"), "hier": ("hier", "none"),
+             "bf16": ("hier", "bf16")}
+HIER_MESH = {"MESH_DATA": 2, "MESH_FSDP": 2, "NUM_SLICES": 2}
+HIER_LAYERS = 2
+HIER_STEPS = 2
+HIER_RANKS = 4
+HIER_TIMEOUT_S = 480
+# train_hier_multi: (a) the fine-tune job as full fine-tuning of
+# Llama-3.1-8B at full depth, fp32 parameters and bf16 compute, Adafactor,
+# FUSED_OPS=1, 8 rows a step (2 a batch rank), 1 + 3 steps a run, the arms
+# alternated; (b) the slice_evict drill through the pre-train entry at
+# HIER_DRILL_LAYERS in fp32 (TF32 off), a save every 2 steps
+HIER_MULTI_FT = {"PER_DEVICE_TRAIN_BATCH_SIZE": 8}
+HIER_MULTI_LAYERS = 32
+HIER_MULTI_STEPS = 3
+HIER_MULTI_TIMEOUT_S = 1200
+HIER_DRILL_LAYERS = 2
+HIER_DRILL_STEPS = 8
+HIER_DRILL_SPEC = "kind=slice_evict:step=2"
+HIER_DRILL_TIMEOUT_S = 420
+HIER_DRILL_RTOL = 1e-5
+
+
+def _hier_reckoned(cfg, arm, data=2, fsdp=2, grad_accum=1):
+    """The cross-slice bytes one rank sends in a step, from the leaf
+    shapes (each block's projections and two norms, the root's embedding,
+    final norm and head) through ``leaf_payload_split``: the full payload
+    (``flat``), the fsdp-scattered one (``hier``), and under ``bf16`` each
+    microbatch's fsdp shard in bf16; the parameter dtype's bytes else."""
+    import torch
+    from gke_ray_train_tpu_torch.models.transformer import proj_shapes
+    from gke_ray_train_tpu_torch.parallel.hierarchical import (
+        SliceTopology, leaf_payload_split)
+    shapes = (list(proj_shapes(cfg).values()) + [(cfg.d_model,)] * 2) \
+        * cfg.n_layers + [(cfg.vocab_size, cfg.d_model), (cfg.d_model,)]
+    if not cfg.tie_embeddings:
+        shapes.append((cfg.d_model, cfg.vocab_size))
+    es = torch.finfo(getattr(torch, cfg.param_dtype)).bits // 8
+    flat, hier = leaf_payload_split(shapes, SliceTopology(2, data, fsdp))
+    if arm == "flat":
+        return es * flat
+    if arm == "hier":
+        return es * hier
+    return grad_accum * 2 * sum(math.prod(s) // fsdp for s in shapes)
+
+
+def _hier_run(dev, root, arm):
+    """One arm of train_hier on this rank: ``pretrain.train_loop_per_worker``
+    through ``TorchTrainer.fit()`` (the local path) on the job cut to
+    ``HIER_LAYERS`` and ``HIER_STEPS`` steps at ``HIER_MESH``, with the
+    launch counts and the manual path's tally at 0 just before the last
+    step and read after it; each step's time between synchronizes, loss and
+    grad norm. The run's checkpoint is removed after."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch import pretrain
+    from gke_ray_train_tpu_torch.rayint import RunConfig, TorchTrainer
+    from gke_ray_train_tpu_torch.train import overlap as tov
+    sync, compress = HIER_ARMS[arm]
+    config = _pretrain_config(root, n_layers=HIER_LAYERS, OVERLAP="manual",
+                              DCN_SYNC=sync, DCN_COMPRESS=compress,
+                              run_name=f"hier_{arm}", **HIER_MESH)
+    config["max_samples"] = HIER_STEPS * config["batch_size_per_device"] \
+        * dist.get_world_size()
+    rec = {"losses": [], "grad_norms": [], "step_s": []}
+    orig = pretrain.make_train_step
+
+    def make_train_step(cfg, *a, **kw):
+        step = orig(cfg, *a, **kw)
+        plan = kw["plan"]
+        rec.update(cfg=cfg, plan=[plan.num_slices, plan.dcn_sync,
+                                  plan.dcn_compress])
+
+        def timed(state, batch):
+            if len(rec["step_s"]) == HIER_STEPS - 1:
+                _reset_launch_counts()
+                tov.reset_counts()
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize(dev)
+            rec["step_s"].append(time.perf_counter() - t)
+            rec["losses"].append(float(m["loss"]))
+            rec["grad_norms"].append(float(m["grad_norm"]))
+            return state, m
+        return timed
+    pretrain.make_train_step = make_train_step
+    _release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        result = TorchTrainer(
+            functools.partial(pretrain.train_loop_per_worker, device=dev),
+            train_loop_config=config,
+            run_config=RunConfig(name=f"hier-{arm}", retry_backoff_s=0.0),
+            use_ray=False).fit()
+    finally:
+        pretrain.make_train_step = orig
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts, launches = dict(tov.COUNTS), _launch_counts()
+    dist.barrier()
+    if dist.get_rank() == 0:
+        shutil.rmtree(os.path.join(config["storage_path"],
+                                   config["run_name"]), ignore_errors=True)
+    cfg = rec.pop("cfg", None)
+    out = dict(rec, arm=arm, status=result.status, error=result.error,
+               attempts=result.attempts, wall_s=wall, peak_mem_bytes=peak,
+               step_s_p50=(sorted(rec["step_s"][1:])[
+                   (len(rec["step_s"]) - 1) // 2]
+                   if len(rec["step_s"]) > 1 else None),
+               cross_bytes_per_step=counts["cross_bytes"],
+               cross_reductions_per_step=counts["cross_reductions"],
+               launches_per_step=launches)
+    if cfg is not None:
+        out.update(reckoned_bytes_per_step=_hier_reckoned(cfg, arm),
+                   want_launches=expected_launches(cfg, 1, True,
+                                                   full_ft=True),
+                   params=cfg.param_count(), vocab=cfg.vocab_size,
+                   n_layers=cfg.n_layers, d_model=cfg.d_model,
+                   tokens=config["dataset_seq_len"]
+                   * config["batch_size_per_device"] * dist.get_world_size())
+    _release()
+    return out
+
+
+def _hier_worker(out_path):
+    """One of train_hier's four ranks on the one card (env: RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT): a gloo group with the card's
+    tensors (CUDA tensors staged through page-locked host memory), which
+    the entry's ``distributed_init`` is pointed at (it gives NCCL on a
+    card), deterministic algorithms on (the embedding's backward), so two
+    arms that sum alike compute bit for bit. Each of ``HIER_ARMS``
+    (``_hier_run``) in the directory of ``out_path``."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch import pretrain
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method="env://")
+    rank = dist.get_rank()
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "device_name": torch.cuda.get_device_name(dev), "runs": {},
+           "since_start_s": time.perf_counter() - _T0}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    orig = pretrain.distributed_init
+    pretrain.distributed_init = lambda device=None, **kw: dev
+    prev_fused = os.environ.get("FUSED_OPS")
+    os.environ["FUSED_OPS"] = "1"
+    try:
+        for arm in HIER_ARMS:
+            rec["runs"][arm] = _hier_run(dev, os.path.dirname(out_path), arm)
+    finally:
+        pretrain.distributed_init = orig
+        if prev_fused is None:
+            os.environ.pop("FUSED_OPS", None)
+        else:
+            os.environ["FUSED_OPS"] = prev_fused
+        torch.use_deterministic_algorithms(False)
+        rec["done_s"] = time.perf_counter() - _T0
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _hier_hold(name, runs, problems, rtol=MESH_MULTI_RTOL):
+    """One rank's arms: each trained its steps to finite numbers on the
+    plan it asked for; ``hier``'s losses and grad norms are ``flat``'s bit
+    for bit, ``bf16``'s are not ``hier``'s bit for bit and within
+    ``rtol`` of them; every arm launches rows 1-8 as the full-training
+    step does; the cross-slice bytes of a step are those reckoned from the
+    shapes, ``hier``'s at most (1/2 + 0.01) of ``flat``'s. Returns bf16's
+    relative gaps to hier."""
+    for arm, run in runs.items():
+        sync, compress = HIER_ARMS[arm]
+        if run["status"] != "ok" or len(run["losses"]) != HIER_STEPS or \
+                not all(np.isfinite(run["losses"] + run["grad_norms"])):
+            problems.append(f"{name} {arm}: {run['status']} "
+                            f"{run['error']}, losses {run['losses']}")
+            return None
+        if run["plan"] != [2, sync, compress]:
+            problems.append(f"{name} {arm}: ran the plan {run['plan']}")
+        if run["launches_per_step"] != run["want_launches"]:
+            problems.append(f"{name} {arm}: launches per step "
+                            f"{run['launches_per_step']} != "
+                            f"{run['want_launches']}")
+        if run["cross_bytes_per_step"] != run["reckoned_bytes_per_step"]:
+            problems.append(f"{name} {arm}: {run['cross_bytes_per_step']} "
+                            "cross-slice bytes a step, reckoned "
+                            f"{run['reckoned_bytes_per_step']}")
+    flat, hier, bf16 = runs["flat"], runs["hier"], runs["bf16"]
+    for key in ("losses", "grad_norms"):
+        if hier[key] != flat[key]:
+            problems.append(f"{name}: hier {key} {hier[key]} are not "
+                            f"flat's {flat[key]} bit for bit")
+    if (bf16["losses"], bf16["grad_norms"]) == (hier["losses"],
+                                                hier["grad_norms"]):
+        problems.append(f"{name}: bf16 is hier bit for bit (nothing "
+                        "compressed)")
+    gaps = _hold_streams(f"{name} bf16", bf16, hier, rtol, problems)
+    if hier["cross_bytes_per_step"] > (0.5 + 0.01) * \
+            flat["cross_bytes_per_step"]:
+        problems.append(f"{name}: hier sends {hier['cross_bytes_per_step']}"
+                        f" B a step, over half of flat's "
+                        f"{flat['cross_bytes_per_step']}")
+    return gaps
+
+
+def _hier_summary(runs):
+    return {arm: {k: run.get(k) for k in (
+        "step_s_p50", "step_s", "peak_mem_bytes", "cross_bytes_per_step",
+        "reckoned_bytes_per_step", "cross_reductions_per_step", "losses",
+        "grad_norms", "wall_s")} for arm, run in runs.items()}
+
+
+def phase_train_hier(dev):
+    """Multi-slice training on the one-card host: four gloo ranks of this
+    card (``--hier-worker``) at data 2 x fsdp 2 over two emulated slices
+    (ranks {0, 1} and {2, 3}; the intra-slice width 2), each running
+    ``pretrain.py::train_loop_per_worker`` through ``TorchTrainer.fit()``
+    on the pre-train job at full width cut to ``HIER_LAYERS`` layers,
+    OVERLAP=manual, FUSED_OPS=1, bf16 over fp32 parameters, 1 + 1 steps
+    under DCN_SYNC flat, hier and hier + DCN_COMPRESS=bf16. Gates per
+    rank (``_hier_hold``): hier bit for bit flat; bf16 not bit for bit
+    hier and within MESH_MULTI_RTOL; rows 1-8 launched as the pre-train
+    step does; the cross-slice bytes a step as reckoned from the shapes,
+    hier at most (1/2 + 0.01) of flat. The line prints each arm's step
+    p50, peak and bytes. The slices are emulated on one card: no number
+    here is a cross-node time."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_hier_")
+    try:
+        hung, rcs, ranks = _spawn_ranks(
+            "--hier-worker", os.path.join(root, "rank"), HIER_RANKS,
+            [0] * HIER_RANKS, HIER_TIMEOUT_S)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    problems = []
+    line = {"phase": "train_hier", "nvidia_smi": nvidia_smi_line(),
+            "model": "basic_lm", "mesh": {"data": 2, "fsdp": 2,
+                                          "num_slices": 2},
+            "backend": "gloo", "ranks_on_one_card": HIER_RANKS,
+            "slices": "emulated on one card; no cross-node time",
+            "cut": f"{HIER_LAYERS} of 24 layers, 1 + {HIER_STEPS - 1} "
+                   "steps an arm"}
+    launches = None
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    else:
+        gaps = {r["rank"]: _hier_hold(f"rank {r['rank']}", r["runs"],
+                                      problems) for r in ranks}
+        first = ranks[0]["runs"]["flat"]
+        line.update(
+            bf16_rel_gaps=gaps, tol_rel=MESH_MULTI_RTOL,
+            params=first.get("params"), vocab=first.get("vocab"),
+            d_model=first.get("d_model"), tokens_per_step=first.get("tokens"),
+            arms={r["rank"]: _hier_summary(r["runs"]) for r in ranks},
+            launches_per_step={r["rank"]: {
+                a: run["launches_per_step"] for a, run in r["runs"].items()}
+                for r in ranks},
+            rank_start_s=[r["since_start_s"] for r in ranks],
+            rank_done_s=[r["done_s"] for r in ranks])
+        launches = {}
+        for r in ranks:
+            for run in r["runs"].values():
+                for k, v in run["launches_per_step"].items():
+                    launches[k] = launches.get(k, 0) + v
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_hier phase failed: " + "; ".join(problems))
+    return launches
+
+
+def _hier_multi_worker(out_path):
+    """One rank of train_hier_multi's part (a) (NCCL, one card a rank) at
+    data 2 x fsdp 2 over two slices: the fine-tune job's full fine-tuning
+    of Llama-3.1-8B at ``HIER_MULTI_LAYERS`` layers, fp32 parameters,
+    Adafactor, under each arm, alternated (flat, hier, bf16, bf16, hier,
+    flat), deterministic algorithms on."""
+    import torch
+    import torch.distributed as dist
+    from gke_ray_train_tpu_torch.parallel import (
+        MeshConfig, build_mesh, distributed_init)
+    from gke_ray_train_tpu_torch.parallel.placement import (
+        input_shard_layout)
+    dev = distributed_init()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    rec = {"rank": rank, "world": world,
+           "device_name": torch.cuda.get_device_name(dev), "runs": {}}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        mesh = build_mesh(MeshConfig(data=2, fsdp=2, num_slices=2))
+        rows = input_shard_layout(mesh)
+        cfg = _llama_cfg(FINE_TUNE_CONFIG, HIER_MULTI_LAYERS, "bfloat16",
+                         "float32")
+        for arm in tuple(HIER_ARMS) + tuple(reversed(HIER_ARMS)):
+            sync, compress = HIER_ARMS[arm]
+            r, launches = _ov_run(
+                dev, cfg, mesh, "manual", HIER_MULTI_STEPS, rows=rows,
+                ft_over=HIER_MULTI_FT, optim="adafactor",
+                plan_over={"num_slices": 2, "dcn_sync": sync,
+                           "dcn_compress": compress})
+            r["reckoned_cross_bytes"] = _hier_reckoned(cfg, arm)
+            rec["runs"].setdefault(arm, []).append(r)
+            rec["launches"] = launches
+    finally:
+        torch.use_deterministic_algorithms(False)
+        with open(out_path + f".{rank}", "w") as f:
+            json.dump(rec, f)
+        dist.barrier()
+        dist.destroy_process_group()
+
+
+def _hier_drill_worker(out_path):
+    """One rank of train_hier_multi's slice_evict drill, started with
+    torchrun's env (NCCL, one card a rank), on the job of
+    ``<out_path>.job.json``: {"config", "env" (set first), "elastic",
+    "max_preemptions", "worker_env"}. Without "worker_env" the pre-train
+    entry's worker through ``TorchTrainer.fit()``; with it one attempt as
+    the trainer's Ray path starts an elastic one (``_run_worker`` with the
+    pool notice). A save every 2 steps, TF32 off, deterministic algorithms
+    on. Writes ``<out_path>.<rank>``: the result, every step's loss (hex)
+    and the plan each step was built with."""
+    import torch
+    from gke_ray_train_tpu_torch import pretrain
+    from gke_ray_train_tpu_torch.rayint import (
+        FailureConfig, RunConfig, TorchTrainer)
+    from gke_ray_train_tpu_torch.rayint.trainer import _run_worker
+    with open(out_path + ".job.json") as f:
+        job = json.load(f)
+    os.environ.update(job.get("env", {}))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rec = dict(losses={}, step_s=[], calls=0, smoke=None)
+    orig = _pretrain_hooks(rec, sync=False, ckpt_every=2)
+    hooked = pretrain.make_train_step
+    plans = []
+
+    def make_train_step(*a, **kw):
+        p = kw["plan"]
+        plans.append([p.num_slices, p.dcn_sync, p.dcn_compress,
+                      p.fingerprint(), dataclasses.replace(
+                          p, dcn_sync="flat",
+                          dcn_compress="none").fingerprint()])
+        return hooked(*a, **kw)
+    pretrain.make_train_step = make_train_step
+    try:
+        with _tf32_off():
+            if "worker_env" in job:
+                got = _run_worker(pretrain.train_loop_per_worker,
+                                  job["config"], job["worker_env"])
+                res = {"status": "ok", "error": None, "attempts": 1,
+                       "log": [{"resumed_step": got["resumed_step"]}]}
+            else:
+                r = TorchTrainer(
+                    pretrain.train_loop_per_worker,
+                    train_loop_config=job["config"],
+                    run_config=RunConfig(
+                        elastic=job.get("elastic"), retry_backoff_s=0.0,
+                        failure_config=FailureConfig(
+                            max_failures=0,
+                            max_preemptions=job.get("max_preemptions", 8))),
+                    use_ray=False).fit()
+                res = {"status": r.status, "error": r.error,
+                       "attempts": r.attempts,
+                       "log": [{k: v for k, v in e.items()
+                                if k != "goodput"} for e in r.attempt_log]}
+    finally:
+        for name, fn in orig.items():
+            setattr(pretrain, name, fn)
+        torch.use_deterministic_algorithms(False)
+    rank = int(os.environ["RANK"])
+    with open(out_path + f".{rank}", "w") as f:
+        json.dump(dict(res, rank=rank, plans=plans,
+                       losses={s: float(v).hex()
+                               for s, v in sorted(rec["losses"].items())}),
+                  f)
+
+
+def _hier_drill(problems):
+    """train_hier_multi's part (b): the pre-train entry at data 2 x fsdp 2
+    over two slices, DCN_SYNC=hier, OVERLAP=manual, fp32, on four cards:
+    an uninterrupted run (U); a run under ``HIER_DRILL_SPEC`` (S), which
+    must record a shrink to a pool of 2 at step 2 and stop (no preemption
+    left); then its next attempt on two cards (R), started as the
+    trainer's Ray path starts an elastic one: one slice, the downgraded
+    flat plan (its fingerprint flat's), resumed from step 2, each later
+    loss within ``HIER_DRILL_RTOL`` of U's. Returns the line's fields."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_hier_drill_")
+    env = {"NUM_SLICES": "2", "DCN_SYNC": "hier", "OVERLAP": "manual",
+           "PREEMPT_SYNC_EVERY": "1", "PYTHONHASHSEED": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        def spawn(label, n, storage, **job):
+            config = _pretrain_config(root, n_layers=HIER_DRILL_LAYERS,
+                                      dtype="float32", OVERLAP="manual",
+                                      DCN_SYNC="hier",
+                                      storage_path=os.path.join(root,
+                                                                storage),
+                                      **HIER_MESH)
+            config["max_samples"] = HIER_DRILL_STEPS \
+                * config["batch_size_per_device"] * 4
+            path = os.path.join(root, label)
+            with open(path + ".job.json", "w") as f:
+                json.dump(dict(job, config=config), f)
+            t = time.perf_counter()
+            hung, rcs, ranks = _spawn_ranks("--hier-drill-worker", path, n,
+                                            list(range(n)),
+                                            HIER_DRILL_TIMEOUT_S)
+            out[label] = {"exit_codes": rcs, "hung": hung,
+                          "wall_s": time.perf_counter() - t,
+                          "ranks": ranks}
+            if hung or any(rcs) or None in ranks:
+                problems.append(f"drill {label}: hung {hung}, exit codes "
+                                f"{rcs}")
+                return None
+            return ranks
+        u = spawn("U", 4, "u")
+        s = spawn("S", 4, "s", env={"FAULT_SPEC": HIER_DRILL_SPEC},
+                  elastic=True, max_preemptions=0)
+        r = spawn("R", 2, "s", worker_env={
+            "ELASTIC": "1", "ELASTIC_N_DEVICES": "2",
+            "ELASTIC_FULL_POOL": "4"}) if s else None
+        if u and s and r:
+            for x in u:
+                if x["status"] != "ok" or {tuple(p[:2]) for p in x["plans"]} \
+                        != {(2, "hier")}:
+                    problems.append(f"drill U rank {x['rank']}: "
+                                    f"{x['status']} {x['plans']}")
+            for x in s:
+                log = x["log"][0] if x["log"] else {}
+                if (x["status"], x["attempts"], log.get("event"),
+                        log.get("pool"), log.get("step")) != (
+                        "preempted", 1, "shrink", 2, 2):
+                    problems.append(f"drill S rank {x['rank']}: "
+                                    f"{x['status']} {x['log']}")
+            gaps = []
+            for x in r:
+                plan = x["plans"][-1] if x["plans"] else None
+                if x["status"] != "ok" or x["log"][0]["resumed_step"] != 2 \
+                        or plan is None or plan[:3] != [1, "flat", "none"] \
+                        or plan[3] != plan[4]:
+                    problems.append(f"drill R rank {x['rank']}: "
+                                    f"{x['status']} {x['log']} {plan}")
+                want = {k: float.fromhex(v) for k, v in u[0]["losses"].items()}
+                got = {k: float.fromhex(v) for k, v in x["losses"].items()}
+                steps = [str(i) for i in range(3, HIER_DRILL_STEPS + 1)]
+                if sorted(got, key=int) != steps:
+                    problems.append(f"drill R rank {x['rank']}: steps "
+                                    f"{sorted(got, key=int)}")
+                    continue
+                g = [abs(got[k] - want[k]) / abs(want[k]) for k in steps]
+                gaps.append(max(g))
+                if max(g) > HIER_DRILL_RTOL:
+                    problems.append(f"drill R rank {x['rank']}: losses "
+                                    f"{got} against U's {want}")
+            out["resume_max_rel_gap"] = max(gaps) if gaps else None
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(root, ignore_errors=True)
+    for label in ("U", "S", "R"):
+        if label in out:
+            out[label]["ranks"] = [
+                {k: x[k] for k in ("rank", "status", "attempts", "log",
+                                   "plans", "losses")} if x else None
+                for x in out[label]["ranks"]]
+    return out
+
+
+def phase_train_hier_multi(dev):
+    """Multi-slice training on the four-card host (fewer fails), NCCL, one
+    rank a card, data 2 x fsdp 2 over two slices of two cards: (a) the
+    fine-tune job's full fine-tuning of Llama-3.1-8B at full depth
+    (``--hier-multi-worker``), the arms alternated, 1 + 3 steps a run:
+    hier bit for bit flat, bf16 within MESH_MULTI_RTOL of hier and not bit
+    for bit, the cross-slice bytes a step as reckoned, rows 1-8 launched
+    as the full fine-tuning step does; each arm's step p50 and spread,
+    tokens/s and peak a card; (b) the slice_evict drill (``_hier_drill``).
+    The slices are cards of one node: no number here is a cross-node
+    time."""
+    import tempfile
+    import torch
+    n = torch.cuda.device_count()
+    if n < 4:
+        raise SystemExit(f"train_hier_multi needs 4 cards, this host has "
+                         f"{n}")
+    out = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_hier_multi_"),
+                       "rank")
+    hung, rcs, ranks = _spawn_ranks("--hier-multi-worker", out, 4,
+                                    list(range(4)), HIER_MULTI_TIMEOUT_S)
+    problems = []
+    line = {"phase": "train_hier_multi", "nvidia_smi": nvidia_smi_line(),
+            "model": "llama3-8b", "mesh": {"data": 2, "fsdp": 2,
+                                           "num_slices": 2},
+            "backend": "nccl", "cards": 4,
+            "slices": "two cards of one node each; no cross-node time",
+            "cut": f"{HIER_MULTI_LAYERS} layers, full fine-tuning, fp32 "
+                   f"parameters, bf16 compute, adafactor, 1 + "
+                   f"{HIER_MULTI_STEPS} steps a run, arms alternated"}
+    launches = None
+    if hung or any(rcs) or None in ranks:
+        problems.append(f"ranks hung {hung}, exit codes {rcs}")
+        line["ranks"] = ranks
+    else:
+        arms = {}
+        for r in ranks:
+            name = f"rank {r['rank']}"
+            runs = r["runs"]
+            first = {arm: rs[0] for arm, rs in runs.items()}
+            for key in ("losses", "grad_norms"):
+                if first["hier"][key] != first["flat"][key]:
+                    problems.append(f"{name}: hier {key} "
+                                    f"{first['hier'][key]} are not flat's "
+                                    f"{first['flat'][key]} bit for bit")
+            if first["bf16"]["grad_norms"] == first["hier"]["grad_norms"]:
+                problems.append(f"{name}: bf16 is hier bit for bit")
+            gaps = _hold_streams(f"{name} bf16", first["bf16"],
+                                 first["hier"], MESH_MULTI_RTOL, problems)
+            summary = {}
+            for arm, rs in runs.items():
+                steps = [t for x in rs for t in x["step_s"]]
+                p50 = sorted(steps)[len(steps) // 2]
+                for x in rs:
+                    if x["launches_per_step"] != x["want_launches"]:
+                        problems.append(f"{name} {arm}: launches "
+                                        f"{x['launches_per_step']} != "
+                                        f"{x['want_launches']}")
+                    got = x["manual_counts"]["cross_bytes"]
+                    if got != x["reckoned_cross_bytes"]:
+                        problems.append(f"{name} {arm}: {got} cross-slice "
+                                        "bytes a step, reckoned "
+                                        f"{x['reckoned_cross_bytes']}")
+                summary[arm] = {
+                    "step_s": steps, "step_s_p50": p50,
+                    "step_s_spread": max(steps) - min(steps),
+                    "tokens_per_s_per_card": rs[0]["tokens"] / p50 / 4,
+                    "peak_mem_bytes": max(x["peak_mem_bytes"] for x in rs),
+                    "cross_bytes_per_step":
+                        rs[0]["manual_counts"]["cross_bytes"],
+                    "reckoned_cross_bytes": rs[0]["reckoned_cross_bytes"],
+                    "losses": [x["losses"] for x in rs],
+                    "grad_norms": [x["grad_norms"] for x in rs]}
+            arms[r["rank"]] = {"arms": summary, "bf16_rel_gaps": gaps}
+        line.update(per_rank=arms, tol_rel=MESH_MULTI_RTOL)
+        launches = {}
+        for r in ranks:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    line["drill"] = _hier_drill(problems)
+    line.update(ok=not problems, problems=problems)
+    emit(line)
+    if problems:
+        raise SystemExit("train_hier_multi phase failed: "
+                         + "; ".join(problems))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "serve_tenants", "serve_tenants_parity", "train", "train_parity", "train_fused", "train_fused_parity",
@@ -9189,13 +9796,14 @@ PHASES = ("device", "build", "kernels", "kernelcheck", "serve", "parity",
           "pretrain_multi", "train_cp_multi", "serve_mesh",
           "serve_mesh_multi", "train_ep", "train_ep_multi", "train_pp",
           "train_pp_multi", "train_pp_moe_multi", "train_overlap",
-          "train_overlap_multi")
+          "train_overlap_multi", "train_hier", "train_hier_multi")
 # run only when asked for
 OPT_IN_PHASES = ("profile", "train_fused_profile", "train_fused_ce_profile",
                  "train_moe_profile", "entry_full", "train_mesh_multi",
                  "train_tp_multi", "pretrain_multi", "train_cp_multi",
                  "serve_mesh_multi", "train_ep_multi", "train_pp_multi",
-                 "train_pp_moe_multi", "train_overlap_multi")
+                 "train_pp_moe_multi", "train_overlap_multi",
+                 "train_hier_multi")
 DEFAULT_PHASES = tuple(p for p in PHASES if p not in OPT_IN_PHASES)
 
 KERNEL_SOURCES = {
@@ -9312,6 +9920,11 @@ def main(argv=None) -> int:
     ap.add_argument("--ov-worker", metavar="OUT", help=argparse.SUPPRESS)
     ap.add_argument("--ov-multi-worker", metavar="OUT",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--hier-worker", metavar="OUT", help=argparse.SUPPRESS)
+    ap.add_argument("--hier-multi-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--hier-drill-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     workers = {"mesh_worker": _mesh_worker, "tp_worker": _tp_worker,
                "tp_multi_worker": _tp_multi_worker, "cp_worker": _cp_worker,
@@ -9321,7 +9934,10 @@ def main(argv=None) -> int:
                "ep_worker": _ep_worker, "ep_multi_worker": _ep_multi_worker,
                "pp_worker": _pp_worker, "pp_multi_worker": _pp_multi_worker,
                "pp_moe_multi_worker": _pp_moe_multi_worker,
-               "ov_worker": _ov_worker, "ov_multi_worker": _ov_multi_worker}
+               "ov_worker": _ov_worker, "ov_multi_worker": _ov_multi_worker,
+               "hier_worker": _hier_worker,
+               "hier_multi_worker": _hier_multi_worker,
+               "hier_drill_worker": _hier_drill_worker}
     if args.entry_worker or args.pretrain_worker or \
             args.serve_entry_worker or any(getattr(args, k) for k in workers):
         # one rank of a multi-process phase, spawned by that phase
@@ -9406,6 +10022,7 @@ def main(argv=None) -> int:
     add(run("train_ep", phase_train_ep))
     add(run("train_pp", phase_train_pp))
     add(run("train_overlap", phase_train_overlap))
+    add(run("train_hier", phase_train_hier))
     run("train_profile", phase_train_profile)
     add(run("entry", phase_entry))
     add(run("train_moe", phase_train_moe))
@@ -9428,6 +10045,7 @@ def main(argv=None) -> int:
     add(run("train_pp_multi", phase_train_pp_multi))
     add(run("train_pp_moe_multi", phase_train_pp_moe_multi))
     add(run("train_overlap_multi", phase_train_overlap_multi))
+    add(run("train_hier_multi", phase_train_hier_multi))
     emit({"phase": "seconds", "ok": True, "seconds": seconds})
     idle = sorted(name for name, n in launches.items() if n == 0)
     if idle:

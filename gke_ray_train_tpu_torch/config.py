@@ -9,12 +9,14 @@ on a TPU mesh (:data:`TPU_ONLY_KEYS`: mesh axes, topology, the compile
 cache and AOT sidecar, autotune) warn by name, because the port ignores
 them. ``OVERLAP`` is the port's: the plan reads it (``plan.py``; ``xla``
 is FSDP2's explicit prefetch, ``manual`` the hand-placed gathers of
-``train/overlap.py``). ``ELASTIC`` and ``MIN_DEVICES`` are the port's
-own (``rayint/elastic.py``). The mesh keys are the exception under a
-``torch.distributed`` world above one: there ``MESH_DATA`` /
-``MESH_FSDP`` shape the mesh (``rayint/elastic.py::maybe_replan``) and
-the axes not ported yet raise (``MeshConfig.check_ported``); on one card
-they warn and are ignored, as before.
+``train/overlap.py``), and so are ``DCN_SYNC`` and ``DCN_COMPRESS``
+(the cross-slice sums of ``manual``, ``parallel/hierarchical.py``),
+which the plan reads at any world. ``ELASTIC`` and ``MIN_DEVICES`` are
+the port's own (``rayint/elastic.py``). The mesh keys are the exception
+under a ``torch.distributed`` world above one: there ``MESH_DATA`` /
+``MESH_FSDP`` ... ``NUM_SLICES`` shape the mesh
+(``rayint/elastic.py::maybe_replan``, ``MeshConfig.check_ported``); on
+one card they warn and are ignored, as before.
 
 The learning-rate schedules are plain functions of the step count, equal
 to optax's at every step; the optimizers are the port's
@@ -98,7 +100,7 @@ KNOWN_KEYS = frozenset({
 TPU_ONLY_KEYS = frozenset({
     "COMPILE_CACHE", "COMPILE_CACHE_DIR", "AOT_TRAIN_STEP", "TOPOLOGY",
     "AUTOTUNE", "AUTOTUNE_INGEST", "AUTOTUNE_DIR",
-    "AUTOTUNE_BUDGET", "AUTOTUNE_DRIFT_BAND", "NUM_SLICES", "DCN_SYNC", "DCN_COMPRESS", "BUDGET_PRESET",
+    "AUTOTUNE_BUDGET", "AUTOTUNE_DRIFT_BAND", "NUM_SLICES", "BUDGET_PRESET",
 })
 TPU_ONLY_PREFIXES = ("MESH_", "PIPE_")
 # the mesh keys a world above one process reads (parallel/mesh.py), and

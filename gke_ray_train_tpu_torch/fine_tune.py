@@ -63,8 +63,12 @@ a stage; the export is written by the ranks that hold each layer, and
 ``manual`` trains through the hand-placed gathers of
 ``train/overlap.py`` and raises, before any weight is built, on a
 ``model`` / ``context`` / ``pipe`` axis above 1 (``PlanError``, the JAX
-plan's words), without a mesh, under LoRA or on an MoE model. Peer
-replication is not ported (ROADMAP queue 1 item 8).
+plan's words), without a mesh, under LoRA or on an MoE model.
+``NUM_SLICES`` splits ``data`` into slices (``parallel/mesh.py``; the
+plan's value, config over env), and ``DCN_SYNC`` / ``DCN_COMPRESS``
+pick how ``manual``'s gradients cross them (``parallel/hierarchical.py``);
+after an elastic shrink to one slice a ``hier`` plan runs ``flat``.
+Peer replication is not ported (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -185,16 +189,24 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     # the global batch kept (rayint/elastic.py)
     mesh_cfg = None
     if world > 1:
+        # the slices are the plan's NUM_SLICES (config over env)
         mesh_cfg, per_device = maybe_replan(
-            MeshConfig.from_dict(config), plan.per_device_batch,
-            world=world, config=config, log=logger)
+            dataclasses.replace(MeshConfig.from_dict(config),
+                                num_slices=plan.num_slices),
+            plan.per_device_batch, world=world, config=config, log=logger)
         mesh_cfg.check_ported()
         # OVERLAP=manual on a model, context or pipe axis raises here,
         # in the JAX plan's words
         plan.check_mesh(mesh_cfg, world)
-        plan = dataclasses.replace(plan, per_device_batch=per_device)
+        # the survivors' slices (a DCN_SYNC=hier plan left on one slice
+        # runs flat, with the plan's warning)
+        plan = dataclasses.replace(plan, per_device_batch=per_device,
+                                   num_slices=mesh_cfg.num_slices)
         # the attempt runs under the re-formed plan
         ctx.plan_fingerprint = plan.fingerprint()
+    elif plan.num_slices != 1:
+        # one process ignores the mesh keys (they warn)
+        plan = dataclasses.replace(plan, num_slices=1)
     mesh = build_mesh(mesh_cfg, device_type=dev.type) if world > 1 else None
     pipe = mesh_cfg.pipe if mesh_cfg is not None else 1
     smoke = bool(config.get("SMOKE_TEST", False))

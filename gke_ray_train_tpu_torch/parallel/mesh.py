@@ -22,6 +22,16 @@ axis        what is sharded over it
 ``pipe`` composes with every other axis: a stage's blocks are sharded
 over its own ``data``, ``fsdp``, ``model`` and ``context`` ranks.
 
+Slices (``num_slices`` above 1) split the ``data`` axis, and only it,
+into contiguous blocks: JAX's hybrid layout, ``data`` outermost, so a
+slice is a contiguous block of ranks, as a node's ranks are under
+torchrun. On GPUs a slice is a node (NVLink inside it, the network
+between nodes). :func:`build_mesh` makes the ``data`` axis's
+intra-slice and cross-slice process groups
+(``parallel/hierarchical.py`` sums over them) and keeps the slice count
+on the mesh (:func:`num_slices_of`); :func:`slice_assignments` is the
+one rank → slice contract.
+
 :func:`distributed_init` reads the rendezvous that torchrun and Ray Train
 set (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``); :func:`build_mesh` resolves a :class:`MeshConfig` over
@@ -53,15 +63,15 @@ MESH_AXES = (AXIS_DATA, AXIS_FSDP, AXIS_MODEL, AXIS_CONTEXT, AXIS_PIPE)
 BATCH_AXES = (AXIS_DATA, AXIS_FSDP)
 
 # the ROADMAP item that ports each axis the port cannot shard over yet
-# (every axis is ported; multi-slice meshes are not, ``check_ported``)
+# (every axis is ported)
 UNPORTED_AXES: dict = {}
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Logical mesh shape; any one axis may be -1 ("fill with what
-    remains"). ``num_slices`` counts DCN-joined slices in the JAX
-    package; a value above 1 raises here (ROADMAP queue 1 item 8)."""
+    remains"). ``num_slices`` counts the slices (nodes) the ``data``
+    axis spans; it must divide ``data``."""
 
     data: int = 1
     fsdp: int = -1
@@ -111,16 +121,18 @@ class MeshConfig:
         )
 
     def check_ported(self) -> "MeshConfig":
-        """Raise on a layout the port cannot run (more than one slice);
-        returns ``self``.
+        """Raise on a layout the port cannot run; returns ``self``. A
+        resolved ``data`` axis that ``num_slices`` does not divide raises
+        ``ValueError`` in the JAX package's words (its ``build_mesh``).
         Whether a model tiles ``model`` is checked where the mesh meets
         the model config (``plan.py::check_model_on_mesh``), whether it
         tiles ``pipe`` where the pipeline meets it
         (``models/pipeline.py::check_stages``)."""
-        if self.num_slices > 1:
-            raise NotImplementedError(
-                f"NUM_SLICES={self.num_slices}: multi-slice meshes are not "
-                "ported yet (ROADMAP queue 1 item 8)")
+        if self.num_slices > 1 and self.data != -1 and \
+                self.data % self.num_slices:
+            raise ValueError(
+                f"data axis ({self.data}) must be divisible by "
+                f"num_slices ({self.num_slices})")
         for axis, what in UNPORTED_AXES.items():
             size = getattr(self, axis)
             if size > 1:
@@ -204,7 +216,10 @@ def build_mesh(config: Optional[MeshConfig] = None, *,
     (default ``MeshConfig()``: all ranks on fsdp) resolved over the
     world size and checked (:meth:`MeshConfig.check_ported`). Needs an
     initialized process group; ``device_type`` defaults to the group's
-    (``cuda`` under NCCL, ``cpu`` under gloo)."""
+    (``cuda`` under NCCL, ``cpu`` under gloo). With ``num_slices``
+    above 1 every rank makes the slice groups of the ``data`` axis
+    (:func:`slice_groups`); ranks are data-major, so a slice is a
+    contiguous block of them."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     if not is_distributed():
@@ -214,13 +229,96 @@ def build_mesh(config: Optional[MeshConfig] = None, *,
     config.check_ported()
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, config.shape,
+    if config.num_slices > 1:
+        _check_slices_on_nodes(config, dist.get_world_size())
+    mesh = init_device_mesh(device_type, config.shape,
                             mesh_dim_names=MESH_AXES)
+    mesh._num_slices = config.num_slices
+    if config.num_slices > 1:
+        _make_slice_groups(mesh, config)
+    return mesh
+
+
+def _check_slices_on_nodes(config: MeshConfig, world: int) -> None:
+    """Where ``LOCAL_WORLD_SIZE`` shows more than one node, each slice
+    must be whole nodes (a slice's ranks are contiguous, as a node's are
+    under torchrun), else raise: a config error, as JAX's real-hardware
+    branch surfaces one. On one node the slices are emulated, with JAX's
+    warning."""
+    per_node = _env_int("LOCAL_WORLD_SIZE", 0)
+    if 0 < per_node < world:
+        per_slice = world // config.num_slices
+        if per_slice % per_node:
+            raise ValueError(
+                f"num_slices={config.num_slices} over {world} ranks gives "
+                f"slices of {per_slice} ranks, not a whole number of "
+                f"nodes of {per_node} (LOCAL_WORLD_SIZE): a slice must "
+                "be whole nodes")
+        return
+    logger.warning(
+        "devices report no slice_index (fake/CPU backend); emulating the "
+        "%d-slice hybrid mesh row-major", config.num_slices)
+
+
+def _make_slice_groups(mesh, config: MeshConfig) -> None:
+    """The ``data`` axis's groups within a slice (data indices ``s *
+    data_intra + j`` over ``j``) and across slices (over ``s``), for
+    every coordinate of the other axes: every rank makes every group, in
+    one order, and keeps its own two on the mesh (None for a group of
+    one)."""
+    import torch.distributed as dist
+    di = config.data // config.num_slices
+    me = dist.get_rank()
+    rows = mesh.mesh.movedim(MESH_AXES.index(AXIS_DATA), -1)
+    rows = rows.reshape(-1, config.data).tolist()
+    intra = cross = None
+    for row in rows:
+        for s in range(config.num_slices):
+            ranks = row[s * di:(s + 1) * di]
+            g = dist.new_group(ranks) if di > 1 else None
+            if me in ranks:
+                intra = g
+        for j in range(di):
+            ranks = row[j::di]
+            g = dist.new_group(ranks)
+            if me in ranks:
+                cross = g
+    mesh._slice_groups = (intra, cross)
+
+
+def num_slices_of(mesh) -> int:
+    """The slices ``mesh`` was built with (1 without a mesh)."""
+    return 1 if mesh is None else getattr(mesh, "_num_slices", 1)
+
+
+def slice_groups(mesh) -> tuple:
+    """(intra-slice, cross-slice) process groups of this rank's ``data``
+    peers on a mesh of more than one slice (the first None where a slice
+    holds one data index), else (None, None)."""
+    return getattr(mesh, "_slice_groups", (None, None))
+
+
+def slice_assignments(ranks, num_slices: Optional[int] = None) -> list:
+    """Slice identity per rank, the one ``slice_index`` contract (JAX's
+    ``parallel/mesh.py::slice_assignments``): contiguous blocks of
+    ``ranks`` form the slices, so rank ``i`` of ``n`` is on slice ``i //
+    (n // num_slices)``; a count that does not tile the ranks is one
+    domain. ``num_slices`` defaults to ``$NUM_SLICES`` (1 when unset).
+    Shrinking the pool truncates it: the last slice is the one lost."""
+    n = len(list(ranks))
+    ns = int(num_slices if num_slices is not None
+             else os.environ.get("NUM_SLICES", "1"))
+    if ns <= 1 or n == 0 or n % ns:
+        return [0] * n
+    per_slice = n // ns
+    return [i // per_slice for i in range(n)]
 
 
 def mesh_config_of(mesh) -> MeshConfig:
-    """The resolved ``MeshConfig`` of a mesh :func:`build_mesh` made."""
-    return MeshConfig(**{a: mesh.size(i) for i, a in enumerate(MESH_AXES)})
+    """The resolved ``MeshConfig`` of a mesh :func:`build_mesh` made,
+    its slice count included."""
+    return MeshConfig(num_slices=num_slices_of(mesh),
+                      **{a: mesh.size(i) for i, a in enumerate(MESH_AXES)})
 
 
 def batch_group_size(mesh) -> int:

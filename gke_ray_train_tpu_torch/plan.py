@@ -2,8 +2,8 @@
 part, ``grad_accum``, the input pipeline and the runtime guards of
 ``gke_ray_train_tpu/plan.py::ExecutionPlan``).
 
-Twenty knobs, read from the same environment / config keys as the JAX
-package: ``MAX_BATCH`` (slots of the continuous-batching engine),
+Twenty-one knobs, read from the same environment / config keys as the
+JAX package: ``MAX_BATCH`` (slots of the continuous-batching engine),
 ``DECODE_BUCKETS`` (request length buckets), ``PREFIX_CACHE``
 (whole-prompt prefill reuse), ``SERVE_QUANT`` (the served weights'
 encoding), ``MAX_ADAPTERS`` (tenant slots of the adapter pool),
@@ -20,9 +20,13 @@ gathers meet its compute: ``off``, ``xla`` FSDP2's explicit prefetch,
 ``parallel/sharding.py``, or ``manual`` the hand-placed double-buffered
 gathers of ``train/overlap.py``; :meth:`ExecutionPlan.check_mesh` refuses
 ``manual`` on a mesh with ``model``, ``context`` or ``pipe`` above 1, in
-the JAX plan's words), ``DCN_SYNC`` / ``DCN_COMPRESS`` (read so that
-their unported arms raise: the hierarchical cross-slice sums are ROADMAP
-queue 1 item 8's ``parallel/hierarchical.py``), ``PREFETCH_BATCHES``
+the JAX plan's words), ``NUM_SLICES`` (the slices the ``data`` axis
+spans, ``parallel/mesh.py``; the entries set it from the mesh they
+build) and ``DCN_SYNC`` / ``DCN_COMPRESS`` (the cross-slice gradient
+sums of ``manual``, ``parallel/hierarchical.py``, with JAX's rules: a
+``hier`` plan on one slice is downgraded to ``flat`` with a warning and
+fingerprints as ``flat``, ``hier`` needs ``manual`` and ``bf16`` needs
+``hier``), ``PREFETCH_BATCHES``
 (the loop's prefetch depth), ``TRANSFER_GUARD`` and
 ``DIVERGENCE_GUARD`` (the loop's runtime guards,
 ``analysis/guards.py``). The last three are operational: they
@@ -58,6 +62,7 @@ CONFIG_KEYS: Dict[str, str] = {
     "packing": "PACKING",
     "fused_ops": "FUSED_OPS",
     "overlap": "OVERLAP",
+    "num_slices": "NUM_SLICES",
     "dcn_sync": "DCN_SYNC",
     "dcn_compress": "DCN_COMPRESS",
     "prefetch": "PREFETCH_BATCHES",
@@ -72,8 +77,7 @@ SPEC_DRAFT_MODES = ("none", "self", "distilled")
 # how the train step's fsdp gathers meet its compute (JAX plan.py:69)
 OVERLAP_MODES = ("off", "xla", "manual")
 
-# the cross-slice gradient sums and their compression (JAX plan.py:73-74);
-# only the first arm of each runs in the port
+# the cross-slice gradient sums and their compression (JAX plan.py:73-74)
 DCN_SYNC_MODES = ("flat", "hier")
 DCN_COMPRESS_MODES = ("none", "bf16")
 
@@ -94,7 +98,8 @@ def _coerce(field: str, value: Any) -> Any:
     """One coercion for env strings, JSON values and python kwargs."""
     if field in ("max_batch", "per_device_batch", "grad_accum",
                  "max_seq_len", "prefetch", "max_adapters", "spec_k",
-                 "pipe_microbatches", "pipe_virtual_stages"):
+                 "pipe_microbatches", "pipe_virtual_stages",
+                 "num_slices"):
         try:
             return int(value)
         except (TypeError, ValueError):
@@ -187,8 +192,12 @@ class ExecutionPlan:
     # hand-placed double-buffered gathers of train/overlap.py, data /
     # fsdp meshes only: check_mesh)
     overlap: str = "off"
-    # the cross-slice gradient sums: read so that "hier" and "bf16"
-    # raise (ROADMAP queue 1 item 8, parallel/hierarchical.py)
+    # the slices the data axis spans (parallel/mesh.py) and, under
+    # "manual", how a gradient crosses them (parallel/hierarchical.py):
+    # "flat" the full payload, "hier" the intra-slice scattered shard;
+    # "bf16" casts the hier hop, with error feedback across the
+    # microbatches (not bit for bit)
+    num_slices: int = 1
     dcn_sync: str = "flat"
     dcn_compress: str = "none"
     # queue depth of the loop's asynchronous input pipeline
@@ -199,6 +208,8 @@ class ExecutionPlan:
     divergence_guard: bool = False
 
     def __post_init__(self):
+        if self.num_slices < 1:
+            raise PlanError(f"num_slices={self.num_slices} must be >= 1")
         if self.max_batch < 1:
             raise PlanError(f"max_batch={self.max_batch} must be >= 1")
         for field in ("per_device_batch", "grad_accum", "max_seq_len",
@@ -230,12 +241,32 @@ class ExecutionPlan:
         if self.dcn_compress not in DCN_COMPRESS_MODES:
             raise PlanError(f"dcn_compress={self.dcn_compress!r} not in "
                             f"{DCN_COMPRESS_MODES}")
-        if self.dcn_sync != "flat" or self.dcn_compress != "none":
-            raise NotImplementedError(
-                f"DCN_SYNC={self.dcn_sync} / DCN_COMPRESS="
-                f"{self.dcn_compress}: the hierarchical and compressed "
-                "cross-slice gradient sums are not ported yet (ROADMAP "
-                "queue 1 item 8, parallel/hierarchical.py)")
+        if self.dcn_sync == "hier" and self.num_slices <= 1:
+            # a loud no-op, not a refusal (JAX plan.py:339-358): an
+            # elastic replan that leaves one slice keeps its
+            # DCN_SYNC=hier env; the downgraded plan fingerprints as flat
+            import logging
+            log = logging.getLogger(__name__)
+            log.warning(
+                "DCN_SYNC=hier on a single-slice plan (num_slices=1) is "
+                "a no-op — downgrading to flat (no DCN hop to shrink)")
+            object.__setattr__(self, "dcn_sync", "flat")
+            if self.dcn_compress != "none":
+                log.warning(
+                    "DCN_COMPRESS=%s downgraded to none with it (it "
+                    "compresses the hier DCN hop)", self.dcn_compress)
+                object.__setattr__(self, "dcn_compress", "none")
+        if self.dcn_sync == "hier" and self.overlap != "manual":
+            raise PlanError(
+                "dcn_sync='hier' needs overlap='manual' — the "
+                "hierarchical reduction is hand-placed by the manual "
+                "pipeline (train/overlap.py); the off and xla paths' "
+                "gradient sums cannot be decomposed from outside")
+        if self.dcn_compress != "none" and self.dcn_sync != "hier":
+            raise PlanError(
+                f"dcn_compress={self.dcn_compress!r} compresses the "
+                "hier cross-slice hop; set DCN_SYNC=hier (compressing "
+                "a full-payload flat hop is not supported)")
 
     def check_mesh(self, mesh, n_devices: int) -> "ExecutionPlan":
         """Raise :class:`PlanError` where ``overlap`` cannot run on

@@ -33,12 +33,15 @@ rank of one node entering the engine, and warns and skips beyond one
 node, as JAX does. ``MESH_PIPE`` above 1 trains the pipeline
 (``models/pipeline.py``; ``PIPE_MICROBATCHES`` / ``PIPE_VIRTUAL_STAGES``
 from the config), and ``SERVE_AFTER_TRAIN`` there decodes across the
-stages (``models/kvcache.py``). ``OVERLAP`` (config or environment) is
-read as the fine-tune entry reads it (``train/overlap.py``).
+stages (``models/kvcache.py``). ``OVERLAP``, ``NUM_SLICES``,
+``DCN_SYNC`` and ``DCN_COMPRESS`` (config or environment) are read as
+the fine-tune entry reads them (``train/overlap.py``,
+``parallel/hierarchical.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import sys
@@ -86,7 +89,8 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     # shape, as in the JAX entry
     plan = ExecutionPlan.resolve(
         {k: config[k] for k in ("PIPE_MICROBATCHES", "PIPE_VIRTUAL_STAGES",
-                                "OVERLAP")
+                                "OVERLAP", "NUM_SLICES", "DCN_SYNC",
+                                "DCN_COMPRESS")
          if k in config},
         per_device_batch=int(config.get("batch_size_per_device", 16)),
         max_seq_len=seq_len,
@@ -95,13 +99,17 @@ def train_loop_per_worker(config: dict, *, device: DeviceLike = None):
     # the mesh of a world above one, re-formed on the survivors of an
     # elastic pool change (global batch kept)
     mesh_cfg, per_device_batch = maybe_replan(
-        MeshConfig.from_dict(config), plan.per_device_batch, world=world,
-        config=config, log=logger)
+        dataclasses.replace(MeshConfig.from_dict(config),
+                            num_slices=plan.num_slices if world > 1 else 1),
+        plan.per_device_batch, world=world, config=config, log=logger)
     mesh = None
     if world > 1:
         mesh_cfg.check_ported()
         plan.check_mesh(mesh_cfg, world)
         mesh = build_mesh(mesh_cfg, device_type=dev.type)
+    # the survivors' slices (a DCN_SYNC=hier plan left on one slice runs
+    # flat, with the plan's warning); one process ignores NUM_SLICES
+    plan = dataclasses.replace(plan, num_slices=mesh_cfg.num_slices)
     # the attempt ran under this plan, not the trainer's resolution of a
     # config without the plan keys
     ctx.plan_fingerprint = plan.fingerprint()

@@ -39,7 +39,11 @@ retry starts from the first attempt's footprint.
 Not ported, each raising ``NotImplementedError`` where the config or
 environment asks for it: the telemetry run and the autotune overlay
 (``OBS``, ``OBS_DIR``, ``OBS_CAPTURE``, ``TRACE``, ``AUTOTUNE``; ROADMAP
-queue 1 item 9). Slices (``NUM_SLICES``) are item 8. The XLA compile
+queue 1 item 9). With ``NUM_SLICES`` declared (config, else
+environment) the Ray path hands the supervisor the rank → slice map
+(``parallel/mesh.py::slice_assignments``), so a stall confined to one
+slice is reported, and classified on an elastic job, as that slice's
+loss: the survivors are the other slices' workers. The XLA compile
 cache and the AOT sidecar have no counterpart: the port runs eagerly and
 its kernels build once into ``_build/``.
 
@@ -363,6 +367,20 @@ class TorchTrainer:
         except Exception:  # noqa: BLE001 - the probe is best-effort
             return None
 
+    def _slice_map(self, n: int) -> Optional[Dict[int, int]]:
+        """Rank → slice of ``n`` workers through the one contract
+        function, ``NUM_SLICES`` from the config, else the environment
+        (JAX :604-620); None where that is one domain (no slice
+        identity to report)."""
+        from gke_ray_train_tpu_torch.parallel.mesh import slice_assignments
+        try:
+            num_slices = int(self.config.get(
+                "NUM_SLICES", os.environ.get("NUM_SLICES", "1")))
+        except (TypeError, ValueError):
+            num_slices = 1
+        assign = slice_assignments(range(n), num_slices)
+        return dict(enumerate(assign)) if len(set(assign)) > 1 else None
+
     # -- local ---------------------------------------------------------
     def _fit_local(self) -> tuple:
         """One in-process worker. Its rank and world are this process's
@@ -474,11 +492,14 @@ class TorchTrainer:
                 return _run_worker(fn, config, env, beat_fn=beat)
 
         hb_timeout = self.run_config.heartbeat_timeout_s
+        slice_map = self._slice_map(n)
         supervisor = None
         if hb_timeout:
             from gke_ray_train_tpu_torch.rayint.supervisor import (
                 HeartbeatTimeout, Supervisor)
             supervisor = ray.remote(Supervisor).options(num_cpus=0).remote()
+            if slice_map:
+                supervisor.set_slices.remote(slice_map)
 
         bundle = dict(resources, CPU=num_cpus)
         if num_gpus:
@@ -569,7 +590,8 @@ class TorchTrainer:
                             supervisor.stalled.remote(hb_timeout))
                         if stalled:
                             self._kill_workers(workers)
-                            raise HeartbeatTimeout(stalled, hb_timeout)
+                            raise HeartbeatTimeout(stalled, hb_timeout,
+                                                   slice_map=slice_map)
                     if deadline is not None and \
                             time.monotonic() >= deadline:
                         stalled_idx = sorted(
@@ -629,13 +651,28 @@ class TorchTrainer:
                 [e["goodput"] for e in attempt_log if "goodput" in e])
             return result
 
-        def classify_pool(pool, entry) -> Optional[Result]:
+        def classify_pool(pool, entry, exc=None) -> Optional[Result]:
             """Did the pool change? ``pool`` is the preemption notice's,
-            else the fault registry's is read. Records the shrink / grow
-            on the entry and arms the next attempt; a terminal Result
-            when the survivors are below MIN_DEVICES."""
+            else the fault registry's is read, else, for a heartbeat
+            stall whose stalled ranks all sit on one slice, the other
+            slices' workers. Records the shrink / grow on the entry and
+            arms the next attempt; a terminal Result when the survivors
+            are below MIN_DEVICES."""
             if pool is None:
                 pool = self._probe_pool()
+            if pool is None and exc is not None:
+                from gke_ray_train_tpu_torch.rayint.supervisor import (
+                    HeartbeatTimeout, slice_shrink_pool)
+                for x in _cause_chain(exc):
+                    if isinstance(x, HeartbeatTimeout) \
+                            and x.uniform_slice is not None:
+                        entry["slice"] = x.uniform_slice
+                        per = float(self.scaling.resources_per_worker
+                                    .get("GPU", 0))
+                        if per > 0:
+                            pool = slice_shrink_pool(
+                                x.uniform_slice, x.slice_map, per)
+                        break
             if pool is None or pool == self._pool_override or not elastic:
                 return None
             prev = self._pool_override
@@ -735,7 +772,7 @@ class TorchTrainer:
                 _release_attempt(e)
                 # a failure whose post-mortem shows the pool changed is a
                 # shrink, not a max_failures burn
-                stop = classify_pool(None, entry)
+                stop = classify_pool(None, entry, e)
                 if stop is not None:
                     return stop
                 if entry.get("event"):

@@ -19,8 +19,10 @@ fields::
   newest checkpoint step's largest file in half: a torn tail),
   ``pool_shrink`` (the pool of ranks changes to ``to``: recorded in the
   pool registry, and a preemption carrying it is delivered),
-  ``slice_evict`` (raises ``NotImplementedError``: slices are ROADMAP
-  queue 1 item 8), ``kill_during_commit`` (freeze the async committer's
+  ``slice_evict`` (slice ``slice``, default the last, is lost: its
+  ranks leave the pool, delivered as ``pool_shrink`` delivers it;
+  slices are ``$NUM_SLICES``'s contiguous blocks of the world's ranks,
+  ``parallel/mesh.py::slice_assignments``), ``kill_during_commit`` (freeze the async committer's
   in-flight commit in its COMMITTING-without-COMMITTED state,
   ``ckpt/manager.py::tear_mid_commit``, then die; needs an
   ``ASYNC_CKPT=1`` manager).
@@ -36,7 +38,7 @@ global (an in-process retry does not re-fire) and, with a checkpoint
 manager bound, a marker file beside the checkpoints keeps it spent for
 a fresh worker process. Tests call :func:`reset_fired` between cases.
 
-Stdlib only: importable without torch.
+Stdlib only at import: importable without torch.
 """
 
 from __future__ import annotations
@@ -296,9 +298,9 @@ class FaultInjector:
         elif spec.kind == "pool_shrink":
             self._pool_change(spec.to, step, reason="pool_shrink")
         elif spec.kind == "slice_evict":
-            raise NotImplementedError(
-                "FAULT_SPEC kind=slice_evict needs slices (NUM_SLICES), "
-                "which are not ported yet (ROADMAP queue 1 item 8)")
+            survivors, evicted = self._slice_evict_target(spec)
+            self._pool_change(survivors, step,
+                              reason=f"slice_evict:slice={evicted}")
 
     def _pool_change(self, n_devices: int, step: int,
                      reason: str) -> None:
@@ -309,6 +311,33 @@ class FaultInjector:
         set_pool(n_devices, self.ckpt_manager)
         from gke_ray_train_tpu_torch.train import preempt
         preempt.request(source=f"{reason}@step{step}", pool=n_devices)
+
+    def _slice_evict_target(self, spec: FaultSpec):
+        """(surviving rank count, evicted slice index) of a slice_evict
+        fault: slice identity through ``slice_assignments`` over the
+        world's ranks and ``$NUM_SLICES`` (JAX's :345-370)."""
+        from gke_ray_train_tpu_torch.parallel.mesh import (
+            is_distributed, slice_assignments)
+        if is_distributed():
+            import torch.distributed as dist
+            world = dist.get_world_size()
+        else:
+            world = int(os.environ.get("WORLD_SIZE", "1"))
+        # default 1 like every other slice-identity reader: an unset
+        # NUM_SLICES is a single-domain pool, whose only slice cannot go
+        num_slices = int(os.environ.get("NUM_SLICES", "1"))
+        assign = slice_assignments(range(world), num_slices)
+        evicted = spec.slice if spec.slice is not None else max(assign)
+        if evicted not in assign:
+            raise RuntimeError(
+                f"FAULT_SPEC slice_evict: slice {evicted} does not "
+                f"exist (slices present: {sorted(set(assign))})")
+        survivors = sum(1 for s in assign if s != evicted)
+        if survivors == 0:
+            raise RuntimeError(
+                "FAULT_SPEC slice_evict would evict the ENTIRE pool — "
+                "use kind=sigterm for a whole-job eviction")
+        return survivors, evicted
 
     def _kill_during_commit(self, step: int) -> None:
         """Freeze the in-flight commit mid-commit (COMMITTING without

@@ -45,15 +45,35 @@ synchronous, and CUDA tensors stage through page-locked host memory
 (``ops/ring_attention.py``'s helpers), where the gather and the
 reduce-scatter run as all-reduces of the whole buffer
 (:func:`_all_gather`). Scope, as JAX's: data / fsdp meshes, dense
-blocks, full fine-tuning (:func:`check_manual_support`); the multi-slice
-arms raise, naming ROADMAP queue 1 item 8's
-``parallel/hierarchical.py``. :data:`COUNTS` tallies the gathers and
-reductions this module issues and their bytes. """
+blocks, full fine-tuning (:func:`check_manual_support`).
+
+On a mesh of more than one slice (``num_slices`` above 1, the ``data``
+axis split into slices: ``parallel/mesh.py``) the reduction is staged at
+the slice boundary (``parallel/hierarchical.py``), leaf by leaf: fsdp,
+then the ``data`` ranks inside a slice, then across slices. ``flat``
+sends the full leaf across (``flat_reduce_shard``), ``hier`` the
+intra-slice scattered shard (``hier_reduce_shard``): the same sums, bit
+for bit where each stage's group has two members. As on one slice they
+run once a step, on the step's sum. ``DCN_COMPRESS=bf16`` instead runs
+the intra-slice half and the bf16 cross-slice hop on every microbatch
+(``intra_reduce_shard``, ``compressed_cross_psum``), each microbatch's
+quantization error carried into the next by the step (JAX carries it
+through its grad-accumulation scan); the reduced shards are summed over
+the microbatches. Only fsdp-sharded leaves compress: at fsdp 1 every
+leaf is whole on each rank, as JAX's replicated leaves, and rides the
+hier hop uncompressed (``hier_reduce_full``). FSDP2 shards the norms
+JAX replicates, so here they take the sharded arms too. The one-slice
+path is unchanged.
+
+:data:`COUNTS` tallies the gathers and reductions this module issues
+and their bytes, and the cross-slice hops and the bytes this rank sends
+into them (what the algorithm sends, not what gloo's staging moves). """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -63,9 +83,9 @@ from gke_ray_train_tpu_torch.models.config import ModelConfig
 
 # what the manual path issued since the last reset: all-gathers and their
 # gathered bytes (every rank's shards), reduce-scatters and their input
-# bytes
+# bytes, and the cross-slice hops and the bytes this rank sent into them
 COUNTS = {"gathers": 0, "gather_bytes": 0, "reductions": 0,
-          "reduce_bytes": 0}
+          "reduce_bytes": 0, "cross_reductions": 0, "cross_bytes": 0}
 
 
 def reset_counts() -> None:
@@ -124,13 +144,15 @@ class _Unit:
     """A ``Block`` or the root: its sharded leaves (one dtype), the fsdp
     group they are sharded over and the replicate groups (HSDP) their
     gradients are summed over after it; ``acc`` the full gradients summed
-    over the step's microbatches so far."""
+    over the step's microbatches so far (``shard_acc``: their reduced
+    shards, where each microbatch is reduced)."""
     module: torch.nn.Module
     leaves: List[_Leaf]
     group: object
     n: int
     replicate: List[object]
     acc: Optional[List[torch.Tensor]] = None
+    shard_acc: Optional[torch.Tensor] = None
 
     @property
     def numel(self) -> int:
@@ -140,6 +162,7 @@ class _Unit:
 def _unit_of(module: torch.nn.Module) -> _Unit:
     """The unit of a sharded module's own parameters (not its children's:
     the root's blocks are units of their own)."""
+    import torch.distributed as dist
     from torch.distributed.tensor import DTensor
     leaves, groups, n, replicate = [], set(), None, None
     for name, p in module._parameters.items():
@@ -163,7 +186,11 @@ def _unit_of(module: torch.nn.Module) -> _Unit:
                 f"overlap='manual' gathers even shards; {name} dim "
                 f"{pl.dim} (size {p.shape[pl.dim]}) does not divide by "
                 f"fsdp={size}")
-        groups.add(id(p.device_mesh.get_group(mdim)))
+        # by its ranks: a mesh built again in one process may hand an
+        # equal layout's parameters another group object of the same
+        # ranks (DeviceMesh caches submeshes by layout)
+        groups.add(tuple(dist.get_process_group_ranks(
+            p.device_mesh.get_group(mdim))))
         if n is None:
             n = size
             group = p.device_mesh.get_group(mdim)
@@ -300,11 +327,15 @@ class _Pending:
 
 
 @torch.no_grad()
-def _issue_reduce(unit: _Unit, grads: List[torch.Tensor]) -> _Pending:
+def _issue_reduce(unit: _Unit, grads: List[torch.Tensor],
+                  hop: Optional[Callable] = None) -> _Pending:
     """Reduce-scatter a unit's whole gradients over fsdp (then sum over
     its replicate groups) in one collective: rank r's chunk of every leaf
     at row r of one ``[n, numel]`` buffer, as FSDP2 lays out its
-    reduce-scatter input."""
+    reduce-scatter input. On more than one slice each leaf is reduced by
+    ``hop(grad, leaf, i) -> this rank's shard`` instead (``i`` its index
+    in the unit), the shards laid out as the one-slice path lays out its
+    output."""
     dev = grads[0].device
     comm = _comm_stream(dev)
     n = unit.n
@@ -313,12 +344,17 @@ def _issue_reduce(unit: _Unit, grads: List[torch.Tensor]) -> _Pending:
     if comm is not None:
         comm.wait_stream(torch.cuda.current_stream(dev))
     with _on(comm):
-        flat = torch.cat([
-            g.unflatten(lf.dim, (n, lf.local_shape[lf.dim]))
-            .movedim(lf.dim, 0).reshape(n, -1)
-            for g, lf in zip(grads, unit.leaves)], dim=1).reshape(-1)
-        out = torch.empty(unit.numel, dtype=flat.dtype, device=dev)
-        _reduce_scatter(out, flat, unit.group, unit.replicate)
+        if hop is not None:
+            out = torch.cat([
+                hop(g, lf, i).to(g.dtype).reshape(-1)
+                for i, (g, lf) in enumerate(zip(grads, unit.leaves))])
+        else:
+            flat = torch.cat([
+                g.unflatten(lf.dim, (n, lf.local_shape[lf.dim]))
+                .movedim(lf.dim, 0).reshape(n, -1)
+                for g, lf in zip(grads, unit.leaves)], dim=1).reshape(-1)
+            out = torch.empty(unit.numel, dtype=flat.dtype, device=dev)
+            _reduce_scatter(out, flat, unit.group, unit.replicate)
         event = None
         if comm is not None:
             event = torch.cuda.Event()
@@ -330,18 +366,23 @@ def _issue_reduce(unit: _Unit, grads: List[torch.Tensor]) -> _Pending:
     return _Pending(unit, out, event)
 
 
-def _land(p: _Pending) -> None:
-    """Set each leaf's ``.grad`` to its reduced shard, a DTensor placed
-    as its parameter (FSDP2's)."""
-    from torch.distributed.tensor import DTensor
+def _wait(p: _Pending) -> torch.Tensor:
+    """The reduced shards of ``p``, readable on the current stream."""
     if p.event is not None:
         cur = torch.cuda.current_stream(p.out.device)
         cur.wait_event(p.event)
         p.out.record_stream(cur)
+    return p.out
+
+
+def _land(unit: _Unit, out: torch.Tensor) -> None:
+    """Set each leaf's ``.grad`` to its reduced shard in ``out``, a
+    DTensor placed as its parameter (FSDP2's)."""
+    from torch.distributed.tensor import DTensor
     off = 0
-    for lf in p.unit.leaves:
+    for lf in unit.leaves:
         k = math.prod(lf.local_shape)
-        g = p.out[off:off + k].view(lf.local_shape)
+        g = out[off:off + k].view(lf.local_shape)
         off += k
         lf.param.grad = DTensor.from_local(
             g, lf.param.device_mesh, lf.param.placements, run_check=False,
@@ -378,8 +419,12 @@ class _Schedule:
     recomputation, and the reductions to land at the end."""
 
     def __init__(self, units: List[_Unit], root: _Unit, remat_group: int,
-                 last: bool):
+                 last: bool, hop: Optional[Callable] = None,
+                 each_microbatch: bool = False):
         self.units, self.root, self.last = units, root, last
+        # the multi-slice leaf reduction, and whether it runs on every
+        # microbatch (the compressed arm) or on the step's sum
+        self.hop, self.each_microbatch = hop, each_microbatch
         L = len(units)
         self.order = {"forward": list(range(L)),
                       # remat regions last first, a region's layers in
@@ -432,8 +477,14 @@ class _Schedule:
     def reduce(self, idx: int, grads: List[torch.Tensor]) -> None:
         """Unit ``idx``'s whole gradients of this microbatch: added to the
         step's sum (in FSDP2's order: the earlier microbatches' first),
-        and on the step's last microbatch reduced."""
+        and on the step's last microbatch reduced; under compression
+        reduced at once, every microbatch."""
         unit = self._unit(idx)
+        hop = (None if self.hop is None
+               else functools.partial(self.hop, idx))
+        if self.each_microbatch:
+            self.pending.append(_issue_reduce(unit, grads, hop))
+            return
         if unit.acc is not None:
             for a, g in zip(unit.acc, grads):
                 a.add_(g)
@@ -442,13 +493,23 @@ class _Schedule:
             unit.acc = [g.detach().clone() if g.requires_grad else g
                         for g in grads]
             return
-        self.pending.append(_issue_reduce(unit, grads))
+        self.pending.append(_issue_reduce(unit, grads, hop))
 
     def finish(self) -> None:
-        """After the backward: the reductions waited on and landed."""
+        """After the backward: the reductions waited on and landed (under
+        compression added to the step's sum of the reduced shards, which
+        lands on the last microbatch)."""
         self.ready.clear()
         for p in self.pending:
-            _land(p)
+            out = _wait(p)
+            unit = p.unit
+            if self.each_microbatch:
+                if unit.shard_acc is not None:
+                    out = unit.shard_acc.add_(out)
+                unit.shard_acc = None if self.last else out
+                if not self.last:
+                    continue
+            _land(unit, out)
         self.pending = []
 
 
@@ -489,23 +550,55 @@ def make_manual_grad_fn(cfg: ModelConfig, mesh, *,
     a :class:`Gathered` root; ``last``: the step's last microbatch, on
     which the gradients are reduced and land in ``.grad``. Returns this
     rank's sums, detached (the step sums them over the batch ranks, as
-    on the off path). The multi-slice arms (``num_slices`` above 1,
-    ``dcn_sync="hier"``, ``dcn_compress``) raise."""
+    on the off path).
+
+    ``num_slices`` / ``dcn_sync`` / ``dcn_compress``: the cross-slice
+    arms (module doc; ``num_slices`` that of the mesh, which
+    ``parallel/mesh.py::build_mesh`` made for it). ``hier`` on one slice
+    runs ``flat``, as JAX's. With compression the signature grows JAX's
+    error-feedback residual: ``grad_fn(params, micro, loss_fn, *, last,
+    residual) -> (nll_sum, w_sum, new_residual)``, the residual None at
+    the step's first microbatch and each one's fed to the next, and the
+    returned fn carries ``grad_fn.compressed = True``."""
     from gke_ray_train_tpu_torch.models.transformer import forward
-    if num_slices > 1 or dcn_sync != "flat" or dcn_compress != "none":
-        raise NotImplementedError(
-            f"overlap='manual' across slices (num_slices={num_slices}, "
-            f"dcn_sync={dcn_sync!r}, dcn_compress={dcn_compress!r}) is "
-            "not ported yet (ROADMAP queue 1 item 8, "
-            "parallel/hierarchical.py)")
+    from gke_ray_train_tpu_torch.parallel import hierarchical as hr
     check_manual_support(cfg, mesh)
     group = len(cfg.block_pattern)
+    topo = hr.slice_topology(mesh, num_slices)
+    compressed = dcn_compress != "none" and topo is not None
+    if dcn_sync == "hier" and topo is None:
+        dcn_sync = "flat"
+
+    def hop(residual, idx, g, lf, i):
+        """Leaf ``i`` of unit ``idx`` reduced to this rank's shard; under
+        compression its residual updated in ``residual``."""
+        if topo.fsdp == 1:
+            # whole on every rank: JAX's replicated leaf
+            return (hr.hier_reduce_full(g, topo, tally=COUNTS)
+                    if dcn_sync == "hier"
+                    else hr.staged_psum(g, topo, tally=COUNTS))
+        if compressed:
+            p = hr.intra_reduce_shard(g, topo, lf.dim)
+            s, err = hr.compressed_cross_psum(
+                p, residual["in"].get((idx, i)), topo, dcn_compress,
+                tally=COUNTS)
+            if residual["keep"]:
+                # the step drops its last microbatch's residual: not held
+                residual["out"][(idx, i)] = err
+            return s
+        if dcn_sync == "hier":
+            return hr.hier_reduce_shard(g, topo, lf.dim, tally=COUNTS)
+        return hr.flat_reduce_shard(g, topo, lf.dim, tally=COUNTS)
 
     def grad_fn(params, micro: Dict[str, torch.Tensor], loss_fn, *,
-                last: bool):
+                last: bool, residual=None):
         root, blocks = _units_of(params)
         remat = cfg.remat and torch.is_grad_enabled()
-        sched = _Schedule(blocks, root, group, last)
+        res = {"in": residual or {}, "out": {}, "keep": not last}
+        sched = _Schedule(blocks, root, group, last,
+                          hop=(functools.partial(hop, res)
+                               if topo is not None else None),
+                          each_microbatch=compressed)
         view = sched.gathered(-1)
         sched.prefetch(0 if blocks else None)
         nll, w = forward(
@@ -524,6 +617,9 @@ def make_manual_grad_fn(cfg: ModelConfig, mesh, *,
             sched.prefetch(sched.order["backward"][0])
         nll.backward()
         sched.finish()
+        if compressed:
+            return nll.detach(), w, res["out"]
         return nll.detach(), w
 
+    grad_fn.compressed = compressed
     return grad_fn

@@ -53,7 +53,12 @@ explicit prefetch on the sharded model (``parallel/sharding.py::
 set_prefetch``) and computes what ``off`` computes; ``manual`` runs each
 microbatch's forward and backward through ``train/overlap.py``'s
 hand-placed, double-buffered fsdp gathers (data / fsdp meshes, dense
-blocks, full fine-tuning), its gradients reduced as FSDP2 reduces them.
+blocks, full fine-tuning), its gradients reduced as FSDP2 reduces them;
+on a mesh of more than one slice (``parallel/mesh.py::num_slices_of``)
+staged at the slice boundary by the plan's ``dcn_sync``, and under
+``dcn_compress`` with JAX's error-feedback residual carried from each
+microbatch into the next, zeroed at the step's start and dropped at its
+end (JAX :319-352).
 
 PyTorch's idiom in place of JAX's: the state is updated in place (the
 trainable tensors and the optimizer's moments) and returned for the
@@ -287,12 +292,24 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
     dev = resolve_device(device)
     lora_mode = lora_cfg is not None
     manual = None
+    compressed = False
     if overlap == "manual":
+        from gke_ray_train_tpu_torch.parallel.mesh import num_slices_of
         from gke_ray_train_tpu_torch.train.overlap import (
             check_manual_support, make_manual_grad_fn)
         check_manual_support(cfg, mesh, lora=lora_mode)
-        manual = make_manual_grad_fn(cfg, mesh, fused_ops=fused_ops,
-                                     use_fused_ce=fused_ce)
+        slices = num_slices_of(mesh)
+        if plan is not None and plan.num_slices not in (1, slices):
+            raise ValueError(
+                f"the plan's num_slices={plan.num_slices} is not the "
+                f"mesh's ({slices}): build the mesh with MeshConfig("
+                "num_slices=...)")
+        manual = make_manual_grad_fn(
+            cfg, mesh, fused_ops=fused_ops, use_fused_ce=fused_ce,
+            num_slices=slices,
+            dcn_sync=plan.dcn_sync if plan is not None else "flat",
+            dcn_compress=plan.dcn_compress if plan is not None else "none")
+        compressed = manual.compressed
     prefetch = overlap == "xla" and mesh is not None
     drop = lora_cfg.dropout if lora_mode else 0.0
     dtype = torch_dtype(cfg.dtype)
@@ -322,6 +339,8 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
             t.grad = None
         nll_sum = torch.zeros((), dtype=torch.float32, device=dev)
         w_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        # the compressed hop's error-feedback residual (None: zeros)
+        residual = None
         for m in range(grad_accum):
             micro = {k: v[m * mb:(m + 1) * mb] for k, v in b.items()}
             seed = None
@@ -346,6 +365,13 @@ def make_train_step(cfg: ModelConfig, optimizer: OptimizerSpec, *,
                     lora_cfg.scale if lora_mode else 1.0, drop, seed,
                     fused_ops, fused_ce, dtype, pipe_microbatches or None,
                     loss_fn, last=m == grad_accum - 1)
+                nll_sum += nll
+                w_sum += w
+                continue
+            if compressed:
+                nll, w, residual = manual(params, micro, loss_fn,
+                                          last=m == grad_accum - 1,
+                                          residual=residual)
                 nll_sum += nll
                 w_sum += w
                 continue

@@ -393,8 +393,10 @@ def scenario_pretrain(out: str) -> None:
     path, an attempt that ``rayint/trainer.py::_run_worker`` starts with
     that env (the pool notice of an elastic attempt). Writes
     ``<out>/<label>_<rank>.json``:
-    the Result, every step's loss (hex) and rows this rank fed, and each
-    checkpoint manager's commit log."""
+    the Result, every step's loss (hex) and rows this rank fed, each
+    checkpoint manager's commit log, and the plan of each step built
+    (its slices, ``DCN_SYNC`` / ``DCN_COMPRESS``, fingerprint, and the
+    fingerprint of its ``flat`` twin)."""
     import functools
     from gke_ray_train_tpu_torch import pretrain
     from gke_ray_train_tpu_torch.rayint import (
@@ -403,12 +405,21 @@ def scenario_pretrain(out: str) -> None:
         job = json.load(f)
     os.environ.update(job.get("env", {}))
     rank = _rank()
-    rec = {"losses": {}, "rows": {}, "managers": []}
+    rec = {"losses": {}, "rows": {}, "managers": [], "plans": []}
     orig_step, orig_mgr = pretrain.make_train_step, pretrain.CheckpointManager
     orig_run = pretrain.run_training
 
     def make_train_step(*a, **kw):
+        import dataclasses
         step = orig_step(*a, **kw)
+        plan = kw.get("plan")
+        if plan is not None:
+            rec["plans"].append({
+                "num_slices": plan.num_slices, "dcn_sync": plan.dcn_sync,
+                "dcn_compress": plan.dcn_compress,
+                "fingerprint": plan.fingerprint(),
+                "flat_twin": dataclasses.replace(
+                    plan, dcn_sync="flat", dcn_compress="none").fingerprint()})
 
         def recorded(st, batch):
             st, m = step(st, batch)
@@ -452,6 +463,7 @@ def scenario_pretrain(out: str) -> None:
                "log": [{k: v for k, v in e.items() if k != "goodput"}
                        for e in res.attempt_log],
                "losses": rec["losses"], "rows": rec["rows"],
+               "plans": rec["plans"],
                "commits": [{"async": m.async_commit,
                             "own_group": m._commit_group is not None,
                             "log": m.commit_log,

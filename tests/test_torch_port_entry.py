@@ -114,6 +114,36 @@ def test_entry_hands_the_plan_overlap_and_does_not_warn(
     assert "OVERLAP" not in caplog.text
 
 
+def test_entry_reads_the_dcn_keys_and_does_not_warn(
+        tmp_path, monkeypatch, offline, caplog):
+    """``DCN_SYNC`` and ``DCN_COMPRESS`` reach the plan the entry hands
+    ``make_train_step`` and no warning names them as TPU keys; one
+    process ignores ``NUM_SLICES`` (it warns, and the plan runs one
+    slice), a world above one reads it with the mesh keys."""
+    seen = {}
+
+    class Built(Exception):
+        pass
+
+    def make_train_step(*a, plan=None, **kw):
+        seen["plan"] = plan
+        raise Built()
+    monkeypatch.setattr(fine_tune, "make_train_step", make_train_step)
+    keys = dict(OVERLAP="xla", NUM_SLICES=2, DCN_SYNC="flat",
+                DCN_COMPRESS="none")
+    with caplog.at_level(logging.WARNING, logger="gke_ray_train_tpu_torch"):
+        with pytest.raises(Built):
+            fine_tune.train_loop_per_worker(
+                _smoke_config(tmp_path, **keys), device="cpu")
+    plan = seen["plan"]
+    assert (plan.num_slices, plan.dcn_sync, plan.dcn_compress) == (
+        1, "flat", "none")
+    assert "DCN_SYNC" not in caplog.text
+    assert "DCN_COMPRESS" not in caplog.text
+    assert "NUM_SLICES" in caplog.text
+    assert tconfig.tpu_only_keys(keys, world=4) == []
+
+
 def test_audit_warns_unknown_keys_and_nested_quant(caplog):
     config = {"MODEL_ID": "x", "BOGUS": 1, "_comment": "c",
               "USE_NESTED_QUANT": True, "AUTOTUNE": 1, "ELASTIC": True}

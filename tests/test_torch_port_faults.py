@@ -17,8 +17,9 @@ manager and trainer, on the CPU:
 - ``kill_during_commit`` on an ``ASYNC_CKPT`` manager leaves COMMITTING
   without COMMITTED, and the resume takes the previous step;
 - ``hang`` under the trainer's heartbeat becomes a ``HeartbeatTimeout``
-  naming the rank, long before the hang ends; ``slice_evict`` raises
-  naming ROADMAP item 8.
+  naming the rank, long before the hang ends; ``slice_evict`` on a pool
+  of one slice refuses to evict it all, in JAX's words (the slice drills
+  are in ``test_torch_port_hier.py``).
 """
 
 import dataclasses
@@ -406,16 +407,25 @@ def test_kill_during_commit_leaves_one_state_from_either_branch(
         assert trees["queued"][name] == trees["in_flight"][name], name
 
 
-def test_kill_during_commit_needs_an_async_manager(tmp_path):
+def test_kill_during_commit_needs_an_async_manager(tmp_path, monkeypatch):
     mgr = CheckpointManager(str(tmp_path / "c"), score_attribute=None)
     inj = faults.FaultInjector(
         faults.parse_fault_spec("kind=kill_during_commit:step=1"),
         ckpt_manager=mgr)
     with pytest.raises(RuntimeError, match="ASYNC_CKPT=1"):
         inj.on_step(1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        faults.FaultInjector(faults.parse_fault_spec(
-            "kind=slice_evict:step=1")).on_step(1)
+    # one slice (NUM_SLICES unset): evicting it is the whole pool, which
+    # JAX's injector refuses in the same words
+    monkeypatch.delenv("NUM_SLICES", raising=False)
+    errs = []
+    for mod in (faults, jfaults):
+        mod.reset_fired()
+        with pytest.raises(RuntimeError, match="ENTIRE pool") as e:
+            mod.FaultInjector(mod.parse_fault_spec(
+                "kind=slice_evict:step=1")).on_step(1)
+        errs.append(str(e.value))
+        mod.reset_fired()
+    assert errs[0] == errs[1]
 
 
 # -- hang: the heartbeat watchdog ----------------------------------------------

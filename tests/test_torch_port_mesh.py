@@ -5,6 +5,7 @@ this process (the collectives themselves run in
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -73,20 +74,29 @@ def test_mesh_config_from_dict_matches_jax(cfg):
     (dict(model=2), None),
     (dict(context=2), None),
     (dict(pipe=2, model=2), None),
-    (dict(num_slices=2), "NUM_SLICES=2.*item 8")])
+    (dict(num_slices=2), r"data axis \(1\) must be divisible by "
+                         r"num_slices \(2\)")])
 def test_axes_not_ported_raise_naming_their_item(kw, match):
-    """The layouts not ported raise at the mesh (slices); ``model`` is
-    ported, for an MoE model too (expert parallelism: Mixtral's experts
-    over ``model`` pass where the mesh meets the model config), and so
-    are ``context``, and ``pipe`` over ``model`` (``match`` None: the
-    checks pass)."""
+    """Every layout is ported: ``model``, for an MoE model too (expert
+    parallelism: Mixtral's experts over ``model`` pass where the mesh
+    meets the model config), ``context``, ``pipe`` over ``model``
+    (``match`` None: the checks pass) and slices, where a ``data`` axis
+    that ``num_slices`` does not divide raises ``ValueError`` in the
+    words of JAX's ``build_mesh`` on the same layout, and one that it
+    divides passes."""
     mc = tmesh.MeshConfig(**{"fsdp": 1, **kw})
     if match is None:
         assert mc.check_ported() is mc
         tshard.check_model_on_mesh(tcfg.mixtral_8x7b(), mc.model)
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match) as got:
         mc.check_ported()
+    with pytest.raises(ValueError) as want:
+        jmesh.build_mesh(jmesh.MeshConfig(**{"fsdp": 1, **kw}),
+                         jax.devices()[:1])
+    assert str(got.value) == str(want.value)
+    sliced = tmesh.MeshConfig(**{"fsdp": 1, **kw, "data": 2})
+    assert sliced.check_ported() is sliced
     assert tmesh.MeshConfig(data=2, fsdp=4).check_ported().shape == \
         (2, 4, 1, 1, 1)
     assert tmesh.MeshConfig(fsdp=2, model=2).check_ported().shape == \
@@ -113,8 +123,13 @@ def test_mesh_keys_of_the_config(monkeypatch):
     assert tconfig.tpu_only_keys(job) == sorted(job)
     assert tconfig.tpu_only_keys(job, world=4) == ["TOPOLOGY"]
     assert mesh_of(dict(job, MESH_MODEL=2), 4).shape == (1, 2, 2, 1, 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    # slices split data: refused where they do not divide it, in JAX's
+    # build_mesh words
+    with pytest.raises(ValueError, match=r"data axis \(1\) must be "
+                       r"divisible by num_slices \(2\)"):
         mesh_of(dict(job, NUM_SLICES=2), 4)
+    sliced = mesh_of(dict(job, MESH_DATA=2, NUM_SLICES=2), 4)
+    assert (sliced.shape, sliced.num_slices) == ((2, 2, 1, 1, 1), 2)
 
 
 @pytest.mark.parametrize("n_ranks", [2, 4])

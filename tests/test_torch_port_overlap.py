@@ -8,9 +8,10 @@ against the JAX package on the CPU.
   ``pipe`` 2 in JAX's words (the port's ``check_mesh`` takes the mesh the
   port resolves from ``MESH_*`` and the world size, where JAX's plan
   carries the axes and a topology), a ``-1`` fill that resolves to 1
-  accepted and one that resolves to 2 refused; ``DCN_SYNC=hier`` and
-  ``DCN_COMPRESS=bf16`` raising, naming ROADMAP item 8's
-  ``parallel/hierarchical.py``; ``OVERLAP`` read by the plan, not warned
+  accepted and one that resolves to 2 refused; ``DCN_SYNC=hier`` on one
+  slice downgraded to ``flat`` and ``DCN_COMPRESS=bf16`` without ``hier``
+  refused, as JAX's plan does (the grid is in
+  ``test_torch_port_hier.py``); ``OVERLAP`` read by the plan, not warned
   about as a TPU key.
 - ``check_manual_support`` against JAX's: no mesh, a ``model`` axis of
   2, LoRA, MoE, the same messages.
@@ -249,10 +250,26 @@ def test_manual_refused_on_structural_axes_in_jax_words(name, mode):
 
 @pytest.mark.parametrize("key, value", [("DCN_SYNC", "hier"),
                                         ("DCN_COMPRESS", "bf16")])
-def test_hier_and_bf16_raise_naming_item_8(key, value):
-    with pytest.raises(NotImplementedError,
-                       match=r"item 8, parallel/hierarchical\.py"):
-        tplan.ExecutionPlan.from_config({key: value, "OVERLAP": "manual"})
+def test_hier_and_bf16_raise_naming_item_8(key, value, caplog):
+    """On one slice (``NUM_SLICES`` unset) ``DCN_SYNC=hier`` is
+    downgraded to ``flat`` with JAX's warning, and ``DCN_COMPRESS=bf16``
+    without ``hier`` is refused in JAX's words: the outcome of JAX's
+    plan on the same keys."""
+    keys = {key: value, "OVERLAP": "manual"}
+    with caplog.at_level(logging.WARNING):
+        got = _outcome(lambda: (lambda p: (p.dcn_sync, p.dcn_compress))(
+            tplan.ExecutionPlan.from_config(keys)))
+        want = _outcome(lambda: (lambda p: (p.dcn_sync, p.dcn_compress))(
+            jplan.ExecutionPlan.from_config(keys)))
+    assert got == want
+    if key == "DCN_SYNC":
+        assert got == (("flat", "none"), None)
+        assert [r.getMessage() for r in caplog.records
+                if r.name == "gke_ray_train_tpu_torch.plan"] == \
+            [r.getMessage() for r in caplog.records
+             if r.name == "gke_ray_train_tpu.plan"] != []
+    else:
+        assert got[1][0] == "PlanError" and "set DCN_SYNC=hier" in got[1][1]
     # the first arms stay the defaults, as JAX's
     plan = tplan.ExecutionPlan.from_config({"DCN_SYNC": "flat",
                                             "DCN_COMPRESS": "none"})

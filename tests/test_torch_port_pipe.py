@@ -624,16 +624,22 @@ def test_plan_and_config_surface_match_jax():
 
 def test_pipe_over_model_ports_and_the_rest_raise_naming_their_items(
         worlds):
-    """Pipe over ``model`` (TP, EP) passes the mesh check; more than one
-    slice still raises there, naming ROADMAP item 8; a pipelined model
+    """Pipe over ``model`` (TP, EP) passes the mesh check; two slices of
+    a ``data`` axis of 1 are refused there in the words of JAX's
+    ``build_mesh`` on the same layout; a pipelined model
     serves, but ``SPEC_DRAFT`` / ``SERVE_QUANT`` on it raise, naming
     item 5 (on both stages of the pipe 2 world)."""
     cfg = tmesh.MeshConfig(fsdp=1, model=2, pipe=2).check_ported()
     assert (cfg.model, cfg.pipe) == (2, 2)
     assert tmesh.MeshConfig(fsdp=2, pipe=2).check_ported().pipe == 2
-    with pytest.raises(NotImplementedError, match="NUM_SLICES=2.*item 8"):
+    with pytest.raises(ValueError, match="must be divisible") as got:
         tmesh.MeshConfig(fsdp=1, model=2, pipe=2,
                          num_slices=2).check_ported()
+    with pytest.raises(ValueError) as want:
+        jmesh.build_mesh(jmesh.MeshConfig(fsdp=1, model=2, pipe=2,
+                                          num_slices=2), jax.devices()[:4])
+    assert str(got.value) == str(want.value) == (
+        "data axis (1) must be divisible by num_slices (2)")
     for r in worlds["res"]["pp2"]:
         for key in ("SPEC_DRAFT", "SERVE_QUANT"):
             msg = r["refusals"][key]
